@@ -1,0 +1,105 @@
+"""Gluon ``Block`` and ``HybridBlock`` as ``torch.nn.Module`` subclasses.
+
+Counterpart of ``mxnet_tpu/gluon/block.py``.  What differs, and why:
+
+* Shapes are given at construction; there is no deferred init.  A block is
+  built with its parameters on PyTorch's ``meta`` device (shape and dtype,
+  no memory) and :meth:`Block.initialize` or :meth:`Block.load_dict`
+  materialises them on a device, the GPU unless the caller says otherwise.
+* Parameter names are the gluon structural names (``collect_params()``
+  keys such as ``encoder.transformer_cells.0.attention.proj.weight``),
+  which are the ``torch.nn.Module`` state-dict names as well.
+* A block starts in inference mode (``training`` False), as gluon runs a
+  forward outside ``autograd.record`` in predict mode; ``train()`` switches
+  dropout on.
+* :meth:`HybridBlock.hybridize` is a documented no-op for now: PyTorch runs
+  eagerly, and CUDA graphs are a later change.
+"""
+from __future__ import annotations
+
+import re
+from collections import OrderedDict
+from typing import Mapping, Optional
+
+import torch
+
+from .. import initializer as _init
+from ..device import DeviceLike, resolve
+
+__all__ = ["Block", "HybridBlock", "to_dtype", "meta_parameter"]
+
+_DTYPES = {"float32": torch.float32, "float16": torch.float16,
+           "bfloat16": torch.bfloat16, "float64": torch.float64}
+
+
+def to_dtype(dtype) -> torch.dtype:
+    """A ``torch.dtype`` from a dtype or its name ('float32', 'bfloat16')."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    if str(dtype) in _DTYPES:
+        return _DTYPES[str(dtype)]
+    raise ValueError("unsupported dtype %r" % (dtype,))
+
+
+def meta_parameter(shape, dtype="float32") -> torch.nn.Parameter:
+    """A parameter with shape and dtype but no storage yet."""
+    return torch.nn.Parameter(torch.empty(tuple(shape), dtype=to_dtype(dtype),
+                                          device="meta"))
+
+
+class Block(torch.nn.Module):
+    """Base building block (gluon ``Block``)."""
+
+    def __init__(self, **kwargs):
+        super().__init__()
+        self.training = False
+
+    def register_child(self, block: "Block",
+                       name: Optional[str] = None) -> None:
+        self.add_module(name if name is not None else str(len(self._modules)),
+                        block)
+
+    def collect_params(self, select: Optional[str] = None
+                       ) -> "OrderedDict[str, torch.nn.Parameter]":
+        """Every parameter of the tree by structural name; ``select`` is a
+        regular expression the name must match."""
+        pattern = re.compile(select) if select else None
+        return OrderedDict((n, p) for n, p in self.named_parameters()
+                           if pattern is None or pattern.search(n))
+
+    def initialize(self, init=None, device: DeviceLike = None,
+                   generator: Optional[torch.Generator] = None,
+                   seed: int = 0) -> "Block":
+        """Materialise every parameter on ``device`` (default: the GPU) and
+        fill it with ``init`` (default :class:`~..initializer.Uniform`),
+        drawing from ``generator`` or, when none is given, from a new
+        generator on that device seeded with ``seed``."""
+        dev = resolve(device)
+        init = _init.create(init)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(int(seed))
+        self.to_empty(device=dev)
+        for name, p in self.named_parameters():
+            init(name, p.data, generator)
+        return self
+
+    def load_dict(self, params: Mapping[str, torch.Tensor],
+                  device: DeviceLike = None) -> "Block":
+        """Materialise the parameters on ``device`` (default: the GPU) and
+        copy ``params`` in by structural name; a missing or extra name
+        raises (``strict=True``)."""
+        dev = resolve(device)
+        self.to_empty(device=dev)
+        self.load_state_dict(dict(params), strict=True)
+        return self
+
+    def cast(self, dtype) -> "Block":
+        """Cast every floating-point parameter to ``dtype``."""
+        return self.to(dtype=to_dtype(dtype))
+
+    def hybridize(self, active: bool = True, **kwargs) -> None:
+        """No-op: PyTorch runs eagerly; CUDA graphs are a later change."""
+
+
+class HybridBlock(Block):
+    """Gluon ``HybridBlock``; see :meth:`Block.hybridize`."""

@@ -1,0 +1,126 @@
+"""Basic gluon layers as ``torch.nn.Module``s.
+
+Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``, with the shapes
+given at construction (``in_units`` / ``in_channels`` are required) and
+the gluon parameter names (``weight``, ``bias``, ``gamma``, ``beta``).
+"""
+from __future__ import annotations
+
+import torch.nn.functional as F
+
+from ...ops import nn as _ops
+from ..block import HybridBlock, meta_parameter
+
+__all__ = ["HybridSequential", "Dense", "Dropout", "LayerNorm", "Embedding",
+           "GELU", "Activation"]
+
+
+class HybridSequential(HybridBlock):
+    """Stack of blocks run in order; children are named '0', '1', ..."""
+
+    def add(self, *blocks):
+        for b in blocks:
+            self.register_child(b)
+        return self
+
+    def forward(self, x, *args):
+        for block in self._modules.values():
+            x = block(x, *args)
+            args = ()
+        return x
+
+    def __getitem__(self, i):
+        return list(self._modules.values())[i]
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+
+class Dense(HybridBlock):
+    """Fully connected layer; weight (units, in_units) as in gluon."""
+
+    def __init__(self, units: int, in_units: int, activation=None,
+                 use_bias: bool = True, flatten: bool = True,
+                 dtype="float32", **kwargs):
+        super().__init__(**kwargs)
+        if in_units <= 0:
+            raise ValueError("Dense needs in_units > 0 (no deferred init)")
+        self._units = units
+        self._flatten = flatten
+        self._act = activation
+        self.weight = meta_parameter((units, in_units), dtype)
+        self.bias = meta_parameter((units,), dtype) if use_bias else None
+
+    def forward(self, x):
+        out = _ops.fully_connected(x, self.weight, self.bias,
+                                   flatten=self._flatten)
+        if self._act:
+            out = _ops.activation(out, self._act)
+        return out
+
+    def extra_repr(self):
+        return "%d -> %d, %s" % (self.weight.shape[1], self._units,
+                                 self._act or "linear")
+
+
+class Dropout(HybridBlock):
+    """Dropout with rate ``rate``; active only in training mode."""
+
+    def __init__(self, rate: float, **kwargs):
+        super().__init__(**kwargs)
+        self._rate = float(rate)
+
+    def forward(self, x):
+        if not self.training or self._rate == 0:
+            return x
+        return F.dropout(x, self._rate, training=True)
+
+
+class LayerNorm(HybridBlock):
+    """Layer normalisation over ``axis``; parameters ``gamma``/``beta``."""
+
+    def __init__(self, in_channels: int, axis: int = -1,
+                 epsilon: float = 1e-5, **kwargs):
+        super().__init__(**kwargs)
+        if in_channels <= 0:
+            raise ValueError("LayerNorm needs in_channels > 0 (no deferred "
+                             "init)")
+        self._axis = axis
+        self._eps = epsilon
+        self.gamma = meta_parameter((in_channels,))
+        self.beta = meta_parameter((in_channels,))
+
+    def forward(self, x):
+        return _ops.layer_norm(x, self.gamma, self.beta, axis=self._axis,
+                               eps=self._eps)
+
+
+class Embedding(HybridBlock):
+    """Lookup table (input_dim, output_dim)."""
+
+    def __init__(self, input_dim: int, output_dim: int, dtype="float32",
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.weight = meta_parameter((input_dim, output_dim), dtype)
+
+    def forward(self, x):
+        return _ops.embedding(x, self.weight)
+
+
+class GELU(HybridBlock):
+    """Exact (erf) GELU."""
+
+    def forward(self, x):
+        return _ops.gelu(x)
+
+
+class Activation(HybridBlock):
+    def __init__(self, activation: str, **kwargs):
+        super().__init__(**kwargs)
+        self._act = activation
+
+    def forward(self, x):
+        return _ops.activation(x, self._act)
