@@ -8,10 +8,14 @@ Run from the root of a checkout::
 Phases (each raises on failure, so any failure exits nonzero):
 
 1. device  -- require CUDA; print the card's name and power limit.
-2. build   -- build every hand-written kernel from ``mxnet_tpu_torch/csrc``.
+2. build   -- build every hand-written kernel from ``mxnet_tpu_torch/csrc``
+   (one ``nvcc`` per source, all started together).
 3. kernels -- hold each kernel against its plain PyTorch version on the card
-   at the main path's shapes (and ragged/causal edge cases), and time the
-   kernel, the plain version and the PyTorch library call.
+   at the main paths' shapes (and ragged/causal edge cases), and time the
+   kernel, the plain version and the PyTorch library call: K1 (flash
+   forward), then K2 and K3 (flash backward: dQ, and dK/dV), which must
+   also repeat bitwise, and the LSE-cotangent rule once against autograd
+   through the plain forward.
 4. slice   -- the serving path: BERT-base (12 x 768 x 12, fp32, T = 512,
    seeded random weights) behind Servable -> ModelHost.deploy -> Batcher ->
    ServeServer/serve_forever, answering 32 PREDICT requests from 8
@@ -20,6 +24,16 @@ Phases (each raises on failure, so any failure exits nonzero):
    launch count against 12 x dispatched micro-batches (warm-up included).
 5. bf16    -- the same model cast to bfloat16, one 8 x 512 forward through
    the kernel; its deviation from the fp32 answer is printed for the record.
+6. train   -- the training path: BERT-base with the MLM decoder (vocab
+   30522, T = 512, dropout 0, ``initializer.Normal(0.02)`` from a seed)
+   under ``parallel.TrainStep`` (SGD, lr 1e-3, momentum 0.9, mean MLM
+   cross-entropy in fp32), as ``bench.py --bert`` runs it.  (a) fp32,
+   batch 2, one step: every gradient and updated parameter against the same
+   step through the composition.  (b) bf16, batch 16: 2 warm and 10 timed
+   steps on one batch; every loss finite, the last below the first, each
+   within 1e-2 relative of the composition's trajectory, and K1, K2 and K3
+   launched 12 times a step; tokens/s, TFLOP/s and MFU by the bench's
+   formula, and a profiler breakdown of one step.
 
 The last lines of standard output are the ``nvidia-smi`` name and power
 limit, one JSON object ``{"kernels": [...]}`` and, last,
@@ -27,6 +41,7 @@ limit, one JSON object ``{"kernels": [...]}`` and, last,
 """
 from __future__ import annotations
 
+import gc
 import json
 import socket
 import subprocess
@@ -42,6 +57,10 @@ SEQ_LEN = 512
 N_REQUESTS = 32
 N_CLIENTS = 8
 SLICE_TOL = 2e-3
+TRAIN_BATCH = 16
+TRAIN_LR, TRAIN_MOMENTUM = 1e-3, 0.9
+TRAIN_WARM, TRAIN_TIMED = 2, 10
+VOCAB = 30522
 
 # Data-sheet peaks (dense) of the card this script was measured on, by the
 # name torch reports: HBM bytes/s, fp32 FLOP/s on CUDA cores, bf16 FLOP/s on
@@ -160,6 +179,7 @@ KERNEL_CASES = [
     # name, B, H, Tq, Tk, D, dtype, causal, timed
     ("bert-base", 8, 12, 512, 512, 64, torch.float32, False, True),
     ("bert-base", 8, 12, 512, 512, 64, torch.bfloat16, False, True),
+    ("bert-train", 16, 12, 512, 512, 64, torch.bfloat16, False, True),
     ("ragged-causal", 2, 3, 200, 200, 128, torch.float32, True, False),
     ("ragged-causal", 2, 3, 200, 200, 128, torch.bfloat16, True, False),
     ("top-left-causal", 2, 3, 64, 128, 64, torch.float32, True, False),
@@ -211,8 +231,141 @@ def phase_kernels(peaks):
             "mbytes": nbytes / 1e6, "max_abs_err": max(err_o, err_l)}
         rec["tflops"] = ops / rec["kernel_ms"] / 1e9
         log("kernels: timing %s %s" % (tag, json.dumps(rec)))
-        results[dtype] = rec
+        results[(name, dtype)] = rec
     return results
+
+
+def bwd_work(kernel, B, H, Tq, Tk, D, causal, itemsize):
+    """(operations, bytes) one backward-kernel call needs on these shapes,
+    over the visible (q, k) pairs: K2 (``flash_bwd_dq``) 6*D FLOP a pair
+    (S, dP, dQ), K3 (``flash_bwd_dkv``) 8*D (S, dP, dV, dK).  Both read Q,
+    K, V, O, dO and the fp32 LSE once; K2 writes dQ, K3 dK and dV."""
+    if causal:
+        pairs = sum(min(i + 1, Tk) for i in range(Tq))
+    else:
+        pairs = Tq * Tk
+    per_pair, out_rows = {"flash_bwd_dq": (6, Tq),
+                          "flash_bwd_dkv": (8, 2 * Tk)}[kernel]
+    ops = per_pair * D * B * H * pairs
+    nbytes = B * H * ((3 * Tq + 2 * Tk + out_rows) * D * itemsize + Tq * 4)
+    return ops, nbytes
+
+
+BWD_CASES = [
+    # name, B, H, Tq, Tk, D, dtype, causal, timed
+    ("bert-train", 16, 12, 512, 512, 64, torch.float32, False, True),
+    ("bert-train", 16, 12, 512, 512, 64, torch.bfloat16, False, True),
+    ("causal-d128", 2, 2, 512, 512, 128, torch.float32, True, False),
+    ("ragged-causal", 2, 2, 200, 200, 128, torch.float32, True, False),
+    ("top-left-causal", 2, 2, 64, 128, 64, torch.float32, True, False),
+    ("ragged-cross", 2, 2, 77, 333, 64, torch.float32, False, False),
+]
+
+
+def phase_bwd_kernels(peaks):
+    """K2 and K3 against their plain versions on the O and LSE of K1, two
+    launches bitwise equal; timings for the timed cases, with the backward
+    of scaled_dot_product_attention (dQ, dK and dV in one call) as the
+    library yardstick of both."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import attention as att
+    results = {}
+    for (name, B, H, Tq, Tk, D, dtype, causal, timed) in BWD_CASES:
+        g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        q, k, v = (torch.randn((B, H, T, D), generator=g, device="cuda")
+                   .to(dtype) for T in (Tq, Tk, Tk))
+        do = torch.randn((B, H, Tq, D), generator=g, device="cuda").to(dtype)
+        scale = 1.0 / D ** 0.5
+        o, lse = att.flash_attention_with_lse(q, k, v, scale, causal)
+        args = (q, k, v, o, lse, do, scale, causal)
+        got = {"flash_bwd_dq": (att._flash_bwd_dq_cuda(*args),),
+               "flash_bwd_dkv": att._flash_bwd_dkv_cuda(*args)}
+        again = {"flash_bwd_dq": (att._flash_bwd_dq_cuda(*args),),
+                 "flash_bwd_dkv": att._flash_bwd_dkv_cuda(*args)}
+        torch.cuda.synchronize()
+        # bf16 is held against the plain versions run in fp32 on the same
+        # bf16 inputs; fp32 against the plain versions themselves
+        f32 = [t.float() if t.dtype == torch.bfloat16 else t
+               for t in (q, k, v, o, lse, do)]
+        want = {"flash_bwd_dq": (att.flash_bwd_dq_plain(*f32, scale, causal),),
+                "flash_bwd_dkv": att.flash_bwd_dkv_plain(*f32, scale,
+                                                         causal)}
+        tol = 1e-4 if dtype == torch.float32 else 2e-3
+        tag = "%s B=%d H=%d Tq=%d Tk=%d D=%d %s causal=%s" % (
+            name, B, H, Tq, Tk, D, str(dtype).replace("torch.", ""), causal)
+        for kern in ("flash_bwd_dq", "flash_bwd_dkv"):
+            errs = [compare(a, b, tol) for a, b in zip(got[kern],
+                                                       want[kern])]
+            same = all(torch.equal(a, b) for a, b in zip(got[kern],
+                                                         again[kern]))
+            finite = all(bool(torch.isfinite(a.float()).all())
+                         for a in got[kern])
+            ok = all(e[1] for e in errs) and same and finite
+            log("kernels: %s %s | max|d| %s (tol %g), repeat bitwise %s %s"
+                % (kern, tag, ["%.3g" % e[0] for e in errs], tol, same,
+                   "ok" if ok else "FAIL"))
+            if not ok:
+                raise RuntimeError("%s disagrees with its plain version or "
+                                   "does not repeat: %s" % (kern, tag))
+            if not timed:
+                continue
+            itemsize = torch.finfo(dtype).bits // 8
+            ops, nbytes = bwd_work(kern, B, H, Tq, Tk, D, causal, itemsize)
+            flops_peak = peaks["fp32" if dtype == torch.float32 else "bf16"]
+            b_ms, b_by = bound_ms(ops, nbytes, flops_peak, peaks["hbm"])
+            if kern == "flash_bwd_dq":
+                run = lambda: att._flash_bwd_dq_cuda(*args)  # noqa: E731
+                plain = lambda: att.flash_bwd_dq_plain(*args)  # noqa: E731
+            else:
+                run = lambda: att._flash_bwd_dkv_cuda(*args)  # noqa: E731
+                plain = lambda: att.flash_bwd_dkv_plain(*args)  # noqa: E731
+            rec = {"kernel_ms": time_ms(run), "plain_ms": time_ms(plain),
+                   "bound_ms": b_ms, "bound_by": b_by, "gflop": ops / 1e9,
+                   "mbytes": nbytes / 1e6,
+                   "max_abs_err": max(e[0] for e in errs)}
+            rec["tflops"] = ops / rec["kernel_ms"] / 1e9
+            results[(kern, dtype)] = rec
+        if timed:
+            qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qg, kg, vg,
+                                                 is_causal=causal,
+                                                 scale=scale)
+            lib_ms = time_ms(lambda: torch.autograd.grad(
+                out, (qg, kg, vg), do, retain_graph=True))
+            del out, qg, kg, vg
+            for kern in ("flash_bwd_dq", "flash_bwd_dkv"):
+                results[(kern, dtype)]["library_ms"] = lib_ms
+                log("kernels: timing %s %s %s" % (
+                    kern, tag, json.dumps(results[(kern, dtype)])))
+    check_lse_rule()
+    return results
+
+
+def check_lse_rule():
+    """The LSE-cotangent rule of flash_attention_with_lse (K1 with v := k,
+    then K2 and K3 with v and O zeroed) against autograd through the plain
+    forward, once, causal fp32, with both cotangents used."""
+    from mxnet_tpu_torch.ops import attention as att
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    B, H, T, D = 2, 2, 200, 64
+    q, k, v, go = (torch.randn((B, H, T, D), generator=g, device="cuda")
+                   for _ in range(4))
+    gl = torch.randn((B, H, T), generator=g, device="cuda")
+    grads = []
+    for fn in (att.flash_attention_with_lse, att.flash_attention_plain):
+        xs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out, lse = fn(*xs, 0.125, True)
+        grads.append(torch.autograd.grad(
+            (out * go).sum() + (lse * gl).sum(), xs))
+    errs = [compare(a, b, 1e-4) for a, b in zip(*grads)]
+    ok = all(e[1] for e in errs)
+    log("kernels: LSE-cotangent rule vs autograd through the plain forward "
+        "(causal fp32 B=%d H=%d T=%d D=%d) | max|dQ|,|dK|,|dV| %s %s"
+        % (B, H, T, D, ["%.3g" % e[0] for e in errs], "ok" if ok
+           else "FAIL"))
+    if not ok:
+        raise RuntimeError("the flash_attention_with_lse VJP rule disagrees "
+                           "with autograd through the plain forward")
 
 
 # ---------------------------------------------------------------------------
@@ -310,9 +463,8 @@ def phase_slice():
     stop = threading.Event()
     ready = threading.Event()
 
-    # --- the main path, counted ---
-    for lib in _kernels.LIBRARIES:
-        lib.reset_launches()
+    # --- the serving main path, counted ---
+    _kernels.reset_launches()
     t_deploy = time.perf_counter()
     host.deploy(sv, example=[tokens[0], types[0]])
     t_deploy = time.perf_counter() - t_deploy
@@ -325,7 +477,7 @@ def phase_slice():
         if not ready.wait(30):
             raise RuntimeError("serve_forever did not come up")
         answers, latency, t_burst = run_burst(port, tokens, types)
-        launches = {lib.name: lib.launches for lib in _kernels.LIBRARIES}
+        launches = _kernels.launch_counts()
         served = sv.batches
         burst_stats = state.batcher.stats()
         micro_batches = len(BUCKETS) + served
@@ -351,9 +503,10 @@ def phase_slice():
         "(%d warm + %d served) = %d" % (launches["flash_fwd"], n_layers,
                                         micro_batches, len(BUCKETS),
                                         served, want))
-    if launches["flash_fwd"] != want:
-        raise RuntimeError("flash_fwd launched %d times, expected %d"
-                           % (launches["flash_fwd"], want))
+    if launches != {"flash_fwd": want, "flash_bwd_dq": 0,
+                    "flash_bwd_dkv": 0}:
+        raise RuntimeError("serving launched %s, expected flash_fwd %d and "
+                           "no backward kernel" % (launches, want))
     if health.get("status") != "serving":
         raise RuntimeError("HEALTH says %r" % (health,))
 
@@ -427,7 +580,6 @@ def traced_burst(port, tokens, types, sv):
 def phase_breakdown(sv, tokens, types):
     """One bucket-8 micro-batch: its device time by CUDA events, and its
     device time by kernel from a torch.profiler trace."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     bucket = max(BUCKETS)
     xs = [tokens[:bucket, 0], types[:bucket, 0]]
@@ -436,20 +588,30 @@ def phase_breakdown(sv, tokens, types):
                              ProfilerActivity.CUDA]) as prof:
         sv.dispatch(bucket, xs, warming=True)
         torch.cuda.synchronize()
+    log("breakdown: bucket-%d forward %.3f ms (CUDA events)" % (bucket, ms))
+    log_kernel_breakdown("breakdown", prof)
+    return ms
+
+
+def log_kernel_breakdown(label, prof, top=10):
+    """Device time by kernel name from a torch.profiler trace, largest
+    first; returns (traced device ms, busy ms, {name: (ms, calls)})."""
+    from torch.autograd import DeviceType
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             us, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     total = sum(us for us, _ in by_name.values())
-    log("breakdown: bucket-%d forward %.3f ms (CUDA events); traced device "
-        "time %.3f ms, busy %.3f ms, over %d kernels"
-        % (bucket, ms, total / 1e3, device_busy_ms(prof), len(by_name)))
+    busy = device_busy_ms(prof)
+    log("%s: traced device time %.3f ms, busy %.3f ms, over %d kernels"
+        % (label, total / 1e3, busy, len(by_name)))
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
-                                )[:10]:
-        log("breakdown: %8.3f ms %5.1f%% x%-4d %s"
-            % (us / 1e3, 100.0 * us / total, n, name[:90]))
-    return ms
+                                )[:top]:
+        log("%s: %8.3f ms %5.1f%% x%-4d %s"
+            % (label, us / 1e3, 100.0 * us / total, n, name[:90]))
+    return total / 1e3, busy, {k: (us / 1e3, n)
+                               for k, (us, n) in by_name.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -460,11 +622,11 @@ def phase_bf16(net, answers, tokens, types):
     from mxnet_tpu_torch.ops import _kernels
     n = max(BUCKETS)
     net.cast("bfloat16")
-    before = _kernels.FLASH_FWD.launches
+    before = _kernels.launch_counts()["flash_fwd"]
     with torch.inference_mode():
         outs = net(torch.from_numpy(tokens[:n, 0]).cuda(),
                    torch.from_numpy(types[:n, 0]).cuda())
-    if _kernels.FLASH_FWD.launches - before != len(
+    if _kernels.launch_counts()["flash_fwd"] - before != len(
             net.encoder.transformer_cells):
         raise RuntimeError("the bf16 forward did not run the flash kernel "
                            "once per layer")
@@ -479,23 +641,214 @@ def phase_bf16(net, answers, tokens, types):
     return devs
 
 
+# ---------------------------------------------------------------------------
+# 6. the training path: BERT-base MLM pretraining steps
+# ---------------------------------------------------------------------------
+
+def train_batch(batch):
+    """Token ids, segment ids (all 0, as the bench) and MLM labels, from
+    the seed."""
+    rng = np.random.RandomState(SEED + batch)
+    tok = rng.randint(0, VOCAB, size=(batch, SEQ_LEN)).astype(np.int64)
+    lab = rng.randint(0, VOCAB, size=(batch, SEQ_LEN)).astype(np.int64)
+    return [torch.from_numpy(a).cuda() for a in
+            (tok, np.zeros_like(tok), lab)]
+
+
+def train_fp32_parity(net, loss_fn, n_layers):
+    """(a) One fp32 step at batch 2: the loss, every gradient and every
+    updated parameter through the kernels against the same step through
+    the composition (attention_impl_scope('xla'))."""
+    from mxnet_tpu_torch.gluon.block import functionalize
+    from mxnet_tpu_torch.ops import _kernels
+    from mxnet_tpu_torch.ops.attention import attention_impl_scope
+    from mxnet_tpu_torch.parallel import TrainStep
+    tok, seg, lab = train_batch(2)
+    pure_fn, params = functionalize(net)
+
+    def loss_and_grads():
+        leaves = {n: p.detach().requires_grad_(True)
+                  for n, p in params.items()}
+        loss = loss_fn(pure_fn(leaves, tok, seg, training=True), lab)
+        gs = torch.autograd.grad(loss, list(leaves.values()),
+                                 allow_unused=True)
+        grads = {n: torch.zeros_like(p) if g is None else g
+                 for (n, p), g in zip(leaves.items(), gs)}
+        return float(loss.detach()), grads
+
+    before = _kernels.launch_counts()
+    loss_k, grads_k = loss_and_grads()
+    after = _kernels.launch_counts()
+    ran = {k: after[k] - before[k] for k in after}
+    if ran != {k: n_layers for k in ran}:
+        raise RuntimeError("the fp32 step launched %s, expected %d of each "
+                           "kernel" % (ran, n_layers))
+    with attention_impl_scope("xla"):
+        loss_x, grads_x = loss_and_grads()
+    updated = []
+    for impl in (None, "xla"):
+        with attention_impl_scope(impl):
+            step = TrainStep(net, loss_fn, learning_rate=TRAIN_LR,
+                             momentum=TRAIN_MOMENTUM)
+            step(tok, seg, lab)
+        updated.append(step.params)
+    worst = {}
+    for what, got, want in (("grad", grads_k, grads_x),
+                            ("param", updated[0], updated[1])):
+        for n in want:
+            err = float((got[n] - want[n]).abs().max())
+            ref = float(want[n].abs().max())
+            if not err <= 2e-3 * ref + 1e-6:
+                raise RuntimeError("fp32 step: %s of %s differs by %.3g "
+                                   "(max|ref| %.3g)" % (what, n, err, ref))
+            worst[what] = max(worst.get(what, 0.0), err / (ref + 1e-30))
+    rel = abs(loss_k - loss_x) / abs(loss_x)
+    log("train: fp32 batch-2 step, kernels vs composition: loss %.7f vs "
+        "%.7f (rel %.3g, tol 1e-4); worst max|d|/max|ref| over %d tensors: "
+        "grads %.3g, updated params %.3g (tol 2e-3 + 1e-6 abs)"
+        % (loss_k, loss_x, rel, len(grads_x), worst["grad"], worst["param"]))
+    if not rel <= 1e-4:
+        raise RuntimeError("fp32 step: loss %.7f vs composition %.7f"
+                           % (loss_k, loss_x))
+
+
+def phase_train(peaks):
+    """The training main path; returns its kernel launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.bert import bert_12_768_12
+    from mxnet_tpu_torch.ops import _kernels
+    from mxnet_tpu_torch.ops.attention import attention_impl_scope
+    from mxnet_tpu_torch.parallel import TrainStep
+    ce = SoftmaxCrossEntropyLoss()
+
+    def loss_fn(outputs, labels):
+        """The bench's loss: mean MLM cross-entropy in fp32 over B*T."""
+        return ce(outputs[-1].float(), labels).mean()
+
+    net = bert_12_768_12(vocab_size=VOCAB, max_length=SEQ_LEN, dropout=0.0,
+                         use_classifier=False)
+    net.initialize(initializer.Normal(0.02), seed=SEED)
+    n_layers = len(net.encoder.transformer_cells)
+    units = net._units
+    n_params = sum(p.numel() for p in net.parameters())
+    train_fp32_parity(net, loss_fn, n_layers)
+
+    # (b) bf16, batch 16: the composition's trajectory first, then the
+    # counted main path from the same parameters and batch
+    net.cast("bfloat16")
+    batch = train_batch(TRAIN_BATCH)
+    n_steps = TRAIN_WARM + TRAIN_TIMED
+    with attention_impl_scope("xla"):
+        ref = TrainStep(net, loss_fn, learning_rate=TRAIN_LR,
+                        momentum=TRAIN_MOMENTUM)
+        ref_losses = [float(ref(*batch)) for _ in range(n_steps)]
+    del ref
+    torch.cuda.empty_cache()
+
+    # --- the training main path, counted ---
+    _kernels.reset_launches()
+    step = TrainStep(net, loss_fn, learning_rate=TRAIN_LR,
+                     momentum=TRAIN_MOMENTUM)
+    losses = [step(*batch) for _ in range(TRAIN_WARM)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(*batch) for _ in range(TRAIN_TIMED)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _kernels.launch_counts()
+    # --- end of the counted main path ---
+
+    losses = [float(x) for x in losses]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    log("train: bf16 batch-%d losses %s" % (TRAIN_BATCH, json.dumps(losses)))
+    log("train: composition's losses %s" % json.dumps(ref_losses))
+    log("train: relative gap by step %s (tol 1e-2)" % json.dumps(gaps))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError("bf16 training: losses %s are not finite or do "
+                           "not fall" % losses)
+    if max(gaps) > 1e-2:
+        raise RuntimeError("bf16 training: loss trajectory %.3g from the "
+                           "composition's" % max(gaps))
+    want = n_layers * n_steps
+    log("train: launches %s over %d steps (want %d of each = %d layers x "
+        "%d steps)" % (json.dumps(launches), n_steps, want, n_layers,
+                       n_steps))
+    if launches != {k: want for k in launches}:
+        raise RuntimeError("training launched %s, expected %d of each "
+                           "kernel" % (launches, want))
+
+    tokens_per_s = TRAIN_BATCH * SEQ_LEN * TRAIN_TIMED / dt
+    # the bench's formula: 6 N (dense matmuls) + 12 L s d (attention)
+    flops_per_token = 6.0 * n_params + 12.0 * n_layers * SEQ_LEN * units
+    tflops = tokens_per_s * flops_per_token / 1e12
+    rec = {"batch": TRAIN_BATCH, "seq": SEQ_LEN, "dtype": "bfloat16",
+           "n_params": n_params, "step_ms": dt / TRAIN_TIMED * 1e3,
+           "tokens_per_s": tokens_per_s, "tflops": tflops,
+           "mfu": tflops * 1e12 / peaks["bf16"],
+           "peak_tflops": peaks["bf16"] / 1e12,
+           "max_rel_gap_vs_composition": max(gaps),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    # one more step under the profiler: device time by kernel, idle share
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(*batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    total, busy, by_name = log_kernel_breakdown("train", prof, top=14)
+    attn = {k: sum(ms for n, (ms, _) in by_name.items() if k in n)
+            for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                      "flash_bwd_dkv_kernel")}
+    rec.update({"traced_step_wall_ms": wall_ms, "device_busy_ms": busy,
+                "device_idle_share": 1.0 - busy / wall_ms,
+                "attention_kernels_ms": attn,
+                "attention_share_of_device_time": sum(attn.values()) / total})
+    log("train: %s" % json.dumps(rec))
+    return launches
+
+
+def kernel_row(name, source, replaces, launches, fp32, bf16):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sum(launches.values()),
+            "launches_by_path": launches,
+            "max_abs_err": fp32["max_abs_err"], "ms": fp32["kernel_ms"],
+            "plain_ms": fp32["plain_ms"], "bound_ms": fp32["bound_ms"],
+            "bound_by": fp32["bound_by"], "library_ms": fp32["library_ms"],
+            "bf16_ms": bf16["kernel_ms"], "bf16_bound_ms": bf16["bound_ms"],
+            "bf16_library_ms": bf16["library_ms"]}
+
+
 def main():
     smi, name, peaks = phase_device()
     phase_build()
-    timings = phase_kernels(peaks)
-    net, sv, answers, launches = phase_slice()
+    fwd = phase_kernels(peaks)
+    bwd = phase_bwd_kernels(peaks)
+    net, sv, answers, serve_launches = phase_slice()
     tokens, types = make_requests()
     phase_breakdown(sv, tokens, types)
     phase_bf16(net, answers, tokens, types)
-    fp32 = timings[torch.float32]
-    kernels = [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "mxnet_tpu/ops/attention.py:148",
-        "launches": launches["flash_fwd"],
-        "max_abs_err": fp32["max_abs_err"], "ms": fp32["kernel_ms"],
-        "plain_ms": fp32["plain_ms"], "bound_ms": fp32["bound_ms"],
-        "bound_by": fp32["bound_by"], "library_ms": fp32["library_ms"]}]
+    del net, sv, answers
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches = phase_train(peaks)
+    by_path = {k: {"serve": serve_launches[k], "train": train_launches[k]}
+               for k in train_launches}
+    fp32, bf16 = torch.float32, torch.bfloat16
+    kernels = [
+        kernel_row("flash_fwd", "mxnet_tpu_torch/csrc/flash_fwd.cu",
+                   "mxnet_tpu/ops/attention.py:148", by_path["flash_fwd"],
+                   fwd[("bert-base", fp32)], fwd[("bert-base", bf16)]),
+        kernel_row("flash_bwd_dq", "mxnet_tpu_torch/csrc/flash_bwd.cu",
+                   "mxnet_tpu/ops/attention.py:260", by_path["flash_bwd_dq"],
+                   bwd[("flash_bwd_dq", fp32)], bwd[("flash_bwd_dq", bf16)]),
+        kernel_row("flash_bwd_dkv", "mxnet_tpu_torch/csrc/flash_bwd.cu",
+                   "mxnet_tpu/ops/attention.py:304",
+                   by_path["flash_bwd_dkv"], bwd[("flash_bwd_dkv", fp32)],
+                   bwd[("flash_bwd_dkv", bf16)]),
+    ]
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

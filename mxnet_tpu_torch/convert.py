@@ -1,4 +1,4 @@
-"""Carry parameters from a ``mxnet_tpu`` block into the port.
+"""Carry parameters between a ``mxnet_tpu`` block and the port.
 
 The structural names of the two packages match
 (``encoder.transformer_cells.0.attention.query_key_value.weight`` is
@@ -6,18 +6,19 @@ The structural names of the two packages match
 PyTorch), so the conversion is a copy by name.  The input is what the JAX
 block exports, ``{name: p.data().asnumpy() for name, p in
 net.collect_params().items()}``; this module needs nothing of the JAX
-package to read it.
+package to read it.  :func:`params_to_numpy` is the way back, the same
+``{name: ndarray}`` form.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
 from .device import DeviceLike
 
-__all__ = ["params_from_mxnet_tpu"]
+__all__ = ["params_from_mxnet_tpu", "params_to_numpy"]
 
 
 def params_from_mxnet_tpu(named: Mapping[str, np.ndarray],
@@ -33,4 +34,23 @@ def params_from_mxnet_tpu(named: Mapping[str, np.ndarray],
            for k, v in named.items()}
     if net is not None:
         net.load_dict(out, device=device)
+    return out
+
+
+def params_to_numpy(net_or_params: Union[torch.nn.Module,
+                                         Mapping[str, torch.Tensor]]
+                    ) -> Dict[str, np.ndarray]:
+    """A port block's parameters (or a ``{name: tensor}`` mapping such as
+    ``TrainStep.params``) as host numpy arrays by structural name.
+    bfloat16, which numpy lacks, comes back as float32."""
+    if isinstance(net_or_params, torch.nn.Module):
+        named = net_or_params.named_parameters()
+    else:
+        named = net_or_params.items()
+    out = {}
+    for name, t in named:
+        t = t.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        out[str(name)] = t.cpu().numpy().copy()
     return out

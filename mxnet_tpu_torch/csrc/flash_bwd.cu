@@ -1,0 +1,450 @@
+// Flash-attention backward for Hopper (sm_90a), fp32 or bf16 inputs, D in {64, 128}.
+//
+// Replaces: mxnet_tpu/ops/attention.py `_flash_bwd_dq_kernel` (K2) and
+// `_flash_bwd_dkv_kernel` (K3), both launched by `_flash_bwd` through
+// `pl.pallas_call`.  Same functions, recomputing the probabilities from the
+// forward's log-sum-exp so the T x T matrices never reach device memory:
+//     S     = scale * Q K^T           [causal: q_pos >= k_pos, top-left]
+//     P     = exp(S - LSE)            (0 where masked or LSE = -inf)
+//     dP    = dO V^T
+//     delta = rowsum(dO * O)          (recomputed here, per query row)
+//     dS    = P * (dP - delta)
+//     dQ    = scale * dS K            (K2)
+//     dK    = scale * dS^T Q,  dV = P^T dO   (K3)
+//
+// Design.  The TPU grid is sequential; here blocks run in parallel, so each
+// kernel owns its output tile and loops over the other operand's tiles inside
+// the block, as K1 (csrc/flash_fwd.cu) does.  The two-kernel split of the
+// reference is kept: K2 owns a 64-row query tile and accumulates dQ, K3 owns a
+// 64-row key tile and accumulates dK and dV, so no block ever adds into
+// another's output.  There are no atomics and the summation order is fixed:
+// two launches on the same inputs give bitwise-equal results.
+//
+// 256 threads, thread (ty, tx) = (tid / 16, tid % 16).  In each 64 x 64 score
+// tile a thread owns the 4 x 4 entries at rows 4*ty + i and columns tx + 16*j;
+// in each output tile it owns rows 4*ty + i and columns 64*g + 4*tx .. +3
+// (g < D/64), accumulated in fp32 registers.  All four D-wide operand tiles use
+// a row stride of D + 4 floats so the float4 reads of 8 threads in a 128-bit
+// access phase fall in distinct bank groups; the score tiles use stride 68.
+// Arithmetic is fp32 on CUDA cores: the fp32 path must agree with the plain
+// version to 1e-4, which TF32 tensor cores cannot.  bf16 inputs are widened
+// on load and the results rounded once on store.
+//
+// What bounds it.  At BERT-base's training shape (B*H = 192, T = 512, D = 64)
+// K2 does 6*D FLOP per (q, k) pair (S, dP, dQ) and K3 8*D (S, dP, dV, dK):
+// 19.3 and 25.8 GFLOP over 76-89 MB (bf16) of inputs and outputs, so on CUDA
+// cores (67 TFLOP/s fp32) operations bound both by far.  Each inner loop
+// reads float4 operands from shared memory into a 4 x 4 register tile (64 FMA
+// per 8 loads).  Ragged edges are masked here: keys past Tk and rows past Tq
+// get P = 0, and rows past the end are not written.  Causal tiles that no
+// (q, k) pair of the tile can see are skipped.  wgmma/TMA pipelines are later
+// work.
+//
+// Interface: plain C, loaded with ctypes.  Pointers and the stream are void*;
+// each entry point returns cudaGetLastError() after its launch.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kTile = 64;  // query rows of K2's tile, key rows of K3's
+constexpr int kThreads = 256;
+constexpr int kPStride = kTile + 4;
+
+__device__ __forceinline__ float load_f32(const float* p) { return *p; }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  // Q, dO, K, V tiles (stride D + 4) and the dS tile
+  return sizeof(float) *
+         (size_t(4) * kTile * (D + 4) + size_t(kTile) * kPStride);
+}
+
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  // K, V, Q, dO tiles (stride D + 4), the P^T and dS^T tiles, and the LSE
+  // and delta of the current query tile's rows
+  return sizeof(float) * (size_t(4) * kTile * (D + 4) +
+                          size_t(2) * kTile * kPStride + size_t(2) * kTile);
+}
+
+// Rows [row0, row0 + 64) of a (rows, D) tensor into a shared tile of stride
+// D + 4; rows at or past `rows` read as zero.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
+                                          int rows, int tid) {
+  for (int i = tid; i < kTile * D; i += kThreads) {
+    const int r = i / D, c = i % D;
+    const int gr = row0 + r;
+    dst[r * (D + 4) + c] = gr < rows ? load_f32(src + size_t(gr) * D + c) : 0.f;
+  }
+}
+
+// s[i][j] = a[4*ty + i] . b[tx + 16*j] over D, for two shared tiles of
+// stride D + 4.
+template <int D>
+__device__ __forceinline__ void tile_dots(const float* a, const float* b,
+                                          int ty, int tx, float (&s)[4][4]) {
+  constexpr int S = D + 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    float4 av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      av[i] = *reinterpret_cast<const float4*>(&a[(4 * ty + i) * S + d]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      bv[j] = *reinterpret_cast<const float4*>(&b[(tx + 16 * j) * S + d]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float x = s[i][j];
+        x = fmaf(av[i].x, bv[j].x, x);
+        x = fmaf(av[i].y, bv[j].y, x);
+        x = fmaf(av[i].z, bv[j].z, x);
+        x = fmaf(av[i].w, bv[j].w, x);
+        s[i][j] = x;
+      }
+  }
+}
+
+// acc[i][g][e] += sum_kk p[4*ty + i][kk] * b[kk][64*g + 4*tx + e] over the 64
+// columns of a score tile p (stride kPStride) and the rows of a shared operand
+// tile b (stride D + 4).
+template <int D>
+__device__ __forceinline__ void tile_accum(const float* p, const float* b,
+                                           int ty, int tx,
+                                           float (&acc)[4][D / 64][4]) {
+  constexpr int S = D + 4;
+#pragma unroll 2
+  for (int kk = 0; kk < kTile; kk += 4) {
+    float4 pv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      pv[i] = *reinterpret_cast<const float4*>(&p[(4 * ty + i) * kPStride + kk]);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+#pragma unroll
+      for (int g = 0; g < D / 64; ++g) {
+        const float4 bv =
+            *reinterpret_cast<const float4*>(&b[(kk + u) * S + 64 * g + 4 * tx]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float x = u == 0 ? pv[i].x : u == 1 ? pv[i].y : u == 2 ? pv[i].z : pv[i].w;
+          acc[i][g][0] = fmaf(x, bv.x, acc[i][g][0]);
+          acc[i][g][1] = fmaf(x, bv.y, acc[i][g][1]);
+          acc[i][g][2] = fmaf(x, bv.z, acc[i][g][2]);
+          acc[i][g][3] = fmaf(x, bv.w, acc[i][g][3]);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(T* dst, int row0, int rows, int ty,
+                                           int tx, float mul,
+                                           const float (&acc)[4][D / 64][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row0 + 4 * ty + i;
+    if (r >= rows) continue;
+    T* out = dst + size_t(r) * D;
+#pragma unroll
+    for (int g = 0; g < D / 64; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        store_f32(out + 64 * g + 4 * tx + e, acc[i][g][e] * mul);
+  }
+}
+
+// K2: one block per (b*h, 64-row query tile); loops over key tiles.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ o,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    T* __restrict__ dq, int tq, int tk, float scale,
+                    int causal) {
+  constexpr int S = D + 4;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);
+  float* dos = qs + kTile * S;
+  float* ks = dos + kTile * S;
+  float* vs = ks + kTile * S;
+  float* dss = vs + kTile * S;
+
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * kTile;
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4;
+  const int tx = tid & 15;
+  const T* qb = q + size_t(bh) * tq * D;
+  const T* ob = o + size_t(bh) * tq * D;
+  const T* dob = dout + size_t(bh) * tq * D;
+  const T* kb = k + size_t(bh) * tk * D;
+  const T* vb = v + size_t(bh) * tk * D;
+
+  load_tile<T, D>(qs, qb, q0, tq, tid);
+  load_tile<T, D>(dos, dob, q0, tq, tid);
+  __syncthreads();
+
+  // LSE and delta = rowsum(dO * O) of this thread's four rows; the 16 threads
+  // of a half-warp share the rows and reduce with shuffles
+  float row_lse[4], delta[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 4 * ty + i;
+    const int qr = q0 + r;
+    float part = 0.f;
+    if (qr < tq)
+      for (int c = tx; c < D; c += 16)
+        part = fmaf(dos[r * S + c], load_f32(ob + size_t(qr) * D + c), part);
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      part += __shfl_xor_sync(0xffffffffu, part, off);
+    delta[i] = part;
+    row_lse[i] = qr < tq ? lse[size_t(bh) * tq + qr] : -INFINITY;
+  }
+
+  float acc[4][D / 64][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int g = 0; g < D / 64; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.f;
+
+  int num_kt = (tk + kTile - 1) / kTile;
+  if (causal) num_kt = min(num_kt, (q0 + kTile + kTile - 1) / kTile);
+
+  for (int kt = 0; kt < num_kt; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();  // the previous tile's readers are done with ks/vs/dss
+    load_tile<T, D>(ks, kb, k0, tk, tid);
+    load_tile<T, D>(vs, vb, k0, tk, tid);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+    tile_dots<D>(qs, ks, ty, tx, s);
+    tile_dots<D>(dos, vs, ty, tx, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qr = q0 + 4 * ty + i;
+      const bool row_ok = isfinite(row_lse[i]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kc = k0 + tx + 16 * j;
+        const float sv = s[i][j] * scale;
+        const bool ok = row_ok && kc < tk && (!causal || qr >= kc) && isfinite(sv);
+        const float p = ok ? expf(sv - row_lse[i]) : 0.f;
+        dss[(4 * ty + i) * kPStride + tx + 16 * j] = p * (dp[i][j] - delta[i]);
+      }
+    }
+    __syncthreads();
+    tile_accum<D>(dss, ks, ty, tx, acc);
+  }
+
+  store_rows<T, D>(dq + size_t(bh) * tq * D, q0, tq, ty, tx, scale, acc);
+}
+
+// K3: one block per (b*h, 64-row key tile); loops over query tiles.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ o,
+                     const T* __restrict__ dout, const float* __restrict__ lse,
+                     T* __restrict__ dk, T* __restrict__ dv, int tq, int tk,
+                     float scale, int causal) {
+  constexpr int S = D + 4;
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);
+  float* vs = ks + kTile * S;
+  float* qs = vs + kTile * S;
+  float* dos = qs + kTile * S;
+  float* pts = dos + kTile * S;
+  float* dsts = pts + kTile * kPStride;
+  float* lse_s = dsts + kTile * kPStride;
+  float* delta_s = lse_s + kTile;
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kTile;
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4;
+  const int tx = tid & 15;
+  const T* qb = q + size_t(bh) * tq * D;
+  const T* ob = o + size_t(bh) * tq * D;
+  const T* dob = dout + size_t(bh) * tq * D;
+  const float* lseb = lse + size_t(bh) * tq;
+
+  load_tile<T, D>(ks, k + size_t(bh) * tk * D, k0, tk, tid);
+  load_tile<T, D>(vs, v + size_t(bh) * tk * D, k0, tk, tid);
+
+  float adk[4][D / 64][4], adv[4][D / 64][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int g = 0; g < D / 64; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) adk[i][g][e] = adv[i][g][e] = 0.f;
+
+  // causal: query rows before k0 see no key of this tile (the reference's
+  // qb_start); tiles are 64 rows on both sides, so the first query tile is
+  // the key tile's own index
+  const int num_qt = (tq + kTile - 1) / kTile;
+  const int qt0 = causal ? k0 / kTile : 0;
+
+  for (int qt = qt0; qt < num_qt; ++qt) {
+    const int q0 = qt * kTile;
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<T, D>(qs, qb, q0, tq, tid);
+    load_tile<T, D>(dos, dob, q0, tq, tid);
+    __syncthreads();
+    {
+      // LSE and delta of the tile's 64 query rows, 4 threads a row
+      const int r = tid >> 2, lane = tid & 3;
+      const int qr = q0 + r;
+      float part = 0.f;
+      if (qr < tq)
+        for (int c = lane; c < D; c += 4)
+          part = fmaf(dos[r * S + c], load_f32(ob + size_t(qr) * D + c), part);
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      part += __shfl_xor_sync(0xffffffffu, part, 2);
+      if (lane == 0) {
+        delta_s[r] = part;
+        lse_s[r] = qr < tq ? lseb[qr] : -INFINITY;
+      }
+    }
+    __syncthreads();
+
+    // transposed tiles: rows are this block's keys, columns the query rows
+    float s[4][4], dp[4][4];
+    tile_dots<D>(ks, qs, ty, tx, s);
+    tile_dots<D>(vs, dos, ty, tx, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int kr = k0 + 4 * ty + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        const int qr = q0 + c;
+        const float l = lse_s[c];
+        const float sv = s[i][j] * scale;
+        const bool ok = kr < tk && (!causal || qr >= kr) && isfinite(l) &&
+                        isfinite(sv);
+        const float p = ok ? expf(sv - l) : 0.f;
+        pts[(4 * ty + i) * kPStride + c] = p;
+        dsts[(4 * ty + i) * kPStride + c] = p * (dp[i][j] - delta_s[c]);
+      }
+    }
+    __syncthreads();
+    tile_accum<D>(pts, dos, ty, tx, adv);
+    tile_accum<D>(dsts, qs, ty, tx, adk);
+  }
+
+  store_rows<T, D>(dk + size_t(bh) * tk * D, k0, tk, ty, tx, scale, adk);
+  store_rows<T, D>(dv + size_t(bh) * tk * D, k0, tk, ty, tx, 1.f, adv);
+}
+
+template <typename T, int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* o, const void* dout, const void* lse,
+                      void* dq, int bh, int tq, int tk, float scale,
+                      int causal, cudaStream_t stream) {
+  const size_t smem = dq_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (tq + kTile - 1) / kTile);
+  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(o),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<T*>(dq), tq, tk, scale, causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* o, const void* dout, const void* lse,
+                       void* dk, void* dv, int bh, int tq, int tk,
+                       float scale, int causal, cudaStream_t stream) {
+  const size_t smem = dkv_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (tk + kTile - 1) / kTile);
+  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(o),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<T*>(dk), static_cast<T*>(dv), tq, tk, scale, causal);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16.  q, o, dout, dq: (bh, tq, d); k, v:
+// (bh, tk, d); lse: (bh, tq) float32; all contiguous on the current device.
+int mx_flash_bwd_dq(const void* q, const void* k, const void* v,
+                    const void* o, const void* dout, const void* lse,
+                    void* dq, int bh, int tq, int tk, int d, int dtype,
+                    float scale, int causal, void* stream) {
+  if (bh <= 0 || tq <= 0 || tk < 0 || tq > 65535 * kTile)
+    return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && d == 64)
+    return int(launch_dq<float, 64>(q, k, v, o, dout, lse, dq, bh, tq, tk, scale, causal, s));
+  if (dtype == 0 && d == 128)
+    return int(launch_dq<float, 128>(q, k, v, o, dout, lse, dq, bh, tq, tk, scale, causal, s));
+  if (dtype == 1 && d == 64)
+    return int(launch_dq<__nv_bfloat16, 64>(q, k, v, o, dout, lse, dq, bh, tq, tk, scale, causal, s));
+  if (dtype == 1 && d == 128)
+    return int(launch_dq<__nv_bfloat16, 128>(q, k, v, o, dout, lse, dq, bh, tq, tk, scale, causal, s));
+  return int(cudaErrorInvalidValue);
+}
+
+// Shapes as for mx_flash_bwd_dq; dk, dv: (bh, tk, d).  tk == 0 launches
+// nothing.
+int mx_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, const void* lse,
+                     void* dk, void* dv, int bh, int tq, int tk, int d,
+                     int dtype, float scale, int causal, void* stream) {
+  if (bh <= 0 || tq <= 0 || tk < 0 || tk > 65535 * kTile)
+    return int(cudaErrorInvalidValue);
+  if (tk == 0) return int(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && d == 64)
+    return int(launch_dkv<float, 64>(q, k, v, o, dout, lse, dk, dv, bh, tq, tk, scale, causal, s));
+  if (dtype == 0 && d == 128)
+    return int(launch_dkv<float, 128>(q, k, v, o, dout, lse, dk, dv, bh, tq, tk, scale, causal, s));
+  if (dtype == 1 && d == 64)
+    return int(launch_dkv<__nv_bfloat16, 64>(q, k, v, o, dout, lse, dk, dv, bh, tq, tk, scale, causal, s));
+  if (dtype == 1 && d == 128)
+    return int(launch_dkv<__nv_bfloat16, 128>(q, k, v, o, dout, lse, dk, dv, bh, tq, tk, scale, causal, s));
+  return int(cudaErrorInvalidValue);
+}
+
+const char* mx_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

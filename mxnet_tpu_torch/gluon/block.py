@@ -14,19 +14,23 @@ Counterpart of ``mxnet_tpu/gluon/block.py``.  What differs, and why:
   dropout on.
 * :meth:`HybridBlock.hybridize` is a documented no-op for now: PyTorch runs
   eagerly, and CUDA graphs are a later change.
+* :func:`functionalize` lifts a block into ``(pure_fn, params)``, the
+  bridge ``parallel.TrainStep`` trains through, as in the JAX package.
 """
 from __future__ import annotations
 
 import re
 from collections import OrderedDict
-from typing import Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
 from .. import initializer as _init
+from ..base import MXNetError
 from ..device import DeviceLike, resolve
 
-__all__ = ["Block", "HybridBlock", "to_dtype", "meta_parameter"]
+__all__ = ["Block", "HybridBlock", "to_dtype", "meta_parameter",
+           "functionalize"]
 
 _DTYPES = {"float32": torch.float32, "float16": torch.float16,
            "bfloat16": torch.bfloat16, "float64": torch.float64}
@@ -103,3 +107,36 @@ class Block(torch.nn.Module):
 
 class HybridBlock(Block):
     """Gluon ``HybridBlock``; see :meth:`Block.hybridize`."""
+
+
+def functionalize(block: torch.nn.Module
+                  ) -> Tuple[Callable, "OrderedDict[str, torch.Tensor]"]:
+    """Lift a block into ``(pure_fn, params)``.
+
+    ``params`` holds the block's parameter tensors (detached) by structural
+    name.  ``pure_fn(params, *inputs, training=False)`` runs the block's
+    forward with the given tensors in place of its parameters
+    (``torch.func.functional_call``; every name must be given) and in
+    training or inference mode as asked, restoring the block's own modes
+    afterwards.  Parameters must be materialised (``initialize`` or
+    ``load_dict``) first."""
+    named = list(block.named_parameters())
+    unset = [n for n, p in named if p.is_meta]
+    if unset:
+        raise MXNetError("functionalize: parameters %s have no storage; "
+                         "call initialize() or load_dict() first"
+                         % unset[:3])
+    params = OrderedDict((n, p.detach()) for n, p in named)
+
+    def pure_fn(param_values: Mapping[str, torch.Tensor], *inputs,
+                training: bool = False):
+        modes = [(m, m.training) for m in block.modules()]
+        block.train(training)
+        try:
+            return torch.func.functional_call(
+                block, dict(param_values), inputs, strict=True)
+        finally:
+            for m, mode in modes:
+                m.training = mode
+
+    return pure_fn, params

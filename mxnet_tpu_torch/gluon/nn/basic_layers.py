@@ -6,13 +6,16 @@ the gluon parameter names (``weight``, ``bias``, ``gamma``, ``beta``).
 """
 from __future__ import annotations
 
-import torch.nn.functional as F
+from typing import Optional
 
+import torch
+
+from ...base import MXNetError
 from ...ops import nn as _ops
 from ..block import HybridBlock, meta_parameter
 
 __all__ = ["HybridSequential", "Dense", "Dropout", "LayerNorm", "Embedding",
-           "GELU", "Activation"]
+           "GELU", "Activation", "set_dropout_generator"]
 
 
 class HybridSequential(HybridBlock):
@@ -67,16 +70,50 @@ class Dense(HybridBlock):
 
 
 class Dropout(HybridBlock):
-    """Dropout with rate ``rate``; active only in training mode."""
+    """Dropout with rate ``rate``, active only in training mode: each entry
+    is kept with probability ``1 - rate`` and scaled by ``1 / (1 - rate)``;
+    ``axes`` share one draw along those axes.
 
-    def __init__(self, rate: float, **kwargs):
+    Masks are drawn from ``generator`` (a ``torch.Generator`` on the
+    input's device, given here or by :func:`set_dropout_generator`), never
+    from torch's global RNG, so a seed fixes every mask.  A training forward
+    with ``rate > 0`` and no generator raises."""
+
+    def __init__(self, rate: float, axes=(), generator=None, **kwargs):
         super().__init__(**kwargs)
         self._rate = float(rate)
+        self._axes = tuple(axes)
+        self.generator: Optional[torch.Generator] = generator
 
     def forward(self, x):
         if not self.training or self._rate == 0:
             return x
-        return F.dropout(x, self._rate, training=True)
+        if self.generator is None:
+            raise MXNetError("Dropout(%g) in training mode needs a "
+                             "torch.Generator: pass generator= or call "
+                             "set_dropout_generator(net, generator)"
+                             % self._rate)
+        shape = list(x.shape)
+        for a in self._axes:
+            shape[a] = 1
+        keep = 1.0 - self._rate
+        mask = torch.rand(shape, generator=self.generator, device=x.device) \
+            < keep
+        return x * mask.to(x.dtype) / keep
+
+    def extra_repr(self):
+        return "p = %s, axes=%s" % (self._rate, self._axes)
+
+
+def set_dropout_generator(block: torch.nn.Module,
+                          generator: torch.Generator) -> torch.nn.Module:
+    """Give every :class:`Dropout` in ``block``'s tree the one
+    ``generator``, so their masks are successive draws of one seeded
+    stream; returns ``block``."""
+    for m in block.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+    return block
 
 
 class LayerNorm(HybridBlock):

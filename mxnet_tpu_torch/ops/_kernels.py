@@ -5,8 +5,13 @@ a shared library with a plain C interface and loaded with :mod:`ctypes`.
 The build happens at first use, never at import: a machine without ``nvcc``
 or a card imports this module freely.  Libraries land in
 ``mxnet_tpu_torch/_build/`` (git-ignored), named by a hash of their source so
-an edited source never loads a stale library.  :func:`build_all` builds and
-loads every library.
+an edited source never loads a stale library.  :func:`build_all` builds
+every library with one ``nvcc`` each, all started together, and loads them.
+
+Each kernel has its own launch counter, kept by its library and raised by
+its wrapper where it launches the kernel and nowhere else;
+:func:`launch_counts` reads them all and :func:`reset_launches` sets them
+to 0.
 """
 from __future__ import annotations
 
@@ -18,11 +23,12 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..base import MXNetError
 
-__all__ = ["KernelLibrary", "FLASH_FWD", "build_all", "nvcc_path"]
+__all__ = ["KernelLibrary", "FLASH_FWD", "FLASH_BWD", "build_all",
+           "launch_counts", "reset_launches", "nvcc_path"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -53,11 +59,12 @@ def nvcc_path() -> str:
 
 
 class KernelLibrary:
-    """One ``csrc/<name>.cu`` source, its shared library and its C entry
-    points.  ``signatures`` maps each exported function to
-    ``(argtypes, restype)``."""
+    """One ``csrc/<name>.cu`` source, its shared library, its C entry
+    points and a launch counter for each kernel it holds.  ``signatures``
+    maps each exported function to ``(argtypes, restype)``."""
 
-    def __init__(self, name: str, signatures: Dict[str, tuple]):
+    def __init__(self, name: str, signatures: Dict[str, tuple],
+                 kernels: Sequence[str]):
         self.name = name
         self.source = CSRC / (name + ".cu")
         self._signatures = signatures
@@ -66,8 +73,8 @@ class KernelLibrary:
         #: seconds the last build took, and nvcc's -Xptxas -v report
         self.build_seconds: Optional[float] = None
         self.build_log = ""
-        #: launches of this library's kernel, counted by its wrapper
-        self.launches = 0
+        #: launches of each kernel, counted by its wrapper
+        self.launches: Dict[str, int] = {k: 0 for k in kernels}
         self._count_lock = threading.Lock()
 
     def library_path(self) -> Path:
@@ -75,20 +82,25 @@ class KernelLibrary:
                               + " ".join(NVCC_FLAGS).encode()).hexdigest()
         return BUILD_DIR / ("lib%s-%s.so" % (self.name, digest[:12]))
 
-    def _build(self) -> None:
-        """Run ``nvcc`` into a temporary file and move it into place."""
-        out = self.library_path()
+    def _start_build(self) -> Tuple[subprocess.Popen, Path, float]:
+        """Start ``nvcc`` into a temporary file; :meth:`_finish_build`
+        waits for it and moves the library into place."""
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        out = self.library_path()
         tmp = out.with_name(out.name + ".%d.tmp" % os.getpid())
         cmd = [nvcc_path()] + NVCC_FLAGS + ["-o", str(tmp), str(self.source)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-        self.build_log = proc.stdout
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        return proc, tmp, time.perf_counter()
+
+    def _finish_build(self, proc: subprocess.Popen, tmp: Path,
+                      t0: float) -> None:
+        self.build_log = proc.communicate()[0]
         if proc.returncode != 0:
             raise MXNetError("nvcc failed for %s (exit %d):\n%s"
-                             % (self.source, proc.returncode, proc.stdout))
-        os.replace(tmp, out)
+                             % (self.source, proc.returncode,
+                                self.build_log))
+        os.replace(tmp, self.library_path())
         self.build_seconds = time.perf_counter() - t0
 
     def _bind(self) -> ctypes.CDLL:
@@ -103,20 +115,21 @@ class KernelLibrary:
         """The loaded library, building it first if needed."""
         with self._lock:
             if self._lib is None:
-                if self.library_path().exists():
-                    self.build_seconds = 0.0
-                else:
-                    self._build()
+                if not self.library_path().exists():
+                    self._finish_build(*self._start_build())
+                elif self.build_seconds is None:
+                    self.build_seconds = 0.0    # built by an earlier run
                 self._lib = self._bind()
             return self._lib
 
-    def count_launch(self) -> None:
+    def count_launch(self, kernel: str) -> None:
         with self._count_lock:
-            self.launches += 1
+            self.launches[kernel] += 1
 
     def reset_launches(self) -> None:
         with self._count_lock:
-            self.launches = 0
+            for k in self.launches:
+                self.launches[k] = 0
 
     def check(self, err: int, what: str) -> None:
         """Raise on a nonzero ``cudaError_t`` returned by an entry point."""
@@ -130,14 +143,52 @@ _ERR_STRING = {"mx_cuda_error_string": ([_c_int], ctypes.c_char_p)}
 FLASH_FWD = KernelLibrary("flash_fwd", dict(_ERR_STRING, mx_flash_fwd=(
     [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
      _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_int, _c_void_p],
-    _c_int)))
+    _c_int)), kernels=["flash_fwd"])
 
-LIBRARIES: List[KernelLibrary] = [FLASH_FWD]
+FLASH_BWD = KernelLibrary("flash_bwd", dict(
+    _ERR_STRING,
+    mx_flash_bwd_dq=([_c_void_p] * 7 + [_c_int] * 5
+                     + [_c_float, _c_int, _c_void_p], _c_int),
+    mx_flash_bwd_dkv=([_c_void_p] * 8 + [_c_int] * 5
+                      + [_c_float, _c_int, _c_void_p], _c_int)),
+    kernels=["flash_bwd_dq", "flash_bwd_dkv"])
+
+LIBRARIES: List[KernelLibrary] = [FLASH_FWD, FLASH_BWD]
 
 
 def build_all() -> Dict[str, float]:
-    """Build and load every kernel library; returns build seconds by
-    name."""
+    """Build every kernel library that is not built yet, one ``nvcc``
+    process each, all running at once; then load them all.  Returns the
+    build seconds by library name."""
+    pending, errors = [], []
+    try:
+        for lib in LIBRARIES:
+            if lib._lib is None and not lib.library_path().exists():
+                pending.append((lib, lib._start_build()))
+    finally:
+        # wait for every nvcc that started, even after a failure
+        for lib, started in pending:
+            try:
+                lib._finish_build(*started)
+            except MXNetError as e:
+                errors.append(e)
+    if errors:
+        raise errors[0]
     for lib in LIBRARIES:
         lib.load()
     return {lib.name: lib.build_seconds or 0.0 for lib in LIBRARIES}
+
+
+def launch_counts() -> Dict[str, int]:
+    """A copy of every kernel's launch count, by kernel name."""
+    out: Dict[str, int] = {}
+    for lib in LIBRARIES:
+        with lib._count_lock:
+            out.update(lib.launches)
+    return out
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for lib in LIBRARIES:
+        lib.reset_launches()

@@ -1,27 +1,35 @@
-"""Attention ops: the hand-written flash-attention forward and its gate.
+"""Attention ops: the hand-written flash-attention kernels, their VJP rules
+and the gate.
 
 Counterpart of ``mxnet_tpu/ops/attention.py``.  Layout is (B, H, T, D) at
 every public function, as in the JAX package.
 
-* :func:`flash_attention_with_lse` / :func:`flash_attention` run the CUDA
-  kernel ``csrc/flash_fwd.cu`` (the port of the TPU kernel
-  ``_flash_fwd_kernel``) on CUDA tensors.  For CPU tensors, and only for
-  them, they compute the kernel's plain PyTorch version
-  :func:`flash_attention_plain`.  A CUDA input the kernel does not take
-  raises; nothing falls back.  Forward only: the backward kernels and the
-  VJP rules come with the training slice.
-* :func:`attention_core` dispatches between the kernel and the plain
+* :func:`flash_attention_with_lse` / :func:`flash_attention` are
+  ``torch.autograd.Function``s, the counterparts of the JAX package's
+  ``custom_vjp`` rules.  Forward runs K1, ``csrc/flash_fwd.cu`` (the port of
+  the TPU kernel ``_flash_fwd_kernel``), and saves q, k, v, O and LSE;
+  backward runs K2 and K3, ``csrc/flash_bwd.cu`` (the ports of
+  ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``), which recompute
+  the probabilities from LSE.  The LSE cotangent of
+  :func:`flash_attention_with_lse` costs one more K1 pass (v := k) and one
+  more K2 + K3 pass, each skipped when its cotangent is unused, as the JAX
+  rule skips symbolic zeros.
+* Every kernel's wrapper launches it on CUDA tensors and computes its
+  plain PyTorch version (:func:`flash_attention_plain`,
+  :func:`flash_bwd_dq_plain`, :func:`flash_bwd_dkv_plain`) for CPU
+  tensors, and only for them.  A CUDA input a kernel does not take raises;
+  nothing falls back.  The CPU tests therefore run the same VJP rules as
+  the card.
+* :func:`attention_core` dispatches between the Functions and the plain
   composition :func:`attention_composition`.  The JAX package's gate
   (``D % 128 == 0``, ``T % 256 == 0``) came from the TPU's (8, 128) tiling;
-  the port's gate is the CUDA kernel's own: no mask, D in {64, 128},
-  float32 or bfloat16, not causal or Tq == Tk, any T (the kernel masks the
-  ragged edge).  A gated CUDA input that needs a gradient raises
-  ``NotImplementedError`` (the kernel is forward-only until the training
-  slice); CPU tensors that need one take the composition.
+  the port's gate is the CUDA kernels' own: no mask, D in {64, 128},
+  float32 or bfloat16, not causal or Tq == Tk, any T (the kernels mask the
+  ragged edge).  Whether an input needs a gradient plays no part in it.
 * :func:`set_attention_impl` / :class:`attention_impl_scope` pick the
-  implementation: ``"pallas"`` (or None) means the kernel wherever the gate
-  holds, ``"xla"`` means the composition.  The names are the JAX package's,
-  so callers port unchanged.
+  implementation: ``"pallas"`` (or None) means the kernels wherever the
+  gate holds, ``"xla"`` means the composition.  The names are the JAX
+  package's, so callers port unchanged.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from . import _kernels
 
 __all__ = ["attention_core", "attention_composition", "flash_attention",
            "flash_attention_with_lse", "flash_attention_plain",
+           "flash_bwd_dq_plain", "flash_bwd_dkv_plain",
            "set_attention_impl", "current_attention_impl",
            "attention_impl_scope", "flash_eligible", "KERNEL_HEAD_DIMS",
            "KERNEL_DTYPES"]
@@ -93,24 +102,75 @@ class attention_impl_scope:
 # ---------------------------------------------------------------------------
 
 
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """The plain versions' arithmetic type: float32, as in the kernels, or
+    float64 for float64 inputs (CPU only, for gradient checks)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _causal_keep(tq: int, tk: int, device) -> torch.Tensor:
+    """The kernels' top-left causal mask ``q_pos >= k_pos``, (Tq, Tk)."""
+    return (torch.arange(tq, device=device)[:, None]
+            >= torch.arange(tk, device=device)[None, :])
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: float, causal: bool
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """What the flash kernel computes, in plain PyTorch: (O, LSE) with O in
-    q's dtype and LSE (B, H, Tq) float32.  Float32 throughout; the causal
-    mask is the kernel's top-left ``q_pos >= k_pos``; a row that sees no
-    key gives LSE = -inf and O = 0."""
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float() * scale, k.float())
+    """What K1 computes, in plain PyTorch: (O, LSE) with O in q's dtype and
+    LSE (B, H, Tq) float32.  Float32 throughout (float64 for float64
+    inputs); the causal mask is the kernel's top-left ``q_pos >= k_pos``; a
+    row that sees no key gives LSE = -inf and O = 0."""
+    acc = _acc_dtype(q)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc) * scale, k.to(acc))
     if causal:
-        tq, tk = q.shape[2], k.shape[2]
-        keep = (torch.arange(tq, device=q.device)[:, None]
-                >= torch.arange(tk, device=q.device)[None, :])
-        s = s.masked_fill(~keep, float("-inf"))
+        s = s.masked_fill(~_causal_keep(q.shape[2], k.shape[2], q.device),
+                          float("-inf"))
     lse = torch.logsumexp(s, dim=-1)
     lse_safe = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))
     p = torch.exp(s - lse_safe[..., None])
-    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.to(acc))
     return out.to(q.dtype), lse
+
+
+def _bwd_probs(q, k, v, o, lse, g, scale: float, causal: bool):
+    """(P, dS) of the flash backward, recomputed from LSE as K2 and K3 do:
+    P = exp(scale QK^T - LSE) with the top-left causal mask and the
+    ``isfinite`` guards, dS = P * (dO V^T - rowsum(dO * O))."""
+    acc = _acc_dtype(q)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) * scale
+    if causal:
+        s = s.masked_fill(~_causal_keep(q.shape[2], k.shape[2], q.device),
+                          float("-inf"))
+    lse = lse.to(acc)[..., None]
+    lse_safe = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))
+    p = torch.where(torch.isfinite(s) & torch.isfinite(lse),
+                    torch.exp(s - lse_safe), torch.zeros_like(s))
+    g32 = g.to(acc)
+    delta = (g32 * o.to(acc)).sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bhqd,bhkd->bhqk", g32, v.to(acc))
+    return p, p * (dp - delta)
+
+
+def flash_bwd_dq_plain(q, k, v, o, lse, g, scale: float, causal: bool
+                       ) -> torch.Tensor:
+    """What K2 computes, in plain PyTorch: dQ = scale * dS K, in q's
+    dtype.  ``o`` is the forward's output, ``lse`` its (B, H, Tq) LSE and
+    ``g`` the cotangent of ``o``."""
+    _, ds = _bwd_probs(q, k, v, o, lse, g, scale, causal)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.to(ds.dtype)) * scale
+    return dq.to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, o, lse, g, scale: float, causal: bool
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What K3 computes, in plain PyTorch: (dK, dV) = (scale * dS^T Q,
+    P^T dO) in k's and v's dtypes; arguments as for
+    :func:`flash_bwd_dq_plain`."""
+    p, ds = _bwd_probs(q, k, v, o, lse, g, scale, causal)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.to(ds.dtype)) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, g.to(p.dtype))
+    return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def attention_composition(q, k, v, scale: float, causal: bool = False,
@@ -132,21 +192,8 @@ def attention_composition(q, k, v, scale: float, causal: bool = False,
 
 
 # ---------------------------------------------------------------------------
-# the kernel's wrapper
+# the kernels' wrappers
 # ---------------------------------------------------------------------------
-
-
-def _needs_grad(*ts: torch.Tensor) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
-
-
-def _refuse_grad(*ts: torch.Tensor) -> None:
-    if _needs_grad(*ts):
-        raise NotImplementedError(
-            "flash attention is forward-only in the serving slice; its "
-            "backward (the dq and dkv kernels and the VJP rules) comes with "
-            "the training slice. Run under torch.no_grad()/inference_mode, "
-            "or select the composition with attention_impl_scope('xla').")
 
 
 def _check_kernel_inputs(q, k, v) -> None:
@@ -176,6 +223,29 @@ def _check_kernel_inputs(q, k, v) -> None:
                          "(B, H, T, D) tensors")
 
 
+def _check_bwd_inputs(q, k, v, o, lse, g) -> None:
+    """What the backward kernels take beyond :func:`_check_kernel_inputs`:
+    O and its cotangent like q, and LSE (B, H, Tq) float32, all contiguous
+    on q's device."""
+    _check_kernel_inputs(q, k, v)
+    for name, t in (("O", o), ("the gradient of O", g)):
+        if t.shape != q.shape or t.dtype != q.dtype or \
+                t.device != q.device or not t.is_contiguous():
+            raise MXNetError("flash_attention backward: %s must be a "
+                             "contiguous %s %s tensor on %s, got %s %s on %s"
+                             % (name, tuple(q.shape), q.dtype, q.device,
+                                tuple(t.shape), t.dtype, t.device))
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32 or \
+            lse.device != q.device or not lse.is_contiguous():
+        raise MXNetError("flash_attention backward: LSE must be a contiguous "
+                         "%s float32 tensor on %s" % (tuple(q.shape[:3]),
+                                                      q.device))
+
+
+def _on_cpu(*ts: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in ts)
+
+
 def _flash_fwd_cuda(q, k, v, scale: float, causal: bool):
     """Launch ``mx_flash_fwd`` on the current stream; (O, LSE (B, H, Tq))."""
     _check_kernel_inputs(q, k, v)
@@ -191,30 +261,152 @@ def _flash_fwd_cuda(q, k, v, scale: float, causal: bool):
                                D, _DTYPE_CODE[q.dtype], float(scale),
                                int(bool(causal)), stream)
     _kernels.FLASH_FWD.check(err, "flash_fwd launch")
-    _kernels.FLASH_FWD.count_launch()
+    _kernels.FLASH_FWD.count_launch("flash_fwd")
     return out, lse
+
+
+def _bwd_launch(q, k, v, o, lse, g, scale: float, causal: bool):
+    """The checked arguments both backward kernels share: the input
+    pointers, then (B*H, Tq, Tk, D, dtype, scale, causal)."""
+    _check_bwd_inputs(q, k, v, o, lse, g)
+    B, H, Tq, D = q.shape
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            g.data_ptr(), lse.data_ptr())
+    dims = (B * H, Tq, k.shape[2], D, _DTYPE_CODE[q.dtype], float(scale),
+            int(bool(causal)))
+    return ptrs, dims
+
+
+def _flash_bwd_dq_cuda(q, k, v, o, lse, g, scale: float, causal: bool):
+    """Launch ``mx_flash_bwd_dq`` (K2) on the current stream; dQ."""
+    ptrs, dims = _bwd_launch(q, k, v, o, lse, g, scale, causal)
+    lib = _kernels.FLASH_BWD.load()
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.mx_flash_bwd_dq(*ptrs, dq.data_ptr(), *dims, stream)
+    _kernels.FLASH_BWD.check(err, "flash_bwd_dq launch")
+    _kernels.FLASH_BWD.count_launch("flash_bwd_dq")
+    return dq
+
+
+def _flash_bwd_dkv_cuda(q, k, v, o, lse, g, scale: float, causal: bool):
+    """Launch ``mx_flash_bwd_dkv`` (K3) on the current stream; (dK, dV)."""
+    ptrs, dims = _bwd_launch(q, k, v, o, lse, g, scale, causal)
+    lib = _kernels.FLASH_BWD.load()
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.mx_flash_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(),
+                                   *dims, stream)
+    _kernels.FLASH_BWD.check(err, "flash_bwd_dkv launch")
+    _kernels.FLASH_BWD.count_launch("flash_bwd_dkv")
+    return dk, dv
+
+
+def _flash_bwd_cuda(q, k, v, o, lse, g, scale: float, causal: bool):
+    """K2 then K3 on CUDA tensors; (dQ, dK, dV).  ``g`` is made contiguous
+    here: it arrives transposed from the head merge of
+    ``multi_head_attention``."""
+    g = g.contiguous()
+    dq = _flash_bwd_dq_cuda(q, k, v, o, lse, g, scale, causal)
+    dk, dv = _flash_bwd_dkv_cuda(q, k, v, o, lse, g, scale, causal)
+    return dq, dk, dv
+
+
+def _flash_fwd(q, k, v, scale: float, causal: bool):
+    """K1 on CUDA tensors, its plain version on CPU tensors."""
+    if _on_cpu(q, k, v):
+        return flash_attention_plain(q, k, v, scale, causal)
+    return _flash_fwd_cuda(q, k, v, scale, causal)
+
+
+def _flash_bwd(q, k, v, o, lse, g, scale: float, causal: bool):
+    """K2 and K3 on CUDA tensors, their plain versions on CPU tensors;
+    (dQ, dK, dV)."""
+    if _on_cpu(q, k, v, o, lse, g):
+        dk, dv = flash_bwd_dkv_plain(q, k, v, o, lse, g, scale, causal)
+        return flash_bwd_dq_plain(q, k, v, o, lse, g, scale, causal), dk, dv
+    return _flash_bwd_cuda(q, k, v, o, lse, g, scale, causal)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``flash_attention``'s VJP rule (the JAX package's
+    ``_flash_vjp_fwd`` / ``_flash_vjp_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal):
+        out, lse = _flash_fwd(q, k, v, scale, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.causal = scale, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, o, lse, g, ctx.scale, ctx.causal)
+        return dq, dk, dv, None, None
+
+
+class _FlashAttentionWithLse(torch.autograd.Function):
+    """``flash_attention_with_lse``'s VJP rule (the JAX package's
+    ``_flash_lse_vjp_fwd`` / ``_flash_lse_vjp_bwd``), term for term.  An
+    unused output's cotangent arrives as None and its passes are skipped."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal):
+        ctx.set_materialize_grads(False)
+        out, lse = _flash_fwd(q, k, v, scale, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.causal = scale, causal
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        q, k, v, o, lse = ctx.saved_tensors
+        scale, causal = ctx.scale, ctx.causal
+        if g_out is None:
+            dq, dk, dv = (torch.zeros_like(q), torch.zeros_like(k),
+                          torch.zeros_like(v))
+        else:
+            dq, dk, dv = _flash_bwd(q, k, v, o, lse, g_out, scale, causal)
+        if g_lse is not None:
+            # dq += scale * g_lse * (P K), which is K1 with v := k, and
+            # dk += scale * P^T (g_lse * q), which is K3's dV with v and O
+            # zeroed and g_lse * q as the cotangent
+            acc = _acc_dtype(q)
+            gl = torch.where(torch.isfinite(lse), g_lse.to(acc),
+                             torch.zeros((), dtype=acc, device=lse.device)
+                             )[..., None]
+            pk = _flash_fwd(q, k, k.to(q.dtype), scale, causal)[0]
+            dq = (dq.to(acc) + scale * gl * pk.to(acc)).to(dq.dtype)
+            g2 = (gl * q.to(acc)).to(q.dtype)
+            _, _, dk2 = _flash_bwd(q, k, torch.zeros_like(v),
+                                   torch.zeros_like(o), lse, g2, scale,
+                                   causal)
+            dk = (dk.to(acc) + scale * dk2.to(acc)).to(dk.dtype)
+        return dq, dk, dv, None, None
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, scale: float, causal: bool
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Blockwise flash attention returning (O, LSE (B, H, Tq) float32).
+    """Blockwise flash attention returning (O, LSE (B, H, Tq) float32),
+    differentiable in both outputs.
 
-    CUDA tensors go through the kernel (or raise); CPU tensors through
-    :func:`flash_attention_plain`."""
-    _refuse_grad(q, k, v)
-    if all(t.device.type == "cpu" for t in (q, k, v)):
-        return flash_attention_plain(q, k, v, scale, causal)
-    return _flash_fwd_cuda(q, k, v, scale, causal)
+    CUDA tensors go through the kernels (or raise); CPU tensors through
+    their plain versions."""
+    return _FlashAttentionWithLse.apply(q, k, v, float(scale), bool(causal))
 
 
 def flash_attention(q, k, v, scale: float, causal: bool) -> torch.Tensor:
-    """Blockwise flash attention, (B, H, T, D) layout."""
-    return flash_attention_with_lse(q, k, v, scale, causal)[0]
+    """Blockwise flash attention, (B, H, T, D) layout, differentiable."""
+    return _FlashAttention.apply(q, k, v, float(scale), bool(causal))
 
 
 def flash_eligible(q, k, v, causal: bool = False, mask=None) -> bool:
-    """The port's dispatch gate: the CUDA kernel's own constraints."""
+    """The port's dispatch gate: the CUDA kernels' own constraints."""
     if current_attention_impl() == "xla" or mask is not None:
         return False
     D = q.shape[-1]
@@ -223,22 +415,19 @@ def flash_eligible(q, k, v, causal: bool = False, mask=None) -> bool:
     if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype or \
             v.dtype != q.dtype:
         return False
-    # K1 is top-left causal, the composition bottom-right
+    # the kernels are top-left causal, the composition bottom-right
     return not causal or q.shape[2] == k.shape[2]
 
 
 def attention_core(q, k, v, scale: Optional[float] = None,
                    causal: bool = False,
                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Dispatch: the flash kernel where :func:`flash_eligible` holds, the
-    composition otherwise.  q, k, v: (B, H, T, D).  A gated input that
-    needs a gradient takes the composition on the CPU and raises
-    ``NotImplementedError`` on the card (the kernel is forward-only)."""
+    """Dispatch: the flash Function where :func:`flash_eligible` holds, the
+    composition otherwise.  q, k, v: (B, H, T, D).  The same gate holds on
+    the CPU and the card, with or without a gradient."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    on_cpu = all(t.device.type == "cpu" for t in (q, k, v))
-    if flash_eligible(q, k, v, causal, mask) and not (
-            on_cpu and _needs_grad(q, k, v)):
+    if flash_eligible(q, k, v, causal, mask):
         return flash_attention(q.contiguous(), k.contiguous(),
                                v.contiguous(), float(scale), bool(causal))
     return attention_composition(q, k, v, float(scale), causal, mask)

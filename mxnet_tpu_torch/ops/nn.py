@@ -1,7 +1,7 @@
-"""The nn functions of the serving slice, on tensors.
+"""The nn functions of the serving and training slices, on tensors.
 
 Counterpart of the matching entries of ``mxnet_tpu/ops/nn.py`` and
-``mxnet_tpu/ops/matrix.py`` (``Embedding``).  Plain matrix products stay
+``mxnet_tpu/ops/matrix.py`` (``Embedding``, ``pick``).  Plain matrix products stay
 with PyTorch's library kernels, as the JAX package left them to XLA.
 """
 from __future__ import annotations
@@ -15,7 +15,8 @@ import torch.nn.functional as F
 from .attention import attention_core
 
 __all__ = ["fully_connected", "activation", "gelu", "layer_norm",
-           "embedding", "multi_head_attention"]
+           "embedding", "multi_head_attention", "softmax", "log_softmax",
+           "softmax_cross_entropy", "pick"]
 
 
 def fully_connected(data: torch.Tensor, weight: torch.Tensor,
@@ -89,3 +90,54 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = (1.0 / math.sqrt(D)) if scaled else 1.0
     out = attention_core(qh, kh, vh, scale=scale, causal=causal, mask=mask)
     return out.transpose(1, 2).reshape(B, Tq, HD)
+
+
+def softmax(data: torch.Tensor, axis: int = -1,
+            temperature: Optional[float] = None,
+            length: Optional[torch.Tensor] = None, use_length: bool = False,
+            dtype=None) -> torch.Tensor:
+    """Softmax over ``axis``, optionally divided by ``temperature``; with
+    ``use_length``, positions at or past ``length`` (one per leading-axis
+    row) get probability 0.  The result is in ``dtype`` or data's dtype."""
+    x = data if temperature in (None, 1.0) else data / temperature
+    if use_length and length is not None:
+        steps = torch.arange(x.shape[axis], device=x.device)
+        bshape = [1] * x.dim()
+        bshape[axis] = x.shape[axis]
+        mask = steps.reshape(bshape) < length.reshape(
+            [x.shape[0]] + [1] * (x.dim() - 1))
+        x = x.masked_fill(~mask, float("-inf"))
+    out = torch.softmax(x, dim=axis)
+    if use_length and length is not None:
+        out = torch.nan_to_num(out, nan=0.0)
+    return out.to(dtype or data.dtype)
+
+
+def log_softmax(data: torch.Tensor, axis: int = -1,
+                temperature: Optional[float] = None,
+                dtype=None) -> torch.Tensor:
+    """Log-softmax over ``axis``, in ``dtype`` or data's dtype."""
+    x = data if temperature in (None, 1.0) else data / temperature
+    return torch.log_softmax(x, dim=axis).to(dtype or data.dtype)
+
+
+def pick(x: torch.Tensor, index: torch.Tensor, axis: int = -1,
+         keepdims: bool = False, mode: str = "clip") -> torch.Tensor:
+    """``x``'s entry at ``index`` along ``axis``; indices are truncated to
+    integers and clipped to the axis (the JAX package clips in every
+    mode)."""
+    ax = axis % x.dim()
+    idx = index.long().clamp(0, x.shape[ax] - 1).unsqueeze(ax)
+    out = torch.gather(x, ax, idx)
+    return out if keepdims else out.squeeze(ax)
+
+
+def softmax_cross_entropy(data: torch.Tensor,
+                          label: torch.Tensor) -> torch.Tensor:
+    """Summed cross-entropy of ``log_softmax(data)`` against integer labels
+    over the last axis.  A label outside [0, n) adds nothing, as its one-hot
+    row in the JAX package is all zeros."""
+    logp = torch.log_softmax(data, dim=-1)
+    lab = label.long()
+    valid = (lab >= 0) & (lab < data.shape[-1])
+    return -pick(logp, lab, axis=-1).masked_fill(~valid, 0.0).sum()

@@ -140,6 +140,11 @@ def test_gate_follows_the_kernel_constraints():
     q, k, v = mk()
     q.requires_grad_(True)
     assert tatt.flash_eligible(q, k, v)     # a gradient is not a gate term
+    # and a gated CPU input that needs one goes through the flash Function
+    out = tatt.attention_core(q, k, v)
+    assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+    (dq,) = torch.autograd.grad(out.sum(), (q,))
+    assert dq.shape == q.shape and torch.isfinite(dq).all()
 
 
 def test_impl_setters_validate_and_restore():
@@ -176,35 +181,52 @@ def test_attention_core_routes_through_flash_when_gated(monkeypatch):
 
 
 def test_cpu_tensors_never_launch_the_kernel():
-    before = _kernels.FLASH_FWD.launches
+    before = _kernels.launch_counts()
+    assert set(before) == {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"}
     q, k, v = _t(*_qkv(2, 1, 2, 64, 64, 64))
+    q.requires_grad_(True)
     tatt.flash_attention_with_lse(q, k, v, 0.125, False)
-    tatt.attention_core(q, k, v)
-    assert _kernels.FLASH_FWD.launches == before
+    tatt.attention_core(q, k, v).sum().backward()
+    assert _kernels.launch_counts() == before
 
 
-def test_flash_is_forward_only():
+def test_flash_is_forward_only(monkeypatch):
+    """Holds that flash attention is no longer forward-only: a gradient
+    flows through the Function on the CPU (the plain versions of K1-K3) and,
+    on a non-CPU device (a meta tensor stands in for the card), through the
+    CUDA wrappers of K1 and of K2/K3, never the composition."""
     q, k, v = _t(*_qkv(4, 1, 1, 8, 8, 64))
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tatt.flash_attention_with_lse(q, k, v, 0.125, False)
-    with torch.no_grad():
-        tatt.flash_attention_with_lse(q, k, v, 0.125, False)
-    # on the CPU attention_core takes the composition when a gradient is
-    # needed
-    out = tatt.attention_core(q, k, v)
-    out.sum().backward()
+    out, lse = tatt.flash_attention_with_lse(q, k, v, 0.125, False)
+    (out.sum() + lse.sum()).backward()
     assert q.grad is not None and torch.isfinite(q.grad).all()
-    # off the CPU (a meta tensor stands in for the card) a gated input that
-    # needs a gradient raises instead of leaving the kernel's path
-    qm, km, vm = (t.detach().to("meta") for t in (q, k, v))
-    qm.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tatt.attention_core(qm, km, vm)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tatt.flash_attention(qm, km, vm, 0.125, False)
+    q.grad = None
+    tatt.attention_core(q, k, v).sum().backward()
+    assert q.grad is not None and torch.isfinite(q.grad).all()
+
+    launched = []
+
+    def fake_fwd(q, k, v, scale, causal):
+        launched.append("fwd")
+        return (torch.empty_like(q),
+                torch.empty(q.shape[:3], dtype=torch.float32,
+                            device=q.device))
+
+    def fake_bwd(q, k, v, o, lse, g, scale, causal):
+        launched.append("bwd")
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+    monkeypatch.setattr(tatt, "_flash_fwd_cuda", fake_fwd)
+    monkeypatch.setattr(tatt, "_flash_bwd_cuda", fake_bwd)
+    qm, km, vm = (t.detach().to("meta").requires_grad_(True)
+                  for t in (q, k, v))
+    dq, dk, dv = torch.autograd.grad(tatt.attention_core(qm, km, vm).sum(),
+                                     (qm, km, vm))
+    assert launched == ["fwd", "bwd"]
+    assert dq.shape == qm.shape and dk.shape == km.shape
     with tatt.attention_impl_scope("xla"):
         assert tatt.attention_core(qm, km, vm).shape == qm.shape
+    assert launched == ["fwd", "bwd"]
 
 
 @pytest.mark.parametrize("bad,match", [
@@ -226,9 +248,9 @@ def test_kernel_input_checks_refuse_what_the_kernel_does_not_take(bad, match):
 
 
 def test_kernel_library_is_not_built_at_import():
-    """Importing the port builds nothing: the library is built at first
+    """Importing the port builds nothing: each library is built at first
     launch on a card."""
-    assert _kernels.FLASH_FWD._lib is None
-    assert _kernels.FLASH_FWD.source.is_file()
-    assert _kernels.FLASH_FWD.library_path().name.startswith(
-        "libflash_fwd-")
+    for lib in (_kernels.FLASH_FWD, _kernels.FLASH_BWD):
+        assert lib._lib is None
+        assert lib.source.is_file()
+        assert lib.library_path().name.startswith("lib%s-" % lib.name)
