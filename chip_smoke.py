@@ -34,6 +34,26 @@ Phases (each raises on failure, so any failure exits nonzero):
    within 1e-2 relative of the composition's trajectory, and K1, K2 and K3
    launched 12 times a step; tokens/s, TFLOP/s and MFU by the bench's
    formula, and a profiler breakdown of one step.
+7. user_kernels -- K4, the user-kernel facility (``mxnet_tpu_torch/
+   tpu_kernel.py``): the seven bodies of ``USER_KERNELS`` (CUDA C++ source
+   strings, templates over float and __nv_bfloat16) built with one ``nvcc``
+   each, all started together, and run at BERT-base's FFN activation
+   (16 * 512, 3072) in fp32 and bf16 through ``Kernel.launch``, through
+   ``nd.<name>`` after ``tpu_kernel.register`` and, for square and scale3,
+   forward and backward under ``autograd.record()``; each held against its
+   plain version (fp32 within 1e-6, bf16 by ``compare``'s bf16 rule);
+   re-registration launches the new body, the non-differentiable op gives
+   no gradient, a CPU launch without ``plain`` raises; times of kernel,
+   plain version and one PyTorch call, and the byte bound.
+8. imperative -- BERT-base with the MLM decoder (as in ``train``) driven
+   only through the front end: ``nd.array(..., ctx=mx.gpu(0))``,
+   ``autograd.record()``, ``net(...)``, the loss block, ``.mean()``,
+   ``backward()`` and the parameters' ``.grad``.  (a) fp32, batch 2: every
+   gradient against ``functionalize`` + torch autograd on the same batch
+   and parameters (max|d| <= 1e-5 * max|ref| per tensor), and a second
+   ``backward()`` that overwrites rather than adds.  (b) bf16, batch 16:
+   2 warm and 5 timed passes, the loss finite, K1, K2 and K3 launched 12
+   times a pass; ms per pass beside ``train``'s ms per step.
 
 The last lines of standard output are the ``nvidia-smi`` name and power
 limit, one JSON object ``{"kernels": [...]}`` and, last,
@@ -645,14 +665,30 @@ def phase_bf16(net, answers, tokens, types):
 # 6. the training path: BERT-base MLM pretraining steps
 # ---------------------------------------------------------------------------
 
-def train_batch(batch):
+def train_batch_host(batch):
     """Token ids, segment ids (all 0, as the bench) and MLM labels, from
-    the seed."""
+    the seed, as numpy arrays."""
     rng = np.random.RandomState(SEED + batch)
     tok = rng.randint(0, VOCAB, size=(batch, SEQ_LEN)).astype(np.int64)
     lab = rng.randint(0, VOCAB, size=(batch, SEQ_LEN)).astype(np.int64)
-    return [torch.from_numpy(a).cuda() for a in
-            (tok, np.zeros_like(tok), lab)]
+    return tok, np.zeros_like(tok), lab
+
+
+def train_batch(batch):
+    """:func:`train_batch_host` as CUDA tensors."""
+    return [torch.from_numpy(a).cuda() for a in train_batch_host(batch)]
+
+
+def functional_grads(pure_fn, params, loss_fn, tok, seg, lab):
+    """The loss and every parameter's gradient (zeros where unused) by
+    torch autograd through ``functionalize``'s pure function, as
+    ``TrainStep`` computes them."""
+    leaves = {n: p.detach().requires_grad_(True) for n, p in params.items()}
+    loss = loss_fn(pure_fn(leaves, tok, seg, training=True), lab)
+    gs = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    grads = {n: torch.zeros_like(p) if g is None else g
+             for (n, p), g in zip(leaves.items(), gs)}
+    return float(loss.detach()), grads
 
 
 def train_fp32_parity(net, loss_fn, n_layers):
@@ -667,14 +703,7 @@ def train_fp32_parity(net, loss_fn, n_layers):
     pure_fn, params = functionalize(net)
 
     def loss_and_grads():
-        leaves = {n: p.detach().requires_grad_(True)
-                  for n, p in params.items()}
-        loss = loss_fn(pure_fn(leaves, tok, seg, training=True), lab)
-        gs = torch.autograd.grad(loss, list(leaves.values()),
-                                 allow_unused=True)
-        grads = {n: torch.zeros_like(p) if g is None else g
-                 for (n, p), g in zip(leaves.items(), gs)}
-        return float(loss.detach()), grads
+        return functional_grads(pure_fn, params, loss_fn, tok, seg, lab)
 
     before = _kernels.launch_counts()
     loss_k, grads_k = loss_and_grads()
@@ -807,6 +836,418 @@ def phase_train(peaks):
                 "attention_kernels_ms": attn,
                 "attention_share_of_device_time": sum(attn.values()) / total})
     log("train: %s" % json.dumps(rec))
+    return launches, rec["step_ms"]
+
+
+# ---------------------------------------------------------------------------
+# 7. user kernels (K4): the bodies of tests/test_tpu_kernel.py in CUDA C++
+# ---------------------------------------------------------------------------
+
+FFN_SHAPE = (TRAIN_BATCH * SEQ_LEN, 3072)     # BERT-base's FFN activation
+USER_KERNEL_SOURCE = ("chip_smoke.py (CUDA source string) via "
+                      "mxnet_tpu_torch/tpu_kernel.py")
+IMPERATIVE_WARM, IMPERATIVE_TIMED = 2, 5
+
+_HELPERS = r"""
+// float32 arithmetic for float and __nv_bfloat16 elements, each product
+// and sum rounded on its own (__fmul_rn, __fadd_rn: no contraction into
+// an FMA), as the plain PyTorch versions round them
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+from_f<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
+"""
+
+_UNARY_SIGNATURE = "const T* x, T* o, long long n"
+
+
+def _unary_body(entry, expr):
+    """A grid-stride elementwise body: o[i] = expr of v = x[i] in float."""
+    return _HELPERS + r"""
+template <typename T>
+__global__ void %s(const T* x, T* o, long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < n; i += (long long)gridDim.x * blockDim.x) {
+    const float v = to_f(x[i]);
+    o[i] = from_f<T>(%s);
+  }
+}
+""" % (entry, expr)
+
+
+_AXPY = _HELPERS + r"""
+template <typename T>
+__global__ void axpy(const T* a, const T* x, const T* y, T* o, long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < n; i += (long long)gridDim.x * blockDim.x)
+    o[i] = from_f<T>(__fadd_rn(__fmul_rn(to_f(a[i]), to_f(x[i])),
+                               to_f(y[i])));
+}
+"""
+
+_RELU_BLOCKED = _HELPERS + r"""
+// one block per row (rows past the grid taken in turn), its threads
+// striding over the row's columns
+template <typename T>
+__global__ void relu_blocked(const T* x, T* o, long long rows,
+                             long long cols) {
+  for (long long r = blockIdx.x; r < rows; r += gridDim.x)
+    for (long long c = threadIdx.x; c < cols; c += blockDim.x) {
+      const float v = to_f(x[r * cols + c]);
+      o[r * cols + c] = from_f<T>(v > 0.0f ? v : 0.0f);
+    }
+}
+"""
+
+
+def _numel(*tensors):
+    """The scalar ``n`` of a grid-stride body: the output's entries."""
+    return (tensors[-1].numel(),)
+
+
+def _rows_cols(x, o):
+    return (o.shape[0], o.numel() // o.shape[0])
+
+
+def mul_body(mult):
+    """The re-registered body: ``x * mult``, with ``mult`` in the source
+    (a new value is a new source, hence a new library)."""
+    return dict(source=_unary_body("mul_kernel", "__fmul_rn(v, (float)%r)"
+                                   % float(mult)),
+                entry="mul_kernel", signature=_UNARY_SIGNATURE,
+                scalars=_numel, plain=lambda x: x * mult,
+                library=lambda x: torch.mul(x, mult))
+
+
+# The seven bodies of tests/test_tpu_kernel.py (one copy, shared with
+# tests/test_torch_tpu_kernel.py).  Each: its CUDA source, entry and
+# signature (a template over T in float and __nv_bfloat16), launch
+# dimensions where the JAX test gave a grid, the scalar rule, the plain
+# PyTorch version, the grad of the registered ones, and one PyTorch call
+# computing the same function (timed only).
+USER_KERNELS = {
+    "axpy": dict(source=_AXPY, entry="axpy",
+                 signature="const T* a, const T* x, const T* y, T* o, "
+                           "long long n",
+                 grid=(132 * 8,), block=(256,), scalars=_numel,
+                 plain=lambda a, x, y: a * x + y,
+                 library=lambda a, x, y: torch.addcmul(y, a, x)),
+    "double": dict(source=_unary_body("double_it", "__fmul_rn(v, 2.0f)"),
+                   entry="double_it", signature=_UNARY_SIGNATURE,
+                   grid=lambda shape: (-(-int(np.prod(shape)) // 256),),
+                   block=(256,), scalars=_numel, plain=lambda x: x * 2.0,
+                   library=lambda x: torch.mul(x, 2.0)),
+    "relu_blocked": dict(source=_RELU_BLOCKED, entry="relu_blocked",
+                         signature="const T* x, T* o, long long rows, "
+                                   "long long cols",
+                         grid=lambda shape: (shape[0],), block=(256,),
+                         scalars=_rows_cols,
+                         plain=lambda x: torch.where(x > 0, x,
+                                                     torch.zeros_like(x)),
+                         library=torch.relu),
+    "square": dict(source=_unary_body("square_kernel", "__fmul_rn(v, v)"),
+                   entry="square_kernel", signature=_UNARY_SIGNATURE,
+                   scalars=_numel, plain=lambda x: x * x,
+                   grad=lambda cts, x: (cts[0] * 2.0 * x,),
+                   library=torch.square),
+    "scale3": dict(source=_unary_body("scale3_kernel", "__fmul_rn(v, 3.0f)"),
+                   entry="scale3_kernel", signature=_UNARY_SIGNATURE,
+                   scalars=_numel, plain=lambda x: x * 3.0,
+                   grad=lambda cts, x: (cts[0] * 3.0,),
+                   library=lambda x: torch.mul(x, 3.0)),
+    "mul": mul_body(2.0),
+    "sign": dict(source=_unary_body("sign_kernel", "v > 0.0f ? 1.0f : 0.0f"),
+                 entry="sign_kernel", signature=_UNARY_SIGNATURE,
+                 scalars=_numel, plain=lambda x: (x > 0).to(x.dtype),
+                 library=lambda x: torch.heaviside(
+                     x, torch.zeros((), dtype=x.dtype, device=x.device))),
+}
+_KERNEL_ARGS = ("source", "entry", "signature", "grid", "block", "scalars")
+
+
+def kernel_args(body):
+    """The ``tpu_kernel.Kernel`` / ``kernel`` / ``register`` keyword
+    arguments of a body of :data:`USER_KERNELS`, built for float32 and
+    bfloat16."""
+    out = {k: body[k] for k in _KERNEL_ARGS if k in body}
+    out["dtypes"] = ("float32", "bfloat16")
+    return out
+
+
+def register_body(name, body=None, op_name=None):
+    """Register body ``name`` as the op ``nd.<op_name or name>``, with its
+    grad if it has one; returns its Kernel."""
+    from mxnet_tpu_torch import tpu_kernel
+    body = USER_KERNELS[name] if body is None else body
+    return tpu_kernel.register(
+        op_name or name, out_shape_fn=lambda *avals: avals[-1],
+        grad=body.get("grad"), **kernel_args(body))(body["plain"])
+
+
+def expect_raises(exc_type, fn, what):
+    """Call ``fn``, which must raise ``exc_type``; returns the message."""
+    try:
+        fn()
+    except exc_type as e:
+        return str(e)
+    raise RuntimeError("%s did not raise %s" % (what, exc_type.__name__))
+
+
+def user_kernel_inputs(name, dtype, gen):
+    """The body's input tensors at FFN_SHAPE on the card."""
+    n_in = 3 if name == "axpy" else 1
+    return [torch.randn(FFN_SHAPE, generator=gen, device="cuda").to(dtype)
+            for _ in range(n_in)]
+
+
+def phase_user_kernels(peaks):
+    """K4 at BERT-base's FFN activation; returns per body its main-path
+    launches and its fp32 and bf16 records."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd, tpu_kernel
+    from mxnet_tpu_torch.ops import _kernels
+    kernels = {name: register_body(name) for name in USER_KERNELS}
+    mul5 = mul_body(5.0)
+    t0 = time.perf_counter()
+    _kernels.build_all([k.library for k in kernels.values()])
+    wall = time.perf_counter() - t0
+    log("user_kernels: nvcc build seconds %s, %.2f s wall for %d libraries "
+        "started together" % (json.dumps(
+            {n: k.library.build_seconds for n, k in kernels.items()}), wall,
+            len(kernels)))
+    for n, k in kernels.items():
+        for line in k.library.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log("user_kernels: build: %s: %s" % (n, line.strip()))
+
+    checks, outs_by = [], {}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    inputs = {(n, dt): user_kernel_inputs(n, dt, g)
+              for dt in (torch.float32, torch.bfloat16)
+              for n in USER_KERNELS}
+
+    # --- the user-kernel main path, counted ---
+    _kernels.reset_launches()
+    for (name, dt), xs in inputs.items():
+        k = kernels[name]
+        args = [nd.NDArray(x) for x in xs]
+        via_launch = k.launch(args, out_shape=FFN_SHAPE).data
+        via_op = getattr(nd, name)(*args).data
+        outs_by[(name, dt)] = [("launch", via_launch), ("nd", via_op)]
+        if "grad" in USER_KERNELS[name]:
+            x = nd.NDArray(xs[0].clone())
+            x.attach_grad()
+            head = torch.randn(FFN_SHAPE, generator=g, device="cuda").to(dt)
+            with autograd.record():
+                y = getattr(nd, name)(x)
+            y.backward(nd.NDArray(head))
+            outs_by[(name, dt)] += [("record", y.data.detach()),
+                                    ("grad", (head, x.grad.data))]
+        if name == "sign":
+            x = nd.NDArray(xs[0].clone())
+            x.attach_grad()
+            with autograd.record():
+                y = nd.sign(x)
+            checks.append(("sign under record() carries no gradient (%s)"
+                           % str(dt).replace("torch.", ""),
+                           not y.data.requires_grad and
+                           y.data.grad_fn is None))
+    x = nd.NDArray(inputs[("mul", torch.float32)][0])
+    k_mul5 = register_body("mul", mul5)        # same name, new body
+    re_out = nd.mul(x).data
+    launches = {n: k.library.launches[k.counter]
+                for n, k in kernels.items()}
+    launches["mul"] += k_mul5.library.launches[k_mul5.counter]
+    counted = _kernels.launch_counts()
+    # --- end of the counted main path ---
+
+    log("user_kernels: launches on the main path %s; launch_counts() "
+        "reports %s" % (json.dumps(launches), json.dumps(
+            {k: v for k, v in counted.items() if k.startswith("tpu_")})))
+    for name, k in kernels.items():
+        # per dtype: launch, nd.<name>, and record() for the grad bodies
+        # and the sign check; then the re-registered mul once
+        per_dtype = 2 + ("grad" in USER_KERNELS[name]) + (name == "sign")
+        want = 2 * per_dtype + (name == "mul")
+        if launches[name] != want:
+            raise RuntimeError("user kernel %s launched %d times on the "
+                               "main path, expected %d"
+                               % (name, launches[name], want))
+    checks.append(("re-registered mul launches the new body (x * 5, "
+                   "library %s -> %s, build %.2f s at first launch)"
+                   % (kernels["mul"].library.library_path().name,
+                      k_mul5.library.library_path().name,
+                      k_mul5.library.build_seconds or 0.0),
+                   torch.equal(re_out, x.data * 5.0)
+                   and k_mul5.library.library_path()
+                   != kernels["mul"].library.library_path()))
+    cpu_k = tpu_kernel.Kernel(**dict(kernel_args(USER_KERNELS["double"]),
+                                     name="double_no_plain"))
+    msg = expect_raises(mx.MXNetError, lambda: cpu_k.launch(
+        [nd.ones((4, 4), ctx=mx.cpu())], out_shape=(4, 4)),
+        "a CPU launch without plain=")
+    checks.append(("a CPU launch without plain= raises (%s)" % msg, True))
+    for what, ok in checks:
+        log("user_kernels: %s %s" % (what, "ok" if ok else "FAIL"))
+        if not ok:
+            raise RuntimeError("user_kernels: " + what)
+
+    results = {}
+    for (name, dt), xs in inputs.items():
+        body = USER_KERNELS[name]
+        f32 = [x.float() for x in xs]
+        want = body["plain"](*f32)
+        tol = 1e-6 if dt == torch.float32 else 2e-3
+        errs = []
+        for path, got in outs_by[(name, dt)]:
+            if path == "grad":
+                head, got = got
+                want_g = body["grad"]((head.float(),), *f32)[0]
+                errs.append((path,) + compare(got, want_g, tol))
+            else:
+                errs.append((path,) + compare(got, want, tol))
+        same = all(torch.equal(outs_by[(name, dt)][0][1], o)
+                   for p, o in outs_by[(name, dt)][1:] if p != "grad")
+        ok = all(e[2] for e in errs) and same
+        tag = "%s %s %s" % (name, str(dt).replace("torch.", ""),
+                            "x".join(map(str, FFN_SHAPE)))
+        log("user_kernels: %s | max|d| vs plain %s (tol %g), launch/nd/"
+            "record outputs bitwise equal %s %s"
+            % (tag, {p: "%.3g" % e for p, e, _ in errs}, tol, same,
+               "ok" if ok else "FAIL"))
+        if not ok:
+            raise RuntimeError("user kernel disagrees with its plain "
+                               "version: " + tag)
+        structs = [(FFN_SHAPE, dt)]
+        k = kernels[name]
+        itemsize = torch.finfo(dt).bits // 8
+        n = int(np.prod(FFN_SHAPE))
+        nbytes = (len(xs) + 1) * n * itemsize
+        ops = (2 if name == "axpy" else 1) * n
+        b_ms, b_by = bound_ms(ops, nbytes, peaks["fp32"], peaks["hbm"])
+        rec = {"kernel_ms": time_ms(lambda: k.run(xs, structs)),
+               "plain_ms": time_ms(lambda: body["plain"](*xs)),
+               "library_ms": time_ms(lambda: body["library"](*xs)),
+               "bound_ms": b_ms, "bound_by": b_by, "mbytes": nbytes / 1e6,
+               "max_abs_err": max(e for _, e, _ in errs)}
+        rec["gb_per_s"] = nbytes / rec["kernel_ms"] / 1e6
+        log("user_kernels: timing %s %s" % (tag, json.dumps(rec)))
+        results[(name, dt)] = rec
+    del inputs, outs_by
+    return launches, results
+
+
+# ---------------------------------------------------------------------------
+# 8. the imperative front end at full width: BERT-base through nd/autograd
+# ---------------------------------------------------------------------------
+
+def phase_imperative(train_step_ms):
+    """BERT-base with the MLM decoder through ``nd``, ``autograd.record()``
+    and ``backward()``; returns the kernel launches of the bf16 main path."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, initializer, nd
+    from mxnet_tpu_torch.gluon.block import functionalize
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.bert import bert_12_768_12
+    from mxnet_tpu_torch.ops import _kernels
+    ce = SoftmaxCrossEntropyLoss()
+
+    def loss_fn(outputs, labels):
+        """The train phase's loss on tensors, for the reference path."""
+        return ce(outputs[-1].float(), labels).mean()
+
+    net = bert_12_768_12(vocab_size=VOCAB, max_length=SEQ_LEN, dropout=0.0,
+                         use_classifier=False)
+    net.initialize(initializer.Normal(0.02), seed=SEED)
+    n_layers = len(net.encoder.transformer_cells)
+
+    def imperative_pass(tok, seg, lab):
+        with autograd.record():
+            loss = ce(net(tok, seg)[-1].astype("float32"), lab).mean()
+        loss.backward()
+        return loss
+
+    def grads():
+        return {n: torch.zeros_like(p) if p.grad is None
+                else p.grad.detach().clone()
+                for n, p in net.named_parameters()}
+
+    # (a) fp32, batch 2: against the functionalize path, and 'write'
+    host = train_batch_host(2)
+    tok, seg, lab = (nd.array(a, ctx=mx.gpu(0)) for a in host)
+    loss_i = float(imperative_pass(tok, seg, lab).asscalar())
+    first = grads()
+    loss_i2 = float(imperative_pass(tok, seg, lab).asscalar())
+    second = grads()
+    pure_fn, params = functionalize(net)
+    loss_f, ref = functional_grads(pure_fn, params, loss_fn,
+                                   *(torch.from_numpy(a).cuda()
+                                     for a in host))
+    worst, worst_again, bitwise = 0.0, 0.0, True
+    for n, want in ref.items():
+        top = float(want.abs().max())
+        err = float((first[n] - want).abs().max())
+        again = float((second[n] - first[n]).abs().max())
+        bitwise = bitwise and torch.equal(second[n], first[n])
+        if not err <= 1e-5 * top:
+            raise RuntimeError("imperative fp32 gradient of %s differs from "
+                               "the functionalize path by %.3g (max|ref| "
+                               "%.3g)" % (n, err, top))
+        if not again <= 1e-6 * float(first[n].abs().max()):
+            raise RuntimeError("a second backward() changed the gradient of "
+                               "%s by %.3g: 'write' must overwrite"
+                               % (n, again))
+        worst = max(worst, err / (top + 1e-30))
+        worst_again = max(worst_again, again)
+    log("imperative: fp32 batch-2 loss %.7f (again %.7f) vs the functionalize"
+        " path %.7f; worst max|d|/max|ref| over %d gradients %.3g (tol "
+        "1e-5); second backward() overwrote: max|d| %.3g, bitwise equal %s"
+        % (loss_i, loss_i2, loss_f, len(ref), worst, worst_again, bitwise))
+    if not abs(loss_i - loss_f) <= 1e-5 * abs(loss_f):
+        raise RuntimeError("imperative fp32 loss %.7f vs %.7f"
+                           % (loss_i, loss_f))
+    del first, second, ref, params, pure_fn
+    for p in net.parameters():
+        p.grad = None
+
+    # (b) bf16, batch 16: the imperative main path, counted
+    net.cast("bfloat16")
+    tok, seg, lab = (nd.array(a, ctx=mx.gpu(0))
+                     for a in train_batch_host(TRAIN_BATCH))
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    losses = [imperative_pass(tok, seg, lab) for _ in range(IMPERATIVE_WARM)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [imperative_pass(tok, seg, lab)
+               for _ in range(IMPERATIVE_TIMED)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _kernels.launch_counts()
+    # --- end of the counted main path ---
+    launches = {k: counts[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                       "flash_bwd_dkv")}
+    losses = [float(x.asscalar()) for x in losses]
+    n_pass = IMPERATIVE_WARM + IMPERATIVE_TIMED
+    rec = {"batch": TRAIN_BATCH, "seq": SEQ_LEN, "dtype": "bfloat16",
+           "passes": n_pass, "ms_per_pass": dt / IMPERATIVE_TIMED * 1e3,
+           "train_step_ms": train_step_ms, "losses": losses,
+           "launches": launches}
+    log("imperative: %s" % json.dumps(rec))
+    if not all(np.isfinite(losses)):
+        raise RuntimeError("imperative bf16 losses %s are not all finite"
+                           % losses)
+    if launches != {k: n_layers * n_pass for k in launches}:
+        raise RuntimeError("the imperative passes launched %s, expected %d "
+                           "of each kernel (%d layers x %d passes)"
+                           % (launches, n_layers * n_pass, n_layers, n_pass))
+    del net
     return launches
 
 
@@ -817,7 +1258,9 @@ def kernel_row(name, source, replaces, launches, fp32, bf16):
             "max_abs_err": fp32["max_abs_err"], "ms": fp32["kernel_ms"],
             "plain_ms": fp32["plain_ms"], "bound_ms": fp32["bound_ms"],
             "bound_by": fp32["bound_by"], "library_ms": fp32["library_ms"],
-            "bf16_ms": bf16["kernel_ms"], "bf16_bound_ms": bf16["bound_ms"],
+            "bf16_max_abs_err": bf16["max_abs_err"],
+            "bf16_ms": bf16["kernel_ms"], "bf16_plain_ms": bf16["plain_ms"],
+            "bf16_bound_ms": bf16["bound_ms"],
             "bf16_library_ms": bf16["library_ms"]}
 
 
@@ -833,9 +1276,16 @@ def main():
     del net, sv, answers
     gc.collect()
     torch.cuda.empty_cache()
-    train_launches = phase_train(peaks)
-    by_path = {k: {"serve": serve_launches[k], "train": train_launches[k]}
-               for k in train_launches}
+    train_launches, train_step_ms = phase_train(peaks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    user_launches, user = phase_user_kernels(peaks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    imperative_launches = phase_imperative(train_step_ms)
+    by_path = {k: {"serve": serve_launches[k], "train": train_launches[k],
+                   "imperative": imperative_launches[k]}
+               for k in imperative_launches}
     fp32, bf16 = torch.float32, torch.bfloat16
     kernels = [
         kernel_row("flash_fwd", "mxnet_tpu_torch/csrc/flash_fwd.cu",
@@ -848,7 +1298,11 @@ def main():
                    "mxnet_tpu/ops/attention.py:304",
                    by_path["flash_bwd_dkv"], bwd[("flash_bwd_dkv", fp32)],
                    bwd[("flash_bwd_dkv", bf16)]),
-    ]
+    ] + [kernel_row("tpu_kernel:" + body, USER_KERNEL_SOURCE,
+                    "mxnet_tpu/tpu_kernel.py:96",
+                    {"user_kernels": user_launches[body]},
+                    user[(body, fp32)], user[(body, bf16)])
+         for body in USER_KERNELS]
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

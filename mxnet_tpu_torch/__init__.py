@@ -11,16 +11,25 @@ BERT, with flash-attention forward as a hand-written CUDA kernel
 (``csrc/flash_fwd.cu``).  The second is training: ``parallel.TrainStep``
 over ``gluon.block.functionalize`` and ``gluon.loss``, with the
 flash-attention backward as hand-written CUDA kernels
-(``csrc/flash_bwd.cu``).
+(``csrc/flash_bwd.cu``).  The third is the imperative front end: ``nd``
+(NDArray and the op registry's functions), ``autograd`` over torch
+autograd, gluon blocks called on NDArrays, and ``tpu_kernel``, user CUDA
+kernels built with ``nvcc`` and launched or registered as ops.
 """
 from .base import MXNetError, get_env
-from .device import cpu, gpu, default_device
+from .device import Context, cpu, gpu, current_context, default_device
 from . import initializer
 from . import initializer as init
 from . import ops
+from . import autograd
+from . import ndarray
+from . import ndarray as nd
 from . import gluon
 from . import serve
 from . import parallel
+from . import tpu_kernel
 
-__all__ = ["MXNetError", "get_env", "cpu", "gpu", "default_device",
-           "initializer", "init", "ops", "gluon", "serve", "parallel"]
+__all__ = ["MXNetError", "get_env", "Context", "cpu", "gpu",
+           "current_context", "default_device", "initializer", "init",
+           "ops", "autograd", "ndarray", "nd", "gluon", "serve", "parallel",
+           "tpu_kernel"]

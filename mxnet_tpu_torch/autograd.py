@@ -1,0 +1,262 @@
+"""Imperative autograd, mapped onto torch autograd.
+
+Counterpart of ``mxnet_tpu/autograd.py`` (reference:
+python/mxnet/autograd.py).  The reference keeps a tape of its own (one
+``jax.vjp`` closure per recorded op); here torch autograd is the tape:
+
+* :func:`record` / :func:`pause` / :func:`train_mode` / :func:`predict_mode`
+  set this thread's recording and training flags.  ``ndarray.invoke`` runs a
+  differentiable op under ``torch.enable_grad()`` while recording and under
+  ``torch.no_grad()`` otherwise, so only what runs inside ``record()``
+  carries a graph.  Gluon blocks read :func:`is_training` for their mode.
+* :func:`backward` finds the leaves that the heads depend on by walking
+  the graph to its ``AccumulateGrad`` nodes, asks ``torch.autograd.grad``
+  for exactly those, and writes each by its ``grad_req``: 'write'
+  overwrites (torch's own ``.backward()`` would add), 'add' accumulates,
+  'null' gets nothing (reference ``_write_leaf``).  A leaf attached with
+  ``NDArray.attach_grad`` keeps its buffer and request on its tensor
+  (``_mx_grad``, ``grad_req``); any other leaf (a block's parameter) is
+  written to its ``.grad`` with its ``grad_req`` attribute, 'write' by
+  default as in gluon.  Leaves the heads do not reach keep their gradient.
+* :func:`grad` returns gradients without writing them; ``create_graph``
+  makes them differentiable (higher-order gradients).
+* :class:`Function` is a ``torch.autograd.Function`` underneath.
+"""
+from __future__ import annotations
+
+import threading
+from typing import List, Optional
+
+import torch
+
+from .base import MXNetError
+
+__all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
+           "is_training", "set_recording", "set_training", "backward",
+           "grad", "mark_variables", "Function"]
+
+_state = threading.local()
+
+
+def is_recording() -> bool:
+    return getattr(_state, "recording", False)
+
+
+def is_training() -> bool:
+    return getattr(_state, "training", False)
+
+
+def set_recording(flag: bool) -> bool:
+    old = is_recording()
+    _state.recording = bool(flag)
+    return old
+
+
+def set_training(flag: bool) -> bool:
+    old = is_training()
+    _state.training = bool(flag)
+    return old
+
+
+class _Scope:
+    def __init__(self, recording: Optional[bool], training: Optional[bool]):
+        self._rec = recording
+        self._train = training
+        self._old = None
+
+    def __enter__(self):
+        self._old = (is_recording(), is_training())
+        if self._rec is not None:
+            set_recording(self._rec)
+        if self._train is not None:
+            set_training(self._train)
+        return self
+
+    def __exit__(self, *exc):
+        set_recording(self._old[0])
+        set_training(self._old[1])
+        return False
+
+
+def record(train_mode: bool = True) -> _Scope:
+    return _Scope(True, train_mode)
+
+
+def pause(train_mode: bool = False) -> _Scope:
+    return _Scope(False, train_mode)
+
+
+def train_mode() -> _Scope:
+    return _Scope(None, True)
+
+
+def predict_mode() -> _Scope:
+    return _Scope(None, False)
+
+
+def mark_variables(variables, gradients, grad_reqs="write") -> None:
+    """Make ``variables`` leaves whose gradients go into ``gradients``
+    (reference: autograd.mark_variables)."""
+    if isinstance(grad_reqs, str):
+        grad_reqs = [grad_reqs] * len(variables)
+    for v, g, req in zip(variables, gradients, grad_reqs):
+        v.attach_grad(req)
+        v._data._mx_grad = g._data
+
+
+def _tensors(xs) -> List[torch.Tensor]:
+    from .ndarray.ndarray import NDArray
+    if isinstance(xs, (NDArray, torch.Tensor)):
+        xs = [xs]
+    return [x._data if isinstance(x, NDArray) else x for x in xs]
+
+
+def _head_grads(heads, head_grads):
+    if head_grads is None:
+        return [torch.ones_like(h) for h in heads]
+    hgs = _tensors(head_grads)
+    return [torch.ones_like(h) if g is None else g.to(h.dtype)
+            for h, g in zip(heads, hgs)]
+
+
+def _check_heads(heads) -> None:
+    for h in heads:
+        if not h.requires_grad:
+            raise MXNetError("cannot differentiate a head that was not "
+                             "computed while autograd was recording")
+
+
+def _leaves(heads) -> List[torch.Tensor]:
+    """Every leaf tensor that requires a gradient and that the heads
+    depend on, in the order the walk meets them."""
+    out = [h for h in heads if h.grad_fn is None and h.requires_grad]
+    seen = set()
+    stack = [h.grad_fn for h in heads if h.grad_fn is not None]
+    while stack:
+        fn = stack.pop()
+        if fn in seen:
+            continue
+        seen.add(fn)
+        leaf = getattr(fn, "variable", None)     # AccumulateGrad
+        if leaf is not None:
+            out.append(leaf)
+        stack.extend(nf for nf, _ in fn.next_functions if nf is not None)
+    return out
+
+
+def _write_leaf(t: torch.Tensor, g: Optional[torch.Tensor]) -> None:
+    if g is None:
+        return
+    req = getattr(t, "grad_req", "write")
+    buf = getattr(t, "_mx_grad", None)
+    with torch.no_grad():
+        if buf is not None:             # an attach_grad variable
+            if req == "add":
+                buf.add_(g.to(buf.dtype))
+            else:
+                buf.copy_(g)
+        elif req == "add" and t.grad is not None:
+            t.grad.add_(g.to(t.grad.dtype))
+        else:
+            # a gradient may come back as a broadcast view (the gradient of
+            # a sum): a .grad that a later 'add' writes into must own its
+            # memory
+            t.grad = g.to(t.dtype) if g.is_contiguous() \
+                else g.to(t.dtype).contiguous()
+
+
+def backward(heads, head_grads=None, retain_graph: bool = False,
+             train_mode: bool = True) -> None:
+    """Compute the gradients of ``heads`` (default head gradient: ones)
+    with respect to every leaf they reach, and write them by each leaf's
+    ``grad_req``."""
+    heads = _tensors(heads)
+    _check_heads(heads)
+    leaves = [t for t in _leaves(heads)
+              if getattr(t, "grad_req", "write") != "null"]
+    if not leaves:
+        return
+    hgs = _head_grads(heads, head_grads)
+    grads = torch.autograd.grad(heads, leaves, hgs,
+                                retain_graph=retain_graph, allow_unused=True)
+    for t, g in zip(leaves, grads):
+        _write_leaf(t, g)
+
+
+def grad(heads, variables, head_grads=None, retain_graph=None,
+         create_graph: bool = False, train_mode: bool = True):
+    """The gradients of ``heads`` with respect to ``variables`` (NDArrays),
+    returned as NDArrays and not written anywhere.  With ``create_graph``
+    they are themselves differentiable."""
+    from .ndarray.ndarray import NDArray
+    heads = _tensors(heads)
+    _check_heads(heads)
+    if retain_graph is None:
+        retain_graph = create_graph
+    try:
+        got = torch.autograd.grad(heads, _tensors(variables),
+                                  _head_grads(heads, head_grads),
+                                  retain_graph=retain_graph,
+                                  create_graph=create_graph)
+    except RuntimeError as e:
+        raise MXNetError("autograd.grad: %s (a variable does not require "
+                         "gradient or is unreachable from the heads)"
+                         % e) from e
+    return [NDArray(g) for g in got]
+
+
+class _FunctionBridge(torch.autograd.Function):
+    """Runs a user :class:`Function`'s forward and backward, over NDArrays,
+    as one node of torch's graph."""
+
+    @staticmethod
+    def forward(ctx, func, *xs):
+        from .ndarray.ndarray import NDArray
+        ctx.func = func
+        with pause():
+            outs = func.forward(*[NDArray(x) for x in xs])
+        ctx.single = not isinstance(outs, (list, tuple))
+        outs = (outs,) if ctx.single else tuple(outs)
+        return tuple(o._data for o in outs)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        from .ndarray.ndarray import NDArray
+        with pause():
+            gr = ctx.func.backward(*[NDArray(c) for c in cts])
+        if not isinstance(gr, (list, tuple)):
+            gr = (gr,)
+        return (None,) + tuple(g._data if isinstance(g, NDArray) else g
+                               for g in gr)
+
+
+class Function:
+    """A user-defined differentiable function (reference:
+    autograd.Function): subclass and implement ``forward(self, *inputs)``
+    and ``backward(self, *output_grads)``, both over NDArrays; the backward
+    returns one gradient per input.  Both run with recording paused."""
+
+    def __init__(self):
+        self._saved = ()
+
+    def save_for_backward(self, *arrays):
+        self._saved = arrays
+
+    @property
+    def saved_tensors(self):
+        return self._saved
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError
+
+    def __call__(self, *inputs):
+        from .ndarray.ndarray import NDArray
+        if not is_recording():
+            with pause():
+                return self.forward(*inputs)
+        outs = _FunctionBridge.apply(self, *_tensors(list(inputs)))
+        wrapped = [NDArray(o) for o in outs]
+        return wrapped[0] if len(wrapped) == 1 else wrapped

@@ -8,7 +8,11 @@ from __future__ import annotations
 import os
 from typing import Any, Callable
 
-__all__ = ["MXNetError", "ENV_CATALOG", "get_env"]
+import numpy as np
+import torch
+
+__all__ = ["MXNetError", "ENV_CATALOG", "get_env", "DTYPES", "torch_dtype",
+           "dtype_name"]
 
 
 class MXNetError(RuntimeError):
@@ -55,3 +59,29 @@ def get_env(name: str, default: Any = None, dtype: Callable = str) -> Any:
         return dtype(val)
     except (TypeError, ValueError):
         return default
+
+
+#: dtype names (the reference's, numpy's) -> torch dtypes
+DTYPES = {
+    "float32": torch.float32, "float64": torch.float64,
+    "float16": torch.float16, "bfloat16": torch.bfloat16,
+    "uint8": torch.uint8, "int8": torch.int8, "int16": torch.int16,
+    "int32": torch.int32, "int64": torch.int64, "bool": torch.bool,
+}
+_NAMES = {v: k for k, v in DTYPES.items()}
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """A ``torch.dtype`` from a torch dtype, a numpy dtype or type, or a
+    name ('float32', 'bfloat16', 'int32')."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    if name not in DTYPES:
+        raise TypeError("unsupported dtype %r" % (dtype,))
+    return DTYPES[name]
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """The reference's name of a torch dtype ('float32', 'bfloat16')."""
+    return _NAMES[dtype]

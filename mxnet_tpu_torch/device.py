@@ -1,46 +1,139 @@
 """Devices of the PyTorch port.
 
-Counterpart of ``mxnet_tpu/device.py``.  The JAX package's first-class
-accelerator context ``mx.tpu(i)`` maps to the GPU: :func:`gpu` names
-``torch.device("cuda", i)`` and is the default device of every entry point.
-Only an explicit CPU device (``device="cpu"``) runs on the CPU; asking for
-the GPU on a machine without one raises rather than moving to the CPU.
+Counterpart of ``mxnet_tpu/device.py``.  A :class:`Context` names a device:
+``mx.gpu(i)`` is ``torch.device("cuda", i)`` (the role the JAX package's
+first-class accelerator context ``mx.tpu(i)`` plays there) and ``mx.cpu()``
+is the host.  ``with mx.cpu():`` / ``with mx.gpu(0):`` set the default of
+the current thread, which :func:`current_context` reads.
+
+The default context is the GPU.  This deliberately differs from the
+reference's CPU default: the port's entry points run on the card unless the
+caller asks for the CPU (``ctx=mx.cpu()``, ``device="cpu"`` or a ``with``
+scope), and asking for the GPU on a machine without one raises rather than
+moving to the CPU.
 """
 from __future__ import annotations
 
-from typing import Union
+import threading
+from typing import Optional, Union
 
 import torch
 
 from .base import MXNetError
 
-__all__ = ["cpu", "gpu", "default_device", "resolve"]
-
-DeviceLike = Union[str, torch.device, None]
-
-
-def cpu() -> torch.device:
-    return torch.device("cpu")
+__all__ = ["Context", "cpu", "gpu", "current_context", "default_device",
+           "resolve"]
 
 
-def gpu(i: int = 0) -> torch.device:
-    return torch.device("cuda", int(i))
+class Context:
+    """A device context; ``device_type`` is 'cpu' or 'gpu'."""
+
+    devtype2str = {1: "cpu", 2: "gpu"}
+    devstr2type = {"cpu": 1, "gpu": 2}
+    _default_ctx = threading.local()
+
+    __slots__ = ("device_typeid", "device_id", "_old_ctx")
+
+    def __init__(self, device_type, device_id: int = 0):
+        if isinstance(device_type, Context):
+            self.device_typeid = device_type.device_typeid
+            self.device_id = device_type.device_id
+        elif isinstance(device_type, str):
+            if device_type not in Context.devstr2type:
+                raise MXNetError("unknown device type %r (cpu or gpu)"
+                                 % device_type)
+            self.device_typeid = Context.devstr2type[device_type]
+            self.device_id = int(device_id)
+        else:
+            self.device_typeid = int(device_type)
+            self.device_id = int(device_id)
+        self._old_ctx: Optional[Context] = None
+
+    @property
+    def device_type(self) -> str:
+        return Context.devtype2str[self.device_typeid]
+
+    def __hash__(self):
+        return hash((self.device_typeid, self.device_id))
+
+    def __eq__(self, other):
+        return (isinstance(other, Context)
+                and self.device_typeid == other.device_typeid
+                and self.device_id == other.device_id)
+
+    def __repr__(self):
+        return "%s(%d)" % (self.device_type, self.device_id)
+
+    __str__ = __repr__
+
+    @property
+    def torch_device(self) -> torch.device:
+        """The ``torch.device`` this context names (no availability
+        check; :func:`resolve` makes it)."""
+        if self.device_type == "cpu":
+            return torch.device("cpu")
+        return torch.device("cuda", self.device_id)
+
+    @staticmethod
+    def from_torch(device: torch.device) -> "Context":
+        """The context of a tensor's device."""
+        if device.type == "cuda":
+            return Context("gpu", device.index or 0)
+        if device.type == "cpu":
+            return Context("cpu", 0)
+        raise MXNetError("no context for device %s" % device)
+
+    # -- default-context stack (reference: with mx.Context(...)) ---------
+    def __enter__(self):
+        self._old_ctx = current_context()
+        Context._default_ctx.value = self
+        return self
+
+    def __exit__(self, *exc):
+        Context._default_ctx.value = self._old_ctx
+        return False
+
+
+DeviceLike = Union[str, torch.device, Context, None]
+
+
+def cpu(device_id: int = 0) -> Context:
+    return Context("cpu", device_id)
+
+
+def gpu(device_id: int = 0) -> Context:
+    return Context("gpu", device_id)
+
+
+def current_context() -> Context:
+    """The current thread's default context: the innermost ``with``
+    scope's, else ``gpu(0)``."""
+    ctx = getattr(Context._default_ctx, "value", None)
+    return ctx if ctx is not None else Context("gpu", 0)
 
 
 def default_device() -> torch.device:
-    """The device an entry point uses when none is given: the GPU."""
-    return gpu(0)
+    """The device an entry point uses when none is given: the current
+    context's, which is the GPU unless a ``with mx.cpu():`` scope says
+    otherwise."""
+    return current_context().torch_device
 
 
 def resolve(device: DeviceLike = None) -> torch.device:
-    """``device`` as a ``torch.device`` (default: :func:`default_device`).
-    Raises :class:`MXNetError` for a CUDA device when CUDA is unavailable."""
-    dev = default_device() if device is None else torch.device(device)
+    """``device`` (a ``torch.device``, its name, a :class:`Context`, or None
+    for :func:`current_context`) as a ``torch.device``.  Raises
+    :class:`MXNetError` for a CUDA device when CUDA is unavailable."""
+    if device is None:
+        dev = default_device()
+    elif isinstance(device, Context):
+        dev = device.torch_device
+    else:
+        dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise MXNetError(
                 "device %s requested%s but torch.cuda.is_available() is "
-                "False; pass device='cpu' to run on the CPU"
+                "False; pass device='cpu' or ctx=mx.cpu() to run on the CPU"
                 % (dev, " (the default)" if device is None else ""))
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())

@@ -16,6 +16,14 @@ Counterpart of ``mxnet_tpu/gluon/block.py``.  What differs, and why:
   eagerly, and CUDA graphs are a later change.
 * :func:`functionalize` lifts a block into ``(pure_fn, params)``, the
   bridge ``parallel.TrainStep`` trains through, as in the JAX package.
+* A block called with ``NDArray`` inputs (the imperative front end) unwraps
+  them, runs with grad enabled only under ``autograd.record()`` and in
+  training mode exactly when ``autograd.is_training()``, as gluon blocks
+  read it, and returns NDArrays.  Its parameters' gradients are written by
+  ``autograd.backward`` with the gluon default ``grad_req='write'`` (a
+  parameter's ``grad_req`` attribute, where set, says otherwise).  A call
+  with plain tensors, as ``Servable`` and ``TrainStep`` make them, is
+  ``torch.nn.Module``'s own.
 """
 from __future__ import annotations
 
@@ -25,9 +33,11 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
+from .. import autograd
 from .. import initializer as _init
 from ..base import MXNetError
 from ..device import DeviceLike, resolve
+from ..ndarray.ndarray import NDArray
 
 __all__ = ["Block", "HybridBlock", "to_dtype", "meta_parameter",
            "functionalize"]
@@ -103,6 +113,33 @@ class Block(torch.nn.Module):
 
     def hybridize(self, active: bool = True, **kwargs) -> None:
         """No-op: PyTorch runs eagerly; CUDA graphs are a later change."""
+
+    def __call__(self, *args, **kwargs):
+        if not any(isinstance(a, NDArray)
+                   for a in args + tuple(kwargs.values())):
+            return super().__call__(*args, **kwargs)
+        args = tuple(a.data if isinstance(a, NDArray) else a for a in args)
+        kwargs = {k: v.data if isinstance(v, NDArray) else v
+                  for k, v in kwargs.items()}
+        modes = [(m, m.training) for m in self.modules()]
+        self.train(autograd.is_training())
+        try:
+            with (torch.enable_grad() if autograd.is_recording()
+                  else torch.no_grad()):
+                out = super().__call__(*args, **kwargs)
+        finally:
+            for m, mode in modes:
+                m.training = mode
+        return _wrap(out)
+
+
+def _wrap(out):
+    """A forward's tensors (alone, or in a tuple or list) as NDArrays."""
+    if isinstance(out, torch.Tensor):
+        return NDArray(out)
+    if isinstance(out, (tuple, list)):
+        return type(out)(_wrap(o) for o in out)
+    return out
 
 
 class HybridBlock(Block):

@@ -12,6 +12,14 @@ Each kernel has its own launch counter, kept by its library and raised by
 its wrapper where it launches the kernel and nowhere else;
 :func:`launch_counts` reads them all and :func:`reset_launches` sets them
 to 0.
+
+A :class:`SourceLibrary` is built the same way from source *text* (the
+user kernels of ``tpu_kernel``): the text is written to
+``_build/<name>-<hash>.cu`` and compiled with the same flags, and the
+library is named by the hash of the text, so a new body gives a new
+library.  :func:`add_user_library` records the newest library of each user
+kernel; its counter appears in :func:`launch_counts` as
+``tpu_kernel:<name>`` once that library is loaded on the card.
 """
 from __future__ import annotations
 
@@ -27,8 +35,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..base import MXNetError
 
-__all__ = ["KernelLibrary", "FLASH_FWD", "FLASH_BWD", "build_all",
-           "launch_counts", "reset_launches", "nvcc_path"]
+__all__ = ["KernelLibrary", "SourceLibrary", "FLASH_FWD", "FLASH_BWD",
+           "build_all", "add_user_library", "launch_counts",
+           "reset_launches", "nvcc_path"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -77,8 +86,11 @@ class KernelLibrary:
         self.launches: Dict[str, int] = {k: 0 for k in kernels}
         self._count_lock = threading.Lock()
 
+    def source_bytes(self) -> bytes:
+        return self.source.read_bytes()
+
     def library_path(self) -> Path:
-        digest = hashlib.sha1(self.source.read_bytes()
+        digest = hashlib.sha1(self.source_bytes()
                               + " ".join(NVCC_FLAGS).encode()).hexdigest()
         return BUILD_DIR / ("lib%s-%s.so" % (self.name, digest[:12]))
 
@@ -86,12 +98,16 @@ class KernelLibrary:
         """Start ``nvcc`` into a temporary file; :meth:`_finish_build`
         waits for it and moves the library into place."""
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        self._write_source()
         out = self.library_path()
         tmp = out.with_name(out.name + ".%d.tmp" % os.getpid())
         cmd = [nvcc_path()] + NVCC_FLAGS + ["-o", str(tmp), str(self.source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         return proc, tmp, time.perf_counter()
+
+    def _write_source(self) -> None:
+        """A ``csrc/`` source is already on disk."""
 
     def _finish_build(self, proc: subprocess.Popen, tmp: Path,
                       t0: float) -> None:
@@ -138,6 +154,25 @@ class KernelLibrary:
             raise MXNetError("%s: CUDA error %d (%s)" % (what, err, msg))
 
 
+class SourceLibrary(KernelLibrary):
+    """A library built from source text rather than a ``csrc/`` file."""
+
+    def __init__(self, name: str, text: str, signatures: Dict[str, tuple],
+                 kernels: Sequence[str]):
+        self.text = text
+        super().__init__(name, signatures, kernels)
+        self.source = self.library_path().with_suffix(".cu")
+
+    def source_bytes(self) -> bytes:
+        return self.text.encode()
+
+    def _write_source(self) -> None:
+        tmp = self.source.with_name(self.source.name + ".%d.tmp"
+                                    % os.getpid())
+        tmp.write_text(self.text)
+        os.replace(tmp, self.source)
+
+
 _ERR_STRING = {"mx_cuda_error_string": ([_c_int], ctypes.c_char_p)}
 
 FLASH_FWD = KernelLibrary("flash_fwd", dict(_ERR_STRING, mx_flash_fwd=(
@@ -155,15 +190,37 @@ FLASH_BWD = KernelLibrary("flash_bwd", dict(
 
 LIBRARIES: List[KernelLibrary] = [FLASH_FWD, FLASH_BWD]
 
+# the newest library of each user kernel, by kernel name
+_USER_LIBRARIES: Dict[str, SourceLibrary] = {}
+_USER_LOCK = threading.Lock()
 
-def build_all() -> Dict[str, float]:
-    """Build every kernel library that is not built yet, one ``nvcc``
-    process each, all running at once; then load them all.  Returns the
-    build seconds by library name."""
-    pending, errors = [], []
+
+def add_user_library(kernel: str, lib: SourceLibrary) -> None:
+    """Make ``lib`` the library whose counter reports user kernel
+    ``kernel`` (a re-registered kernel's new body replaces its old one)."""
+    with _USER_LOCK:
+        _USER_LIBRARIES[kernel] = lib
+
+
+def _counted_libraries() -> List[KernelLibrary]:
+    with _USER_LOCK:
+        users = [lib for lib in _USER_LIBRARIES.values()
+                 if lib._lib is not None]
+    return LIBRARIES + users
+
+
+def build_all(libraries: Optional[Sequence[KernelLibrary]] = None
+              ) -> Dict[str, float]:
+    """Build every library of ``libraries`` (default: the ``csrc/`` ones)
+    that is not built yet, one ``nvcc`` process each, all running at once;
+    then load them all.  Returns the build seconds by library name."""
+    libraries = LIBRARIES if libraries is None else list(libraries)
+    pending, errors, paths = [], [], set()
     try:
-        for lib in LIBRARIES:
-            if lib._lib is None and not lib.library_path().exists():
+        for lib in libraries:
+            path = lib.library_path()
+            if lib._lib is None and not path.exists() and path not in paths:
+                paths.add(path)     # one nvcc for libraries of one source
                 pending.append((lib, lib._start_build()))
     finally:
         # wait for every nvcc that started, even after a failure
@@ -174,15 +231,16 @@ def build_all() -> Dict[str, float]:
                 errors.append(e)
     if errors:
         raise errors[0]
-    for lib in LIBRARIES:
+    for lib in libraries:
         lib.load()
-    return {lib.name: lib.build_seconds or 0.0 for lib in LIBRARIES}
+    return {lib.name: lib.build_seconds or 0.0 for lib in libraries}
 
 
 def launch_counts() -> Dict[str, int]:
-    """A copy of every kernel's launch count, by kernel name."""
+    """A copy of every kernel's launch count, by kernel name: the
+    ``csrc/`` kernels always, a user kernel once its library is loaded."""
     out: Dict[str, int] = {}
-    for lib in LIBRARIES:
+    for lib in _counted_libraries():
         with lib._count_lock:
             out.update(lib.launches)
     return out
@@ -190,5 +248,5 @@ def launch_counts() -> Dict[str, int]:
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    for lib in LIBRARIES:
+    for lib in _counted_libraries():
         lib.reset_launches()

@@ -3,6 +3,8 @@
 Counterpart of the matching entries of ``mxnet_tpu/ops/nn.py`` and
 ``mxnet_tpu/ops/matrix.py`` (``Embedding``, ``pick``).  Plain matrix products stay
 with PyTorch's library kernels, as the JAX package left them to XLA.
+``softmax``, ``log_softmax`` and ``Dropout`` are also registered ops of
+``ops/registry.py``, under the reference's names.
 """
 from __future__ import annotations
 
@@ -12,11 +14,13 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..base import torch_dtype
 from .attention import attention_core
+from .registry import register
 
 __all__ = ["fully_connected", "activation", "gelu", "layer_norm",
            "embedding", "multi_head_attention", "softmax", "log_softmax",
-           "softmax_cross_entropy", "pick"]
+           "softmax_cross_entropy", "pick", "dropout"]
 
 
 def fully_connected(data: torch.Tensor, weight: torch.Tensor,
@@ -110,7 +114,7 @@ def softmax(data: torch.Tensor, axis: int = -1,
     out = torch.softmax(x, dim=axis)
     if use_length and length is not None:
         out = torch.nan_to_num(out, nan=0.0)
-    return out.to(dtype or data.dtype)
+    return out.to(torch_dtype(dtype) if dtype else data.dtype)
 
 
 def log_softmax(data: torch.Tensor, axis: int = -1,
@@ -118,7 +122,8 @@ def log_softmax(data: torch.Tensor, axis: int = -1,
                 dtype=None) -> torch.Tensor:
     """Log-softmax over ``axis``, in ``dtype`` or data's dtype."""
     x = data if temperature in (None, 1.0) else data / temperature
-    return torch.log_softmax(x, dim=axis).to(dtype or data.dtype)
+    return torch.log_softmax(x, dim=axis).to(
+        torch_dtype(dtype) if dtype else data.dtype)
 
 
 def pick(x: torch.Tensor, index: torch.Tensor, axis: int = -1,
@@ -141,3 +146,27 @@ def softmax_cross_entropy(data: torch.Tensor,
     lab = label.long()
     valid = (lab >= 0) & (lab < data.shape[-1])
     return -pick(logp, lab, axis=-1).masked_fill(~valid, 0.0).sum()
+
+
+register("softmax", softmax, aliases=["Softmax"])
+register("log_softmax", log_softmax)
+
+
+@register("Dropout", aliases=["dropout"])
+def dropout(data: torch.Tensor, p: float = 0.5, mode: str = "training",
+            axes=(), cudnn_off: bool = False, training: bool = True,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The ``Dropout`` op: with ``training``, each entry is kept with
+    probability ``1 - p`` and scaled by ``1 / (1 - p)``; ``axes`` share one
+    draw along those axes.  Masks come from ``generator``, or from torch's
+    default generator of the data's device (seeded by ``torch.manual_seed``,
+    the role of ``mx.random.seed``).  The block :class:`gluon.nn.Dropout`
+    asks for an explicit generator instead."""
+    if not training or p <= 0.0:
+        return data
+    shape = list(data.shape)
+    for a in axes:
+        shape[a] = 1
+    keep = 1.0 - p
+    mask = torch.rand(shape, generator=generator, device=data.device) < keep
+    return data * mask.to(data.dtype) / keep

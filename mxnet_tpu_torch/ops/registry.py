@@ -1,0 +1,128 @@
+"""Operator registry.
+
+Counterpart of ``mxnet_tpu/ops/registry.py`` (the nnvm op registry's role:
+``NNVM_REGISTER_OP``, ``FCompute``, ``FGradient``).  Each entry is an
+:class:`OpDef` keyed by op name: ``fn(*tensors, **params)`` computes the op
+on ``torch.Tensor``s, ``differentiable`` says whether dispatch records it
+for autograd (torch autograd differentiates ``fn`` itself, which plays the
+FGradient role), and ``num_outputs`` is 1, n, or 0 for a variable count.
+
+The reference's per-op jit cache is not ported: PyTorch dispatches
+eagerly, so re-registering a name replaces its ``OpDef`` and nothing else
+needs evicting.
+"""
+from __future__ import annotations
+
+import inspect
+import numbers
+from typing import Callable, Dict, Optional, Sequence
+
+__all__ = ["OpDef", "register", "get_op", "list_ops", "alias"]
+
+_REGISTRY: Dict[str, "OpDef"] = {}
+
+
+class OpDef:
+    __slots__ = ("name", "fn", "differentiable", "num_outputs", "doc",
+                 "_pos_params")
+
+    def __init__(self, name: str, fn: Callable, differentiable: bool = True,
+                 num_outputs: int = 1, doc: Optional[str] = None):
+        self.name = name
+        self.fn = fn
+        self.differentiable = differentiable
+        self.num_outputs = num_outputs
+        self.doc = doc or (fn.__doc__ or "")
+        self._pos_params = None
+
+    def pos_params(self):
+        """[(name, has_default)] for ``fn``'s positional parameters (stops
+        at ``*args``)."""
+        if self._pos_params is None:
+            info = []
+            try:
+                for p in inspect.signature(self.fn).parameters.values():
+                    if p.kind not in (p.POSITIONAL_ONLY,
+                                      p.POSITIONAL_OR_KEYWORD):
+                        break
+                    info.append((p.name, p.default is not p.empty))
+            except (TypeError, ValueError):
+                pass
+            self._pos_params = tuple(info)
+        return self._pos_params
+
+    def split_pos_attrs(self, inputs, params, tensor_cls):
+        """The classic-API convention: a plain value (number, tuple, list,
+        str) in a positional slot whose parameter HAS a default is an
+        attribute and moves into ``params`` (``nd.expand_dims(x, 0)``,
+        ``nd.reshape(x, (2, 3))``); a slot without a default keeps a number
+        as an operand (``broadcast_add(x, 1.5)``).  Raises on a value given
+        both positionally and by keyword.  Returns the remaining inputs."""
+        def plain(x):
+            return isinstance(x, (numbers.Number, tuple, list, str)) \
+                and not isinstance(x, tensor_cls)
+
+        if not any(plain(x) for x in inputs):
+            return inputs
+        info = self.pos_params()
+        kept = []
+        for i, x in enumerate(inputs):
+            if plain(x) and i < len(info) and info[i][1]:
+                name = info[i][0]
+                if name in params:
+                    raise TypeError("%s: got multiple values for %r "
+                                    "(positional and keyword)"
+                                    % (self.name, name))
+                params[name] = x
+            else:
+                kept.append(x)
+        return tuple(kept)
+
+    def __repr__(self):
+        return "OpDef(%s)" % self.name
+
+
+def register(name: str, fn: Optional[Callable] = None, *,
+             differentiable: bool = True, num_outputs: int = 1,
+             aliases: Sequence[str] = (), replace: bool = False):
+    """Register an op; usable as a decorator or a direct call.
+
+    A name (or alias) already registered raises unless ``replace=True``,
+    which is for deliberate re-registration (a user kernel iterated on
+    through :func:`mxnet_tpu_torch.tpu_kernel.register`)."""
+
+    def _do(f: Callable) -> Callable:
+        taken = [n for n in (name,) + tuple(aliases) if n in _REGISTRY]
+        if taken and not replace:
+            raise ValueError(
+                "op %r is already registered (to %r); pass replace=True "
+                "only for deliberate user-kernel re-registration"
+                % (taken[0], _REGISTRY[taken[0]].fn))
+        op = OpDef(name, f, differentiable=differentiable,
+                   num_outputs=num_outputs)
+        for n in (name,) + tuple(aliases):
+            _REGISTRY[n] = op
+        return f
+
+    if fn is None:
+        return _do
+    return _do(fn)
+
+
+def alias(name: str, *names: str) -> None:
+    op = _REGISTRY[name]
+    for n in names:
+        _REGISTRY[n] = op
+
+
+def get_op(name: str) -> OpDef:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError("Operator %r is not registered (have %d ops)"
+                       % (name, len(set(_REGISTRY.values())))) from None
+
+
+def list_ops():
+    """All registered op names (reference: MXListAllOpNames)."""
+    return sorted(_REGISTRY.keys())
