@@ -9,13 +9,18 @@ Phases (each raises on failure, so any failure exits nonzero):
 
 1. device  -- require CUDA; print the card's name and power limit.
 2. build   -- build every hand-written kernel from ``mxnet_tpu_torch/csrc``
-   (one ``nvcc`` per source, all started together).
+   (one ``nvcc`` per source, all started together); print each flash
+   instantiation's registers, spill bytes (``-Xptxas -v``) and dynamic
+   shared memory.
 3. kernels -- hold each kernel against its plain PyTorch version on the card
-   at the main paths' shapes (and ragged/causal edge cases), and time the
-   kernel, the plain version and the PyTorch library call: K1 (flash
-   forward), then K2 and K3 (flash backward: dQ, and dK/dV), which must
-   also repeat bitwise, and the LSE-cotangent rule once against autograd
-   through the plain forward.
+   at the main paths' shapes (and ragged/causal edge cases, each in fp32
+   and bf16), and time the kernel, the plain version and the PyTorch
+   library call (by CUDA events around back-to-back calls; the kernel and
+   the library call also by device time from a profiler trace): K1 (flash
+   forward; bf16 on tensor cores), then K2 and K3 (flash backward: dQ, and
+   dK/dV; K3's bf16 on tensor cores), which must also repeat bitwise, and the LSE-cotangent rule once against autograd
+   through the plain forward.  K1's and K3's bf16 times at the training
+   shape are printed as multiples of the SDPA forward and backward.
 4. slice   -- the serving path: BERT-base (12 x 768 x 12, fp32, T = 512,
    seeded random weights) behind Servable -> ModelHost.deploy -> Batcher ->
    ServeServer/serve_forever, answering 32 PREDICT requests from 8
@@ -63,6 +68,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import socket
 import subprocess
 import threading
@@ -130,10 +136,62 @@ def phase_build():
     secs = _kernels.build_all()
     log("build: %s in %.2f s wall" % (json.dumps(secs),
                                       time.perf_counter() - t0))
-    for lib in _kernels.LIBRARIES:
+    for r in flash_instantiations():
+        log("build: flash instantiation %s" % json.dumps(r))
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_SPILLS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                     r"(\d+) bytes spill loads")
+_KERNEL = re.compile(r"(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_bf16)?_kernel)I"
+                     r"(f|13__nv_bfloat16)?Li(\d+)E")
+
+
+def flash_instantiations():
+    """Each flash kernel instantiation's registers, spill bytes and stack
+    (``nvcc -Xptxas -v`` in the libraries' build logs) and the dynamic
+    shared memory its launch asks for (the libraries'
+    ``mx_flash_*_smem``)."""
+    from mxnet_tpu_torch.ops import _kernels
+    out = []
+    for lib in (_kernels.FLASH_FWD, _kernels.FLASH_BWD):
+        cur = None
         for line in lib.build_log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log("build: %s: %s" % (lib.name, line.strip()))
+            m = _ENTRY.search(line)
+            if m:
+                k = _KERNEL.search(m.group(1))
+                cur = None if k is None else {
+                    "kernel": k.group(1),
+                    "dtype": "float32" if k.group(2) == "f" else "bfloat16",
+                    "d": int(k.group(3))}
+                if cur is not None:
+                    out.append(cur)
+                continue
+            if cur is None:
+                continue
+            m = _SPILLS.search(line)
+            if m:
+                cur.update(stack_bytes=int(m.group(1)),
+                           spill_store_bytes=int(m.group(2)),
+                           spill_load_bytes=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+                st = re.search(r"(\d+) bytes smem", line)
+                cur["static_smem_bytes"] = int(st.group(1)) if st else 0
+    for r in out:
+        code = 0 if r["dtype"] == "float32" else 1
+        if r["kernel"].startswith("flash_fwd"):
+            smem = _kernels.FLASH_FWD.load().mx_flash_fwd_smem(r["d"], code)
+        else:
+            smem = _kernels.FLASH_BWD.load().mx_flash_bwd_smem(
+                int("dkv" in r["kernel"]), r["d"], code)
+        r["dynamic_smem_bytes"] = smem
+    if len(out) != 12:
+        raise RuntimeError("expected 12 flash instantiations in the build "
+                           "logs (K1, K2, K3 x fp32, bf16 x D 64, 128), "
+                           "found %s" % out)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +212,27 @@ def time_ms(fn, iters=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20, warmup=3):
+    """Mean device milliseconds per call from a torch.profiler trace of
+    ``iters`` back-to-back calls after ``warmup``: the summed time of what
+    the calls ran on the card, without the gaps that the CUDA events of
+    :func:`time_ms` also count when the host launches slower than the card
+    runs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / iters
 
 
 def compare(got, want, tol):
@@ -203,9 +282,13 @@ KERNEL_CASES = [
     ("ragged-causal", 2, 3, 200, 200, 128, torch.float32, True, False),
     ("ragged-causal", 2, 3, 200, 200, 128, torch.bfloat16, True, False),
     ("top-left-causal", 2, 3, 64, 128, 64, torch.float32, True, False),
+    ("top-left-causal", 2, 3, 64, 128, 64, torch.bfloat16, True, False),
     ("ragged-cross", 2, 3, 77, 333, 64, torch.float32, False, False),
+    ("ragged-cross", 2, 3, 77, 333, 64, torch.bfloat16, False, False),
     ("causal", 8, 12, 512, 512, 64, torch.float32, True, False),
+    ("causal", 8, 12, 512, 512, 64, torch.bfloat16, True, False),
     ("d128", 2, 8, 512, 512, 128, torch.float32, False, False),
+    ("d128", 2, 8, 512, 512, 128, torch.bfloat16, False, False),
 ]
 
 
@@ -240,19 +323,32 @@ def phase_kernels(peaks):
         ops, nbytes = flash_work(B, H, Tq, Tk, D, causal, itemsize)
         flops_peak = peaks["fp32" if dtype == torch.float32 else "bf16"]
         b_ms, b_by = bound_ms(ops, nbytes, flops_peak, peaks["hbm"])
+        run = lambda: att.flash_attention_with_lse(  # noqa: E731
+            q, k, v, scale, causal)
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=causal, scale=scale)
         rec = {
-            "kernel_ms": time_ms(lambda: att.flash_attention_with_lse(
-                q, k, v, scale, causal)),
+            "kernel_ms": time_ms(run),
             "plain_ms": time_ms(lambda: att.flash_attention_plain(
                 q, k, v, scale, causal)),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=causal, scale=scale)),
+            "library_ms": time_ms(sdpa),
+            "device_ms": device_ms(run), "library_device_ms": device_ms(sdpa),
             "bound_ms": b_ms, "bound_by": b_by, "gflop": ops / 1e9,
             "mbytes": nbytes / 1e6, "max_abs_err": max(err_o, err_l)}
-        rec["tflops"] = ops / rec["kernel_ms"] / 1e9
+        add_ratios(rec, ops)
         log("kernels: timing %s %s" % (tag, json.dumps(rec)))
         results[(name, dtype)] = rec
     return results
+
+
+def add_ratios(rec, ops):
+    """The rate and the kernel's time over the library call's and over the
+    bound, by CUDA events (``x_``) and by device time (``device_x_``)."""
+    rec["tflops"] = ops / rec["kernel_ms"] / 1e9
+    rec["x_library"] = rec["kernel_ms"] / rec["library_ms"]
+    rec["x_bound"] = rec["kernel_ms"] / rec["bound_ms"]
+    rec["device_x_library"] = rec["device_ms"] / rec["library_device_ms"]
+    rec["device_x_bound"] = rec["device_ms"] / rec["bound_ms"]
 
 
 def bwd_work(kernel, B, H, Tq, Tk, D, causal, itemsize):
@@ -276,9 +372,13 @@ BWD_CASES = [
     ("bert-train", 16, 12, 512, 512, 64, torch.float32, False, True),
     ("bert-train", 16, 12, 512, 512, 64, torch.bfloat16, False, True),
     ("causal-d128", 2, 2, 512, 512, 128, torch.float32, True, False),
+    ("causal-d128", 2, 2, 512, 512, 128, torch.bfloat16, True, False),
     ("ragged-causal", 2, 2, 200, 200, 128, torch.float32, True, False),
+    ("ragged-causal", 2, 2, 200, 200, 128, torch.bfloat16, True, False),
     ("top-left-causal", 2, 2, 64, 128, 64, torch.float32, True, False),
+    ("top-left-causal", 2, 2, 64, 128, 64, torch.bfloat16, True, False),
     ("ragged-cross", 2, 2, 77, 333, 64, torch.float32, False, False),
+    ("ragged-cross", 2, 2, 77, 333, 64, torch.bfloat16, False, False),
 ]
 
 
@@ -340,25 +440,45 @@ def phase_bwd_kernels(peaks):
                 run = lambda: att._flash_bwd_dkv_cuda(*args)  # noqa: E731
                 plain = lambda: att.flash_bwd_dkv_plain(*args)  # noqa: E731
             rec = {"kernel_ms": time_ms(run), "plain_ms": time_ms(plain),
+                   "device_ms": device_ms(run),
                    "bound_ms": b_ms, "bound_by": b_by, "gflop": ops / 1e9,
-                   "mbytes": nbytes / 1e6,
+                   "mbytes": nbytes / 1e6, "ops": ops,
                    "max_abs_err": max(e[0] for e in errs)}
-            rec["tflops"] = ops / rec["kernel_ms"] / 1e9
             results[(kern, dtype)] = rec
         if timed:
             qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
             out = F.scaled_dot_product_attention(qg, kg, vg,
                                                  is_causal=causal,
                                                  scale=scale)
-            lib_ms = time_ms(lambda: torch.autograd.grad(
-                out, (qg, kg, vg), do, retain_graph=True))
-            del out, qg, kg, vg
+            sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+                out, (qg, kg, vg), do, retain_graph=True)
+            lib_ms, lib_dev_ms = time_ms(sdpa_bwd), device_ms(sdpa_bwd)
+            del out, qg, kg, vg, sdpa_bwd
             for kern in ("flash_bwd_dq", "flash_bwd_dkv"):
-                results[(kern, dtype)]["library_ms"] = lib_ms
-                log("kernels: timing %s %s %s" % (
-                    kern, tag, json.dumps(results[(kern, dtype)])))
+                rec = results[(kern, dtype)]
+                rec.update(library_ms=lib_ms, library_device_ms=lib_dev_ms)
+                add_ratios(rec, rec.pop("ops"))
+                log("kernels: timing %s %s %s" % (kern, tag,
+                                                  json.dumps(rec)))
     check_lse_rule()
     return results
+
+
+def log_library_ratios(fwd, bwd):
+    """K1 and K3 in bf16 at the training shape against one PyTorch call in
+    the same run: the forward, and the whole backward (dQ, dK and dV), of
+    scaled_dot_product_attention."""
+    k1 = fwd[("bert-train", torch.bfloat16)]
+    k3 = bwd[("flash_bwd_dkv", torch.bfloat16)]
+    for how, key in (("CUDA events", ""), ("device time", "device_")):
+        ms = "kernel_ms" if not key else "device_ms"
+        log("kernels: bf16 B=16 H=12 T=512 D=64, by %s: K1 %.4f ms = %.2fx "
+            "the SDPA forward (%.4f ms), %.2fx its bound; K3 %.4f ms = "
+            "%.2fx the SDPA backward (%.4f ms, dQ+dK+dV), %.2fx its bound"
+            % (how, k1[ms], k1[key + "x_library"],
+               k1["library_" + key + "ms"], k1[key + "x_bound"], k3[ms],
+               k3[key + "x_library"], k3["library_" + key + "ms"],
+               k3[key + "x_bound"]))
 
 
 def check_lse_rule():
@@ -588,7 +708,7 @@ def traced_burst(port, tokens, types, sv):
         torch.cuda.synchronize()
     busy = device_busy_ms(prof)
     flash = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
-                and "flash_fwd_kernel" in e.name)
+                and "flash_fwd_" in e.name)
     rec = {"traced_wall_ms": wall * 1e3, "device_busy_ms": busy,
            "device_idle_share": 1.0 - busy / (wall * 1e3),
            "traced_batches": sv.batches - batches0,
@@ -828,12 +948,15 @@ def phase_train(peaks):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     total, busy, by_name = log_kernel_breakdown("train", prof, top=14)
-    attn = {k: sum(ms for n, (ms, _) in by_name.items() if k in n)
-            for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                      "flash_bwd_dkv_kernel")}
+    # by kernel name prefix: fp32 and bf16 instantiations alike
+    attn = {k: sum(ms for n, (ms, _) in by_name.items() if k + "_" in n)
+            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
     rec.update({"traced_step_wall_ms": wall_ms, "device_busy_ms": busy,
+                "traced_device_ms": total,
                 "device_idle_share": 1.0 - busy / wall_ms,
                 "attention_kernels_ms": attn,
+                "attention_kernels_share": {k: ms / total
+                                            for k, ms in attn.items()},
                 "attention_share_of_device_time": sum(attn.values()) / total})
     log("train: %s" % json.dumps(rec))
     return launches, rec["step_ms"]
@@ -1251,17 +1374,25 @@ def phase_imperative(train_step_ms):
     return launches
 
 
-def kernel_row(name, source, replaces, launches, fp32, bf16):
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": sum(launches.values()),
-            "launches_by_path": launches,
-            "max_abs_err": fp32["max_abs_err"], "ms": fp32["kernel_ms"],
-            "plain_ms": fp32["plain_ms"], "bound_ms": fp32["bound_ms"],
-            "bound_by": fp32["bound_by"], "library_ms": fp32["library_ms"],
-            "bf16_max_abs_err": bf16["max_abs_err"],
-            "bf16_ms": bf16["kernel_ms"], "bf16_plain_ms": bf16["plain_ms"],
-            "bf16_bound_ms": bf16["bound_ms"],
-            "bf16_library_ms": bf16["library_ms"]}
+def kernel_row(name, source, replaces, launches, fp32, bf16, extra=None):
+    """One entry of the kernels line: the fp32 figures under the contract's
+    keys, the bf16 ones under ``bf16_``, and those of ``extra`` (another
+    shape) under its own prefix; ``bound_by`` is the fp32 case's."""
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": sum(launches.values()),
+           "launches_by_path": launches, "bound_by": fp32["bound_by"]}
+    for prefix, rec in [("", fp32), ("bf16_", bf16)] + sorted(
+            (extra or {}).items()):
+        row.update({prefix + "max_abs_err": rec["max_abs_err"],
+                    prefix + "ms": rec["kernel_ms"],
+                    prefix + "plain_ms": rec["plain_ms"],
+                    prefix + "bound_ms": rec["bound_ms"],
+                    prefix + "library_ms": rec["library_ms"]})
+        if "device_ms" in rec:
+            row.update({prefix + "device_ms": rec["device_ms"],
+                        prefix + "library_device_ms":
+                            rec["library_device_ms"]})
+    return row
 
 
 def main():
@@ -1269,6 +1400,7 @@ def main():
     phase_build()
     fwd = phase_kernels(peaks)
     bwd = phase_bwd_kernels(peaks)
+    log_library_ratios(fwd, bwd)
     net, sv, answers, serve_launches = phase_slice()
     tokens, types = make_requests()
     phase_breakdown(sv, tokens, types)
@@ -1290,7 +1422,8 @@ def main():
     kernels = [
         kernel_row("flash_fwd", "mxnet_tpu_torch/csrc/flash_fwd.cu",
                    "mxnet_tpu/ops/attention.py:148", by_path["flash_fwd"],
-                   fwd[("bert-base", fp32)], fwd[("bert-base", bf16)]),
+                   fwd[("bert-base", fp32)], fwd[("bert-base", bf16)],
+                   {"bf16_train_": fwd[("bert-train", bf16)]}),
         kernel_row("flash_bwd_dq", "mxnet_tpu_torch/csrc/flash_bwd.cu",
                    "mxnet_tpu/ops/attention.py:260", by_path["flash_bwd_dq"],
                    bwd[("flash_bwd_dq", fp32)], bwd[("flash_bwd_dq", bf16)]),

@@ -40,12 +40,35 @@
 // (q, k) pair of the tile can see are skipped.  wgmma/TMA pipelines are later
 // work.
 //
+// K3 in bfloat16 runs on the tensor cores instead (mma.sync m16n8k16,
+// helpers in mma_bf16.cuh); K2 in bfloat16 and both kernels in float32 run
+// the CUDA-core design above.  128 threads; warp w owns key rows 16w ..
+// 16w+15 of the block's 64-row key tile, which stays in shared memory with
+// the V tile (bf16, XOR-swizzled, filled by 16-byte cp.async copies).  Query
+// tiles of BQ rows (64 at D = 64, 32 at D = 128) stream Q, dO and O through
+// a two-stage ring, so tile i+1 loads while tile i is computed.  Per query
+// tile: delta = rowsum(dO * O) and the LSE of its rows into shared memory;
+// then per slice of 32 queries (the dK and dV accumulators take D registers
+// a thread, 128 at D = 128, so the S^T and dP^T tiles stay small):
+// S^T = K Q^T and dP^T = V dO^T (all four operands by ldmatrix); P^T =
+// exp(scale S^T - LSE) and dS^T = P^T (dP^T - delta) in the accumulators;
+// then dV += P^T dO and dK += dS^T Q, P^T and dS^T taken from registers
+// (hi + lo bf16, as in K1) and dO and Q by ldmatrix.trans.  dK is
+// scaled once on store; dK and dV are staged through the warp's rows of the
+// K and V tiles for 16-byte stores.  The order of every sum is fixed and
+// there are no atomics, so the results repeat bitwise.  At the training
+// shape K3 moves 88 MB and needs 25.8 GFLOP (38.7 GFLOP issued with the
+// hi/lo products): 0.026 ms at 3.35 TB/s against 0.026 ms (0.039 ms) at 989
+// TFLOP/s.
+//
 // Interface: plain C, loaded with ctypes.  Pointers and the stream are void*;
 // each entry point returns cudaGetLastError() after its launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -398,6 +421,240 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// K3 in bfloat16: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kTcThreads = 128;  // four warps, 16 key rows each
+constexpr float kLog2e = 1.4426950408889634f;
+
+// query rows of K3's streamed tiles (64 at D = 64; 32 at D = 128, where the
+// ring of three D-wide tiles would otherwise leave room for one block an SM);
+// each is computed in slices of 32 queries, so S^T and dP^T take 32
+// registers a thread beside the 2 * D / 2 of dK and dV
+__host__ __device__ constexpr int dkv_tile_q(int d) { return d == 64 ? 64 : 32; }
+
+template <int D>
+constexpr size_t dkv_bf16_smem_bytes() {
+  // K and V tiles, a two-stage ring of Q, dO and O tiles (bf16), and the LSE
+  // and delta of the current query tile (fp32)
+  return sizeof(__nv_bfloat16) *
+             (size_t(2) * kTile * D + size_t(6) * dkv_tile_q(D) * D) +
+         sizeof(float) * 2 * dkv_tile_q(D);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, D == 64 ? 3 : 1)
+flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ o,
+                          const __nv_bfloat16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, int tq, int tk,
+                          float scale, int causal) {
+  using namespace mma_bf16;
+  constexpr int BQ = dkv_tile_q(D);
+  constexpr int kSub = 32;
+  constexpr int kQElems = BQ * D;
+  extern __shared__ uint4 smem_tc[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_tc);
+  bf16* vs = ks + kTile * D;
+  bf16* ring = vs + kTile * D;  // stage s: Q, dO, O at ring + (3s + i) kQElems
+  float* lse_s = reinterpret_cast<float*>(ring + 6 * kQElems);
+  float* delta_s = lse_s + BQ;
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kTile;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bf16* qb = q + size_t(bh) * tq * D;
+  const bf16* ob = o + size_t(bh) * tq * D;
+  const bf16* dob = dout + size_t(bh) * tq * D;
+  const float* lseb = lse + size_t(bh) * tq;
+
+  // causal: query rows before k0 see no key of this tile (the reference's
+  // qb_start); BQ divides 64, so the first query tile starts at k0
+  const int num_qt = (tq + BQ - 1) / BQ;
+  const int qt0 = causal ? k0 / BQ : 0;
+  cp_async_tile<kTile, D, kTcThreads>(ks, k + size_t(bh) * tk * D, k0, tk, tid);
+  cp_async_tile<kTile, D, kTcThreads>(vs, v + size_t(bh) * tk * D, k0, tk, tid);
+  if (qt0 < num_qt) {
+    cp_async_tile<BQ, D, kTcThreads>(ring, qb, qt0 * BQ, tq, tid);
+    cp_async_tile<BQ, D, kTcThreads>(ring + kQElems, dob, qt0 * BQ, tq, tid);
+    cp_async_tile<BQ, D, kTcThreads>(ring + 2 * kQElems, ob, qt0 * BQ, tq, tid);
+  }
+  cp_async_commit();
+
+  float adk[D / 8][4], adv[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
+  const float sl2 = scale * kLog2e;
+  const int kr0 = k0 + 16 * warp + g;  // this thread's key rows: kr0, kr0 + 8
+
+  for (int qt = qt0; qt < num_qt; ++qt) {
+    const int q0 = qt * BQ;
+    const int stage = (qt - qt0) & 1;
+    if (qt + 1 < num_qt) {
+      bf16* nxt = ring + 3 * (stage ^ 1) * kQElems;
+      cp_async_tile<BQ, D, kTcThreads>(nxt, qb, q0 + BQ, tq, tid);
+      cp_async_tile<BQ, D, kTcThreads>(nxt + kQElems, dob, q0 + BQ, tq, tid);
+      cp_async_tile<BQ, D, kTcThreads>(nxt + 2 * kQElems, ob, q0 + BQ, tq, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile qt (and K, V) has landed
+    __syncthreads();
+    const bf16* qst = ring + 3 * stage * kQElems;
+    const bf16* dost = qst + kQElems;
+    const bf16* ost = dost + kQElems;
+    float lse2 = -INFINITY;
+    bool row_ok;
+    {
+      // delta and LSE (log2 units) of the tile's BQ rows, kPer threads a row
+      constexpr int kPer = kTcThreads / BQ;
+      const int r = tid / kPer, part = tid % kPer;
+      float sum = 0.f;
+#pragma unroll
+      for (int c = part; c < D / 8; c += kPer) {
+        const uint4 a = *reinterpret_cast<const uint4*>(dost + swz<D>(r, 8 * c));
+        const uint4 b = *reinterpret_cast<const uint4*>(ost + swz<D>(r, 8 * c));
+        const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+        const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const float2 x = __bfloat1622float2(a2[h]);
+          const float2 y = __bfloat1622float2(b2[h]);
+          sum = fmaf(x.x, y.x, sum);
+          sum = fmaf(x.y, y.y, sum);
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < kPer; off <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (part == 0) {
+        delta_s[r] = sum;
+        lse2 = q0 + r < tq ? lseb[q0 + r] * kLog2e : -INFINITY;
+        lse_s[r] = lse2;
+      }
+      row_ok = part != 0 || isfinite(lse2);
+    }
+    // the mask is needed only where keys pass Tk, rows pass Tq or saw no
+    // key, or a (q, k) pair of the tile lies above the diagonal
+    const bool full = __syncthreads_and(row_ok) && k0 + kTile <= tk &&
+                      (!causal || q0 + 1 >= k0 + kTile);
+
+    // the tile's queries in slices of kSub, one slice's S^T and dP^T in
+    // registers at a time
+#pragma unroll 1
+    for (int c0 = 0; c0 < BQ; c0 += kSub) {
+      // S^T = K Q^T and dP^T = V dO^T: 16 key rows x kSub queries each
+      float s[kSub / 8][4], dp[kSub / 8][4];
+#pragma unroll
+      for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t ka[4], va[4];
+        ldsm_a<D>(ka, ks, 16 * warp, 16 * kk, lane);
+        ldsm_a<D>(va, vs, 16 * warp, 16 * kk, lane);
+#pragma unroll
+        for (int np = 0; np < kSub / 16; ++np) {
+          uint32_t b[4];
+          ldsm_b_nk<D>(b, qst, c0 + 16 * np, 16 * kk, lane);
+          mma(s[2 * np], ka, b[0], b[1]);
+          mma(s[2 * np + 1], ka, b[2], b[3]);
+          ldsm_b_nk<D>(b, dost, c0 + 16 * np, 16 * kk, lane);
+          mma(dp[2 * np], va, b[0], b[1]);
+          mma(dp[2 * np + 1], va, b[2], b[3]);
+        }
+      }
+
+      // P^T = exp(scale S^T - LSE) with the mask and the isfinite guard
+      // (keys past Tk, rows past Tq and rows that saw no key give 0 before
+      // any product), and dS^T = P^T (dP^T - delta), in place
+      const auto probs = [&](bool mask) {
+#pragma unroll
+        for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = c0 + 8 * j + 2 * t + (e & 1);
+            const int kr = kr0 + 8 * (e >> 1);
+            const float l2 = lse_s[c];
+            const bool ok = !mask || (kr < tk && (!causal || q0 + c >= kr) &&
+                                      isfinite(l2));
+            const float p = ok ? exp2_ftz(s[j][e] * sl2 - l2) : 0.f;
+            s[j][e] = p;
+            dp[j][e] = p * (dp[j][e] - delta_s[c]);
+          }
+      };
+      if (full)
+        probs(false);
+      else
+        probs(true);
+
+      // dV += P^T dO and dK += dS^T Q: P^T and dS^T (hi and lo) from the
+      // accumulators, dO and Q by ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < kSub / 16; ++kk) {
+        uint32_t ph[4], pl[4], dh[4], dl[4];
+        split_a(s[2 * kk], s[2 * kk + 1], ph, pl);
+        split_a(dp[2 * kk], dp[2 * kk + 1], dh, dl);
+#pragma unroll
+        for (int np = 0; np < D / 16; ++np) {
+          uint32_t b[4];
+          ldsm_b_kn<D>(b, dost, 16 * np, c0 + 16 * kk, lane);
+          mma(adv[2 * np], ph, b[0], b[1]);
+          mma(adv[2 * np + 1], ph, b[2], b[3]);
+          mma(adv[2 * np], pl, b[0], b[1]);
+          mma(adv[2 * np + 1], pl, b[2], b[3]);
+          ldsm_b_kn<D>(b, qst, 16 * np, c0 + 16 * kk, lane);
+          mma(adk[2 * np], dh, b[0], b[1]);
+          mma(adk[2 * np + 1], dh, b[2], b[3]);
+          mma(adk[2 * np], dl, b[0], b[1]);
+          mma(adk[2 * np + 1], dl, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before its refill
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // dK (scaled once) and dV through this warp's rows of the K and V tiles
+  acc_to_tile<D>(ks, 16 * warp, adk, scale, scale, lane);
+  acc_to_tile<D>(vs, 16 * warp, adv, 1.f, 1.f, lane);
+  __syncwarp();
+  store_rows16<D>(dk + size_t(bh) * tk * D, ks, 16 * warp, k0 + 16 * warp, tk,
+                  lane);
+  store_rows16<D>(dv + size_t(bh) * tk * D, vs, 16 * warp, k0 + 16 * warp, tk,
+                  lane);
+}
+
+template <int D>
+cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
+                            const void* o, const void* dout, const void* lse,
+                            void* dk, void* dv, int bh, int tq, int tk,
+                            float scale, int causal, cudaStream_t stream) {
+  const size_t smem = dkv_bf16_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_bf16_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (tk + kTile - 1) / kTile);
+  flash_bwd_dkv_bf16_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), tq, tk,
+      scale, causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -437,10 +694,23 @@ int mx_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (dtype == 0 && d == 128)
     return int(launch_dkv<float, 128>(q, k, v, o, dout, lse, dk, dv, bh, tq, tk, scale, causal, s));
   if (dtype == 1 && d == 64)
-    return int(launch_dkv<__nv_bfloat16, 64>(q, k, v, o, dout, lse, dk, dv, bh, tq, tk, scale, causal, s));
+    return int(launch_dkv_bf16<64>(q, k, v, o, dout, lse, dk, dv, bh, tq, tk, scale, causal, s));
   if (dtype == 1 && d == 128)
-    return int(launch_dkv<__nv_bfloat16, 128>(q, k, v, o, dout, lse, dk, dv, bh, tq, tk, scale, causal, s));
+    return int(launch_dkv_bf16<128>(q, k, v, o, dout, lse, dk, dv, bh, tq, tk, scale, causal, s));
   return int(cudaErrorInvalidValue);
+}
+
+// Bytes of dynamic shared memory the instantiation that mx_flash_bwd_dq
+// (dkv = 0) or mx_flash_bwd_dkv (dkv = 1) launches for (d, dtype) takes; 0
+// for one it does not take.
+int mx_flash_bwd_smem(int dkv, int d, int dtype) {
+  if (d != 64 && d != 128) return 0;
+  if (dtype == 0 || (dtype == 1 && !dkv))
+    return int(dkv ? (d == 64 ? dkv_smem_bytes<64>() : dkv_smem_bytes<128>())
+                   : (d == 64 ? dq_smem_bytes<64>() : dq_smem_bytes<128>()));
+  if (dtype == 1)
+    return int(d == 64 ? dkv_bf16_smem_bytes<64>() : dkv_bf16_smem_bytes<128>());
+  return 0;
 }
 
 const char* mx_cuda_error_string(int err) {

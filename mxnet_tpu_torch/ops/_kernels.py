@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface and loaded with :mod:`ctypes`.
 The build happens at first use, never at import: a machine without ``nvcc``
 or a card imports this module freely.  Libraries land in
-``mxnet_tpu_torch/_build/`` (git-ignored), named by a hash of their source so
-an edited source never loads a stale library.  :func:`build_all` builds
+``mxnet_tpu_torch/_build/`` (git-ignored), named by a hash of their source,
+of every ``csrc/*.cuh`` header beside it and of the flags, so an edited
+source or header never loads a stale library.  :func:`build_all` builds
 every library with one ``nvcc`` each, all started together, and loads them.
 
 Each kernel has its own launch counter, kept by its library and raised by
@@ -89,8 +90,14 @@ class KernelLibrary:
     def source_bytes(self) -> bytes:
         return self.source.read_bytes()
 
+    def header_bytes(self) -> bytes:
+        """The name and bytes of every ``*.cuh`` header in the source's
+        directory, any of which the source may include."""
+        return b"".join(h.name.encode() + b"\0" + h.read_bytes()
+                        for h in sorted(self.source.parent.glob("*.cuh")))
+
     def library_path(self) -> Path:
-        digest = hashlib.sha1(self.source_bytes()
+        digest = hashlib.sha1(self.source_bytes() + self.header_bytes()
                               + " ".join(NVCC_FLAGS).encode()).hexdigest()
         return BUILD_DIR / ("lib%s-%s.so" % (self.name, digest[:12]))
 
@@ -166,6 +173,10 @@ class SourceLibrary(KernelLibrary):
     def source_bytes(self) -> bytes:
         return self.text.encode()
 
+    def header_bytes(self) -> bytes:
+        """A body's text includes no header of ``csrc/``."""
+        return b""
+
     def _write_source(self) -> None:
         tmp = self.source.with_name(self.source.name + ".%d.tmp"
                                     % os.getpid())
@@ -175,17 +186,20 @@ class SourceLibrary(KernelLibrary):
 
 _ERR_STRING = {"mx_cuda_error_string": ([_c_int], ctypes.c_char_p)}
 
-FLASH_FWD = KernelLibrary("flash_fwd", dict(_ERR_STRING, mx_flash_fwd=(
-    [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-     _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_int, _c_void_p],
-    _c_int)), kernels=["flash_fwd"])
+FLASH_FWD = KernelLibrary("flash_fwd", dict(
+    _ERR_STRING,
+    mx_flash_fwd=([_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                   _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_int,
+                   _c_void_p], _c_int),
+    mx_flash_fwd_smem=([_c_int, _c_int], _c_int)), kernels=["flash_fwd"])
 
 FLASH_BWD = KernelLibrary("flash_bwd", dict(
     _ERR_STRING,
     mx_flash_bwd_dq=([_c_void_p] * 7 + [_c_int] * 5
                      + [_c_float, _c_int, _c_void_p], _c_int),
     mx_flash_bwd_dkv=([_c_void_p] * 8 + [_c_int] * 5
-                      + [_c_float, _c_int, _c_void_p], _c_int)),
+                      + [_c_float, _c_int, _c_void_p], _c_int),
+    mx_flash_bwd_smem=([_c_int, _c_int, _c_int], _c_int)),
     kernels=["flash_bwd_dq", "flash_bwd_dkv"])
 
 LIBRARIES: List[KernelLibrary] = [FLASH_FWD, FLASH_BWD]

@@ -52,6 +52,7 @@ __all__ = ["attention_core", "attention_composition", "flash_attention",
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ALIGN = 16     # bytes: the bf16 kernels' cp.async copy
 _IMPLS = (None, "pallas", "xla")
 
 # Process-wide default (set_attention_impl) and a thread-local scope stack
@@ -221,6 +222,18 @@ def _check_kernel_inputs(q, k, v) -> None:
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise MXNetError("flash_attention: the kernel takes contiguous "
                          "(B, H, T, D) tensors")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_aligned("flash_attention", name, t)
+
+
+def _check_aligned(what: str, name: str, t: torch.Tensor) -> None:
+    """The bf16 kernels copy 16-byte chunks of every row (``cp.async``):
+    a bf16 tensor must start on a 16-byte boundary (rows of D in {64, 128}
+    then do too)."""
+    if t.dtype == torch.bfloat16 and t.data_ptr() % _ALIGN:
+        raise MXNetError("%s: the bf16 kernels need %s 16-byte aligned, got "
+                         "address %#x (a view at storage offset %d)"
+                         % (what, name, t.data_ptr(), t.storage_offset()))
 
 
 def _check_bwd_inputs(q, k, v, o, lse, g) -> None:
@@ -240,6 +253,8 @@ def _check_bwd_inputs(q, k, v, o, lse, g) -> None:
         raise MXNetError("flash_attention backward: LSE must be a contiguous "
                          "%s float32 tensor on %s" % (tuple(q.shape[:3]),
                                                       q.device))
+    for name, t in (("O", o), ("the gradient of O", g)):
+        _check_aligned("flash_attention backward", name, t)
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
@@ -428,6 +443,14 @@ def attention_core(q, k, v, scale: Optional[float] = None,
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if flash_eligible(q, k, v, causal, mask):
-        return flash_attention(q.contiguous(), k.contiguous(),
-                               v.contiguous(), float(scale), bool(causal))
+        return flash_attention(_kernel_layout(q), _kernel_layout(k),
+                               _kernel_layout(v), float(scale), bool(causal))
     return attention_composition(q, k, v, float(scale), causal, mask)
+
+
+def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned, as the kernels take it: a
+    copy unless it already is (BERT's heads always are: they are split from
+    the fused projection by a transpose, so ``contiguous`` copies them)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % _ALIGN == 0 else t.clone()

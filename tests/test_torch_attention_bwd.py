@@ -185,6 +185,8 @@ def test_functions_pass_float64_gradcheck(causal, tq, tk):
     ("o_shape", "O must"),
     ("g_dtype", "gradient of O"),
     ("g_strided", "gradient of O"),
+    ("o_misaligned", "16-byte"),
+    ("g_misaligned", "16-byte"),
 ])
 def test_bwd_input_checks_refuse_what_the_kernels_do_not_take(bad, match):
     from mxnet_tpu_torch.base import MXNetError
@@ -199,8 +201,18 @@ def test_bwd_input_checks_refuse_what_the_kernels_do_not_take(bad, match):
         o = torch.zeros(1, 2, 8, 64)
     elif bad == "g_dtype":
         g = g.to(torch.bfloat16)
-    else:
+    elif bad == "g_strided":
         g = torch.zeros(1, 16, 2, 64).transpose(1, 2)
+    else:
+        # bf16 throughout, O or its gradient a contiguous view 8 bytes
+        # past its storage's start
+        q, k, v, o, g = (t.to(torch.bfloat16) for t in (q, k, v, o, g))
+        view = torch.zeros(o.numel() + 4, dtype=torch.bfloat16)[4:].view(
+            o.shape)
+        if bad == "o_misaligned":
+            o = view
+        else:
+            g = view
     with pytest.raises(MXNetError, match=match):
         tatt._check_bwd_inputs(q, k, v, o, lse, g)
 

@@ -1,0 +1,258 @@
+"""The arithmetic of the bf16 tensor-core kernels K1 and K3, on the CPU.
+
+``csrc/flash_fwd.cu`` (K1) and the K3 of ``csrc/flash_bwd.cu`` compute in
+bf16 on the tensor cores, which this machine cannot run.  Their arithmetic
+is emulated here tile for tile (``tc_flash_fwd``, ``tc_flash_bwd_dkv``):
+64-key tiles, the online softmax in fp32 on log2-scaled scores, P, P^T and
+dS^T carried as two bf16 values (hi = bf16(x), lo = bf16(x - hi)) into
+their products, fp32 accumulation, and O, dK, dV rounded once to bf16.  The
+emulation is held against the JAX package's Pallas kernels in interpret
+mode (``_flash_fwd`` / ``_flash_bwd`` at 64-row blocks) on the same
+bf16-rounded inputs, and against the port's plain versions at a ragged T,
+under ``chip_smoke.py``'s ``compare`` rule at 2e-3: |d| <= 2e-3 + (2e-3 +
+2^-8) |ref| for a bf16 result, the rule the kernels meet on the card.  The
+remaining tests cover what the kernels need around them: 16-byte aligned
+bf16 inputs, and a library name that follows the shared header.
+"""
+import math
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import chip_smoke as cs
+from mxnet_tpu.ops import attention as jatt
+from mxnet_tpu_torch.ops import _kernels
+from mxnet_tpu_torch.ops import attention as tatt
+
+TOL = 2e-3
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+BLOCK = 64
+
+
+def _bf16(x):
+    """``x`` rounded to bf16, as float32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _split_matmul(a, b, split=True):
+    """``a @ b`` with ``a`` entering the product as bf16 values: hi + lo
+    (two products, as the kernels issue them) or, with ``split=False``, hi
+    alone (one rounding)."""
+    hi = _bf16(a)
+    out = hi @ b
+    return out + _bf16(a - hi) @ b if split else out
+
+
+def tc_flash_fwd(q, k, v, scale, causal, split=True):
+    """K1's bf16 arithmetic: (O bf16, LSE float32 (B, H, Tq))."""
+    q, k, v = (t.float() for t in (q, k, v))
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    m = torch.full((B, H, Tq, 1), -math.inf)
+    l = torch.zeros((B, H, Tq, 1))
+    acc = torch.zeros((B, H, Tq, D))
+    qpos = torch.arange(Tq)[:, None]
+    for k0 in range(0, Tk, BLOCK):
+        kt, vt = k[:, :, k0:k0 + BLOCK], v[:, :, k0:k0 + BLOCK]
+        s = (q @ kt.transpose(-1, -2)) * (scale * LOG2E)
+        if causal:
+            kpos = torch.arange(k0, k0 + kt.shape[2])[None, :]
+            s = s.masked_fill(qpos < kpos, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        m_safe = torch.where(torch.isfinite(m_new), m_new,
+                             torch.zeros_like(m_new))
+        alpha = torch.where(torch.isfinite(m), torch.exp2(m - m_safe),
+                            torch.zeros_like(m))
+        p = torch.where(torch.isfinite(s), torch.exp2(s - m_safe),
+                        torch.zeros_like(s))
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = alpha * acc + _split_matmul(p, vt, split)
+        m = m_new
+    o = acc * (1.0 / l.clamp_min(1e-30))
+    m_fin = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    lse = torch.where(l > 0, m_fin * LN2 + torch.log(l.clamp_min(1e-30)),
+                      torch.full_like(l, -math.inf))
+    return o.to(torch.bfloat16), lse[..., 0]
+
+
+def tc_flash_bwd_dkv(q, k, v, o, lse, do, scale, causal, split=True):
+    """K3's bf16 arithmetic: (dK, dV) in bf16, accumulated over slices of
+    32 queries as the kernel adds them."""
+    q, k, v, o, do = (t.float() for t in (q, k, v, o, do))
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    bq = 32
+    delta = (do * o).sum(-1)
+    lse2 = lse.float() * LOG2E
+    dk = torch.zeros((B, H, Tk, D))
+    dv = torch.zeros((B, H, Tk, D))
+    kpos = torch.arange(Tk)[:, None]
+    for q0 in range(0, Tq, bq):
+        qt, dot = q[:, :, q0:q0 + bq], do[:, :, q0:q0 + bq]
+        l2 = lse2[:, :, None, q0:q0 + bq]
+        st = k @ qt.transpose(-1, -2)
+        ok = torch.isfinite(l2).expand_as(st)
+        if causal:
+            qpos = torch.arange(q0, q0 + qt.shape[2])[None, :]
+            ok = ok & (qpos >= kpos)
+        pt = torch.where(ok, torch.exp2(st * (scale * LOG2E) - l2),
+                         torch.zeros_like(st))
+        dpt = v @ dot.transpose(-1, -2)
+        dst = pt * (dpt - delta[:, :, None, q0:q0 + bq])
+        dv += _split_matmul(pt, dot, split)
+        dk += _split_matmul(dst, qt, split)
+    return (dk * scale).to(torch.bfloat16), dv.to(torch.bfloat16)
+
+
+def _bf16_inputs(seed, shapes):
+    """Seeded normal arrays rounded to bf16, as float32 numpy arrays."""
+    rng = np.random.RandomState(seed)
+    return [_bf16(torch.from_numpy(rng.randn(*s).astype(np.float32))
+                  ).numpy() for s in shapes]
+
+
+def _holds(got, want, what):
+    err, ok = cs.compare(got, torch.as_tensor(np.array(want)), TOL)
+    assert ok, "%s misses the bf16 rule by max|d| %.3g" % (what, err)
+
+
+CASES = [(T, D, causal) for T in (128, 192) for D in (64, 128)
+         for causal in (False, True)]
+
+
+@pytest.mark.parametrize("T,D,causal", CASES)
+def test_tc_forward_matches_pallas_kernel(T, D, causal):
+    """K1's bf16 arithmetic against ``_flash_fwd`` in interpret mode at
+    64-row blocks, fp32 throughout, on the same bf16-rounded inputs."""
+    q, k, v = _bf16_inputs(T + D + int(causal), [(1, 2, T, D)] * 3)
+    scale = 1.0 / math.sqrt(D)
+    o_j, lse_j = jatt._flash_fwd(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), scale, causal,
+                                 block_q=BLOCK, block_k=BLOCK)
+    o_t, lse_t = tc_flash_fwd(*map(torch.from_numpy, (q, k, v)), scale,
+                              causal)
+    assert o_t.dtype == torch.bfloat16 and lse_t.shape == (1, 2, T)
+    _holds(o_t, o_j, "O")
+    _holds(lse_t, lse_j, "LSE")
+
+
+@pytest.mark.parametrize("T,D,causal", CASES)
+def test_tc_dkv_matches_pallas_kernel(T, D, causal):
+    """K3's bf16 arithmetic against ``_flash_bwd``'s dK and dV in
+    interpret mode at 64-row blocks, on the same bf16-rounded q, k, v, dO,
+    the forward's O rounded to bf16 (as K1 returns it) and its LSE."""
+    q, k, v, do = _bf16_inputs(7 * T + D + int(causal), [(1, 2, T, D)] * 4)
+    scale = 1.0 / math.sqrt(D)
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    o, lse_lanes = jatt._flash_fwd_res(jq, jk, jv, scale, causal,
+                                       block_q=BLOCK, block_k=BLOCK)
+    o = _bf16(torch.from_numpy(np.array(o))).numpy()
+    _, dk_j, dv_j = jatt._flash_bwd(jq, jk, jv, jnp.asarray(o), lse_lanes,
+                                    jdo, scale, causal, block_q=BLOCK,
+                                    block_k=BLOCK)
+    lse = np.array(jatt._lse_from_lanes(lse_lanes, 1, 2, T))
+    dk_t, dv_t = tc_flash_bwd_dkv(*map(torch.from_numpy, (q, k, v, o, lse,
+                                                          do)),
+                                  scale, causal)
+    assert dk_t.dtype == dv_t.dtype == torch.bfloat16
+    _holds(dk_t, dk_j, "dK")
+    _holds(dv_t, dv_j, "dV")
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_tc_arithmetic_matches_plain_versions_at_ragged_t(D, causal):
+    """At T = 200 (a partial last tile of 8 rows) against the port's plain
+    versions, which the kernels are held to on the card, in fp32 on the
+    same bf16 inputs."""
+    T = 200
+    q, k, v, do = (torch.from_numpy(a) for a in _bf16_inputs(
+        D + int(causal), [(1, 2, T, D)] * 4))
+    scale = 1.0 / math.sqrt(D)
+    o_ref, lse_ref = tatt.flash_attention_plain(q, k, v, scale, causal)
+    o, lse = tc_flash_fwd(q, k, v, scale, causal)
+    _holds(o, o_ref, "O")
+    _holds(lse, lse_ref, "LSE")
+    o = o.float()
+    dk_ref, dv_ref = tatt.flash_bwd_dkv_plain(q, k, v, o, lse_ref, do,
+                                              scale, causal)
+    dk, dv = tc_flash_bwd_dkv(q, k, v, o, lse_ref, do, scale, causal)
+    _holds(dk, dk_ref, "dK")
+    _holds(dv, dv_ref, "dV")
+    if causal:
+        # the last key sees one query: its P^T is 0 before any product
+        assert torch.isfinite(dk.float()).all()
+
+
+def test_one_bf16_rounding_of_p_misses_the_rule_the_split_meets():
+    """Why P enters the products as hi + lo: a causal row that sees two
+    keys, P = (1/(1+e), e/(1+e)), whose value rows cancel (10.875 and -4):
+    O is ~5e-4, and rounding P once to bf16 moves it by ~9e-3, more than
+    the rule's 2e-3.  The hi + lo pair meets the rule."""
+    D = 64
+    q = torch.zeros(1, 1, 2, D)
+    k = torch.zeros(1, 1, 2, D)
+    v = torch.zeros(1, 1, 2, D)
+    q[..., 1, 0] = 1.0
+    k[..., 1, 0] = 8.0                  # row 1 scores (0, 1) at scale 1/8
+    v[..., 0, :] = 10.875
+    v[..., 1, :] = -4.0
+    want, _ = tatt.flash_attention_plain(q, k, v, 0.125, True)
+    once, _ = tc_flash_fwd(q, k, v, 0.125, True, split=False)
+    split, _ = tc_flash_fwd(q, k, v, 0.125, True)
+    assert not cs.compare(once, want, TOL)[1]
+    assert cs.compare(split, want, TOL)[1]
+
+
+def _misaligned_bf16(shape):
+    """A contiguous bf16 view that starts 8 bytes past a 16-byte
+    boundary."""
+    base = torch.zeros(int(np.prod(shape)) + 8, dtype=torch.bfloat16)
+    t = base[4:4 + int(np.prod(shape))].view(shape)
+    assert t.is_contiguous() and t.data_ptr() % 16 == 8
+    return t
+
+
+def test_attention_core_hands_the_kernels_aligned_copies():
+    """A misaligned contiguous bf16 input reaches the kernels as an aligned
+    copy with the same values; an aligned one is passed as it is."""
+    t = _misaligned_bf16((1, 2, 16, 64))
+    t.normal_()
+    out = tatt._kernel_layout(t)
+    assert out.data_ptr() % 16 == 0 and torch.equal(out, t)
+    aligned = torch.zeros(1, 2, 16, 64, dtype=torch.bfloat16)
+    assert tatt._kernel_layout(aligned) is aligned
+
+
+def test_library_name_follows_every_header(tmp_path):
+    """The library of a ``csrc/`` source is named by a hash of the source,
+    of every ``*.cuh`` beside it and of the flags: editing the shared
+    header, or adding one, names a new library, so a stale build is never
+    loaded.  A user kernel's library follows its own text only."""
+    for name in ("flash_fwd.cu", "mma_bf16.cuh"):
+        shutil.copy(_kernels.CSRC / name, tmp_path / name)
+    lib = _kernels.KernelLibrary("flash_fwd", {}, ["flash_fwd"])
+    lib.source = tmp_path / "flash_fwd.cu"
+    first = lib.library_path()
+    assert first.name.startswith("libflash_fwd-")
+    assert lib.library_path() == first
+    assert first == _kernels.FLASH_FWD.library_path()
+    header = tmp_path / "mma_bf16.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    edited = lib.library_path()
+    assert edited != first
+    (tmp_path / "extra.cuh").write_text("#pragma once\n")
+    assert lib.library_path() not in (first, edited)
+    (tmp_path / "extra.cuh").unlink()
+    shutil.copy(_kernels.CSRC / "mma_bf16.cuh", header)
+    assert lib.library_path() == first
+    for real in (_kernels.FLASH_FWD, _kernels.FLASH_BWD):
+        assert b"mma_bf16.cuh\0" in real.header_bytes()
+    user = _kernels.SourceLibrary("body", "__global__ void f() {}", {},
+                                  ["f"])
+    assert user.header_bytes() == b""
