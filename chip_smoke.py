@@ -17,10 +17,12 @@ Phases (each raises on failure, so any failure exits nonzero):
    and bf16), and time the kernel, the plain version and the PyTorch
    library call (by CUDA events around back-to-back calls; the kernel and
    the library call also by device time from a profiler trace): K1 (flash
-   forward; bf16 on tensor cores), then K2 and K3 (flash backward: dQ, and
-   dK/dV; K3's bf16 on tensor cores), which must also repeat bitwise, and the LSE-cotangent rule once against autograd
-   through the plain forward.  K1's and K3's bf16 times at the training
-   shape are printed as multiples of the SDPA forward and backward.
+   forward), then K2 and K3 (flash backward: dQ, and dK/dV), which must
+   also repeat bitwise, and the LSE-cotangent rule once against autograd
+   through the plain forward.  All three run on the tensor cores in bf16
+   and on CUDA cores in fp32.  K1's, K2's and K3's bf16 times at the
+   training shape are printed as multiples of the SDPA forward and
+   backward.
 4. slice   -- the serving path: BERT-base (12 x 768 x 12, fp32, T = 512,
    seeded random weights) behind Servable -> ModelHost.deploy -> Batcher ->
    ServeServer/serve_forever, answering 32 PREDICT requests from 8
@@ -49,7 +51,8 @@ Phases (each raises on failure, so any failure exits nonzero):
    plain version (fp32 within 1e-6, bf16 by ``compare``'s bf16 rule);
    re-registration launches the new body, the non-differentiable op gives
    no gradient, a CPU launch without ``plain`` raises; times of kernel,
-   plain version and one PyTorch call, and the byte bound.
+   plain version and one PyTorch call (by CUDA events, and the kernel's
+   and the library call's also by device time), and the byte bound.
 8. imperative -- BERT-base with the MLM decoder (as in ``train``) driven
    only through the front end: ``nd.array(..., ctx=mx.gpu(0))``,
    ``autograd.record()``, ``net(...)``, the loss block, ``.mean()``,
@@ -219,20 +222,25 @@ def device_ms(fn, iters=20, warmup=3):
     ``iters`` back-to-back calls after ``warmup``: the summed time of what
     the calls ran on the card, without the gaps that the CUDA events of
     :func:`time_ms` also count when the host launches slower than the card
-    runs."""
+    runs.  A trace that holds no device activity at all (the profiler
+    now and then returns one empty) is taken again, twice at most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters
+    raise RuntimeError("device_ms: three profiler traces held no device "
+                       "activity")
 
 
 def compare(got, want, tol):
@@ -383,10 +391,10 @@ BWD_CASES = [
 
 
 def phase_bwd_kernels(peaks):
-    """K2 and K3 against their plain versions on the O and LSE of K1, two
-    launches bitwise equal; timings for the timed cases, with the backward
-    of scaled_dot_product_attention (dQ, dK and dV in one call) as the
-    library yardstick of both."""
+    """K2 and K3 (in bf16 both on the tensor cores) against their plain
+    versions on the O and LSE of K1, two launches bitwise equal; timings
+    for the timed cases, with the backward of scaled_dot_product_attention
+    (dQ, dK and dV in one call) as the library yardstick of both."""
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops import attention as att
     results = {}
@@ -465,20 +473,21 @@ def phase_bwd_kernels(peaks):
 
 
 def log_library_ratios(fwd, bwd):
-    """K1 and K3 in bf16 at the training shape against one PyTorch call in
-    the same run: the forward, and the whole backward (dQ, dK and dV), of
-    scaled_dot_product_attention."""
-    k1 = fwd[("bert-train", torch.bfloat16)]
-    k3 = bwd[("flash_bwd_dkv", torch.bfloat16)]
+    """K1, K2 and K3 in bf16 at the training shape against one PyTorch call
+    in the same run: the forward, and the whole backward (dQ, dK and dV),
+    of scaled_dot_product_attention."""
+    recs = [("K1", fwd[("bert-train", torch.bfloat16)], "forward"),
+            ("K2", bwd[("flash_bwd_dq", torch.bfloat16)],
+             "backward, dQ+dK+dV"),
+            ("K3", bwd[("flash_bwd_dkv", torch.bfloat16)],
+             "backward, dQ+dK+dV")]
     for how, key in (("CUDA events", ""), ("device time", "device_")):
         ms = "kernel_ms" if not key else "device_ms"
-        log("kernels: bf16 B=16 H=12 T=512 D=64, by %s: K1 %.4f ms = %.2fx "
-            "the SDPA forward (%.4f ms), %.2fx its bound; K3 %.4f ms = "
-            "%.2fx the SDPA backward (%.4f ms, dQ+dK+dV), %.2fx its bound"
-            % (how, k1[ms], k1[key + "x_library"],
-               k1["library_" + key + "ms"], k1[key + "x_bound"], k3[ms],
-               k3[key + "x_library"], k3["library_" + key + "ms"],
-               k3[key + "x_bound"]))
+        log("kernels: bf16 B=16 H=12 T=512 D=64, by %s: %s" % (how, "; ".join(
+            "%s %.4f ms = %.2fx the SDPA %s (%.4f ms), %.2fx its bound"
+            % (name, rec[ms], rec[key + "x_library"], what,
+               rec["library_" + key + "ms"], rec[key + "x_bound"])
+            for name, rec, what in recs)))
 
 
 def check_lse_rule():
@@ -1254,12 +1263,18 @@ def phase_user_kernels(peaks):
         nbytes = (len(xs) + 1) * n * itemsize
         ops = (2 if name == "axpy" else 1) * n
         b_ms, b_by = bound_ms(ops, nbytes, peaks["fp32"], peaks["hbm"])
-        rec = {"kernel_ms": time_ms(lambda: k.run(xs, structs)),
+        run = lambda: k.run(xs, structs)  # noqa: E731
+        library = lambda: body["library"](*xs)  # noqa: E731
+        rec = {"kernel_ms": time_ms(run),
                "plain_ms": time_ms(lambda: body["plain"](*xs)),
-               "library_ms": time_ms(lambda: body["library"](*xs)),
+               "library_ms": time_ms(library),
+               "device_ms": device_ms(run),
+               "library_device_ms": device_ms(library),
                "bound_ms": b_ms, "bound_by": b_by, "mbytes": nbytes / 1e6,
                "max_abs_err": max(e for _, e, _ in errs)}
         rec["gb_per_s"] = nbytes / rec["kernel_ms"] / 1e6
+        rec["device_x_library"] = rec["device_ms"] / rec["library_device_ms"]
+        rec["device_x_bound"] = rec["device_ms"] / rec["bound_ms"]
         log("user_kernels: timing %s %s" % (tag, json.dumps(rec)))
         results[(name, dt)] = rec
     del inputs, outs_by

@@ -18,48 +18,37 @@
 // reference is kept: K2 owns a 64-row query tile and accumulates dQ, K3 owns a
 // 64-row key tile and accumulates dK and dV, so no block ever adds into
 // another's output.  There are no atomics and the summation order is fixed:
-// two launches on the same inputs give bitwise-equal results.
+// two launches on the same inputs give bitwise-equal results.  Two designs,
+// one per input type:
 //
-// 256 threads, thread (ty, tx) = (tid / 16, tid % 16).  In each 64 x 64 score
-// tile a thread owns the 4 x 4 entries at rows 4*ty + i and columns tx + 16*j;
-// in each output tile it owns rows 4*ty + i and columns 64*g + 4*tx .. +3
-// (g < D/64), accumulated in fp32 registers.  All four D-wide operand tiles use
-// a row stride of D + 4 floats so the float4 reads of 8 threads in a 128-bit
-// access phase fall in distinct bank groups; the score tiles use stride 68.
-// Arithmetic is fp32 on CUDA cores: the fp32 path must agree with the plain
-// version to 1e-4, which TF32 tensor cores cannot.  bf16 inputs are widened
-// on load and the results rounded once on store.
+// float32: CUDA cores, both kernels.  256 threads, thread (ty, tx) = (tid /
+// 16, tid % 16).  In each 64 x 64 score tile a thread owns the 4 x 4 entries
+// at rows 4*ty + i and columns tx + 16*j; in each output tile it owns rows
+// 4*ty + i and columns 64*g + 4*tx .. +3 (g < D/64), accumulated in fp32
+// registers.  All four D-wide operand tiles use a row stride of D + 4 floats
+// so the float4 reads of 8 threads in a 128-bit access phase fall in
+// distinct bank groups; the score tiles use stride 68.  The fp32 path must
+// agree with the plain version to 1e-4, which TF32 tensor cores cannot.  At
+// BERT-base's training shape (B*H = 192, T = 512, D = 64) K2 does 6*D FLOP
+// per (q, k) pair (S, dP, dQ) and K3 8*D (S, dP, dV, dK): 19.3 and 25.8
+// GFLOP over 76-89 MB (bf16) of inputs and outputs, so on CUDA cores (67
+// TFLOP/s fp32) operations bound both by far.  Each inner loop reads float4
+// operands from shared memory into a 4 x 4 register tile (64 FMA per 8
+// loads).  Ragged edges are masked here: keys past Tk and rows past Tq get
+// P = 0, and rows past the end are not written.  Causal tiles that no (q, k)
+// pair of the tile can see are skipped.
 //
-// What bounds it.  At BERT-base's training shape (B*H = 192, T = 512, D = 64)
-// K2 does 6*D FLOP per (q, k) pair (S, dP, dQ) and K3 8*D (S, dP, dV, dK):
-// 19.3 and 25.8 GFLOP over 76-89 MB (bf16) of inputs and outputs, so on CUDA
-// cores (67 TFLOP/s fp32) operations bound both by far.  Each inner loop
-// reads float4 operands from shared memory into a 4 x 4 register tile (64 FMA
-// per 8 loads).  Ragged edges are masked here: keys past Tk and rows past Tq
-// get P = 0, and rows past the end are not written.  Causal tiles that no
-// (q, k) pair of the tile can see are skipped.  wgmma/TMA pipelines are later
-// work.
-//
-// K3 in bfloat16 runs on the tensor cores instead (mma.sync m16n8k16,
-// helpers in mma_bf16.cuh); K2 in bfloat16 and both kernels in float32 run
-// the CUDA-core design above.  128 threads; warp w owns key rows 16w ..
-// 16w+15 of the block's 64-row key tile, which stays in shared memory with
-// the V tile (bf16, XOR-swizzled, filled by 16-byte cp.async copies).  Query
-// tiles of BQ rows (64 at D = 64, 32 at D = 128) stream Q, dO and O through
-// a two-stage ring, so tile i+1 loads while tile i is computed.  Per query
-// tile: delta = rowsum(dO * O) and the LSE of its rows into shared memory;
-// then per slice of 32 queries (the dK and dV accumulators take D registers
-// a thread, 128 at D = 128, so the S^T and dP^T tiles stay small):
-// S^T = K Q^T and dP^T = V dO^T (all four operands by ldmatrix); P^T =
-// exp(scale S^T - LSE) and dS^T = P^T (dP^T - delta) in the accumulators;
-// then dV += P^T dO and dK += dS^T Q, P^T and dS^T taken from registers
-// (hi + lo bf16, as in K1) and dO and Q by ldmatrix.trans.  dK is
-// scaled once on store; dK and dV are staged through the warp's rows of the
-// K and V tiles for 16-byte stores.  The order of every sum is fixed and
-// there are no atomics, so the results repeat bitwise.  At the training
-// shape K3 moves 88 MB and needs 25.8 GFLOP (38.7 GFLOP issued with the
-// hi/lo products): 0.026 ms at 3.35 TB/s against 0.026 ms (0.039 ms) at 989
-// TFLOP/s.
+// bfloat16: tensor cores, both kernels (mma.sync m16n8k16, helpers in
+// mma_bf16.cuh).  128 threads; tiles stay bf16 in shared memory,
+// XOR-swizzled, filled by 16-byte cp.async copies; the tile this block owns
+// is resident and the other operand's tiles stream through a two-stage ring,
+// so tile i+1 loads while tile i is computed.  Probabilities are
+// exp2(scale * log2e * S - log2e * LSE), and P and dS enter their products
+// as hi + lo bf16 pairs (mma_bf16.cuh says why one rounding is not enough).
+// Keys past Tk and rows past Tq load as zero and get P = 0 before any
+// product; the element mask runs only on ragged and causal-diagonal tiles.
+// Each design's note is at its kernel below.  wgmma/TMA pipelines are
+// later work.
 //
 // Interface: plain C, loaded with ctypes.  Pointers and the stream are void*;
 // each entry point returns cudaGetLastError() after its launch.
@@ -77,13 +66,7 @@ constexpr int kThreads = 256;
 constexpr int kPStride = kTile + 4;
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
@@ -425,8 +408,23 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 // ---------------------------------------------------------------------------
 // K3 in bfloat16: tensor cores
 // ---------------------------------------------------------------------------
+//
+// Warp w owns key rows 16w .. 16w+15 of the block's 64-row key tile, which
+// stays in shared memory with the V tile.  Query tiles of BQ rows (64 at D =
+// 64, 32 at D = 128) stream Q, dO and O through the ring.  Per query tile:
+// delta = rowsum(dO * O) and the LSE of its rows into shared memory; then
+// per slice of 32 queries (the dK and dV accumulators take D registers a
+// thread, 128 at D = 128, so the S^T and dP^T tiles stay small): S^T = K Q^T
+// and dP^T = V dO^T (all four operands by ldmatrix); P^T = exp(scale S^T -
+// LSE) and dS^T = P^T (dP^T - delta) in the accumulators; then dV += P^T dO
+// and dK += dS^T Q, P^T and dS^T taken from registers (hi + lo bf16, as in
+// K1) and dO and Q by ldmatrix.trans.  dK is scaled once on store; dK and dV
+// are staged through the warp's rows of the K and V tiles for 16-byte
+// stores.  At the training shape K3 moves 88 MB and needs 25.8 GFLOP (38.7
+// GFLOP issued with the hi/lo products): 0.026 ms at 3.35 TB/s against 0.026
+// ms (0.039 ms) at 989 TFLOP/s.
 
-constexpr int kTcThreads = 128;  // four warps, 16 key rows each
+constexpr int kTcThreads = 128;  // four warps, 16 rows each
 constexpr float kLog2e = 1.4426950408889634f;
 
 // query rows of K3's streamed tiles (64 at D = 64; 32 at D = 128, where the
@@ -655,6 +653,243 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K2 in bfloat16: tensor cores
+// ---------------------------------------------------------------------------
+//
+// Replaces `_flash_bwd_dq_kernel` (mxnet_tpu/ops/attention.py): dQ = scale *
+// dS K with dS = P (dO V^T - delta), delta = rowsum(dO * O).  Warp w owns
+// query rows 16w .. 16w+15 of the block's 64-row query tile; the Q and dO
+// tiles stay in shared memory for the whole block and 64-row K and V tiles
+// stream through the ring.  O is read once, from device memory, for delta
+// (fp32 sums of the bf16 values, four lanes a row); each thread keeps the
+// LSE (log2 units) and delta of its rows g and g + 8 in registers.  Per key
+// tile, per slice of kSub keys (64 at D = 64; 32 at D = 128, where dQ alone
+// takes 64 registers a thread): S = Q K^T and dP = dO V^T, Q and dO as A
+// fragments and K and V n-major (all by ldmatrix); P = exp2(scale log2e S -
+// log2e LSE) and dS = P (dP - delta) in the dP accumulators, in place; then
+// dQ += dS K with dS (hi and lo) from registers and K by ldmatrix.trans: dS
+// never reaches shared memory and no barrier separates the products.  A row
+// past Tq or with a non-finite LSE takes LSE = +inf, so its P is 2^-inf = 0
+// on every tile without a mask.  dQ is scaled once on store and staged
+// through the warp's rows of the Q tile for 16-byte stores.
+//
+// What bounds it: at the training shape (B*H = 192, T = 512, D = 64) K2
+// reads Q, K, V, O, dO and the LSE and writes dQ, 76 MB, 0.0227 ms at 3.35
+// TB/s; it needs 19.3 GFLOP (25.8 GFLOP issued with the hi/lo product),
+// 0.020 ms (0.026 ms) at 989 TFLOP/s.  Bytes and tensor-core time are that
+// close, so what the design does is keep the next K/V tile's load in flight
+// under the current tile's products, and S, dP and dS in registers.
+
+// keys per slice of a key tile: one slice's S and dP stay in registers
+// (kSub / 2 each a thread) beside dQ (D / 2)
+__host__ __device__ constexpr int dq_slice_k(int d) { return d == 64 ? 64 : 32; }
+
+template <int D>
+constexpr size_t dq_bf16_smem_bytes() {
+  // the Q and dO tiles and a two-stage ring of K and V tiles, all bf16
+  return sizeof(__nv_bfloat16) * size_t(6) * kTile * D;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, D == 64 ? 3 : 1)
+flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ o,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         __nv_bfloat16* __restrict__ dq, int tq, int tk,
+                         float scale, int causal) {
+  using namespace mma_bf16;
+  constexpr int kSub = dq_slice_k(D);
+  constexpr int kTileElems = kTile * D;
+  constexpr int kRowChunks = D / 32;  // 16-byte chunks of a row per lane
+  extern __shared__ uint4 smem_tc[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_tc);
+  bf16* dos = qs + kTileElems;
+  bf16* ks = dos + kTileElems;  // stage s at ks + s * kTileElems
+  bf16* vs = ks + 2 * kTileElems;
+
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * kTile;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bf16* kb = k + size_t(bh) * tk * D;
+  const bf16* vb = v + size_t(bh) * tk * D;
+  const bf16* ob = o + size_t(bh) * tq * D;
+
+  // causal: the diagonal tile is the last one a query tile sees
+  int num_kt = (tk + kTile - 1) / kTile;
+  if (causal) num_kt = min(num_kt, (q0 + kTile + kTile - 1) / kTile);
+
+  cp_async_tile<kTile, D, kTcThreads>(qs, q + size_t(bh) * tq * D, q0, tq,
+                                      tid);
+  cp_async_tile<kTile, D, kTcThreads>(dos, dout + size_t(bh) * tq * D, q0,
+                                      tq, tid);
+  cp_async_commit();
+  if (num_kt > 0) {
+    cp_async_tile<kTile, D, kTcThreads>(ks, kb, 0, tk, tid);
+    cp_async_tile<kTile, D, kTcThreads>(vs, vb, 0, tk, tid);
+  }
+  cp_async_commit();
+
+  // this thread's rows of the tile: rt and rt + 8; lane t of the quad takes
+  // chunks t, t + 4, ... of each, O straight from device memory
+  const int rt = 16 * warp + g;
+  uint4 ov[2][kRowChunks];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qr = q0 + rt + 8 * i;
+#pragma unroll
+    for (int c = 0; c < kRowChunks; ++c)
+      ov[i][c] = qr < tq ? *reinterpret_cast<const uint4*>(
+                               ob + size_t(qr) * D + 8 * (t + 4 * c))
+                         : make_uint4(0u, 0u, 0u, 0u);
+  }
+  cp_async_wait<1>();  // Q and dO have landed
+  __syncthreads();
+
+  float delta[2], lse2[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = rt + 8 * i;
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < kRowChunks; ++c) {
+      const uint4 a =
+          *reinterpret_cast<const uint4*>(dos + swz<D>(r, 8 * (t + 4 * c)));
+      const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* b2 =
+          reinterpret_cast<const __nv_bfloat162*>(&ov[i][c]);
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const float2 x = __bfloat1622float2(a2[h]);
+        const float2 y = __bfloat1622float2(b2[h]);
+        sum = fmaf(x.x, y.x, sum);
+        sum = fmaf(x.y, y.y, sum);
+      }
+    }
+    delta[i] = quad_sum(sum);
+    const float l = q0 + r < tq ? lse[size_t(bh) * tq + q0 + r] : -INFINITY;
+    lse2[i] = isfinite(l) ? l * kLog2e : INFINITY;
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const float sl2 = scale * kLog2e;
+  const int wq0 = q0 + 16 * warp;  // this warp's first query row
+
+  for (int kt = 0; kt < num_kt; ++kt) {
+    const int k0 = kt * kTile;
+    if (kt + 1 < num_kt) {
+      const int nxt = ((kt + 1) & 1) * kTileElems;
+      cp_async_tile<kTile, D, kTcThreads>(ks + nxt, kb, k0 + kTile, tk, tid);
+      cp_async_tile<kTile, D, kTcThreads>(vs + nxt, vb, k0 + kTile, tk, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile kt has landed
+    __syncthreads();
+    const bf16* kst = ks + (kt & 1) * kTileElems;
+    const bf16* vst = vs + (kt & 1) * kTileElems;
+
+#pragma unroll 1
+    for (int c0 = 0; c0 < kTile; c0 += kSub) {
+      const int kc0 = k0 + c0;
+
+      // S = Q K^T and dP = dO V^T: 16 rows x kSub keys each
+      float s[kSub / 8][4], dp[kSub / 8][4];
+#pragma unroll
+      for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t qa[4], da[4];
+        ldsm_a<D>(qa, qs, 16 * warp, 16 * kk, lane);
+        ldsm_a<D>(da, dos, 16 * warp, 16 * kk, lane);
+#pragma unroll
+        for (int np = 0; np < kSub / 16; ++np) {
+          uint32_t b[4];
+          ldsm_b_nk<D>(b, kst, c0 + 16 * np, 16 * kk, lane);
+          mma(s[2 * np], qa, b[0], b[1]);
+          mma(s[2 * np + 1], qa, b[2], b[3]);
+          ldsm_b_nk<D>(b, vst, c0 + 16 * np, 16 * kk, lane);
+          mma(dp[2 * np], da, b[0], b[1]);
+          mma(dp[2 * np + 1], da, b[2], b[3]);
+        }
+      }
+
+      // dS = P (dP - delta) in place, P = 0 where keys pass Tk or lie
+      // right of the diagonal (only the ragged and diagonal slices mask)
+      const auto grads = [&](bool mask) {
+#pragma unroll
+        for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kc = kc0 + 8 * j + 2 * t + (e & 1);
+            const int qr = q0 + rt + 8 * (e >> 1);
+            const bool ok = !mask || (kc < tk && (!causal || qr >= kc));
+            const float p =
+                ok ? exp2_ftz(s[j][e] * sl2 - lse2[e >> 1]) : 0.f;
+            dp[j][e] = p * (dp[j][e] - delta[e >> 1]);
+          }
+      };
+      if (kc0 + kSub <= tk && (!causal || kc0 + kSub <= wq0 + 1))
+        grads(false);
+      else
+        grads(true);
+
+      // dQ += dS K: dS (hi and lo) from the accumulators, K by
+      // ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < kSub / 16; ++kk) {
+        uint32_t hi[4], lo[4];
+        split_a(dp[2 * kk], dp[2 * kk + 1], hi, lo);
+#pragma unroll
+        for (int np = 0; np < D / 16; ++np) {
+          uint32_t b[4];
+          ldsm_b_kn<D>(b, kst, 16 * np, c0 + 16 * kk, lane);
+          mma(acc[2 * np], hi, b[0], b[1]);
+          mma(acc[2 * np + 1], hi, b[2], b[3]);
+          mma(acc[2 * np], lo, b[0], b[1]);
+          mma(acc[2 * np + 1], lo, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before its refill
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // dQ (scaled once) through this warp's rows of the Q tile
+  acc_to_tile<D>(qs, 16 * warp, acc, scale, scale, lane);
+  __syncwarp();
+  store_rows16<D>(dq + size_t(bh) * tq * D, qs, 16 * warp, wq0, tq, lane);
+}
+
+template <int D>
+cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v,
+                           const void* o, const void* dout, const void* lse,
+                           void* dq, int bh, int tq, int tk, float scale,
+                           int causal, cudaStream_t stream) {
+  const size_t smem = dq_bf16_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_bf16_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (tq + kTile - 1) / kTile);
+  flash_bwd_dq_bf16_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
+      static_cast<__nv_bfloat16*>(dq), tq, tk, scale, causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -673,9 +908,9 @@ int mx_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == 0 && d == 128)
     return int(launch_dq<float, 128>(q, k, v, o, dout, lse, dq, bh, tq, tk, scale, causal, s));
   if (dtype == 1 && d == 64)
-    return int(launch_dq<__nv_bfloat16, 64>(q, k, v, o, dout, lse, dq, bh, tq, tk, scale, causal, s));
+    return int(launch_dq_bf16<64>(q, k, v, o, dout, lse, dq, bh, tq, tk, scale, causal, s));
   if (dtype == 1 && d == 128)
-    return int(launch_dq<__nv_bfloat16, 128>(q, k, v, o, dout, lse, dq, bh, tq, tk, scale, causal, s));
+    return int(launch_dq_bf16<128>(q, k, v, o, dout, lse, dq, bh, tq, tk, scale, causal, s));
   return int(cudaErrorInvalidValue);
 }
 
@@ -705,11 +940,14 @@ int mx_flash_bwd_dkv(const void* q, const void* k, const void* v,
 // for one it does not take.
 int mx_flash_bwd_smem(int dkv, int d, int dtype) {
   if (d != 64 && d != 128) return 0;
-  if (dtype == 0 || (dtype == 1 && !dkv))
+  if (dtype == 0)
     return int(dkv ? (d == 64 ? dkv_smem_bytes<64>() : dkv_smem_bytes<128>())
                    : (d == 64 ? dq_smem_bytes<64>() : dq_smem_bytes<128>()));
   if (dtype == 1)
-    return int(d == 64 ? dkv_bf16_smem_bytes<64>() : dkv_bf16_smem_bytes<128>());
+    return int(dkv ? (d == 64 ? dkv_bf16_smem_bytes<64>()
+                              : dkv_bf16_smem_bytes<128>())
+                   : (d == 64 ? dq_bf16_smem_bytes<64>()
+                              : dq_bf16_smem_bytes<128>()));
   return 0;
 }
 

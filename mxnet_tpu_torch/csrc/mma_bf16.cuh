@@ -1,5 +1,5 @@
 // Tensor-core building blocks for the bf16 flash-attention kernels on Hopper
-// (sm_90a), shared by csrc/flash_fwd.cu (K1) and csrc/flash_bwd.cu (K3).
+// (sm_90a), shared by csrc/flash_fwd.cu (K1) and csrc/flash_bwd.cu (K2, K3).
 //
 // * Shared tiles are row-major R x D bf16 (D in {64, 128}) whose 16-byte
 //   chunks are XOR-swizzled by row & 7 (`swz`): the eight row addresses of
@@ -12,9 +12,9 @@
 // * `split_a` turns the fp32 accumulators of one 16 x 16 product block into
 //   the A fragments of the next product, each value x carried as two bf16
 //   values hi = bf16(x), lo = bf16(x - hi) (about 16 significant bits).  One
-//   rounding to bf16 (8 bits) makes a row of P that sees few keys, whose
-//   weighted sum cancels, miss the fp32 reference by more than the bf16 rule
-//   allows; two products, hi and lo, keep the sum within it.
+//   rounding to bf16 (8 bits) makes a row of P or dS that sees few keys,
+//   whose weighted sum cancels, miss the fp32 reference by more than the
+//   bf16 rule allows; two products, hi and lo, keep the sum within it.
 //
 // Fragment layouts (PTX ISA, "mma.m16n8k16" for .bf16): lane = 4 g + t.
 // A (16 x 16): a[0] = row g, cols 2t..2t+1; a[1] = row g + 8, same cols;

@@ -1,18 +1,26 @@
-"""The arithmetic of the bf16 tensor-core kernels K1 and K3, on the CPU.
+"""The arithmetic of the bf16 tensor-core kernels K1, K2 and K3, on the CPU.
 
-``csrc/flash_fwd.cu`` (K1) and the K3 of ``csrc/flash_bwd.cu`` compute in
+``csrc/flash_fwd.cu`` (K1) and ``csrc/flash_bwd.cu`` (K2, K3) compute in
 bf16 on the tensor cores, which this machine cannot run.  Their arithmetic
-is emulated here tile for tile (``tc_flash_fwd``, ``tc_flash_bwd_dkv``):
-64-key tiles, the online softmax in fp32 on log2-scaled scores, P, P^T and
-dS^T carried as two bf16 values (hi = bf16(x), lo = bf16(x - hi)) into
-their products, fp32 accumulation, and O, dK, dV rounded once to bf16.  The
-emulation is held against the JAX package's Pallas kernels in interpret
-mode (``_flash_fwd`` / ``_flash_bwd`` at 64-row blocks) on the same
-bf16-rounded inputs, and against the port's plain versions at a ragged T,
-under ``chip_smoke.py``'s ``compare`` rule at 2e-3: |d| <= 2e-3 + (2e-3 +
-2^-8) |ref| for a bf16 result, the rule the kernels meet on the card.  The
-remaining tests cover what the kernels need around them: 16-byte aligned
-bf16 inputs, and a library name that follows the shared header.
+is emulated here tile for tile (``tc_flash_fwd``, ``tc_flash_bwd_dq``,
+``tc_flash_bwd_dkv``): 64-key tiles, the online softmax in fp32 on
+log2-scaled scores, P, P^T, dS and dS^T carried as two bf16 values (hi =
+bf16(x), lo = bf16(x - hi)) into their products, fp32 accumulation, and O,
+dQ, dK, dV rounded once to bf16.  The emulation is held against the JAX
+package's Pallas kernels in interpret mode (``_flash_fwd`` / ``_flash_bwd``
+at 64-row blocks) on the same bf16-rounded inputs, and against the port's
+plain versions at a ragged T, under ``chip_smoke.py``'s ``compare`` rule at
+2e-3: |d| <= 2e-3 + (2e-3 + 2^-8) |ref| for a bf16 result, the rule the
+kernels meet on the card.  Two pinned cases show one bf16 rounding of P
+and of dS missing that rule where hi + lo meets it.  The remaining tests
+cover what the kernels need around them: 16-byte aligned bf16 inputs, and
+a library name that follows the shared header.
+
+Run as a script, the module prints how far K2's emulated dQ lands from the
+rule at ``chip_smoke.py``'s backward shapes, with dS split and rounded
+once::
+
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_attention_tc.py
 """
 import math
 import shutil
@@ -109,6 +117,30 @@ def tc_flash_bwd_dkv(q, k, v, o, lse, do, scale, causal, split=True):
     return (dk * scale).to(torch.bfloat16), dv.to(torch.bfloat16)
 
 
+def tc_flash_bwd_dq(q, k, v, o, lse, do, scale, causal, split=True):
+    """K2's bf16 arithmetic: dQ in bf16, accumulated over 64-key tiles as
+    the kernel adds them.  A row with a non-finite LSE takes LSE = +inf,
+    so its P is 2^-inf = 0."""
+    q, k, v, o, do = (t.float() for t in (q, k, v, o, do))
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    delta = (do * o).sum(-1, keepdim=True)
+    lse = lse.float()
+    lse2 = torch.where(torch.isfinite(lse), lse * LOG2E,
+                       torch.full_like(lse, math.inf))[..., None]
+    dq = torch.zeros((B, H, Tq, D))
+    qpos = torch.arange(Tq)[:, None]
+    for k0 in range(0, Tk, BLOCK):
+        kt, vt = k[:, :, k0:k0 + BLOCK], v[:, :, k0:k0 + BLOCK]
+        p = torch.exp2((q @ kt.transpose(-1, -2)) * (scale * LOG2E) - lse2)
+        if causal:
+            kpos = torch.arange(k0, k0 + kt.shape[2])[None, :]
+            p = p.masked_fill(qpos < kpos, 0.0)
+        ds = p * (do @ vt.transpose(-1, -2) - delta)
+        dq += _split_matmul(ds, kt, split)
+    return (dq * scale).to(torch.bfloat16)
+
+
 def _bf16_inputs(seed, shapes):
     """Seeded normal arrays rounded to bf16, as float32 numpy arrays."""
     rng = np.random.RandomState(seed)
@@ -164,6 +196,48 @@ def test_tc_dkv_matches_pallas_kernel(T, D, causal):
     _holds(dv_t, dv_j, "dV")
 
 
+@pytest.mark.parametrize("T,D,causal", CASES)
+def test_tc_dq_matches_pallas_kernel(T, D, causal):
+    """K2's bf16 arithmetic against ``_flash_bwd``'s dQ in interpret mode
+    at 64-row blocks, on the same bf16-rounded q, k, v, dO, the forward's O
+    rounded to bf16 (as K1 returns it) and its LSE."""
+    q, k, v, do = _bf16_inputs(5 * T + D + int(causal), [(1, 2, T, D)] * 4)
+    scale = 1.0 / math.sqrt(D)
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    o, lse_lanes = jatt._flash_fwd_res(jq, jk, jv, scale, causal,
+                                       block_q=BLOCK, block_k=BLOCK)
+    o = _bf16(torch.from_numpy(np.array(o))).numpy()
+    dq_j, _, _ = jatt._flash_bwd(jq, jk, jv, jnp.asarray(o), lse_lanes, jdo,
+                                 scale, causal, block_q=BLOCK, block_k=BLOCK)
+    lse = np.array(jatt._lse_from_lanes(lse_lanes, 1, 2, T))
+    dq_t = tc_flash_bwd_dq(*map(torch.from_numpy, (q, k, v, o, lse, do)),
+                           scale, causal)
+    assert dq_t.dtype == torch.bfloat16 and dq_t.shape == (1, 2, T, D)
+    _holds(dq_t, dq_j, "dQ")
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_tc_dq_matches_plain_version_at_ragged_t(D, causal):
+    """K2's bf16 arithmetic at T = 200 (a partial last tile of 8 rows and 8
+    keys) against the port's plain version in fp32, on the same bf16
+    inputs and K1's emulated O and LSE, as the card holds the kernel; a row
+    whose LSE is -inf gets dQ = 0."""
+    T = 200
+    q, k, v, do = (torch.from_numpy(a) for a in _bf16_inputs(
+        3 * D + int(causal), [(1, 2, T, D)] * 4))
+    scale = 1.0 / math.sqrt(D)
+    o, lse = tc_flash_fwd(q, k, v, scale, causal)
+    o = o.float()
+    dq_ref = tatt.flash_bwd_dq_plain(q, k, v, o, lse, do, scale, causal)
+    dq = tc_flash_bwd_dq(q, k, v, o, lse, do, scale, causal)
+    _holds(dq, dq_ref, "dQ")
+    lse[:, :, -1] = -math.inf
+    dq = tc_flash_bwd_dq(q, k, v, o, lse, do, scale, causal)
+    assert torch.equal(dq[:, :, -1].float(), torch.zeros(1, 2, D))
+    assert torch.isfinite(dq.float()).all()
+
+
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("causal", [False, True])
 def test_tc_arithmetic_matches_plain_versions_at_ragged_t(D, causal):
@@ -207,6 +281,29 @@ def test_one_bf16_rounding_of_p_misses_the_rule_the_split_meets():
     split, _ = tc_flash_fwd(q, k, v, 0.125, True)
     assert not cs.compare(once, want, TOL)[1]
     assert cs.compare(split, want, TOL)[1]
+
+
+def test_one_bf16_rounding_of_ds_misses_the_rule_the_split_meets():
+    """Why dS enters dQ = dS K as hi + lo: a causal row that sees three
+    keys, scores (0, 1, 2), dP = (3, -5, 7), and keys equal (60) in every
+    column the query does not touch.  There dQ = scale * 60 * sum(dS) = 0,
+    since the row's dS sums to 0; rounding dS once to bf16 leaves a sum of
+    ~1e-3 and moves dQ by ~7e-3, past the rule's 2e-3.  The hi + lo pair
+    stays below 1e-4."""
+    D, T = 64, 3
+    q, k, v, do = (torch.zeros(1, 1, T, D) for _ in range(4))
+    q[..., 0] = 1.0
+    k[..., 0] = torch.tensor([0.0, 8.0, 16.0])
+    k[..., 1:] = 60.0
+    v[..., 0] = torch.tensor([3.0, -5.0, 7.0])
+    do[..., 0] = 1.0
+    o, lse = tatt.flash_attention_plain(q, k, v, 0.125, True)
+    want = tatt.flash_bwd_dq_plain(q, k, v, o, lse, do, 0.125, True)
+    once = tc_flash_bwd_dq(q, k, v, o, lse, do, 0.125, True, split=False)
+    split = tc_flash_bwd_dq(q, k, v, o, lse, do, 0.125, True)
+    assert not cs.compare(once, want, TOL)[1]
+    assert cs.compare(split, want, TOL)[1]
+    assert float((split.float() - want)[..., 1:].abs().max()) < 1e-4
 
 
 def _misaligned_bf16(shape):
@@ -256,3 +353,43 @@ def test_library_name_follows_every_header(tmp_path):
     user = _kernels.SourceLibrary("body", "__global__ void f() {}", {},
                                   ["f"])
     assert user.header_bytes() == b""
+
+
+def _worst_ratio(got, want):
+    """max |got - want| / the limit of ``chip_smoke.compare``'s bf16 rule
+    at 2e-3; the rule holds where this is at most 1."""
+    want = torch.as_tensor(want).float()
+    limit = TOL + (TOL + 2.0 ** -8) * want.abs()
+    return float(((got.float() - want).abs() / limit).max())
+
+
+def dq_rounding_margins(seed):
+    """For each bf16 case of ``chip_smoke.BWD_CASES``: the worst |d| /
+    limit of K2's emulated dQ against ``flash_bwd_dq_plain`` (fp32, on the
+    same bf16 inputs and K1's emulated O and LSE), with dS entering dQ =
+    dS K as hi + lo and rounded once."""
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for name, B, H, Tq, Tk, D, dtype, causal, _ in cs.BWD_CASES:
+        if dtype != torch.bfloat16:
+            continue
+        q, k, v = (torch.randn((B, H, T, D), generator=g).bfloat16()
+                   for T in (Tq, Tk, Tk))
+        do = torch.randn((B, H, Tq, D), generator=g).bfloat16()
+        scale = 1.0 / D ** 0.5
+        o, lse = tc_flash_fwd(q, k, v, scale, causal)
+        args = (q, k, v, o, lse, do, scale, causal)
+        want = tatt.flash_bwd_dq_plain(*(t.float() for t in args[:6]),
+                                       scale, causal)
+        out.append((name, causal,
+                    _worst_ratio(tc_flash_bwd_dq(*args), want),
+                    _worst_ratio(tc_flash_bwd_dq(*args, split=False), want)))
+    return out
+
+
+if __name__ == "__main__":
+    for seed in (0, 1, 2):
+        for name, causal, split, once in dq_rounding_margins(seed):
+            print("seed %d %-16s causal=%-5s dQ worst |d|/limit: hi + lo "
+                  "%.3f, one rounding %.3f" % (seed, name, causal, split,
+                                               once))
