@@ -11,16 +11,18 @@ Phases (each raises on failure, so any failure exits nonzero):
 2. build   -- build every hand-written kernel from ``mxnet_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together); print each flash
    instantiation's registers, spill bytes (``-Xptxas -v``) and dynamic
-   shared memory.
+   shared memory, and ptxas's performance warnings; a spill in the bf16
+   flash forward fails the phase.
 3. kernels -- hold each kernel against its plain PyTorch version on the card
    at the main paths' shapes (and ragged/causal edge cases, each in fp32
    and bf16), and time the kernel, the plain version and the PyTorch
    library call (by CUDA events around back-to-back calls; the kernel and
    the library call also by device time from a profiler trace): K1 (flash
-   forward), then K2 and K3 (flash backward: dQ, and dK/dV), which must
-   also repeat bitwise, and the LSE-cotangent rule once against autograd
+   forward), then K2 and K3 (flash backward: dQ, and dK/dV); each must
+   also repeat bitwise; then the LSE-cotangent rule once against autograd
    through the plain forward.  All three run on the tensor cores in bf16
-   and on CUDA cores in fp32.  K1's, K2's and K3's bf16 times at the
+   (K1 on wgmma with TMA loads, K2 and K3 on mma.sync) and on CUDA cores in
+   fp32.  K1's, K2's and K3's bf16 times at the
    training shape are printed as multiples of the SDPA forward and
    backward.
 4. slice   -- the serving path: BERT-base (12 x 768 x 12, fp32, T = 512,
@@ -43,7 +45,8 @@ Phases (each raises on failure, so any failure exits nonzero):
    formula, and a profiler breakdown of one step.
 7. user_kernels -- K4, the user-kernel facility (``mxnet_tpu_torch/
    tpu_kernel.py``): the seven bodies of ``USER_KERNELS`` (CUDA C++ source
-   strings, templates over float and __nv_bfloat16) built with one ``nvcc``
+   strings, templates over float and __nv_bfloat16, moving 16 bytes a load
+   and a store on a grid of a few blocks an SM) built with one ``nvcc``
    each, all started together, and run at BERT-base's FFN activation
    (16 * 512, 3072) in fp32 and bf16 through ``Kernel.launch``, through
    ``nd.<name>`` after ``tpu_kernel.register`` and, for square and scale3,
@@ -52,7 +55,11 @@ Phases (each raises on failure, so any failure exits nonzero):
    re-registration launches the new body, the non-differentiable op gives
    no gradient, a CPU launch without ``plain`` raises; times of kernel,
    plain version and one PyTorch call (by CUDA events, and the kernel's
-   and the library call's also by device time), and the byte bound.
+   and the library call's also by device time), and the byte bound.  Then
+   every body against its plain version at a ragged size (8191, 3071), an
+   odd 1-D length and on a view one element past a 16-byte boundary (the
+   scalar loop), and ``double`` once more on the facility's default grid
+   (one thread an entry), timed beside its explicit grid.
 8. imperative -- BERT-base with the MLM decoder (as in ``train``) driven
    only through the front end: ``nd.array(..., ctx=mx.gpu(0))``,
    ``autograd.record()``, ``net(...)``, the loss block, ``.mean()``,
@@ -141,6 +148,14 @@ def phase_build():
                                       time.perf_counter() - t0))
     for r in flash_instantiations():
         log("build: flash instantiation %s" % json.dumps(r))
+        if r["kernel"] == "flash_fwd_bf16_kernel" and (
+                r["spill_store_bytes"] or r["spill_load_bytes"]):
+            raise RuntimeError("ptxas spilled registers in the bf16 flash "
+                               "forward: %s" % r)
+    for lib in (_kernels.FLASH_FWD, _kernels.FLASH_BWD):
+        for line in lib.build_log.splitlines():
+            if "Performance Loss" in line or "setmaxnreg" in line:
+                log("build: %s: ptxas: %s" % (lib.name, line.strip()))
 
 
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
@@ -297,6 +312,8 @@ KERNEL_CASES = [
     ("causal", 8, 12, 512, 512, 64, torch.bfloat16, True, False),
     ("d128", 2, 8, 512, 512, 128, torch.float32, False, False),
     ("d128", 2, 8, 512, 512, 128, torch.bfloat16, False, False),
+    ("no-keys", 2, 3, 70, 0, 64, torch.float32, False, False),
+    ("no-keys", 2, 3, 70, 0, 64, torch.bfloat16, False, False),
 ]
 
 
@@ -310,7 +327,9 @@ def phase_kernels(peaks):
                    .to(dtype) for T in (Tq, Tk, Tk))
         scale = 1.0 / D ** 0.5
         o, lse = att.flash_attention_with_lse(q, k, v, scale, causal)
+        o2, lse2 = att.flash_attention_with_lse(q, k, v, scale, causal)
         torch.cuda.synchronize()
+        same = torch.equal(o, o2) and torch.equal(lse, lse2)
         # bf16 is held against the plain version run in fp32 on the same
         # bf16 inputs; fp32 against the plain version itself
         o_ref, lse_ref = att.flash_attention_plain(
@@ -320,11 +339,12 @@ def phase_kernels(peaks):
         err_l, ok_l = compare(lse, lse_ref, tol)
         tag = "%s B=%d H=%d Tq=%d Tk=%d D=%d %s causal=%s" % (
             name, B, H, Tq, Tk, D, str(dtype).replace("torch.", ""), causal)
-        log("kernels: %s | max|dO| %.3g max|dLSE| %.3g (tol %g) %s"
-            % (tag, err_o, err_l, tol, "ok" if ok_o and ok_l else "FAIL"))
-        if not (ok_o and ok_l and torch.isfinite(o.float()).all()):
-            raise RuntimeError("flash_fwd disagrees with its plain version: "
-                               + tag)
+        log("kernels: %s | max|dO| %.3g max|dLSE| %.3g (tol %g), repeat "
+            "bitwise %s %s" % (tag, err_o, err_l, tol, same,
+                               "ok" if ok_o and ok_l and same else "FAIL"))
+        if not (ok_o and ok_l and same and torch.isfinite(o.float()).all()):
+            raise RuntimeError("flash_fwd disagrees with its plain version "
+                               "or does not repeat: " + tag)
         if not timed:
             continue
         itemsize = torch.finfo(dtype).bits // 8
@@ -994,48 +1014,128 @@ template <> __device__ __forceinline__ float from_f<float>(float x) {
 }
 template <> __device__ __forceinline__ __nv_bfloat16
 from_f<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
+
+// Memory moves in 16-byte vectors: V = 8 bf16 or 4 float values a uint4,
+// a pointer on a 16-byte boundary (checked at run time, every pointer of
+// the call, so a misaligned view takes the scalar loop for the whole call)
+template <typename T> struct Vec {
+  static constexpr int V = 16 / sizeof(T);
+  uint4 u;
+  __device__ __forceinline__ T& operator[](int e) {
+    return reinterpret_cast<T*>(&u)[e];
+  }
+};
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
+}
 """
 
 _UNARY_SIGNATURE = "const T* x, T* o, long long n"
 
 
 def _unary_body(entry, expr):
-    """A grid-stride elementwise body: o[i] = expr of v = x[i] in float."""
+    """An elementwise body o[i] = expr of v = x[i] in float: a grid-stride
+    loop over 16-byte vectors of the output, then a scalar loop over the
+    tail (the whole output when a pointer is misaligned).  Correct under
+    any grid."""
     return _HELPERS + r"""
 template <typename T>
 __global__ void %s(const T* x, T* o, long long n) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < n; i += (long long)gridDim.x * blockDim.x) {
+  constexpr int V = Vec<T>::V;
+  const long long tid = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long head = 0;  // entries the vector loop covers
+  if (aligned16(x) && aligned16(o)) {
+    const long long nv = n / V;
+#pragma unroll 4
+    for (long long i = tid; i < nv; i += stride) {
+      Vec<T> a, b;
+      a.u = reinterpret_cast<const uint4*>(x)[i];
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float v = to_f(a[e]);
+        b[e] = from_f<T>(%s);
+      }
+      reinterpret_cast<uint4*>(o)[i] = b.u;
+    }
+    head = nv * V;
+  }
+  for (long long i = head + tid; i < n; i += stride) {
     const float v = to_f(x[i]);
     o[i] = from_f<T>(%s);
   }
 }
-""" % (entry, expr)
+""" % (entry, expr, expr)
 
 
 _AXPY = _HELPERS + r"""
 template <typename T>
+__device__ __forceinline__ T axpy1(T a, T x, T y) {
+  return from_f<T>(__fadd_rn(__fmul_rn(to_f(a), to_f(x)), to_f(y)));
+}
+
+// o = a * x + y: 16-byte vectors, then the scalar tail
+template <typename T>
 __global__ void axpy(const T* a, const T* x, const T* y, T* o, long long n) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < n; i += (long long)gridDim.x * blockDim.x)
-    o[i] = from_f<T>(__fadd_rn(__fmul_rn(to_f(a[i]), to_f(x[i])),
-                               to_f(y[i])));
+  constexpr int V = Vec<T>::V;
+  const long long tid = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long head = 0;
+  if (aligned16(a) && aligned16(x) && aligned16(y) && aligned16(o)) {
+    const long long nv = n / V;
+#pragma unroll 2
+    for (long long i = tid; i < nv; i += stride) {
+      Vec<T> va, vx, vy, vo;
+      va.u = reinterpret_cast<const uint4*>(a)[i];
+      vx.u = reinterpret_cast<const uint4*>(x)[i];
+      vy.u = reinterpret_cast<const uint4*>(y)[i];
+#pragma unroll
+      for (int e = 0; e < V; ++e) vo[e] = axpy1(va[e], vx[e], vy[e]);
+      reinterpret_cast<uint4*>(o)[i] = vo.u;
+    }
+    head = nv * V;
+  }
+  for (long long i = head + tid; i < n; i += stride)
+    o[i] = axpy1(a[i], x[i], y[i]);
 }
 """
 
 _RELU_BLOCKED = _HELPERS + r"""
+__device__ __forceinline__ float relu1(float v) { return v > 0.0f ? v : 0.0f; }
+
 // one block per row (rows past the grid taken in turn), its threads
-// striding over the row's columns
+// striding over the row in 16-byte vectors when every row starts on a
+// 16-byte boundary, then over the row's scalar tail
 template <typename T>
 __global__ void relu_blocked(const T* x, T* o, long long rows,
                              long long cols) {
-  for (long long r = blockIdx.x; r < rows; r += gridDim.x)
-    for (long long c = threadIdx.x; c < cols; c += blockDim.x) {
-      const float v = to_f(x[r * cols + c]);
-      o[r * cols + c] = from_f<T>(v > 0.0f ? v : 0.0f);
+  constexpr int V = Vec<T>::V;
+  const bool vec = aligned16(x) && aligned16(o) &&
+                   (cols * (long long)sizeof(T)) % 16 == 0;
+  const long long head = vec ? cols / V * V : 0;
+  for (long long r = blockIdx.x; r < rows; r += gridDim.x) {
+    const T* xr = x + r * cols;
+    T* orow = o + r * cols;
+    for (long long c = threadIdx.x; c < head / V; c += blockDim.x) {
+      Vec<T> a, b;
+      a.u = reinterpret_cast<const uint4*>(xr)[c];
+#pragma unroll
+      for (int e = 0; e < V; ++e) b[e] = from_f<T>(relu1(to_f(a[e])));
+      reinterpret_cast<uint4*>(orow)[c] = b.u;
     }
+    for (long long c = head + threadIdx.x; c < cols; c += blockDim.x)
+      orow[c] = from_f<T>(relu1(to_f(xr[c])));
+  }
 }
 """
+
+
+def _per_sm_grid(shape):
+    """Eight blocks of 256 threads an SM of the launch's card (a full SM
+    of threads): a grid-stride body covers any size with it.  Runs on the
+    launch device (``tpu_kernel`` calls a callable grid there)."""
+    props = torch.cuda.get_device_properties(torch.cuda.current_device())
+    return (8 * props.multi_processor_count,)
 
 
 def _numel(*tensors):
@@ -1053,27 +1153,29 @@ def mul_body(mult):
     return dict(source=_unary_body("mul_kernel", "__fmul_rn(v, (float)%r)"
                                    % float(mult)),
                 entry="mul_kernel", signature=_UNARY_SIGNATURE,
-                scalars=_numel, plain=lambda x: x * mult,
+                grid=_per_sm_grid, block=(256,), scalars=_numel,
+                plain=lambda x: x * mult,
                 library=lambda x: torch.mul(x, mult))
 
 
 # The seven bodies of tests/test_tpu_kernel.py (one copy, shared with
 # tests/test_torch_tpu_kernel.py).  Each: its CUDA source, entry and
-# signature (a template over T in float and __nv_bfloat16), launch
-# dimensions where the JAX test gave a grid, the scalar rule, the plain
-# PyTorch version, the grad of the registered ones, and one PyTorch call
-# computing the same function (timed only).
+# signature (a template over T in float and __nv_bfloat16), its launch
+# dimensions (a few blocks an SM for the grid-stride bodies, a block a row
+# for relu_blocked), the scalar rule, the plain PyTorch version, the grad
+# of the registered ones, and one PyTorch call computing the same function
+# (timed only).  Every body moves 16 bytes a load and a store.
 USER_KERNELS = {
     "axpy": dict(source=_AXPY, entry="axpy",
                  signature="const T* a, const T* x, const T* y, T* o, "
                            "long long n",
-                 grid=(132 * 8,), block=(256,), scalars=_numel,
+                 grid=_per_sm_grid, block=(256,), scalars=_numel,
                  plain=lambda a, x, y: a * x + y,
                  library=lambda a, x, y: torch.addcmul(y, a, x)),
     "double": dict(source=_unary_body("double_it", "__fmul_rn(v, 2.0f)"),
                    entry="double_it", signature=_UNARY_SIGNATURE,
-                   grid=lambda shape: (-(-int(np.prod(shape)) // 256),),
-                   block=(256,), scalars=_numel, plain=lambda x: x * 2.0,
+                   grid=_per_sm_grid, block=(256,), scalars=_numel,
+                   plain=lambda x: x * 2.0,
                    library=lambda x: torch.mul(x, 2.0)),
     "relu_blocked": dict(source=_RELU_BLOCKED, entry="relu_blocked",
                          signature="const T* x, T* o, long long rows, "
@@ -1085,18 +1187,21 @@ USER_KERNELS = {
                          library=torch.relu),
     "square": dict(source=_unary_body("square_kernel", "__fmul_rn(v, v)"),
                    entry="square_kernel", signature=_UNARY_SIGNATURE,
-                   scalars=_numel, plain=lambda x: x * x,
+                   grid=_per_sm_grid, block=(256,), scalars=_numel,
+                   plain=lambda x: x * x,
                    grad=lambda cts, x: (cts[0] * 2.0 * x,),
                    library=torch.square),
     "scale3": dict(source=_unary_body("scale3_kernel", "__fmul_rn(v, 3.0f)"),
                    entry="scale3_kernel", signature=_UNARY_SIGNATURE,
-                   scalars=_numel, plain=lambda x: x * 3.0,
+                   grid=_per_sm_grid, block=(256,), scalars=_numel,
+                   plain=lambda x: x * 3.0,
                    grad=lambda cts, x: (cts[0] * 3.0,),
                    library=lambda x: torch.mul(x, 3.0)),
     "mul": mul_body(2.0),
     "sign": dict(source=_unary_body("sign_kernel", "v > 0.0f ? 1.0f : 0.0f"),
                  entry="sign_kernel", signature=_UNARY_SIGNATURE,
-                 scalars=_numel, plain=lambda x: (x > 0).to(x.dtype),
+                 grid=_per_sm_grid, block=(256,), scalars=_numel,
+                 plain=lambda x: (x > 0).to(x.dtype),
                  library=lambda x: torch.heaviside(
                      x, torch.zeros((), dtype=x.dtype, device=x.device))),
 }
@@ -1277,8 +1382,92 @@ def phase_user_kernels(peaks):
         rec["device_x_bound"] = rec["device_ms"] / rec["bound_ms"]
         log("user_kernels: timing %s %s" % (tag, json.dumps(rec)))
         results[(name, dt)] = rec
+    check_user_kernel_edges(kernels, g)
+    for dt in (torch.float32, torch.bfloat16):
+        results[("double:default_grid", dt)] = time_default_grid(
+            kernels["double"], inputs[("double", dt)], results[("double", dt)])
     del inputs, outs_by
     return launches, results
+
+
+RAGGED_SHAPE = (FFN_SHAPE[0] - 1, FFN_SHAPE[1] - 1)    # (8191, 3071)
+ODD_LENGTH = 1_000_003
+
+
+def _edge_cases(name, dtype, gen):
+    """(label, inputs, output shape) that the bodies' 16-byte loops must
+    not get wrong: a ragged 2-D size, an odd 1-D length, and views that
+    start one element past a 16-byte boundary (``x.view(-1)[1:]``; for
+    relu_blocked, a block a row, as rows of the row length)."""
+    n_in = 3 if name == "axpy" else 1
+    out = [(label, [torch.randn(shape, generator=gen, device="cuda")
+                    .to(dtype) for _ in range(n_in)], shape)
+           for label, shape in (("ragged", RAGGED_SHAPE),
+                                ("odd-1d", (ODD_LENGTH,)))]
+    views = [torch.randn(FFN_SHAPE, generator=gen, device="cuda").to(dtype)
+             .view(-1)[1:] for _ in range(n_in)]
+    if name == "relu_blocked":
+        rows, cols = FFN_SHAPE[0] - 1, FFN_SHAPE[1]
+        views = [v[:rows * cols].view(rows, cols) for v in views]
+    out.append(("misaligned", views, tuple(views[0].shape)))
+    return out
+
+
+def check_user_kernel_edges(kernels, gen):
+    """Each body against its plain version at the edge cases of
+    :func:`_edge_cases`, in fp32 (1e-6) and bf16 (``compare``'s bf16
+    rule)."""
+    for name, k in kernels.items():
+        body = USER_KERNELS[name]
+        for dt in (torch.float32, torch.bfloat16):
+            tol = 1e-6 if dt == torch.float32 else 2e-3
+            for label, xs, shape in _edge_cases(name, dt, gen):
+                if label == "misaligned" and xs[0].data_ptr() % 16 == 0:
+                    raise RuntimeError("the misaligned view is aligned")
+                got = k.run(xs, [(shape, dt)])[0]
+                want = body["plain"](*[x.float() for x in xs])
+                err, ok = compare(got, want, tol)
+                log("user_kernels: %s %s %s %s (address %% 16 = %d) | max|d| "
+                    "vs plain %.3g (tol %g) %s"
+                    % (name, str(dt).replace("torch.", ""), label,
+                       "x".join(map(str, shape)), xs[0].data_ptr() % 16,
+                       err, tol, "ok" if ok else "FAIL"))
+                if not ok:
+                    raise RuntimeError("user kernel %s disagrees with its "
+                                       "plain version at %s" % (name, label))
+
+
+def time_default_grid(k, xs, rec):
+    """The grid-agnostic ``double`` body launched on the facility's default
+    grid (one thread an entry, ``grid=None``) against its plain version,
+    and its times beside those of the explicit grid (``rec``): the cost of
+    the default on a vectorised body."""
+    from mxnet_tpu_torch import tpu_kernel
+    body = USER_KERNELS["double"]
+    dt = xs[0].dtype
+    k_def = tpu_kernel.Kernel(**dict(kernel_args(body), grid=None,
+                                     name="double_default_grid"))
+    got = k_def.run(xs, [(FFN_SHAPE, dt)])[0]
+    err, ok = compare(got, body["plain"](*[x.float() for x in xs]),
+                      1e-6 if dt == torch.float32 else 2e-3)
+    run = lambda: k_def.run(xs, [(FFN_SHAPE, dt)])  # noqa: E731
+    out = dict(rec, kernel_ms=time_ms(run), device_ms=device_ms(run),
+               max_abs_err=err)
+    out["gb_per_s"] = out["mbytes"] / out["kernel_ms"]
+    out["device_x_library"] = out["device_ms"] / out["library_device_ms"]
+    out["device_x_bound"] = out["device_ms"] / out["bound_ms"]
+    tag = "double %s %s" % (str(dt).replace("torch.", ""),
+                            "x".join(map(str, FFN_SHAPE)))
+    log("user_kernels: default grid (%d blocks of 256) %s | max|d| vs plain "
+        "%.3g %s; device %.4f ms against %.4f ms on the explicit grid "
+        "(%.4f ms for the library call) %s"
+        % (-(-int(np.prod(FFN_SHAPE)) // 256), tag, err, "ok" if ok
+           else "FAIL", out["device_ms"], rec["device_ms"],
+           rec["library_device_ms"], json.dumps(out)))
+    if not ok:
+        raise RuntimeError("the default-grid launch disagrees with the plain "
+                           "version: " + tag)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1449,7 +1638,11 @@ def main():
     ] + [kernel_row("tpu_kernel:" + body, USER_KERNEL_SOURCE,
                     "mxnet_tpu/tpu_kernel.py:96",
                     {"user_kernels": user_launches[body]},
-                    user[(body, fp32)], user[(body, bf16)])
+                    user[(body, fp32)], user[(body, bf16)],
+                    {"default_grid_": user[(body + ":default_grid", fp32)],
+                     "bf16_default_grid_": user[(body + ":default_grid",
+                                                 bf16)]}
+                    if body == "double" else None)
          for body in USER_KERNELS]
     log(smi)
     log(json.dumps({"kernels": kernels}))

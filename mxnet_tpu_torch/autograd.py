@@ -11,7 +11,9 @@ python/mxnet/autograd.py).  The reference keeps a tape of its own (one
   carries a graph.  Gluon blocks read :func:`is_training` for their mode.
 * :func:`backward` finds the leaves that the heads depend on by walking
   the graph to its ``AccumulateGrad`` nodes, asks ``torch.autograd.grad``
-  for exactly those, and writes each by its ``grad_req``: 'write'
+  for exactly those, and writes each by its ``grad_req`` (a recorded head
+  that reaches no leaf, such as the sum of ``nd.topk``'s values, writes
+  nothing; a head computed outside ``record()`` raises): 'write'
   overwrites (torch's own ``.backward()`` would add), 'add' accumulates,
   'null' gets nothing (reference ``_write_leaf``).  A leaf attached with
   ``NDArray.attach_grad`` keeps its buffer and request on its tensor
@@ -36,6 +38,10 @@ __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "grad", "mark_variables", "Function"]
 
 _state = threading.local()
+
+#: the tensor attribute that ``ndarray.invoke`` sets on the outputs of a
+#: differentiable op run while recording
+RECORDED = "_mx_recorded"
 
 
 def is_recording() -> bool:
@@ -119,11 +125,17 @@ def _head_grads(heads, head_grads):
             for h, g in zip(heads, hgs)]
 
 
-def _check_heads(heads) -> None:
+def _check_heads(heads) -> List[int]:
+    """The positions of the heads that carry a graph.  A head computed
+    outside ``record()`` raises, as in the reference; a recorded head that
+    reached no leaf through a differentiable op (``nd.topk(x).sum()``, or
+    ``nd.ones(2) * 3``) carries none, and the reference walks its tape to
+    no leaf: such a head contributes nothing."""
     for h in heads:
-        if not h.requires_grad:
+        if not (h.requires_grad or getattr(h, RECORDED, False)):
             raise MXNetError("cannot differentiate a head that was not "
                              "computed while autograd was recording")
+    return [i for i, h in enumerate(heads) if h.requires_grad]
 
 
 def _leaves(heads) -> List[torch.Tensor]:
@@ -171,12 +183,13 @@ def backward(heads, head_grads=None, retain_graph: bool = False,
     with respect to every leaf they reach, and write them by each leaf's
     ``grad_req``."""
     heads = _tensors(heads)
-    _check_heads(heads)
+    live = _check_heads(heads)
+    hgs = _head_grads(heads, head_grads)
+    heads, hgs = [heads[i] for i in live], [hgs[i] for i in live]
     leaves = [t for t in _leaves(heads)
               if getattr(t, "grad_req", "write") != "null"]
     if not leaves:
         return
-    hgs = _head_grads(heads, head_grads)
     grads = torch.autograd.grad(heads, leaves, hgs,
                                 retain_graph=retain_graph, allow_unused=True)
     for t, g in zip(leaves, grads):

@@ -11,8 +11,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "ENV_CATALOG", "get_env", "DTYPES", "torch_dtype",
-           "dtype_name"]
+__all__ = ["MXNetError", "ENV_CATALOG", "get_env", "DTYPES", "NARROWED",
+           "torch_dtype", "dtype_name"]
 
 
 class MXNetError(RuntimeError):
@@ -70,16 +70,23 @@ DTYPES = {
 }
 _NAMES = {v: k for k, v in DTYPES.items()}
 
+#: what the reference's arrays hold in place of a type that JAX without its
+#: x64 mode does not keep: int64 data and int64 requests become int32.  Ops
+#: that need int64 indices (gather, scatter, embedding ids, cross-entropy
+#: targets) cast to int64 internally.
+NARROWED = {torch.int64: torch.int32}
+
 
 def torch_dtype(dtype) -> torch.dtype:
     """A ``torch.dtype`` from a torch dtype, a numpy dtype or type, or a
-    name ('float32', 'bfloat16', 'int32')."""
+    name ('float32', 'bfloat16', 'int32'), narrowed as the reference's
+    arrays are (:data:`NARROWED`: 'int64' gives int32)."""
     if isinstance(dtype, torch.dtype):
-        return dtype
+        return NARROWED.get(dtype, dtype)
     name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
     if name not in DTYPES:
         raise TypeError("unsupported dtype %r" % (dtype,))
-    return DTYPES[name]
+    return torch_dtype(DTYPES[name])
 
 
 def dtype_name(dtype: torch.dtype) -> str:

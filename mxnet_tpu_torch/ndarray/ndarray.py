@@ -143,7 +143,10 @@ class NDArray:
     wait_to_write = wait_to_read
 
     def asnumpy(self) -> np.ndarray:
-        """A host copy (a sync point, as in the reference)."""
+        """A host copy (a sync point, as in the reference).  A bfloat16
+        array comes back as float32 holding exactly its bf16 values, where
+        the reference returns ``ml_dtypes.bfloat16``: numpy has no bf16 of
+        its own, and the port does not depend on ``ml_dtypes``."""
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
@@ -467,8 +470,11 @@ def invoke(op_name: str, *inputs, out: Optional[NDArray] = None, **params):
     device (``ctx``, else the current context) as ``device=``.  The op runs
     under ``torch.enable_grad()`` when autograd is recording and the op is
     differentiable, else under ``torch.no_grad()``, so a non-differentiable
-    op's output carries no gradient.  ``out=`` receives the result in
-    place."""
+    op's output carries no gradient.  The outputs of a differentiable op run
+    while recording are marked as recorded (``autograd.RECORDED``), even
+    when no input needs a gradient, as the reference gives them a tape node:
+    ``backward`` on such a head writes nothing instead of raising.
+    ``out=`` receives the result in place."""
     op = get_op(op_name)
     inputs = op.split_pos_attrs(inputs, params, NDArray)
     ctx = params.pop("ctx", None)
@@ -483,6 +489,10 @@ def invoke(op_name: str, *inputs, out: Optional[NDArray] = None, **params):
             dev = resolve(ctx)
             outs = [o.to(dev) for o in outs] \
                 if isinstance(outs, (tuple, list)) else outs.to(dev)
+    if record:
+        for o in (outs if isinstance(outs, (tuple, list)) else (outs,)):
+            if isinstance(o, torch.Tensor):
+                setattr(o, autograd.RECORDED, True)
     outs = _wrap_outputs(op, outs)
     if out is not None:
         src = outs[0] if isinstance(outs, list) else outs
@@ -506,9 +516,12 @@ def _wrap_outputs(op, outs):
 
 def array(source, ctx: Optional[Context] = None, dtype=None) -> NDArray:
     """A new array holding a copy of ``source`` (an NDArray, tensor, numpy
-    array or nested list) on ``ctx`` (default: the current context).
-    Python lists and float64 numpy data become float32, as in the
-    reference; other numpy dtypes keep their type."""
+    array, nested list or scalar) on ``ctx`` (default: the current context),
+    of ``source``'s shape (a scalar or 0-d array gives shape ()).  Python
+    scalars and lists and float64 numpy data become float32, as in the
+    reference; int64 data, and a ``dtype`` of int64, become int32, as the
+    reference's arrays hold them (``base.NARROWED``); other dtypes keep
+    their type."""
     dev = resolve(ctx)
     if isinstance(source, NDArray):
         source = source._data
@@ -519,9 +532,9 @@ def array(source, ctx: Optional[Context] = None, dtype=None) -> NDArray:
         arr = np.asarray(source)
         if dtype is None and (not is_np or arr.dtype == np.float64):
             dtype = "float32"
-        t = torch.as_tensor(np.ascontiguousarray(arr))
-    if dtype is not None:
-        t = t.to(torch_dtype(dtype))
+        # np.ascontiguousarray would make a 0-d array 1-d
+        t = torch.as_tensor(np.array(arr, order="C"))
+    t = t.to(torch_dtype(t.dtype if dtype is None else dtype))
     return NDArray(t.to(dev, copy=True))
 
 

@@ -52,7 +52,7 @@ __all__ = ["attention_core", "attention_composition", "flash_attention",
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ALIGN = 16     # bytes: the bf16 kernels' cp.async copy
+_ALIGN = 16     # bytes: the bf16 kernels' cp.async copies and TMA maps
 _IMPLS = (None, "pallas", "xla")
 
 # Process-wide default (set_attention_impl) and a thread-local scope stack
@@ -227,9 +227,10 @@ def _check_kernel_inputs(q, k, v) -> None:
 
 
 def _check_aligned(what: str, name: str, t: torch.Tensor) -> None:
-    """The bf16 kernels copy 16-byte chunks of every row (``cp.async``):
-    a bf16 tensor must start on a 16-byte boundary (rows of D in {64, 128}
-    then do too)."""
+    """The bf16 kernels load 16-byte chunks of every row (``cp.async`` in
+    K2 and K3; TMA in K1, whose tensor maps need a 16-byte-aligned base and
+    16-byte-multiple row strides): a bf16 tensor must start on a 16-byte
+    boundary (rows of D in {64, 128} then do too)."""
     if t.dtype == torch.bfloat16 and t.data_ptr() % _ALIGN:
         raise MXNetError("%s: the bf16 kernels need %s 16-byte aligned, got "
                          "address %#x (a view at storage offset %d)"

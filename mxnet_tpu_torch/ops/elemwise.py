@@ -11,14 +11,54 @@ import torch
 from ..base import torch_dtype
 from .registry import register
 
+
+def _int_operands(a, b):
+    """(a, b) as tensors of their integer result type on one device, or
+    None when the result type is not an integer one."""
+    dt = torch.result_type(a, b)
+    if dt.is_floating_point or dt.is_complex or dt == torch.bool:
+        return None
+    dev = a.device if isinstance(a, torch.Tensor) else b.device
+    return (torch.as_tensor(a, dtype=dt, device=dev),
+            torch.as_tensor(b, dtype=dt, device=dev))
+
+
+def power(a, b):
+    """``jnp.power``: on integers the reference's binary exponentiation
+    over the low six bits of the exponent (jnp's ``_pow_int_int``), the
+    products wrapping in the integer type, so a negative exponent gives the
+    wrapped power of its low bits (``torch.pow`` raises or gives 0) and
+    0 ** e = 0 for e != 0; ``torch.pow`` otherwise."""
+    ints = _int_operands(a, b)
+    if ints is None:
+        return torch.pow(a, b)
+    a, b = torch.broadcast_tensors(*ints)
+    acc = torch.where((a == 0) & (b != 0), 0, 1).to(a.dtype)
+    for _ in range(6):
+        acc = torch.where((b & 1) != 0, acc * a, acc)
+        a = a * a
+        b = b >> 1          # the low bits shift alike, arithmetic or not
+    return acc
+
+
+def mod(a, b):
+    """``jnp.mod``: the remainder takes the divisor's sign (as
+    ``torch.remainder``); an integer divisor of 0 gives 0, as the reference
+    divides by 1 there, where torch raises."""
+    ints = _int_operands(a, b)
+    if ints is not None:
+        a, b = ints
+        b = torch.where(b == 0, torch.ones_like(b), b)
+    return torch.remainder(a, b)
+
+
 _BINARY = {
     "broadcast_add": (torch.add, ["elemwise_add", "_plus", "_add"]),
     "broadcast_sub": (torch.sub, ["elemwise_sub", "_minus", "_sub"]),
     "broadcast_mul": (torch.mul, ["elemwise_mul", "_mul"]),
     "broadcast_div": (torch.true_divide, ["elemwise_div", "_div"]),
-    # jnp.mod: the result takes the divisor's sign, as torch.remainder
-    "broadcast_mod": (torch.remainder, ["_mod"]),
-    "broadcast_power": (torch.pow, ["_power", "pow"]),
+    "broadcast_mod": (mod, ["_mod"]),
+    "broadcast_power": (power, ["_power", "pow"]),
 }
 
 for _name, (_fn, _aliases) in _BINARY.items():
@@ -70,4 +110,14 @@ def _clip(x, a_min=None, a_max=None):
 
 @register("cast", aliases=["Cast"])
 def _cast(x, dtype="float32"):
-    return x.to(torch_dtype(dtype))
+    """``x`` in ``dtype``.  A floating-point x cast to an integer type
+    saturates, NaN giving 0, as the reference's conversion does (-1.7 to
+    uint8 is 0, 300.2 is 255); torch's conversion wraps there.  The bounds
+    are applied in float64, which holds every int32 bound exactly."""
+    dt = torch_dtype(dtype)
+    if x.is_floating_point() and not (dt.is_floating_point or dt.is_complex
+                                      or dt == torch.bool):
+        info = torch.iinfo(dt)
+        x = x.double().nan_to_num(0.0, posinf=info.max, neginf=info.min) \
+            .clamp(info.min, info.max)
+    return x.to(dt)

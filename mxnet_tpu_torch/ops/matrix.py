@@ -70,9 +70,17 @@ def _expand_dims(x, axis=0):
 
 @register("squeeze")
 def _squeeze(x, axis=None):
+    """Drop size-1 axes: all of them, or those of ``axis``, each of which
+    must have size 1 (``torch.squeeze`` would keep a larger one; the
+    reference raises, as here)."""
     if axis is None:
         return x.squeeze()
-    return x.squeeze(axis if isinstance(axis, int) else tuple(axis))
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+    if any(x.shape[a] != 1 for a in axes):
+        raise ValueError("cannot select an axis to squeeze out which has "
+                         "size not equal to one, got shape=%s and "
+                         "dimensions=%s" % (tuple(x.shape), axes))
+    return x.squeeze(axes)
 
 
 @register("broadcast_to")

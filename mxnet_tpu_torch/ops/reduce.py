@@ -2,7 +2,9 @@
 
 Counterpart of the matching entries of ``mxnet_tpu/ops/reduce.py``.
 Half-precision sums and means accumulate in float32 and return the input's
-dtype, as the reference's ``_acc_reduce`` does.
+dtype, as the reference's ``_acc_reduce`` does; so does the mean of an
+integer or bool array (``jnp.mean`` averages those in float32), which the
+cast back truncates toward zero.
 """
 from __future__ import annotations
 
@@ -44,8 +46,8 @@ def _sum(x, axis=None, keepdims=False, exclude=False):
 
 @register("mean")
 def _mean(x, axis=None, keepdims=False, exclude=False):
-    acc = torch.float32 if x.dtype in (torch.bfloat16, torch.float16) \
-        else None
+    acc = torch.float32 if x.dtype in (torch.bfloat16, torch.float16) or \
+        not (x.is_floating_point() or x.is_complex()) else None
     return _reduce(lambda t, dim, keepdim: torch.mean(
         t, dim=dim, keepdim=keepdim, dtype=acc), x, axis, keepdims,
         exclude).to(x.dtype)
@@ -79,12 +81,17 @@ def _topk(x, axis=-1, k=1, ret_typ="indices", is_ascend=False,
           dtype="float32"):
     """The k largest (smallest with ``is_ascend``) entries along ``axis``:
     their indices (in ``dtype``), values, both, or a 0/1 mask of x's
-    shape."""
+    shape.  Equal entries come lowest index first, as the reference's
+    ``lax.top_k`` orders them (``torch.topk`` leaves their order open): a
+    stable descending sort of x (of -x with ``is_ascend``, as the reference
+    negates), cut to k."""
     if axis is None:
         x = x.reshape(-1)
         axis = -1
-    vals, idx = torch.topk(x, int(k), dim=axis, largest=not is_ascend,
-                           sorted=True)
+    src = -x if is_ascend else x
+    idx = torch.sort(src, dim=axis, descending=True, stable=True)[1] \
+        .narrow(axis, 0, int(k))
+    vals = torch.gather(x, axis, idx)
     if ret_typ == "indices":
         return idx.to(torch_dtype(dtype))
     if ret_typ == "value":

@@ -3,12 +3,14 @@
 Counterpart of ``mxnet_tpu/ops/scalar.py``.  ``NDArray`` arithmetic with a
 Python number dispatches here.  As in the reference, the scalar takes the
 data's type first (``jnp.asarray(scalar, data.dtype)``): truncated for an
-integer tensor, rounded for a half-precision one.
+integer tensor, rounded for a half-precision one.  Integer powers and
+remainders follow the reference's (``elemwise.power``, ``elemwise.mod``).
 """
 from __future__ import annotations
 
 import torch
 
+from .elemwise import mod, power
 from .registry import register
 
 
@@ -55,19 +57,19 @@ def _rdiv_scalar(data, scalar=1.0):
 
 @register("_mod_scalar", aliases=["mod_scalar"], differentiable=False)
 def _mod_scalar(data, scalar=1.0):
-    return torch.remainder(data, _typed(scalar, data))
+    return mod(data, _typed(scalar, data))
 
 
 @register("_rmod_scalar", aliases=["rmod_scalar"], differentiable=False)
 def _rmod_scalar(data, scalar=1.0):
-    return torch.remainder(torch.full_like(data, _typed(scalar, data)), data)
+    return mod(torch.full_like(data, _typed(scalar, data)), data)
 
 
 @register("_power_scalar", aliases=["power_scalar"])
 def _power_scalar(data, scalar=1.0):
-    return torch.pow(data, _typed(scalar, data))
+    return power(data, _typed(scalar, data))
 
 
 @register("_rpower_scalar", aliases=["rpower_scalar"])
 def _rpower_scalar(data, scalar=1.0):
-    return torch.pow(_typed(scalar, data), data)
+    return power(_typed(scalar, data), data)

@@ -45,7 +45,17 @@ counts nothing.
 interpreter switch) have no meaning for a CUDA kernel and raise if given;
 ``grid`` and ``block`` are CUDA launch dimensions (or callables of the
 first output's shape) and ``shared_mem`` the dynamic shared memory in
-bytes.
+bytes.  A callable ``grid`` runs at each launch with the launch device
+current, so it may size the grid by the card (``torch.cuda.
+get_device_properties(torch.cuda.current_device()).multi_processor_count``).
+
+**The default grid** is one thread per entry of the first output, so a body
+that indexes without a stride loop covers every entry.  That is one 2-byte
+(bf16) or 4-byte (fp32) element a thread: far too few bytes in flight to
+cover the latency of device memory, so such a body runs at well under the
+card's memory rate.  A bandwidth-bound body should loop over its output in
+16-byte vectors (``uint4``: 8 bf16 or 4 fp32 values) and pass ``grid=``
+of a few blocks per SM, as ``chip_smoke.USER_KERNELS`` does.
 """
 from __future__ import annotations
 
@@ -193,8 +203,11 @@ class Kernel:
 
     ``source`` holds the ``__global__`` function ``entry`` whose C
     parameters are ``signature``; ``grid`` (default: one thread per entry
-    of the first output) and ``block`` (default 256 threads) are CUDA dims
-    or callables of the first output's shape; ``shared_mem`` is the
+    of the first output, which moves 2 bytes a thread in bf16: a
+    bandwidth-bound body should vectorise and pass a grid of a few blocks
+    per SM) and ``block`` (default 256 threads) are CUDA dims or callables
+    of the first output's shape (a callable grid runs on the launch
+    device); ``shared_mem`` is the
     dynamic shared memory in bytes; ``plain`` is the PyTorch version CPU
     tensors take; ``dtypes`` builds a template for each element type;
     ``scalars(*inputs, *outputs)`` gives the trailing scalar values.
@@ -353,17 +366,20 @@ class Kernel:
         shape0 = structs[0][0] if structs else ()
         block = _dims(self.block(shape0) if callable(self.block)
                       else self.block, "block")
+        grid = None
         if self.grid is None:
             grid = (math.ceil(math.prod(shape0) / math.prod(block)),)
             if grid[0] == 0:
                 return tuple(outs)           # nothing to compute
-        else:
-            grid = self.grid(shape0) if callable(self.grid) else self.grid
-        grid = _dims(grid, "grid")
+        elif not callable(self.grid):
+            grid = _dims(self.grid, "grid")
         lib = self.library.load()            # nvcc at the first launch
         argv = (ctypes.c_void_p * len(c_vals))(
             *[ctypes.addressof(v) for v in c_vals])
         with torch.cuda.device(dev):
+            # a callable grid runs on the launch device, after the build
+            grid = _dims(self.grid(shape0) if grid is None else grid,
+                         "grid")
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = getattr(lib, var.launcher)(
                 ctypes.cast(argv, ctypes.c_void_p), *grid, *block,

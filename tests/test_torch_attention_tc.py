@@ -16,9 +16,11 @@ and of dS missing that rule where hi + lo meets it.  The remaining tests
 cover what the kernels need around them: 16-byte aligned bf16 inputs, and
 a library name that follows the shared header.
 
-Run as a script, the module prints how far K2's emulated dQ lands from the
-rule at ``chip_smoke.py``'s backward shapes, with dS split and rounded
-once::
+Run as a script, the module prints how far K1's emulated O and LSE (the
+warp-specialised tiling, ``tc_flash_fwd_ws``) land from the rule at
+``chip_smoke.py``'s forward shapes, with P split and rounded once, and how
+far K2's emulated dQ lands at its backward shapes, with dS split and
+rounded once::
 
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_attention_tc.py
 """
@@ -40,6 +42,8 @@ TOL = 2e-3
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 BLOCK = 64
+# the warp-specialised K1: query tile, rows a consumer warpgroup, key tile
+WS_BLOCK_Q, WS_ROWS, WS_BLOCK_K = 128, 64, 128
 
 
 def _bf16(x):
@@ -47,26 +51,34 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
-def _split_matmul(a, b, split=True):
+def _bf16_trunc(x):
+    """``x`` cut to bf16 by truncation (its low 16 bits cleared), as
+    float32."""
+    return (x.contiguous().view(torch.int32) & -65536).view(torch.float32)
+
+
+def _split_matmul(a, b, split=True, trunc=False):
     """``a @ b`` with ``a`` entering the product as bf16 values: hi + lo
     (two products, as the kernels issue them) or, with ``split=False``, hi
-    alone (one rounding)."""
-    hi = _bf16(a)
+    alone (one rounding).  ``trunc`` cuts hi and lo by truncation, as the
+    warp-specialised K1 does, where the other kernels round to nearest."""
+    cut = _bf16_trunc if trunc and split else _bf16
+    hi = cut(a)
     out = hi @ b
-    return out + _bf16(a - hi) @ b if split else out
+    return out + cut(a - hi) @ b if split else out
 
 
-def tc_flash_fwd(q, k, v, scale, causal, split=True):
-    """K1's bf16 arithmetic: (O bf16, LSE float32 (B, H, Tq))."""
-    q, k, v = (t.float() for t in (q, k, v))
+def _fwd_rows(q, k, v, row0, scale, causal, split, block_k, trunc=False):
+    """The online softmax of K1 for query rows row0 .. row0 + len(q) over
+    key tiles of ``block_k``: (O bf16, LSE float32)."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     m = torch.full((B, H, Tq, 1), -math.inf)
     l = torch.zeros((B, H, Tq, 1))
     acc = torch.zeros((B, H, Tq, D))
-    qpos = torch.arange(Tq)[:, None]
-    for k0 in range(0, Tk, BLOCK):
-        kt, vt = k[:, :, k0:k0 + BLOCK], v[:, :, k0:k0 + BLOCK]
+    qpos = torch.arange(row0, row0 + Tq)[:, None]
+    for k0 in range(0, Tk, block_k):
+        kt, vt = k[:, :, k0:k0 + block_k], v[:, :, k0:k0 + block_k]
         s = (q @ kt.transpose(-1, -2)) * (scale * LOG2E)
         if causal:
             kpos = torch.arange(k0, k0 + kt.shape[2])[None, :]
@@ -79,13 +91,45 @@ def tc_flash_fwd(q, k, v, scale, causal, split=True):
         p = torch.where(torch.isfinite(s), torch.exp2(s - m_safe),
                         torch.zeros_like(s))
         l = alpha * l + p.sum(-1, keepdim=True)
-        acc = alpha * acc + _split_matmul(p, vt, split)
+        acc = alpha * acc + _split_matmul(p, vt, split, trunc)
         m = m_new
     o = acc * (1.0 / l.clamp_min(1e-30))
     m_fin = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     lse = torch.where(l > 0, m_fin * LN2 + torch.log(l.clamp_min(1e-30)),
                       torch.full_like(l, -math.inf))
     return o.to(torch.bfloat16), lse[..., 0]
+
+
+def tc_flash_fwd(q, k, v, scale, causal, split=True):
+    """K1's bf16 arithmetic on 64-key tiles (the ``mma.sync`` tiling the
+    backward emulations were built against): (O bf16, LSE float32
+    (B, H, Tq))."""
+    q, k, v = (t.float() for t in (q, k, v))
+    return _fwd_rows(q, k, v, 0, scale, causal, split, BLOCK)
+
+
+def tc_flash_fwd_ws(q, k, v, scale, causal, split=True):
+    """K1's bf16 arithmetic as the warp-specialised ``wgmma`` kernel tiles
+    it: 128-row query tiles, each split into two 64-row warpgroups that run
+    the online softmax over 128-key tiles, up to the last key tile the
+    128-row tile sees when causal; P enters P V as hi + lo, both cut by
+    truncation (one rounding to nearest with ``split=False``).  (O bf16,
+    LSE float32 (B, H, Tq))."""
+    q, k, v = (t.float() for t in (q, k, v))
+    Tq, Tk = q.shape[2], k.shape[2]
+    outs, lses = [], []
+    for q0 in range(0, Tq, WS_BLOCK_Q):
+        n_kt = -(-Tk // WS_BLOCK_K)
+        if causal:
+            n_kt = min(n_kt, -(-(q0 + WS_BLOCK_Q) // WS_BLOCK_K))
+        kv = slice(0, n_kt * WS_BLOCK_K)
+        for r0 in range(q0, min(q0 + WS_BLOCK_Q, Tq), WS_ROWS):
+            o, lse = _fwd_rows(q[:, :, r0:r0 + WS_ROWS], k[:, :, kv],
+                               v[:, :, kv], r0, scale, causal, split,
+                               WS_BLOCK_K, trunc=True)
+            outs.append(o)
+            lses.append(lse)
+    return torch.cat(outs, 2), torch.cat(lses, 2)
 
 
 def tc_flash_bwd_dkv(q, k, v, o, lse, do, scale, causal, split=True):
@@ -171,6 +215,55 @@ def test_tc_forward_matches_pallas_kernel(T, D, causal):
     assert o_t.dtype == torch.bfloat16 and lse_t.shape == (1, 2, T)
     _holds(o_t, o_j, "O")
     _holds(lse_t, lse_j, "LSE")
+
+
+@pytest.mark.parametrize("T,D,causal", CASES)
+def test_ws_forward_matches_pallas_kernel(T, D, causal):
+    """K1's bf16 arithmetic as the warp-specialised kernel tiles it (two
+    64-row warpgroups of a 128-row query tile, 128-key tiles) against
+    ``_flash_fwd`` in interpret mode at 64-row blocks, on the same
+    bf16-rounded inputs."""
+    q, k, v = _bf16_inputs(T + D + int(causal), [(1, 2, T, D)] * 3)
+    scale = 1.0 / math.sqrt(D)
+    o_j, lse_j = jatt._flash_fwd(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), scale, causal,
+                                 block_q=BLOCK, block_k=BLOCK)
+    o_t, lse_t = tc_flash_fwd_ws(*map(torch.from_numpy, (q, k, v)), scale,
+                                 causal)
+    assert o_t.dtype == torch.bfloat16 and lse_t.shape == (1, 2, T)
+    _holds(o_t, o_j, "O")
+    _holds(lse_t, lse_j, "LSE")
+
+
+@pytest.mark.parametrize("Tq,Tk,D,causal", [
+    (200, 200, 128, True), (64, 128, 64, True), (77, 333, 64, False),
+    (200, 333, 128, False)])
+def test_ws_forward_matches_plain_version_at_ragged_shapes(Tq, Tk, D,
+                                                           causal):
+    """The warp-specialised tiling at ``chip_smoke.KERNEL_CASES``' ragged
+    shapes (a partial query tile, a partial or half-used key tile, top-left
+    causal with Tq < Tk) against the port's plain version in fp32 on the
+    same bf16 inputs, as the card holds the kernel."""
+    q, k, v = (torch.from_numpy(a) for a in _bf16_inputs(
+        Tq + Tk + D, [(1, 2, Tq, D), (1, 2, Tk, D), (1, 2, Tk, D)]))
+    scale = 1.0 / math.sqrt(D)
+    o_ref, lse_ref = tatt.flash_attention_plain(q, k, v, scale, causal)
+    o, lse = tc_flash_fwd_ws(q, k, v, scale, causal)
+    assert o.shape == (1, 2, Tq, D) and lse.shape == (1, 2, Tq)
+    _holds(o, o_ref, "O")
+    _holds(lse, lse_ref, "LSE")
+
+
+def test_ws_forward_without_keys_gives_zero_and_minus_inf():
+    """Tk = 0 (the kernel loads no tile): O = 0 and LSE = -inf, as the
+    plain version gives."""
+    q = torch.ones(1, 2, 5, 64)
+    k = v = torch.zeros(1, 2, 0, 64)
+    o_ref, lse_ref = tatt.flash_attention_plain(q, k, v, 0.125, False)
+    o, lse = tc_flash_fwd_ws(q, k, v, 0.125, False)
+    assert torch.equal(o.float(), o_ref) and torch.equal(o_ref,
+                                                         torch.zeros_like(q))
+    assert torch.equal(lse, lse_ref) and bool((lse == -math.inf).all())
 
 
 @pytest.mark.parametrize("T,D,causal", CASES)
@@ -283,6 +376,28 @@ def test_one_bf16_rounding_of_p_misses_the_rule_the_split_meets():
     assert cs.compare(split, want, TOL)[1]
 
 
+def test_truncated_hi_plus_lo_of_p_meets_the_rule_one_rounding_misses():
+    """The warp-specialised K1 cuts P's hi and lo by truncation (no
+    conversion instruction): on the pinned two-key row of the test above,
+    that pair meets the rule as the rounded pair does, and one rounding
+    still misses it."""
+    D = 64
+    q, k, v = (torch.zeros(1, 1, 2, D) for _ in range(3))
+    q[..., 1, 0] = 1.0
+    k[..., 1, 0] = 8.0
+    v[..., 0, :] = 10.875
+    v[..., 1, :] = -4.0
+    want, _ = tatt.flash_attention_plain(q, k, v, 0.125, True)
+    once, _ = tc_flash_fwd_ws(q, k, v, 0.125, True, split=False)
+    split, _ = tc_flash_fwd_ws(q, k, v, 0.125, True)
+    assert not cs.compare(once, want, TOL)[1]
+    assert cs.compare(split, want, TOL)[1]
+    x = torch.tensor([1 / 3, 0.7853981, 2.0 ** -20 * 3.1, 0.999999])
+    hi = _bf16_trunc(x)
+    assert torch.equal(hi.to(torch.bfloat16).float(), hi)
+    assert float(((hi + _bf16_trunc(x - hi) - x).abs() / x).max()) < 2 ** -14
+
+
 def test_one_bf16_rounding_of_ds_misses_the_rule_the_split_meets():
     """Why dS enters dQ = dS K as hi + lo: a causal row that sees three
     keys, scores (0, 1, 2), dP = (3, -5, 7), and keys equal (60) in every
@@ -331,8 +446,9 @@ def test_library_name_follows_every_header(tmp_path):
     of every ``*.cuh`` beside it and of the flags: editing the shared
     header, or adding one, names a new library, so a stale build is never
     loaded.  A user kernel's library follows its own text only."""
-    for name in ("flash_fwd.cu", "mma_bf16.cuh"):
-        shutil.copy(_kernels.CSRC / name, tmp_path / name)
+    for src in [_kernels.CSRC / "flash_fwd.cu"] + sorted(
+            _kernels.CSRC.glob("*.cuh")):
+        shutil.copy(src, tmp_path / src.name)
     lib = _kernels.KernelLibrary("flash_fwd", {}, ["flash_fwd"])
     lib.source = tmp_path / "flash_fwd.cu"
     first = lib.library_path()
@@ -357,10 +473,11 @@ def test_library_name_follows_every_header(tmp_path):
 
 def _worst_ratio(got, want):
     """max |got - want| / the limit of ``chip_smoke.compare``'s bf16 rule
-    at 2e-3; the rule holds where this is at most 1."""
+    at 2e-3; the rule holds where this is at most 1 (0 for no entries)."""
     want = torch.as_tensor(want).float()
     limit = TOL + (TOL + 2.0 ** -8) * want.abs()
-    return float(((got.float() - want).abs() / limit).max())
+    ratio = (got.float() - want).abs() / limit
+    return float(ratio.max()) if ratio.numel() else 0.0
 
 
 def dq_rounding_margins(seed):
@@ -387,7 +504,38 @@ def dq_rounding_margins(seed):
     return out
 
 
+def fwd_rounding_margins(seed):
+    """For each bf16 case of ``chip_smoke.KERNEL_CASES``: the worst |d| /
+    limit of K1's emulated O (warp-specialised tiling, P as hi + lo, and P
+    rounded once) and LSE against ``flash_attention_plain`` in fp32 on the
+    same bf16 inputs, under ``chip_smoke.compare``'s rules (bf16 for O,
+    fp32 for the fp32 LSE)."""
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for name, B, H, Tq, Tk, D, dtype, causal, _ in cs.KERNEL_CASES:
+        if dtype != torch.bfloat16:
+            continue
+        q, k, v = (torch.randn((B, H, T, D), generator=g).bfloat16()
+                   for T in (Tq, Tk, Tk))
+        scale = 1.0 / D ** 0.5
+        o_ref, lse_ref = tatt.flash_attention_plain(
+            q.float(), k.float(), v.float(), scale, causal)
+        o, lse = tc_flash_fwd_ws(q, k, v, scale, causal)
+        once, _ = tc_flash_fwd_ws(q, k, v, scale, causal, split=False)
+        lse_d = torch.where(lse == lse_ref, 0.0, (lse - lse_ref).abs())
+        out.append((name, causal, _worst_ratio(o, o_ref),
+                    _worst_ratio(once, o_ref),
+                    float((lse_d / (TOL + TOL * lse_ref.abs())).max())
+                    if lse_d.numel() else 0.0))
+    return out
+
+
 if __name__ == "__main__":
+    for seed in (0, 1, 2):
+        for name, causal, split, once, lse in fwd_rounding_margins(seed):
+            print("seed %d %-16s causal=%-5s K1 (wgmma tiling) worst |d|/"
+                  "limit: O hi + lo %.3f, O one rounding %.3f, LSE %.2g"
+                  % (seed, name, causal, split, once, lse))
     for seed in (0, 1, 2):
         for name, causal, split, once in dq_rounding_margins(seed):
             print("seed %d %-16s causal=%-5s dQ worst |d|/limit: hi + lo "

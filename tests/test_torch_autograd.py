@@ -325,6 +325,62 @@ def test_non_differentiable_op_gives_no_gradient():
     np.testing.assert_allclose(x.grad.asnumpy(), [2.0, 2.0, 2.0])
 
 
+@pytest.mark.parametrize("preset", [None, 7.0])
+def test_head_reached_only_through_non_differentiable_ops(preset):
+    """A head recorded under ``record()`` whose only path to a variable
+    runs through non-differentiable ops (the sum of ``topk``'s values, or
+    of ``argmax``) reaches no leaf: backward writes nothing, as the
+    reference's tape walk, and raises nothing; the gradient stays as
+    attached (zeros) or as set."""
+    def case(mx, nd, ag):
+        x = nd.array([[1.0, 5.0, 3.0, 4.0]])
+        x.attach_grad()
+        if preset is not None:
+            x.grad[:] = preset
+        with ag.record():
+            y = nd.topk(x, k=2, ret_typ="value").sum()
+            z = nd.argmax(x, axis=1).sum()
+            c = nd.ones((2,)) * 3.0
+        y.backward()
+        z.backward()
+        c.backward()
+        return [x.grad.asnumpy()]
+    got = both(case)
+    np.testing.assert_array_equal(got[0], np.full((1, 4), preset or 0.0))
+
+
+def test_head_computed_outside_record_raises():
+    """Outside ``record()``, and from a non-differentiable op itself (no
+    tape node in the reference), a head still raises."""
+    for nd, ag, err in ((jnd, jag, jmx.base.MXNetError),
+                        (tnd, tag, MXNetError)):
+        x = nd.array([1.0, 2.0])
+        x.attach_grad()
+        with pytest.raises(err, match="not computed while autograd"):
+            (x * 2.0).sum().backward()
+        with ag.record():
+            i = nd.argmax(x, axis=0)
+        with pytest.raises(err, match="not computed while autograd"):
+            i.backward()
+
+
+def test_a_live_head_beside_a_dead_one():
+    """Heads that reach leaves and a recorded head that reaches none, in
+    one backward: the live ones write their gradients."""
+    def case(mx, nd, ag):
+        x = nd.array([1.0, 5.0, 3.0])
+        w = nd.array([2.0, -1.0, 0.5])
+        for v in (x, w):
+            v.attach_grad()
+        with ag.record():
+            dead = nd.topk(x, k=1, ret_typ="value").sum()
+            live = (w * w * 3.0).sum()
+        ag.backward([dead, live])
+        return [x.grad.asnumpy(), w.grad.asnumpy()]
+    got = both(case)
+    np.testing.assert_allclose(got[1], [12.0, -6.0, 3.0])
+
+
 def test_dropout_under_record():
     def case(mx, nd, ag):
         x = nd.ones((100, 100))

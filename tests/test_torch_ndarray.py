@@ -515,3 +515,186 @@ def test_repr_and_len():
     assert len(a) == 2 and "NDArray 2x3 @cpu(0)" in repr(a)
     assert a.size == 6 and a.ndim == 2 and a.stype == "default"
     assert a.tolist() == X6.tolist()
+
+
+# ---------------------------------------------------------------------------
+# divergences from the reference found by a CPU probe, each repaired: every
+# case below failed on the port before its repair
+# ---------------------------------------------------------------------------
+
+def _values_and_dtypes(*arrays):
+    out = []
+    for a in arrays:
+        out += [a.shape, str(a.dtype), _np(a)]
+    return out
+
+
+@pytest.mark.parametrize("source", [
+    3.0, 7, np.array(2.5), np.float64(1.5), np.int64(5), np.array(True),
+    np.array([4.0])], ids=["float", "int", "0d", "np-float64", "np-int64",
+                          "0d-bool", "1d"])
+def test_array_of_a_scalar_keeps_its_shape(source):
+    """A scalar or 0-d array gives shape (), a 1-element array (1,)."""
+    got = both(lambda mx, nd, invoke: _values_and_dtypes(nd.array(source)))
+    assert_same(got)
+    assert got["port"][0] == np.shape(source)
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int8", "uint8", "bool"])
+@pytest.mark.parametrize("axis", [None, 0, 1, (0, 1)])
+def test_mean_of_integer_and_bool_arrays(dtype, axis):
+    """Averaged in float32, then cast back (toward zero): along axis 1,
+    [[-1, 2], [-3, -4], [5, 6]] gives [0, -3, 5]."""
+    x = np.array([[-1, 2], [-3, -4], [5, 6]]).astype(dtype)
+    got = both(lambda mx, nd, invoke: _values_and_dtypes(
+        nd.mean(nd.array(x), axis=axis),
+        nd.mean(nd.array(x), axis=axis, keepdims=True)))
+    assert_same(got)
+    if dtype == "int32" and axis == 1:
+        np.testing.assert_array_equal(got["port"][2], [0, -3, 5])
+
+
+TOPK_DATA = {
+    "row": (np.array([[1, 3, 3, 3]], np.float32), 2, -1),
+    "mod3": ((np.arange(40) % 3).astype(np.float32), 5, -1),
+    "cols": ((np.arange(24).reshape(6, 4) % 2).astype(np.float32), 3, 0),
+}
+
+
+# the reference's mask along an axis other than the last has the shape of
+# its index array moved to the end, (6, 3) here, not x's: not held to it
+TOPK_CASES = [(d, a, r) for d in sorted(TOPK_DATA) for a in (False, True)
+              for r in ("indices", "value", "both", "mask")
+              if (d, r) != ("cols", "mask")]
+
+
+@pytest.mark.parametrize("data,is_ascend,ret_typ", TOPK_CASES)
+def test_topk_orders_ties_lowest_index_first(data, is_ascend, ret_typ):
+    """Among equal values the lowest index comes first, as the reference's
+    lax.top_k orders them: [[1, 3, 3, 3]] with k = 2 gives [1, 2]."""
+    x, k, axis = TOPK_DATA[data]
+
+    def case(mx, nd, invoke):
+        out = nd.topk(nd.array(x), k=k, axis=axis, ret_typ=ret_typ,
+                      is_ascend=is_ascend)
+        return _values_and_dtypes(*(out if isinstance(out, list)
+                                    else [out]))
+    got = both(case)
+    assert_same(got)
+    if (data, is_ascend, ret_typ) == ("row", False, "indices"):
+        np.testing.assert_array_equal(got["port"][2], [[1, 2]])
+
+
+@pytest.mark.parametrize("shape,axis", [((2, 3), 0), ((1, 3, 1), (0, 1)),
+                                        ((1, 3, 4), -1)])
+def test_squeeze_of_an_axis_not_of_size_one_raises(shape, axis):
+    for nd in (jnd, tnd):
+        with pytest.raises(ValueError, match="size not equal to one"):
+            nd.squeeze(nd.ones(shape), axis=axis)
+
+
+@pytest.mark.parametrize("shape,axis", [((1, 3, 1), (0, 2)), ((1, 3), 0),
+                                        ((3, 1), -1), ((1, 1), None)])
+def test_squeeze_of_size_one_axes(shape, axis):
+    got = both(lambda mx, nd, invoke: _values_and_dtypes(
+        nd.squeeze(nd.ones(shape), axis=axis)))
+    assert_same(got)
+
+
+def test_int64_narrows_to_int32():
+    """The reference holds no int64 (JAX without x64): int64 data and int64
+    requests of the creation ops and of astype give int32."""
+    ids = np.array([[3, 0, 2], [1, 1, 4]], dtype=np.int64)
+
+    def case(mx, nd, invoke):
+        return _values_and_dtypes(
+            nd.array(ids), nd.array(ids.astype(np.float32), dtype="int64"),
+            nd.array(np.int64(9)), nd.zeros((2,), dtype="int64"),
+            nd.ones((2,), dtype="int64"), nd.full((2,), 3, dtype="int64"),
+            nd.arange(0, 4, dtype="int64"), nd.array(ids).astype("int64"),
+            nd.topk(nd.array(ids.astype(np.float32)), k=2, dtype="int64"))
+    got = both(case)
+    assert_same(got)
+    assert set(got["port"][1::3]) == {"int32"}
+
+
+def test_narrowed_ids_index_where_int64_is_needed():
+    """The ops that need int64 indices cast int32 ids themselves: one_hot,
+    indexing by an index array, embedding, pick and the cross-entropy's
+    targets."""
+    from mxnet_tpu_torch.ops import nn as tnn
+    ids = np.array([[3, 0, 2], [1, 1, 4]], dtype=np.int64)
+    got = both(lambda mx, nd, invoke: _values_and_dtypes(
+        nd.one_hot(nd.array(ids), depth=5),
+        nd.array(np.arange(10.0))[nd.array(ids)]))
+    assert_same(got)
+    t_ids = tnd.array(ids).data
+    assert t_ids.dtype == torch.int32
+    w = torch.arange(20.0).reshape(5, 4)
+    assert torch.equal(tnn.embedding(t_ids, w), w[torch.from_numpy(ids)])
+    logits = torch.arange(30.0).reshape(6, 5) / 7
+    labels = t_ids.reshape(-1)
+    want = torch.nn.functional.cross_entropy(
+        logits, torch.from_numpy(ids).reshape(-1), reduction="none")
+    np.testing.assert_allclose(
+        tnn.softmax_cross_entropy(logits, labels).numpy(),
+        want.sum().numpy(), rtol=1e-6)
+    np.testing.assert_array_equal(
+        tnn.pick(logits, labels).numpy(),
+        logits[torch.arange(6), torch.from_numpy(ids).reshape(-1)].numpy())
+
+
+@pytest.mark.parametrize("exp", [-1, -2, -3, -64, 0, 1, 3, 70])
+def test_integer_power_matches_the_reference(exp):
+    """Integer powers are the reference's binary exponentiation over the
+    exponent's low six bits, wrapping: a negative exponent gives values
+    (torch raises, or gives 0), 0 ** e is 0 for e != 0."""
+    x = np.array([2, -3, 0, 5, 1, -1, 7], dtype=np.int32)
+    e = np.full(7, exp, dtype=np.int32)
+    got = both(lambda mx, nd, invoke: _values_and_dtypes(
+        nd.array(x) ** exp, nd.array(x) ** nd.array(e),
+        nd.broadcast_power(nd.array(x), nd.array(e)), 2 ** nd.array(e)))
+    assert_same(got)
+
+
+def test_integer_mod_by_zero_gives_zero():
+    """An integer divisor of 0 gives 0 (torch raises); otherwise the
+    remainder takes the divisor's sign."""
+    x = np.array([2, -3, 0, 5, 7, -7, 7, -7], dtype=np.int32)
+    d = np.array([0, 2, 0, 3, 2, 2, -2, 0], dtype=np.int32)
+    got = both(lambda mx, nd, invoke: _values_and_dtypes(
+        nd.array(x) % 0, nd.array(x) % nd.array(d), 5 % nd.array(d),
+        nd.broadcast_mod(nd.array(x), nd.array(d)), nd.array(x) % -2,
+        nd.array(x.astype(np.float32)) % 2.5))
+    assert_same(got)
+
+
+@pytest.mark.parametrize("src", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("dtype", ["uint8", "int8", "int16", "int32"])
+def test_float_to_integer_casts_saturate(src, dtype):
+    """Out-of-range values saturate and NaN gives 0, as in the reference:
+    -1.7 to uint8 is 0 and 300.2 is 255 (torch's conversion wraps them to
+    255 and 44)."""
+    x = np.array([-1.7, 300.2, 12.5, 255.9, -300.0, np.nan, np.inf,
+                  -np.inf, 3e9, -3e9, 70000.0], dtype=np.float32)
+
+    def case(mx, nd, invoke):
+        a = nd.array(x).astype(src)
+        return _values_and_dtypes(a.astype(dtype),
+                                  nd.cast(a, dtype=dtype))
+    got = both(case)
+    assert_same(got)
+    if (src, dtype) == ("float32", "uint8"):
+        np.testing.assert_array_equal(got["port"][2][:2], [0, 255])
+
+
+def test_asnumpy_of_bfloat16_is_float32_with_the_bf16_values():
+    """A documented difference: the reference returns ml_dtypes.bfloat16,
+    the port float32 holding exactly the same values (the card's machine
+    has no ml_dtypes)."""
+    x = np.array([1.0, 1.00390625, 3.14159, -2e-3, 65504.0, 1e30],
+                 dtype=np.float32)
+    ref = jnd.array(x).astype("bfloat16").asnumpy()
+    got = tnd.array(x).astype("bfloat16").asnumpy()
+    assert got.dtype == np.float32 and ref.dtype.name == "bfloat16"
+    np.testing.assert_array_equal(got, ref.astype(np.float32))
