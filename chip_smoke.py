@@ -9,10 +9,14 @@ Phases (each raises on failure, so any failure exits nonzero):
 
 1. device  -- require CUDA; print the card's name and power limit.
 2. build   -- build every hand-written kernel from ``mxnet_tpu_torch/csrc``
-   (one ``nvcc`` per source, all started together); print each flash
+   (one ``nvcc`` per source, all started together; a library that an
+   earlier run left in ``_build/`` is removed first); print each flash
    instantiation's registers, spill bytes (``-Xptxas -v``) and dynamic
    shared memory, and ptxas's performance warnings; a spill in the bf16
-   flash forward fails the phase.
+   flash forward or in an fp32 flash backward fails the phase, and so do
+   an fp32 backward's local-memory stack frame and an fp32 backward
+   instantiation without TF32 tensor-core instructions
+   (``HMMA...TF32`` in ``cuobjdump -sass`` of the built library).
 3. kernels -- hold each kernel against its plain PyTorch version on the card
    at the main paths' shapes (and ragged/causal edge cases, each in fp32
    and bf16), and time the kernel, the plain version and the PyTorch
@@ -20,11 +24,15 @@ Phases (each raises on failure, so any failure exits nonzero):
    the library call also by device time from a profiler trace): K1 (flash
    forward), then K2 and K3 (flash backward: dQ, and dK/dV); each must
    also repeat bitwise; then the LSE-cotangent rule once against autograd
-   through the plain forward.  All three run on the tensor cores in bf16
-   (K1 on wgmma with TMA loads, K2 and K3 on mma.sync) and on CUDA cores in
-   fp32.  K1's, K2's and K3's bf16 times at the
-   training shape are printed as multiples of the SDPA forward and
-   backward.
+   through the plain forward, and K2 and K3 in fp32 on one score past the
+   fp32 range with a finite LSE (P = 0 there, as in the reference).  In bf16 all three run on the tensor cores
+   (K1 on wgmma with TMA loads, K2 and K3 on mma.sync); in fp32 K2 and K3
+   run on the tensor cores as three TF32 products a product (the 3xTF32
+   split, which the build phase checks in the SASS), K1 on CUDA cores.
+   Every fp32 bound counts its operations three times at the TF32 peak.
+   K1's, K2's and K3's bf16 times at the training shape are printed as
+   multiples of the SDPA forward and backward, and K2's and K3's fp32
+   times as multiples of SDPA's fp32 backward.
 4. slice   -- the serving path: BERT-base (12 x 768 x 12, fp32, T = 512,
    seeded random weights) behind Servable -> ModelHost.deploy -> Batcher ->
    ServeServer/serve_forever, answering 32 PREDICT requests from 8
@@ -78,6 +86,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import re
 import socket
 import subprocess
@@ -99,10 +108,11 @@ TRAIN_WARM, TRAIN_TIMED = 2, 10
 VOCAB = 30522
 
 # Data-sheet peaks (dense) of the card this script was measured on, by the
-# name torch reports: HBM bytes/s, fp32 FLOP/s on CUDA cores, bf16 FLOP/s on
-# tensor cores.  Add a row before running on another card.
+# name torch reports: HBM bytes/s, fp32 FLOP/s on CUDA cores, bf16 and TF32
+# FLOP/s on tensor cores.  Add a row before running on another card.
 PEAKS = {
-    "NVIDIA H100 80GB HBM3": {"hbm": 3.35e12, "fp32": 67e12, "bf16": 989e12},
+    "NVIDIA H100 80GB HBM3": {"hbm": 3.35e12, "fp32": 67e12, "bf16": 989e12,
+                              "tf32": 495e12},
 }
 
 
@@ -142,27 +152,73 @@ def phase_device():
 
 def phase_build():
     from mxnet_tpu_torch.ops import _kernels
+    for lib in _kernels.LIBRARIES:
+        # build anew from the sources, so that nvcc's report below exists
+        # on a second run in the same checkout too
+        lib.library_path().unlink(missing_ok=True)
     t0 = time.perf_counter()
     secs = _kernels.build_all()
     log("build: %s in %.2f s wall" % (json.dumps(secs),
                                       time.perf_counter() - t0))
+    tf32_mma = tf32_mma_counts()
+    faults = []
     for r in flash_instantiations():
+        if r["kernel"].endswith("_tf32_kernel"):
+            r["tf32_mma"] = tf32_mma.get((r["kernel"], r["d"]), 0)
+            if not r["tf32_mma"]:
+                faults.append("no TF32 tensor-core instruction in %s" % r)
         log("build: flash instantiation %s" % json.dumps(r))
-        if r["kernel"] == "flash_fwd_bf16_kernel" and (
+        if r["kernel"] in ("flash_fwd_bf16_kernel", "flash_bwd_dq_tf32_kernel",
+                           "flash_bwd_dkv_tf32_kernel") and (
                 r["spill_store_bytes"] or r["spill_load_bytes"]):
-            raise RuntimeError("ptxas spilled registers in the bf16 flash "
-                               "forward: %s" % r)
+            faults.append("ptxas spilled registers in %s" % r)
+        if r["kernel"].endswith("_tf32_kernel") and r["stack_bytes"]:
+            # accumulators indexed by a loop ptxas did not unroll
+            faults.append("a local-memory stack frame in %s" % r)
     for lib in (_kernels.FLASH_FWD, _kernels.FLASH_BWD):
         for line in lib.build_log.splitlines():
             if "Performance Loss" in line or "setmaxnreg" in line:
                 log("build: %s: ptxas: %s" % (lib.name, line.strip()))
+    if faults:
+        raise RuntimeError("build: " + "; ".join(faults))
 
 
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _SPILLS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                      r"(\d+) bytes spill loads")
-_KERNEL = re.compile(r"(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_bf16)?_kernel)I"
+_KERNEL = re.compile(r"(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_bf16|_tf32)?_kernel)I"
                      r"(f|13__nv_bfloat16)?Li(\d+)E")
+_SASS_FUNCTION = re.compile(r"Function : (\S+)")
+_SASS_TF32_MMA = re.compile(r"\bHMMA\.\S*TF32")
+
+
+def tf32_mma_counts():
+    """{(kernel, D): TF32 HMMA instructions} of the fp32 flash backward's
+    instantiations, from ``cuobjdump -sass`` of the built library; raises
+    when ``cuobjdump`` is missing or fails."""
+    from mxnet_tpu_torch.ops import _kernels
+    tool = os.path.join(os.path.dirname(_kernels.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        raise RuntimeError("cuobjdump not found beside nvcc (%s)" % tool)
+    sass = subprocess.run(
+        [tool, "-sass", str(_kernels.FLASH_BWD.library_path())],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = _SASS_FUNCTION.search(line)
+        if m:
+            k = _KERNEL.search(m.group(1))
+            tf32 = k is not None and k.group(1).endswith("_tf32_kernel")
+            cur = (k.group(1), int(k.group(3))) if tf32 else None
+            if cur is not None:
+                counts[cur] = 0
+        elif cur is not None and _SASS_TF32_MMA.search(line):
+            counts[cur] += 1
+    if len(counts) != 4:
+        raise RuntimeError("expected the SASS of 4 fp32 flash backward "
+                           "instantiations (K2, K3 x D 64, 128), found %s"
+                           % counts)
+    return counts
 
 
 def flash_instantiations():
@@ -180,7 +236,9 @@ def flash_instantiations():
                 k = _KERNEL.search(m.group(1))
                 cur = None if k is None else {
                     "kernel": k.group(1),
-                    "dtype": "float32" if k.group(2) == "f" else "bfloat16",
+                    "dtype": "float32" if k.group(2) == "f" or
+                             k.group(1).endswith("_tf32_kernel")
+                             else "bfloat16",
                     "d": int(k.group(3))}
                 if cur is not None:
                     out.append(cur)
@@ -297,6 +355,23 @@ def bound_ms(ops, nbytes, flops_peak, hbm_peak):
                                  else "bytes")
 
 
+def flash_bound(ops, nbytes, dtype, peaks):
+    """The bound fields of a flash kernel's record: bf16 operations at the
+    bf16 tensor-core peak; fp32 operations counted three times at the TF32
+    peak (the 3xTF32 split that fp32 accuracy needs on the tensor cores,
+    one yardstick for every fp32 row), with the bound on CUDA cores beside
+    it.  Bytes at the HBM peak in both."""
+    if dtype == torch.bfloat16:
+        b_ms, b_by = bound_ms(ops, nbytes, peaks["bf16"], peaks["hbm"])
+        return {"bound_ms": b_ms, "bound_by": b_by,
+                "bound_peak": "bf16 %g FLOP/s" % peaks["bf16"]}
+    b_ms, b_by = bound_ms(3 * ops, nbytes, peaks["tf32"], peaks["hbm"])
+    return {"bound_ms": b_ms, "bound_by": b_by,
+            "bound_peak": "3 x tf32 %g FLOP/s" % peaks["tf32"],
+            "cuda_core_bound_ms": bound_ms(ops, nbytes, peaks["fp32"],
+                                           peaks["hbm"])[0]}
+
+
 KERNEL_CASES = [
     # name, B, H, Tq, Tk, D, dtype, causal, timed
     ("bert-base", 8, 12, 512, 512, 64, torch.float32, False, True),
@@ -349,8 +424,6 @@ def phase_kernels(peaks):
             continue
         itemsize = torch.finfo(dtype).bits // 8
         ops, nbytes = flash_work(B, H, Tq, Tk, D, causal, itemsize)
-        flops_peak = peaks["fp32" if dtype == torch.float32 else "bf16"]
-        b_ms, b_by = bound_ms(ops, nbytes, flops_peak, peaks["hbm"])
         run = lambda: att.flash_attention_with_lse(  # noqa: E731
             q, k, v, scale, causal)
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -361,8 +434,9 @@ def phase_kernels(peaks):
                 q, k, v, scale, causal)),
             "library_ms": time_ms(sdpa),
             "device_ms": device_ms(run), "library_device_ms": device_ms(sdpa),
-            "bound_ms": b_ms, "bound_by": b_by, "gflop": ops / 1e9,
-            "mbytes": nbytes / 1e6, "max_abs_err": max(err_o, err_l)}
+            "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
+            "max_abs_err": max(err_o, err_l)}
+        rec.update(flash_bound(ops, nbytes, dtype, peaks))
         add_ratios(rec, ops)
         log("kernels: timing %s %s" % (tag, json.dumps(rec)))
         results[(name, dtype)] = rec
@@ -411,10 +485,11 @@ BWD_CASES = [
 
 
 def phase_bwd_kernels(peaks):
-    """K2 and K3 (in bf16 both on the tensor cores) against their plain
-    versions on the O and LSE of K1, two launches bitwise equal; timings
-    for the timed cases, with the backward of scaled_dot_product_attention
-    (dQ, dK and dV in one call) as the library yardstick of both."""
+    """K2 and K3 (on the tensor cores: bf16, and fp32 as 3xTF32) against
+    their plain versions on the O and LSE of K1, two launches bitwise
+    equal; timings for the timed cases, with the backward of
+    scaled_dot_product_attention (dQ, dK and dV in one call) as the library
+    yardstick of both."""
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops import attention as att
     results = {}
@@ -459,8 +534,6 @@ def phase_bwd_kernels(peaks):
                 continue
             itemsize = torch.finfo(dtype).bits // 8
             ops, nbytes = bwd_work(kern, B, H, Tq, Tk, D, causal, itemsize)
-            flops_peak = peaks["fp32" if dtype == torch.float32 else "bf16"]
-            b_ms, b_by = bound_ms(ops, nbytes, flops_peak, peaks["hbm"])
             if kern == "flash_bwd_dq":
                 run = lambda: att._flash_bwd_dq_cuda(*args)  # noqa: E731
                 plain = lambda: att.flash_bwd_dq_plain(*args)  # noqa: E731
@@ -468,10 +541,10 @@ def phase_bwd_kernels(peaks):
                 run = lambda: att._flash_bwd_dkv_cuda(*args)  # noqa: E731
                 plain = lambda: att.flash_bwd_dkv_plain(*args)  # noqa: E731
             rec = {"kernel_ms": time_ms(run), "plain_ms": time_ms(plain),
-                   "device_ms": device_ms(run),
-                   "bound_ms": b_ms, "bound_by": b_by, "gflop": ops / 1e9,
+                   "device_ms": device_ms(run), "gflop": ops / 1e9,
                    "mbytes": nbytes / 1e6, "ops": ops,
                    "max_abs_err": max(e[0] for e in errs)}
+            rec.update(flash_bound(ops, nbytes, dtype, peaks))
             results[(kern, dtype)] = rec
         if timed:
             qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
@@ -489,13 +562,15 @@ def phase_bwd_kernels(peaks):
                 log("kernels: timing %s %s %s" % (kern, tag,
                                                   json.dumps(rec)))
     check_lse_rule()
+    check_nonfinite_scores()
     return results
 
 
 def log_library_ratios(fwd, bwd):
     """K1, K2 and K3 in bf16 at the training shape against one PyTorch call
     in the same run: the forward, and the whole backward (dQ, dK and dV),
-    of scaled_dot_product_attention."""
+    of scaled_dot_product_attention; then K2 and K3 in fp32 against SDPA's
+    fp32 backward, as the pair that call replaces and each alone."""
     recs = [("K1", fwd[("bert-train", torch.bfloat16)], "forward"),
             ("K2", bwd[("flash_bwd_dq", torch.bfloat16)],
              "backward, dQ+dK+dV"),
@@ -508,6 +583,17 @@ def log_library_ratios(fwd, bwd):
             % (name, rec[ms], rec[key + "x_library"], what,
                rec["library_" + key + "ms"], rec[key + "x_bound"])
             for name, rec, what in recs)))
+    dq, dkv = bwd[("flash_bwd_dq", torch.float32)], \
+        bwd[("flash_bwd_dkv", torch.float32)]
+    for how, key in (("CUDA events", ""), ("device time", "device_")):
+        ms = "kernel_ms" if not key else "device_ms"
+        lib = dq["library_" + key + "ms"]
+        log("kernels: fp32 B=16 H=12 T=512 D=64, by %s: K2 + K3 %.4f + %.4f "
+            "= %.4f ms = %.2fx the SDPA fp32 backward, dQ+dK+dV (%.4f ms); "
+            "K2 %.2fx, K3 %.2fx; bounds (3 x tf32) K2 %.4f, K3 %.4f ms"
+            % (how, dq[ms], dkv[ms], dq[ms] + dkv[ms],
+               (dq[ms] + dkv[ms]) / lib, lib, dq[ms] / lib, dkv[ms] / lib,
+               dq["bound_ms"], dkv["bound_ms"]))
 
 
 def check_lse_rule():
@@ -535,6 +621,56 @@ def check_lse_rule():
     if not ok:
         raise RuntimeError("the flash_attention_with_lse VJP rule disagrees "
                            "with autograd through the plain forward")
+
+
+def check_nonfinite_scores():
+    """K2 and K3 in fp32 where one score overflows on a finite LSE: P = 0
+    there, as in the reference and the plain versions (their ``isfinite``
+    guard on S).  Query r and key j0 see only each other (their scores on
+    every other key and query are -1e4 scale, through columns 1 and 2),
+    the forward gives O and a finite LSE, and then q[r, 0] = k[j0, 0] =
+    1e20 pushes their score alone to +inf.  Every output must be finite
+    and meet the plain versions at 1e-4; exp(+inf) would make dQ row r and
+    dK and dV row j0 inf or NaN."""
+    from mxnet_tpu_torch.ops import attention as att
+    B, H, T, r, j0 = 2, 2, 200, 150, 37
+    for D, causal in ((64, True), (128, False)):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+        q, k, v, do = (torch.randn((B, H, T, D), generator=g, device="cuda")
+                       for _ in range(4))
+        q[..., :3] = 0.0
+        k[..., :3] = 0.0
+        q[..., 1] = 1.0
+        q[:, :, r, 1] = 0.0
+        k[:, :, j0, 1] = -1e4
+        q[:, :, r, 2] = 1e4
+        k[..., 2] = -1.0
+        k[:, :, j0, 2] = 0.0
+        scale = 1.0 / D ** 0.5
+        o, lse = att.flash_attention_with_lse(q, k, v, scale, causal)
+        q[:, :, r, 0] = 1e20
+        k[:, :, j0, 0] = 1e20
+        s = (q[:, :, r] * k[:, :, j0]).sum(-1)
+        if not (bool(torch.isinf(s).all()) and
+                bool(torch.isfinite(lse).all())):
+            raise RuntimeError("check_nonfinite_scores: the inputs do not "
+                               "give one infinite score on a finite LSE")
+        args = (q, k, v, o, lse, do, scale, causal)
+        got = (att._flash_bwd_dq_cuda(*args),) + att._flash_bwd_dkv_cuda(
+            *args)
+        want = (att.flash_bwd_dq_plain(*args),) + att.flash_bwd_dkv_plain(
+            *args)
+        errs = [compare(a, b, 1e-4) for a, b in zip(got, want)]
+        ok = all(e[1] for e in errs) and all(
+            bool(torch.isfinite(a).all()) for a in got)
+        log("kernels: a score past the fp32 range on a finite LSE (fp32 "
+            "B=%d H=%d T=%d D=%d causal=%s) | max|dQ|,|dK|,|dV| %s %s"
+            % (B, H, T, D, causal, ["%.3g" % e[0] for e in errs],
+               "ok" if ok else "FAIL"))
+        if not ok:
+            raise RuntimeError("flash_bwd in fp32 does not give P = 0 where "
+                               "a score is not finite (D=%d causal=%s)"
+                               % (D, causal))
 
 
 # ---------------------------------------------------------------------------
@@ -843,7 +979,10 @@ def functional_grads(pure_fn, params, loss_fn, tok, seg, lab):
 def train_fp32_parity(net, loss_fn, n_layers):
     """(a) One fp32 step at batch 2: the loss, every gradient and every
     updated parameter through the kernels against the same step through
-    the composition (attention_impl_scope('xla'))."""
+    the composition (attention_impl_scope('xla')); then one traced forward
+    and backward through the kernels: its device time and the attention
+    kernels' part of it."""
+    from torch.profiler import ProfilerActivity, profile
     from mxnet_tpu_torch.gluon.block import functionalize
     from mxnet_tpu_torch.ops import _kernels
     from mxnet_tpu_torch.ops.attention import attention_impl_scope
@@ -888,6 +1027,26 @@ def train_fp32_parity(net, loss_fn, n_layers):
     if not rel <= 1e-4:
         raise RuntimeError("fp32 step: loss %.7f vs composition %.7f"
                            % (loss_k, loss_x))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loss_and_grads()
+        torch.cuda.synchronize()
+    total, busy, by_name = log_kernel_breakdown("train-fp32", prof, top=6)
+    attn = attention_ms(by_name)
+    log("train: fp32 batch-2 forward+backward through the kernels %s"
+        % json.dumps({"traced_device_ms": total, "device_busy_ms": busy,
+                      "attention_kernels_ms": attn,
+                      "attention_share_of_device_time":
+                          sum(attn.values()) / total}))
+
+
+def attention_ms(by_name):
+    """Device ms of K1, K2 and K3 in a breakdown of
+    :func:`log_kernel_breakdown`, by kernel name prefix (fp32 and bf16
+    instantiations alike)."""
+    return {k: sum(ms for n, (ms, _) in by_name.items() if k + "_" in n)
+            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 
 
 def phase_train(peaks):
@@ -977,9 +1136,7 @@ def phase_train(peaks):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     total, busy, by_name = log_kernel_breakdown("train", prof, top=14)
-    # by kernel name prefix: fp32 and bf16 instantiations alike
-    attn = {k: sum(ms for n, (ms, _) in by_name.items() if k + "_" in n)
-            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    attn = attention_ms(by_name)
     rec.update({"traced_step_wall_ms": wall_ms, "device_busy_ms": busy,
                 "traced_device_ms": total,
                 "device_idle_share": 1.0 - busy / wall_ms,

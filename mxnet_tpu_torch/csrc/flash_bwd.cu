@@ -5,7 +5,9 @@
 // `pl.pallas_call`.  Same functions, recomputing the probabilities from the
 // forward's log-sum-exp so the T x T matrices never reach device memory:
 //     S     = scale * Q K^T           [causal: q_pos >= k_pos, top-left]
-//     P     = exp(S - LSE)            (0 where masked or LSE = -inf)
+//     P     = exp(S - LSE)            (0 where masked, or where S or the
+//                                      LSE is not finite; the bf16
+//                                      kernels guard only the LSE)
 //     dP    = dO V^T
 //     delta = rowsum(dO * O)          (recomputed here, per query row)
 //     dS    = P * (dP - delta)
@@ -18,37 +20,67 @@
 // reference is kept: K2 owns a 64-row query tile and accumulates dQ, K3 owns a
 // 64-row key tile and accumulates dK and dV, so no block ever adds into
 // another's output.  There are no atomics and the summation order is fixed:
-// two launches on the same inputs give bitwise-equal results.  Two designs,
-// one per input type:
+// two launches on the same inputs give bitwise-equal results.  Both input
+// types run on the tensor cores with mma.sync, in one structure: 128
+// threads, warp w owns rows 16w .. 16w+15 of the block's tile; the tile the
+// block owns stays in shared memory and the other operand's tiles stream
+// through a two-stage ring of 16-byte cp.async copies, so tile i+1 loads
+// while tile i is computed.  S and dP (S^T and dP^T in K3) are products of
+// two shared tiles; P and dS (P^T, dS^T) are made in their accumulators and
+// enter the next product from registers as A fragments, so they never reach
+// shared memory and no barrier separates the products.  Probabilities are
+// exp2(scale * log2e * S - log2e * LSE) in fp32.  Keys past Tk and rows past
+// Tq load as zero and get P = 0 before any product, and rows past the end
+// are not written; the element mask runs only on ragged and causal-diagonal
+// tiles; causal tiles that no (q, k) pair of the tile can see are skipped.
+// Per input type:
 //
-// float32: CUDA cores, both kernels.  256 threads, thread (ty, tx) = (tid /
-// 16, tid % 16).  In each 64 x 64 score tile a thread owns the 4 x 4 entries
-// at rows 4*ty + i and columns tx + 16*j; in each output tile it owns rows
-// 4*ty + i and columns 64*g + 4*tx .. +3 (g < D/64), accumulated in fp32
-// registers.  All four D-wide operand tiles use a row stride of D + 4 floats
-// so the float4 reads of 8 threads in a 128-bit access phase fall in
-// distinct bank groups; the score tiles use stride 68.  The fp32 path must
-// agree with the plain version to 1e-4, which TF32 tensor cores cannot.  At
-// BERT-base's training shape (B*H = 192, T = 512, D = 64) K2 does 6*D FLOP
-// per (q, k) pair (S, dP, dQ) and K3 8*D (S, dP, dV, dK): 19.3 and 25.8
-// GFLOP over 76-89 MB (bf16) of inputs and outputs, so on CUDA cores (67
-// TFLOP/s fp32) operations bound both by far.  Each inner loop reads float4
-// operands from shared memory into a 4 x 4 register tile (64 FMA per 8
-// loads).  Ragged edges are masked here: keys past Tk and rows past Tq get
-// P = 0, and rows past the end are not written.  Causal tiles that no (q, k)
-// pair of the tile can see are skipped.
+// bfloat16 (helpers in mma_bf16.cuh): m16n8k16 on XOR-swizzled bf16 tiles;
+// P and dS enter their products as hi + lo bf16 pairs (mma_bf16.cuh says
+// why one rounding is not enough).
 //
-// bfloat16: tensor cores, both kernels (mma.sync m16n8k16, helpers in
-// mma_bf16.cuh).  128 threads; tiles stay bf16 in shared memory,
-// XOR-swizzled, filled by 16-byte cp.async copies; the tile this block owns
-// is resident and the other operand's tiles stream through a two-stage ring,
-// so tile i+1 loads while tile i is computed.  Probabilities are
-// exp2(scale * log2e * S - log2e * LSE), and P and dS enter their products
-// as hi + lo bf16 pairs (mma_bf16.cuh says why one rounding is not enough).
-// Keys past Tk and rows past Tq load as zero and get P = 0 before any
-// product; the element mask runs only on ragged and causal-diagonal tiles.
-// Each design's note is at its kernel below.  wgmma/TMA pipelines are
-// later work.
+// float32 (helpers in namespace tf32 below): m16n8k8 on TF32 operands, as a
+// 3xTF32 split.  The fp32 results must meet the plain version to 1e-4 + 1e-4
+// |ref|.  One TF32 product (10 mantissa bits) does not: on randn inputs at T =
+// 512 it misses by 3-5 times the limit (tests/test_torch_attention_tf32.py
+// pins the case).  So each operand x enters as two TF32 values hi and lo, and
+// every product is three mma: a_lo b_hi, then a_hi b_lo, then a_hi b_hi, the
+// small terms first, as CUTLASS's OpMultiplyAddFastF32 orders them; a_lo b_lo
+// is below the rule.  The tensor core reads the top 19 bits of a register and
+// ignores the low 13, so hi is x itself (read as x truncated to TF32) and lo =
+// x - trunc(x), read truncated: two instructions a value.  Rounding both
+// halves with cvt.rna.tf32.f32, which compiles to a sequence of integer and
+// compare instructions, left the kernels issuing more conversion than tensor
+// instructions, and they ran markedly slower.  hi + lo keeps x within 2^-20
+// |x|; the CPU emulation of this split stays under 3 % of the rule's limit.
+// Tiles stay fp32 in shared memory at a row stride of D + 4 floats, and every
+// fragment is split as it is loaded: A and n-major B fragments by ldmatrix
+// (b16 pairs carry one 32-bit word each), MN-major B fragments by scalar
+// loads.  The A fragment of P or dS comes from an m16n8 accumulator, which
+// holds columns (2t, 2t + 1) where m16n8k8's A fragment wants (t, t + 4): the
+// k index is permuted instead (k-slot t <- column 2t, k-slot t + 4 <- column
+// 2t + 1) and the matching MN-major B fragment reads rows 2t and 2t + 1.  The
+// stride puts those reads and the ldmatrix phases on 32 distinct banks and
+// makes every fragment offset an immediate (an XOR swizzle cost an address
+// computation a fragment).  S, dP, P, dS, delta and the outputs stay fp32;
+// delta and the softmax are FMAs on the CUDA cores.  Outputs leave the
+// accumulators as 8-byte stores (a quad writes 32 contiguous bytes of a row).
+// Shared memory: K2 holds Q and dO (64 rows) and a ring of 32-key K and V
+// tiles, 69,632 bytes at D = 64 (three blocks an SM) and 135,168 at D = 128;
+// K3 holds K and V (64 rows) and a ring of 16-query Q, dO and O tiles, 61,056
+// bytes at D = 64 (three blocks an SM) and 118,400 at D = 128.  Why not wgmma:
+// its .tf32 form needs both operands K-major in shared memory and has no
+// transpose, and three B operands here are MN-major (K in dQ = dS K, dO in dV
+// = P^T dO, Q in dK = dS^T Q); they would need a transposed copy of each
+// streamed tile first.  That is later work.  At BERT-base's training shape
+// (B*H = 192, T = 512, D = 64) K2 needs 19.3 GFLOP (S, dP, dQ: 6 D a (q, k)
+// pair) and K3 25.8 (S, dP, dV, dK: 8 D), 58 and 77 GFLOP issued as three TF32
+// products: 0.117 and 0.156 ms at 495 TFLOP/s, against 151 and 177 MB of
+// inputs and outputs, 0.045 and 0.053 ms at 3.35 TB/s.  Operations bound both,
+// so the design keeps the tensor cores fed: no trip of P or dS through shared
+// memory, few instructions beside each mma, loads in flight under the
+// products, and three blocks an SM to hide mma.sync latency.  Each kernel's
+// note is at it below.
 //
 // Interface: plain C, loaded with ctypes.  Pointers and the stream are void*;
 // each entry point returns cudaGetLastError() after its launch.
@@ -62,348 +94,6 @@
 namespace {
 
 constexpr int kTile = 64;  // query rows of K2's tile, key rows of K3's
-constexpr int kThreads = 256;
-constexpr int kPStride = kTile + 4;
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  // Q, dO, K, V tiles (stride D + 4) and the dS tile
-  return sizeof(float) *
-         (size_t(4) * kTile * (D + 4) + size_t(kTile) * kPStride);
-}
-
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  // K, V, Q, dO tiles (stride D + 4), the P^T and dS^T tiles, and the LSE
-  // and delta of the current query tile's rows
-  return sizeof(float) * (size_t(4) * kTile * (D + 4) +
-                          size_t(2) * kTile * kPStride + size_t(2) * kTile);
-}
-
-// Rows [row0, row0 + 64) of a (rows, D) tensor into a shared tile of stride
-// D + 4; rows at or past `rows` read as zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
-                                          int rows, int tid) {
-  for (int i = tid; i < kTile * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    const int gr = row0 + r;
-    dst[r * (D + 4) + c] = gr < rows ? load_f32(src + size_t(gr) * D + c) : 0.f;
-  }
-}
-
-// s[i][j] = a[4*ty + i] . b[tx + 16*j] over D, for two shared tiles of
-// stride D + 4.
-template <int D>
-__device__ __forceinline__ void tile_dots(const float* a, const float* b,
-                                          int ty, int tx, float (&s)[4][4]) {
-  constexpr int S = D + 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      av[i] = *reinterpret_cast<const float4*>(&a[(4 * ty + i) * S + d]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(&b[(tx + 16 * j) * S + d]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float x = s[i][j];
-        x = fmaf(av[i].x, bv[j].x, x);
-        x = fmaf(av[i].y, bv[j].y, x);
-        x = fmaf(av[i].z, bv[j].z, x);
-        x = fmaf(av[i].w, bv[j].w, x);
-        s[i][j] = x;
-      }
-  }
-}
-
-// acc[i][g][e] += sum_kk p[4*ty + i][kk] * b[kk][64*g + 4*tx + e] over the 64
-// columns of a score tile p (stride kPStride) and the rows of a shared operand
-// tile b (stride D + 4).
-template <int D>
-__device__ __forceinline__ void tile_accum(const float* p, const float* b,
-                                           int ty, int tx,
-                                           float (&acc)[4][D / 64][4]) {
-  constexpr int S = D + 4;
-#pragma unroll 2
-  for (int kk = 0; kk < kTile; kk += 4) {
-    float4 pv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      pv[i] = *reinterpret_cast<const float4*>(&p[(4 * ty + i) * kPStride + kk]);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-#pragma unroll
-      for (int g = 0; g < D / 64; ++g) {
-        const float4 bv =
-            *reinterpret_cast<const float4*>(&b[(kk + u) * S + 64 * g + 4 * tx]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float x = u == 0 ? pv[i].x : u == 1 ? pv[i].y : u == 2 ? pv[i].z : pv[i].w;
-          acc[i][g][0] = fmaf(x, bv.x, acc[i][g][0]);
-          acc[i][g][1] = fmaf(x, bv.y, acc[i][g][1]);
-          acc[i][g][2] = fmaf(x, bv.z, acc[i][g][2]);
-          acc[i][g][3] = fmaf(x, bv.w, acc[i][g][3]);
-        }
-      }
-    }
-  }
-}
-
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* dst, int row0, int rows, int ty,
-                                           int tx, float mul,
-                                           const float (&acc)[4][D / 64][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + 4 * ty + i;
-    if (r >= rows) continue;
-    T* out = dst + size_t(r) * D;
-#pragma unroll
-    for (int g = 0; g < D / 64; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        store_f32(out + 64 * g + 4 * tx + e, acc[i][g][e] * mul);
-  }
-}
-
-// K2: one block per (b*h, 64-row query tile); loops over key tiles.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    T* __restrict__ dq, int tq, int tk, float scale,
-                    int causal) {
-  constexpr int S = D + 4;
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* dos = qs + kTile * S;
-  float* ks = dos + kTile * S;
-  float* vs = ks + kTile * S;
-  float* dss = vs + kTile * S;
-
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kTile;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;
-  const int tx = tid & 15;
-  const T* qb = q + size_t(bh) * tq * D;
-  const T* ob = o + size_t(bh) * tq * D;
-  const T* dob = dout + size_t(bh) * tq * D;
-  const T* kb = k + size_t(bh) * tk * D;
-  const T* vb = v + size_t(bh) * tk * D;
-
-  load_tile<T, D>(qs, qb, q0, tq, tid);
-  load_tile<T, D>(dos, dob, q0, tq, tid);
-  __syncthreads();
-
-  // LSE and delta = rowsum(dO * O) of this thread's four rows; the 16 threads
-  // of a half-warp share the rows and reduce with shuffles
-  float row_lse[4], delta[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
-    const int qr = q0 + r;
-    float part = 0.f;
-    if (qr < tq)
-      for (int c = tx; c < D; c += 16)
-        part = fmaf(dos[r * S + c], load_f32(ob + size_t(qr) * D + c), part);
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      part += __shfl_xor_sync(0xffffffffu, part, off);
-    delta[i] = part;
-    row_lse[i] = qr < tq ? lse[size_t(bh) * tq + qr] : -INFINITY;
-  }
-
-  float acc[4][D / 64][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int g = 0; g < D / 64; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.f;
-
-  int num_kt = (tk + kTile - 1) / kTile;
-  if (causal) num_kt = min(num_kt, (q0 + kTile + kTile - 1) / kTile);
-
-  for (int kt = 0; kt < num_kt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the previous tile's readers are done with ks/vs/dss
-    load_tile<T, D>(ks, kb, k0, tk, tid);
-    load_tile<T, D>(vs, vb, k0, tk, tid);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    tile_dots<D>(qs, ks, ty, tx, s);
-    tile_dots<D>(dos, vs, ty, tx, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qr = q0 + 4 * ty + i;
-      const bool row_ok = isfinite(row_lse[i]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kc = k0 + tx + 16 * j;
-        const float sv = s[i][j] * scale;
-        const bool ok = row_ok && kc < tk && (!causal || qr >= kc) && isfinite(sv);
-        const float p = ok ? expf(sv - row_lse[i]) : 0.f;
-        dss[(4 * ty + i) * kPStride + tx + 16 * j] = p * (dp[i][j] - delta[i]);
-      }
-    }
-    __syncthreads();
-    tile_accum<D>(dss, ks, ty, tx, acc);
-  }
-
-  store_rows<T, D>(dq + size_t(bh) * tq * D, q0, tq, ty, tx, scale, acc);
-}
-
-// K3: one block per (b*h, 64-row key tile); loops over query tiles.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ o,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     T* __restrict__ dk, T* __restrict__ dv, int tq, int tk,
-                     float scale, int causal) {
-  constexpr int S = D + 4;
-  extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);
-  float* vs = ks + kTile * S;
-  float* qs = vs + kTile * S;
-  float* dos = qs + kTile * S;
-  float* pts = dos + kTile * S;
-  float* dsts = pts + kTile * kPStride;
-  float* lse_s = dsts + kTile * kPStride;
-  float* delta_s = lse_s + kTile;
-
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kTile;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;
-  const int tx = tid & 15;
-  const T* qb = q + size_t(bh) * tq * D;
-  const T* ob = o + size_t(bh) * tq * D;
-  const T* dob = dout + size_t(bh) * tq * D;
-  const float* lseb = lse + size_t(bh) * tq;
-
-  load_tile<T, D>(ks, k + size_t(bh) * tk * D, k0, tk, tid);
-  load_tile<T, D>(vs, v + size_t(bh) * tk * D, k0, tk, tid);
-
-  float adk[4][D / 64][4], adv[4][D / 64][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int g = 0; g < D / 64; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) adk[i][g][e] = adv[i][g][e] = 0.f;
-
-  // causal: query rows before k0 see no key of this tile (the reference's
-  // qb_start); tiles are 64 rows on both sides, so the first query tile is
-  // the key tile's own index
-  const int num_qt = (tq + kTile - 1) / kTile;
-  const int qt0 = causal ? k0 / kTile : 0;
-
-  for (int qt = qt0; qt < num_qt; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(qs, qb, q0, tq, tid);
-    load_tile<T, D>(dos, dob, q0, tq, tid);
-    __syncthreads();
-    {
-      // LSE and delta of the tile's 64 query rows, 4 threads a row
-      const int r = tid >> 2, lane = tid & 3;
-      const int qr = q0 + r;
-      float part = 0.f;
-      if (qr < tq)
-        for (int c = lane; c < D; c += 4)
-          part = fmaf(dos[r * S + c], load_f32(ob + size_t(qr) * D + c), part);
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      if (lane == 0) {
-        delta_s[r] = part;
-        lse_s[r] = qr < tq ? lseb[qr] : -INFINITY;
-      }
-    }
-    __syncthreads();
-
-    // transposed tiles: rows are this block's keys, columns the query rows
-    float s[4][4], dp[4][4];
-    tile_dots<D>(ks, qs, ty, tx, s);
-    tile_dots<D>(vs, dos, ty, tx, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kr = k0 + 4 * ty + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int qr = q0 + c;
-        const float l = lse_s[c];
-        const float sv = s[i][j] * scale;
-        const bool ok = kr < tk && (!causal || qr >= kr) && isfinite(l) &&
-                        isfinite(sv);
-        const float p = ok ? expf(sv - l) : 0.f;
-        pts[(4 * ty + i) * kPStride + c] = p;
-        dsts[(4 * ty + i) * kPStride + c] = p * (dp[i][j] - delta_s[c]);
-      }
-    }
-    __syncthreads();
-    tile_accum<D>(pts, dos, ty, tx, adv);
-    tile_accum<D>(dsts, qs, ty, tx, adk);
-  }
-
-  store_rows<T, D>(dk + size_t(bh) * tk * D, k0, tk, ty, tx, scale, adk);
-  store_rows<T, D>(dv + size_t(bh) * tk * D, k0, tk, ty, tx, 1.f, adv);
-}
-
-template <typename T, int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* o, const void* dout, const void* lse,
-                      void* dq, int bh, int tq, int tk, float scale,
-                      int causal, cudaStream_t stream) {
-  const size_t smem = dq_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (tq + kTile - 1) / kTile);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<T*>(dq), tq, tk, scale, causal);
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* o, const void* dout, const void* lse,
-                       void* dk, void* dv, int bh, int tq, int tk,
-                       float scale, int causal, cudaStream_t stream) {
-  const size_t smem = dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (tk + kTile - 1) / kTile);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<T*>(dk), static_cast<T*>(dv), tq, tk, scale, causal);
-  return cudaGetLastError();
-}
-
 
 // ---------------------------------------------------------------------------
 // K3 in bfloat16: tensor cores
@@ -432,6 +122,31 @@ constexpr float kLog2e = 1.4426950408889634f;
 // each is computed in slices of 32 queries, so S^T and dP^T take 32
 // registers a thread beside the 2 * D / 2 of dK and dV
 __host__ __device__ constexpr int dkv_tile_q(int d) { return d == 64 ? 64 : 32; }
+
+// K3's per-query-tile prologue, in both input types, once each of the kPer
+// threads of query row r (tid = kPer r + part) has summed dO * O over its
+// share of the row: delta and the LSE (log2 units) of the row into shared
+// memory, and whether the tile may skip the element mask.  The mask is
+// needed only where keys pass Tk, rows pass Tq or saw no key, or a (q, k)
+// pair of the tile lies above the diagonal.  A barrier of the whole block.
+template <int kPer>
+__device__ __forceinline__ bool dkv_tile_stats(float sum, int r, int part,
+                                               const float* lseb, int q0,
+                                               int tq, int k0, int tk,
+                                               int causal, float* lse_s,
+                                               float* delta_s) {
+#pragma unroll
+  for (int off = 1; off < kPer; off <<= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  float lse2 = -INFINITY;
+  if (part == 0) {
+    delta_s[r] = sum;
+    lse2 = q0 + r < tq ? lseb[q0 + r] * kLog2e : -INFINITY;
+    lse_s[r] = lse2;
+  }
+  return __syncthreads_and(part != 0 || isfinite(lse2)) &&
+         k0 + kTile <= tk && (!causal || q0 + 1 >= k0 + kTile);
+}
 
 template <int D>
 constexpr size_t dkv_bf16_smem_bytes() {
@@ -509,8 +224,7 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const bf16* qst = ring + 3 * stage * kQElems;
     const bf16* dost = qst + kQElems;
     const bf16* ost = dost + kQElems;
-    float lse2 = -INFINITY;
-    bool row_ok;
+    bool full;
     {
       // delta and LSE (log2 units) of the tile's BQ rows, kPer threads a row
       constexpr int kPer = kTcThreads / BQ;
@@ -530,20 +244,9 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
           sum = fmaf(x.y, y.y, sum);
         }
       }
-#pragma unroll
-      for (int off = 1; off < kPer; off <<= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (part == 0) {
-        delta_s[r] = sum;
-        lse2 = q0 + r < tq ? lseb[q0 + r] * kLog2e : -INFINITY;
-        lse_s[r] = lse2;
-      }
-      row_ok = part != 0 || isfinite(lse2);
+      full = dkv_tile_stats<kPer>(sum, r, part, lseb, q0, tq, k0, tk, causal,
+                                  lse_s, delta_s);
     }
-    // the mask is needed only where keys pass Tk, rows pass Tq or saw no
-    // key, or a (q, k) pair of the tile lies above the diagonal
-    const bool full = __syncthreads_and(row_ok) && k0 + kTile <= tk &&
-                      (!causal || q0 + 1 >= k0 + kTile);
 
     // the tile's queries in slices of kSub, one slice's S^T and dP^T in
     // registers at a time
@@ -890,6 +593,517 @@ cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K2 and K3 in float32: tensor cores, 3xTF32
+// ---------------------------------------------------------------------------
+
+namespace tf32 {
+
+// The layout of the fp32 tiles: row-major R x D at a row stride of D + 4
+// floats.  The stride puts row r at bank 4r (mod 32): one ldmatrix phase (8
+// rows, one 16-byte chunk each) and the scalar reads of an MN-major B
+// fragment (rows 2t and 2t + 1 of an 8-row group, columns g) then hit 32
+// distinct banks, and every fragment offset is an immediate.
+struct Padded {
+  template <int D>
+  static __device__ __forceinline__ int at(int row, int col) {
+    return row * (D + 4) + col;
+  }
+};
+
+// Rows [row0, row0 + R) of a (rows, D) fp32 tensor into an R x D tile of
+// this layout, by the block's 16-byte cp.async copies.
+template <int R, int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int row0, int rows, int tid) {
+  mma_bf16::cp_async_tile<R, D, kTcThreads, Padded>(dst, src, row0, rows,
+                                                    tid);
+}
+
+// The A fragment (fp32 bits) of rows m0 .. m0 + 15, cols k0 .. k0 + 7 of a
+// row-major tile: a[0] = (g, t), a[1] = (g + 8, t), a[2] = (g, t + 4), a[3]
+// = (g + 8, t + 4).  ldmatrix (b16) reads each 8 x 4 fp32 block as an 8 x 8
+// block of b16 pairs: thread 4g + t receives word t of row g.
+template <int D>
+__device__ __forceinline__ void ldsm_a(uint32_t (&a)[4], const float* tile,
+                                       int m0, int k0, int lane) {
+  mma_bf16::ldsm_x4(a, reinterpret_cast<const mma_bf16::bf16*>(
+                           tile + Padded::at<D>(m0 + (lane & 15),
+                                                k0 + ((lane >> 4) << 2))));
+}
+
+// B fragments of two n8 tiles (n0 .. n0 + 7 in b[0..1], n0 + 8 .. in
+// b[2..3]) over k0 .. k0 + 7, from a tile stored n-major (row n, col k):
+// b[0] = (k t, n g), b[1] = (k t + 4, n g).
+template <int D>
+__device__ __forceinline__ void ldsm_b_nk(uint32_t (&b)[4], const float* tile,
+                                          int n0, int k0, int lane) {
+  mma_bf16::ldsm_x4(b, reinterpret_cast<const mma_bf16::bf16*>(
+                           tile + Padded::at<D>(
+                                      n0 + (lane & 7) + ((lane >> 4) << 3),
+                                      k0 + (((lane >> 3) & 1) << 2))));
+}
+
+// x as the two TF32 operands hi and lo.  The tensor core reads the top 19
+// bits of a register (sign, exponent, 10 mantissa bits) and ignores the
+// low 13, so x itself serves as hi, read as x truncated to TF32, and lo =
+// x - trunc(x) (exact in fp32, about 13 bits) is read truncated to its top
+// 11 significant bits: hi + lo keeps 21 bits of x, within 2^-20 |x|.  Two
+// instructions, where a rounding conversion (cvt.rna.tf32.f32) compiles to
+// several, and NaN stays NaN.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x);
+  lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u));
+}
+
+template <int N>
+__device__ __forceinline__ void split_bits(const uint32_t (&x)[N],
+                                           uint32_t (&hi)[N],
+                                           uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) split(__uint_as_float(x[i]), hi[i], lo[i]);
+}
+
+// d += a b on the tensor cores: 16 x 8 TF32 by 8 x 8 TF32, fp32 sums.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b with both as hi + lo: a_lo b_hi, a_hi b_lo, then a_hi b_hi.
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0,
+                                     uint32_t bh1, uint32_t bl0,
+                                     uint32_t bl1) {
+  mma(d, al, bh0, bh1);
+  mma(d, ah, bl0, bl1);
+  mma(d, ah, bh0, bh1);
+}
+
+// acc[j] += A B^T for rows m0 .. m0 + 15 of tile `a` against rows 0 ..
+// 8N - 1 of tile `b` (the n8 tile j = rows 8j ..), reducing over their D
+// columns: S = Q K^T and dP = dO V^T in K2, S^T = K Q^T and dP^T = V dO^T
+// in K3.
+template <int D, int N>
+__device__ __forceinline__ void mma3_abt(float (&acc)[N][4], const float* a,
+                                         int m0, const float* b, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    uint32_t x[4], ah[4], al[4];
+    ldsm_a<D>(x, a, m0, 8 * kk, lane);
+    split_bits(x, ah, al);
+#pragma unroll
+    for (int np = 0; np < N / 2; ++np) {
+      uint32_t y[4], bh[4], bl[4];
+      ldsm_b_nk<D>(y, b, 16 * np, 8 * kk, lane);
+      split_bits(y, bh, bl);
+      mma3(acc[2 * np], ah, al, bh[0], bh[1], bl[0], bl[1]);
+      mma3(acc[2 * np + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+    }
+  }
+}
+
+// acc[n] += C B, where C (16 x 8K) is held as the accumulators c of K m16n8
+// tiles (P or dS) and B is rows 0 .. 8K - 1 of a k-major tile `b` (row k,
+// col n; all D columns): dQ += dS K in K2, dV += P^T dO and dK += dS^T Q
+// in K3.  m16n8k8's A fragment wants columns (t, t + 4) where an
+// accumulator holds (2t, 2t + 1), so the k index is permuted: k-slot t <-
+// column 2t, k-slot t + 4 <- column 2t + 1, and the B fragment reads rows
+// 2t and 2t + 1 by scalar loads.
+template <int D, int K>
+__device__ __forceinline__ void mma3_cb(float (&acc)[D / 8][4],
+                                        const float (&c)[K][4],
+                                        const float* b, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) {
+    uint32_t ah[4], al[4];
+    split(c[kk][0], ah[0], al[0]);
+    split(c[kk][2], ah[1], al[1]);
+    split(c[kk][1], ah[2], al[2]);
+    split(c[kk][3], ah[3], al[3]);
+    const float* row = b + Padded::at<D>(8 * kk + 2 * t, g);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      uint32_t bh[2], bl[2];
+      split(row[8 * n], bh[0], bl[0]);
+      split(row[D + 4 + 8 * n], bh[1], bl[1]);
+      mma3(acc[n], ah, al, bh[0], bh[1], bl[0], bl[1]);
+    }
+  }
+}
+
+// Accumulators of a warp's 16 rows (D / 8 n8 tiles), times `mul`, to rows
+// row0 + g and row0 + g + 8 of a (rows, D) fp32 tensor; rows at or past
+// `rows` are not written.
+template <int D>
+__device__ __forceinline__ void store_acc(float* dst, int row0, int rows,
+                                          const float (&acc)[D / 8][4],
+                                          float mul, int g, int t) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + g + 8 * i;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(dst + size_t(r) * D + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * i] * mul, acc[n][2 * i + 1] * mul);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&acc)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+}
+
+}  // namespace tf32
+
+// K2 in float32.  Warp w owns query rows 16w .. 16w+15 of the block's
+// 64-row query tile; Q and dO stay in shared memory, 32-key K and V tiles
+// stream through the ring.  O is read once, from device memory, for delta
+// (four lanes a row, fp32 FMAs); each thread keeps the LSE (log2 units) and
+// delta of its rows g and g + 8 in registers, and a row past Tq or with a
+// non-finite LSE takes LSE = +inf, so its P is 2^-inf = 0 on every tile
+// without a mask.  Per key tile: S = Q K^T and dP = dO V^T; dS = P (dP -
+// delta) in the dP accumulators; dQ += dS K.  dQ is scaled once on store.
+constexpr int kTf32TileK = 32;  // keys of K2's streamed tiles
+
+template <int D>
+constexpr size_t dq_tf32_smem_bytes() {
+  // the Q and dO tiles and a two-stage ring of K and V tiles, all fp32 at
+  // row stride D + 4
+  return sizeof(float) * (size_t(2) * kTile + size_t(4) * kTf32TileK) *
+         (D + 4);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, D == 64 ? 3 : 1)
+flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ o,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         float* __restrict__ dq, int tq, int tk, float scale,
+                         int causal) {
+  using mma_bf16::cp_async_commit;
+  using mma_bf16::cp_async_wait;
+  using mma_bf16::exp2_ftz;
+  using mma_bf16::quad_sum;
+  using namespace tf32;
+  constexpr int BK = kTf32TileK;
+  constexpr int kQElems = kTile * (D + 4), kKElems = BK * (D + 4);
+  constexpr int kRowChunks = D / 16;  // 16-byte chunks of a row per lane
+  extern __shared__ uint4 smem_tc[];
+  float* qs = reinterpret_cast<float*>(smem_tc);
+  float* dos = qs + kQElems;
+  float* ks = dos + kQElems;  // stage s at ks + s * kKElems
+  float* vs = ks + 2 * kKElems;
+
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * kTile;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float* kb = k + size_t(bh) * tk * D;
+  const float* vb = v + size_t(bh) * tk * D;
+  const float* ob = o + size_t(bh) * tq * D;
+
+  // causal: the tile holding key q0 + 63 is the last one a query tile sees
+  int num_kt = (tk + BK - 1) / BK;
+  if (causal) num_kt = min(num_kt, (q0 + kTile + BK - 1) / BK);
+
+  load_tile<kTile, D>(qs, q + size_t(bh) * tq * D, q0, tq, tid);
+  load_tile<kTile, D>(dos, dout + size_t(bh) * tq * D, q0, tq, tid);
+  cp_async_commit();
+  if (num_kt > 0) {
+    load_tile<BK, D>(ks, kb, 0, tk, tid);
+    load_tile<BK, D>(vs, vb, 0, tk, tid);
+  }
+  cp_async_commit();
+
+  // this thread's rows of the tile: rt and rt + 8; lane t of the quad takes
+  // chunks t, t + 4, ... of each, O straight from device memory
+  const int rt = 16 * warp + g;
+  float4 ov[2][kRowChunks];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qr = q0 + rt + 8 * i;
+#pragma unroll
+    for (int c = 0; c < kRowChunks; ++c)
+      ov[i][c] = qr < tq ? *reinterpret_cast<const float4*>(
+                               ob + size_t(qr) * D + 4 * (t + 4 * c))
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  cp_async_wait<1>();  // Q and dO have landed
+  __syncthreads();
+
+  float delta[2], lse2[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = rt + 8 * i;
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < kRowChunks; ++c) {
+      const float4 a = *reinterpret_cast<const float4*>(
+          dos + Padded::at<D>(r, 4 * (t + 4 * c)));
+      sum = fmaf(a.x, ov[i][c].x, sum);
+      sum = fmaf(a.y, ov[i][c].y, sum);
+      sum = fmaf(a.z, ov[i][c].z, sum);
+      sum = fmaf(a.w, ov[i][c].w, sum);
+    }
+    delta[i] = quad_sum(sum);
+    const float l = q0 + r < tq ? lse[size_t(bh) * tq + q0 + r] : -INFINITY;
+    lse2[i] = isfinite(l) ? l * kLog2e : INFINITY;
+  }
+
+  float acc[D / 8][4];
+  zero(acc);
+  const float sl2 = scale * kLog2e;
+  const int wq0 = q0 + 16 * warp;  // this warp's first query row
+
+  for (int kt = 0; kt < num_kt; ++kt) {
+    const int k0 = kt * BK;
+    if (kt + 1 < num_kt) {
+      const int nxt = ((kt + 1) & 1) * kKElems;
+      load_tile<BK, D>(ks + nxt, kb, k0 + BK, tk, tid);
+      load_tile<BK, D>(vs + nxt, vb, k0 + BK, tk, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile kt has landed
+    __syncthreads();
+    const float* kst = ks + (kt & 1) * kKElems;
+    const float* vst = vs + (kt & 1) * kKElems;
+
+    // S = Q K^T and dP = dO V^T: 16 rows x BK keys each
+    float s[BK / 8][4], dp[BK / 8][4];
+    zero(s);
+    zero(dp);
+    mma3_abt<D>(s, qs, 16 * warp, kst, lane);
+    mma3_abt<D>(dp, dos, 16 * warp, vst, lane);
+
+    // dS = P (dP - delta) in place, P = 0 where keys pass Tk or lie right
+    // of the diagonal (only the ragged and diagonal tiles mask) and, as in
+    // the reference, where the score is not finite
+    const auto grads = [&](bool mask) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kc = k0 + 8 * j + 2 * t + (e & 1);
+          const int qr = q0 + rt + 8 * (e >> 1);
+          const float x = s[j][e] * sl2 - lse2[e >> 1];
+          const bool ok = (!mask || (kc < tk && (!causal || qr >= kc))) &&
+                          isfinite(x);
+          const float p = ok ? exp2_ftz(x) : 0.f;
+          dp[j][e] = p * (dp[j][e] - delta[e >> 1]);
+        }
+    };
+    if (k0 + BK <= tk && (!causal || k0 + BK <= wq0 + 1))
+      grads(false);
+    else
+      grads(true);
+
+    mma3_cb<D>(acc, dp, kst, g, t);  // dQ += dS K
+    __syncthreads();  // every warp is done with this stage before its refill
+  }
+  cp_async_wait<0>();
+
+  store_acc<D>(dq + size_t(bh) * tq * D, wq0, tq, acc, scale, g, t);
+}
+
+template <int D>
+cudaError_t launch_dq_tf32(const void* q, const void* k, const void* v,
+                           const void* o, const void* dout, const void* lse,
+                           void* dq, int bh, int tq, int tk, float scale,
+                           int causal, cudaStream_t stream) {
+  const size_t smem = dq_tf32_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_tf32_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (tq + kTile - 1) / kTile);
+  flash_bwd_dq_tf32_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(o),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<float*>(dq), tq, tk, scale, causal);
+  return cudaGetLastError();
+}
+
+// K3 in float32.  Warp w owns key rows 16w .. 16w+15 of the block's 64-row
+// key tile, which stays in shared memory with the V tile; 16-query tiles
+// stream Q, dO and O through the ring (small tiles keep three blocks on an
+// SM at D = 64, and S^T and dP^T at 8 registers a thread beside the D of dK
+// and dV).  Per query tile: delta = rowsum(dO * O) and the LSE (log2 units)
+// of its rows into shared memory; S^T = K Q^T and dP^T = V dO^T; P^T =
+// exp2(scale log2e S^T - LSE) and dS^T = P^T (dP^T - delta) in the
+// accumulators; dV += P^T dO and dK += dS^T Q.  dK is scaled once on store.
+constexpr int kTf32TileQ = 16;  // queries of K3's streamed tiles
+
+template <int D>
+constexpr size_t dkv_tf32_smem_bytes() {
+  // K and V tiles and a two-stage ring of Q, dO and O tiles, all fp32 at
+  // row stride D + 4, and the LSE and delta of the current query tile
+  return sizeof(float) * ((size_t(2) * kTile + size_t(6) * kTf32TileQ) *
+                              (D + 4) + 2 * kTf32TileQ);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, D == 64 ? 3 : 1)
+flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ o,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          int tq, int tk, float scale, int causal) {
+  using mma_bf16::cp_async_commit;
+  using mma_bf16::cp_async_wait;
+  using mma_bf16::exp2_ftz;
+  using namespace tf32;
+  constexpr int BQ = kTf32TileQ;
+  constexpr int kKElems = kTile * (D + 4), kQElems = BQ * (D + 4);
+  extern __shared__ uint4 smem_tc[];
+  float* ks = reinterpret_cast<float*>(smem_tc);
+  float* vs = ks + kKElems;
+  float* ring = vs + kKElems;  // stage s: Q, dO, O at ring + (3s + i) kQElems
+  float* lse_s = ring + 6 * kQElems;
+  float* delta_s = lse_s + BQ;
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kTile;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float* qb = q + size_t(bh) * tq * D;
+  const float* ob = o + size_t(bh) * tq * D;
+  const float* dob = dout + size_t(bh) * tq * D;
+  const float* lseb = lse + size_t(bh) * tq;
+
+  // causal: query rows before k0 see no key of this tile (the reference's
+  // qb_start); BQ divides 64, so the first query tile starts at k0
+  const int num_qt = (tq + BQ - 1) / BQ;
+  const int qt0 = causal ? k0 / BQ : 0;
+  load_tile<kTile, D>(ks, k + size_t(bh) * tk * D, k0, tk, tid);
+  load_tile<kTile, D>(vs, v + size_t(bh) * tk * D, k0, tk, tid);
+  if (qt0 < num_qt) {
+    load_tile<BQ, D>(ring, qb, qt0 * BQ, tq, tid);
+    load_tile<BQ, D>(ring + kQElems, dob, qt0 * BQ, tq, tid);
+    load_tile<BQ, D>(ring + 2 * kQElems, ob, qt0 * BQ, tq, tid);
+  }
+  cp_async_commit();
+
+  float adk[D / 8][4], adv[D / 8][4];
+  zero(adk);
+  zero(adv);
+  const float sl2 = scale * kLog2e;
+  const int kr0 = k0 + 16 * warp + g;  // this thread's key rows: kr0, kr0 + 8
+
+  for (int qt = qt0; qt < num_qt; ++qt) {
+    const int q0 = qt * BQ;
+    const int stage = (qt - qt0) & 1;
+    if (qt + 1 < num_qt) {
+      float* nxt = ring + 3 * (stage ^ 1) * kQElems;
+      load_tile<BQ, D>(nxt, qb, q0 + BQ, tq, tid);
+      load_tile<BQ, D>(nxt + kQElems, dob, q0 + BQ, tq, tid);
+      load_tile<BQ, D>(nxt + 2 * kQElems, ob, q0 + BQ, tq, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile qt (and K, V) has landed
+    __syncthreads();
+    const float* qst = ring + 3 * stage * kQElems;
+    const float* dost = qst + kQElems;
+    const float* ost = dost + kQElems;
+    bool full;
+    {
+      // delta and LSE (log2 units) of the tile's BQ rows, kPer threads a
+      // row, fp32 FMAs
+      constexpr int kPer = kTcThreads / BQ;
+      const int r = tid / kPer, part = tid % kPer;
+      float sum = 0.f;
+#pragma unroll
+      for (int c = part; c < D / 4; c += kPer) {
+        const float4 a =
+            *reinterpret_cast<const float4*>(dost + Padded::at<D>(r, 4 * c));
+        const float4 b =
+            *reinterpret_cast<const float4*>(ost + Padded::at<D>(r, 4 * c));
+        sum = fmaf(a.x, b.x, sum);
+        sum = fmaf(a.y, b.y, sum);
+        sum = fmaf(a.z, b.z, sum);
+        sum = fmaf(a.w, b.w, sum);
+      }
+      full = dkv_tile_stats<kPer>(sum, r, part, lseb, q0, tq, k0, tk, causal,
+                                  lse_s, delta_s);
+    }
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 key rows x BQ queries each
+    float s[BQ / 8][4], dp[BQ / 8][4];
+    zero(s);
+    zero(dp);
+    mma3_abt<D>(s, ks, 16 * warp, qst, lane);
+    mma3_abt<D>(dp, vs, 16 * warp, dost, lane);
+
+    // P^T = exp(scale S^T - LSE) with the mask and the isfinite guards
+    // (keys past Tk, rows past Tq and rows that saw no key give 0 before any
+    // product, and so does a score that is not finite, as in the
+    // reference: x below is finite only where S^T and the LSE are), and
+    // dS^T = P^T (dP^T - delta), in place
+    const auto probs = [&](bool mask) {
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * t + (e & 1);
+          const int kr = kr0 + 8 * (e >> 1);
+          const float x = s[j][e] * sl2 - lse_s[c];
+          const bool ok = (!mask || (kr < tk && (!causal || q0 + c >= kr))) &&
+                          isfinite(x);
+          const float p = ok ? exp2_ftz(x) : 0.f;
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - delta_s[c]);
+        }
+    };
+    if (full)
+      probs(false);
+    else
+      probs(true);
+
+    mma3_cb<D>(adv, s, dost, g, t);  // dV += P^T dO
+    mma3_cb<D>(adk, dp, qst, g, t);  // dK += dS^T Q
+    __syncthreads();  // every warp is done with this stage before its refill
+  }
+  cp_async_wait<0>();
+
+  store_acc<D>(dk + size_t(bh) * tk * D, k0 + 16 * warp, tk, adk, scale, g,
+               t);
+  store_acc<D>(dv + size_t(bh) * tk * D, k0 + 16 * warp, tk, adv, 1.f, g, t);
+}
+
+template <int D>
+cudaError_t launch_dkv_tf32(const void* q, const void* k, const void* v,
+                            const void* o, const void* dout, const void* lse,
+                            void* dk, void* dv, int bh, int tq, int tk,
+                            float scale, int causal, cudaStream_t stream) {
+  const size_t smem = dkv_tf32_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_tf32_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (tk + kTile - 1) / kTile);
+  flash_bwd_dkv_tf32_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(o),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<float*>(dk), static_cast<float*>(dv), tq, tk, scale,
+      causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -904,9 +1118,9 @@ int mx_flash_bwd_dq(const void* q, const void* k, const void* v,
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && d == 64)
-    return int(launch_dq<float, 64>(q, k, v, o, dout, lse, dq, bh, tq, tk, scale, causal, s));
+    return int(launch_dq_tf32<64>(q, k, v, o, dout, lse, dq, bh, tq, tk, scale, causal, s));
   if (dtype == 0 && d == 128)
-    return int(launch_dq<float, 128>(q, k, v, o, dout, lse, dq, bh, tq, tk, scale, causal, s));
+    return int(launch_dq_tf32<128>(q, k, v, o, dout, lse, dq, bh, tq, tk, scale, causal, s));
   if (dtype == 1 && d == 64)
     return int(launch_dq_bf16<64>(q, k, v, o, dout, lse, dq, bh, tq, tk, scale, causal, s));
   if (dtype == 1 && d == 128)
@@ -925,9 +1139,9 @@ int mx_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (tk == 0) return int(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && d == 64)
-    return int(launch_dkv<float, 64>(q, k, v, o, dout, lse, dk, dv, bh, tq, tk, scale, causal, s));
+    return int(launch_dkv_tf32<64>(q, k, v, o, dout, lse, dk, dv, bh, tq, tk, scale, causal, s));
   if (dtype == 0 && d == 128)
-    return int(launch_dkv<float, 128>(q, k, v, o, dout, lse, dk, dv, bh, tq, tk, scale, causal, s));
+    return int(launch_dkv_tf32<128>(q, k, v, o, dout, lse, dk, dv, bh, tq, tk, scale, causal, s));
   if (dtype == 1 && d == 64)
     return int(launch_dkv_bf16<64>(q, k, v, o, dout, lse, dk, dv, bh, tq, tk, scale, causal, s));
   if (dtype == 1 && d == 128)
@@ -941,8 +1155,10 @@ int mx_flash_bwd_dkv(const void* q, const void* k, const void* v,
 int mx_flash_bwd_smem(int dkv, int d, int dtype) {
   if (d != 64 && d != 128) return 0;
   if (dtype == 0)
-    return int(dkv ? (d == 64 ? dkv_smem_bytes<64>() : dkv_smem_bytes<128>())
-                   : (d == 64 ? dq_smem_bytes<64>() : dq_smem_bytes<128>()));
+    return int(dkv ? (d == 64 ? dkv_tf32_smem_bytes<64>()
+                              : dkv_tf32_smem_bytes<128>())
+                   : (d == 64 ? dq_tf32_smem_bytes<64>()
+                              : dq_tf32_smem_bytes<128>()));
   if (dtype == 1)
     return int(dkv ? (d == 64 ? dkv_bf16_smem_bytes<64>()
                               : dkv_bf16_smem_bytes<128>())

@@ -5,7 +5,8 @@
 //   chunks are XOR-swizzled by row & 7 (`swz`): the eight row addresses of
 //   one ldmatrix phase, and the eight 16-byte writes of one cp.async phase,
 //   then fall on eight different bank groups.
-// * `cp_async_tile` fills such a tile with 16-byte cp.async copies; rows past the
+// * `cp_async_tile` fills such a tile (or, given another layout, the fp32
+//   tiles of csrc/flash_bwd.cu) with 16-byte cp.async copies; rows past the
 //   tensor's end are zero-filled (source size 0), so a ragged edge reads 0.
 // * `ldsm_*` load mma fragments with ldmatrix; `mma` is
 //   mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32.
@@ -61,13 +62,23 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Rows [row0, row0 + R) of a (rows, D) bf16 tensor into a swizzled R x D
-// tile, NT threads issuing one 16-byte copy each per step; rows at or past
-// `rows` are zero-filled.
-template <int R, int D, int NT>
-__device__ __forceinline__ void cp_async_tile(bf16* dst, const bf16* src,
-                                          int row0, int rows, int tid) {
-  constexpr int kChunks = D / 8;
+// The swizzled tile layout above, as a layout argument of `cp_async_tile`.
+struct Swizzled {
+  template <int D>
+  static __device__ __forceinline__ int at(int row, int col) {
+    return swz<D>(row, col);
+  }
+};
+
+// Rows [row0, row0 + R) of a (rows, D) tensor of T into an R x D tile laid
+// out by Layout (Layout::at<D>(row, col) is an element's offset), NT
+// threads issuing one 16-byte copy each per step; rows at or past `rows`
+// are zero-filled.
+template <int R, int D, int NT, typename Layout = Swizzled, typename T>
+__device__ __forceinline__ void cp_async_tile(T* dst, const T* src,
+                                              int row0, int rows, int tid) {
+  constexpr int kPer = 16 / sizeof(T);  // elements a copy
+  constexpr int kChunks = D / kPer;
   static_assert((R * kChunks) % NT == 0, "tile not a multiple of a step");
 #pragma unroll
   for (int j = 0; j < R * kChunks / NT; ++j) {
@@ -75,8 +86,8 @@ __device__ __forceinline__ void cp_async_tile(bf16* dst, const bf16* src,
     const int r = i / kChunks, c = i % kChunks;
     const int gr = row0 + r;
     const bool in = gr < rows;
-    cp_async16(dst + swz<D>(r, c * 8), src + size_t(in ? gr : 0) * D + c * 8,
-               in);
+    cp_async16(dst + Layout::template at<D>(r, c * kPer),
+               src + size_t(in ? gr : 0) * D + c * kPer, in);
   }
 }
 

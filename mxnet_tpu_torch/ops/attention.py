@@ -52,7 +52,7 @@ __all__ = ["attention_core", "attention_composition", "flash_attention",
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ALIGN = 16     # bytes: the bf16 kernels' cp.async copies and TMA maps
+_ALIGN = 16     # bytes: the kernels' cp.async copies and TMA maps
 _IMPLS = (None, "pallas", "xla")
 
 # Process-wide default (set_attention_impl) and a thread-local scope stack
@@ -222,17 +222,19 @@ def _check_kernel_inputs(q, k, v) -> None:
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise MXNetError("flash_attention: the kernel takes contiguous "
                          "(B, H, T, D) tensors")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_aligned("flash_attention", name, t)
+    if q.dtype == torch.bfloat16:
+        # K1 bf16's TMA maps; K1 fp32 reads its inputs with scalar loads
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _check_aligned("flash_attention", name, t)
 
 
 def _check_aligned(what: str, name: str, t: torch.Tensor) -> None:
-    """The bf16 kernels load 16-byte chunks of every row (``cp.async`` in
-    K2 and K3; TMA in K1, whose tensor maps need a 16-byte-aligned base and
-    16-byte-multiple row strides): a bf16 tensor must start on a 16-byte
-    boundary (rows of D in {64, 128} then do too)."""
-    if t.dtype == torch.bfloat16 and t.data_ptr() % _ALIGN:
-        raise MXNetError("%s: the bf16 kernels need %s 16-byte aligned, got "
+    """Where a kernel loads 16-byte chunks of every row (TMA in K1 bf16,
+    whose tensor maps need a 16-byte-aligned base and 16-byte-multiple row
+    strides; ``cp.async`` in K2 and K3, fp32 and bf16), a tensor must start
+    on a 16-byte boundary (rows of D in {64, 128} then do too)."""
+    if t.data_ptr() % _ALIGN:
+        raise MXNetError("%s: the kernels need %s 16-byte aligned, got "
                          "address %#x (a view at storage offset %d)"
                          % (what, name, t.data_ptr(), t.storage_offset()))
 
@@ -240,7 +242,8 @@ def _check_aligned(what: str, name: str, t: torch.Tensor) -> None:
 def _check_bwd_inputs(q, k, v, o, lse, g) -> None:
     """What the backward kernels take beyond :func:`_check_kernel_inputs`:
     O and its cotangent like q, and LSE (B, H, Tq) float32, all contiguous
-    on q's device."""
+    on q's device; q, k, v, O and the cotangent 16-byte aligned in either
+    dtype."""
     _check_kernel_inputs(q, k, v)
     for name, t in (("O", o), ("the gradient of O", g)):
         if t.shape != q.shape or t.dtype != q.dtype or \
@@ -254,7 +257,8 @@ def _check_bwd_inputs(q, k, v, o, lse, g) -> None:
         raise MXNetError("flash_attention backward: LSE must be a contiguous "
                          "%s float32 tensor on %s" % (tuple(q.shape[:3]),
                                                       q.device))
-    for name, t in (("O", o), ("the gradient of O", g)):
+    for name, t in (("q", q), ("k", k), ("v", v), ("O", o),
+                    ("the gradient of O", g)):
         _check_aligned("flash_attention backward", name, t)
 
 
@@ -322,10 +326,11 @@ def _flash_bwd_dkv_cuda(q, k, v, o, lse, g, scale: float, causal: bool):
 
 
 def _flash_bwd_cuda(q, k, v, o, lse, g, scale: float, causal: bool):
-    """K2 then K3 on CUDA tensors; (dQ, dK, dV).  ``g`` is made contiguous
-    here: it arrives transposed from the head merge of
-    ``multi_head_attention``."""
-    g = g.contiguous()
+    """K2 then K3 on CUDA tensors; (dQ, dK, dV).  The inputs are made
+    contiguous and aligned here: ``g`` arrives transposed from the head
+    merge of ``multi_head_attention``, and K1 fp32 takes q, k and v at any
+    4-byte offset, which K2 and K3 do not."""
+    q, k, v, o, g = map(_kernel_layout, (q, k, v, o, g))
     dq = _flash_bwd_dq_cuda(q, k, v, o, lse, g, scale, causal)
     dk, dv = _flash_bwd_dkv_cuda(q, k, v, o, lse, g, scale, causal)
     return dq, dk, dv

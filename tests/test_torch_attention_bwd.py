@@ -187,6 +187,7 @@ def test_functions_pass_float64_gradcheck(causal, tq, tk):
     ("g_strided", "gradient of O"),
     ("o_misaligned", "16-byte"),
     ("g_misaligned", "16-byte"),
+    ("g_misaligned_fp32", "16-byte"),
 ])
 def test_bwd_input_checks_refuse_what_the_kernels_do_not_take(bad, match):
     from mxnet_tpu_torch.base import MXNetError
@@ -203,6 +204,10 @@ def test_bwd_input_checks_refuse_what_the_kernels_do_not_take(bad, match):
         g = g.to(torch.bfloat16)
     elif bad == "g_strided":
         g = torch.zeros(1, 16, 2, 64).transpose(1, 2)
+    elif bad == "g_misaligned_fp32":
+        # fp32 throughout, the gradient of O a contiguous view 4 bytes past
+        # its storage's start
+        g = torch.zeros(g.numel() + 1)[1:].view(g.shape)
     else:
         # bf16 throughout, O or its gradient a contiguous view 8 bytes
         # past its storage's start

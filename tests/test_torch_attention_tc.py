@@ -441,6 +441,37 @@ def test_attention_core_hands_the_kernels_aligned_copies():
     assert tatt._kernel_layout(aligned) is aligned
 
 
+def test_fp32_inputs_must_be_16_byte_aligned_too(monkeypatch):
+    """The fp32 K2 and K3 copy 16-byte chunks with ``cp.async`` as the
+    bf16 kernels do, where K1 fp32 reads scalars: a contiguous fp32 view 4
+    bytes past a 16-byte boundary passes the forward's check, is refused by
+    the backward's, and reaches K2 and K3 from ``_flash_bwd_cuda`` as an
+    aligned copy with the same values."""
+    from mxnet_tpu_torch.base import MXNetError
+    t = torch.zeros(2 * 16 * 64 + 1)[1:].view(1, 2, 16, 64)
+    assert t.is_contiguous() and t.data_ptr() % 16 == 4
+    t.normal_()
+    k = v = o = g = torch.zeros(1, 2, 16, 64)
+    lse = torch.zeros(1, 2, 16)
+    tatt._check_kernel_inputs(t, k, v)
+    with pytest.raises(MXNetError, match="16-byte"):
+        tatt._check_bwd_inputs(t, k, v, o, lse, g)
+    seen = []
+
+    def launch(*args):
+        tatt._check_bwd_inputs(*args[:6])
+        seen.append(args[0])
+        return args[0]
+
+    monkeypatch.setattr(tatt, "_flash_bwd_dq_cuda", launch)
+    monkeypatch.setattr(tatt, "_flash_bwd_dkv_cuda",
+                        lambda *a: (launch(*a), a[1]))
+    tatt._flash_bwd_cuda(t, k, v, o, lse, g, 0.125, False)
+    assert len(seen) == 2
+    for q in seen:
+        assert q.data_ptr() % 16 == 0 and torch.equal(q, t)
+
+
 def test_library_name_follows_every_header(tmp_path):
     """The library of a ``csrc/`` source is named by a hash of the source,
     of every ``*.cuh`` beside it and of the flags: editing the shared
