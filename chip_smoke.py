@@ -13,10 +13,10 @@ Phases (each raises on failure, so any failure exits nonzero):
    earlier run left in ``_build/`` is removed first); print each flash
    instantiation's registers, spill bytes (``-Xptxas -v``) and dynamic
    shared memory, and ptxas's performance warnings; a spill in the bf16
-   flash forward or in an fp32 flash backward fails the phase, and so do
-   an fp32 backward's local-memory stack frame and an fp32 backward
-   instantiation without TF32 tensor-core instructions
-   (``HMMA...TF32`` in ``cuobjdump -sass`` of the built library).
+   flash forward or in an fp32 flash kernel fails the phase, and so do an
+   fp32 kernel's local-memory stack frame and an fp32 instantiation (K1,
+   K2, K3) without TF32 tensor-core instructions (``HMMA...TF32`` in
+   ``cuobjdump -sass`` of the built libraries).
 3. kernels -- hold each kernel against its plain PyTorch version on the card
    at the main paths' shapes (and ragged/causal edge cases, each in fp32
    and bf16), and time the kernel, the plain version and the PyTorch
@@ -24,15 +24,17 @@ Phases (each raises on failure, so any failure exits nonzero):
    the library call also by device time from a profiler trace): K1 (flash
    forward), then K2 and K3 (flash backward: dQ, and dK/dV); each must
    also repeat bitwise; then the LSE-cotangent rule once against autograd
-   through the plain forward, and K2 and K3 in fp32 on one score past the
-   fp32 range with a finite LSE (P = 0 there, as in the reference).  In bf16 all three run on the tensor cores
-   (K1 on wgmma with TMA loads, K2 and K3 on mma.sync); in fp32 K2 and K3
-   run on the tensor cores as three TF32 products a product (the 3xTF32
-   split, which the build phase checks in the SASS), K1 on CUDA cores.
+   through the plain forward, and, in fp32 and bf16, K2 and K3 on one
+   score past the fp32 range with a finite LSE (P = 0 there, as in the
+   reference) and K1 on one score of -inf past the range.  All three run
+   on the tensor cores: in bf16 K1 on wgmma with TMA loads, K2 and K3 on
+   mma.sync; in fp32 all three on mma.sync as three TF32 products a
+   product (the 3xTF32 split, which the build phase checks in the SASS).
    Every fp32 bound counts its operations three times at the TF32 peak.
    K1's, K2's and K3's bf16 times at the training shape are printed as
-   multiples of the SDPA forward and backward, and K2's and K3's fp32
-   times as multiples of SDPA's fp32 backward.
+   multiples of the SDPA forward and backward, K1's fp32 time at the
+   serving shape as a multiple of SDPA's fp32 forward, and K2's and K3's
+   fp32 times as multiples of SDPA's fp32 backward.
 4. slice   -- the serving path: BERT-base (12 x 768 x 12, fp32, T = 512,
    seeded random weights) behind Servable -> ModelHost.deploy -> Batcher ->
    ServeServer/serve_forever, answering 32 PREDICT requests from 8
@@ -168,8 +170,8 @@ def phase_build():
             if not r["tf32_mma"]:
                 faults.append("no TF32 tensor-core instruction in %s" % r)
         log("build: flash instantiation %s" % json.dumps(r))
-        if r["kernel"] in ("flash_fwd_bf16_kernel", "flash_bwd_dq_tf32_kernel",
-                           "flash_bwd_dkv_tf32_kernel") and (
+        if (r["kernel"] == "flash_fwd_bf16_kernel" or
+                r["kernel"].endswith("_tf32_kernel")) and (
                 r["spill_store_bytes"] or r["spill_load_bytes"]):
             faults.append("ptxas spilled registers in %s" % r)
         if r["kernel"].endswith("_tf32_kernel") and r["stack_bytes"]:
@@ -193,16 +195,17 @@ _SASS_TF32_MMA = re.compile(r"\bHMMA\.\S*TF32")
 
 
 def tf32_mma_counts():
-    """{(kernel, D): TF32 HMMA instructions} of the fp32 flash backward's
-    instantiations, from ``cuobjdump -sass`` of the built library; raises
-    when ``cuobjdump`` is missing or fails."""
+    """{(kernel, D): TF32 HMMA instructions} of the fp32 flash
+    instantiations (K1, K2, K3), from ``cuobjdump -sass`` of the built
+    libraries; raises when ``cuobjdump`` is missing or fails."""
     from mxnet_tpu_torch.ops import _kernels
     tool = os.path.join(os.path.dirname(_kernels.nvcc_path()), "cuobjdump")
     if not os.path.exists(tool):
         raise RuntimeError("cuobjdump not found beside nvcc (%s)" % tool)
-    sass = subprocess.run(
-        [tool, "-sass", str(_kernels.FLASH_BWD.library_path())],
-        capture_output=True, text=True, timeout=300, check=True).stdout
+    sass = "".join(subprocess.run(
+        [tool, "-sass", str(lib.library_path())], capture_output=True,
+        text=True, timeout=300, check=True).stdout
+        for lib in (_kernels.FLASH_FWD, _kernels.FLASH_BWD))
     counts, cur = {}, None
     for line in sass.splitlines():
         m = _SASS_FUNCTION.search(line)
@@ -214,10 +217,10 @@ def tf32_mma_counts():
                 counts[cur] = 0
         elif cur is not None and _SASS_TF32_MMA.search(line):
             counts[cur] += 1
-    if len(counts) != 4:
-        raise RuntimeError("expected the SASS of 4 fp32 flash backward "
-                           "instantiations (K2, K3 x D 64, 128), found %s"
-                           % counts)
+    if len(counts) != 6:
+        raise RuntimeError("expected the SASS of 6 fp32 flash "
+                           "instantiations (K1, K2, K3 x D 64, 128), found "
+                           "%s" % counts)
     return counts
 
 
@@ -569,8 +572,9 @@ def phase_bwd_kernels(peaks):
 def log_library_ratios(fwd, bwd):
     """K1, K2 and K3 in bf16 at the training shape against one PyTorch call
     in the same run: the forward, and the whole backward (dQ, dK and dV),
-    of scaled_dot_product_attention; then K2 and K3 in fp32 against SDPA's
-    fp32 backward, as the pair that call replaces and each alone."""
+    of scaled_dot_product_attention; then K1 in fp32 at the serving shape
+    against SDPA's fp32 forward, and K2 and K3 in fp32 against SDPA's fp32
+    backward, as the pair that call replaces and each alone."""
     recs = [("K1", fwd[("bert-train", torch.bfloat16)], "forward"),
             ("K2", bwd[("flash_bwd_dq", torch.bfloat16)],
              "backward, dQ+dK+dV"),
@@ -583,6 +587,14 @@ def log_library_ratios(fwd, bwd):
             % (name, rec[ms], rec[key + "x_library"], what,
                rec["library_" + key + "ms"], rec[key + "x_bound"])
             for name, rec, what in recs)))
+    k1 = fwd[("bert-base", torch.float32)]
+    for how, key in (("CUDA events", ""), ("device time", "device_")):
+        ms = "kernel_ms" if not key else "device_ms"
+        log("kernels: fp32 B=8 H=12 T=512 D=64, by %s: K1 %.4f ms = %.2fx "
+            "the SDPA fp32 forward (%.4f ms), %.2fx its bound (3 x tf32) "
+            "%.4f ms" % (how, k1[ms], k1[key + "x_library"],
+                         k1["library_" + key + "ms"], k1[key + "x_bound"],
+                         k1["bound_ms"]))
     dq, dkv = bwd[("flash_bwd_dq", torch.float32)], \
         bwd[("flash_bwd_dkv", torch.float32)]
     for how, key in (("CUDA events", ""), ("device time", "device_")):
@@ -623,54 +635,106 @@ def check_lse_rule():
                            "with autograd through the plain forward")
 
 
+def isolate_pair(q, k, r, j0):
+    """Edit q and k (B, H, T, D; tensors or numpy arrays) in place so that
+    query r sees key j0 alone (its score on every other key is -1e4 scale)
+    and key j0 is seen by query r alone (the same for every other query),
+    through columns 1 and 2; column 0 is cleared for :func:`overflow_pair`."""
+    q[..., :3] = 0.0
+    k[..., :3] = 0.0
+    q[..., 1] = 1.0
+    q[:, :, r, 1] = 0.0
+    k[:, :, j0, 1] = -1e4
+    q[:, :, r, 2] = 1e4
+    k[..., 2] = -1.0
+    k[:, :, j0, 2] = 0.0
+
+
+def overflow_pair(q, k, r, j0, sign=1.0):
+    """q[r, 0] = 1e20 and k[j0, 0] = sign * 1e20, where column 0 of every
+    other row is 0: the score of query r on key j0 becomes sign * inf
+    (1e40 is past the fp32 range), and every other score stays as it
+    was."""
+    q[:, :, r, 0] = 1e20
+    k[:, :, j0, 0] = sign * 1e20
+
+
 def check_nonfinite_scores():
-    """K2 and K3 in fp32 where one score overflows on a finite LSE: P = 0
-    there, as in the reference and the plain versions (their ``isfinite``
-    guard on S).  Query r and key j0 see only each other (their scores on
-    every other key and query are -1e4 scale, through columns 1 and 2),
-    the forward gives O and a finite LSE, and then q[r, 0] = k[j0, 0] =
-    1e20 pushes their score alone to +inf.  Every output must be finite
-    and meet the plain versions at 1e-4; exp(+inf) would make dQ row r and
-    dK and dV row j0 inf or NaN."""
+    """Each kernel where one score leaves the fp32 range, in fp32 (at 1e-4)
+    and bf16 (under the bf16 rule), against its plain version; every
+    output must be finite.  K2 and K3: P = 0 where a score overflows on a
+    finite LSE, as in the reference and the plain versions (their
+    ``isfinite`` guard on S).  Query r and key j0 see only each other
+    (:func:`isolate_pair`), the forward gives O and a finite LSE, and then
+    :func:`overflow_pair` pushes their score alone to +inf; exp(+inf)
+    would make dQ row r and dK and dV row j0 inf or NaN.  K1: the score of
+    query r on key j0 alone is -inf on otherwise random inputs (a +inf
+    score gives NaN in the plain version too); the guards must give it P
+    = 0 and leave the row's max and sum to the other keys."""
     from mxnet_tpu_torch.ops import attention as att
     B, H, T, r, j0 = 2, 2, 200, 150, 37
-    for D, causal in ((64, True), (128, False)):
-        g = torch.Generator(device="cuda").manual_seed(SEED + 3)
-        q, k, v, do = (torch.randn((B, H, T, D), generator=g, device="cuda")
-                       for _ in range(4))
-        q[..., :3] = 0.0
-        k[..., :3] = 0.0
-        q[..., 1] = 1.0
-        q[:, :, r, 1] = 0.0
-        k[:, :, j0, 1] = -1e4
-        q[:, :, r, 2] = 1e4
-        k[..., 2] = -1.0
-        k[:, :, j0, 2] = 0.0
-        scale = 1.0 / D ** 0.5
-        o, lse = att.flash_attention_with_lse(q, k, v, scale, causal)
-        q[:, :, r, 0] = 1e20
-        k[:, :, j0, 0] = 1e20
-        s = (q[:, :, r] * k[:, :, j0]).sum(-1)
-        if not (bool(torch.isinf(s).all()) and
-                bool(torch.isfinite(lse).all())):
-            raise RuntimeError("check_nonfinite_scores: the inputs do not "
-                               "give one infinite score on a finite LSE")
-        args = (q, k, v, o, lse, do, scale, causal)
-        got = (att._flash_bwd_dq_cuda(*args),) + att._flash_bwd_dkv_cuda(
-            *args)
-        want = (att.flash_bwd_dq_plain(*args),) + att.flash_bwd_dkv_plain(
-            *args)
-        errs = [compare(a, b, 1e-4) for a, b in zip(got, want)]
-        ok = all(e[1] for e in errs) and all(
-            bool(torch.isfinite(a).all()) for a in got)
-        log("kernels: a score past the fp32 range on a finite LSE (fp32 "
-            "B=%d H=%d T=%d D=%d causal=%s) | max|dQ|,|dK|,|dV| %s %s"
-            % (B, H, T, D, causal, ["%.3g" % e[0] for e in errs],
-               "ok" if ok else "FAIL"))
-        if not ok:
-            raise RuntimeError("flash_bwd in fp32 does not give P = 0 where "
-                               "a score is not finite (D=%d causal=%s)"
-                               % (D, causal))
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = 1e-4 if dtype == torch.float32 else 2e-3
+        name = str(dtype).replace("torch.", "")
+        for D, causal in ((64, True), (128, False)):
+            g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+            q, k, v, do = (torch.randn((B, H, T, D), generator=g,
+                                       device="cuda") for _ in range(4))
+            isolate_pair(q, k, r, j0)
+            q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+            scale = 1.0 / D ** 0.5
+            o, lse = att.flash_attention_with_lse(q, k, v, scale, causal)
+            overflow_pair(q, k, r, j0)
+            s = (q[:, :, r].float() * k[:, :, j0].float()).sum(-1)
+            if not (bool(torch.isinf(s).all()) and
+                    bool(torch.isfinite(lse).all())):
+                raise RuntimeError("check_nonfinite_scores: the inputs do "
+                                   "not give one infinite score on a "
+                                   "finite LSE")
+            args = (q, k, v, o, lse, do, scale, causal)
+            f32 = [t.float() for t in args[:6]]
+            got = (att._flash_bwd_dq_cuda(*args),) + \
+                att._flash_bwd_dkv_cuda(*args)
+            want = (att.flash_bwd_dq_plain(*f32, scale, causal),) + \
+                att.flash_bwd_dkv_plain(*f32, scale, causal)
+            _check_finite_and_close(
+                "K2, K3: a score past the fp32 range on a finite LSE (%s "
+                "B=%d H=%d T=%d D=%d causal=%s) | max|dQ|,|dK|,|dV|"
+                % (name, B, H, T, D, causal), got, want, tol)
+
+            q, k, v = (torch.randn((B, H, T, D), generator=g, device="cuda")
+                       for _ in range(3))
+            q[..., 0] = 0.0
+            k[..., 0] = 0.0
+            overflow_pair(q, k, r, j0, sign=-1.0)
+            q, k, v = (t.to(dtype) for t in (q, k, v))
+            s = (q[:, :, r].float() * k[:, :, j0].float()).sum(-1)
+            if not bool((s == -float("inf")).all()):
+                raise RuntimeError("check_nonfinite_scores: the inputs do "
+                                   "not give one score of -inf")
+            got = att.flash_attention_with_lse(q, k, v, scale, causal)
+            want = att.flash_attention_plain(q.float(), k.float(),
+                                             v.float(), scale, causal)
+            _check_finite_and_close(
+                "K1: a score of -inf past the fp32 range (%s B=%d H=%d T=%d "
+                "D=%d causal=%s) | max|O|,|LSE|"
+                % (name, B, H, T, D, causal), got, want, tol)
+
+
+def _check_finite_and_close(what, got, want, tol):
+    """Log and require: every output of ``got`` finite, the plain versions'
+    ``want`` finite, and each within ``compare``'s rule at ``tol``."""
+    errs = [compare(a, b, tol) for a, b in zip(got, want)]
+    bad = [int((~torch.isfinite(a.float())).sum()) for a in got]
+    ok = all(e[1] for e in errs) and not any(bad) and all(
+        bool(torch.isfinite(b.float()).all()) for b in want)
+    log("kernels: %s %s (tol %g), non-finite entries %s %s"
+        % (what, ["%.3g" % e[0] for e in errs], tol, bad,
+           "ok" if ok else "FAIL"))
+    if not ok:
+        raise RuntimeError("a kernel is not finite or disagrees with its "
+                           "plain version where a score leaves the fp32 "
+                           "range: " + what)
 
 
 # ---------------------------------------------------------------------------

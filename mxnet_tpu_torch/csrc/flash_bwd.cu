@@ -6,8 +6,7 @@
 // forward's log-sum-exp so the T x T matrices never reach device memory:
 //     S     = scale * Q K^T           [causal: q_pos >= k_pos, top-left]
 //     P     = exp(S - LSE)            (0 where masked, or where S or the
-//                                      LSE is not finite; the bf16
-//                                      kernels guard only the LSE)
+//                                      LSE is not finite)
 //     dP    = dO V^T
 //     delta = rowsum(dO * O)          (recomputed here, per query row)
 //     dS    = P * (dP - delta)
@@ -39,48 +38,29 @@
 // P and dS enter their products as hi + lo bf16 pairs (mma_bf16.cuh says
 // why one rounding is not enough).
 //
-// float32 (helpers in namespace tf32 below): m16n8k8 on TF32 operands, as a
-// 3xTF32 split.  The fp32 results must meet the plain version to 1e-4 + 1e-4
-// |ref|.  One TF32 product (10 mantissa bits) does not: on randn inputs at T =
-// 512 it misses by 3-5 times the limit (tests/test_torch_attention_tf32.py
-// pins the case).  So each operand x enters as two TF32 values hi and lo, and
-// every product is three mma: a_lo b_hi, then a_hi b_lo, then a_hi b_hi, the
-// small terms first, as CUTLASS's OpMultiplyAddFastF32 orders them; a_lo b_lo
-// is below the rule.  The tensor core reads the top 19 bits of a register and
-// ignores the low 13, so hi is x itself (read as x truncated to TF32) and lo =
-// x - trunc(x), read truncated: two instructions a value.  Rounding both
-// halves with cvt.rna.tf32.f32, which compiles to a sequence of integer and
-// compare instructions, left the kernels issuing more conversion than tensor
-// instructions, and they ran markedly slower.  hi + lo keeps x within 2^-20
-// |x|; the CPU emulation of this split stays under 3 % of the rule's limit.
-// Tiles stay fp32 in shared memory at a row stride of D + 4 floats, and every
-// fragment is split as it is loaded: A and n-major B fragments by ldmatrix
-// (b16 pairs carry one 32-bit word each), MN-major B fragments by scalar
-// loads.  The A fragment of P or dS comes from an m16n8 accumulator, which
-// holds columns (2t, 2t + 1) where m16n8k8's A fragment wants (t, t + 4): the
-// k index is permuted instead (k-slot t <- column 2t, k-slot t + 4 <- column
-// 2t + 1) and the matching MN-major B fragment reads rows 2t and 2t + 1.  The
-// stride puts those reads and the ldmatrix phases on 32 distinct banks and
-// makes every fragment offset an immediate (an XOR swizzle cost an address
-// computation a fragment).  S, dP, P, dS, delta and the outputs stay fp32;
-// delta and the softmax are FMAs on the CUDA cores.  Outputs leave the
-// accumulators as 8-byte stores (a quad writes 32 contiguous bytes of a row).
-// Shared memory: K2 holds Q and dO (64 rows) and a ring of 32-key K and V
-// tiles, 69,632 bytes at D = 64 (three blocks an SM) and 135,168 at D = 128;
-// K3 holds K and V (64 rows) and a ring of 16-query Q, dO and O tiles, 61,056
-// bytes at D = 64 (three blocks an SM) and 118,400 at D = 128.  Why not wgmma:
-// its .tf32 form needs both operands K-major in shared memory and has no
-// transpose, and three B operands here are MN-major (K in dQ = dS K, dO in dV
-// = P^T dO, Q in dK = dS^T Q); they would need a transposed copy of each
-// streamed tile first.  That is later work.  At BERT-base's training shape
-// (B*H = 192, T = 512, D = 64) K2 needs 19.3 GFLOP (S, dP, dQ: 6 D a (q, k)
-// pair) and K3 25.8 (S, dP, dV, dK: 8 D), 58 and 77 GFLOP issued as three TF32
-// products: 0.117 and 0.156 ms at 495 TFLOP/s, against 151 and 177 MB of
-// inputs and outputs, 0.045 and 0.053 ms at 3.35 TB/s.  Operations bound both,
-// so the design keeps the tensor cores fed: no trip of P or dS through shared
-// memory, few instructions beside each mma, loads in flight under the
-// products, and three blocks an SM to hide mma.sync latency.  Each kernel's
-// note is at it below.
+// float32 (helpers in mma_tf32.cuh, namespace tf32, shared with K1's fp32
+// kernel): m16n8k8 on TF32 operands, as a 3xTF32 split (mma_tf32.cuh says
+// why one TF32 product misses the 1e-4 rule and how x splits into hi + lo);
+// tiles stay fp32 in shared memory at a row stride of D + 4 floats.  S, dP,
+// P, dS, delta and the outputs stay fp32; delta and the softmax are FMAs on
+// the CUDA cores.  Outputs leave the accumulators as 8-byte stores (a quad
+// writes 32 contiguous bytes of a row).  Shared memory: K2 holds Q and dO
+// (64 rows) and a ring of 32-key K and V tiles, 69,632 bytes at D = 64
+// (three blocks an SM) and 135,168 at D = 128; K3 holds K and V (64 rows)
+// and a ring of 16-query Q, dO and O tiles, 61,056 bytes at D = 64 (three
+// blocks an SM) and 118,400 at D = 128.  Why not wgmma: its .tf32 form needs
+// both operands K-major in shared memory and has no transpose, and three B
+// operands here are MN-major (K in dQ = dS K, dO in dV = P^T dO, Q in dK =
+// dS^T Q); they would need a transposed copy of each streamed tile first.
+// That is later work.  At BERT-base's training shape (B*H = 192, T = 512, D
+// = 64) K2 needs 19.3 GFLOP (S, dP, dQ: 6 D a (q, k) pair) and K3 25.8 (S,
+// dP, dV, dK: 8 D), 58 and 77 GFLOP issued as three TF32 products: 0.117 and
+// 0.156 ms at 495 TFLOP/s, against 151 and 177 MB of inputs and outputs,
+// 0.045 and 0.053 ms at 3.35 TB/s.  Operations bound both, so the design
+// keeps the tensor cores fed: no trip of P or dS through shared memory, few
+// instructions beside each mma, loads in flight under the products, and
+// three blocks an SM to hide mma.sync latency.  Each kernel's note is at it
+// below.
 //
 // Interface: plain C, loaded with ctypes.  Pointers and the stream are void*;
 // each entry point returns cudaGetLastError() after its launch.
@@ -90,6 +70,7 @@
 #include <math.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -275,9 +256,11 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         }
       }
 
-      // P^T = exp(scale S^T - LSE) with the mask and the isfinite guard
+      // P^T = exp(scale S^T - LSE) with the mask and the isfinite guards
       // (keys past Tk, rows past Tq and rows that saw no key give 0 before
-      // any product), and dS^T = P^T (dP^T - delta), in place
+      // any product, and so does a score that is not finite, as in the
+      // reference: x below is finite only where S^T and the LSE are), and
+      // dS^T = P^T (dP^T - delta), in place
       const auto probs = [&](bool mask) {
 #pragma unroll
         for (int j = 0; j < kSub / 8; ++j)
@@ -285,10 +268,11 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
           for (int e = 0; e < 4; ++e) {
             const int c = c0 + 8 * j + 2 * t + (e & 1);
             const int kr = kr0 + 8 * (e >> 1);
-            const float l2 = lse_s[c];
-            const bool ok = !mask || (kr < tk && (!causal || q0 + c >= kr) &&
-                                      isfinite(l2));
-            const float p = ok ? exp2_ftz(s[j][e] * sl2 - l2) : 0.f;
+            const float x = s[j][e] * sl2 - lse_s[c];
+            const bool ok =
+                (!mask || (kr < tk && (!causal || q0 + c >= kr))) &&
+                isfinite(x);
+            const float p = ok ? exp2_ftz(x) : 0.f;
             s[j][e] = p;
             dp[j][e] = p * (dp[j][e] - delta_s[c]);
           }
@@ -528,6 +512,7 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
       // dS = P (dP - delta) in place, P = 0 where keys pass Tk or lie
       // right of the diagonal (only the ragged and diagonal slices mask)
+      // and, as in the reference, where the score is not finite
       const auto grads = [&](bool mask) {
 #pragma unroll
         for (int j = 0; j < kSub / 8; ++j)
@@ -535,9 +520,10 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
           for (int e = 0; e < 4; ++e) {
             const int kc = kc0 + 8 * j + 2 * t + (e & 1);
             const int qr = q0 + rt + 8 * (e >> 1);
-            const bool ok = !mask || (kc < tk && (!causal || qr >= kc));
-            const float p =
-                ok ? exp2_ftz(s[j][e] * sl2 - lse2[e >> 1]) : 0.f;
+            const float x = s[j][e] * sl2 - lse2[e >> 1];
+            const bool ok = (!mask || (kc < tk && (!causal || qr >= kc))) &&
+                            isfinite(x);
+            const float p = ok ? exp2_ftz(x) : 0.f;
             dp[j][e] = p * (dp[j][e] - delta[e >> 1]);
           }
       };
@@ -596,172 +582,6 @@ cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v,
 // ---------------------------------------------------------------------------
 // K2 and K3 in float32: tensor cores, 3xTF32
 // ---------------------------------------------------------------------------
-
-namespace tf32 {
-
-// The layout of the fp32 tiles: row-major R x D at a row stride of D + 4
-// floats.  The stride puts row r at bank 4r (mod 32): one ldmatrix phase (8
-// rows, one 16-byte chunk each) and the scalar reads of an MN-major B
-// fragment (rows 2t and 2t + 1 of an 8-row group, columns g) then hit 32
-// distinct banks, and every fragment offset is an immediate.
-struct Padded {
-  template <int D>
-  static __device__ __forceinline__ int at(int row, int col) {
-    return row * (D + 4) + col;
-  }
-};
-
-// Rows [row0, row0 + R) of a (rows, D) fp32 tensor into an R x D tile of
-// this layout, by the block's 16-byte cp.async copies.
-template <int R, int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int row0, int rows, int tid) {
-  mma_bf16::cp_async_tile<R, D, kTcThreads, Padded>(dst, src, row0, rows,
-                                                    tid);
-}
-
-// The A fragment (fp32 bits) of rows m0 .. m0 + 15, cols k0 .. k0 + 7 of a
-// row-major tile: a[0] = (g, t), a[1] = (g + 8, t), a[2] = (g, t + 4), a[3]
-// = (g + 8, t + 4).  ldmatrix (b16) reads each 8 x 4 fp32 block as an 8 x 8
-// block of b16 pairs: thread 4g + t receives word t of row g.
-template <int D>
-__device__ __forceinline__ void ldsm_a(uint32_t (&a)[4], const float* tile,
-                                       int m0, int k0, int lane) {
-  mma_bf16::ldsm_x4(a, reinterpret_cast<const mma_bf16::bf16*>(
-                           tile + Padded::at<D>(m0 + (lane & 15),
-                                                k0 + ((lane >> 4) << 2))));
-}
-
-// B fragments of two n8 tiles (n0 .. n0 + 7 in b[0..1], n0 + 8 .. in
-// b[2..3]) over k0 .. k0 + 7, from a tile stored n-major (row n, col k):
-// b[0] = (k t, n g), b[1] = (k t + 4, n g).
-template <int D>
-__device__ __forceinline__ void ldsm_b_nk(uint32_t (&b)[4], const float* tile,
-                                          int n0, int k0, int lane) {
-  mma_bf16::ldsm_x4(b, reinterpret_cast<const mma_bf16::bf16*>(
-                           tile + Padded::at<D>(
-                                      n0 + (lane & 7) + ((lane >> 4) << 3),
-                                      k0 + (((lane >> 3) & 1) << 2))));
-}
-
-// x as the two TF32 operands hi and lo.  The tensor core reads the top 19
-// bits of a register (sign, exponent, 10 mantissa bits) and ignores the
-// low 13, so x itself serves as hi, read as x truncated to TF32, and lo =
-// x - trunc(x) (exact in fp32, about 13 bits) is read truncated to its top
-// 11 significant bits: hi + lo keeps 21 bits of x, within 2^-20 |x|.  Two
-// instructions, where a rounding conversion (cvt.rna.tf32.f32) compiles to
-// several, and NaN stays NaN.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x);
-  lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u));
-}
-
-template <int N>
-__device__ __forceinline__ void split_bits(const uint32_t (&x)[N],
-                                           uint32_t (&hi)[N],
-                                           uint32_t (&lo)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) split(__uint_as_float(x[i]), hi[i], lo[i]);
-}
-
-// d += a b on the tensor cores: 16 x 8 TF32 by 8 x 8 TF32, fp32 sums.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b with both as hi + lo: a_lo b_hi, a_hi b_lo, then a_hi b_hi.
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], uint32_t bh0,
-                                     uint32_t bh1, uint32_t bl0,
-                                     uint32_t bl1) {
-  mma(d, al, bh0, bh1);
-  mma(d, ah, bl0, bl1);
-  mma(d, ah, bh0, bh1);
-}
-
-// acc[j] += A B^T for rows m0 .. m0 + 15 of tile `a` against rows 0 ..
-// 8N - 1 of tile `b` (the n8 tile j = rows 8j ..), reducing over their D
-// columns: S = Q K^T and dP = dO V^T in K2, S^T = K Q^T and dP^T = V dO^T
-// in K3.
-template <int D, int N>
-__device__ __forceinline__ void mma3_abt(float (&acc)[N][4], const float* a,
-                                         int m0, const float* b, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
-    uint32_t x[4], ah[4], al[4];
-    ldsm_a<D>(x, a, m0, 8 * kk, lane);
-    split_bits(x, ah, al);
-#pragma unroll
-    for (int np = 0; np < N / 2; ++np) {
-      uint32_t y[4], bh[4], bl[4];
-      ldsm_b_nk<D>(y, b, 16 * np, 8 * kk, lane);
-      split_bits(y, bh, bl);
-      mma3(acc[2 * np], ah, al, bh[0], bh[1], bl[0], bl[1]);
-      mma3(acc[2 * np + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
-    }
-  }
-}
-
-// acc[n] += C B, where C (16 x 8K) is held as the accumulators c of K m16n8
-// tiles (P or dS) and B is rows 0 .. 8K - 1 of a k-major tile `b` (row k,
-// col n; all D columns): dQ += dS K in K2, dV += P^T dO and dK += dS^T Q
-// in K3.  m16n8k8's A fragment wants columns (t, t + 4) where an
-// accumulator holds (2t, 2t + 1), so the k index is permuted: k-slot t <-
-// column 2t, k-slot t + 4 <- column 2t + 1, and the B fragment reads rows
-// 2t and 2t + 1 by scalar loads.
-template <int D, int K>
-__device__ __forceinline__ void mma3_cb(float (&acc)[D / 8][4],
-                                        const float (&c)[K][4],
-                                        const float* b, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < K; ++kk) {
-    uint32_t ah[4], al[4];
-    split(c[kk][0], ah[0], al[0]);
-    split(c[kk][2], ah[1], al[1]);
-    split(c[kk][1], ah[2], al[2]);
-    split(c[kk][3], ah[3], al[3]);
-    const float* row = b + Padded::at<D>(8 * kk + 2 * t, g);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      uint32_t bh[2], bl[2];
-      split(row[8 * n], bh[0], bl[0]);
-      split(row[D + 4 + 8 * n], bh[1], bl[1]);
-      mma3(acc[n], ah, al, bh[0], bh[1], bl[0], bl[1]);
-    }
-  }
-}
-
-// Accumulators of a warp's 16 rows (D / 8 n8 tiles), times `mul`, to rows
-// row0 + g and row0 + g + 8 of a (rows, D) fp32 tensor; rows at or past
-// `rows` are not written.
-template <int D>
-__device__ __forceinline__ void store_acc(float* dst, int row0, int rows,
-                                          const float (&acc)[D / 8][4],
-                                          float mul, int g, int t) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = row0 + g + 8 * i;
-    if (r >= rows) continue;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<float2*>(dst + size_t(r) * D + 8 * n + 2 * t) =
-          make_float2(acc[n][2 * i] * mul, acc[n][2 * i + 1] * mul);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&acc)[N][4]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-}
-
-}  // namespace tf32
 
 // K2 in float32.  Warp w owns query rows 16w .. 16w+15 of the block's
 // 64-row query tile; Q and dO stay in shared memory, 32-key K and V tiles
@@ -913,7 +733,7 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
   }
   cp_async_wait<0>();
 
-  store_acc<D>(dq + size_t(bh) * tq * D, wq0, tq, acc, scale, g, t);
+  store_acc<D>(dq + size_t(bh) * tq * D, wq0, tq, acc, scale, scale, g, t);
 }
 
 template <int D>
@@ -1079,9 +899,10 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
   }
   cp_async_wait<0>();
 
-  store_acc<D>(dk + size_t(bh) * tk * D, k0 + 16 * warp, tk, adk, scale, g,
-               t);
-  store_acc<D>(dv + size_t(bh) * tk * D, k0 + 16 * warp, tk, adv, 1.f, g, t);
+  store_acc<D>(dk + size_t(bh) * tk * D, k0 + 16 * warp, tk, adk, scale,
+               scale, g, t);
+  store_acc<D>(dv + size_t(bh) * tk * D, k0 + 16 * warp, tk, adv, 1.f, 1.f,
+               g, t);
 }
 
 template <int D>

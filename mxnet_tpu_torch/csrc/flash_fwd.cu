@@ -12,21 +12,44 @@
 // -inf and out-of-range query rows are not written.  Causal tiles wholly above
 // the diagonal are skipped.  Two designs, one per input type:
 //
-// float32: CUDA cores, 64-row query and key tiles.  256 threads: thread (ty,
-// tx) = (tid / 16, tid % 16)
-// owns query rows 4*ty .. 4*ty+3, the score columns tx + 16*j (j < 4) of each
-// key tile, and the output columns 64*g + 4*tx .. +3 (g < D/64).  The 16
-// threads that share a row set sit in one half-warp, so the row max and row
-// sum reduce with __shfl_xor_sync.  The fp32 path must agree with the plain
-// version to 1e-4, which TF32 tensor cores cannot.  At BERT-base's shape
-// (B*H = 96, T = 512, D = 64) one call does 4*B*H*T^2*D = 6.4 GFLOP on 50 MB
-// of Q, K, V and O: about 130 operations per byte, so on CUDA cores (67
-// TFLOP/s fp32, 3.35 TB/s on an H100 SXM) the floating-point rate bounds it.
-// The inner loops stay FMA-bound rather than shared-memory-bound: operands
-// are read as float4, Q and K tiles use a row stride of D + 4 floats so the
-// eight threads of each 128-bit access phase hit distinct bank groups, and
-// each thread carries a 4 x 4 score tile and a 4 x (D/16) output tile in
-// registers.
+// float32: tensor cores, mma.sync.m16n8k8 on TF32 operands as a 3xTF32
+// split (helpers in mma_tf32.cuh, shared with the fp32 K2 and K3, which says
+// why one TF32 product misses the 1e-4 rule and how x splits into hi + lo).
+// What bounds it: at BERT-base's serving shape (B*H = 96, T = 512, D = 64)
+// one call needs 4*B*H*T^2*D = 6.44 GFLOP, 19.3 GFLOP issued as three TF32
+// products, 0.039 ms at 495 TFLOP/s, against 50 MB of Q, K, V and O, 0.015
+// ms at 3.35 TB/s: operations bound it, so the design keeps the tensor cores
+// fed.  The CUDA-core design before this one (256 threads, each with a 4 x 4
+// fp32 score tile and a 4 x D/16 output tile of FMAs, synchronous scalar
+// tile loads, P through shared memory between two barriers a key tile) ran
+// at 0.2685 ms there (NVIDIA H100 80GB HBM3, 700 W), 6.9x that bound.
+// * 128 threads; warp w owns query rows 16w .. 16w+15 of a 64-row query
+//   tile.  The Q tile stays in shared memory at a row stride of D + 4
+//   floats, multiplied in place by scale * log2e once it lands, so S comes
+//   out in log2 units and the softmax runs on exp2.
+// * K and V tiles of 32 keys stream through a two-stage ring of 16-byte
+//   cp.async copies: tile i+1 loads while tile i is computed.
+// * Per key tile: S = Q K^T (both operands by ldmatrix, split as loaded);
+//   the mask, only on a tile with keys past Tk or past the diagonal for a
+//   row of the warp (keys past Tk load as zero and score -inf); the online
+//   softmax on the accumulators with the reference's three guards (m_safe =
+//   0 on a row with no finite score, alpha = 0 while m is -inf, p = 0 where
+//   S is not finite), each row's max reduced across the quad that holds it
+//   and its sum kept per thread until the end; O rescaled by alpha in
+//   registers; O += P V with P (hi + lo) from the S accumulators in the k
+//   permutation of mma_tf32.cuh and V's rows 2t, 2t + 1 by scalar loads.  P
+//   never touches shared memory and no barrier separates the products.
+// * O = acc / l (l at least 1e-30) and LSE = m ln 2 + ln l (-inf, with O =
+//   0, on a row that saw no key), stored from the accumulators, 8 bytes a
+//   store; rows past Tq are not written.  Causal key tiles wholly above the
+//   diagonal are skipped; Tk = 0 loads no tile.
+// * Shared memory: 52,224 bytes at D = 64 (four blocks fit an SM),
+//   101,376 at D = 128 (two); the O accumulators take D / 2 registers a
+//   thread.
+// * Why not wgmma: S = Q K^T could use wgmma's .tf32 form, whose operands
+//   are both K-major here, but P V cannot: V is MN-major and .tf32 takes no
+//   transpose, so it would need a transposed copy of each V tile first.
+//   That is later work.
 //
 // bfloat16: wgmma + TMA, warp-specialised, persistent (helpers in
 // wgmma_bf16.cuh and mma_bf16.cuh).  What bounds it: at the training shape
@@ -85,213 +108,195 @@
 #include <math.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 256;
-constexpr int kPStride = kBlockK + 4;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
+// ---------------------------------------------------------------------------
+// float32: tensor cores, 3xTF32
+// ---------------------------------------------------------------------------
+
+constexpr int kTf32BlockQ = 64;  // query rows of a block, 16 a warp
+constexpr int kTf32BlockK = 32;  // keys of the streamed K and V tiles
 
 template <int D>
-constexpr size_t smem_bytes() {
-  // Q and K tiles (stride D + 4), V tile (stride D), P tile (stride kPStride)
-  return sizeof(float) *
-         (size_t(kBlockQ) * (D + 4) + size_t(kBlockK) * (D + 4) +
-          size_t(kBlockK) * D + size_t(kBlockQ) * kPStride);
+constexpr size_t tf32_smem_bytes() {
+  // the Q tile and a two-stage ring of K and V tiles, all fp32 at row
+  // stride D + 4
+  return sizeof(float) * (size_t(kTf32BlockQ) + size_t(4) * kTf32BlockK) *
+         (D + 4);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int tq, int tk, float scale,
-                 int causal) {
-  constexpr int kQS = D + 4;
-  constexpr int kGroups = D / 64;
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + kBlockQ * kQS;
-  float* vs = ks + kBlockK * kQS;
-  float* ps = vs + kBlockK * D;
+template <int D>
+__global__ void __launch_bounds__(tf32::kThreads, D == 64 ? 3 : 2)
+flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, int tq, int tk, float scale,
+                      int causal) {
+  using mma_bf16::cp_async_commit;
+  using mma_bf16::cp_async_wait;
+  using mma_bf16::exp2_ftz;
+  using namespace tf32;
+  constexpr int BQ = kTf32BlockQ, BK = kTf32BlockK;
+  constexpr int kQElems = BQ * (D + 4), kKElems = BK * (D + 4);
+  extern __shared__ uint4 smem_tf32[];
+  float* qs = reinterpret_cast<float*>(smem_tf32);
+  float* ks = qs + kQElems;  // stage s at ks + s * kKElems
+  float* vs = ks + 2 * kKElems;
 
   const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBlockQ;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;
-  const int tx = tid & 15;
-  const size_t q_base = size_t(bh) * tq * D;
-  const size_t kv_base = size_t(bh) * tk * D;
+  const int q0 = blockIdx.y * BQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float* kb = k + size_t(bh) * tk * D;
+  const float* vb = v + size_t(bh) * tk * D;
+  const int wq0 = q0 + 16 * warp;  // this warp's first query row
+  const int r0 = wq0 + g;          // this thread's rows: r0 and r0 + 8
 
-  // Q tile, pre-scaled as the TPU kernel does (q * scale, then the dot).
-  for (int i = tid; i < kBlockQ * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    const int qr = q0 + r;
-    qs[r * kQS + c] =
-        qr < tq ? load_f32(q + q_base + size_t(qr) * D + c) * scale : 0.f;
+  // causal (top-left): the tile holding key q0 + BQ - 1 is the last one the
+  // query tile sees; Tk = 0 loads no tile
+  int num_kt = (tk + BK - 1) / BK;
+  if (causal) num_kt = min(num_kt, (q0 + BQ + BK - 1) / BK);
+
+  load_tile<BQ, D>(qs, q + size_t(bh) * tq * D, q0, tq, tid);
+  cp_async_commit();
+  if (num_kt > 0) {
+    load_tile<BK, D>(ks, kb, 0, tk, tid);
+    load_tile<BK, D>(vs, vb, 0, tk, tid);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();  // Q has landed
+  __syncthreads();
+  // Q times scale * log2e, in place (the reference scales q before the
+  // dot): S comes out in log2 units and the softmax runs on exp2; the first
+  // key tile's barrier orders these writes before any read
+  const float sl2 = scale * kLog2e;
+#pragma unroll
+  for (int j = 0; j < BQ * D / 4 / kThreads; ++j) {
+    const int i = tid + j * kThreads;  // the i-th 16-byte chunk of the tile
+    float4* p = reinterpret_cast<float4*>(
+        qs + Padded::at<D>(i / (D / 4), 4 * (i % (D / 4))));
+    const float4 x = *p;
+    *p = make_float4(x.x * sl2, x.y * sl2, x.z * sl2, x.w * sl2);
   }
 
-  float m[4], l[4], acc[4][kGroups][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int g = 0; g < kGroups; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.f;
-  }
-
-  int num_kt = (tk + kBlockK - 1) / kBlockK;
-  if (causal) {
-    // only key tiles at or before this query tile contribute
-    const int lim = (q0 + kBlockQ + kBlockK - 1) / kBlockK;
-    num_kt = min(num_kt, lim);
-  }
+  float acc[D / 8][4];
+  zero(acc);
+  // running max (log2 units) and this thread's share of the running sum of
+  // rows r0 and r0 + 8
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
   for (int kt = 0; kt < num_kt; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // the previous tile's readers are done with ks/vs/ps
-    for (int i = tid; i < kBlockK * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      const int kr = k0 + r;
-      const bool in = kr < tk;
-      const size_t g = kv_base + size_t(kr) * D + c;
-      ks[r * kQS + c] = in ? load_f32(k + g) : 0.f;
-      vs[r * D + c] = in ? load_f32(v + g) : 0.f;
+    const int k0 = kt * BK;
+    if (kt + 1 < num_kt) {
+      const int nxt = ((kt + 1) & 1) * kKElems;
+      load_tile<BK, D>(ks + nxt, kb, k0 + BK, tk, tid);
+      load_tile<BK, D>(vs + nxt, vb, k0 + BK, tk, tid);
     }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile kt has landed
     __syncthreads();
+    const float* kst = ks + (kt & 1) * kKElems;
+    const float* vst = vs + (kt & 1) * kKElems;
 
-    // S = (scale Q) K^T for rows 4*ty + i, key columns tx + 16*j
-    float s[4][4];
+    // S = (scale log2e Q) K^T: 16 rows x BK keys
+    float s[BK / 8][4];
+    zero(s);
+    mma3_abt<D>(s, qs, 16 * warp, kst, lane);
+
+    // keys past Tk (loaded as zeros) and past the diagonal score -inf; only
+    // a tile with such a key for a row of this warp takes the element mask
+    if (!(k0 + BK <= tk && (!causal || k0 + BK - 1 <= wq0))) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&qs[(4 * ty + i) * kQS + d]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(&ks[(tx + 16 * j) * kQS + d]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float a = s[i][j];
-          a = fmaf(qv[i].x, kv[j].x, a);
-          a = fmaf(qv[i].y, kv[j].y, a);
-          a = fmaf(qv[i].z, kv[j].z, a);
-          a = fmaf(qv[i].w, kv[j].w, a);
-          s[i][j] = a;
+        for (int e = 0; e < 4; ++e) {
+          const int kc = k0 + 8 * j + 2 * t + (e & 1);
+          const int qr = r0 + 8 * (e >> 1);
+          if (!(kc < tk && (!causal || qr >= kc))) s[j][e] = -INFINITY;
         }
     }
 
-    // mask, then the online-softmax update with the TPU kernel's isfinite
-    // guards, so a fully masked tile or row gives no NaN
+    // the online softmax with the reference's three guards: m_safe = 0 on a
+    // row with no finite score yet, alpha = 0 while m is -inf, p = 0 where
+    // S is not finite; the row max reduces across the quad that holds it
+    float mx[2] = {-INFINITY, -INFINITY}, m_safe[2], alpha[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qr = q0 + 4 * ty + i;
-      float mx = -INFINITY;
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kc = k0 + tx + 16 * j;
-        const bool ok = kc < tk && (!causal || qr >= kc);
-        s[i][j] = ok ? s[i][j] : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float m_safe = isfinite(m_new) ? m_new : 0.f;
-      const float alpha = isfinite(m[i]) ? expf(m[i] - m_safe) : 0.f;
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = isfinite(s[i][j]) ? expf(s[i][j] - m_safe) : 0.f;
-        s[i][j] = p;
-        rs += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = alpha * l[i] + rs;
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], mma_bf16::quad_max(mx[i]));
+      m_safe[i] = isfinite(m_new) ? m_new : 0.f;
+      alpha[i] = isfinite(m[i]) ? exp2_ftz(m[i] - m_safe[i]) : 0.f;
       m[i] = m_new;
-#pragma unroll
-      for (int g = 0; g < kGroups; ++g)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][g][e] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ps[(4 * ty + i) * kPStride + tx + 16 * j] = s[i][j];
+      l[i] *= alpha[i];
     }
-    __syncthreads();
-
-    // acc += P V for rows 4*ty + i, output columns 64*g + 4*tx .. +3
-#pragma unroll 2
-    for (int kk = 0; kk < kBlockK; kk += 4) {
-      float4 pv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(&ps[(4 * ty + i) * kPStride + kk]);
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-#pragma unroll
-        for (int g = 0; g < kGroups; ++g) {
-          const float4 vv =
-              *reinterpret_cast<const float4*>(&vs[(kk + u) * D + 64 * g + 4 * tx]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float p = u == 0 ? pv[i].x : u == 1 ? pv[i].y : u == 2 ? pv[i].z : pv[i].w;
-            acc[i][g][0] = fmaf(p, vv.x, acc[i][g][0]);
-            acc[i][g][1] = fmaf(p, vv.y, acc[i][g][1]);
-            acc[i][g][2] = fmaf(p, vv.z, acc[i][g][2]);
-            acc[i][g][3] = fmaf(p, vv.w, acc[i][g][3]);
-          }
-        }
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[j][e];
+        const float p = isfinite(x) ? exp2_ftz(x - m_safe[e >> 1]) : 0.f;
+        s[j][e] = p;
+        l[e >> 1] += p;
       }
-    }
-  }
 
+    // O = alpha O + P V: P (hi and lo) from the S accumulators, V's rows by
+    // scalar loads
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + 4 * ty + i;
-    if (qr >= tq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = o + q_base + size_t(qr) * D;
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+    mma3_cb<D>(acc, s, vst, g, t);
+    __syncthreads();  // every warp is done with this stage before its refill
+  }
+  cp_async_wait<0>();
+
+  // O = acc / l (l at least 1e-30, so O = 0 on a row that saw no key) from
+  // the accumulators; LSE = m ln 2 + ln l, -inf where no key was seen
+  float inv[2];
 #pragma unroll
-    for (int g = 0; g < kGroups; ++g)
+  for (int i = 0; i < 2; ++i) {
+    l[i] = mma_bf16::quad_sum(l[i]);
+    inv[i] = 1.f / fmaxf(l[i], 1e-30f);
+  }
+  store_acc<D>(o + size_t(bh) * tq * D, wq0, tq, acc, inv[0], inv[1], g, t);
+  if (t == 0) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        store_f32(orow + 64 * g + 4 * tx + e, acc[i][g][e] / denom);
-    if (tx == 0)
-      lse[size_t(bh) * tq + qr] =
-          l[i] > 0.f ? (isfinite(m[i]) ? m[i] : 0.f) + logf(denom) : -INFINITY;
+    for (int i = 0; i < 2; ++i) {
+      const int qr = r0 + 8 * i;
+      if (qr < tq)
+        lse[size_t(bh) * tq + qr] =
+            l[i] > 0.f ? (isfinite(m[i]) ? m[i] : 0.f) * kLn2 +
+                             logf(fmaxf(l[i], 1e-30f))
+                       : -INFINITY;
+    }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int bh, int tq, int tk, float scale, int causal,
-                   cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
+template <int D>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o,
+                        void* lse, int bh, int tq, int tk, float scale,
+                        int causal, cudaStream_t stream) {
+  const size_t smem = tf32_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (tq + kBlockQ - 1) / kBlockQ);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      tq, tk, scale, causal);
+  const dim3 grid(bh, (tq + kTf32BlockQ - 1) / kTf32BlockQ);
+  flash_fwd_tf32_kernel<D><<<grid, tf32::kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), tq, tk, scale, causal);
   return cudaGetLastError();
 }
 
@@ -306,8 +311,6 @@ constexpr int kWsThreads = 384;   // warpgroups 0, 1 consume; 2 produces
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;  // 128 x 24 + 256 x 240 <= 65536
 constexpr int kConsumerWarps = 8;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared memory, from a 1024-byte-aligned base: the Q tile (128 rows), a
 // ring of K tiles, a ring of V tiles (128 rows each), every tile D / 64
@@ -760,13 +763,13 @@ extern "C" {
 int mx_flash_fwd(const void* q, const void* k, const void* v, void* o,
                  void* lse, int bh, int tq, int tk, int d, int dtype,
                  float scale, int causal, void* stream) {
-  if (bh <= 0 || tq <= 0 || tk < 0 || tq > 65535 * kBlockQ)
+  if (bh <= 0 || tq <= 0 || tk < 0 || tq > 65535 * kTf32BlockQ)
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && d == 64)
-    return int(launch<float, 64>(q, k, v, o, lse, bh, tq, tk, scale, causal, s));
+    return int(launch_tf32<64>(q, k, v, o, lse, bh, tq, tk, scale, causal, s));
   if (dtype == 0 && d == 128)
-    return int(launch<float, 128>(q, k, v, o, lse, bh, tq, tk, scale, causal, s));
+    return int(launch_tf32<128>(q, k, v, o, lse, bh, tq, tk, scale, causal, s));
   if (dtype == 1 && d == 64)
     return int(launch_bf16<64>(q, k, v, o, lse, bh, tq, tk, scale, causal, s));
   if (dtype == 1 && d == 128)
@@ -777,8 +780,8 @@ int mx_flash_fwd(const void* q, const void* k, const void* v, void* o,
 // Bytes of dynamic shared memory the instantiation that mx_flash_fwd
 // launches for (d, dtype) takes; 0 for one it does not take.
 int mx_flash_fwd_smem(int d, int dtype) {
-  if (dtype == 0 && d == 64) return int(smem_bytes<64>());
-  if (dtype == 0 && d == 128) return int(smem_bytes<128>());
+  if (dtype == 0 && d == 64) return int(tf32_smem_bytes<64>());
+  if (dtype == 0 && d == 128) return int(tf32_smem_bytes<128>());
   if (dtype == 1 && d == 64) return int(WsLayout<64>::kSmem);
   if (dtype == 1 && d == 128) return int(WsLayout<128>::kSmem);
   return 0;

@@ -222,17 +222,16 @@ def _check_kernel_inputs(q, k, v) -> None:
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise MXNetError("flash_attention: the kernel takes contiguous "
                          "(B, H, T, D) tensors")
-    if q.dtype == torch.bfloat16:
-        # K1 bf16's TMA maps; K1 fp32 reads its inputs with scalar loads
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            _check_aligned("flash_attention", name, t)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_aligned("flash_attention", name, t)
 
 
 def _check_aligned(what: str, name: str, t: torch.Tensor) -> None:
-    """Where a kernel loads 16-byte chunks of every row (TMA in K1 bf16,
+    """Every kernel loads 16-byte chunks of every row (TMA in K1 bf16,
     whose tensor maps need a 16-byte-aligned base and 16-byte-multiple row
-    strides; ``cp.async`` in K2 and K3, fp32 and bf16), a tensor must start
-    on a 16-byte boundary (rows of D in {64, 128} then do too)."""
+    strides; ``cp.async`` in K1 fp32 and in K2 and K3, fp32 and bf16), so
+    a tensor must start on a 16-byte boundary (rows of D in {64, 128} then
+    do too)."""
     if t.data_ptr() % _ALIGN:
         raise MXNetError("%s: the kernels need %s 16-byte aligned, got "
                          "address %#x (a view at storage offset %d)"
@@ -241,9 +240,8 @@ def _check_aligned(what: str, name: str, t: torch.Tensor) -> None:
 
 def _check_bwd_inputs(q, k, v, o, lse, g) -> None:
     """What the backward kernels take beyond :func:`_check_kernel_inputs`:
-    O and its cotangent like q, and LSE (B, H, Tq) float32, all contiguous
-    on q's device; q, k, v, O and the cotangent 16-byte aligned in either
-    dtype."""
+    O and its cotangent like q, 16-byte aligned, and LSE (B, H, Tq)
+    float32, all contiguous on q's device."""
     _check_kernel_inputs(q, k, v)
     for name, t in (("O", o), ("the gradient of O", g)):
         if t.shape != q.shape or t.dtype != q.dtype or \
@@ -257,8 +255,7 @@ def _check_bwd_inputs(q, k, v, o, lse, g) -> None:
         raise MXNetError("flash_attention backward: LSE must be a contiguous "
                          "%s float32 tensor on %s" % (tuple(q.shape[:3]),
                                                       q.device))
-    for name, t in (("q", q), ("k", k), ("v", v), ("O", o),
-                    ("the gradient of O", g)):
+    for name, t in (("O", o), ("the gradient of O", g)):
         _check_aligned("flash_attention backward", name, t)
 
 
@@ -267,6 +264,14 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
 
 
 def _flash_fwd_cuda(q, k, v, scale: float, causal: bool):
+    """K1 on CUDA tensors; (O, LSE (B, H, Tq)).  The inputs are made
+    contiguous and aligned here, as :func:`_flash_bwd_cuda` makes its own:
+    a contiguous view at any 4-byte offset reaches the kernel as an aligned
+    copy."""
+    return _flash_fwd_launch(*map(_kernel_layout, (q, k, v)), scale, causal)
+
+
+def _flash_fwd_launch(q, k, v, scale: float, causal: bool):
     """Launch ``mx_flash_fwd`` on the current stream; (O, LSE (B, H, Tq))."""
     _check_kernel_inputs(q, k, v)
     B, H, Tq, D = q.shape
@@ -328,8 +333,8 @@ def _flash_bwd_dkv_cuda(q, k, v, o, lse, g, scale: float, causal: bool):
 def _flash_bwd_cuda(q, k, v, o, lse, g, scale: float, causal: bool):
     """K2 then K3 on CUDA tensors; (dQ, dK, dV).  The inputs are made
     contiguous and aligned here: ``g`` arrives transposed from the head
-    merge of ``multi_head_attention``, and K1 fp32 takes q, k and v at any
-    4-byte offset, which K2 and K3 do not."""
+    merge of ``multi_head_attention``, and the Function saves q, k and v as
+    the caller passed them."""
     q, k, v, o, g = map(_kernel_layout, (q, k, v, o, g))
     dq = _flash_bwd_dq_cuda(q, k, v, o, lse, g, scale, causal)
     dk, dv = _flash_bwd_dkv_cuda(q, k, v, o, lse, g, scale, causal)

@@ -235,6 +235,7 @@ def test_flash_is_forward_only(monkeypatch):
     (dict(transpose=True), "contiguous"),
     (dict(k_heads=3), "do not"),
     (dict(dtype=torch.bfloat16, offset=4), "16-byte"),
+    (dict(offset=1), "16-byte"),
 ])
 def test_kernel_input_checks_refuse_what_the_kernel_does_not_take(bad, match):
     D = bad.get("D", 64)
@@ -245,7 +246,8 @@ def test_kernel_input_checks_refuse_what_the_kernel_does_not_take(bad, match):
     if bad.get("transpose"):
         q = torch.zeros(1, 16, 2, D).transpose(1, 2)
     if bad.get("offset"):
-        # a contiguous bf16 view 8 bytes past the storage's start
+        # a contiguous view 8 (bf16) or 4 (fp32) bytes past the storage's
+        # start
         base = torch.zeros(q.numel() + bad["offset"], dtype=dtype)
         q = base[bad["offset"]:].view(q.shape)
     with pytest.raises(MXNetError, match=match):

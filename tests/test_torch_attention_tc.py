@@ -12,9 +12,11 @@ at 64-row blocks) on the same bf16-rounded inputs, and against the port's
 plain versions at a ragged T, under ``chip_smoke.py``'s ``compare`` rule at
 2e-3: |d| <= 2e-3 + (2e-3 + 2^-8) |ref| for a bf16 result, the rule the
 kernels meet on the card.  Two pinned cases show one bf16 rounding of P
-and of dS missing that rule where hi + lo meets it.  The remaining tests
-cover what the kernels need around them: 16-byte aligned bf16 inputs, and
-a library name that follows the shared header.
+and of dS missing that rule where hi + lo meets it, and one case gives K2
+and K3 a score past the fp32 range on a finite LSE (P = 0 there, as in the
+reference).  The remaining tests cover what the kernels need around them:
+16-byte aligned inputs (bf16 and fp32, and the aligned copies the wrappers
+make), and a library name that follows the shared headers.
 
 Run as a script, the module prints how far K1's emulated O and LSE (the
 warp-specialised tiling, ``tc_flash_fwd_ws``) land from the rule at
@@ -134,7 +136,9 @@ def tc_flash_fwd_ws(q, k, v, scale, causal, split=True):
 
 def tc_flash_bwd_dkv(q, k, v, o, lse, do, scale, causal, split=True):
     """K3's bf16 arithmetic: (dK, dV) in bf16, accumulated over slices of
-    32 queries as the kernel adds them."""
+    32 queries as the kernel adds them; P^T = 0 where exp2's argument is
+    not finite (a query whose LSE is not finite, or a score outside the
+    fp32 range)."""
     q, k, v, o, do = (t.float() for t in (q, k, v, o, do))
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
@@ -147,13 +151,12 @@ def tc_flash_bwd_dkv(q, k, v, o, lse, do, scale, causal, split=True):
     for q0 in range(0, Tq, bq):
         qt, dot = q[:, :, q0:q0 + bq], do[:, :, q0:q0 + bq]
         l2 = lse2[:, :, None, q0:q0 + bq]
-        st = k @ qt.transpose(-1, -2)
-        ok = torch.isfinite(l2).expand_as(st)
+        x = (k @ qt.transpose(-1, -2)) * (scale * LOG2E) - l2
+        ok = torch.isfinite(x)
         if causal:
             qpos = torch.arange(q0, q0 + qt.shape[2])[None, :]
             ok = ok & (qpos >= kpos)
-        pt = torch.where(ok, torch.exp2(st * (scale * LOG2E) - l2),
-                         torch.zeros_like(st))
+        pt = torch.where(ok, torch.exp2(x), torch.zeros_like(x))
         dpt = v @ dot.transpose(-1, -2)
         dst = pt * (dpt - delta[:, :, None, q0:q0 + bq])
         dv += _split_matmul(pt, dot, split)
@@ -164,7 +167,8 @@ def tc_flash_bwd_dkv(q, k, v, o, lse, do, scale, causal, split=True):
 def tc_flash_bwd_dq(q, k, v, o, lse, do, scale, causal, split=True):
     """K2's bf16 arithmetic: dQ in bf16, accumulated over 64-key tiles as
     the kernel adds them.  A row with a non-finite LSE takes LSE = +inf,
-    so its P is 2^-inf = 0."""
+    and P is 0 where exp2's argument is not finite (such a row, or a score
+    outside the fp32 range)."""
     q, k, v, o, do = (t.float() for t in (q, k, v, o, do))
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
@@ -176,7 +180,9 @@ def tc_flash_bwd_dq(q, k, v, o, lse, do, scale, causal, split=True):
     qpos = torch.arange(Tq)[:, None]
     for k0 in range(0, Tk, BLOCK):
         kt, vt = k[:, :, k0:k0 + BLOCK], v[:, :, k0:k0 + BLOCK]
-        p = torch.exp2((q @ kt.transpose(-1, -2)) * (scale * LOG2E) - lse2)
+        x = (q @ kt.transpose(-1, -2)) * (scale * LOG2E) - lse2
+        p = torch.where(torch.isfinite(x), torch.exp2(x),
+                        torch.zeros_like(x))
         if causal:
             kpos = torch.arange(k0, k0 + kt.shape[2])[None, :]
             p = p.masked_fill(qpos < kpos, 0.0)
@@ -356,6 +362,48 @@ def test_tc_arithmetic_matches_plain_versions_at_ragged_t(D, causal):
         assert torch.isfinite(dk.float()).all()
 
 
+@pytest.mark.parametrize("D,causal", [(64, True), (128, False)])
+def test_a_score_past_the_bf16_range_gets_p_zero(D, causal):
+    """As in the reference, P = 0 where a score is not finite, also where
+    its row's LSE is finite: the bf16 twin of the fp32 case in
+    ``test_torch_attention_tf32.py``.  Query r and key j0 see only each
+    other (``chip_smoke.isolate_pair``), the forward gives O (rounded to
+    bf16, as K1 returns it) and a finite LSE, and then their score alone
+    is pushed to +inf by bf16 inputs holding 1e20
+    (``chip_smoke.overflow_pair``).  The emulated K2 and K3 meet
+    ``_flash_bwd`` in interpret mode and the plain versions under the bf16
+    rule and stay finite; exp(+inf) there would make dQ row r, dK row j0
+    and dV row j0 inf or NaN."""
+    T, r, j0 = 128, 100, 37
+    rng = np.random.RandomState(13 * D + int(causal))
+    q, k, v, do = (rng.randn(1, 2, T, D).astype(np.float32)
+                   for _ in range(4))
+    cs.isolate_pair(q, k, r, j0)
+    q, k, v, do = (_bf16(torch.from_numpy(a)).numpy() for a in (q, k, v, do))
+    scale = 1.0 / math.sqrt(D)
+    o, lse_lanes = jatt._flash_fwd_res(*map(jnp.asarray, (q, k, v)), scale,
+                                       causal, block_q=BLOCK, block_k=BLOCK)
+    o = _bf16(torch.from_numpy(np.array(o))).numpy()
+    lse = np.array(jatt._lse_from_lanes(lse_lanes, 1, 2, T))
+    cs.overflow_pair(q, k, r, j0)
+    q, k = (_bf16(torch.from_numpy(a)).numpy() for a in (q, k))
+    want_j = jatt._flash_bwd(*map(jnp.asarray, (q, k, v, o)), lse_lanes,
+                             jnp.asarray(do), scale, causal, block_q=BLOCK,
+                             block_k=BLOCK)
+    args = tuple(map(torch.from_numpy, (q, k, v, o, lse, do))) + (scale,
+                                                                   causal)
+    s = torch.einsum("bhd,bhd->bh", args[0][:, :, r], args[1][:, :, j0])
+    assert bool(torch.isinf(s).all()) and bool(torch.isfinite(args[4]).all())
+    want_p = (tatt.flash_bwd_dq_plain(*args),) + tatt.flash_bwd_dkv_plain(
+        *args)
+    got = (tc_flash_bwd_dq(*args),) + tc_flash_bwd_dkv(*args)
+    for what, g, wj, wp in zip(("dQ", "dK", "dV"), got, want_j, want_p):
+        assert g.dtype == torch.bfloat16
+        assert bool(torch.isfinite(g.float()).all()), what
+        _holds(g, wj, what + " against the Pallas kernel")
+        _holds(g, wp, what + " against the plain version")
+
+
 def test_one_bf16_rounding_of_p_misses_the_rule_the_split_meets():
     """Why P enters the products as hi + lo: a causal row that sees two
     keys, P = (1/(1+e), e/(1+e)), whose value rows cancel (10.875 and -4):
@@ -430,9 +478,24 @@ def _misaligned_bf16(shape):
     return t
 
 
-def test_attention_core_hands_the_kernels_aligned_copies():
+def _misaligned_fp32(shape, seed):
+    """A contiguous fp32 view 4 bytes past a 16-byte boundary, holding
+    seeded normal values."""
+    n = int(np.prod(shape))
+    t = torch.zeros(n + 1)[1:].view(shape)
+    assert t.is_contiguous() and t.data_ptr() % 16 == 4
+    t.copy_(torch.from_numpy(
+        np.random.RandomState(seed).randn(*shape).astype(np.float32)))
+    return t
+
+
+def test_attention_core_hands_the_kernels_aligned_copies(monkeypatch):
     """A misaligned contiguous bf16 input reaches the kernels as an aligned
-    copy with the same values; an aligned one is passed as it is."""
+    copy with the same values; an aligned one is passed as it is.  A public
+    fp32 call on a view 4 bytes past a 16-byte boundary takes K1's path as
+    on the card (``_flash_fwd_launch``, the check and the launch, stands in
+    for the card): the launch receives an aligned copy with the same
+    values, and the answer is the plain version's on the view."""
     t = _misaligned_bf16((1, 2, 16, 64))
     t.normal_()
     out = tatt._kernel_layout(t)
@@ -440,22 +503,43 @@ def test_attention_core_hands_the_kernels_aligned_copies():
     aligned = torch.zeros(1, 2, 16, 64, dtype=torch.bfloat16)
     assert tatt._kernel_layout(aligned) is aligned
 
+    seen = []
+
+    def launch(q, k, v, scale, causal):
+        tatt._check_kernel_inputs(q, k, v)
+        seen.append(q)
+        return tatt.flash_attention_plain(q, k, v, scale, causal)
+
+    monkeypatch.setattr(tatt, "_flash_fwd_launch", launch)
+    monkeypatch.setattr(tatt, "_on_cpu", lambda *ts: False)
+    q = _misaligned_fp32((1, 2, 16, 64), 0)
+    k = torch.from_numpy(
+        np.random.RandomState(1).randn(1, 2, 16, 64).astype(np.float32))
+    got = tatt.flash_attention(q, k, k, 0.125, False)
+    assert len(seen) == 1
+    assert seen[0].data_ptr() % 16 == 0 and torch.equal(seen[0], q)
+    want, _ = tatt.flash_attention_plain(q, k, k, 0.125, False)
+    assert torch.equal(got, want)
+
 
 def test_fp32_inputs_must_be_16_byte_aligned_too(monkeypatch):
-    """The fp32 K2 and K3 copy 16-byte chunks with ``cp.async`` as the
-    bf16 kernels do, where K1 fp32 reads scalars: a contiguous fp32 view 4
-    bytes past a 16-byte boundary passes the forward's check, is refused by
-    the backward's, and reaches K2 and K3 from ``_flash_bwd_cuda`` as an
-    aligned copy with the same values."""
+    """Every fp32 kernel copies 16-byte chunks with ``cp.async`` as the
+    bf16 kernels do (K1 fp32 too, on the tensor cores): a contiguous fp32
+    view 4 bytes past a 16-byte boundary is refused by the forward's check
+    and the backward's, and reaches K1 from ``_flash_fwd_cuda`` and K2 and
+    K3 from ``_flash_bwd_cuda`` as an aligned copy with the same values."""
     from mxnet_tpu_torch.base import MXNetError
-    t = torch.zeros(2 * 16 * 64 + 1)[1:].view(1, 2, 16, 64)
-    assert t.is_contiguous() and t.data_ptr() % 16 == 4
-    t.normal_()
+    t = _misaligned_fp32((1, 2, 16, 64), 2)
     k = v = o = g = torch.zeros(1, 2, 16, 64)
     lse = torch.zeros(1, 2, 16)
-    tatt._check_kernel_inputs(t, k, v)
+    with pytest.raises(MXNetError, match="16-byte"):
+        tatt._check_kernel_inputs(t, k, v)
+    with pytest.raises(MXNetError, match="16-byte"):
+        tatt._check_kernel_inputs(k, t, v)
     with pytest.raises(MXNetError, match="16-byte"):
         tatt._check_bwd_inputs(t, k, v, o, lse, g)
+    with pytest.raises(MXNetError, match="16-byte"):
+        tatt._check_bwd_inputs(k, k, v, t, lse, g)
     seen = []
 
     def launch(*args):
@@ -463,11 +547,18 @@ def test_fp32_inputs_must_be_16_byte_aligned_too(monkeypatch):
         seen.append(args[0])
         return args[0]
 
+    def launch_fwd(q, k, v, scale, causal):
+        tatt._check_kernel_inputs(q, k, v)
+        seen.append(q)
+        return q, lse
+
+    monkeypatch.setattr(tatt, "_flash_fwd_launch", launch_fwd)
     monkeypatch.setattr(tatt, "_flash_bwd_dq_cuda", launch)
     monkeypatch.setattr(tatt, "_flash_bwd_dkv_cuda",
                         lambda *a: (launch(*a), a[1]))
+    tatt._flash_fwd_cuda(t, k, v, 0.125, False)
     tatt._flash_bwd_cuda(t, k, v, o, lse, g, 0.125, False)
-    assert len(seen) == 2
+    assert len(seen) == 3
     for q in seen:
         assert q.data_ptr() % 16 == 0 and torch.equal(q, t)
 

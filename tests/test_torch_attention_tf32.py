@@ -1,40 +1,44 @@
-"""The arithmetic of the fp32 tensor-core kernels K2 and K3, on the CPU.
+"""The arithmetic of the fp32 tensor-core kernels K1, K2 and K3, on the CPU.
 
-``csrc/flash_bwd.cu`` computes K2 (dQ) and K3 (dK, dV) in fp32 on the
-tensor cores with ``mma.sync.m16n8k8`` on TF32 operands, which this machine
-cannot run.  Their arithmetic is emulated here tile for tile
-(``tf32_flash_bwd_dq``, ``tf32_flash_bwd_dkv``): K2 over 32-key tiles, K3
-over 16-query tiles; every product over k-steps of 8, each operand x
-entering as two TF32 values, three products a step in the kernels' order
-(a_lo b_hi, a_hi b_lo, a_hi b_hi) summed in fp32.  The tensor core reads
+``csrc/flash_fwd.cu`` computes K1 (O, LSE) and ``csrc/flash_bwd.cu`` K2
+(dQ) and K3 (dK, dV) in fp32 on the tensor cores with ``mma.sync.m16n8k8``
+on TF32 operands, which this machine cannot run.  Their arithmetic is
+emulated here tile for tile (``tf32_flash_fwd``, ``tf32_flash_bwd_dq``,
+``tf32_flash_bwd_dkv``): K1 and K2 over 32-key tiles, K3 over 16-query
+tiles; every product over k-steps of 8, each operand x entering as two
+TF32 values, three products a step in the kernels' order (a_lo b_hi, a_hi
+b_lo, a_hi b_hi) summed in fp32.  The tensor core reads
 the top 19 bits of a register and ignores the low 13, and the kernels feed
 it x itself as hi and lo = x - hi as it is: so hi is x truncated to TF32
 (``_tf32_trunc``) and lo is x - hi truncated.  P and dS (P^T, dS^T) come
 from fp32 accumulators into the next product with the k index of each
 step permuted as the kernels permute it (k-slot t <- column 2t, k-slot t +
-4 <- column 2t + 1), which changes only the order of summation;
-probabilities are exp2(scale log2e S - log2e LSE) in fp32, and 0 where that
-argument is not finite (a score or an LSE outside the fp32 range).  The
-emulation is held against the JAX package's Pallas kernels in interpret
-mode (``_flash_bwd`` at 64-row blocks) and against the port's plain
-versions at a ragged T, under ``chip_smoke.py``'s ``compare`` rule at
-1e-4: |d| <= 1e-4 + 1e-4 |ref|, the rule the kernels meet on the card.  A
-pinned case shows one TF32 product, its operands rounded as a TF32 GEMM
-rounds them (``_tf32``: ``cvt.rna.tf32.f32`` bit for bit), missing that
-rule where the split meets it.
+4 <- column 2t + 1), which changes only the order of summation.  K1 runs
+the online softmax on exp2 of scores in log2 units (Q pre-multiplied by
+scale log2e) with the reference's guards; K2 and K3 take probabilities as
+exp2(scale log2e S - log2e LSE) in fp32, and 0 where that argument is not
+finite (a score or an LSE outside the fp32 range).  The emulation is held
+against the JAX package's Pallas kernels in interpret mode
+(``_flash_fwd_res`` and ``_flash_bwd`` at 64-row blocks) and against the
+port's plain versions at ragged shapes, under ``chip_smoke.py``'s
+``compare`` rule at 1e-4: |d| <= 1e-4 + 1e-4 |ref|, the rule the kernels
+meet on the card.  Pinned cases show one TF32 product, its operands
+rounded as a TF32 GEMM rounds them (``_tf32``: ``cvt.rna.tf32.f32`` bit
+for bit), missing that rule where the split meets it, in the forward and
+in the backward.
 
 Which register holds which element is a separate question, and the tile
 emulation cannot see it: a kernel whose A k-slot and B row disagree would
 still sum the right products here.  ``test_fragments_*`` take it up at the
 level of the lanes: they mirror the kernels' index arithmetic
 (``tf32::ldsm_a``, ``ldsm_b_nk``, ``mma3_abt``, ``mma3_cb`` and the padded
-tile layout) by hand and hold it against the PTX ISA's m16n8k8 fragment
-layouts.  That the CUDA source does what the mirror does is shown only on
+tile layout of ``csrc/mma_tf32.cuh``) by hand and hold it against the PTX
+ISA's m16n8k8 fragment layouts.  That the CUDA source does what the mirror does is shown only on
 the card, where ``chip_smoke.py`` holds the kernels to the plain versions.
 
-Run as a script, the module prints how far the emulated dQ, dK and dV land
-from the rule, as the split and as one TF32 product, at ``chip_smoke.py``'s
-fp32 backward shapes and the pinned case's::
+Run as a script, the module prints how far the emulated O and LSE, and dQ,
+dK and dV, land from the rule, as the split and as one TF32 product, at
+``chip_smoke.py``'s fp32 shapes and the pinned cases'::
 
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_attention_tf32.py
 """
@@ -53,8 +57,9 @@ from mxnet_tpu_torch.ops import attention as tatt
 
 TOL = 1e-4
 LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 BLOCK = 64          # the Pallas kernels' blocks
-TILE_K = 32         # keys of K2's streamed tiles
+TILE_K = 32         # keys of K1's and K2's streamed tiles
 TILE_Q = 16         # queries of K3's streamed tiles
 K_STEP = 8          # the reduction depth of one m16n8k8
 # the columns of an accumulator-fed A fragment, by k-slot
@@ -113,6 +118,50 @@ def _mm3(a, b, split=True, perm=False):
             acc = acc + ah[..., idx] @ bl[..., idx, :]
         acc = acc + ah[..., idx] @ bh[..., idx, :]
     return acc
+
+
+def tf32_flash_fwd(q, k, v, scale, causal, split=True):
+    """K1's fp32 arithmetic: (O, LSE (B, H, Tq)) over 32-key tiles as the
+    kernel adds them.  Q enters multiplied by scale * log2e (both rounded
+    to fp32, as the kernel takes them), so S is in log2 units; the online
+    softmax runs on exp2 with the reference's three guards (m_safe = 0 on
+    a row with no finite score yet, alpha = 0 while m is -inf, P = 0 where
+    S is not finite); O = alpha O + P V with P in the k permutation of an
+    accumulator-fed A fragment; O = acc times 1 / max(l, 1e-30) and LSE =
+    m ln 2 + ln l, -inf where l = 0.  (The kernel also skips the key tiles
+    a causal query tile cannot see; with every score -inf, such a tile
+    leaves m, l and O as they are here.)"""
+    q, k, v = (t.float() for t in (q, k, v))
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    sl2 = torch.tensor(scale, dtype=torch.float32) * torch.tensor(
+        LOG2E, dtype=torch.float32)
+    qs = q * sl2
+    m = torch.full((B, H, Tq, 1), -math.inf)
+    l = torch.zeros((B, H, Tq, 1))
+    acc = torch.zeros((B, H, Tq, D))
+    qpos = torch.arange(Tq)[:, None]
+    for k0 in range(0, Tk, TILE_K):
+        kt, vt = k[:, :, k0:k0 + TILE_K], v[:, :, k0:k0 + TILE_K]
+        s = _mm3(qs, kt.transpose(-1, -2), split)
+        if causal:
+            kpos = torch.arange(k0, k0 + kt.shape[2])[None, :]
+            s = s.masked_fill(qpos < kpos, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        m_safe = torch.where(torch.isfinite(m_new), m_new,
+                             torch.zeros_like(m_new))
+        alpha = torch.where(torch.isfinite(m), torch.exp2(m - m_safe),
+                            torch.zeros_like(m))
+        p = torch.where(torch.isfinite(s), torch.exp2(s - m_safe),
+                        torch.zeros_like(s))
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = alpha * acc + _mm3(p, vt, split, perm=True)
+        m = m_new
+    o = acc * (1.0 / l.clamp_min(1e-30))
+    m_fin = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    lse = torch.where(l > 0, m_fin * LN2 + torch.log(l.clamp_min(1e-30)),
+                      torch.full_like(l, -math.inf))
+    return o, lse[..., 0]
 
 
 def tf32_flash_bwd_dq(q, k, v, o, lse, do, scale, causal, split=True):
@@ -230,17 +279,91 @@ CASES = [(T, D, causal) for T in (128, 192) for D in (64, 128)
          for causal in (False, True)]
 
 
-def _pallas_bwd(q, k, v, do, scale, causal):
-    """``_flash_fwd_res`` and ``_flash_bwd`` in interpret mode at 64-row
-    blocks: (O, LSE (B, H, T), dQ, dK, dV) as numpy arrays."""
-    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
-    o, lse_lanes = jatt._flash_fwd_res(jq, jk, jv, scale, causal,
-                                       block_q=BLOCK, block_k=BLOCK)
-    dq, dk, dv = jatt._flash_bwd(jq, jk, jv, o, lse_lanes, jdo, scale,
-                                 causal, block_q=BLOCK, block_k=BLOCK)
+def _pallas_fwd(q, k, v, scale, causal):
+    """``_flash_fwd_res`` in interpret mode at 64-row blocks: (O, LSE
+    (B, H, T)) as numpy arrays, and the laned LSE the backward takes."""
+    o, lse_lanes = jatt._flash_fwd_res(*map(jnp.asarray, (q, k, v)), scale,
+                                       causal, block_q=BLOCK, block_k=BLOCK)
     B, H, T = q.shape[:3]
     lse = jatt._lse_from_lanes(lse_lanes, B, H, T)
-    return tuple(np.array(a) for a in (o, lse, dq, dk, dv))
+    return np.array(o), np.array(lse), lse_lanes
+
+
+def _pallas_bwd(q, k, v, do, scale, causal):
+    """:func:`_pallas_fwd`, then ``_flash_bwd`` in interpret mode at 64-row
+    blocks: (O, LSE (B, H, T), dQ, dK, dV) as numpy arrays."""
+    o, lse, lse_lanes = _pallas_fwd(q, k, v, scale, causal)
+    dq, dk, dv = jatt._flash_bwd(*map(jnp.asarray, (q, k, v, o)), lse_lanes,
+                                 jnp.asarray(do), scale, causal,
+                                 block_q=BLOCK, block_k=BLOCK)
+    return (o, lse) + tuple(np.array(a) for a in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("T,D,causal", CASES)
+def test_tf32_forward_matches_pallas_kernel(T, D, causal):
+    """K1's 3xTF32 arithmetic against ``_flash_fwd_res``'s O and LSE in
+    interpret mode at 64-row blocks, on the same fp32 q, k and v."""
+    q, k, v = _inputs(3 * T + D + int(causal), [(1, 2, T, D)] * 3)
+    scale = 1.0 / math.sqrt(D)
+    o_j, lse_j, _ = _pallas_fwd(q, k, v, scale, causal)
+    o_t, lse_t = tf32_flash_fwd(*map(torch.from_numpy, (q, k, v)), scale,
+                                causal)
+    assert o_t.dtype == lse_t.dtype == torch.float32
+    assert o_t.shape == (1, 2, T, D) and lse_t.shape == (1, 2, T)
+    _holds(o_t, o_j, "O")
+    _holds(lse_t, lse_j, "LSE")
+
+
+@pytest.mark.parametrize("Tq,Tk,D,causal", [
+    (77, 333, 64, False), (200, 200, 128, True), (200, 200, 64, True),
+    (64, 128, 64, True)])
+def test_tf32_forward_matches_plain_version_at_ragged_shapes(Tq, Tk, D,
+                                                             causal):
+    """At ``chip_smoke.KERNEL_CASES``' ragged shapes (a partial last tile
+    of rows and of keys, top-left causal with Tq < Tk) against the port's
+    plain version, which the kernel is held to on the card."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(
+        2 * Tq + Tk + D + int(causal),
+        [(1, 2, Tq, D), (1, 2, Tk, D), (1, 2, Tk, D)]))
+    scale = 1.0 / math.sqrt(D)
+    o_ref, lse_ref = tatt.flash_attention_plain(q, k, v, scale, causal)
+    o, lse = tf32_flash_fwd(q, k, v, scale, causal)
+    assert o.shape == (1, 2, Tq, D) and lse.shape == (1, 2, Tq)
+    _holds(o, o_ref, "O")
+    _holds(lse, lse_ref, "LSE")
+
+
+def test_tf32_forward_without_keys_gives_zero_and_minus_inf():
+    """Tk = 0 (K1 loads no key tile): O = 0 and LSE = -inf, as the plain
+    version gives."""
+    q = torch.ones(1, 2, 5, 64)
+    k = v = torch.zeros(1, 2, 0, 64)
+    o_ref, lse_ref = tatt.flash_attention_plain(q, k, v, 0.125, False)
+    o, lse = tf32_flash_fwd(q, k, v, 0.125, False)
+    assert torch.equal(o, o_ref) and torch.equal(o, torch.zeros_like(q))
+    assert torch.equal(lse, lse_ref) and bool((lse == -math.inf).all())
+
+
+def test_a_score_of_minus_inf_gets_p_zero_in_the_forward():
+    """One score past the fp32 range, -inf (``chip_smoke.overflow_pair``
+    with column 0 cleared elsewhere, as ``chip_smoke.py`` runs it on the
+    card): P = 0 there, and the row's max and sum come from its other
+    keys, as in the reference and the plain version, both finite."""
+    T, r, j0, D = 128, 100, 37, 64
+    q, k, v = _inputs(17, [(1, 2, T, D)] * 3)
+    q[..., 0] = k[..., 0] = 0.0
+    cs.overflow_pair(q, k, r, j0, sign=-1.0)
+    o_j, lse_j, _ = _pallas_fwd(q, k, v, 0.125, False)
+    q, k, v = map(torch.from_numpy, (q, k, v))
+    assert bool((torch.einsum("bhd,bhd->bh", q[:, :, r], k[:, :, j0])
+                 == -math.inf).all())
+    o_ref, lse_ref = tatt.flash_attention_plain(q, k, v, 0.125, False)
+    o, lse = tf32_flash_fwd(q, k, v, 0.125, False)
+    for got, want_j, want_p, what in ((o, o_j, o_ref, "O"),
+                                      (lse, lse_j, lse_ref, "LSE")):
+        assert bool(torch.isfinite(got).all()), what
+        _holds(got, want_j, what + " against the Pallas kernel")
+        _holds(got, want_p, what + " against the plain version")
 
 
 @pytest.mark.parametrize("T,D,causal", CASES)
@@ -314,42 +437,24 @@ def test_tf32_dq_without_keys_is_zero():
     assert torch.equal(tf32_flash_bwd_dq(*args), torch.zeros(1, 2, 5, 64))
 
 
-def _isolate(q, k, r, j0):
-    """Edit numpy q and k (B, H, T, D) in place so that query r sees key j0
-    alone (its score on every other key is -1e4 scale) and key j0 is seen
-    by query r alone (the same for every other query), through columns 1
-    and 2; column 0 is cleared for :func:`_overflow`."""
-    q[..., :3] = k[..., :3] = 0.0
-    q[..., 1], k[:, :, j0, 1] = 1.0, -1e4
-    q[:, :, r, 1] = 0.0
-    q[:, :, r, 2], k[..., 2] = 1e4, -1.0
-    k[:, :, j0, 2] = 0.0
-
-
-def _overflow(q, k, r, j0):
-    """q[r, 0] = k[j0, 0] = 1e20: the score of query r on key j0 becomes
-    +inf (1e40 past the fp32 range) and every other score stays as it
-    was."""
-    q[:, :, r, 0] = k[:, :, j0, 0] = 1e20
-
-
 @pytest.mark.parametrize("D,causal", [(64, True), (128, False)])
 def test_a_score_past_the_fp32_range_gets_p_zero(D, causal):
     """As in the reference, P = 0 where a score is not finite, also where
     its row's LSE is finite.  Query r and key j0 see only each other
-    (:func:`_isolate`), the forward gives O and a finite LSE, and then
-    their score alone is pushed to +inf (:func:`_overflow`).  The
-    emulated K2 and K3 meet ``_flash_bwd`` in interpret mode and the plain
-    versions at 1e-4 and stay finite; exp(+inf) there would make dQ row r,
-    dK row j0 and dV row j0 inf or NaN."""
+    (``chip_smoke.isolate_pair``), the forward gives O and a finite LSE,
+    and then their score alone is pushed to +inf
+    (``chip_smoke.overflow_pair``).  The emulated K2 and K3 meet
+    ``_flash_bwd`` in interpret mode and the plain versions at 1e-4 and
+    stay finite; exp(+inf) there would make dQ row r, dK row j0 and dV row
+    j0 inf or NaN."""
     T, r, j0 = 128, 100, 37
     q, k, v, do = _inputs(11 * D + int(causal), [(1, 2, T, D)] * 4)
-    _isolate(q, k, r, j0)
+    cs.isolate_pair(q, k, r, j0)
     scale = 1.0 / math.sqrt(D)
     o, lse_lanes = jatt._flash_fwd_res(*map(jnp.asarray, (q, k, v)), scale,
                                        causal, block_q=BLOCK, block_k=BLOCK)
     lse = np.array(jatt._lse_from_lanes(lse_lanes, 1, 2, T))
-    _overflow(q, k, r, j0)
+    cs.overflow_pair(q, k, r, j0)
     want_j = jatt._flash_bwd(*map(jnp.asarray, (q, k, v)), o, lse_lanes,
                              jnp.asarray(do), scale, causal, block_q=BLOCK,
                              block_k=BLOCK)
@@ -471,9 +576,9 @@ def _frag_cb(c, b_tile, D, slots=(0, 2, 1, 3), b_rows=(2, 0, 1)):
 @pytest.mark.parametrize("n", [2, 4])
 def test_fragments_of_the_shared_tile_products(D, n):
     """S = A B^T as ``mma3_abt`` gathers it (the A rows of warp 2, n n8
-    tiles of B: 4 in K2's 32-key tiles, 2 in K3's 16-query tiles) is the
-    matrix product exactly, on integer values, and never reads the tiles'
-    padding."""
+    tiles of B: 4 in K1's and K2's 32-key tiles, 2 in K3's 16-query tiles)
+    is the matrix product exactly, on integer values, and never reads the
+    tiles' padding."""
     rng = np.random.RandomState(D + n)
     a = rng.randint(-8, 9, size=(64, D)).astype(np.float64)
     b = rng.randint(-8, 9, size=(8 * n, D)).astype(np.float64)
@@ -486,7 +591,7 @@ def test_fragments_of_the_shared_tile_products(D, n):
 @pytest.mark.parametrize("K", [2, 4])
 def test_fragments_of_the_accumulator_fed_products(D, K):
     """C B as ``mma3_cb`` gathers it, C in accumulators (P or dS: K = 4 n8
-    tiles in K2, 2 in K3) and B a k-major tile, is the matrix product
+    tiles in K1 and K2, 2 in K3) and B a k-major tile, is the matrix product
     exactly and never reads the padding.  A's k-slots and B's rows must
     agree: the accumulator registers in their own order, or B's rows t and
     t + 4 as an unpermuted fragment has them, give another matrix, which
@@ -527,6 +632,50 @@ def test_one_tf32_product_misses_the_rule_the_split_meets():
         assert _worst_ratio(s3, ref) < 0.1, what
 
 
+def test_one_tf32_product_misses_the_forward_rule_the_split_meets():
+    """Why K1's two products are three TF32 products each: on the pinned
+    case's randn q, k and v at T = 512, one TF32 product (each operand
+    rounded to 10 mantissa bits) puts O past the 1e-4 rule; the hi + lo
+    split meets it with room to spare, O and LSE alike."""
+    q, k, v, _, _, _, scale, causal = _pinned_case()
+    o_ref, lse_ref = tatt.flash_attention_plain(q, k, v, scale, causal)
+    o1, _ = tf32_flash_fwd(q, k, v, scale, causal, split=False)
+    o3, lse3 = tf32_flash_fwd(q, k, v, scale, causal)
+    assert not cs.compare(o1, o_ref, TOL)[1]
+    for got, want in ((o3, o_ref), (lse3, lse_ref)):
+        assert cs.compare(got, want, TOL)[1]
+        assert _worst_ratio(got, want) < 0.1
+
+
+def _fwd_margins(q, k, v, scale, causal):
+    """(worst |d| / limit of O and LSE as 3xTF32, the same as one TF32
+    product) of K1's emulation against the plain version."""
+    want = tatt.flash_attention_plain(q, k, v, scale, causal)
+    split = tf32_flash_fwd(q, k, v, scale, causal)
+    once = tf32_flash_fwd(q, k, v, scale, causal, split=False)
+    return ([_worst_ratio(a, b) for a, b in zip(split, want)],
+            [_worst_ratio(a, b) for a, b in zip(once, want)])
+
+
+def fwd_rounding_margins(seed):
+    """For the pinned case and each fp32 case of ``chip_smoke.KERNEL_CASES``
+    with keys (inputs drawn with ``torch.randn`` from ``seed``; batch cut
+    to 2): the name and the margins of :func:`_fwd_margins`."""
+    q, k, v, _, _, _, scale, causal = _pinned_case()
+    out = [("pinned B=1 H=4 T=512 D=64", _fwd_margins(q, k, v, scale,
+                                                     causal))]
+    g = torch.Generator().manual_seed(seed)
+    for name, B, H, Tq, Tk, D, dtype, causal, _ in cs.KERNEL_CASES:
+        if dtype != torch.float32 or Tk == 0:
+            continue
+        B = min(B, 2)
+        q, k, v = (torch.randn((B, H, T, D), generator=g)
+                   for T in (Tq, Tk, Tk))
+        out.append(("%s B=%d causal=%s" % (name, B, causal),
+                    _fwd_margins(q, k, v, 1.0 / D ** 0.5, causal)))
+    return out
+
+
 def _margins(args):
     """(worst |d| / limit as 3xTF32, as one TF32 product) for dQ, dK and
     dV against the plain versions."""
@@ -560,6 +709,10 @@ def rounding_margins(seed):
 
 
 if __name__ == "__main__":
+    for name, (split, once) in fwd_rounding_margins(0):
+        print("K1 %-27s worst |d|/limit O, LSE: 3xTF32 %s, one TF32 product "
+              "%s" % (name, ", ".join("%.4f" % r for r in split),
+                      ", ".join("%.3f" % r for r in once)))
     for name, (split, once) in rounding_margins(0):
         print("%-28s worst |d|/limit dQ, dK, dV: 3xTF32 %s, one TF32 "
               "product %s" % (name, ", ".join("%.4f" % r for r in split),
