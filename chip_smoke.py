@@ -79,6 +79,25 @@ Phases (each raises on failure, so any failure exits nonzero):
    ``backward()`` that overwrites rather than adds.  (b) bf16, batch 16:
    2 warm and 5 timed passes, the loss finite, K1, K2 and K3 launched 12
    times a pass; ms per pass beside ``train``'s ms per step.
+9. resnet -- ``resnet50_v1`` at full width (1000 classes, 224 x 224,
+   ``initializer.Xavier`` from the seed; convolutions, batch norm and
+   pooling on PyTorch's library kernels, none of K1-K4).  (a) fp32, batch
+   2, with ``torch.backends.cudnn.allow_tf32`` set True, so that only the
+   convolution op's own scope keeps TF32 off: one ``TrainStep`` step on
+   the card against the same step on a CPU copy (loss within 1e-4
+   relative, each parameter's change within 0.1 of the CPU's in L2 norm,
+   beside the CPU fp32 step's own distance from an fp64 step; the running
+   statistics unchanged on both), a predict-mode forward's logits within
+   2e-3 x max|CPU|, and ``autograd.record()`` + ``backward()`` on
+   NDArrays: gradients within 1e-5 x max|ref| of the functionalize path's
+   (both with ``cudnn.deterministic``), running statistics written as a
+   training forward writes them on the CPU.  (b) The bench's configuration (``bench.py run_bench``): bf16,
+   batch 256, SGD lr 0.1, momentum 0.9, the fp32 log-softmax loss, 2 warm
+   and 10 timed steps on one batch; every loss finite, the first within
+   2e-2 relative of the fp32 loss of the same parameters and batch, no
+   launch of K1-K4; images/s, step ms, TFLOP/s and MFU by the bench's
+   formula (3 x 3.87 GFLOP an image), peak memory, and a profiler
+   breakdown of one step with its device idle share.
 
 The last lines of standard output are the ``nvidia-smi`` name and power
 limit, one JSON object ``{"kernels": [...]}`` and, last,
@@ -1028,12 +1047,13 @@ def train_batch(batch):
     return [torch.from_numpy(a).cuda() for a in train_batch_host(batch)]
 
 
-def functional_grads(pure_fn, params, loss_fn, tok, seg, lab):
+def functional_grads(pure_fn, params, loss_fn, *batch):
     """The loss and every parameter's gradient (zeros where unused) by
     torch autograd through ``functionalize``'s pure function, as
-    ``TrainStep`` computes them."""
+    ``TrainStep`` computes them; ``batch`` is the inputs, then the
+    label."""
     leaves = {n: p.detach().requires_grad_(True) for n, p in params.items()}
-    loss = loss_fn(pure_fn(leaves, tok, seg, training=True), lab)
+    loss = loss_fn(pure_fn(leaves, *batch[:-1], training=True), batch[-1])
     gs = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
     grads = {n: torch.zeros_like(p) if g is None else g
              for (n, p), g in zip(leaves.items(), gs)}
@@ -1799,6 +1819,318 @@ def phase_imperative(train_step_ms):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 9. the ResNet-50 training path: convolutions, batch norm and pooling
+# ---------------------------------------------------------------------------
+
+RESNET_CLASSES, RESNET_IMAGE = 1000, 224
+RESNET_BATCH, RESNET_CHECK_BATCH = 256, 2
+RESNET_LR, RESNET_MOMENTUM = 0.1, 0.9
+RESNET_WARM, RESNET_TIMED = 2, 10
+RESNET_GFLOP = 3.87     # bench.py's forward GFLOP per 224 x 224 image
+RESNET_STATS = ("running_mean", "running_var")
+# substrings of the kernel names in a step's trace, by what they do
+RESNET_KERNEL_GROUPS = {
+    "batch_norm": ("batch_norm", "batchnorm", "bn_fw", "bn_bw"),
+    "layout": ("nchwtonhwc", "nhwctonchw", "transpose"),
+    "convolution": ("conv", "xmma", "wgrad", "dgrad", "fprop", "cudnn",
+                    "implicit", "gemm", "sm90"),
+    "pooling": ("pool",),
+}
+
+
+def resnet_batch_host(batch):
+    """Images (N(0, 1), as the bench) and labels from the seed."""
+    rng = np.random.RandomState(SEED + 9 + batch)
+    x = rng.randn(batch, 3, RESNET_IMAGE, RESNET_IMAGE).astype(np.float32)
+    return x, rng.randint(0, RESNET_CLASSES, batch).astype(np.int64)
+
+
+def resnet_loss(logits, labels):
+    """The bench's loss: mean cross-entropy of the fp32 log-softmax."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    return SoftmaxCrossEntropyLoss()(logits.float(), labels).mean()
+
+
+def _worst(got, want, scale, floor):
+    """max over tensors of max|got - want| / (scale * max|want| + floor),
+    and the tensor that reaches it (the check passes at <= 1)."""
+    worst, at = 0.0, None
+    for n, w in want.items():
+        err = float((got[n].double() - w.double()).abs().max())
+        ratio = err / (scale * float(w.abs().max()) + floor)
+        if not ratio <= worst:
+            worst, at = ratio, n
+    return worst, at
+
+
+def _worst_l2(got, want, floor):
+    """max over tensors of ||got - want|| / (||want|| + floor) (L2 norms),
+    and the tensor that reaches it."""
+    worst, at = 0.0, None
+    for n, w in want.items():
+        w = w.double()
+        ratio = float((got[n].double() - w).norm()) / (float(w.norm())
+                                                      + floor)
+        if not ratio <= worst:
+            worst, at = ratio, n
+    return worst, at
+
+
+def resnet_fp32_checks(net):
+    """fp32 at batch 2, with ``torch.backends.cudnn.allow_tf32`` True, so
+    only the convolution op's own scope keeps cuDNN off TF32.
+
+    (a) One ``TrainStep`` step on the card against the same step on a CPU
+    copy: the loss within 1e-4 relative; each parameter's change within
+    0.1 of the CPU's change in L2 norm (plus 1e-6 of the whole update's
+    norm: a conv bias ahead of a training-mode BatchNorm moves by rounding
+    alone); the running statistics
+    bitwise unchanged on both.  A per-entry rule cannot hold here: this
+    net at its initialisation amplifies rounding ~1000x through the
+    training-mode BatchNorms, the forward drifts ~1e-4 by the last stage
+    in fp32, and ReLU masks of entries near 0 flip, so fp32 on the CPU
+    itself misses fp64 by up to ~17 % in the largest entry of a last-stage
+    weight's gradient and by ~2-3 % in L2, where TF32-rounded
+    convolutions miss it by ~64-83 % in L2 (``tests/test_torch_resnet.py``
+    run as a script prints these).  The CPU's fp32 step is also held
+    against an fp64 step here, and both distances are printed.  (b) A predict-mode forward's logits within 2e-3 x max|CPU|.
+    (c) ``autograd.record()`` + ``backward()`` on NDArrays against the
+    functionalize path on the card, both with ``cudnn.deterministic``
+    (the amplification makes run-to-run atomics in the weight gradients
+    visible): every gradient within 1e-5 x its max|ref| plus 1e-6 x the
+    net's largest gradient (a conv bias ahead of a training-mode
+    BatchNorm has a gradient of zero but for rounding), and the running
+    statistics the pass writes within 2e-3 x max|CPU| of those a training
+    forward writes on the CPU copy."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.gluon.block import functionalize
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.parallel import TrainStep
+    x, y = resnet_batch_host(RESNET_CHECK_BATCH)
+    p0 = {n: p.detach().cpu().clone() for n, p in net.named_parameters()}
+    cpu_net = resnet50_v1(classes=RESNET_CLASSES).load_dict(p0,
+                                                            device="cpu")
+    cpu64 = resnet50_v1(classes=RESNET_CLASSES).load_dict(
+        p0, device="cpu").cast("float64")
+    stats = [n for n in p0 if n.endswith(RESNET_STATS)]
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        # (a) one TrainStep step: card, CPU, and CPU in fp64
+        after, losses = {}, {}
+        for key, model, dev, xs in (("card", net, "cuda", x),
+                                    ("cpu", cpu_net, "cpu", x),
+                                    ("cpu64", cpu64, "cpu",
+                                     x.astype(np.float64))):
+            step = TrainStep(model, resnet_loss, device=dev,
+                             learning_rate=RESNET_LR,
+                             momentum=RESNET_MOMENTUM)
+            losses[key] = float(step(xs, y))
+            after[key] = {n: v.detach().cpu() for n, v in step.params.items()}
+            del step
+        del cpu64
+        for key in after:
+            moved = [n for n in stats
+                     if not torch.equal(after[key][n].to(p0[n].dtype),
+                                        p0[n])]
+            if moved:
+                raise RuntimeError("resnet fp32: TrainStep (%s) changed the "
+                                   "running statistics %s" % (key, moved[:3]))
+        change = {k: {n: after[k][n].double() - p0[n].double() for n in p0}
+                  for k in after}
+        # the floor: 1e-6 of the whole update's norm (a conv bias ahead of
+        # a training-mode BatchNorm moves by rounding alone)
+        floor = 1e-6 * float(torch.stack(
+            [d.norm() for d in change["cpu"].values()]).norm())
+        step_worst, step_at = _worst_l2(change["card"], change["cpu"], floor)
+        cpu_vs_64, cpu_vs_64_at = _worst_l2(change["cpu"], change["cpu64"],
+                                            floor)
+        card_vs_64, _ = _worst_l2(change["card"], change["cpu64"], floor)
+        rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+        # (b) predict mode
+        xg = torch.from_numpy(x).cuda()
+        with torch.no_grad():
+            logits = net(xg).cpu()
+            logits_cpu = cpu_net(torch.from_numpy(x))
+        logit_err = float((logits - logits_cpu).abs().max())
+        logit_top = float(logits_cpu.abs().max())
+        # (c) the imperative pass against the functionalize path
+        torch.backends.cudnn.deterministic = True
+        pure_fn, params = functionalize(net)
+        loss_f, ref = functional_grads(pure_fn, params, resnet_loss, xg,
+                                       torch.from_numpy(y).cuda())
+        ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        with autograd.record():
+            loss_i = ce(net(nd.array(x, ctx=mx.gpu(0))),
+                        nd.array(y, ctx=mx.gpu(0))).mean()
+        loss_i.backward()
+        got = {n: p.grad for n, p in net.named_parameters()
+               if p.requires_grad}
+        want = {n: ref[n] for n in got}
+        top = max(float(g.abs().max()) for g in want.values())
+        grad_worst, grad_at = _worst(got, want, 1e-5, 1e-6 * top)
+        bitwise = all(torch.equal(got[n], want[n]) for n in want)
+        with mx.cpu(), autograd.train_mode():
+            cpu_net(nd.array(x))
+        cpu_params = dict(cpu_net.named_parameters())
+        card_params = dict(net.named_parameters())
+        stats_worst, stats_at = _worst(
+            {n: card_params[n].detach().cpu() for n in stats},
+            {n: cpu_params[n].detach() for n in stats}, 2e-3, 1e-9)
+        n_written = sum(not torch.equal(card_params[n].detach().cpu(), p0[n])
+                        for n in stats)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = False
+    rec = {"batch": RESNET_CHECK_BATCH, "cudnn_allow_tf32": True,
+           "loss_card": losses["card"], "loss_cpu": losses["cpu"],
+           "loss_cpu64": losses["cpu64"], "loss_rel": rel,
+           "step_change_worst_rel_l2": step_worst,
+           "step_change_worst_at": step_at,
+           "cpu_fp32_vs_fp64_worst_rel_l2": cpu_vs_64,
+           "cpu_fp32_vs_fp64_worst_at": cpu_vs_64_at,
+           "card_vs_fp64_worst_rel_l2": card_vs_64,
+           "predict_logits_max_abs_err": logit_err,
+           "predict_logits_max_abs": logit_top,
+           "imperative_loss": float(loss_i.asscalar()),
+           "functionalize_loss": loss_f,
+           "imperative_grad_worst_ratio": grad_worst,
+           "imperative_grad_worst_at": grad_at,
+           "imperative_grads": len(got), "imperative_grads_bitwise": bitwise,
+           "stats_written": n_written, "stats": len(stats),
+           "stats_worst_ratio": stats_worst, "stats_worst_at": stats_at}
+    log("resnet: fp32 checks %s" % json.dumps(rec))
+    faults = []
+    if not rel <= 1e-4:
+        faults.append("TrainStep loss %.7f on the card vs %.7f on the CPU"
+                      % (losses["card"], losses["cpu"]))
+    if not step_worst <= 0.1:
+        faults.append("TrainStep change of %s off the CPU's by %.3g in L2 "
+                      "(tol 0.1)" % (step_at, step_worst))
+    if not logit_err <= 2e-3 * logit_top:
+        faults.append("predict logits off the CPU's by %.3g (max|ref| %.3g)"
+                      % (logit_err, logit_top))
+    if not abs(rec["imperative_loss"] - loss_f) <= 1e-5 * abs(loss_f):
+        faults.append("imperative loss %.7f vs functionalize %.7f"
+                      % (rec["imperative_loss"], loss_f))
+    if not grad_worst <= 1.0:
+        faults.append("imperative gradient of %s off the functionalize "
+                      "path's by %.3g x the limit" % (grad_at, grad_worst))
+    if n_written != len(stats) or not stats_worst <= 1.0:
+        faults.append("imperative pass wrote %d of %d running statistics, "
+                      "worst %s at %.3g x the limit"
+                      % (n_written, len(stats), stats_at, stats_worst))
+    if faults:
+        raise RuntimeError("resnet fp32: " + "; ".join(faults))
+    for p in net.parameters():
+        p.grad = None
+    return rec
+
+
+def resnet_kernel_groups(by_name):
+    """Device ms of a traced step by :data:`RESNET_KERNEL_GROUPS` (a kernel
+    counts in the first group one of whose substrings its lower-cased
+    name holds; the rest under ``other``)."""
+    out = {g: 0.0 for g in list(RESNET_KERNEL_GROUPS) + ["other"]}
+    for name, (ms, _) in by_name.items():
+        low = name.lower()
+        group = next((g for g, keys in RESNET_KERNEL_GROUPS.items()
+                      if any(k in low for k in keys)), "other")
+        out[group] += ms
+    return out
+
+
+def phase_resnet(peaks):
+    """``resnet50_v1`` (1000 classes, 224 x 224, ``Xavier`` from the seed):
+    the fp32 checks of :func:`resnet_fp32_checks`, then the bench's
+    configuration (bf16, batch 256, SGD lr 0.1, momentum 0.9, 2 warm and
+    10 timed steps on one batch, as ``bench.py run_bench``); returns the
+    kernel launches of that main path (none of K1-K4 is on it)."""
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.block import functionalize
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.ops import _kernels
+    from mxnet_tpu_torch.parallel import TrainStep
+    net = resnet50_v1(classes=RESNET_CLASSES)
+    net.initialize(initializer.Xavier(), seed=SEED)
+    n_params = sum(p.numel() for p in net.parameters())
+    checks = resnet_fp32_checks(net)
+
+    # the fp32 loss of the same parameters and batch on the card
+    x_host, y_host = resnet_batch_host(RESNET_BATCH)
+    x = torch.from_numpy(x_host).cuda().bfloat16()
+    y = torch.from_numpy(y_host).cuda()
+    del x_host
+    pure_fn, params = functionalize(net)
+    with torch.no_grad():
+        loss32 = float(resnet_loss(pure_fn(params, x.float(), training=True),
+                                   y))
+    del pure_fn, params
+    net.cast("bfloat16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # --- the ResNet-50 main path, counted ---
+    _kernels.reset_launches()
+    step = TrainStep(net, resnet_loss, learning_rate=RESNET_LR,
+                     momentum=RESNET_MOMENTUM)
+    losses = [step(x, y) for _ in range(RESNET_WARM)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(x, y) for _ in range(RESNET_TIMED)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _kernels.launch_counts()
+    # --- end of the counted main path ---
+
+    losses = [float(v) for v in losses]
+    gap = abs(losses[0] - loss32) / abs(loss32)
+    log("resnet: bf16 batch-%d losses %s; fp32 loss of the same parameters "
+        "and batch %.6f, first bf16 loss off it by %.3g relative (tol 2e-2)"
+        % (RESNET_BATCH, json.dumps(losses), loss32, gap))
+    if not all(np.isfinite(losses)):
+        raise RuntimeError("resnet bf16: losses %s are not all finite"
+                           % losses)
+    if not gap <= 2e-2:
+        raise RuntimeError("resnet bf16: first loss %.6f vs fp32 %.6f"
+                           % (losses[0], loss32))
+    if any(launches.values()):
+        raise RuntimeError("resnet: the path launched %s; none of K1-K4 is "
+                           "on it" % launches)
+    images_per_s = RESNET_BATCH * RESNET_TIMED / dt
+    # the bench's formula: forward + backward = 3 x 3.87 GFLOP an image
+    tflops = images_per_s * 3 * RESNET_GFLOP * 1e9 / 1e12
+    rec = {"batch": RESNET_BATCH, "image": RESNET_IMAGE, "dtype": "bfloat16",
+           "n_params": n_params, "step_ms": dt / RESNET_TIMED * 1e3,
+           "images_per_s": images_per_s, "tflops": tflops,
+           "mfu": tflops * 1e12 / peaks["bf16"],
+           "peak_tflops": peaks["bf16"] / 1e12,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "fp32_loss": loss32, "first_loss_rel_gap": gap}
+
+    # one more step under the profiler: device time by kernel, idle share
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(x, y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    total, busy, by_name = log_kernel_breakdown("resnet", prof, top=14)
+    groups = resnet_kernel_groups(by_name)
+    rec.update({"traced_step_wall_ms": wall_ms, "device_busy_ms": busy,
+                "traced_device_ms": total,
+                "device_idle_share": 1.0 - busy / wall_ms,
+                "kernel_names": len(by_name), "device_ms_by_group": groups,
+                "share_by_group": {g: ms / total for g, ms in groups.items()},
+                "fp32_checks": checks})
+    log("resnet: %s" % json.dumps(rec))
+    del step, net, x, y
+    return launches
+
+
 def kernel_row(name, source, replaces, launches, fp32, bf16, extra=None):
     """One entry of the kernels line: the fp32 figures under the contract's
     keys, the bf16 ones under ``bf16_``, and those of ``extra`` (another
@@ -1840,8 +2172,14 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     imperative_launches = phase_imperative(train_step_ms)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet_launches = phase_resnet(peaks)
+    gc.collect()
+    torch.cuda.empty_cache()
     by_path = {k: {"serve": serve_launches[k], "train": train_launches[k],
-                   "imperative": imperative_launches[k]}
+                   "imperative": imperative_launches[k],
+                   "resnet": resnet_launches[k]}
                for k in imperative_launches}
     fp32, bf16 = torch.float32, torch.bfloat16
     kernels = [
@@ -1858,7 +2196,9 @@ def main():
                    bwd[("flash_bwd_dkv", bf16)]),
     ] + [kernel_row("tpu_kernel:" + body, USER_KERNEL_SOURCE,
                     "mxnet_tpu/tpu_kernel.py:96",
-                    {"user_kernels": user_launches[body]},
+                    {"user_kernels": user_launches[body],
+                     "resnet": resnet_launches.get("tpu_kernel:" + body,
+                                                   0)},
                     user[(body, fp32)], user[(body, bf16)],
                     {"default_grid_": user[(body + ":default_grid", fp32)],
                      "bf16_default_grid_": user[(body + ":default_grid",

@@ -21,9 +21,12 @@ Counterpart of ``mxnet_tpu/gluon/block.py``.  What differs, and why:
   training mode exactly when ``autograd.is_training()``, as gluon blocks
   read it, and returns NDArrays.  Its parameters' gradients are written by
   ``autograd.backward`` with the gluon default ``grad_req='write'`` (a
-  parameter's ``grad_req`` attribute, where set, says otherwise).  A call
-  with plain tensors, as ``Servable`` and ``TrainStep`` make them, is
-  ``torch.nn.Module``'s own.
+  parameter's ``grad_req`` attribute, where set, says otherwise; a
+  parameter with ``requires_grad`` False gets none).  Such a call in
+  training mode also lets the blocks write their aux states (BatchNorm's
+  running statistics: ``_write_aux``), as the reference's NDArray
+  dispatch does.  A call with plain tensors, as ``Servable`` and
+  ``TrainStep`` make them, is ``torch.nn.Module``'s own and writes none.
 """
 from __future__ import annotations
 
@@ -63,6 +66,9 @@ def meta_parameter(shape, dtype="float32") -> torch.nn.Parameter:
 
 class Block(torch.nn.Module):
     """Base building block (gluon ``Block``)."""
+
+    #: True only inside a call on NDArrays (see :meth:`__call__`)
+    _write_aux = False
 
     def __init__(self, **kwargs):
         super().__init__()
@@ -121,15 +127,19 @@ class Block(torch.nn.Module):
         args = tuple(a.data if isinstance(a, NDArray) else a for a in args)
         kwargs = {k: v.data if isinstance(v, NDArray) else v
                   for k, v in kwargs.items()}
-        modes = [(m, m.training) for m in self.modules()]
+        modes = [(m, m.training, getattr(m, "_write_aux", False))
+                 for m in self.modules()]
         self.train(autograd.is_training())
+        for m, _, _ in modes:
+            m._write_aux = True
         try:
             with (torch.enable_grad() if autograd.is_recording()
                   else torch.no_grad()):
                 out = super().__call__(*args, **kwargs)
         finally:
-            for m, mode in modes:
+            for m, mode, write in modes:
                 m.training = mode
+                m._write_aux = write
         return _wrap(out)
 
 

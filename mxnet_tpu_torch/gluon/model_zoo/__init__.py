@@ -1,4 +1,5 @@
 """Model zoo of the port."""
 from . import bert
+from . import vision
 
-__all__ = ["bert"]
+__all__ = ["bert", "vision"]

@@ -1,6 +1,10 @@
 """Gluon layers of the port."""
-from .basic_layers import (Activation, Dense, Dropout, Embedding, GELU,
-                           HybridSequential, LayerNorm, set_dropout_generator)
+from .basic_layers import (Activation, BatchNorm, Dense, Dropout, Embedding,
+                           GELU, HybridSequential, LayerNorm, SyncBatchNorm,
+                           set_dropout_generator)
+from .conv_layers import *      # noqa: F401,F403
+from . import conv_layers as _conv_layers
 
-__all__ = ["Activation", "Dense", "Dropout", "Embedding", "GELU",
-           "HybridSequential", "LayerNorm", "set_dropout_generator"]
+__all__ = ["Activation", "BatchNorm", "Dense", "Dropout", "Embedding",
+           "GELU", "HybridSequential", "LayerNorm", "SyncBatchNorm",
+           "set_dropout_generator"] + _conv_layers.__all__

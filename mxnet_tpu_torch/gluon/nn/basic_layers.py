@@ -2,7 +2,12 @@
 
 Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``, with the shapes
 given at construction (``in_units`` / ``in_channels`` are required) and
-the gluon parameter names (``weight``, ``bias``, ``gamma``, ``beta``).
+the gluon parameter names (``weight``, ``bias``, ``gamma``, ``beta``,
+``running_mean``, ``running_var``).  A parameter whose gluon ``grad_req``
+is 'null' (BatchNorm's running statistics; gamma without ``scale``, beta
+without ``center``) has ``requires_grad`` False, so ``backward`` on
+NDArrays writes it no gradient; ``TrainStep`` still updates it by its
+gradient, as the reference's step does.
 """
 from __future__ import annotations
 
@@ -14,8 +19,9 @@ from ...base import MXNetError
 from ...ops import nn as _ops
 from ..block import HybridBlock, meta_parameter
 
-__all__ = ["HybridSequential", "Dense", "Dropout", "LayerNorm", "Embedding",
-           "GELU", "Activation", "set_dropout_generator"]
+__all__ = ["HybridSequential", "Dense", "Dropout", "BatchNorm",
+           "SyncBatchNorm", "LayerNorm", "Embedding", "GELU", "Activation",
+           "set_dropout_generator"]
 
 
 class HybridSequential(HybridBlock):
@@ -114,6 +120,69 @@ def set_dropout_generator(block: torch.nn.Module,
         if isinstance(m, Dropout):
             m.generator = generator
     return block
+
+
+class BatchNorm(HybridBlock):
+    """Batch normalisation over ``axis`` (the channels) with parameters
+    ``gamma``, ``beta``, ``running_mean`` (zeros at init) and
+    ``running_var`` (ones).
+
+    In training mode, unless ``use_global_stats``, a forward normalises by
+    the batch's statistics; otherwise by the running ones.  The running
+    statistics are written (``momentum * old + (1 - momentum) * batch``,
+    biased variance, in their own dtype) only by a training forward called
+    on NDArrays (:meth:`Block.__call__` under ``autograd`` training), as
+    the reference writes them; a forward on tensors, as ``functionalize``
+    and ``TrainStep`` run it, leaves them as they are."""
+
+    def __init__(self, axis: int = 1, momentum: float = 0.9,
+                 epsilon: float = 1e-5, center: bool = True,
+                 scale: bool = True, use_global_stats: bool = False,
+                 in_channels: int = 0, **kwargs):
+        super().__init__(**kwargs)
+        if in_channels <= 0:
+            raise ValueError("BatchNorm needs in_channels > 0 (no deferred "
+                             "init)")
+        self._axis = axis
+        self._momentum = momentum
+        self._eps = epsilon
+        self._scale = scale
+        self._use_global_stats = use_global_stats
+        self.gamma = meta_parameter((in_channels,))
+        self.beta = meta_parameter((in_channels,))
+        self.running_mean = meta_parameter((in_channels,))
+        self.running_var = meta_parameter((in_channels,))
+        self.gamma.requires_grad_(scale)
+        self.beta.requires_grad_(center)
+        self.running_mean.requires_grad_(False)
+        self.running_var.requires_grad_(False)
+
+    def forward(self, x):
+        batch = self.training and not self._use_global_stats
+        out = _ops.batch_norm_out(x, self.gamma, self.beta,
+                                  self.running_mean, self.running_var,
+                                  self._eps, not self._scale, batch,
+                                  self._axis)
+        if batch and self._write_aux:
+            mean, var = _ops.batch_norm_stats(
+                x, self.running_mean, self.running_var, self._momentum,
+                self._axis)
+            with torch.no_grad():
+                self.running_mean.copy_(mean)
+                self.running_var.copy_(var)
+        return out
+
+    def extra_repr(self):
+        return "axis=%s, eps=%s, momentum=%s, in_channels=%d" % (
+            self._axis, self._eps, self._momentum, self.gamma.shape[0])
+
+
+class SyncBatchNorm(BatchNorm):
+    """Cross-device BatchNorm; on one device it is :class:`BatchNorm`."""
+
+    def __init__(self, in_channels: int = 0, num_devices=None, **kwargs):
+        super().__init__(in_channels=in_channels, **kwargs)
+        self._num_devices = num_devices
 
 
 class LayerNorm(HybridBlock):

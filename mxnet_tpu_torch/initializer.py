@@ -3,10 +3,12 @@
 Counterpart of ``mxnet_tpu/initializer.py``.  An initializer is called
 with a parameter's structural name and its tensor and dispatches on the
 name's suffix as the JAX package does: ``*weight`` (and anything not
-listed) draws from the initializer, ``*bias`` and ``*beta`` are zero,
-``*gamma`` is one.  The JAX package draws from ``jax.random`` and PyTorch
-cannot reproduce those bits; tests carry parameters across by name
-(:mod:`mxnet_tpu_torch.convert`) instead of seeding both.
+listed) draws from the initializer, ``*bias``, ``*beta`` and
+``*running_mean`` / ``*moving_mean`` are zero, ``*gamma`` and
+``*running_var`` / ``*moving_var`` are one.  The JAX package draws from
+``jax.random`` and PyTorch cannot reproduce those bits; tests carry
+parameters across by name (:mod:`mxnet_tpu_torch.convert`) instead of
+seeding both.
 """
 from __future__ import annotations
 
@@ -24,9 +26,9 @@ class Initializer:
     def __call__(self, name: str, arr: torch.Tensor,
                  generator: torch.Generator) -> None:
         lname = name.lower()
-        if lname.endswith("bias") or lname.endswith("beta"):
+        if lname.endswith(("bias", "beta", "running_mean", "moving_mean")):
             arr.zero_()
-        elif lname.endswith("gamma"):
+        elif lname.endswith(("gamma", "running_var", "moving_var")):
             arr.fill_(1.0)
         else:
             self._init_weight(name, arr, generator)

@@ -474,7 +474,9 @@ def invoke(op_name: str, *inputs, out: Optional[NDArray] = None, **params):
     while recording are marked as recorded (``autograd.RECORDED``), even
     when no input needs a gradient, as the reference gives them a tape node:
     ``backward`` on such a head writes nothing instead of raising.
-    ``out=`` receives the result in place."""
+    An op's aux outputs (``OpDef.aux_writeback``: ``BatchNorm``'s new moving
+    statistics) are written into their input NDArrays in place and are not
+    returned.  ``out=`` receives the result in place."""
     op = get_op(op_name)
     inputs = op.split_pos_attrs(inputs, params, NDArray)
     ctx = params.pop("ctx", None)
@@ -494,12 +496,29 @@ def invoke(op_name: str, *inputs, out: Optional[NDArray] = None, **params):
             if isinstance(o, torch.Tensor):
                 setattr(o, autograd.RECORDED, True)
     outs = _wrap_outputs(op, outs)
+    if op.aux_writeback and isinstance(outs, list):
+        outs = _write_aux(op, inputs, outs)
     if out is not None:
         src = outs[0] if isinstance(outs, list) else outs
         with torch.no_grad():
             out._data.copy_(src._data)
         return out
     return outs
+
+
+def _write_aux(op, inputs, outs):
+    """Copy each aux output into its input NDArray, in that array's dtype,
+    and return the other outputs (reference: ``invoke``'s aux-state
+    write-back)."""
+    visible = []
+    for i, o in enumerate(outs):
+        target = op.aux_writeback.get(i)
+        if target is None:
+            visible.append(o)
+        elif isinstance(inputs[target], NDArray):
+            with torch.no_grad():
+                inputs[target]._data.copy_(o._data)
+    return visible[0] if len(visible) == 1 else visible
 
 
 def _wrap_outputs(op, outs):

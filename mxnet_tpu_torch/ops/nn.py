@@ -1,13 +1,20 @@
 """The nn functions of the serving and training slices, on tensors.
 
 Counterpart of the matching entries of ``mxnet_tpu/ops/nn.py`` and
-``mxnet_tpu/ops/matrix.py`` (``Embedding``, ``pick``).  Plain matrix products stay
-with PyTorch's library kernels, as the JAX package left them to XLA.
-``softmax``, ``log_softmax`` and ``Dropout`` are also registered ops of
+``mxnet_tpu/ops/matrix.py`` (``Embedding``, ``pick``).  Plain matrix
+products, convolutions, pooling and batch norm stay with PyTorch's library
+kernels (cuBLAS, cuDNN), as the JAX package left them to XLA.  ``softmax``,
+``log_softmax``, ``Dropout``, ``Activation``, ``Convolution``,
+``Deconvolution``, ``Pooling`` and ``BatchNorm`` are also registered ops of
 ``ops/registry.py``, under the reference's names.
+
+A float32 convolution runs with cuDNN's TF32 off, in its forward and its
+backward, whatever ``torch.backends.cudnn.allow_tf32`` says outside it:
+TF32 would move it about 1e-3 from the reference.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -20,7 +27,9 @@ from .registry import register
 
 __all__ = ["fully_connected", "activation", "gelu", "layer_norm",
            "embedding", "multi_head_attention", "softmax", "log_softmax",
-           "softmax_cross_entropy", "pick", "dropout"]
+           "softmax_cross_entropy", "pick", "dropout", "convolution",
+           "deconvolution", "pooling", "batch_norm", "batch_norm_out",
+           "batch_norm_stats"]
 
 
 def fully_connected(data: torch.Tensor, weight: torch.Tensor,
@@ -38,6 +47,7 @@ def gelu(data: torch.Tensor) -> torch.Tensor:
     return F.gelu(data, approximate="none")
 
 
+@register("Activation", aliases=["activation"])
 def activation(data: torch.Tensor, act_type: str = "relu") -> torch.Tensor:
     if act_type == "relu":
         return torch.relu(data)
@@ -51,6 +61,10 @@ def activation(data: torch.Tensor, act_type: str = "relu") -> torch.Tensor:
         return F.softsign(data)
     if act_type == "gelu":
         return gelu(data)
+    if act_type == "log_sigmoid":
+        return F.logsigmoid(data)
+    if act_type == "mish":
+        return data * torch.tanh(F.softplus(data))
     raise ValueError("bad act_type %r" % act_type)
 
 
@@ -170,3 +184,235 @@ def dropout(data: torch.Tensor, p: float = 0.5, mode: str = "training",
     keep = 1.0 - p
     mask = torch.rand(shape, generator=generator, device=data.device) < keep
     return data * mask.to(data.dtype) / keep
+
+
+# ---------------------------------------------------------------------------
+# Convolution, Deconvolution, Pooling, BatchNorm (NCW / NCHW / NCDHW)
+# ---------------------------------------------------------------------------
+
+
+def _tup(v, n):
+    if v is None:
+        return (0,) * n
+    if isinstance(v, int):
+        return (v,) * n
+    v = tuple(v)
+    return v if len(v) == n else v + v[-1:] * (n - len(v))
+
+
+@contextlib.contextmanager
+def _cudnn_without_tf32():
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+class _Float32Conv(torch.autograd.Function):
+    """``aten.convolution`` and its backward, each inside
+    :func:`_cudnn_without_tf32` (the backward runs after the forward's
+    scope has closed, so it needs its own)."""
+
+    @staticmethod
+    def forward(ctx, data, weight, conf):
+        ctx.save_for_backward(data, weight)
+        ctx.conf = conf
+        with _cudnn_without_tf32():
+            return torch.ops.aten.convolution(data, weight, None, *conf)
+
+    @staticmethod
+    def backward(ctx, grad):
+        data, weight = ctx.saved_tensors
+        mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False]
+        with _cudnn_without_tf32():
+            gd, gw, _ = torch.ops.aten.convolution_backward(
+                grad, data, weight, None, *ctx.conf, mask)
+        return gd, gw, None
+
+
+def _conv(data, weight, stride, pad, dilate, transposed, adj, groups):
+    conf = (list(stride), list(pad), list(dilate), transposed, list(adj),
+            groups)
+    if data.dtype == torch.float32:
+        return _Float32Conv.apply(data, weight, conf)
+    return torch.ops.aten.convolution(data, weight, None, *conf)
+
+
+def _add_channel_bias(out, bias, n):
+    return out + bias.reshape((1, -1) + (1,) * n)
+
+
+@register("Convolution", aliases=["convolution"])
+def convolution(data: torch.Tensor, weight: torch.Tensor,
+                bias: Optional[torch.Tensor] = None, kernel=None,
+                stride=None, dilate=None, pad=None, num_filter=None,
+                num_group: int = 1, no_bias: bool = False, cudnn_tune=None,
+                cudnn_off: bool = False, workspace: int = 1024,
+                layout=None) -> torch.Tensor:
+    """Cross-correlation of ``data`` (N, C, *spatial) with ``weight``
+    (num_filter, C / num_group, *kernel), cast to data's dtype, plus
+    ``bias`` per output channel unless ``no_bias``."""
+    n = len(kernel)
+    out = _conv(data, weight, _tup(stride or 1, n), _tup(pad, n),
+                _tup(dilate or 1, n), False, (0,) * n, num_group)
+    out = out.to(data.dtype)
+    if bias is not None and not no_bias:
+        out = _add_channel_bias(out, bias, n)
+    return out
+
+
+@register("Deconvolution", aliases=["deconvolution"])
+def deconvolution(data: torch.Tensor, weight: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None, kernel=None,
+                  stride=None, dilate=None, pad=None, adj=None,
+                  num_filter=None, num_group: int = 1, no_bias: bool = True,
+                  target_shape=None, cudnn_tune=None, cudnn_off: bool = False,
+                  workspace: int = 1024, layout=None) -> torch.Tensor:
+    """The transpose of :func:`convolution`: ``weight`` is (C,
+    num_filter / num_group, *kernel), ``adj`` extends the output on the
+    right of each spatial axis."""
+    n = len(kernel)
+    out = _conv(data, weight, _tup(stride or 1, n), _tup(pad, n),
+                _tup(dilate or 1, n), True, _tup(adj or 0, n), num_group)
+    if bias is not None and not no_bias:
+        out = _add_channel_bias(out, bias, n)
+    return out
+
+
+def _window_sum(x, kernel, stride):
+    """Sum over each window (no padding), through ``avg_pool`` with a
+    divisor of 1; a 1-D input goes through the 2-D pool."""
+    if len(kernel) == 1:
+        return F.avg_pool2d(x.unsqueeze(-2), (1,) + kernel, (1,) + stride,
+                            divisor_override=1).squeeze(-2)
+    pool = F.avg_pool2d if len(kernel) == 2 else F.avg_pool3d
+    return pool(x, kernel, stride, divisor_override=1)
+
+
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+
+
+@register("Pooling", aliases=["pooling"])
+def pooling(data: torch.Tensor, kernel=None, pool_type: str = "max",
+            global_pool: bool = False, stride=None, pad=None,
+            pooling_convention: str = "valid", count_include_pad: bool = True,
+            cudnn_off: bool = False, layout=None, p_value=2) -> torch.Tensor:
+    """Max, avg, sum or lp pooling over the spatial axes.
+
+    The input is padded here, with -inf for max and 0 otherwise, and then
+    pooled with no padding of the library's own.  The ``full`` convention
+    (gluon's ``ceil_mode``) pads the right of each axis by ``max(needed -
+    pad, pad)``, the reference's rule, so a last window can lie wholly in
+    the padding (max -inf there, avg 0) where torch's ``ceil_mode`` would
+    drop it.  ``global_pool`` is the max or the mean over the spatial
+    axes."""
+    n = data.dim() - 2
+    if global_pool:
+        axes = tuple(range(2, data.dim()))
+        if pool_type == "max":
+            return data.amax(dim=axes, keepdim=True)
+        return data.mean(dim=axes, keepdim=True)
+    kernel = _tup(kernel, n)
+    stride = _tup(stride or kernel, n)
+    pad = _tup(pad, n)
+    pads = []
+    for i in range(n):
+        right = pad[i]
+        if pooling_convention == "full":
+            size = data.shape[2 + i]
+            out = -(-(size + 2 * pad[i] - kernel[i]) // stride[i]) + 1
+            needed = (out - 1) * stride[i] + kernel[i] - size
+            right = max(needed - pad[i], pad[i])
+        pads.append((pad[i], right))
+    flat = [p for lr in reversed(pads) for p in lr]    # F.pad: last axis first
+    if pool_type == "max":
+        fill = float("-inf") if data.is_floating_point() \
+            else torch.iinfo(data.dtype).min
+        return _MAX_POOL[n](F.pad(data, flat, value=fill), kernel, stride)
+    if pool_type in ("avg", "sum"):
+        summed = _window_sum(F.pad(data, flat), kernel, stride)
+        if pool_type == "sum":
+            return summed
+        if count_include_pad:
+            return summed / math.prod(kernel)
+        ones = torch.ones((1, 1) + tuple(data.shape[2:]), dtype=data.dtype,
+                          device=data.device)
+        return summed / _window_sum(F.pad(ones, flat), kernel, stride)
+    if pool_type == "lp":
+        powed = _window_sum(F.pad(data.abs() ** p_value, flat), kernel,
+                            stride)
+        return powed ** (1.0 / p_value)
+    raise ValueError("bad pool_type %r" % pool_type)
+
+
+def _channel_shape(data, axis):
+    shape = [1] * data.dim()
+    shape[axis] = data.shape[axis]
+    return shape
+
+
+def batch_norm_out(data: torch.Tensor, gamma: torch.Tensor,
+                   beta: torch.Tensor, moving_mean: torch.Tensor,
+                   moving_var: torch.Tensor, eps: float = 1e-5,
+                   fix_gamma: bool = True, batch_stats: bool = True,
+                   axis: int = 1) -> torch.Tensor:
+    """BatchNorm's output alone, in data's dtype.  With ``batch_stats``
+    the statistics are the batch's (over every axis but ``axis``, biased
+    variance) and ``F.batch_norm`` normalises; otherwise the moving
+    statistics normalise in the reference's order, ``(data - mean) *
+    (rsqrt(var + eps) * gamma) + beta`` with each factor cast to data's
+    dtype, so that they receive gradients as they do there.  ``fix_gamma``
+    takes gamma as ones."""
+    ax = axis % data.dim()
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    g, b = g.to(data.dtype), beta.to(data.dtype)
+    if batch_stats:
+        x = data if ax == 1 else data.movedim(ax, 1)
+        out = F.batch_norm(x, None, None, g, b, training=True, eps=eps)
+        return out if ax == 1 else out.movedim(1, ax)
+    shape = _channel_shape(data, ax)
+    inv = torch.rsqrt(moving_var + eps).to(data.dtype)
+    return (data - moving_mean.reshape(shape).to(data.dtype)) * \
+        (inv * g).reshape(shape) + b.reshape(shape)
+
+
+def batch_norm_stats(data: torch.Tensor, moving_mean: torch.Tensor,
+                     moving_var: torch.Tensor, momentum: float = 0.9,
+                     axis: int = 1):
+    """The new moving statistics after a batch: ``momentum * old + (1 -
+    momentum) * batch``, the batch's mean and biased variance taken in
+    float32 over every axis but ``axis`` (not ``F.batch_norm``'s own
+    update, which takes the unbiased variance and weighs the other way).
+    Carries no gradient."""
+    ax = axis % data.dim()
+    red = tuple(i for i in range(data.dim()) if i != ax)
+    with torch.no_grad():
+        var, mean = torch.var_mean(data.float(), dim=red, correction=0)
+        return (momentum * moving_mean + (1.0 - momentum) * mean,
+                momentum * moving_var + (1.0 - momentum) * var)
+
+
+@register("BatchNorm", aliases=["batch_norm"], num_outputs=3,
+          aux_writeback={1: 3, 2: 4})
+def batch_norm(data: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               moving_mean: torch.Tensor, moving_var: torch.Tensor,
+               eps: float = 1e-5, momentum: float = 0.9,
+               fix_gamma: bool = True, use_global_stats: bool = False,
+               output_mean_var: bool = False, axis: int = 1,
+               cudnn_off: bool = False, min_calib_range=None,
+               max_calib_range=None, training: bool = True):
+    """``(out, new_moving_mean, new_moving_var)``: the batch's statistics
+    when ``training`` and not ``use_global_stats``, else the moving ones,
+    which then come back unchanged.  Dispatch (``nd.BatchNorm``) writes the
+    last two into the moving-statistic arrays and returns ``out``."""
+    if output_mean_var:
+        raise NotImplementedError("BatchNorm(output_mean_var=True)")
+    batch = training and not use_global_stats
+    out = batch_norm_out(data, gamma, beta, moving_mean, moving_var, eps,
+                         fix_gamma, batch, axis)
+    if not batch:
+        return out, moving_mean, moving_var
+    return (out,) + batch_norm_stats(data, moving_mean, moving_var,
+                                     momentum, axis)

@@ -5,7 +5,10 @@ Counterpart of ``mxnet_tpu/ops/registry.py`` (the nnvm op registry's role:
 :class:`OpDef` keyed by op name: ``fn(*tensors, **params)`` computes the op
 on ``torch.Tensor``s, ``differentiable`` says whether dispatch records it
 for autograd (torch autograd differentiates ``fn`` itself, which plays the
-FGradient role), and ``num_outputs`` is 1, n, or 0 for a variable count.
+FGradient role), ``num_outputs`` is 1, n, or 0 for a variable count, and
+``aux_writeback`` maps an output's index to the index of the input that
+dispatch writes it into in place and drops from the visible outputs
+(``BatchNorm``'s moving statistics, the reference's aux states).
 
 The reference's per-op jit cache is not ported: PyTorch dispatches
 eagerly, so re-registering a name replaces its ``OpDef`` and nothing else
@@ -23,15 +26,17 @@ _REGISTRY: Dict[str, "OpDef"] = {}
 
 
 class OpDef:
-    __slots__ = ("name", "fn", "differentiable", "num_outputs", "doc",
-                 "_pos_params")
+    __slots__ = ("name", "fn", "differentiable", "num_outputs",
+                 "aux_writeback", "doc", "_pos_params")
 
     def __init__(self, name: str, fn: Callable, differentiable: bool = True,
-                 num_outputs: int = 1, doc: Optional[str] = None):
+                 num_outputs: int = 1, doc: Optional[str] = None,
+                 aux_writeback: Optional[Dict[int, int]] = None):
         self.name = name
         self.fn = fn
         self.differentiable = differentiable
         self.num_outputs = num_outputs
+        self.aux_writeback = dict(aux_writeback or {})
         self.doc = doc or (fn.__doc__ or "")
         self._pos_params = None
 
@@ -84,7 +89,8 @@ class OpDef:
 
 def register(name: str, fn: Optional[Callable] = None, *,
              differentiable: bool = True, num_outputs: int = 1,
-             aliases: Sequence[str] = (), replace: bool = False):
+             aliases: Sequence[str] = (), replace: bool = False,
+             aux_writeback: Optional[Dict[int, int]] = None):
     """Register an op; usable as a decorator or a direct call.
 
     A name (or alias) already registered raises unless ``replace=True``,
@@ -99,7 +105,7 @@ def register(name: str, fn: Optional[Callable] = None, *,
                 "only for deliberate user-kernel re-registration"
                 % (taken[0], _REGISTRY[taken[0]].fn))
         op = OpDef(name, f, differentiable=differentiable,
-                   num_outputs=num_outputs)
+                   num_outputs=num_outputs, aux_writeback=aux_writeback)
         for n in (name,) + tuple(aliases):
             _REGISTRY[n] = op
         return f
