@@ -98,6 +98,29 @@ Phases (each raises on failure, so any failure exits nonzero):
    launch of K1-K4; images/s, step ms, TFLOP/s and MFU by the bench's
    formula (3 x 3.87 GFLOP an image), peak memory, and a profiler
    breakdown of one step with its device idle share.
+10. eager -- the Gluon eager training loop (``gluon.Trainer``, the
+   optimizers, ``metric``), no kernel of its own.  (a) ``resnet18_v1``
+   (1000 classes, 224 x 224, ``Xavier`` from the seed) as ``bench.py
+   --eager`` runs it: fp32, batch 64, ``record()``/``backward()``,
+   ``Trainer.step`` (SGD lr 0.1, momentum 0.9, the fused multi-tensor
+   apply), ``metric.Accuracy``, the host batch copied to the card every
+   step; one ``Trainer.step`` held against one ``TrainStep`` step from the
+   same parameters and batch under ``cudnn.deterministic`` (loss and every
+   trainable parameter within 1e-6 relative, L2), then 3 warm and 10
+   timed steps: images/s, step ms (and again with the batch already on
+   the card), peak memory, one traced step's idle share and kernel
+   groups, and the optimizer apply's kernels, device time and wall time;
+   no launch of K1-K4.  (b) BERT-base with the MLM decoder (bf16,
+   batch 16) through ``record()``/``backward()`` and ``Trainer.step(1)``
+   (SGD lr 1e-3, momentum 0.9): 2 warm and 5 timed steps, each loss within
+   1e-2 relative of ``TrainStep``'s trajectory from the same start, K1,
+   K2 and K3 launched 12 times a step (counted under ``eager``), ms per
+   step beside ``train``'s and one traced step's idle share.  (c) SGD
+   (plain; momentum with wd and ``clip_gradient``), NAG, Adam, AdamW and
+   LAMB, each in fp32 and in bf16 with ``multi_precision``, fused and with
+   ``aggregate_num=0``: one step on the card against the same step on the
+   CPU (fp32 within 1e-6 + 1e-5 |ref|; bf16 weights by ``compare``'s bf16
+   rule against the CPU's float32 master).
 
 The last lines of standard output are the ``nvidia-smi`` name and power
 limit, one JSON object ``{"kernels": [...]}`` and, last,
@@ -318,24 +341,52 @@ def device_ms(fn, iters=20, warmup=3):
     the calls ran on the card, without the gaps that the CUDA events of
     :func:`time_ms` also count when the host launches slower than the card
     runs.  A trace that holds no device activity at all (the profiler
-    now and then returns one empty) is taken again, twice at most."""
+    now and then returns one empty, several in a row) is taken again,
+    four times at most; then the CUDA events' time stands in, and a line
+    says so."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+
+    def calls():
+        for _ in range(iters):
+            fn()
+
+    prof, _ = profiled(calls, tries=5)
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    if us > 0:
+        return us / 1e3 / iters
+    log("device_ms: five profiler traces held no device activity; the "
+        "CUDA events' time stands in")
+    return time_ms(fn, iters, 0)
+
+
+def profiled(fn, tries=3):
+    """(trace, wall ms) of ``fn()`` run under torch.profiler and
+    synchronised, taken again (``tries`` traces at most) while the trace
+    holds no device activity, as the profiler now and then returns one
+    empty; a line says so when the last is empty too."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
+            t0 = time.perf_counter()
+            fn()
             torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / 1e3 / iters
-    raise RuntimeError("device_ms: three profiler traces held no device "
-                       "activity")
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        if any(e.device_type == DeviceType.CUDA for e in prof.events()):
+            return prof, wall_ms
+    log("profiled: %d traces held no device activity (not measured)"
+        % tries)
+    return prof, wall_ms
+
+
+def _share(part, total):
+    """part / total, or None (not measured) for an empty trace."""
+    return part / total if total else None
 
 
 def compare(got, want, tol):
@@ -968,14 +1019,10 @@ def traced_burst(port, tokens, types, sv):
 def phase_breakdown(sv, tokens, types):
     """One bucket-8 micro-batch: its device time by CUDA events, and its
     device time by kernel from a torch.profiler trace."""
-    from torch.profiler import ProfilerActivity, profile
     bucket = max(BUCKETS)
     xs = [tokens[:bucket, 0], types[:bucket, 0]]
     ms = time_ms(lambda: sv.dispatch(bucket, xs, warming=True), iters=10)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        sv.dispatch(bucket, xs, warming=True)
-        torch.cuda.synchronize()
+    prof, _ = profiled(lambda: sv.dispatch(bucket, xs, warming=True))
     log("breakdown: bucket-%d forward %.3f ms (CUDA events)" % (bucket, ms))
     log_kernel_breakdown("breakdown", prof)
     return ms
@@ -1066,7 +1113,6 @@ def train_fp32_parity(net, loss_fn, n_layers):
     the composition (attention_impl_scope('xla')); then one traced forward
     and backward through the kernels: its device time and the attention
     kernels' part of it."""
-    from torch.profiler import ProfilerActivity, profile
     from mxnet_tpu_torch.gluon.block import functionalize
     from mxnet_tpu_torch.ops import _kernels
     from mxnet_tpu_torch.ops.attention import attention_impl_scope
@@ -1112,17 +1158,14 @@ def train_fp32_parity(net, loss_fn, n_layers):
         raise RuntimeError("fp32 step: loss %.7f vs composition %.7f"
                            % (loss_k, loss_x))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        loss_and_grads()
-        torch.cuda.synchronize()
+    prof, _ = profiled(loss_and_grads)
     total, busy, by_name = log_kernel_breakdown("train-fp32", prof, top=6)
     attn = attention_ms(by_name)
     log("train: fp32 batch-2 forward+backward through the kernels %s"
         % json.dumps({"traced_device_ms": total, "device_busy_ms": busy,
                       "attention_kernels_ms": attn,
                       "attention_share_of_device_time":
-                          sum(attn.values()) / total}))
+                          _share(sum(attn.values()), total)}))
 
 
 def attention_ms(by_name):
@@ -1135,7 +1178,6 @@ def attention_ms(by_name):
 
 def phase_train(peaks):
     """The training main path; returns its kernel launch counts."""
-    from torch.profiler import ProfilerActivity, profile
     from mxnet_tpu_torch import initializer
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxnet_tpu_torch.gluon.model_zoo.bert import bert_12_768_12
@@ -1213,21 +1255,17 @@ def phase_train(peaks):
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
     # one more step under the profiler: device time by kernel, idle share
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(*batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof, wall_ms = profiled(lambda: step(*batch))
     total, busy, by_name = log_kernel_breakdown("train", prof, top=14)
     attn = attention_ms(by_name)
     rec.update({"traced_step_wall_ms": wall_ms, "device_busy_ms": busy,
                 "traced_device_ms": total,
                 "device_idle_share": 1.0 - busy / wall_ms,
                 "attention_kernels_ms": attn,
-                "attention_kernels_share": {k: ms / total
+                "attention_kernels_share": {k: _share(ms, total)
                                             for k, ms in attn.items()},
-                "attention_share_of_device_time": sum(attn.values()) / total})
+                "attention_share_of_device_time":
+                    _share(sum(attn.values()), total)})
     log("train: %s" % json.dumps(rec))
     return launches, rec["step_ms"]
 
@@ -2047,7 +2085,6 @@ def phase_resnet(peaks):
     configuration (bf16, batch 256, SGD lr 0.1, momentum 0.9, 2 warm and
     10 timed steps on one batch, as ``bench.py run_bench``); returns the
     kernel launches of that main path (none of K1-K4 is on it)."""
-    from torch.profiler import ProfilerActivity, profile
     from mxnet_tpu_torch import initializer
     from mxnet_tpu_torch.gluon.block import functionalize
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
@@ -2112,22 +2149,359 @@ def phase_resnet(peaks):
            "fp32_loss": loss32, "first_loss_rel_gap": gap}
 
     # one more step under the profiler: device time by kernel, idle share
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(x, y)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof, wall_ms = profiled(lambda: step(x, y))
     total, busy, by_name = log_kernel_breakdown("resnet", prof, top=14)
     groups = resnet_kernel_groups(by_name)
     rec.update({"traced_step_wall_ms": wall_ms, "device_busy_ms": busy,
                 "traced_device_ms": total,
                 "device_idle_share": 1.0 - busy / wall_ms,
                 "kernel_names": len(by_name), "device_ms_by_group": groups,
-                "share_by_group": {g: ms / total for g, ms in groups.items()},
+                "share_by_group": {g: _share(ms, total)
+                                   for g, ms in groups.items()},
                 "fp32_checks": checks})
     log("resnet: %s" % json.dumps(rec))
     del step, net, x, y
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 10. the Gluon eager training path: Parameter, Trainer, the optimizers
+# ---------------------------------------------------------------------------
+
+EAGER_BATCH, EAGER_WARM, EAGER_TIMED = 64, 3, 10
+EAGER_LR, EAGER_MOMENTUM = 0.1, 0.9
+EAGER_BERT_WARM, EAGER_BERT_TIMED = 2, 5
+# (name, optimizer parameters) of the on-card optimizer checks
+EAGER_OPTIMIZERS = [
+    ("sgd", {"learning_rate": 0.1}),
+    ("sgd", {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+             "clip_gradient": 0.5}),
+    ("nag", {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}),
+    ("adam", {"learning_rate": 1e-3, "wd": 1e-4}),
+    ("adamw", {"learning_rate": 1e-3, "wd": 1e-2}),
+    ("lamb", {"learning_rate": 1e-3, "wd": 1e-2}),
+]
+# BERT-base-like leaves: a projection, a bias, a conv filter bank
+EAGER_OPT_SHAPES = [(768, 768), (3072,), (64, 3, 7, 7)]
+
+
+def eager_resnet(peaks):
+    """(a) ``resnet18_v1`` (1000 classes, 224 x 224, ``Xavier`` from the
+    seed) as ``bench.py --eager`` runs it: fp32, batch 64, ``gluon.Trainer``
+    (SGD lr 0.1, momentum 0.9), ``SoftmaxCrossEntropyLoss`` and
+    ``metric.Accuracy``, each step copying its host batch to the card.
+    First one ``Trainer.step`` against one ``TrainStep`` step from the same
+    parameters and batch under ``cudnn.deterministic``: the batch-mean
+    loss within 1e-6 relative and every trainable parameter within 1e-6
+    relative in L2 (BatchNorm's running statistics left out: only the
+    eager loop writes them).  Then 3 warm and 10 timed steps; returns the
+    record and the kernel launches of the timed path (none of K1-K4)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, initializer, nd
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet18_v1
+    from mxnet_tpu_torch.ops import _kernels
+    from mxnet_tpu_torch.parallel import TrainStep
+    net = resnet18_v1(classes=RESNET_CLASSES)
+    net.initialize(initializer.Xavier(), seed=SEED)
+    net.hybridize()
+    params = net.collect_params()
+    trainer = gluon.Trainer(params, "sgd", {"learning_rate": EAGER_LR,
+                                            "momentum": EAGER_MOMENTUM})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    metric = mx.metric.Accuracy()
+    x_np, y_np = resnet_batch_host(EAGER_BATCH)
+    y_np = y_np.astype(np.float32)              # the bench's label dtype
+
+    def step(xb=None, yb=None):
+        if xb is None:          # the bench's stream: a host batch a step
+            xb = nd.array(x_np, ctx=mx.gpu(0))
+            yb = nd.array(y_np, ctx=mx.gpu(0))
+        with autograd.record():
+            out = net(xb)
+            loss = loss_fn(out, yb)
+        loss.backward()
+        trainer.step(EAGER_BATCH)
+        metric.update([yb], [out])
+        return loss
+
+    # the Trainer step against a TrainStep step, same start and batch
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = TrainStep(net, resnet_loss, learning_rate=EAGER_LR,
+                        momentum=EAGER_MOMENTUM)
+        ref_loss = float(ref(torch.from_numpy(x_np).cuda(),
+                             torch.from_numpy(y_np).cuda().long()))
+        loss = float(step().mean().asscalar())
+    finally:
+        torch.backends.cudnn.deterministic = False
+    worst, worst_at, bitwise, n_checked = 0.0, None, True, 0
+    for name, p in params.items():
+        if p.grad_req == "null":
+            continue
+        got, want = p.data().data.detach(), ref.params[name]
+        n_checked += 1
+        bitwise = bitwise and torch.equal(got, want)
+        rel = float((got.double() - want.double()).norm()) / \
+            (float(want.double().norm()) + 1e-30)
+        if not rel <= worst:
+            worst, worst_at = rel, name
+    del ref
+    check = {"loss_trainer": loss, "loss_train_step": ref_loss,
+             "loss_rel": abs(loss - ref_loss) / abs(ref_loss),
+             "params_checked": n_checked, "worst_rel_l2": worst,
+             "worst_at": worst_at, "bitwise": bitwise}
+    log("eager: resnet18 Trainer step vs TrainStep step %s (tol 1e-6)"
+        % json.dumps(check))
+    if not check["loss_rel"] <= 1e-6 or not worst <= 1e-6:
+        raise RuntimeError("eager: the Trainer step is off TrainStep's: %s"
+                           % check)
+
+    # --- the eager ResNet-18 main path, counted ---
+    _kernels.reset_launches()
+    losses = [step() for _ in range(EAGER_WARM)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(EAGER_TIMED)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _kernels.launch_counts()
+    # --- end of the counted main path ---
+    losses = [float(v.mean().asscalar()) for v in losses]
+    if not all(np.isfinite(losses)):
+        raise RuntimeError("eager resnet18: losses %s are not all finite"
+                           % losses)
+    if any(launches.values()):
+        raise RuntimeError("eager resnet18: the path launched %s; none of "
+                           "K1-K4 is on it" % launches)
+    name, acc = metric.get()
+    rec = {"batch": EAGER_BATCH, "image": RESNET_IMAGE, "dtype": "float32",
+           "images_per_s": EAGER_BATCH * EAGER_TIMED / dt,
+           "step_ms": dt / EAGER_TIMED * 1e3, "losses": losses,
+           "metric": [name, acc],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    # the same steps with the batch already on the card: what the
+    # synchronous host copy costs the step
+    xb, yb = nd.array(x_np, ctx=mx.gpu(0)), nd.array(y_np, ctx=mx.gpu(0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(EAGER_TIMED):
+        step(xb, yb)
+    torch.cuda.synchronize()
+    rec["resident_batch_step_ms"] = \
+        (time.perf_counter() - t0) / EAGER_TIMED * 1e3
+
+    # one traced step (idle share, kernel groups), then the optimizer's
+    # apply alone: its kernels and device time
+    prof, wall_ms = profiled(step)
+    total, busy, by_name = log_kernel_breakdown("eager", prof, top=12)
+    groups = resnet_kernel_groups(by_name)
+    with autograd.record():
+        loss = loss_fn(net(nd.array(x_np, ctx=mx.gpu(0))),
+                       nd.array(y_np, ctx=mx.gpu(0)))
+    loss.backward()
+    torch.cuda.synchronize()
+    prof, apply_wall_ms = profiled(lambda: trainer.step(EAGER_BATCH),
+                                   tries=1)
+    apply_total, _, apply_names = log_kernel_breakdown("eager: apply", prof,
+                                                       top=4)
+    apply_host = []                 # the apply alone, untraced
+    for _ in range(5):
+        t0 = time.perf_counter()
+        trainer.step(EAGER_BATCH)
+        torch.cuda.synchronize()
+        apply_host.append((time.perf_counter() - t0) * 1e3)
+    rec.update({"traced_step_wall_ms": wall_ms, "device_busy_ms": busy,
+                "traced_device_ms": total,
+                "device_idle_share": 1.0 - busy / wall_ms,
+                "device_ms_by_group": groups,
+                "share_by_group": {g: _share(ms, total)
+                                   for g, ms in groups.items()},
+                "optimizer_apply": {
+                    "trainable_params": n_checked,
+                    "device_kernels": sum(n for _, n in
+                                          apply_names.values()),
+                    "device_ms": apply_total, "traced_wall_ms": apply_wall_ms,
+                    "wall_ms": sorted(apply_host)[2]},
+                "step_check": check})
+    log("eager: resnet18 %s" % json.dumps(rec))
+    del trainer, net, params
+    return rec, launches
+
+
+def eager_bert(train_step_ms):
+    """(b) BERT-base with the MLM decoder (as the train phase: bf16, batch
+    16, T = 512, dropout 0) trained through ``nd``/``autograd.record()``/
+    ``backward()`` and ``gluon.Trainer.step(1)`` (SGD lr 1e-3, momentum
+    0.9; the loss is the batch mean): 2 warm and 5 timed steps, each loss
+    within 1e-2 relative of ``TrainStep``'s trajectory from the same
+    parameters and batch, K1, K2 and K3 launched 12 times a step; ms per
+    step beside ``TrainStep``'s, and one traced step's device idle
+    share."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, initializer, nd
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.bert import bert_12_768_12
+    from mxnet_tpu_torch.ops import _kernels
+    from mxnet_tpu_torch.parallel import TrainStep
+    ce = SoftmaxCrossEntropyLoss()
+    net = bert_12_768_12(vocab_size=VOCAB, max_length=SEQ_LEN, dropout=0.0,
+                         use_classifier=False)
+    net.initialize(initializer.Normal(0.02), seed=SEED)
+    net.cast("bfloat16")
+    n_layers = len(net.encoder.transformer_cells)
+    host = train_batch_host(TRAIN_BATCH)
+    n_steps = EAGER_BERT_WARM + EAGER_BERT_TIMED
+    ref = TrainStep(net, lambda out, lab: ce(out[-1].float(), lab).mean(),
+                    learning_rate=TRAIN_LR, momentum=TRAIN_MOMENTUM)
+    ref_losses = [float(ref(*host)) for _ in range(n_steps)]
+    del ref
+    torch.cuda.empty_cache()
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": TRAIN_LR,
+                             "momentum": TRAIN_MOMENTUM})
+    tok, seg, lab = (nd.array(a, ctx=mx.gpu(0)) for a in host)
+
+    def step():
+        with autograd.record():
+            loss = ce(net(tok, seg)[-1].astype("float32"), lab).mean()
+        loss.backward()
+        trainer.step(1)
+        return loss
+
+    # --- the eager BERT main path, counted ---
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    losses = [step() for _ in range(EAGER_BERT_WARM)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(EAGER_BERT_TIMED)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _kernels.launch_counts()
+    # --- end of the counted main path ---
+    launches = {k: counts[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                       "flash_bwd_dkv")}
+    losses = [float(v.asscalar()) for v in losses]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    prof, wall_ms = profiled(step)
+    busy = device_busy_ms(prof)
+    rec = {"batch": TRAIN_BATCH, "seq": SEQ_LEN, "dtype": "bfloat16",
+           "steps": n_steps, "step_ms": dt / EAGER_BERT_TIMED * 1e3,
+           "train_step_ms": train_step_ms, "losses": losses,
+           "train_step_losses": ref_losses, "max_rel_gap": max(gaps),
+           "launches": launches, "traced_step_wall_ms": wall_ms,
+           "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall_ms}
+    log("eager: bert %s" % json.dumps(rec))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError("eager bert: losses %s are not finite or do not "
+                           "fall" % losses)
+    if max(gaps) > 1e-2:
+        raise RuntimeError("eager bert: loss trajectory %.3g from "
+                           "TrainStep's" % max(gaps))
+    if launches != {k: n_layers * n_steps for k in launches}:
+        raise RuntimeError("eager bert: launched %s, expected %d of each "
+                           "kernel (%d layers x %d steps)"
+                           % (launches, n_layers * n_steps, n_layers,
+                              n_steps))
+    del trainer, net
+    return rec, launches
+
+
+def eager_optimizers():
+    """(c) Each optimizer of :data:`EAGER_OPTIMIZERS`, in fp32 and in bf16
+    with ``multi_precision``, fused (the default ``aggregate_num``) and one
+    parameter at a time (``aggregate_num=0``): one ``Updater`` step from one
+    numpy state (weights, gradients, every state buffer set to |N(0,
+    0.01)|) on the card and on the CPU.  fp32 weights, states and masters
+    within 1e-6 + 1e-5 * |CPU|; a bf16 weight against the CPU's float32
+    master by :func:`compare`'s bf16 rule at 1e-5."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd, optimizer
+    rng = np.random.RandomState(SEED + 10)
+    host_w = [rng.randn(*s).astype(np.float32) * 0.1
+              for s in EAGER_OPT_SHAPES]
+    host_g = [rng.randn(*s).astype(np.float32) for s in EAGER_OPT_SHAPES]
+    host_s = [np.abs(rng.randn(*s)).astype(np.float32) * 0.01
+              for s in EAGER_OPT_SHAPES]
+
+    def host(tensors):
+        return [t.data.detach().float().cpu() for t in tensors]
+
+    def run(ctx, name, kw, dtype, aggregate):
+        opt = optimizer.create(name, rescale_grad=1.0 / 64,
+                               multi_precision=dtype == "bfloat16",
+                               **dict(kw, **({} if aggregate
+                                             else {"aggregate_num": 0})))
+        upd = optimizer.get_updater(opt)
+        ws = [nd.array(w, ctx=ctx, dtype=dtype) for w in host_w]
+        gs = [nd.array(g, ctx=ctx, dtype=dtype) for g in host_g]
+        inner, masters = [], []
+        for i, w in enumerate(ws):
+            state = opt.create_state_multi_precision(i, w)
+            mp = opt._is_mp_state(w, state)
+            for leaf in _state_leaves(state[0] if mp else state):
+                leaf[:] = host_s[i]
+                inner.append(leaf)
+            if mp:
+                masters.append(state[1])
+            upd.states[i] = state
+        upd(list(range(len(ws))), gs, ws)
+        torch.cuda.synchronize()
+        return host(ws), host(inner), host(masters)
+
+    rows = []
+    for name, kw in EAGER_OPTIMIZERS:
+        for dtype in ("float32", "bfloat16"):
+            for aggregate in (True, False):
+                card = run(mx.gpu(0), name, kw, dtype, aggregate)
+                cpu = run(mx.cpu(), name, kw, dtype, aggregate)
+                exact = card[1] + card[2] + \
+                    (card[0] if dtype == "float32" else [])
+                want = cpu[1] + cpu[2] + (cpu[0] if dtype == "float32"
+                                          else [])
+                worst, ok = 0.0, len(exact) == len(want)
+                for a, b in zip(exact, want):
+                    err = (a - b).abs()
+                    worst = max(worst, float(err.max()))
+                    ok = ok and bool((err <= 1e-6 + 1e-5 * b.abs()).all())
+                if dtype == "bfloat16":
+                    for a, m in zip(card[0], cpu[2]):
+                        err, good = compare(a.bfloat16(), m, 1e-5)
+                        worst = max(worst, err)
+                        ok = ok and good
+                row = {"optimizer": name, "params": kw, "dtype": dtype,
+                       "fused": aggregate, "max_abs_err": worst, "ok": ok}
+                rows.append(row)
+                log("eager: optimizer %s" % json.dumps(row))
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise RuntimeError("eager: optimizers off their CPU step: %s" % bad)
+    return rows
+
+
+def _state_leaves(state):
+    if state is None:
+        return []
+    if isinstance(state, (tuple, list)):
+        return [a for s in state for a in _state_leaves(s)]
+    return [state]
+
+
+def phase_eager(peaks, train_step_ms):
+    """The Gluon eager training path: (a) :func:`eager_resnet`, (b)
+    :func:`eager_bert`, (c) :func:`eager_optimizers`; returns the kernel
+    launches of the eager main paths (a) and (b)."""
+    resnet, resnet_launches = eager_resnet(peaks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bert, bert_launches = eager_bert(train_step_ms)
+    gc.collect()
+    torch.cuda.empty_cache()
+    eager_optimizers()
+    launches = dict(resnet_launches)
+    for k, n in bert_launches.items():
+        launches[k] = launches.get(k, 0) + n
     return launches
 
 
@@ -2177,9 +2551,13 @@ def main():
     resnet_launches = phase_resnet(peaks)
     gc.collect()
     torch.cuda.empty_cache()
+    eager_launches = phase_eager(peaks, train_step_ms)
+    gc.collect()
+    torch.cuda.empty_cache()
     by_path = {k: {"serve": serve_launches[k], "train": train_launches[k],
                    "imperative": imperative_launches[k],
-                   "resnet": resnet_launches[k]}
+                   "resnet": resnet_launches[k],
+                   "eager": eager_launches[k]}
                for k in imperative_launches}
     fp32, bf16 = torch.float32, torch.bfloat16
     kernels = [
@@ -2198,7 +2576,8 @@ def main():
                     "mxnet_tpu/tpu_kernel.py:96",
                     {"user_kernels": user_launches[body],
                      "resnet": resnet_launches.get("tpu_kernel:" + body,
-                                                   0)},
+                                                   0),
+                     "eager": eager_launches.get("tpu_kernel:" + body, 0)},
                     user[(body, fp32)], user[(body, bf16)],
                     {"default_grid_": user[(body + ":default_grid", fp32)],
                      "bf16_default_grid_": user[(body + ":default_grid",

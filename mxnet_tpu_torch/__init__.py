@@ -14,13 +14,19 @@ flash-attention backward as hand-written CUDA kernels
 (``csrc/flash_bwd.cu``).  The third is the imperative front end: ``nd``
 (NDArray and the op registry's functions), ``autograd`` over torch
 autograd, gluon blocks called on NDArrays, and ``tpu_kernel``, user CUDA
-kernels built with ``nvcc`` and launched or registered as ops.
+kernels built with ``nvcc`` and launched or registered as ops.  Later
+slices: ResNet training (convolution, BatchNorm, pooling, the vision
+zoo) and the Gluon eager training loop (``gluon.Parameter`` with deferred
+init, ``gluon.Trainer``, ``optimizer``, ``lr_scheduler``, ``metric``).
 """
 from .base import MXNetError, get_env
 from .device import Context, cpu, gpu, current_context, default_device
 from . import initializer
 from . import initializer as init
 from . import ops
+from . import lr_scheduler
+from . import optimizer
+from . import metric
 from . import autograd
 from . import ndarray
 from . import ndarray as nd
@@ -31,5 +37,5 @@ from . import tpu_kernel
 
 __all__ = ["MXNetError", "get_env", "Context", "cpu", "gpu",
            "current_context", "default_device", "initializer", "init",
-           "ops", "autograd", "ndarray", "nd", "gluon", "serve", "parallel",
-           "tpu_kernel"]
+           "ops", "lr_scheduler", "optimizer", "metric", "autograd",
+           "ndarray", "nd", "gluon", "serve", "parallel", "tpu_kernel"]

@@ -7,18 +7,23 @@ PyTorch), so the conversion is a copy by name.  The input is what the JAX
 block exports, ``{name: p.data().asnumpy() for name, p in
 net.collect_params().items()}``; this module needs nothing of the JAX
 package to read it.  :func:`params_to_numpy` is the way back, the same
-``{name: ndarray}`` form.
+``{name: ndarray}`` form.  A port net built with deferred sizes takes them
+from the arrays.  :func:`trainer_states_from_mxnet_tpu` carries a
+reference ``gluon.Trainer``'s optimizer state (momenta, Adam moments,
+float32 masters, update counts) into a port ``Trainer``, so both can go
+on from the same point of a trajectory.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Union
+from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
 from .device import DeviceLike
 
-__all__ = ["params_from_mxnet_tpu", "params_to_numpy"]
+__all__ = ["params_from_mxnet_tpu", "params_to_numpy",
+           "trainer_states_from_mxnet_tpu"]
 
 
 def params_from_mxnet_tpu(named: Mapping[str, np.ndarray],
@@ -54,3 +59,47 @@ def params_to_numpy(net_or_params: Union[torch.nn.Module,
             t = t.float()
         out[str(name)] = t.cpu().numpy().copy()
     return out
+
+
+def _leaves(state):
+    if state is None:
+        return []
+    if isinstance(state, (tuple, list)):
+        return [a for s in state for a in _leaves(s)]
+    return [state]
+
+
+def trainer_states_from_mxnet_tpu(exported: Mapping[str, Any],
+                                  trainer) -> None:
+    """Load a reference trainer's optimizer state into a port ``Trainer``.
+
+    ``exported`` is what the reference's ``Trainer`` holds, as numpy:
+    ``{"states": {index: state}, "index_update_count": {index: count},
+    "num_update": n}``, where a state is None, an array, or a tuple of
+    them nested as the reference's ``Updater.states`` nest them (a
+    multi-precision state is ``(inner state, float32 master)``; bfloat16
+    arrays may come as float32).  Each state is made by the port's
+    optimizer for the parameter at that index and filled from the
+    arrays, and the update counts go to the counts of the parameters'
+    device."""
+    updater = trainer._updaters[0]
+    optimizer = updater.optimizer
+    for index, values in exported["states"].items():
+        weight = trainer._params[index].data()
+        state = optimizer.create_state_multi_precision(index, weight)
+        dst, src = _leaves(state), _leaves(values)
+        if len(dst) != len(src):
+            raise ValueError("state %d: %d arrays, the port's optimizer "
+                             "keeps %d" % (index, len(src), len(dst)))
+        with torch.no_grad():
+            for d, a in zip(dst, src):
+                d.data.copy_(torch.from_numpy(
+                    np.array(a, dtype=np.float32)).reshape(d.shape))
+        updater.states[index] = state
+        updater.states_synced[index] = True
+    ctx = trainer._params[0].list_ctx()[0]
+    optimizer._set_current_context((ctx.device_type, ctx.device_id))
+    optimizer._index_update_count.clear()
+    optimizer._index_update_count.update(
+        {int(k): int(v) for k, v in exported["index_update_count"].items()})
+    optimizer.num_update = int(exported["num_update"])

@@ -2,13 +2,22 @@
 
 Counterpart of ``mxnet_tpu/gluon/block.py``.  What differs, and why:
 
-* Shapes are given at construction; there is no deferred init.  A block is
-  built with its parameters on PyTorch's ``meta`` device (shape and dtype,
-  no memory) and :meth:`Block.initialize` or :meth:`Block.load_dict`
-  materialises them on a device, the GPU unless the caller says otherwise.
+* A block is built with its parameters on PyTorch's ``meta`` device
+  (shape and dtype, no memory).  :meth:`Block.initialize` or
+  :meth:`Block.load_dict` materialises them on a device, the GPU unless
+  the caller says otherwise.  A size not given at construction (a
+  layer's ``in_units`` or ``in_channels`` of 0) is inferred at the
+  block's first call, as the reference's deferred init does: the layer's
+  ``infer_shape`` sets it from the input, then the parameter is
+  materialised on the device ``initialize`` recorded and filled by the
+  recorded initializer, outside any autograd recording.
 * Parameter names are the gluon structural names (``collect_params()``
   keys such as ``encoder.transformer_cells.0.attention.proj.weight``),
   which are the ``torch.nn.Module`` state-dict names as well.
+  ``collect_params()`` gives gluon :class:`~.parameter.Parameter` handles
+  (``data()``, ``grad()``, ``grad_req``, ``lr_mult``, ``wd_mult``) in a
+  :class:`~.parameter.ParameterDict`; the port's own code reads the
+  tensors through ``named_parameters()``.
 * A block starts in inference mode (``training`` False), as gluon runs a
   forward outside ``autograd.record`` in predict mode; ``train()`` switches
   dropout on.
@@ -30,17 +39,17 @@ Counterpart of ``mxnet_tpu/gluon/block.py``.  What differs, and why:
 """
 from __future__ import annotations
 
-import re
 from collections import OrderedDict
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from typing import Callable, Mapping, Optional, Tuple
 
 import torch
 
 from .. import autograd
-from .. import initializer as _init
 from ..base import MXNetError
 from ..device import DeviceLike, resolve
 from ..ndarray.ndarray import NDArray
+from .parameter import (DeferredInitializationError, ParameterDict,
+                        collect, meta_parameter, param_handle, param_slots)
 
 __all__ = ["Block", "HybridBlock", "to_dtype", "meta_parameter",
            "functionalize"]
@@ -58,12 +67,6 @@ def to_dtype(dtype) -> torch.dtype:
     raise ValueError("unsupported dtype %r" % (dtype,))
 
 
-def meta_parameter(shape, dtype="float32") -> torch.nn.Parameter:
-    """A parameter with shape and dtype but no storage yet."""
-    return torch.nn.Parameter(torch.empty(tuple(shape), dtype=to_dtype(dtype),
-                                          device="meta"))
-
-
 class Block(torch.nn.Module):
     """Base building block (gluon ``Block``)."""
 
@@ -79,39 +82,90 @@ class Block(torch.nn.Module):
         self.add_module(name if name is not None else str(len(self._modules)),
                         block)
 
-    def collect_params(self, select: Optional[str] = None
-                       ) -> "OrderedDict[str, torch.nn.Parameter]":
-        """Every parameter of the tree by structural name; ``select`` is a
-        regular expression the name must match."""
-        pattern = re.compile(select) if select else None
-        return OrderedDict((n, p) for n, p in self.named_parameters()
-                           if pattern is None or pattern.search(n))
+    def collect_params(self, select: Optional[str] = None) -> ParameterDict:
+        """Every parameter of the tree by structural name, as gluon
+        :class:`~.parameter.Parameter` handles; ``select`` is a regular
+        expression the name must match."""
+        return collect(self, select)
 
-    def initialize(self, init=None, device: DeviceLike = None,
+    def initialize(self, init=None, ctx: DeviceLike = None,
+                   verbose: bool = False, force_reinit: bool = False, *,
+                   device: DeviceLike = None,
                    generator: Optional[torch.Generator] = None,
                    seed: int = 0) -> "Block":
-        """Materialise every parameter on ``device`` (default: the GPU) and
-        fill it with ``init`` (default :class:`~..initializer.Uniform`),
+        """Materialise every parameter on ``device`` (or ``ctx``; default:
+        the GPU) and fill it with ``init`` (default
+        :class:`~..initializer.Uniform`), in ``named_parameters()`` order,
         drawing from ``generator`` or, when none is given, from a new
-        generator on that device seeded with ``seed``."""
-        dev = resolve(device)
-        init = _init.create(init)
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(int(seed))
-        self.to_empty(device=dev)
-        for name, p in self.named_parameters():
-            init(name, p.data, generator)
+        generator on that device seeded with ``seed``.  A parameter already
+        initialised keeps its value unless ``force_reinit``; one whose size
+        is not known yet is materialised at the block's first call, from
+        the same generator."""
+        if ctx is not None and device is not None:
+            raise ValueError("initialize: pass ctx or device, not both")
+        self.collect_params().initialize(
+            init, device=ctx if device is None else device,
+            force_reinit=force_reinit, generator=generator, seed=seed)
         return self
 
     def load_dict(self, params: Mapping[str, torch.Tensor],
                   device: DeviceLike = None) -> "Block":
         """Materialise the parameters on ``device`` (default: the GPU) and
-        copy ``params`` in by structural name; a missing or extra name
-        raises (``strict=True``)."""
+        copy ``params`` in by structural name, in each parameter's dtype; a
+        missing or extra name, or a size that disagrees, raises.  A
+        parameter whose size is not known yet takes it from ``params``."""
         dev = resolve(device)
-        self.to_empty(device=dev)
-        self.load_state_dict(dict(params), strict=True)
+        slots = list(param_slots(self))
+        names = [n for n, _, _ in slots]
+        missing = [n for n in names if n not in params]
+        extra = [k for k in params if k not in set(names)]
+        if missing or extra:
+            raise RuntimeError(
+                "Error(s) in loading parameters for %s: missing %s, "
+                "unexpected %s" % (type(self).__name__,
+                                   ", ".join('"%s"' % n for n in missing),
+                                   ", ".join('"%s"' % n for n in extra)))
+        with torch.no_grad():
+            for name, owner, attr in slots:
+                value = torch.as_tensor(params[name])
+                p = param_handle(owner, attr)
+                old = p._tensor()
+                if old.is_meta:
+                    p.shape = value.shape
+                elif tuple(old.shape) != tuple(value.shape):
+                    raise RuntimeError(
+                        "size mismatch for %s: the parameter is %s, the "
+                        "value %s" % (name, tuple(old.shape),
+                                      tuple(value.shape)))
+                p._replace(torch.empty(tuple(value.shape), dtype=old.dtype,
+                                       device=dev)).copy_(value)
+                p._set_pending(None)
         return self
+
+    def zero_grad(self, set_to_none: bool = False) -> None:
+        """Zero every parameter's gradient in place (gluon's
+        ``zero_grad``, not ``torch.nn.Module``'s)."""
+        self.collect_params().zero_grad()
+
+    def setattr(self, name: str, value) -> None:
+        """Set attribute ``name`` of every parameter (``grad_req``,
+        ``lr_mult``, ...)."""
+        self.collect_params().setattr(name, value)
+
+    def infer_shape(self, *args) -> None:
+        """Set the sizes of this block's own deferred parameters from its
+        inputs; layers with deferred sizes override this."""
+        raise DeferredInitializationError(
+            "%s has parameters with unknown shape and does not implement "
+            "infer_shape" % type(self).__name__)
+
+    def _finish_deferred(self, args) -> None:
+        """Infer this block's pending parameters' shapes from ``args`` and
+        materialise them as ``initialize`` recorded, unrecorded."""
+        self.infer_shape(*args)
+        with torch.no_grad():
+            for attr in [a for a in self._parameters if a in self._pending]:
+                param_handle(self, attr)._finish_deferred_init()
 
     def cast(self, dtype) -> "Block":
         """Cast every floating-point parameter to ``dtype``."""
@@ -121,6 +175,9 @@ class Block(torch.nn.Module):
         """No-op: PyTorch runs eagerly; CUDA graphs are a later change."""
 
     def __call__(self, *args, **kwargs):
+        if self.__dict__.get("_pending"):
+            self._finish_deferred(tuple(a.data if isinstance(a, NDArray)
+                                        else a for a in args))
         if not any(isinstance(a, NDArray)
                    for a in args + tuple(kwargs.values())):
             return super().__call__(*args, **kwargs)
@@ -166,7 +223,7 @@ def functionalize(block: torch.nn.Module
     (``torch.func.functional_call``; every name must be given) and in
     training or inference mode as asked, restoring the block's own modes
     afterwards.  Parameters must be materialised (``initialize`` or
-    ``load_dict``) first."""
+    ``load_dict``, and a first call for deferred sizes) first."""
     named = list(block.named_parameters())
     unset = [n for n, p in named if p.is_meta]
     if unset:

@@ -1,23 +1,27 @@
 """Basic gluon layers as ``torch.nn.Module``s.
 
-Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``, with the shapes
-given at construction (``in_units`` / ``in_channels`` are required) and
-the gluon parameter names (``weight``, ``bias``, ``gamma``, ``beta``,
-``running_mean``, ``running_var``).  A parameter whose gluon ``grad_req``
-is 'null' (BatchNorm's running statistics; gamma without ``scale``, beta
-without ``center``) has ``requires_grad`` False, so ``backward`` on
-NDArrays writes it no gradient; ``TrainStep`` still updates it by its
-gradient, as the reference's step does.
+Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``, with the gluon
+parameter names (``weight``, ``bias``, ``gamma``, ``beta``,
+``running_mean``, ``running_var``).  ``in_units`` / ``in_channels`` of 0
+(the default, as in the reference) leave the size to the first forward:
+the layer's ``infer_shape`` reads it from the input (``Block.__call__``).
+A parameter whose gluon ``grad_req`` is 'null' (BatchNorm's running
+statistics; gamma without ``scale``, beta without ``center``) has
+``requires_grad`` False, so ``backward`` on NDArrays writes it no
+gradient and ``gluon.Trainer`` skips it; ``TrainStep`` still updates it
+by its gradient, as the reference's step does.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 from ...base import MXNetError
 from ...ops import nn as _ops
-from ..block import HybridBlock, meta_parameter
+from ..block import HybridBlock
+from ..parameter import meta_parameter, param_handle
 
 __all__ = ["HybridSequential", "Dense", "Dropout", "BatchNorm",
            "SyncBatchNorm", "LayerNorm", "Embedding", "GELU", "Activation",
@@ -51,17 +55,19 @@ class HybridSequential(HybridBlock):
 class Dense(HybridBlock):
     """Fully connected layer; weight (units, in_units) as in gluon."""
 
-    def __init__(self, units: int, in_units: int, activation=None,
-                 use_bias: bool = True, flatten: bool = True,
-                 dtype="float32", **kwargs):
+    def __init__(self, units: int, activation=None, use_bias: bool = True,
+                 flatten: bool = True, dtype="float32", in_units: int = 0,
+                 **kwargs):
         super().__init__(**kwargs)
-        if in_units <= 0:
-            raise ValueError("Dense needs in_units > 0 (no deferred init)")
         self._units = units
         self._flatten = flatten
         self._act = activation
         self.weight = meta_parameter((units, in_units), dtype)
         self.bias = meta_parameter((units,), dtype) if use_bias else None
+
+    def infer_shape(self, x, *args):
+        in_units = math.prod(x.shape[1:]) if self._flatten else x.shape[-1]
+        param_handle(self, "weight").shape = (self._units, in_units)
 
     def forward(self, x):
         out = _ops.fully_connected(x, self.weight, self.bias,
@@ -140,22 +146,21 @@ class BatchNorm(HybridBlock):
                  scale: bool = True, use_global_stats: bool = False,
                  in_channels: int = 0, **kwargs):
         super().__init__(**kwargs)
-        if in_channels <= 0:
-            raise ValueError("BatchNorm needs in_channels > 0 (no deferred "
-                             "init)")
         self._axis = axis
         self._momentum = momentum
         self._eps = epsilon
         self._scale = scale
         self._use_global_stats = use_global_stats
-        self.gamma = meta_parameter((in_channels,))
-        self.beta = meta_parameter((in_channels,))
-        self.running_mean = meta_parameter((in_channels,))
-        self.running_var = meta_parameter((in_channels,))
-        self.gamma.requires_grad_(scale)
-        self.beta.requires_grad_(center)
-        self.running_mean.requires_grad_(False)
-        self.running_var.requires_grad_(False)
+        self.gamma = meta_parameter((in_channels,), requires_grad=scale)
+        self.beta = meta_parameter((in_channels,), requires_grad=center)
+        self.running_mean = meta_parameter((in_channels,),
+                                           requires_grad=False)
+        self.running_var = meta_parameter((in_channels,),
+                                          requires_grad=False)
+
+    def infer_shape(self, x, *args):
+        for attr in ("gamma", "beta", "running_mean", "running_var"):
+            param_handle(self, attr).shape = (x.shape[self._axis],)
 
     def forward(self, x):
         batch = self.training and not self._use_global_stats
@@ -186,18 +191,21 @@ class SyncBatchNorm(BatchNorm):
 
 
 class LayerNorm(HybridBlock):
-    """Layer normalisation over ``axis``; parameters ``gamma``/``beta``."""
+    """Layer normalisation over ``axis``; parameters ``gamma``/``beta``
+    (``grad_req`` 'null' without ``scale`` / ``center``)."""
 
-    def __init__(self, in_channels: int, axis: int = -1,
-                 epsilon: float = 1e-5, **kwargs):
+    def __init__(self, axis: int = -1, epsilon: float = 1e-5,
+                 center: bool = True, scale: bool = True,
+                 in_channels: int = 0, **kwargs):
         super().__init__(**kwargs)
-        if in_channels <= 0:
-            raise ValueError("LayerNorm needs in_channels > 0 (no deferred "
-                             "init)")
         self._axis = axis
         self._eps = epsilon
-        self.gamma = meta_parameter((in_channels,))
-        self.beta = meta_parameter((in_channels,))
+        self.gamma = meta_parameter((in_channels,), requires_grad=scale)
+        self.beta = meta_parameter((in_channels,), requires_grad=center)
+
+    def infer_shape(self, x, *args):
+        for attr in ("gamma", "beta"):
+            param_handle(self, attr).shape = (x.shape[self._axis],)
 
     def forward(self, x):
         return _ops.layer_norm(x, self.gamma, self.beta, axis=self._axis,

@@ -2,18 +2,19 @@
 
 Counterpart of ``mxnet_tpu/gluon/nn/conv_layers.py`` (``_Conv``,
 Conv1D-3D, Conv1D-3DTranspose, ``_Pooling``, Max/Avg/GlobalMax/GlobalAvg
-Pool 1D-3D, ReflectionPad2D), with ``in_channels`` required (no deferred
-init) and the gluon parameter names ``weight`` (OIHW; IOHW for the
-transposes) and ``bias``.  Layouts are channel-first (NCW, NCHW, NCDHW),
-the reference's; the convolutions and pools are cuDNN's through
-:mod:`...ops.nn`.
+Pool 1D-3D, ReflectionPad2D), with the gluon parameter names ``weight``
+(OIHW; IOHW for the transposes) and ``bias``; ``in_channels`` of 0 (the
+default) is inferred from the first input (``infer_shape``).  Layouts
+are channel-first (NCW, NCHW, NCDHW), the reference's; the convolutions
+and pools are cuDNN's through :mod:`...ops.nn`.
 """
 from __future__ import annotations
 
 import torch.nn.functional as F
 
 from ...ops import nn as _ops
-from ..block import HybridBlock, meta_parameter
+from ..block import HybridBlock
+from ..parameter import meta_parameter, param_handle
 
 __all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose", "Conv2DTranspose",
            "Conv3DTranspose", "MaxPool1D", "MaxPool2D", "MaxPool3D",
@@ -41,9 +42,6 @@ class _Conv(HybridBlock):
                  groups, layout, in_channels=0, activation=None,
                  use_bias=True, dtype="float32", **kwargs):
         super().__init__(**kwargs)
-        if in_channels <= 0:
-            raise ValueError("%s needs in_channels > 0 (no deferred init)"
-                             % type(self).__name__)
         if layout not in _LAYOUTS:
             raise ValueError("layout %r: only channel-first layouts %s"
                              % (layout, _LAYOUTS))
@@ -62,6 +60,10 @@ class _Conv(HybridBlock):
     def _weight_shape(self, in_channels):
         # OIHW: (num_filter, in_channels / groups, *kernel)
         return (self._channels, in_channels // self._groups) + self._kernel
+
+    def infer_shape(self, x, *args):
+        self._in_channels = x.shape[1]
+        param_handle(self, "weight").shape = self._weight_shape(x.shape[1])
 
     def _op_args(self):
         return {}

@@ -1,0 +1,525 @@
+"""Gluon ``Parameter``, ``Constant`` and ``ParameterDict``.
+
+Counterpart of ``mxnet_tpu/gluon/parameter.py`` (reference:
+python/mxnet/gluon/parameter.py).  What differs, and why:
+
+* A port block keeps its weights as ``torch.nn.Parameter`` attributes
+  (``block.weight``), the form ``torch.nn.Module``, ``functionalize``,
+  ``TrainStep`` and the serving path read.  A gluon :class:`Parameter`
+  cannot subclass ``torch.nn.Parameter`` (a tensor's ``data`` is an
+  attribute, gluon's ``data()`` a method), so it is a handle to a slot:
+  the owning module and the attribute name.  ``data()``, ``grad()``,
+  ``set_data()`` and ``zero_grad()`` reach the tensor that sits in the
+  slot when they are called, so a handle survives ``initialize``,
+  ``load_dict``, ``cast`` and deferred materialisation replacing it.
+  ``Block.collect_params`` gives one handle per slot and keeps it on the
+  owner, so ``lr_mult``, ``wd_mult`` and ``init`` set on a handle stay.
+* A free ``Parameter('w', shape=...)`` (and :class:`Constant`) owns a
+  one-slot holder module.
+* A slot with an unknown size holds a placeholder on PyTorch's ``meta``
+  device with 0 in each unknown dimension (the reference's convention).
+  ``initialize`` on such a parameter records ``(init, device,
+  generator)`` and the owning block's first call infers the shape and
+  materialises it (``Block.__call__``); until then ``data()`` raises
+  :class:`DeferredInitializationError`.
+* ``data()`` is an ``NDArray`` over the live tensor (shared storage).
+  ``grad()`` reads the tensor's ``.grad`` when called: ``autograd.backward``
+  puts a new tensor there on every ``'write'`` pass.  Initialising a
+  parameter whose ``grad_req`` is not ``'null'`` gives it a zero
+  gradient, as the reference's ``_init_grad`` does; ``grad()`` makes one
+  for a parameter loaded without it (``load_dict``).
+* ``grad_req`` lives on the tensor (its ``grad_req`` attribute and
+  ``requires_grad``), where ``autograd.backward`` reads it.
+* One device per parameter: the reference's per-context copies come with
+  the distributed slice; ``ParameterDict.save``/``load`` wait for
+  ``nd.save``'s file format.
+"""
+from __future__ import annotations
+
+import re
+from collections import OrderedDict
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import initializer as init_mod
+from ..base import MXNetError, dtype_name, torch_dtype
+from ..device import Context, DeviceLike, resolve
+from ..ndarray.ndarray import NDArray
+
+__all__ = ["DeferredInitializationError", "Parameter", "Constant",
+           "ParameterDict", "meta_parameter", "param_handle",
+           "param_slots", "collect"]
+
+_GRAD_REQS = ("write", "add", "null")
+
+
+class DeferredInitializationError(MXNetError):
+    """A parameter was used before its deferred shape was known."""
+
+
+def meta_parameter(shape, dtype="float32",
+                   requires_grad: bool = True) -> torch.nn.Parameter:
+    """A parameter with shape and dtype but no storage yet; a 0 in
+    ``shape`` is a size to infer at the first forward."""
+    return torch.nn.Parameter(
+        torch.empty(tuple(int(d) for d in shape), dtype=torch_dtype(dtype),
+                    device="meta"), requires_grad=requires_grad)
+
+
+def _complete(shape) -> bool:
+    return all(int(d) > 0 for d in shape)
+
+
+def param_slots(module: torch.nn.Module):
+    """``(structural name, owner, attribute)`` of every parameter of
+    ``module``'s tree, in ``named_parameters()`` order (a tensor held by two
+    slots counts once)."""
+    seen = set()
+    for prefix, owner in module.named_modules():
+        for attr, t in owner._parameters.items():
+            if t is None or id(t) in seen:
+                continue
+            seen.add(id(t))
+            yield (prefix + "." + attr if prefix else attr), owner, attr
+
+
+def param_handle(owner: torch.nn.Module, attr: str) -> "Parameter":
+    """The one :class:`Parameter` handle of ``owner``'s slot ``attr``."""
+    handles = owner.__dict__.setdefault("_gluon_params", {})
+    p = handles.get(attr)
+    if p is None:
+        p = Parameter.__new__(Parameter)
+        p._setup(owner, attr, attr, lr_mult=1.0, wd_mult=1.0, init=None,
+                 allow_deferred_init=True)
+        handles[attr] = p
+    return p
+
+
+class _Holder(torch.nn.Module):
+    """The owner of a free parameter's one slot, ``value``."""
+
+
+class Parameter:
+    """A weight, bias or state of a block (reference: gluon.Parameter).
+
+    ``Parameter(name, grad_req, shape, dtype, lr_mult, wd_mult, init,
+    allow_deferred_init, differentiable)`` makes a free parameter; a
+    block's own parameters come from ``Block.collect_params``.  A 0 (or
+    None) in ``shape`` is a size to infer."""
+
+    def __init__(self, name: Optional[str] = None, grad_req: str = "write",
+                 shape=None, dtype="float32", lr_mult: float = 1.0,
+                 wd_mult: float = 1.0, init=None,
+                 allow_deferred_init: bool = False,
+                 differentiable: bool = True, stype: str = "default",
+                 grad_stype: str = "default"):
+        if stype != "default" or grad_stype != "default":
+            raise MXNetError("Parameter: sparse storage is not ported "
+                             "(stype=%r, grad_stype=%r)"
+                             % (stype, grad_stype))
+        if isinstance(shape, int):
+            shape = (shape,)
+        shape = tuple(0 if d is None or int(d) < 0 else int(d)
+                      for d in (shape or ()))
+        if not differentiable:
+            grad_req = "null"
+        holder = _Holder()
+        holder.value = meta_parameter(shape, dtype)
+        self._setup(holder, "value", name or "param", lr_mult=lr_mult,
+                    wd_mult=wd_mult, init=init,
+                    allow_deferred_init=allow_deferred_init)
+        self.grad_req = grad_req
+
+    def _setup(self, owner, attr, name, *, lr_mult, wd_mult, init,
+               allow_deferred_init):
+        self._owner = owner
+        self._attr = attr
+        self._name = name
+        self._structural_name = None
+        self.lr_mult = lr_mult
+        self.wd_mult = wd_mult
+        self.init = init
+        self.allow_deferred_init = allow_deferred_init
+        #: (init, device, generator) recorded by initialize() for a shape
+        #: still unknown
+        self._deferred: Optional[Tuple] = None
+
+    # -- the slot ----------------------------------------------------------
+    def _tensor(self) -> torch.nn.Parameter:
+        return self._owner._parameters[self._attr]
+
+    def _replace(self, new: torch.Tensor) -> torch.nn.Parameter:
+        """Put ``new`` in the slot as a parameter carrying the old one's
+        ``grad_req``; returns it."""
+        req = self.grad_req
+        param = torch.nn.Parameter(new, requires_grad=req != "null")
+        param.grad_req = req
+        setattr(self._owner, self._attr, param)
+        return param
+
+    def _set_pending(self, record) -> None:
+        self._deferred = record
+        pending = self._owner.__dict__.setdefault("_pending", set())
+        if record is None:
+            pending.discard(self._attr)
+        else:
+            pending.add(self._attr)
+
+    # -- identity ----------------------------------------------------------
+    @property
+    def name(self) -> str:
+        return self._structural_name or self._name
+
+    @name.setter
+    def name(self, value):
+        self._name = value
+
+    def __repr__(self):
+        return "Parameter %s (shape=%s, dtype=%s)" % (self.name, self.shape,
+                                                      self.dtype)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self._tensor().shape)
+
+    @shape.setter
+    def shape(self, new_shape):
+        new_shape = tuple(int(d) for d in new_shape)
+        old = self.shape
+        if len(old) != len(new_shape) or any(
+                o not in (0, n) for o, n in zip(old, new_shape)):
+            raise AssertionError(
+                "Expected shape %s is incompatible with given shape %s for "
+                "Parameter %s" % (new_shape, old, self.name))
+        if new_shape != old:
+            t = self._tensor()
+            self._replace(torch.empty(new_shape, dtype=t.dtype,
+                                      device="meta"))
+
+    @property
+    def dtype(self):
+        t = self._tensor()
+        if t.dtype == torch.bfloat16:
+            return "bfloat16"
+        return np.dtype(dtype_name(t.dtype))
+
+    @property
+    def grad_req(self) -> str:
+        t = self._tensor()
+        return getattr(t, "grad_req", "write" if t.requires_grad else "null")
+
+    @grad_req.setter
+    def grad_req(self, req: str):
+        if req not in _GRAD_REQS:
+            raise ValueError("grad_req must be 'write', 'add' or 'null', "
+                             "got %r" % (req,))
+        t = self._tensor()
+        t.requires_grad_(req != "null")
+        t.grad_req = req
+        if req == "null":
+            t.grad = None
+        elif not t.is_meta and t.grad is None:
+            t.grad = torch.zeros_like(t)
+
+    @property
+    def stype(self) -> str:
+        return "default"
+
+    # -- initialisation ----------------------------------------------------
+    def initialize(self, init=None, ctx: DeviceLike = None,
+                   default_init=None, force_reinit: bool = False, *,
+                   device: DeviceLike = None,
+                   generator: Optional[torch.Generator] = None,
+                   seed: int = 0) -> None:
+        """Materialise on ``device`` (or ``ctx``; default: the GPU) and fill
+        with ``init``, else this parameter's own ``init``, else
+        ``default_init`` (default :class:`~...initializer.Uniform`), drawing
+        from ``generator`` (default: a new one on that device seeded with
+        ``seed``).  An initialised parameter is left as it is unless
+        ``force_reinit``; one whose shape is not known yet records the
+        request for its block's first forward when ``allow_deferred_init``
+        and raises otherwise."""
+        if not self._tensor().is_meta and not force_reinit:
+            return
+        dev = _one_device(ctx if device is None else device)
+        if init is None:
+            init = self.init if self.init is not None else default_init
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(int(seed))
+        if not _complete(self.shape):
+            if not self.allow_deferred_init:
+                raise ValueError(
+                    "Cannot initialize Parameter %s because it has invalid "
+                    "shape %s and deferred init is not allowed"
+                    % (self.name, self.shape))
+            self._set_pending((init, dev, generator))
+            return
+        self._init_impl(init, dev, generator)
+
+    def _init_impl(self, init, device: torch.device,
+                   generator: torch.Generator) -> None:
+        t = self._tensor()
+        with torch.no_grad():
+            new = self._replace(torch.empty(t.shape, dtype=t.dtype,
+                                            device=device))
+            fill = init_mod.create(init)
+            if init is not None and init is self.init:
+                # a parameter's own initializer applies whatever its name
+                fill._init_weight(self.name, new.data, generator)
+            else:
+                fill(self.name, new.data, generator)
+            if self.grad_req != "null":
+                new.grad = torch.zeros_like(new)
+        self._set_pending(None)
+
+    def _finish_deferred_init(self) -> None:
+        """Materialise a parameter whose shape is now known with the
+        recorded ``(init, device, generator)``."""
+        if self._deferred is None:
+            raise DeferredInitializationError(
+                "Parameter %s was not initialized" % self.name)
+        if not _complete(self.shape):
+            raise DeferredInitializationError(
+                "Parameter %s has unknown shape %s; run a forward pass "
+                "first" % (self.name, self.shape))
+        self._init_impl(*self._deferred)
+
+    def _check_initialized(self) -> torch.nn.Parameter:
+        t = self._tensor()
+        if t.is_meta:
+            if self._deferred is not None:
+                raise DeferredInitializationError(
+                    "Parameter %s has not been initialized yet because its "
+                    "shape is unknown; run a forward pass first" % self.name)
+            raise RuntimeError(
+                "Parameter %s has not been initialized. You should "
+                "initialize parameters with Block.initialize() before use"
+                % self.name)
+        return t
+
+    # -- access ------------------------------------------------------------
+    def _on(self, t: torch.Tensor, ctx) -> torch.Tensor:
+        if ctx is not None and ctx is not list and \
+                Context(ctx) != Context.from_torch(t.device):
+            raise RuntimeError("Parameter %s was not initialized on context "
+                               "%s (it lives on %s)"
+                               % (self.name, ctx,
+                                  Context.from_torch(t.device)))
+        return t
+
+    def data(self, ctx: Optional[Context] = None) -> NDArray:
+        """The value, as an NDArray sharing the slot tensor's storage."""
+        return NDArray(self._on(self._check_initialized(), ctx))
+
+    def list_data(self) -> List[NDArray]:
+        return [self.data()]
+
+    def grad(self, ctx: Optional[Context] = None) -> NDArray:
+        """The gradient the last ``backward`` wrote (zeros before any)."""
+        t = self._check_initialized()
+        if self.grad_req == "null":
+            raise RuntimeError("Cannot get gradient array for Parameter %s "
+                               "because grad_req='null'" % self.name)
+        if t.grad is None:
+            t.grad = torch.zeros_like(t)
+        return NDArray(self._on(t.grad, ctx))
+
+    def list_grad(self) -> List[NDArray]:
+        return [self.grad()]
+
+    def list_ctx(self) -> List[Context]:
+        t = self._tensor()
+        if t.is_meta:
+            if self._deferred is not None:
+                return [Context.from_torch(self._deferred[1])]
+            raise RuntimeError("Parameter %s has not been initialized"
+                               % self.name)
+        return [Context.from_torch(t.device)]
+
+    def set_data(self, data) -> None:
+        """Copy ``data`` (an NDArray, tensor or array) into the value; a
+        parameter waiting for its shape takes ``data``'s and is
+        materialised on its recorded device."""
+        src = data.data if isinstance(data, NDArray) else \
+            torch.as_tensor(np.asarray(data)) \
+            if not isinstance(data, torch.Tensor) else data
+        self.shape = src.shape
+        t = self._tensor()
+        if t.is_meta:
+            if self._deferred is None:
+                raise RuntimeError("initialize Parameter %s first"
+                                   % self.name)
+            self._init_impl(init_mod.Zero(), *self._deferred[1:])
+            t = self._tensor()
+        with torch.no_grad():
+            t.copy_(src)
+
+    def zero_grad(self) -> None:
+        t = self._tensor()
+        if self.grad_req != "null" and t.grad is not None:
+            with torch.no_grad():
+                t.grad.zero_()
+
+    def reset_ctx(self, ctx) -> None:
+        """Move the value (or the deferred request) to ``ctx``."""
+        dev = _one_device(ctx)
+        t = self._tensor()
+        if not t.is_meta:
+            with torch.no_grad():
+                new = self._replace(t.detach().to(dev, copy=True))
+                if self.grad_req != "null":
+                    new.grad = torch.zeros_like(new)
+        elif self._deferred is not None:
+            init, _, _ = self._deferred
+            self._set_pending((init, dev, torch.Generator(device=dev)))
+        else:
+            raise ValueError("Cannot reset context for uninitialized "
+                             "Parameter %s" % self.name)
+
+    def cast(self, dtype) -> None:
+        """Cast the value (and give a zero gradient of the new dtype)."""
+        t = self._tensor()
+        with torch.no_grad():
+            new = self._replace(t.detach().to(torch_dtype(dtype)))
+            if not new.is_meta and self.grad_req != "null":
+                new.grad = torch.zeros_like(new)
+
+
+def _one_device(ctx) -> torch.device:
+    """The one device of ``ctx`` (a device, a context, or a list holding
+    one); several raise until the distributed slice."""
+    if isinstance(ctx, (list, tuple)):
+        if len(ctx) != 1:
+            raise MXNetError("one device per parameter; got %s (several "
+                             "devices come with the distributed slice)"
+                             % (ctx,))
+        ctx = ctx[0]
+    return resolve(ctx)
+
+
+class Constant(Parameter):
+    """A value that is not trained (reference: gluon.Constant)."""
+
+    def __init__(self, value, name: Optional[str] = None):
+        if isinstance(value, NDArray):
+            value = value.asnumpy()
+        value = np.asarray(value)
+        self.value = value
+        super().__init__(name=name, grad_req="null", shape=value.shape,
+                         dtype=value.dtype,
+                         init=init_mod.Constant(value))
+
+
+class ParameterDict:
+    """Ordered name -> :class:`Parameter` mapping (reference:
+    gluon.ParameterDict): the mapping protocol, ``get``, ``update`` and the
+    bulk ``initialize``, ``zero_grad``, ``reset_ctx`` and ``setattr``."""
+
+    def __init__(self, prefix: str = "", shared=None):
+        self._prefix = prefix
+        self._params: "OrderedDict[str, Parameter]" = OrderedDict()
+        self._shared = shared
+
+    def __getitem__(self, key) -> Parameter:
+        return self._params[key]
+
+    def __setitem__(self, key, value):
+        self._params[key] = value
+
+    def __contains__(self, key):
+        return key in self._params
+
+    def __iter__(self):
+        return iter(self._params)
+
+    def __len__(self):
+        return len(self._params)
+
+    def __repr__(self):
+        body = "\n".join("  %s" % p for p in self._params.values())
+        return "ParameterDict(\n%s\n)" % body
+
+    def items(self):
+        return self._params.items()
+
+    def keys(self):
+        return self._params.keys()
+
+    def values(self):
+        return self._params.values()
+
+    @property
+    def prefix(self) -> str:
+        return self._prefix
+
+    def get(self, name: str, **kwargs) -> Parameter:
+        """The parameter ``prefix + name``, made (free, with ``kwargs``) if
+        missing; a given ``shape`` fills in unknown sizes."""
+        full = self._prefix + name
+        if full in self._params:
+            param = self._params[full]
+            if kwargs.get("shape") is not None:
+                param.shape = kwargs["shape"]
+            return param
+        if self._shared is not None and full in self._shared:
+            self._params[full] = self._shared[full]
+            return self._params[full]
+        param = Parameter(full, **kwargs)
+        self._params[full] = param
+        return param
+
+    def update(self, other) -> None:
+        if isinstance(other, ParameterDict):
+            other = other._params
+        for k, v in other.items():
+            if k in self._params and self._params[k] is not v:
+                raise ValueError("Cannot update: duplicate Parameter name %s"
+                                 % k)
+            self._params[k] = v
+
+    def initialize(self, init=None, ctx: DeviceLike = None,
+                   verbose: bool = False, force_reinit: bool = False, *,
+                   device: DeviceLike = None,
+                   generator: Optional[torch.Generator] = None,
+                   seed: int = 0) -> None:
+        """Initialise every parameter on one device with ``init`` (default
+        :class:`~...initializer.Uniform`) where it has no initializer of
+        its own, in order, all drawing from one ``generator`` (default: a
+        new one on that device seeded with ``seed``)."""
+        dev = _one_device(ctx if device is None else device)
+        default = init_mod.create(init)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(int(seed))
+        for param in self._params.values():
+            param.initialize(None, device=dev, default_init=default,
+                             force_reinit=force_reinit, generator=generator)
+
+    def zero_grad(self) -> None:
+        for p in self._params.values():
+            p.zero_grad()
+
+    def reset_ctx(self, ctx) -> None:
+        for p in self._params.values():
+            p.reset_ctx(ctx)
+
+    def setattr(self, name: str, value) -> None:
+        for p in self._params.values():
+            setattr(p, name, value)
+
+
+def collect(module: torch.nn.Module,
+            select: Optional[str] = None) -> ParameterDict:
+    """Every slot of ``module``'s tree as a :class:`Parameter` by structural
+    name (``select``: a regular expression the name must match)."""
+    pattern = re.compile(select) if select else None
+    out = ParameterDict()
+    for name, owner, attr in param_slots(module):
+        if pattern is not None and not pattern.search(name):
+            continue
+        p = param_handle(owner, attr)
+        p._structural_name = name
+        out[name] = p
+    return out
+

@@ -14,9 +14,11 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-__all__ = ["Initializer", "Uniform", "Normal", "Xavier", "create"]
+__all__ = ["Initializer", "Zero", "One", "Constant", "Uniform", "Normal",
+           "Xavier", "create"]
 
 
 class Initializer:
@@ -40,6 +42,32 @@ class Initializer:
     def __repr__(self):
         return "%s(%s)" % (type(self).__name__, ", ".join(
             "%s=%r" % kv for kv in sorted(vars(self).items())))
+
+
+class Zero(Initializer):
+    """Zeros."""
+
+    def _init_weight(self, name, arr, generator):
+        arr.zero_()
+
+
+class One(Initializer):
+    """Ones."""
+
+    def _init_weight(self, name, arr, generator):
+        arr.fill_(1.0)
+
+
+class Constant(Initializer):
+    """A given value, broadcast to the parameter's shape (``Constant``'s
+    value, or a number)."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def _init_weight(self, name, arr, generator):
+        arr.copy_(torch.as_tensor(np.asarray(self.value)).to(arr.dtype)
+                  .broadcast_to(arr.shape))
 
 
 class Uniform(Initializer):
@@ -94,13 +122,14 @@ class Xavier(Initializer):
 
 def create(init) -> Initializer:
     """An initializer from an instance or a name ('uniform', 'normal',
-    'xavier'); None gives the default :class:`Uniform`."""
+    'xavier', 'zeros', 'ones'); None gives the default :class:`Uniform`."""
     if init is None:
         return Uniform()
     if isinstance(init, Initializer):
         return init
     if isinstance(init, str):
-        table = {"uniform": Uniform, "normal": Normal, "xavier": Xavier}
+        table = {"uniform": Uniform, "normal": Normal, "xavier": Xavier,
+                 "zeros": Zero, "zero": Zero, "ones": One, "one": One}
         if init.lower() in table:
             return table[init.lower()]()
     raise ValueError("unknown initializer %r" % (init,))

@@ -475,8 +475,11 @@ def invoke(op_name: str, *inputs, out: Optional[NDArray] = None, **params):
     when no input needs a gradient, as the reference gives them a tape node:
     ``backward`` on such a head writes nothing instead of raising.
     An op's aux outputs (``OpDef.aux_writeback``: ``BatchNorm``'s new moving
-    statistics) are written into their input NDArrays in place and are not
-    returned.  ``out=`` receives the result in place."""
+    statistics, an optimizer update's new state) are written into their
+    inputs in place and are not returned; an op that mutates an input
+    (``OpDef.mutates_input``: the optimizer updates' weight) writes its
+    first visible output there and returns that input.  ``out=`` receives
+    the result in place."""
     op = get_op(op_name)
     inputs = op.split_pos_attrs(inputs, params, NDArray)
     ctx = params.pop("ctx", None)
@@ -496,8 +499,15 @@ def invoke(op_name: str, *inputs, out: Optional[NDArray] = None, **params):
             if isinstance(o, torch.Tensor):
                 setattr(o, autograd.RECORDED, True)
     outs = _wrap_outputs(op, outs)
-    if op.aux_writeback and isinstance(outs, list):
-        outs = _write_aux(op, inputs, outs)
+    aux = op.aux_map(params)
+    if aux and isinstance(outs, list):
+        outs = _write_aux(aux, inputs, outs)
+    if op.mutates_input is not None:
+        target = inputs[op.mutates_input]
+        src = outs[0] if isinstance(outs, list) else outs
+        with torch.no_grad():
+            target._data.copy_(src._data)
+        return target
     if out is not None:
         src = outs[0] if isinstance(outs, list) else outs
         with torch.no_grad():
@@ -506,13 +516,13 @@ def invoke(op_name: str, *inputs, out: Optional[NDArray] = None, **params):
     return outs
 
 
-def _write_aux(op, inputs, outs):
+def _write_aux(aux, inputs, outs):
     """Copy each aux output into its input NDArray, in that array's dtype,
     and return the other outputs (reference: ``invoke``'s aux-state
     write-back)."""
     visible = []
     for i, o in enumerate(outs):
-        target = op.aux_writeback.get(i)
+        target = aux.get(i)
         if target is None:
             visible.append(o)
         elif isinstance(inputs[target], NDArray):

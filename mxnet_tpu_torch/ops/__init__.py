@@ -1,9 +1,12 @@
 """Operators of the port: attention (with the hand-written flash kernels),
-the nn functions of the serving and training slices, and the registered
-ops the imperative front end (``nd``) dispatches to by name."""
+the nn functions of the serving and training slices, the registered ops
+the imperative front end (``nd``) dispatches to by name, and the optimizer
+updates (``nd.sgd_mom_update``, ...) with the fused apply behind
+``optimizer.Optimizer``."""
 from . import registry
 from . import attention, nn
 from . import creation, elemwise, scalar, reduce, matrix
+from . import optimizer
 
 __all__ = ["registry", "attention", "nn", "creation", "elemwise", "scalar",
-           "reduce", "matrix"]
+           "reduce", "matrix", "optimizer"]

@@ -5,10 +5,14 @@ Counterpart of ``mxnet_tpu/ops/registry.py`` (the nnvm op registry's role:
 :class:`OpDef` keyed by op name: ``fn(*tensors, **params)`` computes the op
 on ``torch.Tensor``s, ``differentiable`` says whether dispatch records it
 for autograd (torch autograd differentiates ``fn`` itself, which plays the
-FGradient role), ``num_outputs`` is 1, n, or 0 for a variable count, and
+FGradient role), ``num_outputs`` is 1, n, or 0 for a variable count,
 ``aux_writeback`` maps an output's index to the index of the input that
 dispatch writes it into in place and drops from the visible outputs
-(``BatchNorm``'s moving statistics, the reference's aux states).
+(``BatchNorm``'s moving statistics, the reference's aux states; a callable
+of the call's parameters gives the map of a variable-arity op, such as
+``multi_sgd_update`` over ``num_weights`` pairs), and ``mutates_input``
+names the input that dispatch writes the first visible output into and
+returns (the optimizer updates write the weight).
 
 The reference's per-op jit cache is not ported: PyTorch dispatches
 eagerly, so re-registering a name replaces its ``OpDef`` and nothing else
@@ -18,27 +22,40 @@ from __future__ import annotations
 
 import inspect
 import numbers
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Union
 
 __all__ = ["OpDef", "register", "get_op", "list_ops", "alias"]
 
 _REGISTRY: Dict[str, "OpDef"] = {}
 
+#: an op's aux write-back: {output index: input index}, or a callable of
+#: the call's parameters giving that map
+AuxMap = Union[Dict[int, int], Callable[[dict], Dict[int, int]], None]
+
 
 class OpDef:
     __slots__ = ("name", "fn", "differentiable", "num_outputs",
-                 "aux_writeback", "doc", "_pos_params")
+                 "aux_writeback", "mutates_input", "doc", "_pos_params")
 
     def __init__(self, name: str, fn: Callable, differentiable: bool = True,
                  num_outputs: int = 1, doc: Optional[str] = None,
-                 aux_writeback: Optional[Dict[int, int]] = None):
+                 aux_writeback: AuxMap = None,
+                 mutates_input: Optional[int] = None):
         self.name = name
         self.fn = fn
         self.differentiable = differentiable
         self.num_outputs = num_outputs
-        self.aux_writeback = dict(aux_writeback or {})
+        self.aux_writeback = aux_writeback if callable(aux_writeback) \
+            else dict(aux_writeback or {})
+        self.mutates_input = mutates_input
         self.doc = doc or (fn.__doc__ or "")
         self._pos_params = None
+
+    def aux_map(self, params) -> Dict[int, int]:
+        """The output -> input write-back map of a call with ``params``."""
+        if callable(self.aux_writeback):
+            return self.aux_writeback(params)
+        return self.aux_writeback
 
     def pos_params(self):
         """[(name, has_default)] for ``fn``'s positional parameters (stops
@@ -90,7 +107,8 @@ class OpDef:
 def register(name: str, fn: Optional[Callable] = None, *,
              differentiable: bool = True, num_outputs: int = 1,
              aliases: Sequence[str] = (), replace: bool = False,
-             aux_writeback: Optional[Dict[int, int]] = None):
+             aux_writeback: AuxMap = None,
+             mutates_input: Optional[int] = None):
     """Register an op; usable as a decorator or a direct call.
 
     A name (or alias) already registered raises unless ``replace=True``,
@@ -105,7 +123,8 @@ def register(name: str, fn: Optional[Callable] = None, *,
                 "only for deliberate user-kernel re-registration"
                 % (taken[0], _REGISTRY[taken[0]].fn))
         op = OpDef(name, f, differentiable=differentiable,
-                   num_outputs=num_outputs, aux_writeback=aux_writeback)
+                   num_outputs=num_outputs, aux_writeback=aux_writeback,
+                   mutates_input=mutates_input)
         for n in (name,) + tuple(aliases):
             _REGISTRY[n] = op
         return f

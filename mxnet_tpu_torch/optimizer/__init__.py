@@ -1,0 +1,6 @@
+"""Optimizers of the port (counterpart of ``mxnet_tpu/optimizer/``)."""
+from .optimizer import (Optimizer, Updater, get_updater, register, create,
+                        SGD, NAG, Adam, AdamW, LAMB)
+
+__all__ = ["Optimizer", "Updater", "get_updater", "register", "create",
+           "SGD", "NAG", "Adam", "AdamW", "LAMB"]

@@ -187,7 +187,7 @@ def test_initializers_draw_from_the_generator():
         net = tgnn.HybridSequential()
         net.add(tgnn.Dense(64, in_units=32), tgnn.LayerNorm(in_channels=64))
         net.initialize(init, device="cpu", seed=seed)
-        return {n: p.detach() for n, p in net.collect_params().items()}
+        return {n: p.detach() for n, p in net.named_parameters()}
 
     a = draw(tinit.Normal(0.02), 5)
     b = draw(tinit.Normal(0.02), 5)

@@ -487,10 +487,11 @@ def test_layer_matches_reference(layer):
 
 
 def test_conv_layers_need_in_channels_and_a_channel_first_layout():
-    with pytest.raises(ValueError, match="in_channels"):
-        tgnn.Conv2D(4, 3)
-    with pytest.raises(ValueError, match="in_channels"):
-        tgnn.BatchNorm()
+    # without in_channels the size is left to the first forward (deferred
+    # init), as in the reference
+    w = tgnn.Conv2D(4, 3).weight
+    assert tuple(w.shape) == (4, 0, 3, 3) and w.is_meta
+    assert tuple(tgnn.BatchNorm().running_var.shape) == (0,)
     with pytest.raises(ValueError, match="layout"):
         tgnn.Conv2D(4, 3, layout="NHWC", in_channels=3)
     w = tgnn.Conv2DTranspose(6, 3, groups=2, in_channels=4).weight

@@ -267,6 +267,10 @@ def test_bf16_outputs_are_refused_at_the_wire():
 
 def test_port_imports_neither_jax_nor_mxnet_tpu():
     code = ("import sys; import mxnet_tpu_torch, mxnet_tpu_torch.convert; "
+            "import mxnet_tpu_torch.optimizer, mxnet_tpu_torch.metric, "
+            "mxnet_tpu_torch.lr_scheduler, mxnet_tpu_torch.ops.optimizer, "
+            "mxnet_tpu_torch.gluon.trainer, mxnet_tpu_torch.gluon.utils, "
+            "mxnet_tpu_torch.gluon.parameter; "
             "import chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "
