@@ -121,6 +121,32 @@ Phases (each raises on failure, so any failure exits nonzero):
    ``aggregate_num=0``: one step on the card against the same step on the
    CPU (fp32 within 1e-6 + 1e-5 |ref|; bf16 weights by ``compare``'s bf16
    rule against the CPU's float32 master).
+11. data -- the input pipeline (``io.DevicePrefetcher``, ``gluon.data``,
+   ``recordio``, ``mx.random``), no kernel of its own, none of K1-K4
+   launched (the counts are set to 0 at the phase's start and read at its
+   end).  First the allocator hazard of the prefetcher's side stream: 8
+   prefetched 64 MB batches, each read by a reduction queued behind ~25
+   ms of matmuls and then dropped, must each read back their own values.
+   (a) The eager ``resnet18_v1`` step of ``eager`` fed ``bench.py
+   --eager``'s stream (one seeded host batch, copied every step) with and
+   without the prefetcher: 4 steps each way from the same parameters
+   under ``cudnn.deterministic`` with bitwise equal per-image losses, then
+   3 warm and 10 timed steps each way: images/s, step ms, the data-wait
+   total and share against the reference's 5 % gate, one traced step's
+   idle share.  (b) ``SyntheticImageDataset`` (224 x 224 x 3 uint8, 100
+   class prototypes) with ``ToTensor`` and ``Normalize`` through a
+   ``DataLoader`` (batch 64, shuffled, spawned workers, ``pin_memory``)
+   and a prefetcher into the same step: the loader's images/s alone, the
+   loop's images/s, step ms and data-wait share, a worker's time by part;
+   every batch that reached the card bitwise equal to the in-process
+   loader's under the same numpy seed.  (c) 512 seeded raw records (0 to
+   150,528 bytes, one holding the magic) through the native RecordIO
+   writer and ``MXIndexedRecordIO`` in a shuffled order, bitwise, and
+   the pure-Python writer and reader against them; MB/s.  (d) 10^6 draws
+   on the card of each ``_random_*`` row of ``tests/test_random.py``'s
+   moment table within its tolerances, bitwise repeatable under one seed,
+   the uniform draws through its chi-square test; the time of 10^6
+   uniform and normal draws.
 
 The last lines of standard output are the ``nvidia-smi`` name and power
 limit, one JSON object ``{"kernels": [...]}`` and, last,
@@ -2505,6 +2531,490 @@ def phase_eager(peaks, train_step_ms):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 11. the input pipeline: the prefetcher, the loader, RecordIO, mx.random
+# ---------------------------------------------------------------------------
+
+DATA_PARITY_STEPS = 4
+DATA_GATE_PCT = 5.0     # the reference's gate on the data-wait share
+LOADER_STEPS = 10       # timed loader-fed steps, after one warm step
+LOADER_SAMPLES = EAGER_BATCH * (LOADER_STEPS + 1)   # one epoch, discarded
+LOADER_CLASSES = 100    # class prototypes (the reference builds 1000)
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+RECORDS = 512
+RECORD_MAX = RESNET_IMAGE * RESNET_IMAGE * 3    # one 224 x 224 x 3 image
+RECORD_MAGIC = (0xced7230a).to_bytes(4, "little")
+RANDOM_N = 1_000_000
+# the _random_* rows of tests/test_random.py's MOMENTS table: (op,
+# params, mean, variance); its _npi_* rows wait for the numpy front end
+RANDOM_MOMENTS = [
+    ("_random_uniform", {"low": -1.0, "high": 3.0}, 1.0, 16.0 / 12.0),
+    ("_random_normal", {"loc": 2.0, "scale": 3.0}, 2.0, 9.0),
+    ("_random_gamma", {"alpha": 4.0, "beta": 0.5}, 2.0, 1.0),
+    ("_random_exponential", {"lam": 2.0}, 0.5, 0.25),
+    ("_random_poisson", {"lam": 6.0}, 6.0, 6.0),
+    ("_random_negative_binomial", {"k": 5, "p": 0.5}, 5.0, 10.0),
+    ("_random_generalized_negative_binomial", {"mu": 4.0, "alpha": 0.25},
+     4.0, 4.0 + 0.25 * 16.0),
+    ("_random_logistic", {"loc": 1.0, "scale": 0.5}, 1.0,
+     np.pi ** 2 * 0.25 / 3.0),
+    ("_random_gumbel", {"loc": 0.0, "scale": 1.0}, np.euler_gamma,
+     np.pi ** 2 / 6.0),
+    ("_random_rayleigh", {"scale": 2.0}, 2.0 * np.sqrt(np.pi / 2.0),
+     (4.0 - np.pi) / 2.0 * 4.0),
+    ("_random_weibull", {"a": 1.0}, 1.0, 1.0),
+    ("_random_pareto", {"a": 5.0}, 0.25, 5.0 / 48.0),
+]
+
+
+def eager_resnet18():
+    """A fresh ``resnet18_v1`` eager loop as ``eager_resnet`` builds it
+    (``Xavier`` from the seed, SGD 0.1 / 0.9, softmax cross-entropy,
+    ``metric.Accuracy``): ``(net, step)`` with ``step(xb, yb)`` one
+    ``record()``/``backward()``/``Trainer.step`` on NDArrays on the card,
+    returning the per-image losses."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, initializer
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet18_v1
+    net = resnet18_v1(classes=RESNET_CLASSES)
+    net.initialize(initializer.Xavier(), seed=SEED)
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": EAGER_LR,
+                             "momentum": EAGER_MOMENTUM})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    metric = mx.metric.Accuracy()
+
+    def step(xb, yb):
+        with autograd.record():
+            out = net(xb)
+            loss = loss_fn(out, yb)
+        loss.backward()
+        trainer.step(EAGER_BATCH)
+        metric.update([yb], [out])
+        return loss
+
+    return net, step
+
+
+def _on_card(batch):
+    """A prefetched ``(x, y)`` (tensors or NDArrays) as NDArrays."""
+    from mxnet_tpu_torch.ndarray import NDArray
+    return [b if isinstance(b, NDArray) else NDArray(b) for b in batch]
+
+
+def check_prefetch_streams():
+    """The allocator hazard of a side-stream copy: each prefetched batch
+    (64 MB, filled with its index) is read by a reduction queued behind
+    ~25 ms of matmuls on the consumer's stream and then dropped, while the
+    producer allocates and copies the next batches on its own stream.
+    Without ``record_stream`` at the handoff the allocator may give a
+    dropped batch's memory to a later copy before the reduction ran; every
+    batch must read back its own index."""
+    from mxnet_tpu_torch.io import DevicePrefetcher
+    shape, n = (4096, 4096), 8
+    a = torch.randn(shape, device="cuda") / 64.0
+
+    def source():
+        for i in range(n):
+            yield (np.full(shape, float(i), np.float32),)
+
+    seen = []
+    with DevicePrefetcher(source(), depth=2) as pf:
+        for (xb,) in pf:
+            for _ in range(10):
+                a = torch.tanh(a @ a)
+            seen.append(torch.stack([xb.min(), xb.max()]))
+            del xb
+    torch.cuda.synchronize()
+    got = [tuple(float(v) for v in s) for s in seen]
+    want = [(float(i), float(i)) for i in range(n)]
+    log("data: prefetch streams: batches read back %s (want %s)"
+        % (got, want))
+    if got != want:
+        raise RuntimeError("data: a prefetched batch was overwritten before "
+                           "its consumer read it: %s" % got)
+
+
+def data_prefetch():
+    """(a) The eager ResNet-18 step fed with and without the prefetcher,
+    from ``bench.py --eager``'s stream (the same seeded host batch each
+    step).  First the parity run: 4 steps each way from the same seeded
+    parameters under ``cudnn.deterministic``, the per-image losses bitwise
+    equal.  Then 3 warm and 10 timed steps each way: images/s, step ms,
+    the data-wait total and share (the synchronous copies with the
+    prefetcher off, the handoffs with it on) against the reference's 5 %
+    gate, and one traced step's device idle share."""
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.io import DevicePrefetcher
+    import mxnet_tpu_torch as mx
+    x_np, y_np = resnet_batch_host(EAGER_BATCH)
+    y_np = y_np.astype(np.float32)              # the bench's label dtype
+    n_batches = EAGER_WARM + EAGER_TIMED + 3    # 3 more for the trace
+    check_prefetch_streams()
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        trajectories = {}
+        for way in ("off", "on"):
+            net, step = eager_resnet18()
+            if way == "off":
+                losses = [step(nd.array(x_np, ctx=mx.gpu(0)),
+                               nd.array(y_np, ctx=mx.gpu(0)))
+                          for _ in range(DATA_PARITY_STEPS)]
+            else:
+                with DevicePrefetcher([(x_np, y_np)] *
+                                      DATA_PARITY_STEPS) as pf:
+                    losses = [step(*_on_card(b)) for b in pf]
+            trajectories[way] = [l.data.detach().clone() for l in losses]
+            del net, step
+    finally:
+        torch.backends.cudnn.deterministic = False
+    bitwise = len(trajectories["on"]) == DATA_PARITY_STEPS and all(
+        torch.equal(a, b) for a, b in zip(trajectories["off"],
+                                          trajectories["on"]))
+    means = {w: [float(l.mean()) for l in t]
+             for w, t in trajectories.items()}
+    log("data: prefetch parity %s" % json.dumps(
+        {"steps": DATA_PARITY_STEPS, "bitwise": bitwise,
+         "mean_losses": means}))
+    if not bitwise:
+        raise RuntimeError("data: the prefetched loss trajectory differs "
+                           "from the synchronous one: %s" % means)
+
+    recs = {}
+    for way in ("off", "on"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        net, step = eager_resnet18()
+        wait = [0.0]
+        if way == "off":
+            def fetch():
+                t0 = time.perf_counter()
+                batch = (nd.array(x_np, ctx=mx.gpu(0)),
+                         nd.array(y_np, ctx=mx.gpu(0)))
+                wait[0] += time.perf_counter() - t0
+                return batch
+            pf = None
+        else:
+            pf = DevicePrefetcher([(x_np, y_np)] * n_batches)
+
+            def fetch():
+                return _on_card(next(pf))
+        losses = [step(*fetch()) for _ in range(EAGER_WARM)]
+        torch.cuda.synchronize()
+        wait[0] = 0.0
+        w0 = pf.data_wait()[0] if pf is not None else 0.0
+        t0 = time.perf_counter()
+        losses += [step(*fetch()) for _ in range(EAGER_TIMED)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        waited = pf.data_wait()[0] - w0 if pf is not None else wait[0]
+        prof, wall_ms = profiled(lambda: step(*fetch()))
+        busy = device_busy_ms(prof)
+        if pf is not None:
+            pf.close()
+        losses = [float(l.mean()) for l in losses]
+        if not all(np.isfinite(losses)):
+            raise RuntimeError("data: prefetch %s: losses %s are not finite"
+                               % (way, losses))
+        share = 100.0 * waited / dt
+        recs[way] = {"prefetch": way == "on", "batch": EAGER_BATCH,
+                     "images_per_s": EAGER_BATCH * EAGER_TIMED / dt,
+                     "step_ms": dt / EAGER_TIMED * 1e3,
+                     "data_wait_total_ms": waited * 1e3,
+                     "data_wait_share_pct": share,
+                     "gate_pct": DATA_GATE_PCT,
+                     "within_gate": share < DATA_GATE_PCT,
+                     "traced_step_wall_ms": wall_ms, "device_busy_ms": busy,
+                     "device_idle_share": 1.0 - busy / wall_ms}
+        log("data: prefetch %s %s" % (way, json.dumps(recs[way])))
+        del net, step
+    return recs
+
+
+def loader_breakdown(ds):
+    """Where a loader batch's host time goes, each part measured in this
+    process: one sample's read and transform (``ds[i]``, a worker's work,
+    64 of them a batch), pickling one batch's numpy arrays (the worker's
+    reply) and unpickling it, and assembling it into pinned NDArrays (the
+    parent's work).  What the loader's time a batch holds beyond these is
+    the reply's way through the pool's pipe and the workers' waits."""
+    import pickle
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.data.dataloader import _to_nd_tree
+    with mx.cpu():                  # as in a worker
+        ds[0]
+        t0 = time.perf_counter()
+        samples = [ds[i] for i in range(16)]
+        sample_ms = (time.perf_counter() - t0) / 16 * 1e3
+    x = np.stack([s[0].asnumpy() for s in samples] * (EAGER_BATCH // 16))
+    y = np.asarray([s[1] for s in samples] * (EAGER_BATCH // 16))
+    t0 = time.perf_counter()
+    blob = pickle.dumps([x, y], protocol=pickle.HIGHEST_PROTOCOL)
+    t1 = time.perf_counter()
+    pickle.loads(blob)
+    t2 = time.perf_counter()
+    assemble = []
+    for _ in range(3):
+        t3 = time.perf_counter()
+        _to_nd_tree([x, y], True)
+        assemble.append((time.perf_counter() - t3) * 1e3)
+    return {"sample_ms": sample_ms, "batch_mb": len(blob) / 1e6,
+            "pickle_ms": (t1 - t0) * 1e3, "unpickle_ms": (t2 - t1) * 1e3,
+            "assemble_pinned_ms": sorted(assemble)[1]}
+
+
+def pool_replies(pool, workers):
+    """What the worker pool's pipe costs a batch: the time to get back
+    one batch-sized float32 array that a worker fills with ``np.full``
+    (its pages touched, as a real batch's are; pickled there, through the
+    pipe, unpickled here), one at a time, and the rate of such replies
+    with every worker replying at once."""
+    args = ((EAGER_BATCH, 3, RESNET_IMAGE, RESNET_IMAGE), 1.0, np.float32)
+    pool.apply_async(np.full, args).get()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        pool.apply_async(np.full, args).get()
+    one_ms = (time.perf_counter() - t0) / 4 * 1e3
+    t0 = time.perf_counter()
+    pending = [pool.apply_async(np.full, args) for _ in range(2 * workers)]
+    for r in pending:
+        r.get()
+    return {"reply_ms": one_ms, "replies_per_s":
+            2 * workers / (time.perf_counter() - t0)}
+
+
+def data_loader():
+    """(b) ``SyntheticImageDataset`` (224 x 224 x 3 uint8, seeded, with
+    :data:`LOADER_CLASSES` prototypes) through ``transform_first(Compose(
+    [ToTensor(), Normalize(ImageNet mean, std)]))`` and a ``DataLoader``
+    (batch 64, shuffled, last batch discarded, spawned worker processes,
+    ``pin_memory``) into a ``DevicePrefetcher`` into the eager ResNet-18
+    step: the loader's images/s alone, then one warm and 10 timed steps:
+    images/s, step ms, the data-wait share.  Afterwards every batch that
+    reached the card is held bitwise to the same loader's with
+    ``num_workers=0`` under the same numpy seed."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.data import DataLoader
+    from mxnet_tpu_torch.gluon.data.vision import (SyntheticImageDataset,
+                                                   transforms)
+    from mxnet_tpu_torch.io import DevicePrefetcher
+    workers = min(8, os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    ds = SyntheticImageDataset(
+        num_samples=LOADER_SAMPLES, shape=(RESNET_IMAGE, RESNET_IMAGE, 3),
+        num_classes=LOADER_CLASSES, seed=SEED, dtype="uint8")
+    build_s = time.perf_counter() - t0
+    ds = ds.transform_first(transforms.Compose([
+        transforms.ToTensor(),
+        transforms.Normalize(IMAGENET_MEAN, IMAGENET_STD)]))
+
+    def loader(n_workers):
+        return DataLoader(ds, batch_size=EAGER_BATCH, shuffle=True,
+                          last_batch="discard", num_workers=n_workers,
+                          pin_memory=n_workers > 0)
+
+    card = loader(workers)
+    try:
+        np.random.seed(SEED + 30)
+        it = iter(card)
+        first = next(it)            # the pool spawns here
+        pinned = all(b.data.is_pinned() for b in first)
+        t0 = time.perf_counter()
+        n_alone = sum(1 for _ in it)
+        alone_s = time.perf_counter() - t0
+        replies = pool_replies(card._get_mp_pool(), workers)
+        net, step = eager_resnet18()
+        seen = []
+        np.random.seed(SEED + 31)
+        with DevicePrefetcher(card) as pf:
+            xb, yb = _on_card(next(pf))
+            seen.append((xb.data.clone(), yb.data.clone()))
+            step(xb, yb)
+            torch.cuda.synchronize()
+            w0 = pf.data_wait()[0]
+            t0 = time.perf_counter()
+            losses = []
+            for batch in pf:
+                xb, yb = _on_card(batch)
+                seen.append((xb.data.clone(), yb.data.clone()))
+                losses.append(step(xb, yb))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            waited = pf.data_wait()[0] - w0
+    finally:
+        card._shutdown_pool()
+    del net, step
+    losses = [float(l.mean()) for l in losses]
+    # the check, after the timed window: the same seed, in process
+    np.random.seed(SEED + 31)
+    with mx.cpu():
+        want = [(x.data, y.data) for x, y in loader(0)]
+    equal = len(want) == len(seen) == LOADER_STEPS + 1 and all(
+        torch.equal(gx.cpu(), wx) and torch.equal(gy.cpu(), wy)
+        for (gx, gy), (wx, wy) in zip(seen, want))
+    rec = {"workers": workers, "samples": LOADER_SAMPLES,
+           "classes": LOADER_CLASSES, "dataset_build_s": build_s,
+           "pinned": pinned,
+           "loader_images_per_s": n_alone * EAGER_BATCH / alone_s,
+           "loader_ms_per_batch": alone_s / n_alone * 1e3,
+           "loop_images_per_s": len(losses) * EAGER_BATCH / dt,
+           "step_ms": dt / len(losses) * 1e3,
+           "data_wait_total_ms": waited * 1e3,
+           "data_wait_share_pct": 100.0 * waited / dt,
+           "within_gate": 100.0 * waited / dt < DATA_GATE_PCT,
+           "batches_bitwise_equal": equal, "losses": losses,
+           "breakdown": dict(loader_breakdown(ds), **replies)}
+    log("data: loader %s" % json.dumps(rec))
+    if not equal:
+        raise RuntimeError("data: the batches the card got differ from the "
+                           "in-process loader's")
+    if not pinned or not all(np.isfinite(losses)):
+        raise RuntimeError("data: loader batches not pinned (%s) or losses "
+                           "not finite (%s)" % (pinned, losses))
+    return rec
+
+
+def data_recordio():
+    """(c) 512 seeded raw records of 0 to 150,528 bytes (one holding the
+    magic, so it is written as chunks) written by the native writer that
+    the port builds into ``_build/``, read back through
+    ``MXIndexedRecordIO`` in a shuffled key order and checked bitwise;
+    then the pure-Python writer must write the same bytes and the
+    pure-Python reader read the same records.  Write and read MB/s (the
+    reads hit the page cache)."""
+    import shutil
+    from mxnet_tpu_torch import recordio
+    from mxnet_tpu_torch._native import BUILD_DIR
+    if recordio._get_lib() is None:
+        raise RuntimeError("data: the native RecordIO library did not build")
+    rng = np.random.RandomState(SEED + 40)
+    payloads = [rng.bytes(int(n))
+                for n in rng.randint(0, RECORD_MAX + 1, RECORDS)]
+    k = int(rng.randint(RECORDS))
+    payloads[k] = payloads[k][:100] + RECORD_MAGIC + payloads[k][100:]
+    total_mb = sum(len(p) for p in payloads) / 1e6
+    order = [int(i) for i in rng.permutation(RECORDS)]
+    root = BUILD_DIR / "data_recordio"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+
+    def write(name):
+        w = recordio.MXIndexedRecordIO(str(root / (name + ".idx")),
+                                       str(root / (name + ".rec")), "w")
+        t0 = time.perf_counter()
+        for i, p in enumerate(payloads):
+            w.write_idx(i, p)
+        w.close()
+        return time.perf_counter() - t0
+
+    def read(name):
+        r = recordio.MXIndexedRecordIO(str(root / (name + ".idx")),
+                                       str(root / (name + ".rec")), "r")
+        t0 = time.perf_counter()
+        got = [r.read_idx(i) for i in order]
+        dt = time.perf_counter() - t0
+        r.close()
+        return got, dt
+
+    try:
+        native_w = write("native")
+        native_got, native_r = read("native")
+        saved = recordio._LIB, recordio._LIB_TRIED
+        recordio._LIB, recordio._LIB_TRIED = None, True
+        try:
+            python_w = write("python")
+            python_got, python_r = read("native")
+        finally:
+            recordio._LIB, recordio._LIB_TRIED = saved
+        same_file = (root / "native.rec").read_bytes() == \
+            (root / "python.rec").read_bytes()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want = [payloads[i] for i in order]
+    rec = {"records": RECORDS, "mb": total_mb, "magic_record": k,
+           "native_bitwise": native_got == want,
+           "python_reader_bitwise": python_got == want,
+           "python_writer_same_bytes": same_file,
+           "native_write_mb_per_s": total_mb / native_w,
+           "native_read_mb_per_s": total_mb / native_r,
+           "python_write_mb_per_s": total_mb / python_w,
+           "python_read_mb_per_s": total_mb / python_r}
+    log("data: recordio %s" % json.dumps(rec))
+    if not (rec["native_bitwise"] and rec["python_reader_bitwise"]
+            and same_file):
+        raise RuntimeError("data: RecordIO did not read back bitwise: %s"
+                           % rec)
+    return rec
+
+
+def data_random():
+    """(d) ``mx.random`` on the card: 10^6 draws of each ``_random_*`` row
+    of the reference's moment table, whose mean must fall within 5
+    standard errors + 1e-3 and variance within 15 % + 5e-3
+    (``tests/test_random.py``'s tolerances); the uniform draws also pass
+    its chi-square test; seeding twice with one seed gives bitwise the
+    same draws of every row on the card; the time of 10^6 uniform and
+    normal draws (CUDA events)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray.ndarray import invoke
+    gpu = mx.gpu(0)
+    rows, bad = [], []
+    for op, params, mean, var in RANDOM_MOMENTS:
+        mx.random.seed(7)
+        x = invoke(op, shape=(RANDOM_N,), ctx=gpu, **params).data
+        mx.random.seed(7)
+        again = invoke(op, shape=(RANDOM_N,), ctx=gpu, **params).data
+        xd = x.double()
+        m, v = float(xd.mean()), float(xd.var(unbiased=False))
+        ok = bool(torch.isfinite(xd).all()) and x.is_cuda and \
+            abs(m - mean) < 5 * np.sqrt(var / RANDOM_N) + 1e-3 and \
+            abs(v - var) < 0.15 * var + 5e-3 and torch.equal(x, again)
+        rows.append({"op": op, "mean": m, "want_mean": mean, "var": v,
+                     "want_var": var, "repeat_bitwise": torch.equal(x, again),
+                     "ok": ok})
+        if not ok:
+            bad.append(rows[-1])
+    mx.random.seed(7)
+    u = invoke("_random_uniform", shape=(RANDOM_N,), ctx=gpu).data
+    counts = torch.histc(u.float(), bins=20, min=0.0, max=1.0).double()
+    expect = RANDOM_N / 20.0
+    chi2 = float(((counts - expect) ** 2 / expect).sum())
+    times = {name: time_ms(lambda: invoke(op, shape=(RANDOM_N,), ctx=gpu))
+             for name, op in (("uniform_ms", "_random_uniform"),
+                              ("normal_ms", "_random_normal"))}
+    rec = {"n": RANDOM_N, "rows": rows, "uniform_chi2": chi2,
+           "chi2_limit": 43.8, **times}
+    log("data: random %s" % json.dumps(rec))
+    if bad or not chi2 < 43.8:
+        raise RuntimeError("data: mx.random on the card: %s, chi2 %.2f"
+                           % (bad, chi2))
+    return rec
+
+
+def phase_data():
+    """The input pipeline: (a) :func:`data_prefetch`, (b)
+    :func:`data_loader`, (c) :func:`data_recordio`, (d)
+    :func:`data_random`.  The launch counts are set to 0 at the start and
+    read at the end: the data path launches none of K1-K4."""
+    from mxnet_tpu_torch.ops import _kernels
+    _kernels.reset_launches()
+    data_prefetch()
+    gc.collect()
+    torch.cuda.empty_cache()
+    data_loader()
+    gc.collect()
+    torch.cuda.empty_cache()
+    data_recordio()
+    data_random()
+    launches = _kernels.launch_counts()
+    if any(launches.values()):
+        raise RuntimeError("data: the data path launched %s; none of K1-K4 "
+                           "is on it" % launches)
+    return launches
+
+
 def kernel_row(name, source, replaces, launches, fp32, bf16, extra=None):
     """One entry of the kernels line: the fp32 figures under the contract's
     keys, the bf16 ones under ``bf16_``, and those of ``extra`` (another
@@ -2554,10 +3064,11 @@ def main():
     eager_launches = phase_eager(peaks, train_step_ms)
     gc.collect()
     torch.cuda.empty_cache()
+    data_launches = phase_data()
     by_path = {k: {"serve": serve_launches[k], "train": train_launches[k],
                    "imperative": imperative_launches[k],
                    "resnet": resnet_launches[k],
-                   "eager": eager_launches[k]}
+                   "eager": eager_launches[k], "data": data_launches[k]}
                for k in imperative_launches}
     fp32, bf16 = torch.float32, torch.bfloat16
     kernels = [
@@ -2577,7 +3088,8 @@ def main():
                     {"user_kernels": user_launches[body],
                      "resnet": resnet_launches.get("tpu_kernel:" + body,
                                                    0),
-                     "eager": eager_launches.get("tpu_kernel:" + body, 0)},
+                     "eager": eager_launches.get("tpu_kernel:" + body, 0),
+                     "data": data_launches.get("tpu_kernel:" + body, 0)},
                     user[(body, fp32)], user[(body, bf16)],
                     {"default_grid_": user[(body + ":default_grid", fp32)],
                      "bf16_default_grid_": user[(body + ":default_grid",

@@ -16,8 +16,10 @@ flash-attention backward as hand-written CUDA kernels
 autograd, gluon blocks called on NDArrays, and ``tpu_kernel``, user CUDA
 kernels built with ``nvcc`` and launched or registered as ops.  Later
 slices: ResNet training (convolution, BatchNorm, pooling, the vision
-zoo) and the Gluon eager training loop (``gluon.Parameter`` with deferred
-init, ``gluon.Trainer``, ``optimizer``, ``lr_scheduler``, ``metric``).
+zoo), the Gluon eager training loop (``gluon.Parameter`` with deferred
+init, ``gluon.Trainer``, ``optimizer``, ``lr_scheduler``, ``metric``) and
+the input pipeline (``io`` with ``io.DevicePrefetcher``, ``gluon.data``,
+``recordio``, ``image``, ``random``).
 """
 from .base import MXNetError, get_env
 from .device import Context, cpu, gpu, current_context, default_device
@@ -34,8 +36,13 @@ from . import gluon
 from . import serve
 from . import parallel
 from . import tpu_kernel
+from . import random
+from . import recordio
+from . import image
+from . import io
 
 __all__ = ["MXNetError", "get_env", "Context", "cpu", "gpu",
            "current_context", "default_device", "initializer", "init",
            "ops", "lr_scheduler", "optimizer", "metric", "autograd",
-           "ndarray", "nd", "gluon", "serve", "parallel", "tpu_kernel"]
+           "ndarray", "nd", "gluon", "serve", "parallel", "tpu_kernel",
+           "random", "recordio", "image", "io"]

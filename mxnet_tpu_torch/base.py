@@ -39,6 +39,21 @@ ENV_CATALOG = {
     "MX_SERVE_REPLAY_CAP": ("512", "Bound on the exactly-once replay cache "
                             "(one entry per client id, LRU over resolved "
                             "entries; values < 1 clamp to 1)."),
+    "MX_PREFETCH": ("1", "Device input prefetch (io/prefetch.py "
+                    "DevicePrefetcher) where a loop supports it: a "
+                    "background thread stages the next batch in pinned "
+                    "memory and copies it to the card on a side stream "
+                    "while the current step computes.  0 keeps the copy "
+                    "in the loop."),
+    "MX_PREFETCH_DEPTH": ("2", "DevicePrefetcher queue bound in batches "
+                          "(2 = double buffering); the producer blocks at "
+                          "the bound.  Values < 1 clamp to 1."),
+    "MX_RECORDIO_TOLERATE_CORRUPT": ("0", "1 = a corrupt or truncated .rec "
+                                     "record is skipped and counted "
+                                     "(reader.corrupt_skipped) and the "
+                                     "read ends there, instead of raising "
+                                     "OSError with the uri and byte "
+                                     "offset."),
 }
 
 

@@ -22,7 +22,7 @@ import torch
 from .base import MXNetError
 
 __all__ = ["Context", "cpu", "gpu", "current_context", "default_device",
-           "resolve"]
+           "resolve", "in_context"]
 
 
 class Context:
@@ -140,3 +140,13 @@ def resolve(device: DeviceLike = None) -> torch.device:
     elif dev.type != "cpu":
         raise MXNetError("unsupported device %s (cpu or cuda)" % dev)
     return dev
+
+
+def in_context(ctx: Context, fn):
+    """``fn`` wrapped to run in (a copy of) context ``ctx``: a worker
+    thread's current context is its own (the default, the GPU), not that
+    of the thread that made it."""
+    def run(*args, **kwargs):
+        with Context(ctx):
+            return fn(*args, **kwargs)
+    return run

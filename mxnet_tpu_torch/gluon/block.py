@@ -77,6 +77,15 @@ class Block(torch.nn.Module):
         super().__init__()
         self.training = False
 
+    def __getattr__(self, name: str):
+        # a parameter attribute (``net.weight``) is its gluon Parameter, as
+        # in the reference; the layers' forwards read the tensor from
+        # ``self._parameters``, where ``functional_call`` swaps its own in
+        params = self.__dict__.get("_parameters")
+        if params is not None and name in params:
+            return None if params[name] is None else param_handle(self, name)
+        return super().__getattr__(name)
+
     def register_child(self, block: "Block",
                        name: Optional[str] = None) -> None:
         self.add_module(name if name is not None else str(len(self._modules)),

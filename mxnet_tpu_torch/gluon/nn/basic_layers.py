@@ -20,16 +20,17 @@ import torch
 
 from ...base import MXNetError
 from ...ops import nn as _ops
-from ..block import HybridBlock
+from ..block import Block, HybridBlock
 from ..parameter import meta_parameter, param_handle
 
-__all__ = ["HybridSequential", "Dense", "Dropout", "BatchNorm",
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
            "SyncBatchNorm", "LayerNorm", "Embedding", "GELU", "Activation",
            "set_dropout_generator"]
 
 
-class HybridSequential(HybridBlock):
-    """Stack of blocks run in order; children are named '0', '1', ..."""
+class _Stack:
+    """What ``Sequential`` and ``HybridSequential`` share: children named
+    '0', '1', ... run in order; a slice of the stack is a new stack."""
 
     def add(self, *blocks):
         for b in blocks:
@@ -42,14 +43,27 @@ class HybridSequential(HybridBlock):
             args = ()
         return x
 
-    def __getitem__(self, i):
-        return list(self._modules.values())[i]
+    def __getitem__(self, key):
+        layers = list(self._modules.values())
+        if isinstance(key, slice):
+            net = type(self)()
+            net.add(*layers[key])
+            return net
+        return layers[key]
 
     def __len__(self):
         return len(self._modules)
 
     def __iter__(self):
         return iter(self._modules.values())
+
+
+class Sequential(_Stack, Block):
+    """Stack of blocks run in order (gluon ``nn.Sequential``)."""
+
+
+class HybridSequential(_Stack, HybridBlock):
+    """Hybridizable stack of blocks (gluon ``nn.HybridSequential``)."""
 
 
 class Dense(HybridBlock):
@@ -70,7 +84,8 @@ class Dense(HybridBlock):
         param_handle(self, "weight").shape = (self._units, in_units)
 
     def forward(self, x):
-        out = _ops.fully_connected(x, self.weight, self.bias,
+        p = self._parameters
+        out = _ops.fully_connected(x, p["weight"], p.get("bias"),
                                    flatten=self._flatten)
         if self._act:
             out = _ops.activation(out, self._act)
@@ -164,17 +179,18 @@ class BatchNorm(HybridBlock):
 
     def forward(self, x):
         batch = self.training and not self._use_global_stats
-        out = _ops.batch_norm_out(x, self.gamma, self.beta,
-                                  self.running_mean, self.running_var,
+        p = self._parameters
+        out = _ops.batch_norm_out(x, p["gamma"], p["beta"],
+                                  p["running_mean"], p["running_var"],
                                   self._eps, not self._scale, batch,
                                   self._axis)
         if batch and self._write_aux:
             mean, var = _ops.batch_norm_stats(
-                x, self.running_mean, self.running_var, self._momentum,
+                x, p["running_mean"], p["running_var"], self._momentum,
                 self._axis)
             with torch.no_grad():
-                self.running_mean.copy_(mean)
-                self.running_var.copy_(var)
+                p["running_mean"].copy_(mean)
+                p["running_var"].copy_(var)
         return out
 
     def extra_repr(self):
@@ -208,7 +224,8 @@ class LayerNorm(HybridBlock):
             param_handle(self, attr).shape = (x.shape[self._axis],)
 
     def forward(self, x):
-        return _ops.layer_norm(x, self.gamma, self.beta, axis=self._axis,
+        p = self._parameters
+        return _ops.layer_norm(x, p["gamma"], p["beta"], axis=self._axis,
                                eps=self._eps)
 
 
@@ -221,7 +238,7 @@ class Embedding(HybridBlock):
         self.weight = meta_parameter((input_dim, output_dim), dtype)
 
     def forward(self, x):
-        return _ops.embedding(x, self.weight)
+        return _ops.embedding(x, self._parameters["weight"])
 
 
 class GELU(HybridBlock):

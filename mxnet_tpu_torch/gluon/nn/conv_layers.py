@@ -69,10 +69,11 @@ class _Conv(HybridBlock):
         return {}
 
     def forward(self, x):
-        out = self._op(x, self.weight, self.bias, kernel=self._kernel,
+        p = self._parameters
+        out = self._op(x, p["weight"], p.get("bias"), kernel=self._kernel,
                        stride=self._stride, dilate=self._dilate,
                        pad=self._pad, num_filter=self._channels,
-                       num_group=self._groups, no_bias=self.bias is None,
+                       num_group=self._groups, no_bias=p.get("bias") is None,
                        **self._op_args())
         if self._act:
             out = _ops.activation(out, self._act)

@@ -9,6 +9,7 @@ access.
 from __future__ import annotations
 
 import sys
+from types import ModuleType
 
 from ..ops import registry as _registry
 from .ndarray import (NDArray, invoke, array, zeros, ones, full, empty,
@@ -50,6 +51,20 @@ def concat(*data, dim=1, axis=None, **kw):
 
 
 Concat = concat
+
+# `nd.random` (reference: python/mxnet/ndarray/random.py)
+random = ModuleType(__name__ + ".random")
+random.uniform = _make_op_func("_random_uniform")
+random.normal = _make_op_func("_random_normal")
+random.randn = lambda *shape, **kw: random.normal(shape=shape, **kw)
+random.gamma = _make_op_func("_random_gamma")
+random.exponential = _make_op_func("_random_exponential")
+random.poisson = _make_op_func("_random_poisson")
+random.randint = _make_op_func("_random_randint")
+random.bernoulli = _make_op_func("_random_bernoulli")
+random.multinomial = _make_op_func("_sample_multinomial")
+random.shuffle = _make_op_func("shuffle")
+sys.modules[random.__name__] = random
 
 
 def __getattr__(name):

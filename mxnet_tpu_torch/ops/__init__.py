@@ -1,12 +1,13 @@
 """Operators of the port: attention (with the hand-written flash kernels),
 the nn functions of the serving and training slices, the registered ops
-the imperative front end (``nd``) dispatches to by name, and the optimizer
+the imperative front end (``nd``) dispatches to by name, the optimizer
 updates (``nd.sgd_mom_update``, ...) with the fused apply behind
-``optimizer.Optimizer``."""
+``optimizer.Optimizer``, and the random samplers (``nd.random.*``)."""
 from . import registry
 from . import attention, nn
 from . import creation, elemwise, scalar, reduce, matrix
 from . import optimizer
+from . import random
 
 __all__ = ["registry", "attention", "nn", "creation", "elemwise", "scalar",
-           "reduce", "matrix", "optimizer"]
+           "reduce", "matrix", "optimizer", "random"]

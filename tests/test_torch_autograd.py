@@ -621,16 +621,17 @@ def test_block_on_ndarrays_writes_parameter_grads():
         loss = (out * out).mean()
     assert isinstance(out, tnd.NDArray) and out.data.requires_grad
     loss.backward()
-    first = dense.weight.grad.clone()
+    first = dense.weight.grad().data.clone()
     with tag.record():
         loss = (dense(x) * dense(x)).mean()
     loss.backward()
-    torch.testing.assert_close(dense.weight.grad, first, rtol=0, atol=0)
+    torch.testing.assert_close(dense.weight.grad().data, first, rtol=0,
+                               atol=0)
     dense.weight.grad_req = "add"
     with tag.record():
         loss = (dense(x) * dense(x)).mean()
     loss.backward()
-    torch.testing.assert_close(dense.weight.grad, 2 * first)
+    torch.testing.assert_close(dense.weight.grad().data, 2 * first)
     # outside record: no graph, and the block's own mode is restored
     y = dense(x)
     assert not y.data.requires_grad and not dense.training

@@ -490,12 +490,12 @@ def test_conv_layers_need_in_channels_and_a_channel_first_layout():
     # without in_channels the size is left to the first forward (deferred
     # init), as in the reference
     w = tgnn.Conv2D(4, 3).weight
-    assert tuple(w.shape) == (4, 0, 3, 3) and w.is_meta
-    assert tuple(tgnn.BatchNorm().running_var.shape) == (0,)
+    assert w.shape == (4, 0, 3, 3) and w._tensor().is_meta
+    assert tgnn.BatchNorm().running_var.shape == (0,)
     with pytest.raises(ValueError, match="layout"):
         tgnn.Conv2D(4, 3, layout="NHWC", in_channels=3)
     w = tgnn.Conv2DTranspose(6, 3, groups=2, in_channels=4).weight
-    assert tuple(w.shape) == (4, 3, 3, 3) and w.is_meta
+    assert w.shape == (4, 3, 3, 3) and w._tensor().is_meta
 
 
 def _bn_pair(**kw):
@@ -543,7 +543,7 @@ def test_batchnorm_layer_writes_only_on_ndarrays_in_training_mode():
     stats = ("running_mean", "running_var")
 
     def unchanged():
-        return all(np.array_equal(getattr(tbn, n).detach().numpy(),
+        return all(np.array_equal(getattr(tbn, n).data().asnumpy(),
                                   named[n]) for n in stats)
 
     tbn.train()(torch.from_numpy(x))            # tensors: torch's call

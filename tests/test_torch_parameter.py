@@ -302,10 +302,97 @@ def test_collect_params_data_and_grad_match_reference():
                                    atol=ATOL, err_msg=name)
     # data() shares the slot's storage, and handles persist
     tp["1.bias"].data()[:] = 7.0
-    assert float(tnet[1].bias.detach()[0]) == 7.0
+    assert float(tnet[1].bias.data().asnumpy()[0]) == 7.0
     tp["1.bias"].lr_mult = 0.5
     assert tnet.collect_params()["1.bias"].lr_mult == 0.5
     assert sorted(tnet.collect_params("bias")) == ["0.bias", "1.bias"]
+
+
+# A block's parameter attribute (``net.weight``) is its gluon Parameter, as
+# in the reference (``mxnet_tpu/gluon/nn/basic_layers.py`` ``Dense``); a
+# raw ``torch.nn.Parameter`` there made ``data()`` raise and let
+# ``lr_mult`` set on it be ignored by the trainer.
+_ATTR_LAYERS = {
+    "Dense": (lambda m: m.Dense(3, in_units=4), (2, 4), ("weight", "bias")),
+    "Conv2D": (lambda m: m.Conv2D(2, 3, in_channels=3), (1, 3, 5, 5),
+               ("weight", "bias")),
+    "BatchNorm": (lambda m: m.BatchNorm(in_channels=3), (2, 3, 4),
+                  ("gamma", "beta", "running_mean", "running_var")),
+    "LayerNorm": (lambda m: m.LayerNorm(in_channels=4), (2, 4),
+                  ("gamma", "beta")),
+}
+
+
+@pytest.mark.parametrize("layer", sorted(_ATTR_LAYERS))
+def test_a_block_attribute_is_its_gluon_parameter(layer):
+    build, shape, attrs = _ATTR_LAYERS[layer]
+    x = _rand(np.random.RandomState(5), *shape)
+    jnet, tnet = build(jgnn), build(tgnn)
+    _carry(jnet, tnet, x)
+    tp = tnet.collect_params()
+    for attr in attrs:
+        handle = getattr(tnet, attr)
+        assert isinstance(handle, tgluon.Parameter)
+        assert handle is tp[attr]
+        np.testing.assert_array_equal(handle.data().asnumpy(),
+                                      getattr(jnet, attr).data().asnumpy())
+    for pkg_nd, pkg_ag, net in ((jnd, jag, jnet), (tnd, tag, tnet)):
+        with pkg_ag.record():
+            out = net(pkg_nd.array(x))
+            loss = (out * out).sum()
+        loss.backward()
+    for attr in attrs:
+        jpar, tpar = getattr(jnet, attr), getattr(tnet, attr)
+        if jpar.grad_req == "null":
+            assert tpar.grad_req == "null"
+            continue
+        np.testing.assert_allclose(tpar.grad().asnumpy(),
+                                   jpar.grad().asnumpy(), rtol=RTOL,
+                                   atol=ATOL, err_msg=attr)
+    value = _rand(np.random.RandomState(6), *getattr(jnet, attrs[0]).shape)
+    getattr(jnet, attrs[0]).set_data(jnd.array(value))
+    getattr(tnet, attrs[0]).set_data(value)
+    np.testing.assert_array_equal(getattr(tnet, attrs[0]).data().asnumpy(),
+                                  getattr(jnet, attrs[0]).data().asnumpy())
+    np.testing.assert_allclose(tnet(tnd.array(x)).asnumpy(),
+                               jnet(jnd.array(x)).asnumpy(), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("attr,knob", [("bias", "lr_mult"),
+                                       ("weight", "lr_mult"),
+                                       ("weight", "wd_mult")])
+def test_a_multiplier_set_on_a_block_attribute_reaches_the_trainer(attr,
+                                                                   knob):
+    """The reproducer of the fault: ``net.bias.lr_mult = 0.0`` freezes
+    the bias in the reference; the port's trainer used to train it."""
+    from mxnet_tpu import gluon as jgluon, init as jinit
+    rng = np.random.RandomState(7)
+    x = _rand(rng, 2, 3) if attr == "weight" else np.zeros((2, 3),
+                                                         np.float32)
+    after = []
+    for m, pkg_nd, pkg_ag, gl, init in (
+            (jgnn, jnd, jag, jgluon, jinit.One()),
+            (tgnn, tnd, tag, tgluon, tinit.One())):
+        net = m.Dense(2, in_units=3)
+        net.initialize(init)
+        setattr(getattr(net, attr), knob, 0.0)
+        trainer = gl.Trainer(net.collect_params(), "sgd",
+                             {"learning_rate": 1.0, "wd": 0.5})
+        with pkg_ag.record():
+            y = net(pkg_nd.array(x)).sum()
+        y.backward()
+        trainer.step(2)
+        after.append({n: p.data().asnumpy()
+                      for n, p in net.collect_params().items()})
+    for name in after[0]:
+        np.testing.assert_allclose(after[1][name], after[0][name],
+                                   rtol=RTOL, atol=ATOL, err_msg=name)
+    if knob == "lr_mult":
+        np.testing.assert_array_equal(after[1][attr],
+                                      np.ones_like(after[1][attr])
+                                      if attr == "weight" else
+                                      np.zeros_like(after[1][attr]))
 
 
 def test_grad_req_add_null_and_zero_grad_match_reference():

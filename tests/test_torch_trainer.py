@@ -244,10 +244,10 @@ def test_trainer_api():
 def test_trainer_before_any_backward_sees_zero_gradients():
     net = tgnn.Dense(3, in_units=2)
     net.initialize(device="cpu", seed=0)
-    w = net.weight.detach().clone()
+    w = net.weight.data().data.clone()
     tr = tgluon.Trainer(net.collect_params(), "sgd", {"learning_rate": 1.0})
     tr.step(1)
-    assert torch.equal(net.weight.detach(), w)
+    assert torch.equal(net.weight.data().data, w)
 
 
 # ---------------------------------------------------------------------------
