@@ -121,10 +121,30 @@ Phases (each raises on failure, so any failure exits nonzero):
    ``aggregate_num=0``: one step on the card against the same step on the
    CPU (fp32 within 1e-6 + 1e-5 |ref|; bf16 weights by ``compare``'s bf16
    rule against the CPU's float32 master).
-11. data -- the input pipeline (``io.DevicePrefetcher``, ``gluon.data``,
-   ``recordio``, ``mx.random``), no kernel of its own, none of K1-K4
-   launched (the counts are set to 0 at the phase's start and read at its
-   end).  First the allocator hazard of the prefetcher's side stream: 8
+11. amp -- ``mx.amp``, the dtype policy at the registered-op dispatch.
+   (a) BERT-base with the MLM decoder (batch 16, T = 512, dropout 0) with
+   fp32 parameters under ``amp.init()`` (bf16), through ``record()``/
+   ``backward()``, ``amp.init_trainer``, ``amp.scale_loss`` and
+   ``Trainer.step(1)``: 2 warm and 5 timed steps, each loss within 1e-2
+   relative of the same steps with attention on the composition, the first
+   within 1e-2 of the fp32 loss, K1, K2 and K3 launched 12 times a step
+   (counted under ``amp``) and in bf16 (the traced step's kernel names),
+   every parameter still float32; ms a step, tokens/s, MFU, one traced
+   step's idle share, the casts' device time (``aten::_to_copy``) and the
+   kernel groups.  (b) ``bench.py --eager``'s ``resnet18_v1`` (batch 64,
+   batch on the card) in fp32 and under ``amp.init()``: 4 steps each from
+   the same parameters, the AMP losses within 1e-2 of fp32's, 10 timed
+   steps each (images/s); every convolution's inputs bf16 and every batch
+   norm's fp32 during one traced AMP step.  (c) The same net under
+   ``amp.init(target_dtype="float16")`` with the dynamic ``LossScaler``: a
+   step whose gradient is forced to inf leaves every weight and momentum
+   bitwise unchanged and halves the scale; the next step updates.  (b) and
+   (c) launch none of K1-K4.
+12. data -- the input pipeline (``io.DevicePrefetcher``, ``gluon.data``,
+   ``recordio``, ``mx.random``, ``image.ImageDetIter``), no kernel of its
+   own, none of K1-K4 launched (the counts are set to 0 at the start of
+   (a) and of (e) and read at the end of (d) and of (e): the ``data`` and
+   ``det`` paths).  First the allocator hazard of the prefetcher's side stream: 8
    prefetched 64 MB batches, each read by a reduction queued behind ~25
    ms of matmuls and then dropped, must each read back their own values.
    (a) The eager ``resnet18_v1`` step of ``eager`` fed ``bench.py
@@ -146,7 +166,15 @@ Phases (each raises on failure, so any failure exits nonzero):
    on the card of each ``_random_*`` row of ``tests/test_random.py``'s
    moment table within its tolerances, bitwise repeatable under one seed,
    the uniform draws through its chi-square test; the time of 10^6
-   uniform and normal draws.
+   uniform and normal draws.  (e) The SSD-300 input: ``ImageDetIter`` over
+   an indexed .rec of 128 seeded 375 x 500 PNG images with 1-8 boxes each
+   (no JPEG decode on the card's machine), ``CreateDetAugmenter``'s chain
+   (``rand_crop=0.5, rand_pad=0.5, rand_mirror=True, mean=True,
+   std=True``), batches of 32 with labels padded to 8, through the
+   prefetcher to the card: images/s, every batch bitwise equal to the
+   same iterator's CPU batches; then ``_image_random_hue``, the rotation
+   (``GridGenerator`` + ``BilinearSampler``) and ``BilinearSampler`` on a
+   (32, 3, 300, 300) batch on the card within 1e-5 of the CPU's.
 
 The last lines of standard output are the ``nvidia-smi`` name and power
 limit, one JSON object ``{"kernels": [...]}`` and, last,
@@ -2092,14 +2120,16 @@ def resnet_fp32_checks(net):
     return rec
 
 
-def resnet_kernel_groups(by_name):
-    """Device ms of a traced step by :data:`RESNET_KERNEL_GROUPS` (a kernel
-    counts in the first group one of whose substrings its lower-cased
-    name holds; the rest under ``other``)."""
-    out = {g: 0.0 for g in list(RESNET_KERNEL_GROUPS) + ["other"]}
+def resnet_kernel_groups(by_name, groups=None):
+    """Device ms of a traced step by ``groups`` (default
+    :data:`RESNET_KERNEL_GROUPS`; a kernel counts in the first group one
+    of whose substrings its lower-cased name holds; the rest under
+    ``other``)."""
+    groups = RESNET_KERNEL_GROUPS if groups is None else groups
+    out = {g: 0.0 for g in list(groups) + ["other"]}
     for name, (ms, _) in by_name.items():
         low = name.lower()
-        group = next((g for g, keys in RESNET_KERNEL_GROUPS.items()
+        group = next((g for g, keys in groups.items()
                       if any(k in low for k in keys)), "other")
         out[group] += ms
     return out
@@ -2532,7 +2562,375 @@ def phase_eager(peaks, train_step_ms):
 
 
 # ---------------------------------------------------------------------------
-# 11. the input pipeline: the prefetcher, the loader, RecordIO, mx.random
+# 11. AMP: the dtype policy at the registered-op dispatch
+# ---------------------------------------------------------------------------
+
+AMP_RESNET_STEPS = 4            # steps held to fp32's; then EAGER_TIMED
+AMP_FP16_SCALE = 1024.0         # the first loss scale of part (c)
+# substrings of the kernel names in an AMP BERT step's trace
+AMP_KERNEL_GROUPS = {
+    "flash": ("flash_",),
+    "gemm": ("gemm", "cutlass", "xmma", "sm90"),
+    "cast_copy": ("copy",),
+    "softmax_norm_reduce": ("softmax", "norm", "reduce"),
+    "elementwise": ("elementwise",),
+}
+
+
+def cast_device_ms(prof):
+    """Device ms and calls of the dtype casts in a trace: the kernels that
+    ``aten::_to_copy`` (``Tensor.to(dtype)``, the AMP cast, and the loss's
+    ``float()``) launched."""
+    for e in prof.key_averages():
+        if e.key == "aten::_to_copy":
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = e.cuda_time_total
+            return us / 1e3, e.count
+    return 0.0, 0
+
+
+_TRACED_FLASH = re.compile(r"flash_(?:fwd|bwd_dq|bwd_dkv)(?:_bf16|_tf32)?"
+                           r"_kernel")
+
+
+def flash_kernel_calls(by_name):
+    """Calls of each flash kernel in a breakdown, by instantiation name
+    (``_bf16`` / ``_tf32``)."""
+    out = {}
+    for name, (_, n) in by_name.items():
+        m = _TRACED_FLASH.search(name)
+        if m:
+            out[m.group(0)] = out.get(m.group(0), 0) + n
+    return out
+
+
+def amp_bert(peaks, train_step_ms):
+    """(a) BERT-base with the MLM decoder (the train phase's configuration:
+    batch 16, T = 512, dropout 0) with **fp32 parameters under
+    ``amp.init()``** (bf16), trained through ``record()``/``backward()``,
+    ``amp.init_trainer``, ``amp.scale_loss`` and ``Trainer.step(1)`` (SGD
+    lr 1e-3, momentum 0.9): 2 warm and 5 timed steps; each loss within
+    1e-2 relative of the same step with attention on the composition, the
+    first within 1e-2 of the fp32 loss of the same parameters and batch,
+    K1, K2 and K3 in bf16 launched 12 times a step, every parameter still
+    float32.  ms a step, tokens/s, MFU, one traced step's idle share, the
+    casts' device time and the top kernel groups."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, autograd, gluon, initializer, nd
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.bert import bert_12_768_12
+    from mxnet_tpu_torch.ops import _kernels
+    from mxnet_tpu_torch.ops.attention import attention_impl_scope
+    ce = SoftmaxCrossEntropyLoss()
+    tok, seg, lab = (nd.array(a, ctx=mx.gpu(0))
+                     for a in train_batch_host(TRAIN_BATCH))
+    n_steps = EAGER_BERT_WARM + EAGER_BERT_TIMED
+
+    def build():
+        net = bert_12_768_12(vocab_size=VOCAB, max_length=SEQ_LEN,
+                             dropout=0.0, use_classifier=False)
+        net.initialize(initializer.Normal(0.02), seed=SEED)
+        return net
+
+    def loop(net):
+        trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": TRAIN_LR,
+                                 "momentum": TRAIN_MOMENTUM})
+        amp.init_trainer(trainer)
+
+        def step():
+            with autograd.record():
+                loss = ce(net(tok, seg)[-1].astype("float32"), lab).mean()
+                with amp.scale_loss(loss, trainer) as scaled:
+                    pass
+            scaled.backward()
+            trainer.step(1)
+            return loss
+        return step
+
+    net = build()
+    n_layers = len(net.encoder.transformer_cells)
+    n_params = sum(p.numel() for p in net.parameters())
+    fp32_loss = float(ce(net(tok, seg)[-1], lab).mean().asscalar())
+    amp.init()
+    try:
+        with attention_impl_scope("xla"):
+            step = loop(net)
+            ref_losses = [float(step().asscalar()) for _ in range(n_steps)]
+        del net, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        net = build()
+        step = loop(net)
+
+        # --- the AMP BERT main path, counted ---
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        losses = [step() for _ in range(EAGER_BERT_WARM)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [step() for _ in range(EAGER_BERT_TIMED)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _kernels.launch_counts()
+        # --- end of the counted main path ---
+        prof, wall_ms = profiled(step)
+    finally:
+        amp.turn_off()
+    launches = {k: counts[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                       "flash_bwd_dkv")}
+    losses = [float(v.asscalar()) for v in losses]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    total, busy, by_name = log_kernel_breakdown("amp: bert", prof, top=12)
+    flash_calls = flash_kernel_calls(by_name)
+    cast_ms, cast_calls = cast_device_ms(prof)
+    groups = resnet_kernel_groups(by_name, AMP_KERNEL_GROUPS)
+    dtypes = sorted({str(p.dtype) for p in net.parameters()})
+    tokens_per_s = TRAIN_BATCH * SEQ_LEN * EAGER_BERT_TIMED / dt
+    flops_per_token = 6.0 * n_params + 12.0 * n_layers * SEQ_LEN * \
+        net._units
+    tflops = tokens_per_s * flops_per_token / 1e12
+    rec = {"batch": TRAIN_BATCH, "seq": SEQ_LEN,
+           "params": "float32", "amp": "bfloat16", "steps": n_steps,
+           "step_ms": dt / EAGER_BERT_TIMED * 1e3,
+           "train_step_ms": train_step_ms, "tokens_per_s": tokens_per_s,
+           "tflops": tflops, "mfu": tflops * 1e12 / peaks["bf16"],
+           "losses": losses, "composition_losses": ref_losses,
+           "max_rel_gap": max(gaps), "fp32_first_loss": fp32_loss,
+           "first_loss_rel_gap_vs_fp32": abs(losses[0] - fp32_loss) /
+           abs(fp32_loss), "launches": launches,
+           "traced_flash_calls": flash_calls, "param_dtypes": dtypes,
+           "traced_step_wall_ms": wall_ms, "traced_device_ms": total,
+           "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall_ms,
+           "cast_device_ms": cast_ms, "cast_calls": cast_calls,
+           "cast_share_of_device_time": _share(cast_ms, total),
+           "device_ms_by_group": groups,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log("amp: bert %s" % json.dumps(rec))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError("amp bert: losses %s are not finite or do not "
+                           "fall" % losses)
+    if max(gaps) > 1e-2 or rec["first_loss_rel_gap_vs_fp32"] > 1e-2:
+        raise RuntimeError("amp bert: losses %s off the composition's %s "
+                           "or the fp32 loss %.6g" % (losses, ref_losses,
+                                                      fp32_loss))
+    if launches != {k: n_layers * n_steps for k in launches}:
+        raise RuntimeError("amp bert: launched %s, expected %d of each "
+                           "kernel" % (launches, n_layers * n_steps))
+    want = {k + "_bf16_kernel": n_layers for k in launches}
+    if flash_calls != want:
+        raise RuntimeError("amp bert: the traced step ran the flash "
+                           "kernels %s, expected the bf16 ones %s"
+                           % (flash_calls, want))
+    if dtypes != ["torch.float32"]:
+        raise RuntimeError("amp bert: the master weights are %s" % dtypes)
+    del net, step
+    return rec, counts
+
+
+def amp_resnet18():
+    """``resnet18_v1`` as ``eager_resnet18`` builds it, with the loss
+    scaled by ``amp.scale_loss``: ``(net, trainer, step)``, ``step(xb, yb,
+    poison=False)`` one ``record()``/``backward()``/``Trainer.step``
+    returning the batch-mean loss; ``poison`` sets the first weight's
+    gradient to inf before the update."""
+    from mxnet_tpu_torch import amp, autograd, gluon, initializer
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet18_v1
+    net = resnet18_v1(classes=RESNET_CLASSES)
+    net.initialize(initializer.Xavier(), seed=SEED)
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": EAGER_LR,
+                             "momentum": EAGER_MOMENTUM})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def step(xb, yb, poison=False):
+        with autograd.record():
+            loss = loss_fn(net(xb), yb).mean()
+            with amp.scale_loss(loss, trainer) as scaled:
+                pass
+        scaled.backward()
+        if poison:
+            trainer._params[0].grad().data.fill_(float("inf"))
+        trainer.step(1)
+        return loss
+
+    return net, trainer, step
+
+
+def _dtype_spy():
+    """Record the input dtypes of every ``Convolution`` and every
+    BatchNorm normalisation run while the returned context is open."""
+    import contextlib
+    from mxnet_tpu_torch.ops import nn as nn_ops, registry
+    seen = {"conv": set(), "batch_norm": set()}
+    conv = registry.get_op("Convolution")
+
+    @contextlib.contextmanager
+    def spy():
+        real_conv, real_bn = conv.fn, nn_ops.batch_norm_out
+
+        def conv_fn(data, weight, *a, **kw):
+            seen["conv"].add((str(data.dtype), str(weight.dtype)))
+            return real_conv(data, weight, *a, **kw)
+
+        def bn_fn(data, *a, **kw):
+            seen["batch_norm"].add(str(data.dtype))
+            return real_bn(data, *a, **kw)
+
+        conv.fn, nn_ops.batch_norm_out = conv_fn, bn_fn
+        try:
+            yield seen
+        finally:
+            conv.fn, nn_ops.batch_norm_out = real_conv, real_bn
+    return spy()
+
+
+def amp_resnet():
+    """(b) ``bench.py --eager``'s ``resnet18_v1`` (batch 64, the batch on
+    the card) in fp32 and under ``amp.init()`` (bf16), each from the same
+    seeded parameters: 4 steps each, the batch-mean losses within 1e-2
+    relative of fp32's, then 10 timed steps each (images/s); the input
+    dtypes of every convolution (bf16) and batch norm (fp32) during one
+    traced AMP step, its idle share and casts.  (c) The same net under
+    ``amp.init(target_dtype="float16")`` with the dynamic ``LossScaler``
+    (first scale 1024): a clean step, a step whose first gradient is set
+    to inf (every weight and momentum bitwise unchanged, the scale halved),
+    and a clean step that updates (the running statistics, which every
+    training forward writes, are not among the checked tensors).  Returns
+    the records; none of K1-K4 is launched."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, nd
+    from mxnet_tpu_torch.ops import _kernels
+    x_np, y_np = resnet_batch_host(EAGER_BATCH)
+    xb = nd.array(x_np, ctx=mx.gpu(0))
+    yb = nd.array(y_np.astype(np.float32), ctx=mx.gpu(0))
+    _kernels.reset_launches()
+    runs = {}
+    for policy in (None, "bfloat16"):
+        if policy:
+            amp.init(policy)
+        try:
+            net, trainer, step = amp_resnet18()
+            losses = [float(step(xb, yb).asscalar())
+                      for _ in range(AMP_RESNET_STEPS)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(EAGER_TIMED):
+                step(xb, yb)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            rec = {"losses": losses, "step_ms": dt / EAGER_TIMED * 1e3,
+                   "images_per_s": EAGER_BATCH * EAGER_TIMED / dt}
+            if policy:
+                with _dtype_spy() as seen:
+                    prof, wall_ms = profiled(lambda: step(xb, yb))
+                total, busy, by_name = log_kernel_breakdown(
+                    "amp: resnet18", prof, top=8)
+                cast_ms, cast_calls = cast_device_ms(prof)
+                rec.update({
+                    "conv_input_dtypes": sorted(seen["conv"]),
+                    "batch_norm_input_dtypes": sorted(seen["batch_norm"]),
+                    "traced_step_wall_ms": wall_ms, "device_busy_ms": busy,
+                    "device_idle_share": 1.0 - busy / wall_ms,
+                    "cast_device_ms": cast_ms, "cast_calls": cast_calls,
+                    "device_ms_by_group": resnet_kernel_groups(by_name),
+                    "param_dtypes": sorted({str(p.dtype)
+                                            for p in net.parameters()})})
+        finally:
+            amp.turn_off()
+        runs[policy or "float32"] = rec
+        del net, trainer, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    amp_rec, fp32_rec = runs["bfloat16"], runs["float32"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(amp_rec["losses"],
+                                                fp32_rec["losses"])]
+    amp_rec["max_rel_gap_vs_fp32"] = max(gaps)
+    amp_rec["fp32_step_ms"] = fp32_rec["step_ms"]
+    amp_rec["fp32_images_per_s"] = fp32_rec["images_per_s"]
+    amp_rec["fp32_losses"] = fp32_rec["losses"]
+    log("amp: resnet18 bf16 %s" % json.dumps(amp_rec))
+    if max(gaps) > 1e-2 or not all(np.isfinite(amp_rec["losses"])):
+        raise RuntimeError("amp resnet18: losses %s off fp32's %s"
+                           % (amp_rec["losses"], fp32_rec["losses"]))
+    if amp_rec["conv_input_dtypes"] != [("torch.bfloat16",
+                                         "torch.bfloat16")] or \
+            amp_rec["batch_norm_input_dtypes"] != ["torch.float32"] or \
+            amp_rec["param_dtypes"] != ["torch.float32"]:
+        raise RuntimeError("amp resnet18: convolutions ran on %s, batch "
+                           "norms on %s, parameters are %s"
+                           % (amp_rec["conv_input_dtypes"],
+                              amp_rec["batch_norm_input_dtypes"],
+                              amp_rec["param_dtypes"]))
+
+    # (c) float16 with the dynamic loss scaler, a gradient forced to inf
+    amp.init(target_dtype="float16")
+    try:
+        net, trainer, step = amp_resnet18()
+        amp.init_trainer(trainer)
+        scaler = trainer._amp_loss_scaler
+        scaler.loss_scale = AMP_FP16_SCALE
+
+        trainable = [p for p in trainer._params if p.grad_req != "null"]
+
+        def snapshot():
+            # the weights and momenta; the running statistics are written
+            # by every training forward, a skipped step's too, as in the
+            # reference
+            states = trainer._updaters[0].states
+            return [p.data().data.clone() for p in trainable] + \
+                [s.data.clone() for s in states.values() if s is not None]
+
+        clean = float(step(xb, yb).asscalar())
+        scale_clean = scaler.loss_scale
+        before = snapshot()
+        poisoned = float(step(xb, yb, poison=True).asscalar())
+        after = snapshot()
+        scale_poisoned = scaler.loss_scale
+        nxt = float(step(xb, yb).asscalar())
+        moved = snapshot()
+    finally:
+        amp.turn_off()
+    n_weights = len(trainable)
+    fp16 = {"scale_first": AMP_FP16_SCALE, "scale_after_clean": scale_clean,
+            "scale_after_inf": scale_poisoned,
+            "scale_after_next": scaler.loss_scale,
+            "losses": [clean, poisoned, nxt],
+            "tensors_checked": len(before),
+            "skipped_step_bitwise": len(before) == len(after) and all(
+                torch.equal(a, b) for a, b in zip(before, after)),
+            "next_step_updated": not all(
+                torch.equal(a, b) for a, b in zip(after[:n_weights],
+                                                  moved[:n_weights]))}
+    log("amp: resnet18 float16 loss scaler %s" % json.dumps(fp16))
+    if not (scale_clean == AMP_FP16_SCALE and
+            scale_poisoned == AMP_FP16_SCALE / 2 and
+            fp16["skipped_step_bitwise"] and fp16["next_step_updated"] and
+            len(before) == 2 * n_weights):
+        raise RuntimeError("amp resnet18 float16: %s" % fp16)
+    del net, trainer, step
+    launches = _kernels.launch_counts()
+    if any(launches.values()):
+        raise RuntimeError("amp resnet18: the path launched %s; none of "
+                           "K1-K4 is on it" % launches)
+    return amp_rec, fp16
+
+
+def phase_amp(peaks, train_step_ms):
+    """``mx.amp`` at full width: (a) :func:`amp_bert`, (b) and (c)
+    :func:`amp_resnet`; returns the kernel launches of (a)'s main path."""
+    bert, launches = amp_bert(peaks, train_step_ms)
+    gc.collect()
+    torch.cuda.empty_cache()
+    amp_resnet()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 12. the input pipeline: the prefetcher, the loader, RecordIO, mx.random
 # ---------------------------------------------------------------------------
 
 DATA_PARITY_STEPS = 4
@@ -2993,11 +3391,162 @@ def data_random():
     return rec
 
 
+DET_SHAPE = (3, 300, 300)        # SSD-300's input
+DET_BATCH, DET_BATCHES = 32, 4
+DET_MAX_OBJECTS = 8
+DET_SOURCE = (375, 500)         # a VOC-sized source image (h, w)
+DET_OPS_TOL = 1e-5
+
+
+def det_records(root):
+    """An indexed .rec of DET_BATCH x DET_BATCHES seeded 375 x 500 PNG
+    images (8 x 8 blocks of random colour, so the encode is quick) with 1
+    to 8 objects each, packed as ``tools/im2rec.py --pack-label`` packs
+    them; returns its path."""
+    from mxnet_tpu_torch import recordio
+    rng = np.random.RandomState(SEED + 50)
+    h, w = DET_SOURCE
+    writer = recordio.MXIndexedRecordIO(str(root / "det.idx"),
+                                        str(root / "det.rec"), "w")
+    for i in range(DET_BATCH * DET_BATCHES):
+        small = rng.randint(0, 256, (h // 8 + 1, w // 8 + 1, 3))
+        img = np.kron(small, np.ones((8, 8, 1)))[:h, :w].astype(np.uint8)
+        k = int(rng.randint(1, DET_MAX_OBJECTS + 1))
+        x1, y1 = rng.uniform(0, 0.7, k), rng.uniform(0, 0.7, k)
+        bw, bh = rng.uniform(0.05, 0.3, k), rng.uniform(0.05, 0.3, k)
+        objs = np.stack([rng.randint(0, 20, k), x1, y1, x1 + bw, y1 + bh],
+                        axis=1)
+        flat = np.concatenate([[2.0, 5.0], objs.ravel()]).astype(np.float32)
+        writer.write_idx(i, recordio.pack_img(
+            recordio.IRHeader(0, flat, i, 0), img, img_fmt=".png"))
+    writer.close()
+    return str(root / "det.rec")
+
+
+def det_ops():
+    """``RandomHue`` (``_image_random_hue`` at a fixed factor, NHWC),
+    ``Rotate`` (``GridGenerator`` + ``BilinearSampler`` of 32 rotations)
+    and ``BilinearSampler`` on a random grid, on a (32, 3, 300, 300) batch
+    of pixel values in [0, 255) on the card against the port's CPU result:
+    max|card - CPU| <= 1e-5 x max|CPU| (float32 rounds a value near 255
+    by up to 1.5e-5, so the bound scales with the batch, not with each
+    entry, many of which a sample near the zero padding makes small);
+    with the card's and the CPU's ms."""
+    from mxnet_tpu_torch.gluon.data.vision.transforms import rotation_theta
+    from mxnet_tpu_torch.ops.registry import dispatch
+    rng = np.random.RandomState(SEED + 51)
+    n, (c, h, w) = DET_BATCH, DET_SHAPE
+    x = torch.from_numpy(rng.uniform(0, 255, (n, c, h, w))
+                         .astype(np.float32))
+    theta = torch.from_numpy(np.concatenate(
+        [rotation_theta(d, h, w) for d in rng.uniform(-30, 30, n)]))
+    grid = torch.from_numpy(rng.uniform(-1.1, 1.1, (n, 2, h, w))
+                            .astype(np.float32))
+    cases = {
+        "random_hue": (lambda x, t, g: dispatch(
+            "_image_random_hue", x.permute(0, 2, 3, 1).contiguous(),
+            min_factor=0.3, max_factor=0.3)),
+        "rotate": (lambda x, t, g: dispatch(
+            "BilinearSampler", x, dispatch("GridGenerator", t,
+                                           transform_type="affine",
+                                           target_shape=(h, w)))),
+        "bilinear_sampler": (lambda x, t, g: dispatch("BilinearSampler",
+                                                      x, g)),
+    }
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = {}
+    try:
+        card = [a.cuda() for a in (x, theta, grid)]
+        for name, fn in cases.items():
+            want = fn(x, theta, grid)
+            got = fn(*card)
+            err = float((got.cpu() - want).abs().max())
+            ok = err <= DET_OPS_TOL * float(want.abs().max())
+            t0 = time.perf_counter()
+            fn(x, theta, grid)
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            rows[name] = {"shape": list(got.shape), "max_abs_err": err,
+                          "ok": ok, "ms": time_ms(lambda: fn(*card),
+                                                  iters=10),
+                          "cpu_ms": cpu_ms}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    log("data: det ops on (%d, %d, %d, %d) %s"
+        % (n, c, h, w, json.dumps(rows)))
+    bad = [k for k, r in rows.items() if not r["ok"]]
+    if bad:
+        raise RuntimeError("data: %s on the card off the CPU's" % bad)
+    return rows
+
+
+def data_det():
+    """(e) The SSD-300 input: ``ImageDetIter`` over :func:`det_records`
+    with ``CreateDetAugmenter``'s chain (``rand_crop=0.5, rand_pad=0.5,
+    rand_mirror=True, mean=True, std=True``), batches of 32 with labels
+    padded with -1 to 8 objects, 8 decode threads, through
+    ``io.DevicePrefetcher`` to the card: images/s; every batch that
+    reached the card bitwise equal to the same iterator's in-process CPU
+    batches.  PNG, not JPEG: the card's libjpeg is not the one the CPU
+    tests hold; the JPEG decode stays a CPU test.  Then :func:`det_ops`."""
+    import shutil
+    from mxnet_tpu_torch._native import BUILD_DIR
+    from mxnet_tpu_torch.image import ImageDetIter
+    from mxnet_tpu_torch.io import DevicePrefetcher
+    root = BUILD_DIR / "data_det"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        rec = det_records(root)
+        write_s = time.perf_counter() - t0
+
+        def det_iter():
+            return ImageDetIter(rec, DET_SHAPE, DET_BATCH, shuffle=True,
+                                rand_crop=0.5, rand_pad=0.5,
+                                rand_mirror=True, mean=True, std=True,
+                                seed=SEED, preprocess_threads=8)
+
+        it = det_iter()
+        seen = []
+        t0 = time.perf_counter()
+        with DevicePrefetcher(it, transform=lambda b: (b.data[0],
+                                                       b.label[0])) as pf:
+            for batch in pf:
+                seen.append(tuple(b.data.clone() for b in _on_card(batch)))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        want = [(b.data[0].data, b.label[0].data) for b in det_iter()]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    equal = len(seen) == len(want) == DET_BATCHES and all(
+        torch.equal(gx.cpu(), wx) and torch.equal(gy.cpu(), wy)
+        for (gx, gy), (wx, wy) in zip(seen, want))
+    labels = torch.cat([y for _, y in want])
+    rec = {"batch": DET_BATCH, "batches": len(seen),
+           "data_shape": list(DET_SHAPE), "label_shape":
+               list(seen[0][1].shape) if seen else None,
+           "write_s": write_s, "images_per_s": DET_BATCH * len(seen) / dt,
+           "padded_label_rows": int((labels[..., 0] < 0).sum()),
+           "on_card": all(x.is_cuda for x, _ in seen),
+           "batches_bitwise_equal": equal}
+    log("data: det %s" % json.dumps(rec))
+    if not equal or not rec["on_card"] or rec["label_shape"] != \
+            [DET_BATCH, DET_MAX_OBJECTS, 5]:
+        raise RuntimeError("data: the detection batches on the card differ "
+                           "from the CPU's or have the wrong shape: %s"
+                           % rec)
+    rec["ops"] = det_ops()
+    return rec
+
+
 def phase_data():
     """The input pipeline: (a) :func:`data_prefetch`, (b)
     :func:`data_loader`, (c) :func:`data_recordio`, (d)
-    :func:`data_random`.  The launch counts are set to 0 at the start and
-    read at the end: the data path launches none of K1-K4."""
+    :func:`data_random`, then (e) the detection path, :func:`data_det`.
+    The launch counts are set to 0 at the start of (a) and of (e) and read
+    at the end of (d) and of (e): neither path launches any of K1-K4.
+    Returns the two paths' launches."""
     from mxnet_tpu_torch.ops import _kernels
     _kernels.reset_launches()
     data_prefetch()
@@ -3009,10 +3558,14 @@ def phase_data():
     data_recordio()
     data_random()
     launches = _kernels.launch_counts()
-    if any(launches.values()):
-        raise RuntimeError("data: the data path launched %s; none of K1-K4 "
-                           "is on it" % launches)
-    return launches
+    _kernels.reset_launches()
+    data_det()
+    det_launches = _kernels.launch_counts()
+    if any(launches.values()) or any(det_launches.values()):
+        raise RuntimeError("data: the data path launched %s, the detection "
+                           "path %s; none of K1-K4 is on them"
+                           % (launches, det_launches))
+    return launches, det_launches
 
 
 def kernel_row(name, source, replaces, launches, fp32, bf16, extra=None):
@@ -3064,11 +3617,15 @@ def main():
     eager_launches = phase_eager(peaks, train_step_ms)
     gc.collect()
     torch.cuda.empty_cache()
-    data_launches = phase_data()
+    amp_launches = phase_amp(peaks, train_step_ms)
+    gc.collect()
+    torch.cuda.empty_cache()
+    data_launches, det_launches = phase_data()
     by_path = {k: {"serve": serve_launches[k], "train": train_launches[k],
                    "imperative": imperative_launches[k],
                    "resnet": resnet_launches[k],
-                   "eager": eager_launches[k], "data": data_launches[k]}
+                   "eager": eager_launches[k], "amp": amp_launches[k],
+                   "data": data_launches[k], "det": det_launches[k]}
                for k in imperative_launches}
     fp32, bf16 = torch.float32, torch.bfloat16
     kernels = [
@@ -3089,7 +3646,9 @@ def main():
                      "resnet": resnet_launches.get("tpu_kernel:" + body,
                                                    0),
                      "eager": eager_launches.get("tpu_kernel:" + body, 0),
-                     "data": data_launches.get("tpu_kernel:" + body, 0)},
+                     "amp": amp_launches.get("tpu_kernel:" + body, 0),
+                     "data": data_launches.get("tpu_kernel:" + body, 0),
+                     "det": det_launches.get("tpu_kernel:" + body, 0)},
                     user[(body, fp32)], user[(body, bf16)],
                     {"default_grid_": user[(body + ":default_grid", fp32)],
                      "bf16_default_grid_": user[(body + ":default_grid",

@@ -19,7 +19,9 @@ slices: ResNet training (convolution, BatchNorm, pooling, the vision
 zoo), the Gluon eager training loop (``gluon.Parameter`` with deferred
 init, ``gluon.Trainer``, ``optimizer``, ``lr_scheduler``, ``metric``) and
 the input pipeline (``io`` with ``io.DevicePrefetcher``, ``gluon.data``,
-``recordio``, ``image``, ``random``).
+``recordio``, ``image``, ``random``), and ``amp``, automatic mixed
+precision at the registered-op dispatch, with the detection input path
+(``image.ImageDetIter``) and the image and spatial ops.
 """
 from .base import MXNetError, get_env
 from .device import Context, cpu, gpu, current_context, default_device
@@ -40,9 +42,10 @@ from . import random
 from . import recordio
 from . import image
 from . import io
+from . import amp
 
 __all__ = ["MXNetError", "get_env", "Context", "cpu", "gpu",
            "current_context", "default_device", "initializer", "init",
            "ops", "lr_scheduler", "optimizer", "metric", "autograd",
            "ndarray", "nd", "gluon", "serve", "parallel", "tpu_kernel",
-           "random", "recordio", "image", "io"]
+           "random", "recordio", "image", "io", "amp"]

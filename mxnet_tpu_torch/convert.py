@@ -3,7 +3,9 @@
 The structural names of the two packages match
 (``encoder.transformer_cells.0.attention.query_key_value.weight`` is
 (3 * units, units) on both sides, and Dense weights are (out, in) as in
-PyTorch), so the conversion is a copy by name.  The input is what the JAX
+PyTorch), so the conversion is a copy by name; so are the norms' and
+activations' own parameters (``GroupNorm``/``InstanceNorm`` gamma and
+beta, ``PReLU`` alpha).  The input is what the JAX
 block exports, ``{name: p.data().asnumpy() for name, p in
 net.collect_params().items()}``; this module needs nothing of the JAX
 package to read it.  :func:`params_to_numpy` is the way back, the same

@@ -10,13 +10,15 @@ the DataLoader's workers; each returns an NDArray on the current context.
 Random choices draw from Python's ``random`` (``RandomLighting`` from
 numpy's global generator) in the reference's order, so the same seeds
 give its output bit for bit.  ``RandomHue``, ``Rotate`` and
-``RandomRotation`` run the reference's ``_image_random_hue``,
-``GridGenerator`` and ``BilinearSampler`` ops (``ops/image.py``,
-``ops/spatial.py``), which the port does not register yet: they raise
-``MXNetError``.
+``RandomRotation`` run the registered ops ``_image_random_hue``,
+``GridGenerator`` and ``BilinearSampler`` (``ops/image.py``,
+``ops/spatial.py``) as the reference does; the hue factor comes from the
+port's ``mx.random`` generator (the reference's from a JAX key), the
+rotation angle from Python's ``random``, as in the reference.
 """
 from __future__ import annotations
 
+import math
 import random as _pyrandom
 from typing import List, Optional, Sequence, Tuple
 
@@ -24,8 +26,7 @@ import numpy as _np
 import torch
 
 from .... import ndarray as nd
-from ....base import MXNetError
-from ....ndarray.ndarray import NDArray
+from ....ndarray.ndarray import NDArray, invoke
 from ...block import Block
 from ...nn import Sequential
 
@@ -41,12 +42,6 @@ def _to_np(x) -> _np.ndarray:
     if isinstance(x, torch.Tensor):     # an NDArray that Block.__call__ unwrapped
         return x.detach().cpu().numpy()
     return _np.asarray(x)
-
-
-def _not_ported(name, ops):
-    raise MXNetError("transforms.%s is not ported: it runs %s, which the "
-                     "port's op registry does not hold yet (ops/image.py, "
-                     "ops/spatial.py)" % (name, ops))
 
 
 class Compose(Sequential):
@@ -300,11 +295,16 @@ class RandomColorJitter(Block):
 
 
 class RandomHue(Block):
-    """Random hue jitter (reference: transforms.RandomHue over the
-    ``_image_random_hue`` op); not ported."""
+    """Random hue jitter: the ``_image_random_hue`` op with a factor from
+    [-hue, hue] (reference: transforms.RandomHue)."""
 
     def __init__(self, hue):
-        _not_ported("RandomHue", "_image_random_hue")
+        super().__init__()
+        self._h = hue
+
+    def forward(self, x):
+        return invoke("_image_random_hue", nd.array(_to_np(x)),
+                      min_factor=-self._h, max_factor=self._h)
 
 
 class RandomGray(Block):
@@ -325,18 +325,60 @@ class RandomGray(Block):
 
 
 class Rotate(Block):
-    """Rotate by a fixed angle (reference: transforms.Rotate over
-    ``GridGenerator`` and ``BilinearSampler``); not ported."""
+    """Rotate by a fixed angle (degrees, counter-clockwise), bilinear with
+    zero padding (reference: transforms.Rotate)."""
 
     def __init__(self, rotation_degrees, zoom_in=False, zoom_out=False):
-        _not_ported("Rotate", "GridGenerator and BilinearSampler")
+        super().__init__()
+        if zoom_in or zoom_out:
+            raise NotImplementedError(
+                "Rotate: zoom_in/zoom_out not implemented")
+        self._deg = rotation_degrees
+
+    def forward(self, x):
+        return _rotate_hwc(x, self._deg)
 
 
 class RandomRotation(Block):
-    """Rotate by a uniform random angle (reference:
-    transforms.RandomRotation over ``GridGenerator`` and
-    ``BilinearSampler``); not ported."""
+    """Rotate by a uniform random angle from [lo, hi] degrees, with
+    probability ``rotate_with_proba`` (reference:
+    transforms.RandomRotation)."""
 
     def __init__(self, angle_limits, zoom_in=False, zoom_out=False,
                  rotate_with_proba=1.0):
-        _not_ported("RandomRotation", "GridGenerator and BilinearSampler")
+        super().__init__()
+        if zoom_in or zoom_out:
+            raise NotImplementedError(
+                "RandomRotation: zoom_in/zoom_out not implemented")
+        self._lim = angle_limits
+        self._p = rotate_with_proba
+
+    def forward(self, x):
+        if _pyrandom.random() >= self._p:
+            return x if isinstance(x, NDArray) else nd.array(_to_np(x))
+        return _rotate_hwc(x, _pyrandom.uniform(*self._lim))
+
+
+def rotation_theta(deg, H, W) -> _np.ndarray:
+    """The (1, 6) affine ``GridGenerator`` parameters that rotate an H x W
+    image by ``deg`` degrees counter-clockwise about its centre.  The
+    grid maps output to input and the image's y axis points down, so the
+    angle is negated; the sine terms carry the aspect ratio, so the
+    rotation is rigid in pixels when H != W."""
+    th = -math.radians(deg)
+    sx = max(W - 1, 1) / 2.0
+    sy = max(H - 1, 1) / 2.0
+    return _np.array([[math.cos(th), math.sin(th) * sy / sx, 0.0,
+                       -math.sin(th) * sx / sy, math.cos(th), 0.0]],
+                     _np.float32)
+
+
+def _rotate_hwc(x, deg):
+    """An HWC image rotated about its centre through the ``GridGenerator``
+    and ``BilinearSampler`` ops."""
+    a = _to_np(x).astype(_np.float32)
+    chw = _np.moveaxis(a, -1, 0)[None]                  # (1, C, H, W)
+    grid = invoke("GridGenerator", nd.array(rotation_theta(deg, *a.shape[:2])),
+                  transform_type="affine", target_shape=a.shape[:2])
+    out = invoke("BilinearSampler", nd.array(chw), grid)
+    return nd.array(_np.moveaxis(out.asnumpy()[0], 0, -1))

@@ -4,7 +4,8 @@ Counterpart of ``mxnet_tpu/gluon/loss.py`` (``Loss``, ``L2Loss``,
 ``SoftmaxCrossEntropyLoss``) with the same semantics: a number ``weight``
 scales the loss, ``sample_weight`` multiplies it with broadcasting, and the
 result is the mean over every axis but ``batch_axis``, one value per
-example.
+example.  ``log_softmax`` and ``pick`` are the registered ops, reached
+through ``registry.dispatch`` as the reference's loss invokes them.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from ..ops import nn as _ops
+from ..ops.registry import dispatch
 from .block import HybridBlock
 
 __all__ = ["Loss", "L2Loss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss"]
@@ -79,9 +80,10 @@ class SoftmaxCrossEntropyLoss(Loss):
 
     def forward(self, pred, label, sample_weight=None):
         if not self._from_logits:
-            pred = _ops.log_softmax(pred, axis=self._axis)
+            pred = dispatch("log_softmax", pred, axis=self._axis)
         if self._sparse_label:
-            loss = -_ops.pick(pred, label, axis=self._axis, keepdims=False)
+            loss = -dispatch("pick", pred, label, axis=self._axis,
+                             keepdims=False)
         else:
             label = label.reshape(pred.shape)
             loss = -(pred * label).sum(dim=self._axis)

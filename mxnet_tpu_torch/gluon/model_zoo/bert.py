@@ -1,8 +1,9 @@
 """BERT model family (GluonNLP architecture) for the port.
 
 Counterpart of ``mxnet_tpu/gluon/model_zoo/bert.py``: the same blocks, the
-same parameter names and the same outputs.  Attention runs through
-:func:`mxnet_tpu_torch.ops.nn.multi_head_attention`, which reaches the
+same parameter names and the same outputs.  Attention runs through the
+registered op ``multi_head_attention`` (``registry.dispatch``, where AMP
+casts q, k and v to its target dtype), which reaches the
 hand-written flash kernel for unmasked attention at head dim 64 or 128
 (BERT-base and BERT-large) and the plain composition under a
 ``valid_length`` mask.
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from ...ops import nn as _ops
+from ...ops.registry import dispatch
 from .. import nn
 from ..block import HybridBlock
 
@@ -39,9 +40,9 @@ class MultiHeadAttention(HybridBlock):
 
     def forward(self, x, mask=None):
         q, k, v = self.query_key_value(x).chunk(3, dim=-1)
-        out = _ops.multi_head_attention(q, k, v, mask,
-                                        num_heads=self._num_heads,
-                                        scaled=True)
+        out = dispatch("multi_head_attention", q, k, v, mask,
+                       num_heads=self._num_heads, scaled=True,
+                       units=self._units)
         return self.dropout(self.proj(out))
 
 

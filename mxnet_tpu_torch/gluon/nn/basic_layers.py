@@ -5,6 +5,11 @@ parameter names (``weight``, ``bias``, ``gamma``, ``beta``,
 ``running_mean``, ``running_var``).  ``in_units`` / ``in_channels`` of 0
 (the default, as in the reference) leave the size to the first forward:
 the layer's ``infer_shape`` reads it from the input (``Block.__call__``).
+Each layer computes its op through ``registry.dispatch`` under the
+reference's op name (``FullyConnected``, ``LayerNorm``, ``GroupNorm``,
+``InstanceNorm``, ``Embedding``, ``Activation``, ``LeakyReLU``), where the
+AMP policy casts the op's inputs; ``BatchNorm`` computes its op in parts
+and takes the same cast (``registry.amp_cast``).
 A parameter whose gluon ``grad_req`` is 'null' (BatchNorm's running
 statistics; gamma without ``scale``, beta without ``center``) has
 ``requires_grad`` False, so ``backward`` on NDArrays writes it no
@@ -18,14 +23,17 @@ from typing import Optional
 
 import torch
 
+from ... import initializer
 from ...base import MXNetError
 from ...ops import nn as _ops
+from ...ops.registry import amp_cast, dispatch, get_op
 from ..block import Block, HybridBlock
 from ..parameter import meta_parameter, param_handle
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
-           "SyncBatchNorm", "LayerNorm", "Embedding", "GELU", "Activation",
-           "set_dropout_generator"]
+           "SyncBatchNorm", "LayerNorm", "GroupNorm", "InstanceNorm",
+           "Embedding", "GELU", "Activation", "LeakyReLU", "PReLU", "ELU",
+           "SELU", "set_dropout_generator"]
 
 
 class _Stack:
@@ -85,10 +93,12 @@ class Dense(HybridBlock):
 
     def forward(self, x):
         p = self._parameters
-        out = _ops.fully_connected(x, p["weight"], p.get("bias"),
-                                   flatten=self._flatten)
+        bias = p.get("bias")
+        out = dispatch("FullyConnected", x, p["weight"], bias,
+                       num_hidden=self._units, no_bias=bias is None,
+                       flatten=self._flatten)
         if self._act:
-            out = _ops.activation(out, self._act)
+            out = dispatch("Activation", out, act_type=self._act)
         return out
 
     def extra_repr(self):
@@ -177,17 +187,19 @@ class BatchNorm(HybridBlock):
         for attr in ("gamma", "beta", "running_mean", "running_var"):
             param_handle(self, attr).shape = (x.shape[self._axis],)
 
+    _OP = get_op("BatchNorm")
+
     def forward(self, x):
         batch = self.training and not self._use_global_stats
         p = self._parameters
-        out = _ops.batch_norm_out(x, p["gamma"], p["beta"],
-                                  p["running_mean"], p["running_var"],
-                                  self._eps, not self._scale, batch,
-                                  self._axis)
+        x, gamma, beta, mean, var = amp_cast(
+            self._OP, {}, (x, p["gamma"], p["beta"], p["running_mean"],
+                           p["running_var"]))
+        out = _ops.batch_norm_out(x, gamma, beta, mean, var, self._eps,
+                                  not self._scale, batch, self._axis)
         if batch and self._write_aux:
-            mean, var = _ops.batch_norm_stats(
-                x, p["running_mean"], p["running_var"], self._momentum,
-                self._axis)
+            mean, var = _ops.batch_norm_stats(x, mean, var, self._momentum,
+                                              self._axis)
             with torch.no_grad():
                 p["running_mean"].copy_(mean)
                 p["running_var"].copy_(var)
@@ -225,8 +237,55 @@ class LayerNorm(HybridBlock):
 
     def forward(self, x):
         p = self._parameters
-        return _ops.layer_norm(x, p["gamma"], p["beta"], axis=self._axis,
-                               eps=self._eps)
+        return dispatch("LayerNorm", x, p["gamma"], p["beta"],
+                        axis=self._axis, eps=self._eps)
+
+
+class _ChannelNorm(HybridBlock):
+    """What GroupNorm and InstanceNorm share: ``gamma`` (ones) and
+    ``beta`` (zeros) per channel (axis 1), ``grad_req`` 'null' without
+    ``scale`` / ``center``."""
+
+    def __init__(self, epsilon, center, scale, in_channels, **kwargs):
+        super().__init__(**kwargs)
+        self._eps = epsilon
+        self.gamma = meta_parameter((in_channels,), requires_grad=scale)
+        self.beta = meta_parameter((in_channels,), requires_grad=center)
+
+    def infer_shape(self, x, *args):
+        for attr in ("gamma", "beta"):
+            param_handle(self, attr).shape = (x.shape[1],)
+
+
+class GroupNorm(_ChannelNorm):
+    """Group normalisation: the channels in ``num_groups`` groups, each
+    normalised over its channels and the spatial axes."""
+
+    def __init__(self, num_groups: int = 1, epsilon: float = 1e-5,
+                 center: bool = True, scale: bool = True,
+                 in_channels: int = 0, **kwargs):
+        super().__init__(epsilon, center, scale, in_channels, **kwargs)
+        self._groups = num_groups
+
+    def forward(self, x):
+        p = self._parameters
+        return dispatch("GroupNorm", x, p["gamma"], p["beta"],
+                        num_groups=self._groups, eps=self._eps)
+
+
+class InstanceNorm(_ChannelNorm):
+    """Instance normalisation: each channel of each example over its
+    spatial axes; ``scale`` is off by default, as in the reference."""
+
+    def __init__(self, axis: int = 1, epsilon: float = 1e-5,
+                 center: bool = True, scale: bool = False,
+                 in_channels: int = 0, **kwargs):
+        super().__init__(epsilon, center, scale, in_channels, **kwargs)
+
+    def forward(self, x):
+        p = self._parameters
+        return dispatch("InstanceNorm", x, p["gamma"], p["beta"],
+                        eps=self._eps)
 
 
 class Embedding(HybridBlock):
@@ -235,17 +294,12 @@ class Embedding(HybridBlock):
     def __init__(self, input_dim: int, output_dim: int, dtype="float32",
                  **kwargs):
         super().__init__(**kwargs)
+        self._dims = (input_dim, output_dim)
         self.weight = meta_parameter((input_dim, output_dim), dtype)
 
     def forward(self, x):
-        return _ops.embedding(x, self._parameters["weight"])
-
-
-class GELU(HybridBlock):
-    """Exact (erf) GELU."""
-
-    def forward(self, x):
-        return _ops.gelu(x)
+        return dispatch("Embedding", x, self._parameters["weight"],
+                        input_dim=self._dims[0], output_dim=self._dims[1])
 
 
 class Activation(HybridBlock):
@@ -254,4 +308,66 @@ class Activation(HybridBlock):
         self._act = activation
 
     def forward(self, x):
-        return _ops.activation(x, self._act)
+        return dispatch("Activation", x, act_type=self._act)
+
+
+class _LeakyFamily(HybridBlock):
+    """A layer of the ``LeakyReLU`` op with a fixed ``act_type`` and
+    ``slope``."""
+
+    _act_type = "leaky"
+
+    def __init__(self, slope: float = 0.25, **kwargs):
+        super().__init__(**kwargs)
+        self._slope = slope
+
+    def forward(self, x):
+        return dispatch("LeakyReLU", x, act_type=self._act_type,
+                        slope=self._slope)
+
+
+class LeakyReLU(_LeakyFamily):
+    """``alpha * x`` below 0."""
+
+    def __init__(self, alpha: float = 0.01, **kwargs):
+        super().__init__(alpha, **kwargs)
+
+
+class ELU(_LeakyFamily):
+    """``alpha * (exp(x) - 1)`` below 0."""
+
+    _act_type = "elu"
+
+    def __init__(self, alpha: float = 1.0, **kwargs):
+        super().__init__(alpha, **kwargs)
+
+
+class SELU(_LeakyFamily):
+    """Scaled ELU with the self-normalising constants."""
+
+    _act_type = "selu"
+
+
+class GELU(_LeakyFamily):
+    """Exact (erf) GELU."""
+
+    _act_type = "gelu"
+
+    def __init__(self, approximation: str = "erf", **kwargs):
+        super().__init__(**kwargs)
+
+
+class PReLU(HybridBlock):
+    """A learned slope ``alpha`` below 0, one per channel (axis 1),
+    initialised by ``alpha_initializer`` (0.25)."""
+
+    def __init__(self, alpha_initializer=None, in_channels: int = 1,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.alpha = meta_parameter((in_channels,))
+        param_handle(self, "alpha").init = alpha_initializer or \
+            initializer.Constant(0.25)
+
+    def forward(self, x):
+        return dispatch("LeakyReLU", x, self._parameters["alpha"],
+                        act_type="prelu")

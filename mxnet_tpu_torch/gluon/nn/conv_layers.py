@@ -6,13 +6,13 @@ Pool 1D-3D, ReflectionPad2D), with the gluon parameter names ``weight``
 (OIHW; IOHW for the transposes) and ``bias``; ``in_channels`` of 0 (the
 default) is inferred from the first input (``infer_shape``).  Layouts
 are channel-first (NCW, NCHW, NCDHW), the reference's; the convolutions
-and pools are cuDNN's through :mod:`...ops.nn`.
+and pools are cuDNN's through :mod:`...ops.nn`, reached as the registered
+ops ``Convolution``, ``Deconvolution``, ``Pooling`` and ``pad`` through
+``registry.dispatch`` (where the AMP policy casts their inputs).
 """
 from __future__ import annotations
 
-import torch.nn.functional as F
-
-from ...ops import nn as _ops
+from ...ops.registry import dispatch
 from ..block import HybridBlock
 from ..parameter import meta_parameter, param_handle
 
@@ -36,7 +36,7 @@ class _Conv(HybridBlock):
     over ``in_channels`` inputs in ``groups`` groups, then ``activation``
     if one is named."""
 
-    _op = staticmethod(_ops.convolution)
+    _op = "Convolution"
 
     def __init__(self, channels, kernel_size, strides, padding, dilation,
                  groups, layout, in_channels=0, activation=None,
@@ -70,13 +70,14 @@ class _Conv(HybridBlock):
 
     def forward(self, x):
         p = self._parameters
-        out = self._op(x, p["weight"], p.get("bias"), kernel=self._kernel,
+        out = dispatch(self._op, x, p["weight"], p.get("bias"),
+                       kernel=self._kernel,
                        stride=self._stride, dilate=self._dilate,
                        pad=self._pad, num_filter=self._channels,
                        num_group=self._groups, no_bias=p.get("bias") is None,
                        **self._op_args())
         if self._act:
-            out = _ops.activation(out, self._act)
+            out = dispatch("Activation", out, act_type=self._act)
         return out
 
     def extra_repr(self):
@@ -110,7 +111,7 @@ class Conv3D(_Conv):
 class _ConvTranspose(_Conv):
     """Transposed convolution; ``output_padding`` is the op's ``adj``."""
 
-    _op = staticmethod(_ops.deconvolution)
+    _op = "Deconvolution"
 
     def __init__(self, channels, kernel_size, strides, padding,
                  output_padding, dilation, groups, layout, **kwargs):
@@ -168,8 +169,8 @@ class _Pooling(HybridBlock):
         self._count_include_pad = count_include_pad
 
     def forward(self, x):
-        return _ops.pooling(
-            x, kernel=self._kernel, pool_type=self._type,
+        return dispatch(
+            "Pooling", x, kernel=self._kernel, pool_type=self._type,
             global_pool=self._global, stride=self._stride, pad=self._pad,
             pooling_convention="full" if self._ceil else "valid",
             count_include_pad=self._count_include_pad)
@@ -282,5 +283,4 @@ class ReflectionPad2D(HybridBlock):
         self._padding = padding
 
     def forward(self, x):
-        p = self._padding
-        return F.pad(x, (p[6], p[7], p[4], p[5]), mode="reflect")
+        return dispatch("pad", x, mode="reflect", pad_width=self._padding)

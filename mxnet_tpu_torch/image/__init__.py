@@ -12,8 +12,8 @@ functions take HWC uint8 or float32 NDArrays or numpy arrays and return
 NDArrays on the CPU.  Random choices draw from Python's ``random`` (and
 ``LightingAug`` from numpy's global generator) in the reference's order,
 so the same seeds give the reference's output bit for bit.
-``ImageIter`` is ``io.ImageRecordIter``; the detection augmenters
-(``image/detection.py``) are not ported yet.
+``ImageIter`` is ``io.ImageRecordIter``; ``ImageDetIter`` and the
+detection augmenters are :mod:`.detection`'s.
 """
 from __future__ import annotations
 
@@ -547,7 +547,8 @@ def scale_down(src_size, size):
     return int(w), int(h)
 
 
-# ImageIter lives with the other iterators; re-exported here for parity
+# ImageIter lives with the other iterators; the detection path with its
+# module (image/detection.py imports this one, so it is loaded on first use)
 _DETECTION = ("ImageDetIter", "CreateDetAugmenter", "DetAugmenter",
               "DetHorizontalFlipAug", "DetRandomCropAug", "DetBorderAug")
 
@@ -557,6 +558,6 @@ def __getattr__(name):
         from ..io import ImageRecordIter
         return ImageRecordIter
     if name in _DETECTION:
-        raise AttributeError("mx.image.%s is not ported yet (the detection "
-                             "augmenters of image/detection.py)" % name)
+        from . import detection
+        return getattr(detection, name)
     raise AttributeError(name)

@@ -34,7 +34,7 @@ from .. import autograd
 from ..base import MXNetError, dtype_name, torch_dtype
 from ..device import Context, resolve
 from ..ops.matrix import infer_reshape
-from ..ops.registry import get_op
+from ..ops.registry import amp_cast, get_op
 
 __all__ = ["NDArray", "invoke", "array", "zeros", "ones", "full", "empty",
            "arange", "stack_arrays", "waitall"]
@@ -474,6 +474,8 @@ def invoke(op_name: str, *inputs, out: Optional[NDArray] = None, **params):
     while recording are marked as recorded (``autograd.RECORDED``), even
     when no input needs a gradient, as the reference gives them a tape node:
     ``backward`` on such a head writes nothing instead of raising.
+    Under AMP the op's floating inputs are cast by the policy in force
+    (``registry.amp_cast``), as :func:`..ops.registry.dispatch` casts them.
     An op's aux outputs (``OpDef.aux_writeback``: ``BatchNorm``'s new moving
     statistics, an optimizer update's new state) are written into their
     inputs in place and are not returned; an op that mutates an input
@@ -489,7 +491,7 @@ def invoke(op_name: str, *inputs, out: Optional[NDArray] = None, **params):
         params["device"] = resolve(ctx)
     record = autograd.is_recording() and op.differentiable
     with (torch.enable_grad() if record else torch.no_grad()):
-        outs = op.fn(*args, **params)
+        outs = op.fn(*amp_cast(op, params, args), **params)
         if ctx is not None:
             dev = resolve(ctx)
             outs = [o.to(dev) for o in outs] \

@@ -2,12 +2,15 @@
 the nn functions of the serving and training slices, the registered ops
 the imperative front end (``nd``) dispatches to by name, the optimizer
 updates (``nd.sgd_mom_update``, ...) with the fused apply behind
-``optimizer.Optimizer``, and the random samplers (``nd.random.*``)."""
+``optimizer.Optimizer``, the random samplers (``nd.random.*``), the image
+ops (``_image_*``, the ``_cv*`` ops) and the spatial ops
+(``GridGenerator``, ``BilinearSampler``, the ROI ops, ...)."""
 from . import registry
 from . import attention, nn
 from . import creation, elemwise, scalar, reduce, matrix
 from . import optimizer
 from . import random
+from . import image, spatial
 
 __all__ = ["registry", "attention", "nn", "creation", "elemwise", "scalar",
-           "reduce", "matrix", "optimizer", "random"]
+           "reduce", "matrix", "optimizer", "random", "image", "spatial"]

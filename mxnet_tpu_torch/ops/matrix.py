@@ -141,6 +141,39 @@ def _repeat(x, repeats=1, axis=None):
     return torch.repeat_interleave(x, repeats, dim=axis)
 
 
+def _pad_index(n, left, right, mode, device):
+    """Source indices of an axis of extent ``n`` padded by (left, right):
+    the nearest edge entry ('edge'), or the mirror image without the edge
+    repeated ('reflect', ``jnp.pad``'s)."""
+    i = torch.arange(-left, n + right, device=device)
+    if mode == "edge":
+        return i.clamp(0, n - 1)
+    period = 2 * (n - 1)
+    if period == 0:
+        return torch.zeros_like(i)
+    i = torch.remainder(i, period)
+    return torch.where(i >= n, period - i, i)
+
+
+@register("pad", aliases=["Pad"])
+def _pad(x, mode="constant", pad_width=(), constant_value=0.0):
+    """Pad axis i by (pad_width[2i], pad_width[2i+1]): with
+    ``constant_value``, by the edge entry ('edge'), or by reflection
+    ('reflect', the edge not repeated)."""
+    pw = [(int(pad_width[2 * i]), int(pad_width[2 * i + 1]))
+          for i in range(len(pad_width) // 2)]
+    if mode == "constant":
+        flat = [p for lr in reversed(pw) for p in lr]  # F.pad: last axis first
+        return torch.nn.functional.pad(x, flat, value=constant_value)
+    if mode not in ("edge", "reflect"):
+        raise ValueError("bad pad mode %r" % mode)
+    for axis, (left, right) in enumerate(pw):
+        if left or right:
+            x = x.index_select(axis, _pad_index(x.shape[axis], left, right,
+                                                mode, x.device))
+    return x
+
+
 @register("flip")
 def _flip(x, axis=0):
     return torch.flip(x, dims=(axis,) if isinstance(axis, int)

@@ -3,10 +3,14 @@
 Counterpart of the matching entries of ``mxnet_tpu/ops/nn.py`` and
 ``mxnet_tpu/ops/matrix.py`` (``Embedding``, ``pick``).  Plain matrix
 products, convolutions, pooling and batch norm stay with PyTorch's library
-kernels (cuBLAS, cuDNN), as the JAX package left them to XLA.  ``softmax``,
-``log_softmax``, ``Dropout``, ``Activation``, ``Convolution``,
-``Deconvolution``, ``Pooling`` and ``BatchNorm`` are also registered ops of
-``ops/registry.py``, under the reference's names.
+kernels (cuBLAS, cuDNN), as the JAX package left them to XLA.  The ops
+are registered under the reference's names and signatures
+(``FullyConnected``, ``Activation``, ``LeakyReLU``, ``LayerNorm``,
+``GroupNorm``, ``InstanceNorm``, ``Embedding``, ``multi_head_attention``,
+``softmax``, ``log_softmax``, ``softmax_cross_entropy``, ``pick``,
+``Dropout``, ``Convolution``, ``Deconvolution``, ``Pooling``,
+``BatchNorm``), and the gluon layers reach them through
+``registry.dispatch``, where the AMP cast is applied.
 
 A float32 convolution runs with cuDNN's TF32 off, in its forward and its
 backward, whatever ``torch.backends.cudnn.allow_tf32`` says outside it:
@@ -25,21 +29,25 @@ from ..base import torch_dtype
 from .attention import attention_core
 from .registry import register
 
-__all__ = ["fully_connected", "activation", "gelu", "layer_norm",
+__all__ = ["fully_connected", "activation", "gelu", "leaky_relu",
+           "layer_norm", "group_norm", "instance_norm",
            "embedding", "multi_head_attention", "softmax", "log_softmax",
            "softmax_cross_entropy", "pick", "dropout", "convolution",
            "deconvolution", "pooling", "batch_norm", "batch_norm_out",
            "batch_norm_stats"]
 
 
+@register("FullyConnected", aliases=["fully_connected"])
 def fully_connected(data: torch.Tensor, weight: torch.Tensor,
                     bias: Optional[torch.Tensor] = None,
+                    num_hidden: Optional[int] = None, no_bias: bool = False,
                     flatten: bool = True) -> torch.Tensor:
     """``data @ weight.T + bias`` with weight (num_hidden, in_units);
-    ``flatten`` folds all but the leading axis first."""
+    ``flatten`` folds all but the leading axis first; ``no_bias`` drops
+    the bias."""
     x = data.reshape(data.shape[0], -1) if flatten and data.dim() > 2 \
         else data
-    return F.linear(x, weight, bias)
+    return F.linear(x, weight, None if no_bias else bias)
 
 
 def gelu(data: torch.Tensor) -> torch.Tensor:
@@ -68,23 +76,93 @@ def activation(data: torch.Tensor, act_type: str = "relu") -> torch.Tensor:
     raise ValueError("bad act_type %r" % act_type)
 
 
+_SELU_ALPHA, _SELU_LAMBDA = 1.6732632423543772, 1.0507009873554805
+
+
+@register("LeakyReLU", aliases=["leaky_relu", "_npx_leaky_relu"])
+def leaky_relu(data: torch.Tensor, gamma: Optional[torch.Tensor] = None,
+               act_type: str = "leaky", slope: float = 0.25,
+               lower_bound: float = 0.125,
+               upper_bound: float = 0.334) -> torch.Tensor:
+    """The LeakyReLU family: ``leaky`` (``slope * x`` below 0), ``prelu``
+    (a learned ``gamma`` per channel, axis 1), ``elu``, ``selu``, ``gelu``
+    (erf), ``gelu_tanh`` and ``rrelu`` (in its deterministic inference
+    form, slope ``(lower_bound + upper_bound) / 2``)."""
+    if act_type == "leaky":
+        return torch.where(data >= 0, data, slope * data)
+    if act_type == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.dim() - 2)) \
+            if data.dim() > 2 else gamma
+        return torch.where(data >= 0, data, g * data)
+    if act_type == "elu":
+        return torch.where(data >= 0, data, slope * (torch.exp(data) - 1.0))
+    if act_type == "selu":
+        return _SELU_LAMBDA * torch.where(
+            data >= 0, data, _SELU_ALPHA * (torch.exp(data) - 1.0))
+    if act_type == "gelu":
+        return gelu(data)
+    if act_type == "gelu_tanh":
+        return F.gelu(data, approximate="tanh")
+    if act_type == "rrelu":
+        return torch.where(data >= 0, data,
+                           data * ((lower_bound + upper_bound) / 2))
+    raise ValueError("bad act_type %r" % act_type)
+
+
+@register("LayerNorm", aliases=["layer_norm"])
 def layer_norm(data: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-               axis: int = -1, eps: float = 1e-5) -> torch.Tensor:
+               axis: int = -1, eps: float = 1e-5,
+               output_mean_var: bool = False) -> torch.Tensor:
     """Normalise in float32, cast back to data's dtype, then scale and
     shift, in the JAX package's order."""
+    if output_mean_var:
+        raise NotImplementedError("LayerNorm(output_mean_var=True)")
     x32 = data.float()
     mean = x32.mean(dim=axis, keepdim=True)
     var = x32.var(dim=axis, keepdim=True, unbiased=False)
     norm = ((x32 - mean) * torch.rsqrt(var + eps)).to(data.dtype)
-    shape = [1] * data.dim()
-    shape[axis] = data.shape[axis]
+    shape = _channel_shape(data, axis)
     return norm * gamma.reshape(shape) + beta.reshape(shape)
 
 
-def embedding(data: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+@register("GroupNorm")
+def group_norm(data: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               num_groups: int = 1, eps: float = 1e-5) -> torch.Tensor:
+    """Normalise each of ``num_groups`` channel groups of each example
+    over its channels and spatial axes, in float32; then cast back and
+    scale and shift per channel."""
+    n, c = data.shape[:2]
+    x = data.reshape(n, num_groups, c // num_groups, *data.shape[2:]).float()
+    red = tuple(range(2, x.dim()))
+    var, mean = torch.var_mean(x, dim=red, keepdim=True, correction=0)
+    norm = ((x - mean) * torch.rsqrt(var + eps)).reshape(data.shape) \
+        .to(data.dtype)
+    shape = _channel_shape(data, 1)
+    return norm * gamma.reshape(shape) + beta.reshape(shape)
+
+
+@register("InstanceNorm")
+def instance_norm(data: torch.Tensor, gamma: torch.Tensor,
+                  beta: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
+    """Normalise each channel of each example over its spatial axes, in
+    float32; then cast back and scale and shift per channel."""
+    red = tuple(range(2, data.dim()))
+    x32 = data.float()
+    var, mean = torch.var_mean(x32, dim=red, keepdim=True, correction=0)
+    norm = ((x32 - mean) * torch.rsqrt(var + eps)).to(data.dtype)
+    shape = _channel_shape(data, 1)
+    return norm * gamma.reshape(shape) + beta.reshape(shape)
+
+
+@register("Embedding", aliases=["embedding"])
+def embedding(data: torch.Tensor, weight: torch.Tensor,
+              input_dim: Optional[int] = None,
+              output_dim: Optional[int] = None, dtype="float32",
+              sparse_grad: bool = False) -> torch.Tensor:
     """Row gather with ``jnp.take``'s semantics: indices are truncated to
     integers, -n <= i < 0 wraps, and an index outside [-n, n) gives a row
-    of NaN (never a device fault)."""
+    of NaN (never a device fault).  The sizes come from ``weight``; the
+    other parameters are the reference op's, unused."""
     n = weight.shape[0]
     idx = data.long()
     idx = torch.where(idx < 0, idx + n, idx)
@@ -93,11 +171,14 @@ def embedding(data: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return out.masked_fill(~valid.unsqueeze(-1), float("nan"))
 
 
+@register("multi_head_attention")
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          mask: Optional[torch.Tensor] = None,
                          num_heads: int = 1, scaled: bool = True,
-                         causal: bool = False) -> torch.Tensor:
-    """q, k, v: (B, T, H*D); mask broadcastable to (B, H, Tq, Tk).
+                         causal: bool = False,
+                         units: Optional[int] = None) -> torch.Tensor:
+    """q, k, v: (B, T, H*D); mask broadcastable to (B, H, Tq, Tk);
+    ``units`` is carried for the reference's export and unused.
     Splits the heads to (B, H, T, D), runs :func:`attention_core` and
     merges them back."""
     B, Tq, HD = q.shape
@@ -140,6 +221,7 @@ def log_softmax(data: torch.Tensor, axis: int = -1,
         torch_dtype(dtype) if dtype else data.dtype)
 
 
+@register("pick")
 def pick(x: torch.Tensor, index: torch.Tensor, axis: int = -1,
          keepdims: bool = False, mode: str = "clip") -> torch.Tensor:
     """``x``'s entry at ``index`` along ``axis``; indices are truncated to
@@ -151,6 +233,7 @@ def pick(x: torch.Tensor, index: torch.Tensor, axis: int = -1,
     return out if keepdims else out.squeeze(ax)
 
 
+@register("softmax_cross_entropy")
 def softmax_cross_entropy(data: torch.Tensor,
                           label: torch.Tensor) -> torch.Tensor:
     """Summed cross-entropy of ``log_softmax(data)`` against integer labels

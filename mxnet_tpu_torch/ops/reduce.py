@@ -1,4 +1,4 @@
-"""Reductions, argmax and topk.
+"""Reductions, norms, argmax and topk.
 
 Counterpart of the matching entries of ``mxnet_tpu/ops/reduce.py``.
 Half-precision sums and means accumulate in float32 and return the input's
@@ -61,6 +61,36 @@ def _max(x, axis=None, keepdims=False, exclude=False):
 @register("min", aliases=["min_axis"])
 def _min(x, axis=None, keepdims=False, exclude=False):
     return _reduce(torch.amin, x, axis, keepdims, exclude)
+
+
+@register("norm")
+def _norm(x, ord=2, axis=None, keepdims=False):
+    """The L1 (``ord`` 1) or L2 norm over ``axis`` (all axes when None),
+    half precision accumulated in float32, in x's dtype."""
+    acc = torch.float32 if x.dtype in (torch.bfloat16, torch.float16) \
+        else x.dtype
+    xf = x.to(acc)
+    dims = _axes(x, axis)
+    dims = tuple(range(x.dim())) if dims is None else dims
+    if ord == 1:
+        out = xf.abs().sum(dim=dims, keepdim=keepdims)
+    else:
+        out = torch.sqrt(xf.square().sum(dim=dims, keepdim=keepdims))
+    return out.to(x.dtype)
+
+
+@register("L2Normalization")
+def _l2_normalization(x, eps=1e-10, mode="instance"):
+    """x over ``sqrt(sum(x^2) + eps)``, the sum over every axis but the
+    first ('instance'), over axis 1 ('channel') or over the axes after
+    the second ('spatial')."""
+    if mode == "instance":
+        dims = tuple(range(1, x.dim()))
+    elif mode == "channel":
+        dims = (1,)
+    else:
+        dims = tuple(range(2, x.dim()))
+    return x / torch.sqrt(x.square().sum(dim=dims, keepdim=True) + eps)
 
 
 @register("argmax", differentiable=False)

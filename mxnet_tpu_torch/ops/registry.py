@@ -14,6 +14,13 @@ of the call's parameters gives the map of a variable-arity op, such as
 names the input that dispatch writes the first visible output into and
 returns (the optimizer updates write the weight).
 
+:func:`dispatch` runs a registered op on tensors by name.  It is the one
+route that ``nd.*`` (``ndarray.invoke``), the gluon layers' forwards,
+``functionalize``/``TrainStep`` and ``serve.Servable`` share, and where
+the AMP policy (:mod:`mxnet_tpu_torch.amp`) casts an op's inputs, as the
+reference's ``invoke`` does for every op.  Its cost over calling the op's
+function is one dictionary lookup and one thread-local read.
+
 The reference's per-op jit cache is not ported: PyTorch dispatches
 eagerly, so re-registering a name replaces its ``OpDef`` and nothing else
 needs evicting.
@@ -24,7 +31,10 @@ import inspect
 import numbers
 from typing import Callable, Dict, Optional, Sequence, Union
 
-__all__ = ["OpDef", "register", "get_op", "list_ops", "alias"]
+from ..amp import current_state as _amp_state
+
+__all__ = ["OpDef", "register", "get_op", "list_ops", "alias", "dispatch",
+           "amp_cast"]
 
 _REGISTRY: Dict[str, "OpDef"] = {}
 
@@ -151,3 +161,20 @@ def get_op(name: str) -> OpDef:
 def list_ops():
     """All registered op names (reference: MXListAllOpNames)."""
     return sorted(_REGISTRY.keys())
+
+
+def amp_cast(op: OpDef, params: dict, args):
+    """``args`` under the AMP policy in force for op ``op`` (unchanged
+    when AMP is off)."""
+    state = _amp_state()
+    if state is None:
+        return args
+    return state.cast_inputs(op.name, params, args)
+
+
+def dispatch(name: str, *args, **params):
+    """Run registered op ``name`` on tensors: ``fn(*args, **params)`` after
+    the AMP cast of its inputs (:func:`amp_cast`, keyed by the op's
+    registered name, not the alias called)."""
+    op = _REGISTRY[name]
+    return op.fn(*amp_cast(op, params, args), **params)

@@ -25,7 +25,6 @@ from mxnet_tpu.gluon.data.vision import transforms as JT
 
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import nd as tnd, recordio as trec
-from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.convert import params_from_mxnet_tpu
 from mxnet_tpu_torch.gluon import data as tdata, nn as tgnn
 from mxnet_tpu_torch.gluon.data.vision import transforms as TT
@@ -397,8 +396,23 @@ def test_transform_matches_reference(name, as_ndarray):
                                        ("Rotate", (90,)),
                                        ("RandomRotation", ((-45, 45),))])
 def test_unported_transforms_raise(name, args):
-    with pytest.raises(MXNetError, match="not ported"):
-        getattr(TT, name)(*args)
+    """The three transforms that raised "not ported" until their ops came
+    (ops/image.py, ops/spatial.py) now run: the image's shape and dtype
+    as the reference's, and, where no JAX key draws, its values at 1e-4;
+    ``zoom_in`` raises as in the reference."""
+    img = np.random.RandomState(5).uniform(0, 255, (9, 11, 3)) \
+        .astype(np.float32)
+    outs = []
+    for tf, nd in ((JT, jnd), (TT, tnd)):
+        random.seed(2)
+        outs.append(getattr(tf, name)(*args)(nd.array(img)).asnumpy())
+    assert outs[1].shape == outs[0].shape == img.shape
+    assert outs[1].dtype == outs[0].dtype
+    if name != "RandomHue":
+        np.testing.assert_allclose(outs[1], outs[0], rtol=1e-4,
+                                   atol=1e-4 * 255)
+        with pytest.raises(NotImplementedError):
+            getattr(TT, name)(*args, zoom_in=True)
 
 
 # -- nn.Sequential ------------------------------------------------------------

@@ -270,7 +270,10 @@ def test_port_imports_neither_jax_nor_mxnet_tpu():
             "import mxnet_tpu_torch.optimizer, mxnet_tpu_torch.metric, "
             "mxnet_tpu_torch.lr_scheduler, mxnet_tpu_torch.ops.optimizer, "
             "mxnet_tpu_torch.gluon.trainer, mxnet_tpu_torch.gluon.utils, "
-            "mxnet_tpu_torch.gluon.parameter; "
+            "mxnet_tpu_torch.gluon.parameter, mxnet_tpu_torch.amp, "
+            "mxnet_tpu_torch.amp.lists, mxnet_tpu_torch.image.detection, "
+            "mxnet_tpu_torch.ops.image, mxnet_tpu_torch.ops.spatial, "
+            "mxnet_tpu_torch.gluon.data.vision.transforms; "
             "import chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "
