@@ -175,6 +175,31 @@ Phases (each raises on failure, so any failure exits nonzero):
    same iterator's CPU batches; then ``_image_random_hue``, the rotation
    (``GridGenerator`` + ``BilinearSampler``) and ``BilinearSampler`` on a
    (32, 3, 300, 300) batch on the card within 1e-5 of the CPU's.
+13. ssd -- SSD-300 training (BASELINE config 4; ``ssd_300_vgg16_voc``,
+   20 classes, ``Xavier`` from the seed, fp32 with the convolutions' TF32
+   off), no kernel of its own, none of K1-K4 launched (the counts are set
+   to 0 at its start and read at its end: the ``ssd`` path).  The 128
+   records of (e) through ``ImageDetIter`` (the same augmenters, batch 32,
+   labels padded to 8) and ``io.DevicePrefetcher``, trained by the
+   reference's loop (``examples/train_ssd.py``: ``record()``, the net,
+   ``net.targets`` (``MultiBoxTarget``), ``SSDMultiBoxLoss``,
+   ``backward()``, ``gluon.Trainer.step``; SGD lr 0.1, momentum 0.9).
+   Checks: 8,732 anchors within 1e-6 of the CPU's ``MultiBoxPrior``;
+   ``MultiBoxTarget`` (negative mining ratio 3) on the first batch on the
+   card and the CPU, class targets and masks exactly equal, box targets
+   within 1e-5 x max|CPU|; ``MultiBoxDetection`` (``nms_topk`` 400) on
+   one set of class probabilities, the same rows with the same class
+   ids, scores and boxes within 1e-5; one fp32 step at batch 2 on the card
+   against a CPU copy (the loss within 1e-4 relative, each parameter's
+   change within 0.1 in L2, as the resnet phase holds its step); every
+   loss finite, the last of 10 steps on one repeated batch below the
+   first.  Printed: images/s fed by the prefetcher (one epoch) and with
+   the batch on the card, the step split (forward + loss,
+   ``MultiBoxTarget``, backward, ``Trainer.step``) by CUDA events,
+   TFLOP/s and fp32 MFU (3 x the convolutions' forward FLOP counted from
+   their shapes), one traced step's idle share and kernels, the peak
+   memory, ``net.detect``'s ms and ``VOC07MApMetric`` over the fed
+   batches, the phase's seconds.
 
 The last lines of standard output are the ``nvidia-smi`` name and power
 limit, one JSON object ``{"kernels": [...]}`` and, last,
@@ -3568,6 +3593,316 @@ def phase_data():
     return launches, det_launches
 
 
+# ---------------------------------------------------------------------------
+# 13. ssd
+# ---------------------------------------------------------------------------
+
+SSD_CLASSES = 20
+SSD_ANCHORS = 8732
+SSD_MAPS = (38, 19, 10, 5, 3, 1)      # SSD-300's feature maps (edge)
+SSD_LR, SSD_MOMENTUM = 0.1, 0.9       # Trainer.step(32) rescales by 1/32
+SSD_WARM, SSD_TIMED = 2, 10
+SSD_CHECK_BATCH = 2
+SSD_NMS_TOPK = 400
+SSD_TARGET_TOL = 1e-5
+SSD_DETECT_TOL = 1e-5
+
+
+def ssd_conv_gflop(net, shape):
+    """Forward GFLOP an image of ``net``'s convolutions at input ``shape``
+    (C, H, W), counted from their output shapes in one forward of a
+    single image: 2 x out channels x out pixels x (in channels / groups)
+    x kernel area."""
+    from mxnet_tpu_torch.gluon.nn.conv_layers import _Conv
+    flop = [0]
+
+    def count(m, _, out):
+        w = m._parameters["weight"]
+        flop[0] += 2 * out.shape[1] * out.shape[2] * out.shape[3] \
+            * w[0].numel()
+
+    hooks = [m.register_forward_hook(count) for m in net.modules()
+             if isinstance(m, _Conv)]
+    try:
+        with torch.no_grad():
+            net(torch.zeros((1,) + tuple(shape), device="cuda"))
+    finally:
+        for h in hooks:
+            h.remove()
+    return flop[0] / 1e9
+
+
+def ssd_loop(net):
+    """The reference's SSD step (``examples/train_ssd.py``):
+    ``record()`` -> ``net(x)`` -> ``net.targets`` -> ``SSDMultiBoxLoss``
+    -> ``backward()`` -> ``Trainer.step(batch)`` (SGD, SSD_LR,
+    momentum 0.9).  Returns ``step(x, y, events=None)``, giving the loss;
+    given six CUDA events it records the first before the forward and the
+    others after the forward, ``targets``, the loss, ``backward`` and
+    ``Trainer.step``."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon.model_zoo.ssd import SSDMultiBoxLoss
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": SSD_LR,
+                             "momentum": SSD_MOMENTUM})
+    loss_fn = SSDMultiBoxLoss()
+
+    def mark(events, i):
+        if events is not None:
+            events[i].record()
+
+    def step(x, y, events=None):
+        mark(events, 0)
+        with autograd.record():
+            anchors, cls_preds, box_preds = net(x)
+            mark(events, 1)
+            loc_t, loc_m, cls_t = net.targets(anchors, cls_preds, y)
+            mark(events, 2)
+            loss = loss_fn(cls_preds, box_preds, cls_t, loc_t, loc_m)
+            mark(events, 3)
+        loss.backward()
+        mark(events, 4)
+        trainer.step(x.shape[0])
+        mark(events, 5)
+        return loss
+
+    return step
+
+
+def ssd_cpu_anchors(net):
+    """The port's CPU ``MultiBoxPrior`` over SSD-300's six maps."""
+    from mxnet_tpu_torch.ops.registry import dispatch
+    return torch.cat([dispatch("MultiBoxPrior", torch.zeros(1, 1, e, e),
+                               sizes=s, ratios=r, clip=False)
+                      for e, s, r in zip(SSD_MAPS, net._sizes,
+                                         net._ratios)], dim=1)
+
+
+def ssd_op_checks(net, x, y):
+    """On the first fed batch: the anchors (8,732, within 1e-6 of the CPU
+    ``MultiBoxPrior``), ``MultiBoxTarget`` (negative mining ratio 3) and
+    ``MultiBoxDetection`` (``nms_topk`` 400, on one set of class
+    probabilities) on the card against the CPU on the same inputs:
+    class targets, masks, kept rows and their class ids exactly equal;
+    box targets within 1e-5 x max|CPU|, scores and boxes within 1e-5."""
+    from mxnet_tpu_torch.ops.registry import dispatch
+    with torch.no_grad():
+        anchors, cls_preds, box_preds = (o.data for o in net(x))
+    anchors_cpu = ssd_cpu_anchors(net)
+    anchor_err = float((anchors.cpu() - anchors_cpu).abs().max())
+    labels = y.data
+    pred_t = cls_preds.transpose(1, 2)
+    card = dispatch("MultiBoxTarget", anchors, labels, pred_t,
+                    negative_mining_ratio=3.0)
+    cpu = dispatch("MultiBoxTarget", anchors.cpu(), labels.cpu(),
+                   pred_t.cpu(), negative_mining_ratio=3.0)
+    loc_err = float((card[0].cpu() - cpu[0]).abs().max())
+    loc_top = float(cpu[0].abs().max())
+    prob = torch.softmax(cls_preds.cpu(), dim=-1).transpose(1, 2) \
+        .contiguous()
+    det_card = dispatch("MultiBoxDetection", prob.cuda(), box_preds,
+                        anchors, nms_threshold=0.45, threshold=0.01,
+                        nms_topk=SSD_NMS_TOPK).cpu()
+    det_cpu = dispatch("MultiBoxDetection", prob, box_preds.cpu(),
+                       anchors.cpu(), nms_threshold=0.45, threshold=0.01,
+                       nms_topk=SSD_NMS_TOPK)
+    kept_card, kept_cpu = det_card[..., 0] >= 0, det_cpu[..., 0] >= 0
+    same_rows = torch.equal(kept_card, kept_cpu) and torch.equal(
+        det_card[..., 0], det_cpu[..., 0])
+    det_err = float((det_card - det_cpu).abs().max())
+    rec = {"anchors": list(anchors.shape), "anchor_max_abs_err": anchor_err,
+           "cls_target_equal": torch.equal(card[2].cpu(), cpu[2]),
+           "loc_mask_equal": torch.equal(card[1].cpu(), cpu[1]),
+           "loc_target_max_abs_err": loc_err, "loc_target_max_abs": loc_top,
+           "positives": int((cpu[2] > 0).sum()),
+           "ignored": int((cpu[2] < 0).sum()),
+           "padded_label_rows": int((labels[..., 0] < 0).sum()),
+           "detections_kept": int(kept_cpu.sum()),
+           "detection_rows_equal": same_rows,
+           "detection_max_abs_err": det_err}
+    log("ssd: op checks %s" % json.dumps(rec))
+    faults = []
+    if tuple(anchors.shape) != (1, SSD_ANCHORS, 4) or not anchor_err <= 1e-6:
+        faults.append("anchors %s off the CPU's by %.3g"
+                      % (tuple(anchors.shape), anchor_err))
+    if not (rec["cls_target_equal"] and rec["loc_mask_equal"]
+            and loc_err <= SSD_TARGET_TOL * loc_top):
+        faults.append("MultiBoxTarget on the card differs from the CPU's")
+    if not same_rows or not det_err <= SSD_DETECT_TOL:
+        faults.append("MultiBoxDetection on the card differs from the "
+                      "CPU's (rows equal %s, max|d| %.3g)"
+                      % (same_rows, det_err))
+    if faults:
+        raise RuntimeError("ssd: " + "; ".join(faults))
+    return rec
+
+
+def ssd_fp32_step(net, x, y):
+    """One step of :func:`ssd_loop` at batch 2 from the same parameters on
+    the card and on a CPU copy, as ``resnet_fp32_checks`` holds a step:
+    the loss within 1e-4 relative, each parameter's change within 0.1 of
+    the CPU's in L2 norm (plus 1e-6 of the whole update's norm)."""
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.gluon.model_zoo.ssd import ssd_300_vgg16_voc
+    p0 = {n: p.detach().cpu().clone() for n, p in net.named_parameters()}
+    xb = x.data[:SSD_CHECK_BATCH].cpu()
+    yb = y.data[:SSD_CHECK_BATCH].cpu()
+    losses, change = {}, {}
+    for key, dev in (("card", "cuda"), ("cpu", "cpu")):
+        model = ssd_300_vgg16_voc(classes=SSD_CLASSES).load_dict(
+            p0, device=dev)
+        step = ssd_loop(model)
+        losses[key] = float(step(nd.NDArray(xb.to(dev)),
+                                 nd.NDArray(yb.to(dev))).asscalar())
+        change[key] = {n: p.detach().cpu().double() - p0[n].double()
+                       for n, p in model.named_parameters()}
+        del model, step
+    floor = 1e-6 * float(torch.stack(
+        [d.norm() for d in change["cpu"].values()]).norm())
+    worst, at = _worst_l2(change["card"], change["cpu"], floor)
+    rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    rec = {"batch": SSD_CHECK_BATCH, "loss_card": losses["card"],
+           "loss_cpu": losses["cpu"], "loss_rel": rel,
+           "step_change_worst_rel_l2": worst, "step_change_worst_at": at}
+    log("ssd: fp32 step %s" % json.dumps(rec))
+    if not rel <= 1e-4 or not worst <= 0.1:
+        raise RuntimeError("ssd: the fp32 step on the card is off the "
+                           "CPU's: %s" % rec)
+    return rec
+
+
+def phase_ssd(peaks, smi):
+    """SSD-300 training (BASELINE config 4) on the card, no kernel of its
+    own: ``ssd_300_vgg16_voc(classes=20)`` from ``Xavier`` at the seed in
+    fp32 (convolutions with TF32 off), fed :func:`det_records` by
+    ``ImageDetIter`` (``data_det``'s augmenters, batch 32, 8 objects a
+    label) through ``io.DevicePrefetcher``, trained by the reference's
+    loop (:func:`ssd_loop`).  First the checks of :func:`ssd_op_checks`
+    and :func:`ssd_fp32_step`; then 2 warm steps on the first batch, one
+    fed epoch (images/s), 10 timed steps on the first batch resident on
+    the card (images/s; the step split into forward + loss,
+    ``MultiBoxTarget``, backward and ``Trainer.step`` by CUDA events; the
+    last loss below the first); a traced step's idle share and kernels,
+    the peak memory; ``net.detect(..., nms_topk=400)`` (ms) and
+    ``VOC07MApMetric`` over the fed batches.  The launch counts are set
+    to 0 at the start and read at the end: none of K1-K4 is on the path.
+    Returns the launches."""
+    import shutil
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch._native import BUILD_DIR
+    from mxnet_tpu_torch.gluon.model_zoo.ssd import ssd_300_vgg16_voc
+    from mxnet_tpu_torch.image import ImageDetIter
+    from mxnet_tpu_torch.io import DevicePrefetcher
+    from mxnet_tpu_torch.metric import VOC07MApMetric
+    from mxnet_tpu_torch.ops import _kernels
+    t_phase = time.perf_counter()
+    _kernels.reset_launches()
+    root = BUILD_DIR / "ssd"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        rec_path = det_records(root)
+
+        def det_iter():
+            return ImageDetIter(rec_path, DET_SHAPE, DET_BATCH,
+                                shuffle=True, rand_crop=0.5, rand_pad=0.5,
+                                rand_mirror=True, mean=True, std=True,
+                                seed=SEED, preprocess_threads=8)
+
+        first = next(det_iter())
+        x0 = first.data[0].as_in_context(mx.gpu(0))
+        y0 = first.label[0].as_in_context(mx.gpu(0))
+        net = ssd_300_vgg16_voc(classes=SSD_CLASSES)
+        net.initialize(initializer.Xavier(), seed=SEED)
+        ssd_op_checks(net, x0, y0)      # its first call sizes the net
+        ssd_fp32_step(net, x0, y0)
+        gflop = ssd_conv_gflop(net, DET_SHAPE)
+        step = ssd_loop(net)
+        losses = [float(step(x0, y0).asscalar()) for _ in range(SSD_WARM)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # one fed epoch through the prefetcher
+        fed, fed_losses = [], []
+        t0 = time.perf_counter()
+        with DevicePrefetcher(det_iter(), transform=lambda b: (
+                b.data[0], b.label[0])) as pf:
+            for batch in pf:
+                xb, yb = _on_card(batch)
+                fed_losses.append(step(xb, yb).data.detach())
+                fed.append((xb, yb))
+            torch.cuda.synchronize()
+            fed_s = time.perf_counter() - t0
+            wait_s = pf.data_wait()[0]
+        # the resident batch, timed and split
+        marks = [[torch.cuda.Event(enable_timing=True) for _ in range(6)]
+                 for _ in range(SSD_TIMED)]
+        t0 = time.perf_counter()
+        timed = [step(x0, y0, events=ev) for ev in marks]
+        torch.cuda.synchronize()
+        resident_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses += [float(l.asscalar()) for l in timed]
+        fed_losses = [float(l) for l in fed_losses]
+        parts = np.array([[ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
+                          for ev in marks]).mean(axis=0)
+        prof, wall_ms = profiled(lambda: step(x0, y0))
+        busy = device_busy_ms(prof)
+        log_kernel_breakdown("ssd", prof, top=8)
+        # inference: detect and VOC07 mAP over the fed batches
+        with torch.no_grad():
+            outs = net(x0)
+        detect_ms = time_ms(lambda: net.detect(*outs,
+                                               nms_topk=SSD_NMS_TOPK),
+                            iters=5, warmup=1)
+        metric = VOC07MApMetric()
+        with torch.no_grad():
+            for xb, yb in fed:
+                metric.update([yb], [net.detect(*net(xb),
+                                                nms_topk=SSD_NMS_TOPK)])
+        map_name, map_value = metric.get()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = _kernels.launch_counts()
+    n_fed = DET_BATCH * len(fed)
+    step_ms = resident_s / SSD_TIMED * 1e3
+    flop_step = 3 * gflop * 1e9 * DET_BATCH
+    rec = {"model": "ssd_300_vgg16_voc", "classes": SSD_CLASSES,
+           "batch": DET_BATCH, "dtype": "float32", "lr": SSD_LR,
+           "momentum": SSD_MOMENTUM, "forward_gflop_per_image": gflop,
+           "fed_batches": len(fed),
+           "fed_images_per_s": n_fed / fed_s,
+           "fed_data_wait_share_pct": 100.0 * wait_s / fed_s,
+           "resident_images_per_s": DET_BATCH * SSD_TIMED / resident_s,
+           "resident_step_ms": step_ms,
+           "split_ms": {"forward": parts[0], "multibox_target": parts[1],
+                        "loss": parts[2], "forward_plus_loss":
+                            parts[0] + parts[2], "backward": parts[3],
+                        "trainer_step": parts[4]},
+           "tflops": flop_step / (step_ms / 1e3) / 1e12,
+           "mfu_fp32": flop_step / (step_ms / 1e3) / peaks["fp32"],
+           "traced_step_wall_ms": wall_ms, "device_busy_ms": busy,
+           "device_idle_share": 1.0 - busy / wall_ms,
+           "peak_memory_gb": peak_gb, "detect_ms": detect_ms,
+           "map_name": map_name, "map": map_value,
+           "losses_resident": losses, "losses_fed": fed_losses,
+           "launches": launches,
+           "phase_s": time.perf_counter() - t_phase, "card": smi}
+    log("ssd: %s" % json.dumps(rec))
+    faults = []
+    if not all(np.isfinite(losses + fed_losses)):
+        faults.append("a loss is not finite")
+    if not losses[-1] < losses[0]:
+        faults.append("the loss on the repeated batch did not fall: %s"
+                      % losses)
+    if any(launches.values()):
+        faults.append("launched %s; none of K1-K4 is on the path"
+                      % launches)
+    if faults:
+        raise RuntimeError("ssd: " + "; ".join(faults))
+    return launches
+
+
 def kernel_row(name, source, replaces, launches, fp32, bf16, extra=None):
     """One entry of the kernels line: the fp32 figures under the contract's
     keys, the bf16 ones under ``bf16_``, and those of ``extra`` (another
@@ -3621,11 +3956,15 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     data_launches, det_launches = phase_data()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssd_launches = phase_ssd(peaks, smi)
     by_path = {k: {"serve": serve_launches[k], "train": train_launches[k],
                    "imperative": imperative_launches[k],
                    "resnet": resnet_launches[k],
                    "eager": eager_launches[k], "amp": amp_launches[k],
-                   "data": data_launches[k], "det": det_launches[k]}
+                   "data": data_launches[k], "det": det_launches[k],
+                   "ssd": ssd_launches[k]}
                for k in imperative_launches}
     fp32, bf16 = torch.float32, torch.bfloat16
     kernels = [
@@ -3648,7 +3987,8 @@ def main():
                      "eager": eager_launches.get("tpu_kernel:" + body, 0),
                      "amp": amp_launches.get("tpu_kernel:" + body, 0),
                      "data": data_launches.get("tpu_kernel:" + body, 0),
-                     "det": det_launches.get("tpu_kernel:" + body, 0)},
+                     "det": det_launches.get("tpu_kernel:" + body, 0),
+                     "ssd": ssd_launches.get("tpu_kernel:" + body, 0)},
                     user[(body, fp32)], user[(body, bf16)],
                     {"default_grid_": user[(body + ":default_grid", fp32)],
                      "bf16_default_grid_": user[(body + ":default_grid",

@@ -1,5 +1,6 @@
 """Model zoo of the port."""
 from . import bert
+from . import ssd
 from . import vision
 
-__all__ = ["bert", "vision"]
+__all__ = ["bert", "ssd", "vision"]

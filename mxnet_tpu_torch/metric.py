@@ -4,14 +4,16 @@ Counterpart of ``mxnet_tpu/metric.py`` (reference: python/mxnet/metric.py):
 ``EvalMetric``, ``CompositeEvalMetric``, ``Accuracy``, ``TopKAccuracy``,
 ``F1``, ``MCC``, ``Perplexity``, ``MAE``, ``MSE``, ``RMSE``,
 ``CrossEntropy``, ``NegativeLogLikelihood``, ``PearsonCorrelation``,
-``Loss``, ``CustomMetric``, ``np`` and ``create``.
+``Loss``, ``CustomMetric``, ``VOCMApMetric``, ``VOC07MApMetric``, ``np``
+and ``create``.
 
 As in the reference, ``Accuracy``, ``Perplexity``, ``MAE``/``MSE``/
 ``RMSE``, ``CrossEntropy`` and ``Loss`` keep their running sum and count
 as tensors on the device of the predictions when given NDArrays or
 tensors: ``update`` never copies to the host, and ``get`` does, once.
-Numpy inputs and the other metrics take the host path.  Not ported: the
-VOC mAP metrics.
+Numpy inputs and the other metrics take the host path; the VOC mAP
+metrics always do, as in the reference (per-class score sorting and greedy
+box matching have no fixed-shape device form).
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ import torch
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
            "F1", "MCC", "Perplexity", "MAE", "MSE", "RMSE", "CrossEntropy",
            "NegativeLogLikelihood", "PearsonCorrelation", "Loss",
-           "CustomMetric", "np", "create", "check_label_shapes"]
+           "CustomMetric", "VOCMApMetric", "VOC07MApMetric", "np", "create",
+           "check_label_shapes"]
 
 _METRIC_REGISTRY = {}
 
@@ -517,6 +520,108 @@ class CustomMetric(EvalMetric):
             else:
                 self.sum_metric += reval
                 self.num_inst += 1
+
+
+@register
+class VOCMApMetric(EvalMetric):
+    """PASCAL VOC mean average precision over detections.
+
+    ``update(labels, preds)``: labels (B, M, 5+) rows [class, x1, y1, x2,
+    y2] padded with class -1; preds (B, N, 6) rows [class, score, x1, y1,
+    x2, y2], dropped rows -1 (``MultiBoxDetection``'s output).  A
+    detection is a true positive when the ground truth of its class it
+    overlaps best (IoU >= ``iou_thresh``) is not matched yet; a second
+    detection of a matched ground truth is a false positive.  ``get``
+    averages the per-class AP over the classes that have ground truths:
+    the area under the precision envelope, or the 11-point interpolation
+    with ``use_07_metric``."""
+
+    def __init__(self, iou_thresh=0.5, class_names=None, use_07_metric=False,
+                 name="mAP"):
+        self.iou_thresh = iou_thresh
+        self.class_names = class_names
+        self.use_07_metric = use_07_metric
+        super().__init__(name)
+
+    def reset(self):
+        super().reset()
+        self._records = {}      # class -> [(score, is_true_positive)]
+        self._n_gt = {}         # class -> count of ground truths
+
+    def update(self, labels, preds):
+        for lab, pred in zip(_as_list(labels), _as_list(preds)):
+            lab, pred = _as_numpy(lab), _as_numpy(pred)
+            for b in range(lab.shape[0]):
+                self._update_one(lab[b], pred[b])
+
+    def _update_one(self, lab, pred):
+        gts = lab[lab[:, 0] >= 0]
+        for c in gts[:, 0].astype(int):
+            self._n_gt[c] = self._n_gt.get(c, 0) + 1
+        dets = pred[pred[:, 0] >= 0]
+        dets = dets[_np.argsort(-dets[:, 1])]
+        matched = _np.zeros(len(gts), bool)
+        for det in dets:
+            c = int(det[0])
+            best_iou, best_j = 0.0, -1
+            for j, gt in enumerate(gts):
+                if int(gt[0]) != c:
+                    continue
+                iou = self._iou(det[2:6], gt[1:5])
+                if iou > best_iou:
+                    best_iou, best_j = iou, j
+            tp = (best_j >= 0 and best_iou >= self.iou_thresh
+                  and not matched[best_j])
+            if tp:
+                matched[best_j] = True
+            self._records.setdefault(c, []).append((float(det[1]), tp))
+
+    @staticmethod
+    def _iou(a, b):
+        ix = max(0.0, min(a[2], b[2]) - max(a[0], b[0]))
+        iy = max(0.0, min(a[3], b[3]) - max(a[1], b[1]))
+        inter = ix * iy
+        union = ((a[2] - a[0]) * (a[3] - a[1])
+                 + (b[2] - b[0]) * (b[3] - b[1]) - inter)
+        return inter / union if union > 0 else 0.0
+
+    def _average_precision(self, recs, n_gt):
+        if not recs or n_gt == 0:
+            return 0.0
+        recs = sorted(recs, key=lambda r: -r[0])
+        tps = _np.cumsum([r[1] for r in recs])
+        fps = _np.cumsum([not r[1] for r in recs])
+        rec = tps / n_gt
+        prec = tps / _np.maximum(tps + fps, 1e-12)
+        if self.use_07_metric:
+            ap = 0.0
+            for t in _np.arange(0.0, 1.1, 0.1):
+                ap += (prec[rec >= t].max() if (rec >= t).any() else 0.0) \
+                    / 11.0
+            return float(ap)
+        mrec = _np.concatenate([[0.0], rec, [1.0]])
+        mpre = _np.concatenate([[0.0], prec, [0.0]])
+        for i in range(len(mpre) - 2, -1, -1):
+            mpre[i] = max(mpre[i], mpre[i + 1])
+        idx = _np.where(mrec[1:] != mrec[:-1])[0]
+        return float(_np.sum((mrec[idx + 1] - mrec[idx]) * mpre[idx + 1]))
+
+    def get(self):
+        classes = sorted(self._n_gt)
+        if not classes:
+            return self.name, float("nan")
+        aps = [self._average_precision(self._records.get(c, []),
+                                       self._n_gt[c]) for c in classes]
+        return self.name, float(_np.mean(aps))
+
+
+@register
+class VOC07MApMetric(VOCMApMetric):
+    """The 11-point interpolated VOC2007 mean average precision."""
+
+    def __init__(self, iou_thresh=0.5, class_names=None, name="mAP07"):
+        super().__init__(iou_thresh, class_names, use_07_metric=True,
+                         name=name)
 
 
 def np(numpy_feval, name=None, allow_extra_outputs=False):

@@ -13,11 +13,12 @@ from types import ModuleType
 
 from ..ops import registry as _registry
 from .ndarray import (NDArray, invoke, array, zeros, ones, full, empty,
-                      arange, waitall)
+                      arange, eye, zeros_like, ones_like, waitall)
 from .ndarray import stack_arrays as _stack_arrays
 
 __all__ = ["NDArray", "invoke", "array", "zeros", "ones", "full", "empty",
-           "arange", "waitall", "stack", "concat"]
+           "arange", "eye", "zeros_like", "ones_like", "waitall", "stack",
+           "concat"]
 
 
 def _make_op_func(opname: str):

@@ -37,7 +37,8 @@ from ..ops.matrix import infer_reshape
 from ..ops.registry import amp_cast, get_op
 
 __all__ = ["NDArray", "invoke", "array", "zeros", "ones", "full", "empty",
-           "arange", "stack_arrays", "waitall"]
+           "arange", "eye", "zeros_like", "ones_like", "stack_arrays",
+           "waitall"]
 
 # NDArray <op> number dispatches to the scalar family (ops/scalar.py);
 # reverse forms swap the operands' roles
@@ -589,6 +590,20 @@ def arange(start, stop=None, step=1.0, repeat=1, ctx=None,
            dtype=None) -> NDArray:
     return invoke("_arange", start=start, stop=stop, step=step,
                   repeat=repeat, dtype=dtype, ctx=ctx)
+
+
+def eye(N, M=0, k=0, ctx=None, dtype=None) -> NDArray:
+    """An N x M (N x N when M is 0) matrix of ones on the k-th diagonal
+    (reference: ``mx.nd.eye``)."""
+    return invoke("_eye", N=N, M=M, k=k, dtype=dtype, ctx=ctx)
+
+
+def zeros_like(a: NDArray, **kw) -> NDArray:
+    return zeros(a.shape, ctx=a.context, dtype=a.dtype)
+
+
+def ones_like(a: NDArray, **kw) -> NDArray:
+    return ones(a.shape, ctx=a.context, dtype=a.dtype)
 
 
 def stack_arrays(arrays: Sequence[NDArray], axis=0) -> NDArray:

@@ -4,13 +4,16 @@ the imperative front end (``nd``) dispatches to by name, the optimizer
 updates (``nd.sgd_mom_update``, ...) with the fused apply behind
 ``optimizer.Optimizer``, the random samplers (``nd.random.*``), the image
 ops (``_image_*``, the ``_cv*`` ops) and the spatial ops
-(``GridGenerator``, ``BilinearSampler``, the ROI ops, ...)."""
+(``GridGenerator``, ``BilinearSampler``, the ROI ops, ...) and the
+detection ops (box IoU and NMS, the SSD MultiBox family)."""
 from . import registry
 from . import attention, nn
 from . import creation, elemwise, scalar, reduce, matrix
 from . import optimizer
 from . import random
 from . import image, spatial
+from . import detection
 
 __all__ = ["registry", "attention", "nn", "creation", "elemwise", "scalar",
-           "reduce", "matrix", "optimizer", "random", "image", "spatial"]
+           "reduce", "matrix", "optimizer", "random", "image", "spatial",
+           "detection"]

@@ -1,10 +1,16 @@
-"""Matrix product, shape and indexing ops.
+"""Matrix products, linear algebra, shape and indexing ops.
 
-Counterpart of the matching entries of ``mxnet_tpu/ops/matrix.py``.  The
-matrix product stays with PyTorch's library kernel, as the JAX package left
-it to XLA.
+Counterpart of ``mxnet_tpu/ops/matrix.py``.  The matrix products and the
+factorisations stay with PyTorch's library kernels, as the JAX package
+left them to XLA.  Slices follow Python's rules, negative steps included
+(torch's basic indexing refuses those, so they become index lists).
+Where several writes meet one place (``scatter_nd`` with a repeated
+index), the last one wins, as on the reference's CPU, and never by a
+scatter with duplicate indices, whose winner CUDA leaves open.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -23,6 +29,55 @@ def _dot(a, b, transpose_a=False, transpose_b=False):
     if a.dim() == 1 and b.dim() == 1:
         return torch.dot(a, b)
     return torch.tensordot(a, b, dims=([a.dim() - 1], [0]))
+
+
+@register("batch_dot", aliases=["_npx_batch_dot"])
+def _batch_dot(a, b, transpose_a=False, transpose_b=False):
+    if transpose_a:
+        a = a.transpose(-1, -2)
+    if transpose_b:
+        b = b.transpose(-1, -2)
+    return torch.matmul(a, b)
+
+
+@register("linalg_gemm2")
+def _linalg_gemm2(a, b, transpose_a=False, transpose_b=False, alpha=1.0):
+    return alpha * _batch_dot(a, b, transpose_a, transpose_b)
+
+
+@register("linalg_syrk")
+def _linalg_syrk(a, transpose=False, alpha=1.0):
+    at = a.transpose(-1, -2)
+    return alpha * (torch.matmul(at, a) if transpose else
+                    torch.matmul(a, at))
+
+
+@register("linalg_potrf")
+def _linalg_potrf(a):
+    """The lower Cholesky factor, zeros above the diagonal.  A matrix that
+    is not positive definite gives NaN on and below the diagonal and
+    keeps the zeros above it, as the reference answers (torch raises)."""
+    low, info = torch.linalg.cholesky_ex(a)
+    bad = (info != 0).reshape(info.shape + (1, 1))
+    lower = torch.ones(a.shape[-2:], dtype=torch.bool,
+                       device=a.device).tril()
+    return torch.where(bad & lower, torch.full_like(low, float("nan")), low)
+
+
+@register("linalg_trsm")
+def _linalg_trsm(a, b, transpose=False, rightside=False, lower=True,
+                 alpha=1.0):
+    """Solve the triangular system of ``a`` against ``alpha * b`` (with
+    ``rightside``, against its last two axes swapped, the solution swapped
+    back), as the reference composes it."""
+    if transpose:
+        a = a.transpose(-1, -2)
+        lower = not lower
+    rhs = alpha * b
+    if rightside:
+        rhs = rhs.transpose(-1, -2)
+    sol = torch.linalg.solve_triangular(a, rhs, upper=not lower)
+    return sol.transpose(-1, -2) if rightside else sol
 
 
 @register("transpose")
@@ -120,6 +175,53 @@ def _split(x, num_outputs=2, axis=1, squeeze_axis=False):
     return tuple(parts)
 
 
+@register("split_v2", aliases=["_split_v2"], num_outputs=0)
+def _split_v2(x, indices=(), axis=0, squeeze_axis=False, sections=0):
+    """``jnp.split``: into ``sections`` equal parts, or at ``indices``."""
+    if sections:
+        parts = _split(x, num_outputs=sections, axis=axis)
+    else:
+        parts = torch.tensor_split(x, [int(i) for i in indices], dim=axis)
+    if squeeze_axis:
+        parts = [p.squeeze(axis) for p in parts]
+    return tuple(parts)
+
+
+def _positions(n, sl, device):
+    """The indices a Python slice picks from an axis of extent ``n``."""
+    return torch.arange(*sl.indices(n), device=device)
+
+
+def _slices(begin, end, step):
+    step = step or (None,) * len(begin)
+    return [slice(b, e, s) for b, e, s in zip(begin, end, step)]
+
+
+def take_slices(x, slices):
+    """x[slices] for a list of Python slices over the leading axes, any
+    step's sign; a negative step becomes an index list."""
+    for axis, sl in enumerate(slices):
+        if sl.step is not None and sl.step < 0:
+            x = x.index_select(axis, _positions(x.shape[axis], sl, x.device))
+        else:
+            x = x[(slice(None),) * axis + (sl,)]
+    return x
+
+
+@register("slice", aliases=["crop"])
+def _slice(x, begin=(), end=(), step=()):
+    return take_slices(x, _slices(begin, end, step))
+
+
+@register("slice_like")
+def _slice_like(x, like, axes=()):
+    axes = axes or tuple(range(min(x.dim(), like.dim())))
+    sl = [slice(None)] * x.dim()
+    for a in axes:
+        sl[a] = slice(0, like.shape[a])
+    return x[tuple(sl)]
+
+
 @register("slice_axis")
 def _slice_axis(x, axis=0, begin=0, end=None):
     idx = [slice(None)] * x.dim()
@@ -180,6 +282,93 @@ def _flip(x, axis=0):
                       else tuple(axis))
 
 
+@register("diag")
+def _diag(x, k=0):
+    """A 1-D x on the k-th diagonal of a square matrix; else the k-th
+    diagonal of the last two axes (a copy)."""
+    if x.dim() == 1:
+        return torch.diag(x, int(k))
+    return torch.diagonal(x, offset=int(k), dim1=-2, dim2=-1).clone()
+
+
+@register("zeros_like_op", aliases=["zeros_like"])
+def _zeros_like(x):
+    return torch.zeros_like(x)
+
+
+@register("ones_like_op", aliases=["ones_like"])
+def _ones_like(x):
+    return torch.ones_like(x)
+
+
+@register("space_to_depth")
+def _space_to_depth(x, block_size=2):
+    n, c, h, w = x.shape
+    bs = block_size
+    y = x.reshape(n, c, h // bs, bs, w // bs, bs).permute(0, 3, 5, 1, 2, 4)
+    return y.reshape(n, c * bs * bs, h // bs, w // bs)
+
+
+@register("depth_to_space")
+def _depth_to_space(x, block_size=2):
+    n, c, h, w = x.shape
+    bs = block_size
+    y = x.reshape(n, bs, bs, c // (bs * bs), h, w).permute(0, 3, 4, 1, 5, 2)
+    return y.reshape(n, c // (bs * bs), h * bs, w * bs)
+
+
+@register("take")
+def _take(x, indices, axis=0, mode="clip"):
+    """Entries of x along ``axis`` at ``indices`` (truncated to integers):
+    wrapped modulo the extent (``wrap``) or clipped into it (any other
+    mode, as the reference reads them)."""
+    n = x.shape[axis]
+    idx = indices.to(torch.int64)
+    idx = torch.remainder(idx, n) if mode == "wrap" else idx.clamp(0, n - 1)
+    out = x.index_select(axis, idx.reshape(-1))
+    return out.reshape(x.shape[:axis] + idx.shape + x.shape[axis + 1:])
+
+
+@register("gather_nd")
+def _gather_nd(x, indices):
+    """x[indices[0], ..., indices[m-1]]: the first axis of ``indices``
+    addresses x's first m axes."""
+    idx = indices.to(torch.int64)
+    return x[tuple(idx[i] for i in range(idx.shape[0]))]
+
+
+def _last_writes(linear):
+    """For flat target positions ``linear`` (one per write, in order), a
+    mask of the writes that no later write to the same position
+    overrides."""
+    order = torch.arange(linear.numel(), device=linear.device)
+    last = torch.full((int(linear.max()) + 1 if linear.numel() else 1,), -1,
+                      dtype=torch.int64, device=linear.device)
+    last = last.scatter_reduce(0, linear, order, reduce="amax")
+    return last[linear] == order
+
+
+@register("scatter_nd")
+def _scatter_nd(data, indices, shape=None):
+    """A zero array of ``shape`` with ``data`` written at ``indices`` (the
+    first axis addressing its leading axes); of writes to one place the
+    last wins, and only it receives a gradient, as on the reference."""
+    shape = tuple(shape)
+    idx = indices.to(torch.int64)
+    m = idx.shape[0]
+    lead = torch.tensor(shape[:m], device=idx.device)
+    pos = torch.remainder(idx.reshape(m, -1), lead.reshape(m, 1))
+    strides = torch.tensor([math.prod(shape[i + 1:m]) for i in range(m)],
+                           device=idx.device)
+    linear = (pos * strides.reshape(m, 1)).sum(0)
+    keep = _last_writes(linear)
+    rows = data.reshape((linear.numel(),) + shape[m:])
+    out = torch.zeros((math.prod(shape[:m]),) + shape[m:], dtype=data.dtype,
+                      device=data.device)
+    out = out.index_put((linear[keep],), rows[keep])
+    return out.reshape(shape)
+
+
 @register("one_hot", differentiable=False)
 def _one_hot(indices, depth=None, on_value=1.0, off_value=0.0,
              dtype="float32"):
@@ -189,6 +378,122 @@ def _one_hot(indices, depth=None, on_value=1.0, off_value=0.0,
         int(depth), device=indices.device)
     d = torch_dtype(dtype)
     return (hot.to(d) * (on_value - off_value) + off_value).to(d)
+
+
+@register("where_op")
+def _where_op(cond, a, b):
+    return torch.where(cond.bool(), a, b)
+
+
+@register("boolean_mask", aliases=["_contrib_boolean_mask"],
+          differentiable=False)
+def _boolean_mask(data, index, axis=0):
+    """The slices along ``axis`` whose ``index`` entry is nonzero."""
+    keep = torch.nonzero(index.reshape(-1).bool()).reshape(-1)
+    return data.index_select(int(axis), keep)
+
+
+@register("shape_array", differentiable=False)
+def _shape_array(x):
+    """x's shape as int32 (the reference asks for int64, which JAX
+    narrows to int32 as the port's dtypes do)."""
+    return torch.tensor(tuple(x.shape), dtype=torch_dtype("int64"),
+                        device=x.device)
+
+
+@register("size_array", differentiable=False)
+def _size_array(x):
+    return torch.tensor([x.numel()], dtype=torch_dtype("int64"),
+                        device=x.device)
+
+
+@register("SequenceLast")
+def _sequence_last(data, sequence_length=None, use_sequence_length=False,
+                   axis=0):
+    """The last step along ``axis``, or each batch entry's step at its
+    ``sequence_length`` - 1."""
+    if not use_sequence_length or sequence_length is None:
+        return data.select(axis, -1)
+    moved = data.movedim(axis, 0)
+    last = sequence_length.to(torch.int64) - 1
+    return moved[last, torch.arange(moved.shape[1], device=data.device)]
+
+
+@register("SequenceReverse")
+def _sequence_reverse(data, sequence_length=None, use_sequence_length=False,
+                      axis=0):
+    """Reverse along ``axis`` the first ``sequence_length`` steps of each
+    batch entry (axis 1 of the time-major layout); later steps stay."""
+    if not use_sequence_length or sequence_length is None:
+        return torch.flip(data, dims=(axis,))
+    moved = data.movedim(axis, 0)
+    steps = torch.arange(moved.shape[0], device=data.device)[:, None]
+    lens = sequence_length.to(torch.int64)[None, :]
+    src = torch.where(steps < lens, lens - 1 - steps, steps)
+    src = src.reshape(src.shape + (1,) * (moved.dim() - 2)).expand(
+        moved.shape)
+    return torch.gather(moved, 0, src).movedim(0, axis)
+
+
+def _assign_index(x, begin, end, step):
+    """Index tensors (broadcast against each other) of the region
+    x[begin:end:step] over x's leading axes, the rest whole."""
+    sls = _slices(begin, end, step)
+    sls += [slice(None)] * (x.dim() - len(sls))
+    n = len(sls)
+    return tuple(_positions(x.shape[i], sl, x.device).reshape(
+        [-1 if j == i else 1 for j in range(n)]) for i, sl in enumerate(sls))
+
+
+@register("_slice_assign", aliases=["_crop_assign"])
+def _slice_assign(lhs, rhs, begin=(), end=(), step=()):
+    """lhs with lhs[begin:end:step] = rhs (any step's sign);
+    differentiable in both."""
+    return lhs.index_put(_assign_index(lhs, begin, end, step),
+                         rhs.to(lhs.dtype))
+
+
+@register("_slice_assign_scalar", aliases=["_crop_assign_scalar"])
+def _slice_assign_scalar(data, scalar=0.0, begin=(), end=(), step=()):
+    return data.index_put(_assign_index(data, begin, end, step),
+                          torch.tensor(scalar, dtype=data.dtype,
+                                       device=data.device))
+
+
+def _basic_index(x, key):
+    """x[key] for a basic index (ints, slices of any step, None,
+    Ellipsis): slices with a negative step are taken whole by torch's
+    indexing and then by an index list."""
+    key = key if isinstance(key, tuple) else (key,)
+    if Ellipsis in key:
+        i = key.index(Ellipsis)
+        used = sum(k is not None for k in key) - 1
+        key = key[:i] + (slice(None),) * (x.dim() - used) + key[i + 1:]
+    plain, flips, dim, out_dim = [], [], 0, 0
+    for k in key:
+        if k is None:
+            plain.append(None)
+            out_dim += 1
+            continue
+        if isinstance(k, slice) and k.step is not None and k.step < 0:
+            plain.append(slice(None))
+            flips.append((out_dim, _positions(x.shape[dim], k, x.device)))
+        else:
+            plain.append(k)
+        if isinstance(k, slice):
+            out_dim += 1
+        dim += 1
+    out = x[tuple(plain)]
+    for d, pos in flips:
+        out = out.index_select(d, pos)
+    return out
+
+
+@register("_internal_getitem")
+def _internal_getitem(x, key=None):
+    """A basic-index read as a recorded op, so that a gradient reaches x
+    through it."""
+    return _basic_index(x, key)
 
 
 @register("sequence_mask", aliases=["SequenceMask"])

@@ -9,7 +9,7 @@ are registered under the reference's names and signatures
 ``GroupNorm``, ``InstanceNorm``, ``Embedding``, ``multi_head_attention``,
 ``softmax``, ``log_softmax``, ``softmax_cross_entropy``, ``pick``,
 ``Dropout``, ``Convolution``, ``Deconvolution``, ``Pooling``,
-``BatchNorm``), and the gluon layers reach them through
+``BatchNorm``, ``CTCLoss``), and the gluon layers reach them through
 ``registry.dispatch``, where the AMP cast is applied.
 
 A float32 convolution runs with cuDNN's TF32 off, in its forward and its
@@ -34,7 +34,7 @@ __all__ = ["fully_connected", "activation", "gelu", "leaky_relu",
            "embedding", "multi_head_attention", "softmax", "log_softmax",
            "softmax_cross_entropy", "pick", "dropout", "convolution",
            "deconvolution", "pooling", "batch_norm", "batch_norm_out",
-           "batch_norm_stats"]
+           "batch_norm_stats", "ctc_loss"]
 
 
 @register("FullyConnected", aliases=["fully_connected"])
@@ -499,3 +499,69 @@ def batch_norm(data: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         return out, moving_mean, moving_var
     return (out,) + batch_norm_stats(data, moving_mean, moving_var,
                                      momentum, axis)
+
+
+_CTC_NEG = -1e30    # the reference's "log 0": finite, so no inf - inf
+
+
+@register("CTCLoss", aliases=["ctc_loss", "_contrib_CTCLoss",
+                              "_contrib_ctc_loss"])
+def ctc_loss(pred: torch.Tensor, label: torch.Tensor,
+             data_lengths: Optional[torch.Tensor] = None,
+             label_lengths: Optional[torch.Tensor] = None,
+             blank_label: str = "first") -> torch.Tensor:
+    """Connectionist temporal classification loss, one value per sequence.
+
+    pred: (T, N, C) activations (log-softmax is applied here); label: (N,
+    L).  ``blank_label`` 'first': the blank is class 0, labels are 1..C-1
+    padded with 0, and a label's length is its count of nonzero entries;
+    'last': the blank is class C-1, labels are 0..C-2 padded with -1
+    (length: the non-negative entries), mapped onto the 'first' layout by
+    rolling the class axis.  ``data_lengths``/``label_lengths`` override
+    the lengths.  The forward-variable recursion of the reference, step
+    by step over T in float32 with -1e30 for log 0 and the variables
+    frozen past each sequence's length; an alignment that cannot exist (a
+    label longer than the sequence allows) gives a loss near 1e30, as in
+    the reference, not inf.  The gradient is autograd's through the
+    recursion, as the reference's is JAX's."""
+    t_len, n, _ = pred.shape
+    s = 2 * label.shape[1] + 1
+    dev = pred.device
+    logp = torch.log_softmax(pred.float(), dim=-1)
+    label = label.to(torch.int64)
+    if blank_label == "last":
+        logp = torch.cat([logp[..., -1:], logp[..., :-1]], dim=-1)
+        lab_len = (label >= 0).sum(dim=1) if label_lengths is None \
+            else label_lengths.to(torch.int64)
+        label = torch.where(label >= 0, label + 1, torch.zeros_like(label))
+    elif label_lengths is None:
+        lab_len = (label != 0).sum(dim=1)
+    else:
+        lab_len = label_lengths.to(torch.int64)
+    seq_len = torch.full((n,), t_len, dtype=torch.int64, device=dev) \
+        if data_lengths is None else data_lengths.to(torch.int64)
+
+    # the extended label: blank, l1, blank, l2, ..., blank
+    ext = torch.zeros((n, s), dtype=torch.int64, device=dev)
+    ext[:, 1::2] = label
+    shift2 = F.pad(ext[:, :-2], (2, 0), value=-1)
+    allow2 = (ext != 0) & (ext != shift2)
+    neg = torch.full((n, s), _CTC_NEG, dtype=torch.float32, device=dev)
+    pos = torch.arange(s, device=dev)[None, :]
+    alpha = torch.where(pos < 2, torch.gather(logp[0], 1, ext), neg)
+    alpha = torch.where((pos == 1) & (lab_len[:, None] == 0), neg, alpha)
+    for t in range(1, t_len):
+        a1 = F.pad(alpha[:, :-1], (1, 0), value=_CTC_NEG)
+        a2 = torch.where(allow2, F.pad(alpha[:, :-2], (2, 0),
+                                       value=_CTC_NEG), neg)
+        m = torch.maximum(torch.maximum(alpha, a1), a2)
+        new = m + torch.log(torch.exp(alpha - m) + torch.exp(a1 - m)
+                            + torch.exp(a2 - m))
+        new = new + torch.gather(logp[t], 1, ext)
+        alpha = torch.where((t < seq_len)[:, None], new, alpha)
+    last = 2 * lab_len
+    a_last = torch.gather(alpha, 1, last[:, None])[:, 0]
+    a_prev = torch.gather(alpha, 1, (last - 1).clamp_min(0)[:, None])[:, 0]
+    a_prev = torch.where(lab_len > 0, a_prev, neg[:, 0])
+    m = torch.maximum(a_last, a_prev)
+    return -(m + torch.log(torch.exp(a_last - m) + torch.exp(a_prev - m)))

@@ -5,12 +5,15 @@ Python number dispatches here.  As in the reference, the scalar takes the
 data's type first (``jnp.asarray(scalar, data.dtype)``): truncated for an
 integer tensor, rounded for a half-precision one.  Integer powers and
 remainders follow the reference's (``elemwise.power``, ``elemwise.mod``).
+A comparison gives 0/1 in the data's own dtype (an integer tensor gives
+integers, unlike ``broadcast_equal``'s float32); the logical ops read the
+scalar's truth as given (0.5 is true even for an integer tensor).
 """
 from __future__ import annotations
 
 import torch
 
-from .elemwise import mod, power
+from .elemwise import hypot, mod, power
 from .registry import register
 
 
@@ -73,3 +76,59 @@ def _power_scalar(data, scalar=1.0):
 @register("_rpower_scalar", aliases=["rpower_scalar"])
 def _rpower_scalar(data, scalar=1.0):
     return power(_typed(scalar, data), data)
+
+
+def _full(scalar, data):
+    """The typed scalar as a tensor of data's shape, dtype and device."""
+    return torch.full_like(data, _typed(scalar, data))
+
+
+@register("_maximum_scalar", aliases=["maximum_scalar"])
+def _maximum_scalar(data, scalar=0.0):
+    # torch.maximum, not clamp: a tie's gradient is halved, as jnp's
+    return torch.maximum(data, _full(scalar, data))
+
+
+@register("_minimum_scalar", aliases=["minimum_scalar"])
+def _minimum_scalar(data, scalar=0.0):
+    return torch.minimum(data, _full(scalar, data))
+
+
+@register("_hypot_scalar", aliases=["hypot_scalar"])
+def _hypot_scalar(data, scalar=0.0):
+    return hypot(data, _full(scalar, data))
+
+
+def _compare(f):
+    def cmp(data, scalar=0.0):
+        return f(data, _typed(scalar, data)).to(data.dtype)
+    return cmp
+
+
+def _logical(f):
+    def op(data, scalar=0.0):
+        return f(data, torch.tensor(bool(scalar), device=data.device)) \
+            .to(data.dtype)
+    return op
+
+
+for _name, _fn in (("equal", torch.eq), ("not_equal", torch.ne),
+                   ("greater", torch.gt), ("greater_equal", torch.ge),
+                   ("lesser", torch.lt), ("lesser_equal", torch.le)):
+    register("_%s_scalar" % _name, _compare(_fn), differentiable=False,
+             aliases=["%s_scalar" % _name])
+
+for _name, _fn in (("and", torch.logical_and), ("or", torch.logical_or),
+                   ("xor", torch.logical_xor)):
+    register("_logical_%s_scalar" % _name, _logical(_fn),
+             differentiable=False, aliases=["logical_%s_scalar" % _name])
+
+
+@register("smooth_l1_scalar", aliases=["_smooth_l1_scalar"])
+def _smooth_l1_scalar(data, scalar=1.0):
+    """``smooth_l1`` with sigma squared in data's dtype, as the reference
+    computes it here (``elemwise.smooth_l1`` squares the Python float)."""
+    s2 = torch.tensor(_typed(scalar, data), dtype=data.dtype,
+                      device=data.device) ** 2
+    a = torch.abs(data)
+    return torch.where(a < 1.0 / s2, 0.5 * s2 * data * data, a - 0.5 / s2)
