@@ -200,6 +200,35 @@ Phases (each raises on failure, so any failure exits nonzero):
    their shapes), one traced step's idle share and kernels, the peak
    memory, ``net.detect``'s ms and ``VOC07MApMetric`` over the fed
    batches, the phase's seconds.
+14. lm -- BASELINE config 3, ``examples/word_lm.py``'s LSTM language
+   model (``Embedding`` -> ``rnn.LSTM`` -> ``Dropout`` -> ``Dense`` -> the
+   tied decoder; upstream MXNet's medium PTB widths: vocabulary 10,000,
+   embedding and hidden 650, 2 layers, dropout 0.5; bptt 35, batch 20;
+   word_lm.py's offline 40,000-token corpus, 57 steps), no kernel of its
+   own: the fused ``RNN`` op on PyTorch's RNN, cuDNN's on the card, none
+   of K1-K4 launched (the counts are set to 0 at its start and read at its
+   end: the ``lm`` path).  (a) The fp32 op (2-layer LSTM) forward and
+   backward on the card against the CPU with ``cudnn.allow_tf32`` True:
+   outputs and states within 1e-4 x max|CPU|, each gradient within 1e-4
+   relative in L2; (b) the same for one bidirectional GRU layer with
+   ``sequence_length`` (one length 0, one 35); (c) one step at dropout 0
+   against a CPU copy: the loss within 1e-4 relative, each parameter's
+   update within 1e-4 relative in L2 and applied within float32's
+   rounding; (d) one epoch at dropout 0.5 through ``gluon.Trainer`` (SGD
+   lr 1.0, ``clip_gradient`` 0.25, the states detached between steps):
+   every loss finite, the last 10 steps' mean below the first 10's; (e)
+   a traced step runs ``aten::_cudnn_rnn`` and cuDNN's RNN kernels.
+   Printed: words/s, the step split by CUDA events, TFLOP/s and fp32 MFU,
+   the idle share and top kernels of a traced step, the peak memory, the
+   op's forward and forward + backward ms, the phase's seconds.
+15. zoo -- vgg16, alexnet, densenet121, squeezenet1.1, mobilenet1.0,
+   mobilenetv2_1.0 (224 px) and inceptionv3 (299 px), 1000 classes,
+   ``Xavier`` from the seed, fp32; no kernel of their own, none of K1-K4
+   launched (the ``zoo`` path).  Each: a predict-mode forward at batch 2
+   on the card within 1e-4 x max|CPU| of a CPU copy (``cudnn.allow_tf32``
+   True), then 5 SGD steps (lr 0.01, momentum 0.9) through
+   ``gluon.Trainer`` on one repeated batch of 32, every loss finite and the
+   last below the first; images/s of the last 3 steps, the peak memory.
 
 The last lines of standard output are the ``nvidia-smi`` name and power
 limit, one JSON object ``{"kernels": [...]}`` and, last,
@@ -3903,6 +3932,506 @@ def phase_ssd(peaks, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 14. lm
+# ---------------------------------------------------------------------------
+
+LM_VOCAB = 10000        # PTB's vocabulary
+LM_EMBED = LM_HIDDEN = 650
+LM_LAYERS = 2
+LM_DROPOUT = 0.5
+LM_BPTT, LM_BATCH = 35, 20      # examples/word_lm.py's defaults
+LM_LR, LM_CLIP = 1.0, 0.25
+LM_CORPUS = 40_000
+
+
+def lm_corpus(vocab_size, n=LM_CORPUS):
+    """``examples/word_lm.py``'s offline corpus (seed 0): Zipf tokens in
+    which every odd token is a function of the one before it."""
+    rng = np.random.RandomState(0)
+    base = rng.zipf(1.5, n).clip(1, vocab_size - 1)
+    ids = np.where(np.arange(n) % 2 == 1, (base * 7 + 3) % vocab_size, base)
+    return ids.astype(np.int32)
+
+
+def lm_batchify(ids, batch_size):
+    """(T_total, N): the stream cut into ``batch_size`` columns."""
+    nb = len(ids) // batch_size
+    return ids[:nb * batch_size].reshape(batch_size, nb).T
+
+
+def word_lm_model(vocab, embed, hidden, layers, dropout):
+    """``examples/word_lm.py``'s ``RNNModel`` on the port: ``Embedding``
+    -> ``Dropout`` -> ``rnn.LSTM`` -> ``Dropout`` -> ``Dense(flatten=False)``
+    -> the tied decoder ``dot(out, embedding.weight, transpose_b=True)``;
+    ``model(x, state)`` gives ``(logits (T, N, vocab), state)``."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon import nn, rnn
+    from mxnet_tpu_torch.ops.registry import dispatch
+
+    class RNNModel(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.embedding = nn.Embedding(vocab, embed)
+            self.lstm = rnn.LSTM(hidden, num_layers=layers, dropout=dropout,
+                                 input_size=embed)
+            self.drop = nn.Dropout(dropout)
+            self.proj = nn.Dense(embed, in_units=hidden, flatten=False)
+
+        def forward(self, x, state):
+            emb = self.drop(self.embedding(x))
+            out, state = self.lstm(emb, state)
+            out = self.proj(self.drop(out))
+            w = self.embedding._parameters["weight"]
+            logits = dispatch("dot", out.reshape(-1, w.shape[1]), w,
+                              transpose_b=True)
+            return logits.reshape(x.shape[0], x.shape[1], -1), state
+
+    return RNNModel()
+
+
+LM_EPOCH_STEPS = (LM_CORPUS // LM_BATCH - 1) // LM_BPTT     # 57
+LM_TOL = 1e-4
+LM_OP_TIMED = 20
+#: cuDNN's recurrent kernels by name; PyTorch's own CUDA RNN kernels live
+#: in at::native and do not count
+_CUDNN_RNN_KERNEL = re.compile(r"rnn|lstm|gru|persist", re.I)
+
+
+def lm_forward_flop_per_token(vocab, embed, hidden, layers):
+    """Forward FLOP a token of :func:`word_lm_model`, from its shapes:
+    2 x 4H x (I + H) a layer for the LSTM's products, the projection and
+    the tied decoder."""
+    lstm = sum(2 * 4 * hidden * ((embed if i == 0 else hidden) + hidden)
+               for i in range(layers))
+    return lstm + 2 * hidden * embed + 2 * embed * vocab
+
+
+def lm_op_check(label, mode, layers, bidirectional, lengths=None):
+    """The fp32 ``RNN`` op forward and backward at the LM's widths (T 35, N
+    20, 650 in and 650 hidden) on the card against the port's CPU path on
+    the same inputs, with ``torch.backends.cudnn.allow_tf32`` set True, so
+    that only the op's own scope keeps TF32 off: the outputs and final
+    states within 1e-4 x max|CPU|; each gradient (data, each weight and
+    bias of the flat vector, both initial states) within 1e-4 relative in
+    L2.  Then the op's forward and forward + backward ms on the card."""
+    from mxnet_tpu_torch.ops.rnn import rnn, rnn_param_size, unpack_params
+    dirs = 2 if bidirectional else 1
+    gen = torch.Generator().manual_seed(SEED)
+    size = rnn_param_size(layers, LM_EMBED, LM_HIDDEN, mode, bidirectional)
+    bound = 1.0 / LM_HIDDEN ** 0.5     # torch.nn.LSTM's initial range
+    shape_h = (layers * dirs, LM_BATCH, LM_HIDDEN)
+    ins = [torch.randn(LM_BPTT, LM_BATCH, LM_EMBED, generator=gen),
+           (torch.rand(size, generator=gen) * 2 - 1) * bound,
+           torch.randn(shape_h, generator=gen) * 0.5,
+           torch.randn(shape_h, generator=gen) * 0.5]
+    cots = [torch.randn(LM_BPTT, LM_BATCH, dirs * LM_HIDDEN, generator=gen),
+            torch.randn(shape_h, generator=gen),
+            torch.randn(shape_h, generator=gen)]
+    kw = dict(state_size=LM_HIDDEN, num_layers=layers, mode=mode,
+              bidirectional=bidirectional,
+              use_sequence_length=lengths is not None)
+    res = {}
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for dev in ("cuda", "cpu"):
+            ts = [t.to(dev).requires_grad_() for t in ins]
+            seq = None if lengths is None else lengths.to(dev)
+            outs = rnn(*ts, seq, **kw)
+            grads = torch.autograd.grad(outs, ts, [c.to(dev) for c in cots])
+            res[dev] = ([o.detach().cpu() for o in outs],
+                        [g.cpu() for g in grads])
+        xs = [t.cuda() for t in ins]
+        seq = None if lengths is None else lengths.cuda()
+        fwd_ms = time_ms(lambda: rnn(*xs, seq, **kw), iters=LM_OP_TIMED)
+        leaves = [t.requires_grad_() for t in xs]
+        cuda_cots = [c.cuda() for c in cots]
+        both_ms = time_ms(lambda: torch.autograd.grad(
+            rnn(*leaves, seq, **kw), leaves, cuda_cots), iters=LM_OP_TIMED)
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+    (card_out, card_g), (cpu_out, cpu_g) = res["cuda"], res["cpu"]
+    out_worst = max(float((a - b).abs().max()) / float(b.abs().max())
+                    for a, b in zip(card_out, cpu_out))
+
+    def split(g):
+        named = {"data": g[0], "state": g[2], "state_cell": g[3]}
+        pieces = unpack_params(g[1], layers, dirs, LM_EMBED, LM_HIDDEN, mode)
+        for i, piece in enumerate(pieces):
+            for kind, t in zip(("i2h_weight", "h2h_weight", "i2h_bias",
+                                "h2h_bias"), piece):
+                named["%s%d_%s" % ("lr"[i % dirs], i // dirs, kind)] = t
+        return named
+    grad_worst, grad_at = _worst_l2(split(card_g), split(cpu_g), 0.0)
+    rec = {"check": label, "mode": mode, "layers": layers,
+           "bidirectional": bidirectional, "T": LM_BPTT, "N": LM_BATCH,
+           "input": LM_EMBED, "hidden": LM_HIDDEN,
+           "lengths": None if lengths is None else lengths.tolist(),
+           "output_worst_rel_max": out_worst,
+           "grad_worst_rel_l2": grad_worst, "grad_worst_at": grad_at,
+           "forward_ms": fwd_ms, "forward_backward_ms": both_ms}
+    log("lm: op check %s" % json.dumps(rec))
+    if not out_worst <= LM_TOL or not grad_worst <= LM_TOL:
+        raise RuntimeError("lm: the %s RNN op on the card is off the CPU's: "
+                           "%s" % (label, rec))
+    return rec
+
+
+def lm_loop(model):
+    """``examples/word_lm.py``'s step: the states detached, ``record()`` ->
+    ``model(x, state)`` -> ``SoftmaxCrossEntropyLoss`` -> ``backward()``
+    -> ``Trainer.step(batch x bptt)`` (SGD, lr 1.0, ``clip_gradient``
+    0.25).  Returns ``step(x, y, state, events=None, before_update=None)``
+    giving (the loss's mean as a device tensor, the new state); given four
+    CUDA events it records them before the forward, after the loss, after
+    ``backward`` and after ``Trainer.step``; ``before_update()`` runs
+    between ``backward`` and ``Trainer.step``."""
+    from mxnet_tpu_torch import autograd, gluon
+    trainer = gluon.Trainer(model.collect_params(), "sgd",
+                            {"learning_rate": LM_LR,
+                             "clip_gradient": LM_CLIP})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def step(x, y, state, events=None, before_update=None):
+        state = [s.detach() for s in state]
+        if events is not None:
+            events[0].record()
+        with autograd.record():
+            logits, state = model(x, state)
+            loss = loss_fn(logits, y)
+        if events is not None:
+            events[1].record()
+        loss.backward()
+        if events is not None:
+            events[2].record()
+        if before_update is not None:
+            before_update()
+        trainer.step(LM_BATCH * LM_BPTT)
+        if events is not None:
+            events[3].record()
+        return loss.data.detach().mean(), state
+
+    return step
+
+
+def lm_batches(data, dev):
+    """The epoch's (x, y) batches as NDArrays on ``dev``: x the token ids
+    (int32), y the next tokens (float32), as ``word_lm.py`` feeds them."""
+    from mxnet_tpu_torch import nd
+    out = []
+    for i in range(LM_EPOCH_STEPS):
+        s = i * LM_BPTT
+        x = torch.from_numpy(data[s:s + LM_BPTT].copy())
+        y = torch.from_numpy(data[s + 1:s + 1 + LM_BPTT].astype(np.float32))
+        out.append((nd.NDArray(x.to(dev)), nd.NDArray(y.to(dev))))
+    return out
+
+
+def lm_fp32_step(p0, batch):
+    """(c): one step of :func:`lm_loop` at dropout 0 from the same
+    parameters on the card and on a CPU copy: the loss within 1e-4
+    relative, and each parameter's change within 1e-4 relative in L2.  The
+    change is SGD's update, -lr x clip(gradient / (batch x bptt), 0.25),
+    taken from the gradient before ``Trainer.step`` writes it (in float64
+    from the float32 gradient), and on each device the parameter after the
+    step must equal the parameter plus that update within float32's
+    rounding of the sum.  The difference of the float32 parameters after
+    and before is printed beside it with its rounding floor (one ulp of
+    the parameter over the update's size): the update is small against
+    the parameter, so that difference carries the parameter's rounding."""
+    from mxnet_tpu_torch import nd
+    losses, update, diff, applied, floor = {}, {}, {}, {}, {}
+    for key, dev in (("card", "cuda"), ("cpu", "cpu")):
+        model = word_lm_model(LM_VOCAB, LM_EMBED, LM_HIDDEN, LM_LAYERS, 0.0)
+        model.load_dict(p0, device=dev)
+        step = lm_loop(model)
+        x, y = (nd.NDArray(a.data.to(dev)) for a in batch)
+        state = [torch.zeros(LM_LAYERS, LM_BATCH, LM_HIDDEN, device=dev)
+                 for _ in range(2)]
+        grads = {}
+
+        def keep_grads():
+            for n, p in model.named_parameters():
+                grads[n] = p.grad.detach().cpu().double()
+        losses[key] = float(step(x, y, state, before_update=keep_grads)[0])
+        update[key] = {n: -LM_LR * (g / (LM_BATCH * LM_BPTT)).clamp(
+            -LM_CLIP, LM_CLIP) for n, g in grads.items()}
+        diff[key] = {n: p.detach().cpu().double() - p0[n].double()
+                     for n, p in model.named_parameters()}
+        eps = torch.finfo(torch.float32).eps
+        applied[key] = max(
+            float((diff[key][n] - update[key][n]).abs().max()) /
+            (eps * float((p0[n].double().abs() + update[key][n].abs())
+                         .max())) for n in p0)
+        floor[key] = max(
+            float(eps * p0[n].double().abs().norm() /
+                  update[key][n].norm().clamp_min(1e-30)) for n in p0)
+        del model, step
+    worst, at = _worst_l2(update["card"], update["cpu"], 0.0)
+    diff_worst, diff_at = _worst_l2(diff["card"], diff["cpu"], 0.0)
+    rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    rec = {"loss_card": losses["card"], "loss_cpu": losses["cpu"],
+           "loss_rel": rel, "update_worst_rel_l2": worst,
+           "update_worst_at": at,
+           "applied_worst_over_fp32_rounding": max(applied.values()),
+           "param_difference_worst_rel_l2": diff_worst,
+           "param_difference_worst_at": diff_at,
+           "param_difference_rounding_floor_worst": floor["cpu"]}
+    log("lm: fp32 step at dropout 0 %s" % json.dumps(rec))
+    if not rel <= LM_TOL or not worst <= LM_TOL or \
+            not max(applied.values()) <= 1.0:
+        raise RuntimeError("lm: the fp32 step on the card is off the "
+                           "CPU's: %s" % rec)
+    return rec
+
+
+def lm_cudnn_kernels(prof):
+    """The cuDNN RNN ops and kernels of a traced step: the ``aten`` ops
+    PyTorch's cuDNN RNN dispatches to, and the device kernels whose names
+    are cuDNN's recurrent ones (PyTorch's non-cuDNN CUDA RNN kernels, in
+    ``at::native``, excluded)."""
+    from torch.autograd import DeviceType
+    ops = sorted({e.name for e in prof.events()
+                  if e.device_type != DeviceType.CUDA
+                  and e.name.startswith("aten::_cudnn_rnn")})
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and \
+                _CUDNN_RNN_KERNEL.search(e.name) and \
+                "at::native" not in e.name:
+            kernels[e.name] = kernels.get(e.name, 0) + 1
+    return ops, kernels
+
+
+def phase_lm(peaks, smi):
+    """BASELINE config 3, the LSTM language model of ``examples/word_lm.py``
+    on the card, no kernel of its own: the fused ``RNN`` op on PyTorch's
+    RNN, which is cuDNN's.  Upstream MXNet's medium PTB widths (vocabulary
+    10,000, embedding and hidden 650, 2 layers, dropout 0.5), bptt 35 and
+    batch 20, on word_lm.py's offline corpus (:func:`lm_corpus`, 40,000
+    tokens: 57 steps an epoch).  Checks: (a) :func:`lm_op_check` for the
+    2-layer LSTM; (b) the same for one bidirectional GRU layer with
+    ``sequence_length``, one length 0 and one T; (c)
+    :func:`lm_fp32_step`; (d) one epoch at dropout 0.5 (masks from a
+    seeded generator on the card), every loss finite and the mean of the
+    last 10 below that of the first 10; (e) none of K1-K4 launched (the
+    counts are set to 0 at the start and read at the end: the ``lm``
+    path), and a traced step holds ``aten::_cudnn_rnn`` and cuDNN's RNN
+    kernels.  Printed: words/s over the epoch, the step split (forward +
+    loss, backward, ``Trainer.step``) by CUDA events, TFLOP/s and fp32 MFU
+    (3 x the forward FLOP of :func:`lm_forward_flop_per_token`), the
+    traced step's idle share and top kernels, the peak memory, the
+    phase's seconds.  Returns the launches."""
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.ops import _kernels
+    t_phase = time.perf_counter()
+    _kernels.reset_launches()
+    checks = [lm_op_check("lstm", "lstm", LM_LAYERS, False)]
+    lengths = torch.randint(1, LM_BPTT + 1, (LM_BATCH,),
+                            generator=torch.Generator().manual_seed(SEED))
+    lengths[0], lengths[1] = 0, LM_BPTT
+    checks.append(lm_op_check("gru_bidirectional_lengths", "gru", 1, True,
+                              lengths))
+    data = lm_batchify(lm_corpus(LM_VOCAB), LM_BATCH)
+    batches = lm_batches(data, "cuda")
+    model = word_lm_model(LM_VOCAB, LM_EMBED, LM_HIDDEN, LM_LAYERS,
+                          LM_DROPOUT)
+    model.initialize(initializer.Xavier(), seed=SEED)
+    p0 = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    n_params = sum(p.numel() for p in p0.values())
+    fp32_step = lm_fp32_step(p0, batches[0])
+    nn.set_dropout_generator(
+        model, torch.Generator(device="cuda").manual_seed(SEED))
+    step = lm_loop(model)
+    state = model.lstm.begin_state(LM_BATCH, ctx=batches[0][0].context)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+             for _ in range(LM_EPOCH_STEPS)]
+    losses = []
+    t0 = time.perf_counter()
+    for (x, y), ev in zip(batches, marks):
+        loss, state = step(x, y, state, events=ev)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(l) for l in losses]
+    warm = 2
+    parts = np.array([[ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+                      for ev in marks[warm:]]).mean(axis=0)
+    steady_ms = float(np.mean([ev[0].elapsed_time(ev[3])
+                               for ev in marks[warm:]]))
+    x0, y0 = batches[0]
+    prof, wall_ms = profiled(lambda: step(x0, y0, state))
+    busy = device_busy_ms(prof)
+    log_kernel_breakdown("lm", prof, top=10)
+    rnn_ops, rnn_kernels = lm_cudnn_kernels(prof)
+    launches = _kernels.launch_counts()
+    tokens = LM_BPTT * LM_BATCH
+    flop_step = 3 * lm_forward_flop_per_token(
+        LM_VOCAB, LM_EMBED, LM_HIDDEN, LM_LAYERS) * tokens
+    first10, last10 = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    rec = {"model": "word_lm RNNModel (tied LSTM)", "vocab": LM_VOCAB,
+           "embed": LM_EMBED, "hidden": LM_HIDDEN, "layers": LM_LAYERS,
+           "dropout": LM_DROPOUT, "bptt": LM_BPTT, "batch": LM_BATCH,
+           "parameters": n_params, "steps": LM_EPOCH_STEPS,
+           "dtype": "float32", "lr": LM_LR, "clip_gradient": LM_CLIP,
+           "epoch_s": epoch_s,
+           "words_per_s": LM_EPOCH_STEPS * tokens / epoch_s,
+           "steady_step_ms": steady_ms,
+           "steady_words_per_s": tokens / (steady_ms / 1e3),
+           "split_ms": {"forward_plus_loss": parts[0],
+                        "backward": parts[1], "trainer_step": parts[2]},
+           "flop_per_step": flop_step,
+           "tflops": flop_step / (steady_ms / 1e3) / 1e12,
+           "mfu_fp32": flop_step / (steady_ms / 1e3) / peaks["fp32"],
+           "traced_step_wall_ms": wall_ms, "device_busy_ms": busy,
+           "device_idle_share": 1.0 - busy / wall_ms,
+           "peak_memory_gb": peak_gb, "cudnn_rnn_ops": rnn_ops,
+           "cudnn_rnn_kernels": rnn_kernels,
+           "loss_first10_mean": first10, "loss_last10_mean": last10,
+           "perplexity_epoch": float(np.exp(np.mean(losses))),
+           "losses": losses, "op_checks": checks, "fp32_step": fp32_step,
+           "launches": launches,
+           "phase_s": time.perf_counter() - t_phase, "card": smi}
+    log("lm: %s" % json.dumps(rec))
+    faults = []
+    if not all(np.isfinite(losses)):
+        faults.append("a loss is not finite")
+    if not last10 < first10:
+        faults.append("the mean loss of the last 10 steps (%.4f) is not "
+                      "below the first 10's (%.4f)" % (last10, first10))
+    if "aten::_cudnn_rnn" not in rnn_ops or not rnn_kernels:
+        faults.append("the traced step ran no cuDNN RNN (ops %s, kernels "
+                      "%s)" % (rnn_ops, sorted(rnn_kernels)))
+    if any(launches.values()):
+        faults.append("launched %s; none of K1-K4 is on the path"
+                      % launches)
+    if faults:
+        raise RuntimeError("lm: " + "; ".join(faults))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 15. zoo
+# ---------------------------------------------------------------------------
+
+ZOO_MODELS = [("vgg16", 224), ("alexnet", 224), ("densenet121", 224),
+              ("squeezenet1.1", 224), ("mobilenet1.0", 224),
+              ("mobilenetv2_1.0", 224), ("inceptionv3", 299)]
+ZOO_CHECK_BATCH = 2
+ZOO_BATCH = 32
+ZOO_STEPS, ZOO_TIMED = 5, 3
+ZOO_LR, ZOO_MOMENTUM = 0.01, 0.9
+ZOO_TOL = 1e-4
+
+
+def zoo_model(name, hw):
+    """(a) and (b) for one model of the vision zoo, at 1000 classes from
+    ``Xavier`` at the seed: a predict-mode fp32 forward at batch 2 on the
+    card against a CPU copy of the same parameters, with
+    ``torch.backends.cudnn.allow_tf32`` True, within 1e-4 x max|CPU|; then
+    5 SGD steps (lr 0.01, momentum 0.9) through ``gluon.Trainer`` on one
+    repeated fp32 batch of 32 (``record()``, the net,
+    ``SoftmaxCrossEntropyLoss``, ``backward()``, ``Trainer.step(32)``;
+    dropout masks from a seeded generator on the card): every loss finite
+    and the last below the first; images/s of the last 3 steps and the
+    peak memory."""
+    from mxnet_tpu_torch import autograd, gluon, initializer, nd
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    gen = torch.Generator().manual_seed(SEED)
+    x2 = torch.randn(ZOO_CHECK_BATCH, 3, hw, hw, generator=gen)
+    net = vision.get_model(name, classes=1000)
+    net.initialize(initializer.Xavier(), seed=SEED)
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            card = net(x2.cuda()).cpu()         # also sizes the net
+            params = {n: p.detach().cpu() for n, p in
+                      net.named_parameters()}
+            cpu = vision.get_model(name, classes=1000).load_dict(
+                params, device="cpu")(x2)
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+    err = float((card - cpu).abs().max())
+    top = float(cpu.abs().max())
+    del params
+    gluon.nn.set_dropout_generator(
+        net, torch.Generator(device="cuda").manual_seed(SEED))
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": ZOO_LR,
+                             "momentum": ZOO_MOMENTUM})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    x = nd.NDArray(torch.randn(ZOO_BATCH, 3, hw, hw, generator=gen).cuda())
+    y = nd.NDArray(torch.randint(0, 1000, (ZOO_BATCH,), generator=gen)
+                   .float().cuda())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, t_timed = [], None
+    for i in range(ZOO_STEPS):
+        if i == ZOO_STEPS - ZOO_TIMED:
+            torch.cuda.synchronize()
+            t_timed = time.perf_counter()
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(ZOO_BATCH)
+        losses.append(loss.data.detach().mean())
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t_timed
+    losses = [float(l) for l in losses]
+    rec = {"model": name, "image": hw, "classes": 1000,
+           "parameters": sum(p.numel() for p in net.parameters()),
+           "check_batch": ZOO_CHECK_BATCH, "forward_max_abs_err": err,
+           "forward_max_abs_cpu": top, "batch": ZOO_BATCH,
+           "losses": losses,
+           "images_per_s": ZOO_BATCH * ZOO_TIMED / timed_s,
+           "step_ms": timed_s / ZOO_TIMED * 1e3,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log("zoo: %s" % json.dumps(rec))
+    faults = []
+    if not err <= ZOO_TOL * top:
+        faults.append("the forward on the card is off the CPU's by %.3g "
+                      "(max|CPU| %.3g)" % (err, top))
+    if not all(np.isfinite(losses)):
+        faults.append("a loss is not finite: %s" % losses)
+    if not losses[-1] < losses[0]:
+        faults.append("the loss did not fall: %s" % losses)
+    if faults:
+        raise RuntimeError("zoo: %s: %s" % (name, "; ".join(faults)))
+    return rec
+
+
+def phase_zoo(smi):
+    """The rest of the vision zoo on the card, no kernel of its own
+    (convolutions, depthwise and grouped, batch norm and pooling on
+    cuDNN): :func:`zoo_model` for vgg16, alexnet, densenet121,
+    squeezenet1.1, mobilenet1.0, mobilenetv2_1.0 (224 px) and inceptionv3
+    (299 px).  The launch counts are set to 0 at the start and read at the
+    end (the ``zoo`` path): none of K1-K4 may launch.  Returns the
+    launches."""
+    from mxnet_tpu_torch.ops import _kernels
+    t_phase = time.perf_counter()
+    _kernels.reset_launches()
+    recs = []
+    for name, hw in ZOO_MODELS:
+        recs.append(zoo_model(name, hw))
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = _kernels.launch_counts()
+    log("zoo: %s" % json.dumps({
+        "models": [r["model"] for r in recs], "launches": launches,
+        "phase_s": time.perf_counter() - t_phase, "card": smi}))
+    if any(launches.values()):
+        raise RuntimeError("zoo: launched %s; none of K1-K4 is on the path"
+                           % launches)
+    return launches
+
+
 def kernel_row(name, source, replaces, launches, fp32, bf16, extra=None):
     """One entry of the kernels line: the fp32 figures under the contract's
     keys, the bf16 ones under ``bf16_``, and those of ``extra`` (another
@@ -3959,12 +4488,19 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     ssd_launches = phase_ssd(peaks, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_launches = phase_lm(peaks, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo_launches = phase_zoo(smi)
     by_path = {k: {"serve": serve_launches[k], "train": train_launches[k],
                    "imperative": imperative_launches[k],
                    "resnet": resnet_launches[k],
                    "eager": eager_launches[k], "amp": amp_launches[k],
                    "data": data_launches[k], "det": det_launches[k],
-                   "ssd": ssd_launches[k]}
+                   "ssd": ssd_launches[k], "lm": lm_launches[k],
+                   "zoo": zoo_launches[k]}
                for k in imperative_launches}
     fp32, bf16 = torch.float32, torch.bfloat16
     kernels = [
@@ -3988,7 +4524,9 @@ def main():
                      "amp": amp_launches.get("tpu_kernel:" + body, 0),
                      "data": data_launches.get("tpu_kernel:" + body, 0),
                      "det": det_launches.get("tpu_kernel:" + body, 0),
-                     "ssd": ssd_launches.get("tpu_kernel:" + body, 0)},
+                     "ssd": ssd_launches.get("tpu_kernel:" + body, 0),
+                     "lm": lm_launches.get("tpu_kernel:" + body, 0),
+                     "zoo": zoo_launches.get("tpu_kernel:" + body, 0)},
                     user[(body, fp32)], user[(body, bf16)],
                     {"default_grid_": user[(body + ":default_grid", fp32)],
                      "bf16_default_grid_": user[(body + ":default_grid",

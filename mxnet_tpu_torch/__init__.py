@@ -21,10 +21,18 @@ init, ``gluon.Trainer``, ``optimizer``, ``lr_scheduler``, ``metric``) and
 the input pipeline (``io`` with ``io.DevicePrefetcher``, ``gluon.data``,
 ``recordio``, ``image``, ``random``), and ``amp``, automatic mixed
 precision at the registered-op dispatch, with the detection input path
-(``image.ImageDetIter``) and the image and spatial ops.
+(``image.ImageDetIter``) and the image and spatial ops, SSD-300 with the
+detection ops, and the LSTM language model: the fused ``RNN`` op on
+PyTorch's RNN (cuDNN on the card), ``gluon.rnn``'s layers and cells, the
+rest of ``gluon.nn`` and the vision zoo.
 """
+import sys as _sys
+
 from .base import MXNetError, get_env
-from .device import Context, cpu, gpu, current_context, default_device
+from .device import (Context, Device, cpu, gpu, current_context,
+                     current_device, default_device, num_gpus,
+                     gpu_memory_info)
+from . import device as context
 from . import initializer
 from . import initializer as init
 from . import ops
@@ -34,6 +42,7 @@ from . import metric
 from . import autograd
 from . import ndarray
 from . import ndarray as nd
+from .ndarray import waitall
 from . import gluon
 from . import serve
 from . import parallel
@@ -44,8 +53,13 @@ from . import image
 from . import io
 from . import amp
 
-__all__ = ["MXNetError", "get_env", "Context", "cpu", "gpu",
-           "current_context", "default_device", "initializer", "init",
+# the reference's ``mx.context`` is a module of its own
+_sys.modules[__name__ + ".context"] = context
+
+__all__ = ["MXNetError", "get_env", "Context", "Device", "cpu", "gpu",
+           "current_context", "current_device", "default_device",
+           "num_gpus", "gpu_memory_info", "context", "waitall",
+           "initializer", "init",
            "ops", "lr_scheduler", "optimizer", "metric", "autograd",
            "ndarray", "nd", "gluon", "serve", "parallel", "tpu_kernel",
            "random", "recordio", "image", "io", "amp"]

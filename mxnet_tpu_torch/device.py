@@ -21,8 +21,9 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context", "default_device",
-           "resolve", "in_context"]
+__all__ = ["Context", "Device", "cpu", "gpu", "current_context",
+           "current_device", "default_device", "resolve", "in_context",
+           "num_gpus", "gpu_memory_info"]
 
 
 class Context:
@@ -94,6 +95,9 @@ class Context:
         return False
 
 
+#: the reference's 2.x name of :class:`Context`
+Device = Context
+
 DeviceLike = Union[str, torch.device, Context, None]
 
 
@@ -110,6 +114,21 @@ def current_context() -> Context:
     scope's, else ``gpu(0)``."""
     ctx = getattr(Context._default_ctx, "value", None)
     return ctx if ctx is not None else Context("gpu", 0)
+
+
+current_device = current_context
+
+
+def num_gpus() -> int:
+    """The number of CUDA devices (0 without CUDA)."""
+    return torch.cuda.device_count()
+
+
+def gpu_memory_info(device_id: int = 0):
+    """``(free, total)`` bytes of GPU ``device_id``; raises
+    :class:`MXNetError` without CUDA, as the reference's upstream does."""
+    dev = resolve(Context("gpu", device_id))
+    return torch.cuda.mem_get_info(dev)
 
 
 def default_device() -> torch.device:

@@ -25,7 +25,8 @@ Counterpart of ``mxnet_tpu/gluon/block.py``.  What differs, and why:
   eagerly, and CUDA graphs are a later change.
 * :func:`functionalize` lifts a block into ``(pure_fn, params)``, the
   bridge ``parallel.TrainStep`` trains through, as in the JAX package.
-* A block called with ``NDArray`` inputs (the imperative front end) unwraps
+* A block called with ``NDArray`` inputs (the imperative front end; also
+  in lists or tuples, as a recurrent layer's states come) unwraps
   them, runs with grad enabled only under ``autograd.record()`` and in
   training mode exactly when ``autograd.is_training()``, as gluon blocks
   read it, and returns NDArrays.  Its parameters' gradients are written by
@@ -185,14 +186,11 @@ class Block(torch.nn.Module):
 
     def __call__(self, *args, **kwargs):
         if self.__dict__.get("_pending"):
-            self._finish_deferred(tuple(a.data if isinstance(a, NDArray)
-                                        else a for a in args))
-        if not any(isinstance(a, NDArray)
-                   for a in args + tuple(kwargs.values())):
+            self._finish_deferred(_unwrap(args))
+        if not any(_has_ndarray(a) for a in args + tuple(kwargs.values())):
             return super().__call__(*args, **kwargs)
-        args = tuple(a.data if isinstance(a, NDArray) else a for a in args)
-        kwargs = {k: v.data if isinstance(v, NDArray) else v
-                  for k, v in kwargs.items()}
+        args = _unwrap(args)
+        kwargs = {k: _unwrap(v) for k, v in kwargs.items()}
         modes = [(m, m.training, getattr(m, "_write_aux", False))
                  for m in self.modules()]
         self.train(autograd.is_training())
@@ -207,6 +205,22 @@ class Block(torch.nn.Module):
                 m.training = mode
                 m._write_aux = write
         return _wrap(out)
+
+
+def _has_ndarray(a) -> bool:
+    if isinstance(a, (tuple, list)):
+        return any(_has_ndarray(x) for x in a)
+    return isinstance(a, NDArray)
+
+
+def _unwrap(a):
+    """An input's NDArrays (alone, or in nested tuples or lists, such as
+    a recurrent layer's states) as their tensors."""
+    if isinstance(a, NDArray):
+        return a.data
+    if isinstance(a, (tuple, list)):
+        return type(a)(_unwrap(x) for x in a)
+    return a
 
 
 def _wrap(out):

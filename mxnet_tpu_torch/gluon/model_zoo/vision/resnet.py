@@ -18,6 +18,7 @@ import torch
 
 from ...block import HybridBlock
 from ... import nn
+from ..model_store import load_pretrained
 
 __all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
            "BottleneckV1", "BottleneckV2", "resnet18_v1", "resnet34_v1",
@@ -264,10 +265,7 @@ def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
         raise ValueError("Invalid resnet version: %d. Options are 1 and 2"
                          % version)
     if pretrained:
-        raise FileNotFoundError(
-            "resnet%d_v%d: the port has no pretrained weight store; load "
-            "weights with mxnet_tpu_torch.convert.params_from_mxnet_tpu"
-            % (num_layers, version))
+        load_pretrained("resnet%d_v%d" % (num_layers, version))
     block_type, layers, channels = resnet_spec[num_layers]
     resnet_class = resnet_net_versions[version - 1]
     block_class = resnet_block_versions[version - 1][block_type]

@@ -7,7 +7,9 @@ parameter names (``weight``, ``bias``, ``gamma``, ``beta``,
 the layer's ``infer_shape`` reads it from the input (``Block.__call__``).
 Each layer computes its op through ``registry.dispatch`` under the
 reference's op name (``FullyConnected``, ``LayerNorm``, ``GroupNorm``,
-``InstanceNorm``, ``Embedding``, ``Activation``, ``LeakyReLU``), where the
+``InstanceNorm``, ``Embedding``, ``Activation``, ``LeakyReLU``,
+``flatten``, ``concat``, ``sigmoid``; a ``Lambda`` named by a string,
+its op), where the
 AMP policy casts the op's inputs; ``BatchNorm`` computes its op in parts
 and takes the same cast (``registry.amp_cast``).
 A parameter whose gluon ``grad_req`` is 'null' (BatchNorm's running
@@ -32,8 +34,10 @@ from ..parameter import meta_parameter, param_handle
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
            "SyncBatchNorm", "LayerNorm", "GroupNorm", "InstanceNorm",
-           "Embedding", "GELU", "Activation", "LeakyReLU", "PReLU", "ELU",
-           "SELU", "set_dropout_generator"]
+           "Embedding", "Flatten", "Identity", "Lambda", "HybridLambda",
+           "Concatenate", "HybridConcatenate", "GELU", "Activation",
+           "LeakyReLU", "PReLU", "ELU", "SELU", "Swish", "SiLU",
+           "set_dropout_generator"]
 
 
 class _Stack:
@@ -144,11 +148,13 @@ class Dropout(HybridBlock):
 
 def set_dropout_generator(block: torch.nn.Module,
                           generator: torch.Generator) -> torch.nn.Module:
-    """Give every :class:`Dropout` in ``block``'s tree the one
-    ``generator``, so their masks are successive draws of one seeded
-    stream; returns ``block``."""
+    """Give every :class:`Dropout` and every recurrent layer
+    (``gluon.rnn.RNN``, ``LSTM``, ``GRU``: their dropout between layers) in
+    ``block``'s tree the one ``generator``, so their masks are successive
+    draws of one seeded stream; returns ``block``."""
+    from ..rnn.rnn_layer import _RNNLayer
     for m in block.modules():
-        if isinstance(m, Dropout):
+        if isinstance(m, (Dropout, _RNNLayer)):
             m.generator = generator
     return block
 
@@ -302,6 +308,68 @@ class Embedding(HybridBlock):
                         input_dim=self._dims[0], output_dim=self._dims[1])
 
 
+class Flatten(HybridBlock):
+    """All axes but the first folded into one (the ``flatten`` op)."""
+
+    def forward(self, x):
+        return dispatch("flatten", x)
+
+
+class Identity(HybridBlock):
+    """The input, unchanged."""
+
+    def forward(self, x):
+        return x
+
+
+class Lambda(Block):
+    """A function as a block: ``function`` takes and gives the forward's
+    tensors; a string names an ``nd`` function (a registered op), which
+    runs through ``registry.dispatch``."""
+
+    def __init__(self, function, **kwargs):
+        super().__init__(**kwargs)
+        if isinstance(function, str):
+            get_op(function)            # an unknown name raises here
+            self._func = lambda *args, _name=function: dispatch(_name, *args)
+            self._name = function
+        else:
+            self._func = function
+            self._name = getattr(function, "__name__", "lambda")
+
+    def forward(self, *args):
+        return self._func(*args)
+
+    def extra_repr(self):
+        return self._name
+
+
+class HybridLambda(Lambda, HybridBlock):
+    """:class:`Lambda` under the reference's hybrid name."""
+
+
+class _Concat:
+    """What ``Concatenate`` and ``HybridConcatenate`` share: every child
+    on the same input, their outputs joined along ``axis``."""
+
+    def __init__(self, axis: int = -1, **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+
+    def forward(self, x):
+        return dispatch("concat", *[block(x) for block in
+                                    self._modules.values()], dim=self._axis)
+
+
+class Concatenate(_Concat, Sequential):
+    """Children run on one input, outputs concatenated (gluon
+    ``nn.Concatenate``)."""
+
+
+class HybridConcatenate(_Concat, HybridSequential):
+    """Hybridizable :class:`Concatenate`."""
+
+
 class Activation(HybridBlock):
     def __init__(self, activation: str, **kwargs):
         super().__init__(**kwargs)
@@ -371,3 +439,17 @@ class PReLU(HybridBlock):
     def forward(self, x):
         return dispatch("LeakyReLU", x, self._parameters["alpha"],
                         act_type="prelu")
+
+
+class Swish(HybridBlock):
+    """``x * sigmoid(beta * x)``."""
+
+    def __init__(self, beta: float = 1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._beta = beta
+
+    def forward(self, x):
+        return x * dispatch("sigmoid", x * self._beta)
+
+
+SiLU = Swish

@@ -13,7 +13,8 @@ from . import optimizer
 from . import random
 from . import image, spatial
 from . import detection
+from . import rnn
 
 __all__ = ["registry", "attention", "nn", "creation", "elemwise", "scalar",
            "reduce", "matrix", "optimizer", "random", "image", "spatial",
-           "detection"]
+           "detection", "rnn"]

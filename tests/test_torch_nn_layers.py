@@ -3,7 +3,9 @@ against the JAX reference on the CPU.
 
 ``GroupNorm``, ``InstanceNorm``, ``LeakyReLU``, ``PReLU``, ``ELU``,
 ``SELU`` and ``GELU`` as gluon layers with deferred sizes (parameters
-carried by name with ``convert.params_from_mxnet_tpu``), and the ops
+carried by name with ``convert.params_from_mxnet_tpu``), then ``Flatten``,
+``Identity``, ``Lambda``, ``HybridLambda``, ``Concatenate``,
+``HybridConcatenate`` and ``Swish`` (``SiLU``), and the ops
 ``LeakyReLU`` (every ``act_type``), ``GroupNorm``, ``InstanceNorm``,
 ``L2Normalization`` and ``norm`` through ``nd``: forward values and the
 gradients of ``sum(out * cotangent)`` at 1e-4 in fp32.
@@ -132,7 +134,22 @@ LAYERS = {
     "ELU": lambda nn: nn.ELU(0.7),
     "SELU": lambda nn: nn.SELU(),
     "GELU": lambda nn: nn.GELU(),
+    "Flatten": lambda nn: nn.Flatten(),
+    "Identity": lambda nn: nn.Identity(),
+    "Lambda": lambda nn: nn.Lambda("tanh"),
+    "HybridLambda": lambda nn: nn.HybridLambda(lambda x: x.clip(-0.5, 0.5)),
+    "Concatenate": lambda nn: _concat(nn.Concatenate(axis=1), nn),
+    "HybridConcatenate": lambda nn: _concat(nn.HybridConcatenate(), nn),
+    "Swish": lambda nn: nn.Swish(beta=1.5),
+    "SiLU": lambda nn: nn.SiLU(),
 }
+
+
+def _concat(net, nn):
+    net.add(nn.Activation("tanh"))
+    net.add(nn.Conv2D(4, 3, padding=1))
+    net.add(nn.Identity())
+    return net
 
 
 def run_layer(nn, nd, autograd, make, x, named=None):
@@ -204,3 +221,32 @@ def test_prelu_slope_is_learned():
     loss.backward()
     trainer.step(1)
     np.testing.assert_allclose(net.alpha.data().asnumpy(), 0.25 + 8.0)
+
+
+def test_the_new_layers_reach_the_registered_ops(monkeypatch):
+    from mxnet_tpu_torch.ops import registry
+    seen = {}
+    for name in ("flatten", "concat", "sigmoid", "tanh"):
+        op = registry.get_op(name)
+
+        def counted(*a, _fn=op.fn, _name=name, **kw):
+            seen[_name] = seen.get(_name, 0) + 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(op, "fn", counted)
+    net = tnn.HybridSequential()
+    net.add(tnn.HybridConcatenate(axis=1).add(tnn.Swish(), tnn.Identity()),
+            tnn.Lambda("tanh"), tnn.Flatten())
+    assert net(tnd.array(rnd(2, 3, 4))).shape == (2, 24)
+    assert seen == {"flatten": 1, "concat": 1, "sigmoid": 1, "tanh": 1}
+
+
+def test_lambda_names_an_nd_function_or_takes_a_callable():
+    x = rnd(2, 3)
+    np.testing.assert_allclose(tnn.Lambda("relu")(tnd.array(x)).asnumpy(),
+                               np.maximum(x, 0))
+    with pytest.raises(KeyError):
+        tnn.Lambda("no_such_op")
+    net = tnn.Lambda(lambda a, b: a * b)
+    np.testing.assert_allclose(net(tnd.array(x), tnd.array(x)).asnumpy(),
+                               x * x, rtol=1e-6)
+    assert tnn.SiLU is tnn.Swish

@@ -273,7 +273,11 @@ def test_port_imports_neither_jax_nor_mxnet_tpu():
             "mxnet_tpu_torch.gluon.parameter, mxnet_tpu_torch.amp, "
             "mxnet_tpu_torch.amp.lists, mxnet_tpu_torch.image.detection, "
             "mxnet_tpu_torch.ops.image, mxnet_tpu_torch.ops.spatial, "
-            "mxnet_tpu_torch.gluon.data.vision.transforms; "
+            "mxnet_tpu_torch.gluon.data.vision.transforms, "
+            "mxnet_tpu_torch.ops.rnn, mxnet_tpu_torch.gluon.rnn, "
+            "mxnet_tpu_torch.gluon.model_zoo.vision, "
+            "mxnet_tpu_torch.gluon.model_zoo.model_store, "
+            "mxnet_tpu_torch.context; "
             "import chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "
