@@ -229,6 +229,32 @@ Phases (each raises on failure, so any failure exits nonzero):
    True), then 5 SGD steps (lr 0.01, momentum 0.9) through
    ``gluon.Trainer`` on one repeated batch of 32, every loss finite and the
    last below the first; images/s of the last 3 steps, the peak memory.
+16. dist -- data-parallel training across processes, no kernel of its own
+   (the exchange is NCCL's or gloo's collectives; K1-K3 run in
+   BERT-base and are counted under ``dist``).  Each part is started by
+   the port's launcher, ``python -m mxnet_tpu_torch.tools.launch``, as a
+   subprocess with a time limit, and its ranks print one record each.
+   (a) ``-n 1``, NCCL on ``cuda:0``: BERT-base with the MLM decoder at the
+   bench's configuration (bf16, batch 16, T = 512, dropout 0) takes 3
+   steps through ``Trainer(kvstore="ici")`` (``allreduce_grads`` timed by
+   CUDA events, then ``update``) and 3 through ``Trainer(kvstore=None)``
+   from the same parameters and batch: the first step's gradients come
+   out of the exchange bitwise unchanged (the sum over one rank is the
+   identity, so the buckets' flatten and split keep every bit), the
+   losses and the weights are bitwise equal, K1, K2 and K3 launch 12
+   times a step; printed: the bucket plan (count and bytes, solo keys)
+   and the exchange's ms a step; then 2-bit and int8 compression of one
+   4 MB bucket, two pushes, on the card against the CPU: codes, scales,
+   packed words and residuals bitwise equal.  (b) ``-n 2`` with both
+   ranks on ``cuda:0`` over gloo (NCCL refuses two ranks on one card):
+   BERT-base fp32 (K1-K3 in 3xTF32), the global batch of 16 as two halves
+   of 8, 2 steps through ``Trainer(kvstore="ici")`` (its exchange timed
+   by CUDA events), then 2 through the dp ``TrainStep`` from a fresh
+   copy; the weights bitwise equal across
+   the ranks (sha256 of every parameter), and on rank 0 each tensor within
+   1e-4 x max|ref| of one process's run on the whole batch.  (c) Part (b)
+   on NCCL over ``cuda:0`` and ``cuda:1`` where the machine has two cards;
+   with one card the phase prints that (c) did not run.
 
 The last lines of standard output are the ``nvidia-smi`` name and power
 limit, one JSON object ``{"kernels": [...]}`` and, last,
@@ -242,11 +268,13 @@ import os
 import re
 import socket
 import subprocess
+import sys
 import threading
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 SEED = 20261017
 BUCKETS = (1, 2, 4, 8)
@@ -4432,6 +4460,374 @@ def phase_zoo(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 16. data-parallel training across processes
+# ---------------------------------------------------------------------------
+
+DIST_STEPS_A = 3                # steps with the store, then without it
+DIST_STEPS_B = 2                # Trainer steps, then dp TrainStep steps
+DIST_TIMEOUT = 300              # seconds a part's launcher may take
+DIST_TOL = 1e-4                 # the port's fp32 rule, x max|ref|
+DIST_CODEC_N = 1 << 20          # one 4 MB float32 bucket
+_FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def dist_bert(dev, dtype):
+    """BERT-base with the MLM decoder, as the train phase builds it, on
+    ``dev`` in ``dtype``."""
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.model_zoo.bert import bert_12_768_12
+    net = bert_12_768_12(vocab_size=VOCAB, max_length=SEQ_LEN, dropout=0.0,
+                         use_classifier=False)
+    net.initialize(initializer.Normal(0.02), device=dev, seed=SEED)
+    if dtype != "float32":
+        net.cast(dtype)
+    return net
+
+
+def dist_mlm_loss(cast):
+    """The bench's loss, the mean MLM cross-entropy, on NDArrays (with the
+    logits cast to fp32 when ``cast``) or tensors."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    ce = SoftmaxCrossEntropyLoss()
+    if cast:
+        return lambda out, lab: ce(out[-1].astype("float32"), lab).mean()
+    return lambda out, lab: ce(out[-1], lab).mean()
+
+
+def _weights(net):
+    return {n: p.detach() for n, p in net.named_parameters()}
+
+
+def dist_fwd_bwd(net, loss_fn, batch):
+    from mxnet_tpu_torch import autograd
+    with autograd.record():
+        loss = loss_fn(net(*batch[:-1]), batch[-1])
+    loss.backward()
+    return loss.data.detach().clone()
+
+
+def dist_exchange(trainer):
+    """``trainer.allreduce_grads()`` between two CUDA events; returns
+    them."""
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    trainer.allreduce_grads()
+    e1.record()
+    return e0, e1
+
+
+def dist_codecs(dev):
+    """2-bit and int8 compression of one 4 MB bucket, two pushes with the
+    residual carried, on the card and on the CPU: codes, scales, packed
+    words and residuals bitwise equal (and the packed words equal to the
+    host pack of the wire codec)."""
+    from mxnet_tpu_torch.kvstore.gradient_compression import \
+        GradientCompression
+    from mxnet_tpu_torch.kvstore.wire_codec import pack_2bit
+    rng = np.random.RandomState(SEED)
+    xs = [torch.from_numpy(rng.randn(DIST_CODEC_N).astype(np.float32) * s)
+          for s in (0.3, 0.2)]
+    checked = {}
+    for mode in ("2bit", "int8"):
+        gpu, cpu = (GradientCompression(mode, threshold=0.5)
+                    for _ in range(2))
+        for i, x in enumerate(xs):
+            got = gpu.compress_device("b", x.to(dev))
+            want = cpu.compress_device("b", x)
+            pairs = list(zip(got, want)) + [(gpu._residuals["b"],
+                                             cpu._residuals["b"])]
+            if mode == "2bit":
+                levels = cpu.decompress_device(want, DIST_CODEC_N)
+                host = torch.from_numpy(pack_2bit(levels.numpy(), 0.5))
+                pairs.append((got[0], host))
+            for g, w in pairs:
+                if not torch.equal(g.cpu(), w):
+                    raise RuntimeError("dist: %s compression push %d differs "
+                                       "on the card from the CPU" % (mode, i))
+        checked[mode] = [str(t.dtype).replace("torch.", "") for t in got]
+    return checked
+
+
+def dist_part_a(dev):
+    """(a) One rank, NCCL on the card: BERT-base bf16 at the bench's batch
+    through ``Trainer(kvstore="ici")`` (the counted ``dist`` path), then
+    ``Trainer(kvstore=None)`` and ``Trainer(kvstore="ici")`` under
+    ``MX_EXCHANGE_OVERLAP=1``, on the same inputs and parameters.  The
+    losses and weights of all three are bitwise equal, and so are the
+    exchanged gradients of the first step; the overlapped run launched
+    exchange units during backward (before its step) from the second
+    step on."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, nd
+    from mxnet_tpu_torch.kvstore.bucketing import bucket_bytes
+    from mxnet_tpu_torch.ops import _kernels
+    loss_fn = dist_mlm_loss(cast=True)
+    ctx = mx.Context.from_torch(dev)
+    batch = [nd.array(a, ctx=ctx) for a in train_batch_host(TRAIN_BATCH)]
+
+    def make(kv):
+        net = dist_bert(dev, "bfloat16")
+        return net, gluon.Trainer(net.collect_params(), "sgd",
+                                  {"learning_rate": TRAIN_LR,
+                                   "momentum": TRAIN_MOMENTUM}, kvstore=kv)
+
+    net, kv_trainer = make("ici")
+    # --- the dist main path (a), counted: the store's Trainer alone ---
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    losses, events = [], []
+    for s in range(DIST_STEPS_A):
+        losses.append(dist_fwd_bwd(net, loss_fn, batch))
+        if s == 0:
+            before = [p.grad().data.clone() for p in kv_trainer._params]
+        events.append(dist_exchange(kv_trainer))
+        if s == 0:
+            moved = [i for i, (p, g) in enumerate(zip(kv_trainer._params,
+                                                      before))
+                     if not torch.equal(p.grad().data, g)]
+            del before
+            if moved:
+                raise RuntimeError("dist (a): the exchange at world size 1 "
+                                   "changed %d gradients (first: %s)"
+                                   % (len(moved),
+                                      kv_trainer._params[moved[0]].name))
+        kv_trainer.update(1)
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    # --- end of the counted main path ---
+    n_layers = len(net.encoder.transformer_cells)
+    want = n_layers * DIST_STEPS_A
+    if any(counts[k] != want for k in _FLASH):
+        raise RuntimeError("dist (a): launched %s, expected %d of each of %s"
+                           % (counts, want, _FLASH))
+    weights = _weights(net)
+    # the controls: no store; the store with the overlapped exchange
+    ctl_net, ctl = make(None)
+    ctl_losses = []
+    for _ in range(DIST_STEPS_A):
+        ctl_losses.append(dist_fwd_bwd(ctl_net, loss_fn, batch))
+        ctl.step(1)
+    ctl_weights = _weights(ctl_net)
+    del ctl_net, ctl
+    os.environ["MX_EXCHANGE_OVERLAP"] = "1"
+    try:
+        ov_net, ov = make("ici")
+        ov_losses, ov_launched, ov_events = [], [], []
+        for _ in range(DIST_STEPS_A):
+            ov_losses.append(dist_fwd_bwd(ov_net, loss_fn, batch))
+            sess = ov._exchange_session
+            ov_launched.append(0 if sess is None else len(sess._launched))
+            ov_events.append(dist_exchange(ov))
+            ov.update(1)
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["MX_EXCHANGE_OVERLAP"]
+    if not (ov._overlap and ov_launched[0] == 0 and all(ov_launched[1:])):
+        raise RuntimeError("dist (a): the overlapped exchange launched %s "
+                           "units before each step" % ov_launched)
+    for what, other, other_w in (("without the store", ctl_losses,
+                                  ctl_weights),
+                                 ("overlapped", ov_losses, _weights(ov_net))):
+        if not all(torch.equal(a, b) for a, b in zip(losses, other)):
+            raise RuntimeError("dist (a): losses with the store %s, %s %s"
+                               % ([float(v) for v in losses], what,
+                                  [float(v) for v in other]))
+        apart = [n for n in weights if not torch.equal(weights[n],
+                                                       other_w[n])]
+        if apart:
+            raise RuntimeError("dist (a): %d weights differ with the store "
+                               "and %s (first: %s)" % (len(apart), what,
+                                                        apart[0]))
+    kv = kv_trainer._kvstore
+    grads = [p.grad() for p in kv_trainer._params]
+    buckets, solo = kv._bucket_plans(list(range(len(grads))), grads)
+    item = grads[0].data.element_size()
+    rec = {"part": "a", "backend": dist.get_backend(),
+           "world": dist.get_world_size(), "store": kv.type,
+           "losses": [float(v) for v in losses],
+           "bucket_cap_bytes": bucket_bytes(), "buckets": len(buckets),
+           "bucket_bytes": sum(b.total for b in buckets) * item,
+           "solo_keys": len(solo),
+           "solo_bytes": sum(grads[p].size for p in solo) * item,
+           "keys": len(grads),
+           "exchange_ms": [a.elapsed_time(b) for a, b in events],
+           "overlap_units_before_step": ov_launched,
+           "overlap_drain_ms": [a.elapsed_time(b) for a, b in ov_events],
+           "launches": counts, "codecs": dist_codecs(dev)}
+    return rec
+
+
+def _digest(tensors):
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _worst_rel(got, want):
+    return max(float((got[n] - want[n]).abs().max())
+               / (float(want[n].abs().max()) + 1e-30) for n in want)
+
+
+def dist_part_b(dev):
+    """(b) and (c) Two ranks: BERT-base fp32, the global batch of 16 as
+    two halves of 8, two steps through ``Trainer(kvstore="ici")`` and two
+    through the dp ``TrainStep``; the weights bitwise equal across the
+    ranks, and on rank 0 within 1e-4 x max|ref| of one process's run on
+    the whole batch."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, nd
+    from mxnet_tpu_torch.ops import _kernels
+    from mxnet_tpu_torch.parallel import TrainStep, make_mesh
+    rank, world = dist.get_rank(), dist.get_world_size()
+    loss_fn = dist_mlm_loss(cast=False)
+    host = train_batch_host(TRAIN_BATCH)
+    half = TRAIN_BATCH // world
+    mine = [a[rank * half:(rank + 1) * half] for a in host]
+    opt_args = {"learning_rate": TRAIN_LR, "momentum": TRAIN_MOMENTUM}
+
+    def trainer_run(local, kvstore, batch_size):
+        net = dist_bert(dev, "float32")
+        trainer = gluon.Trainer(net.collect_params(), "sgd", opt_args,
+                                kvstore=kvstore)
+        batch = [nd.array(a, ctx=mx.Context.from_torch(dev))
+                 for a in local]
+        losses, events = [], []
+        for _ in range(DIST_STEPS_B):
+            losses.append(float(dist_fwd_bwd(net, loss_fn, batch)))
+            events.append(dist_exchange(trainer))
+            trainer.update(batch_size)
+        torch.cuda.synchronize()
+        return (losses, _weights(net),
+                [a.elapsed_time(b) for a, b in events],
+                len(net.encoder.transformer_cells))
+
+    def step_run(local, mesh):
+        step = TrainStep(dist_bert(dev, "float32"), loss_fn, mesh=mesh,
+                         device=dev, **opt_args)
+        losses = [float(step(*local)) for _ in range(DIST_STEPS_B)]
+        return losses, step.params
+
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    tr_losses, tr_params, tr_exchange, n_layers = trainer_run(mine, "ici",
+                                                              world)
+    st_losses, st_params = step_run(mine, make_mesh())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _kernels.launch_counts()
+    want = n_layers * 2 * DIST_STEPS_B
+    if any(counts[k] != want for k in _FLASH):
+        raise RuntimeError("dist (b): launched %s, expected %d of each of %s"
+                           % (counts, want, _FLASH))
+    digests = [None] * world
+    dist.all_gather_object(digests, [_digest(tr_params.values()),
+                                     _digest(st_params.values())])
+    if any(d != digests[0] for d in digests):
+        raise RuntimeError("dist (b): the weights differ across the ranks")
+    rec = {"part": "b", "backend": dist.get_backend(), "world": world,
+           "rank": rank, "device": str(dev), "trainer_losses": tr_losses,
+           "trainer_exchange_ms": tr_exchange,
+           "trainstep_losses": st_losses, "dp_seconds": secs,
+           "launches": counts}
+    if rank == 0:
+        ref_losses, ref_params, _, _ = trainer_run(host, None, 1)
+        rec["trainer_worst"] = _worst_rel(tr_params, ref_params)
+        del ref_params
+        ref_losses2, ref_step = step_run(host, None)
+        rec["trainstep_worst"] = _worst_rel(st_params, ref_step)
+        rec["ref_trainer_losses"], rec["ref_trainstep_losses"] = \
+            ref_losses, ref_losses2
+        if not (rec["trainer_worst"] <= DIST_TOL and
+                rec["trainstep_worst"] <= DIST_TOL):
+            raise RuntimeError("dist (b): the two-rank weights are %.3g "
+                               "(Trainer) and %.3g (TrainStep) x max|ref| "
+                               "from one process's, tolerance %g"
+                               % (rec["trainer_worst"],
+                                  rec["trainstep_worst"], DIST_TOL))
+    dist.barrier()
+    return rec
+
+
+def dist_worker(part):
+    """One rank of a ``phase_dist`` part, started by the port's launcher:
+    joins the process group (NCCL for (a) and (c), gloo on the card's
+    tensors for (b)), runs the part and prints its record."""
+    from mxnet_tpu_torch.parallel import init_process_group
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_process_group(backend={"a": None, "b": "gloo",
+                                      "c": "nccl"}[part])
+    try:
+        rec = dist_part_a(dev) if part == "a" else dist_part_b(dev)
+        print("dist-worker: " + json.dumps(rec), flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_launch(n, part):
+    """Run part ``part`` as ``n`` ranks through the port's launcher, bounded
+    by :data:`DIST_TIMEOUT`; raises unless it exits 0 with a record from
+    every rank.  Returns (records, seconds)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n",
+           str(n), "--launcher", "local", "--", sys.executable,
+           os.path.join(root, "chip_smoke.py"), "--dist-worker", part]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                       timeout=DIST_TIMEOUT)
+    secs = time.perf_counter() - t0
+    recs = [json.loads(line[len("dist-worker: "):])
+            for line in r.stdout.splitlines()
+            if line.startswith("dist-worker: ")]
+    if r.returncode != 0 or len(recs) != n:
+        raise RuntimeError("dist (%s): the launcher exited %d with %d of %d "
+                           "records:\n%s\n%s" % (part, r.returncode,
+                                                 len(recs), n,
+                                                 r.stdout[-4000:],
+                                                 r.stderr[-4000:]))
+    return recs, secs
+
+
+def phase_dist(smi):
+    """Data-parallel training across processes, no kernel of its own (the
+    exchange is NCCL's or gloo's collectives; K1-K3 run in BERT-base): each
+    part launched by ``python -m mxnet_tpu_torch.tools.launch`` as a
+    subprocess with a time limit.  (a) ``-n 1`` on NCCL, (b) ``-n 2`` over
+    gloo with both ranks on ``cuda:0``, (c) ``-n 2`` on NCCL over
+    ``cuda:0`` and ``cuda:1`` where the machine has two cards.  Returns
+    every kernel's launches in the counted runs (the ``dist`` path), summed
+    over the parts' ranks."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    (a,), secs_a = dist_launch(1, "a")
+    log("dist: (a) %s" % json.dumps(dict(a, seconds=secs_a)))
+    b, secs_b = dist_launch(2, "b")
+    for rec in b:
+        log("dist: (b) %s" % json.dumps(dict(rec, seconds=secs_b)))
+    parts = [a] + b
+    if torch.cuda.device_count() >= 2:
+        c, secs_c = dist_launch(2, "c")
+        for rec in c:
+            log("dist: (c) %s" % json.dumps(dict(rec, seconds=secs_c)))
+        parts += c
+    else:
+        log("dist: (c) not run: NCCL across two ranks needs two cards, and "
+            "this machine has %d" % torch.cuda.device_count())
+    launches = {}
+    for p in parts:
+        for k, v in p["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    log("dist: %s" % json.dumps({"launches": launches,
+                                 "phase_s": time.perf_counter() - t_phase,
+                                 "card": smi}))
+    return launches
+
+
 def kernel_row(name, source, replaces, launches, fp32, bf16, extra=None):
     """One entry of the kernels line: the fp32 figures under the contract's
     keys, the bf16 ones under ``bf16_``, and those of ``extra`` (another
@@ -4454,6 +4850,7 @@ def kernel_row(name, source, replaces, launches, fp32, bf16, extra=None):
 
 
 def main():
+    t_script = time.perf_counter()
     smi, name, peaks = phase_device()
     phase_build()
     fwd = phase_kernels(peaks)
@@ -4494,13 +4891,16 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     zoo_launches = phase_zoo(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist_launches = phase_dist(smi)
     by_path = {k: {"serve": serve_launches[k], "train": train_launches[k],
                    "imperative": imperative_launches[k],
                    "resnet": resnet_launches[k],
                    "eager": eager_launches[k], "amp": amp_launches[k],
                    "data": data_launches[k], "det": det_launches[k],
                    "ssd": ssd_launches[k], "lm": lm_launches[k],
-                   "zoo": zoo_launches[k]}
+                   "zoo": zoo_launches[k], "dist": dist_launches.get(k, 0)}
                for k in imperative_launches}
     fp32, bf16 = torch.float32, torch.bfloat16
     kernels = [
@@ -4526,13 +4926,15 @@ def main():
                      "det": det_launches.get("tpu_kernel:" + body, 0),
                      "ssd": ssd_launches.get("tpu_kernel:" + body, 0),
                      "lm": lm_launches.get("tpu_kernel:" + body, 0),
-                     "zoo": zoo_launches.get("tpu_kernel:" + body, 0)},
+                     "zoo": zoo_launches.get("tpu_kernel:" + body, 0),
+                     "dist": dist_launches.get("tpu_kernel:" + body, 0)},
                     user[(body, fp32)], user[(body, bf16)],
                     {"default_grid_": user[(body + ":default_grid", fp32)],
                      "bf16_default_grid_": user[(body + ":default_grid",
                                                  bf16)]}
                     if body == "double" else None)
          for body in USER_KERNELS]
+    log("smoke: all phases in %.1f s" % (time.perf_counter() - t_script))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -4541,4 +4943,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dist-worker"]:
+        dist_worker(sys.argv[2])
+    else:
+        main()

@@ -24,7 +24,11 @@ precision at the registered-op dispatch, with the detection input path
 (``image.ImageDetIter``) and the image and spatial ops, SSD-300 with the
 detection ops, and the LSTM language model: the fused ``RNN`` op on
 PyTorch's RNN (cuDNN on the card), ``gluon.rnn``'s layers and cells, the
-rest of ``gluon.nn`` and the vision zoo.
+rest of ``gluon.nn`` and the vision zoo; then data-parallel training
+across processes: ``kvstore`` over ``torch.distributed`` (NCCL on the
+GPU, gloo on the CPU) with fusion buckets and gradient compression,
+``gluon.Trainer`` and ``parallel.TrainStep`` across ranks, and the
+launcher ``python -m mxnet_tpu_torch.tools.launch``.
 """
 import sys as _sys
 
@@ -45,6 +49,7 @@ from . import ndarray as nd
 from .ndarray import waitall
 from . import gluon
 from . import serve
+from . import kvstore
 from . import parallel
 from . import tpu_kernel
 from . import random
@@ -61,5 +66,6 @@ __all__ = ["MXNetError", "get_env", "Context", "Device", "cpu", "gpu",
            "num_gpus", "gpu_memory_info", "context", "waitall",
            "initializer", "init",
            "ops", "lr_scheduler", "optimizer", "metric", "autograd",
-           "ndarray", "nd", "gluon", "serve", "parallel", "tpu_kernel",
+           "ndarray", "nd", "gluon", "serve", "kvstore", "parallel",
+           "tpu_kernel",
            "random", "recordio", "image", "io", "amp"]

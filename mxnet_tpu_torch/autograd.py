@@ -20,12 +20,18 @@ python/mxnet/autograd.py).  The reference keeps a tape of its own (one
   (``_mx_grad``, ``grad_req``); any other leaf (a block's parameter) is
   written to its ``.grad`` with its ``grad_req`` attribute, 'write' by
   default as in gluon.  Leaves the heads do not reach keep their gradient.
+  A 'write' leaf with post-accumulate-grad hooks (a ``gluon.Trainer``
+  whose exchange overlaps backward hooks its parameters) is written the
+  moment torch has its gradient, while the rest of the backward runs, and
+  then its hooks run, as torch's own ``backward()`` runs them (the
+  reference fires its ``_grad_hook`` the same way).
 * :func:`grad` returns gradients without writing them; ``create_graph``
   makes them differentiable (higher-order gradients).
 * :class:`Function` is a ``torch.autograd.Function`` underneath.
 """
 from __future__ import annotations
 
+import functools
 import threading
 from typing import List, Optional
 
@@ -156,6 +162,21 @@ def _leaves(heads) -> List[torch.Tensor]:
     return out
 
 
+def _hooked(t: torch.Tensor) -> bool:
+    """A 'write' parameter leaf with post-accumulate-grad hooks."""
+    return bool(getattr(t, "_post_accumulate_grad_hooks", None)) and \
+        getattr(t, "grad_req", "write") == "write" and \
+        getattr(t, "_mx_grad", None) is None
+
+
+def _write_hooked(t: torch.Tensor, g: torch.Tensor) -> None:
+    """Write a hooked leaf's gradient as torch hands it over, then run
+    the leaf's post-accumulate-grad hooks."""
+    _write_leaf(t, g)
+    for hook in list(t._post_accumulate_grad_hooks.values()):
+        hook(t)
+
+
 def _write_leaf(t: torch.Tensor, g: Optional[torch.Tensor]) -> None:
     if g is None:
         return
@@ -190,10 +211,20 @@ def backward(heads, head_grads=None, retain_graph: bool = False,
               if getattr(t, "grad_req", "write") != "null"]
     if not leaves:
         return
-    grads = torch.autograd.grad(heads, leaves, hgs,
-                                retain_graph=retain_graph, allow_unused=True)
+    hooked = [t for t in leaves if _hooked(t)]
+    handles = [t.register_hook(functools.partial(_write_hooked, t))
+               for t in hooked]
+    try:
+        grads = torch.autograd.grad(heads, leaves, hgs,
+                                    retain_graph=retain_graph,
+                                    allow_unused=True)
+    finally:
+        for h in handles:
+            h.remove()
+    written = {id(t) for t in hooked}
     for t, g in zip(leaves, grads):
-        _write_leaf(t, g)
+        if id(t) not in written:
+            _write_leaf(t, g)
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,

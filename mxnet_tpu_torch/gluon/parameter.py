@@ -30,9 +30,10 @@ python/mxnet/gluon/parameter.py).  What differs, and why:
   for a parameter loaded without it (``load_dict``).
 * ``grad_req`` lives on the tensor (its ``grad_req`` attribute and
   ``requires_grad``), where ``autograd.backward`` reads it.
-* One device per parameter: the reference's per-context copies come with
-  the distributed slice; ``ParameterDict.save``/``load`` wait for
-  ``nd.save``'s file format.
+* One device per parameter: data parallelism runs one process a device
+  (``gluon.Trainer`` over a process group), and the reference's
+  per-context copies in one process are still to come;
+  ``ParameterDict.save``/``load`` wait for ``nd.save``'s file format.
 """
 from __future__ import annotations
 
@@ -389,12 +390,14 @@ class Parameter:
 
 def _one_device(ctx) -> torch.device:
     """The one device of ``ctx`` (a device, a context, or a list holding
-    one); several raise until the distributed slice."""
+    one); several raise: a copy on each of several devices in one process
+    is still to come (data parallelism runs one process a device)."""
     if isinstance(ctx, (list, tuple)):
         if len(ctx) != 1:
-            raise MXNetError("one device per parameter; got %s (several "
-                             "devices come with the distributed slice)"
-                             % (ctx,))
+            raise MXNetError("one device per parameter; got %s (a copy on "
+                             "each of several devices is still to come: "
+                             "ROADMAP Queue 1, several-device parameters; "
+                             "run one process a device)" % (ctx,))
         ctx = ctx[0]
     return resolve(ctx)
 

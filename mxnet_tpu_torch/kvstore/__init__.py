@@ -1,8 +1,7 @@
-"""Host-side wire of the port (framing and payload codecs)."""
-from .wire_codec import (WireCodecError, decode_array, decode_json,
-                         decode_text, encode_array, encode_json, encode_text,
-                         recv_msg, send_msg)
+"""KVStore package (reference: python/mxnet/kvstore/): the stores, their
+fusion buckets and gradient compression, and the host-side wire codecs
+(numpy only) that the serving wire shares."""
+from .kvstore import KVStore, create
+from .kvstore import KVStoreLocal, KVStoreDevice, KVStoreICI
 
-__all__ = ["WireCodecError", "decode_array", "decode_json", "decode_text",
-           "encode_array", "encode_json", "encode_text", "recv_msg",
-           "send_msg"]
+__all__ = ["KVStore", "create", "KVStoreLocal", "KVStoreDevice", "KVStoreICI"]

@@ -1,7 +1,8 @@
 """Wire payloads and framing, numpy only.
 
 Counterpart of ``mxnet_tpu/kvstore/wire_codec.py`` (the ``NPX`` array,
-``TXT`` text and ``JSN`` json payloads) and of ``send_msg``/``recv_msg`` in
+``TXT`` text and ``JSN`` json payloads, the ``QGRAD`` compressed
+gradients and the host 2-bit pack) and of ``send_msg``/``recv_msg`` in
 ``mxnet_tpu/kvstore/server.py`` (length-prefixed pickles), kept as the
 port's own copy so the port imports nothing of the JAX package.  The bytes
 on the wire are the same, so a client of either package talks to a server
@@ -22,8 +23,11 @@ import numpy as np
 
 __all__ = ["WireCodecError", "encode_array", "decode_array", "encode_text",
            "decode_text", "encode_json", "decode_json", "is_array_payload",
+           "is_wire_payload", "encode_wire", "decode_wire",
+           "quantize_int8_np", "pack_2bit", "unpack_2bit",
            "send_msg", "recv_msg"]
 
+_WIRE_TAG = "QGRAD"
 _ARR_TAG = "NPX"
 _TXT_TAG = "TXT"
 _JSN_TAG = "JSN"
@@ -38,6 +42,21 @@ def _expect_bytes(what, raw) -> bytes:
         raise WireCodecError("%s: payload bytes field is %s, not bytes"
                              % (what, type(raw).__name__))
     return bytes(raw)
+
+
+def _expect_shape(what, shape) -> int:
+    if not (isinstance(shape, tuple)
+            and all(isinstance(s, int) and s >= 0 for s in shape)):
+        raise WireCodecError("%s: shape field %r is not a tuple of "
+                             "non-negative ints" % (what, shape))
+    return int(np.prod(shape, dtype=np.int64)) if shape else 1
+
+
+def _expect_dtype(what, dtype) -> np.dtype:
+    try:
+        return np.dtype(dtype)
+    except (TypeError, ValueError) as e:
+        raise WireCodecError("%s: bad dtype %r (%s)" % (what, dtype, e))
 
 
 def is_array_payload(obj) -> bool:
@@ -57,16 +76,9 @@ def decode_array(obj) -> np.ndarray:
     if not is_array_payload(obj):
         raise WireCodecError("not an NPX array payload: %r" % (type(obj),))
     _, shape, dtype, raw = obj
-    if not (isinstance(shape, tuple)
-            and all(isinstance(s, int) and s >= 0 for s in shape)):
-        raise WireCodecError("NPX: shape field %r is not a tuple of "
-                             "non-negative ints" % (shape,))
-    try:
-        dt = np.dtype(dtype)
-    except (TypeError, ValueError) as e:
-        raise WireCodecError("NPX: bad dtype %r (%s)" % (dtype, e))
+    n = _expect_shape("NPX", shape)
+    dt = _expect_dtype("NPX", dtype)
     raw = _expect_bytes("NPX", raw)
-    n = int(np.prod(shape, dtype=np.int64)) if shape else 1
     if len(raw) != n * dt.itemsize:
         raise WireCodecError("NPX: payload is %d bytes but shape %r of %s "
                              "needs %d" % (len(raw), shape, dt,
@@ -99,6 +111,128 @@ def decode_json(obj):
     except (UnicodeDecodeError, ValueError) as e:
         raise WireCodecError("JSN: payload does not parse as JSON (%s)"
                              % (e,))
+
+
+def is_wire_payload(obj) -> bool:
+    return isinstance(obj, tuple) and len(obj) >= 2 and obj[0] == _WIRE_TAG
+
+
+def encode_wire(mode: str, shape, dtype, payload) -> tuple:
+    """The picklable tuple of one compressed gradient:
+
+    int8: ``(QGRAD, 'int8', shape, dtype, n, q_bytes, scales_f32)``
+    2bit: ``(QGRAD, '2bit', shape, dtype, n, words_u32, threshold)``
+    """
+    mode = str(mode)
+    shape = tuple(int(s) for s in shape)
+    n = int(np.prod(shape, dtype=np.int64)) if shape else 1
+    if mode == "int8":
+        q, scales = payload
+        return (_WIRE_TAG, "int8", shape, str(dtype), n,
+                np.asarray(q, np.int8).tobytes(),
+                np.asarray(scales, np.float32))
+    if mode == "2bit":
+        words, threshold = payload
+        return (_WIRE_TAG, "2bit", shape, str(dtype), n,
+                np.asarray(words, np.uint32), float(threshold))
+    raise ValueError("unknown gradient wire mode %r" % (mode,))
+
+
+def decode_wire(obj) -> np.ndarray:
+    """Inverse of :func:`encode_wire`: the dequantized full-width array,
+    or :class:`WireCodecError` on any malformed tuple (wrong tag or
+    length, count and shape apart, too few bytes or words, blocks that do
+    not divide)."""
+    if not is_wire_payload(obj):
+        raise WireCodecError("not a QGRAD wire payload: %r" % (type(obj),))
+    if len(obj) != 7:
+        raise WireCodecError("QGRAD: tuple has %d fields, expected 7"
+                             % len(obj))
+    _, mode, shape, dtype, n = obj[:5]
+    n_shape = _expect_shape("QGRAD", shape)
+    dt = _expect_dtype("QGRAD", dtype)
+    if not isinstance(n, int) or n != n_shape:
+        raise WireCodecError("QGRAD: element count %r does not match shape "
+                             "%r (%d elements)" % (n, shape, n_shape))
+    if mode == "int8":
+        raw = _expect_bytes("QGRAD int8", obj[5])
+        try:
+            scales = np.asarray(obj[6], np.float32)
+        except (TypeError, ValueError) as e:
+            raise WireCodecError("QGRAD int8: bad scales field (%s)" % (e,))
+        if scales.ndim != 1 or scales.size == 0:
+            raise WireCodecError("QGRAD int8: scales must be a non-empty "
+                                 "1-d float array, got shape %r"
+                                 % (scales.shape,))
+        q = np.frombuffer(raw, dtype=np.int8).astype(np.float32)
+        if q.size < n or q.size % scales.size != 0:
+            raise WireCodecError("QGRAD int8: %d quantized bytes cannot "
+                                 "cover %d elements in %d equal blocks"
+                                 % (q.size, n, scales.size))
+        block = q.size // scales.size
+        flat = (q.reshape(-1, block) * scales[:, None]).reshape(-1)[:n]
+    elif mode == "2bit":
+        try:
+            words = np.asarray(obj[5], np.uint32)
+            threshold = float(obj[6])
+        except (TypeError, ValueError) as e:
+            raise WireCodecError("QGRAD 2bit: bad words/threshold field "
+                                 "(%s)" % (e,))
+        if words.ndim != 1 or words.size * 16 < n:
+            raise WireCodecError("QGRAD 2bit: %r uint32 words carry %d "
+                                 "codes, need %d"
+                                 % (words.shape, words.size * 16, n))
+        flat = unpack_2bit(words, n, threshold)
+    else:
+        raise WireCodecError("QGRAD: unknown gradient wire mode %r"
+                             % (mode,))
+    return flat.astype(dt).reshape(shape)
+
+
+def quantize_int8_np(flat, block: int = 256):
+    """Per-block symmetric int8 of a flat float array without error
+    feedback (the stateless encode of a quantized pull): ``(q_int8,
+    scales_f32)``, the last block padded with zeros."""
+    flat = np.asarray(flat, np.float32).ravel()
+    block = max(1, int(block))
+    pad = (-flat.size) % block
+    if pad:
+        flat = np.concatenate([flat, np.zeros(pad, np.float32)])
+    blocks = flat.reshape(-1, block)
+    scales = (np.abs(blocks).max(axis=1) / 127.0).astype(np.float32)
+    safe = np.where(scales > 0, scales, 1.0).astype(np.float32)
+    q = np.clip(np.rint(blocks / safe[:, None]), -127, 127).astype(np.int8)
+    return q.reshape(-1), scales
+
+
+def pack_2bit(levels, threshold: float) -> np.ndarray:
+    """+-t/0 levels in the packed 2-bit format: 16 codes a uint32 word,
+    code i of a word at bits [2i, 2i+1], 00 = 0, 01 = -t, 10 = +t."""
+    flat = np.asarray(levels, np.float32).ravel()
+    codes = np.where(flat > 0, 2, np.where(flat < 0, 1, 0)).astype(
+        np.uint32)
+    pad = (-len(codes)) % 16
+    if pad:
+        codes = np.concatenate([codes, np.zeros(pad, np.uint32)])
+    words = codes.reshape(-1, 16)
+    out = np.zeros(words.shape[0], np.uint32)
+    for i in range(16):
+        out |= words[:, i] << (2 * i)
+    return out
+
+
+def unpack_2bit(words, n: int, threshold: float,
+                dtype=np.float32) -> np.ndarray:
+    """Inverse of :func:`pack_2bit`: the first ``n`` codes as levels."""
+    words = np.asarray(words, np.uint32)
+    codes = np.zeros((len(words), 16), np.uint32)
+    for i in range(16):
+        codes[:, i] = (words >> (2 * i)) & 0x3
+    codes = codes.ravel()[:n]
+    out = np.zeros(n, dtype)
+    out[codes == 2] = threshold
+    out[codes == 1] = -threshold
+    return out
 
 
 def send_msg(sock: socket.socket, obj) -> None:

@@ -1,7 +1,8 @@
-"""Training steps of the port (counterpart of ``mxnet_tpu/parallel``).
+"""Process groups, meshes and training steps of the port (counterpart of
+``mxnet_tpu/parallel``): the data-parallel regime.  Tensor, sequence,
+pipeline and expert parallelism come with later slices."""
+from .mesh import (Mesh, Sharding, TrainStep, batch_sharded,
+                   init_process_group, make_mesh, replicated)
 
-This slice has the one-device :class:`TrainStep`; meshes, sharding and the
-parallel regimes come with the distributed slice."""
-from .mesh import TrainStep
-
-__all__ = ["TrainStep"]
+__all__ = ["Mesh", "Sharding", "TrainStep", "batch_sharded",
+           "init_process_group", "make_mesh", "replicated"]

@@ -277,7 +277,11 @@ def test_port_imports_neither_jax_nor_mxnet_tpu():
             "mxnet_tpu_torch.ops.rnn, mxnet_tpu_torch.gluon.rnn, "
             "mxnet_tpu_torch.gluon.model_zoo.vision, "
             "mxnet_tpu_torch.gluon.model_zoo.model_store, "
-            "mxnet_tpu_torch.context; "
+            "mxnet_tpu_torch.context, mxnet_tpu_torch.kvstore.kvstore, "
+            "mxnet_tpu_torch.kvstore.bucketing, "
+            "mxnet_tpu_torch.kvstore.gradient_compression, "
+            "mxnet_tpu_torch.ops.quantization, mxnet_tpu_torch.parallel.mesh, "
+            "mxnet_tpu_torch.tools.launch; "
             "import chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "

@@ -360,3 +360,17 @@ def test_split_and_load_match_reference():
     np.testing.assert_array_equal(loaded.asnumpy(), x)
     parts = tutils.split_and_load(tnd.array(x), [tmx.cpu(), tmx.cpu()])
     assert [p.shape for p in parts] == [(5, 3), (5, 3)]
+
+
+def test_several_devices_in_one_process_raise_naming_the_queue_item(
+        monkeypatch):
+    """A copy on each of several devices is still to come; both refusals
+    name the ROADMAP item (data parallelism runs one process a device)."""
+    param = tgluon.Parameter("w", shape=(2,))
+    with pytest.raises(MXNetError, match="several-device parameters"):
+        param.initialize(ctx=[tmx.cpu(0), tmx.cpu(1)])
+    param.initialize(ctx=tmx.cpu())
+    monkeypatch.setattr(tgluon.Parameter, "list_ctx",
+                        lambda self: [tmx.cpu(0), tmx.cpu(1)])
+    with pytest.raises(MXNetError, match="several-device parameters"):
+        tgluon.Trainer([param], "sgd", {"learning_rate": 0.1})
