@@ -255,6 +255,34 @@ Phases (each raises on failure, so any failure exits nonzero):
    1e-4 x max|ref| of one process's run on the whole batch.  (c) Part (b)
    on NCCL over ``cuda:0`` and ``cuda:1`` where the machine has two cards;
    with one card the phase prints that (c) did not run.
+17. ps -- the dist_async parameter server, no kernel of its own (the
+   servers apply SGD on the host; K1-K3 run in BERT-base on the workers
+   and are counted under ``ps``).  Each part is started by
+   ``python -m mxnet_tpu_torch.tools.launch -n N -s S`` as a subprocess
+   with a time limit; the worker's loop is
+   ``examples/train_dist_async.py``'s (``kv.init`` of every parameter,
+   ``kv.set_optimizer``, a pull, then per step forward, backward and a
+   ``kv.push(i, grad)`` / ``kv.pull(i, out=weight)`` a parameter), on
+   BERT-base with the MLM decoder (fp32, K1-K3 in 3xTF32, batch 8 a
+   worker, T = 512, dropout 0).  (a) ``-n 1 -s 1``: 3 steps with the
+   server's SGD (momentum 0.9), then the same 3 from the same weights
+   and batches with a local updater on the card: step 1's loss bitwise
+   equal, every weight within 1e-4 x max|ref|; printed: the push and
+   pull ms a step (host clock) and each leg's wire bytes a step.  (c)
+   One more server step under ``profiler.set_config(profile_all=True,
+   device_trace_dir=...)``: the torch.profiler chrome trace names K1-K3's
+   kernels, and ``profiler.dumps()`` telemetry's ``kv.client.PUSH`` and
+   ``kv.client.PULL`` spans.  (b) ``-n 2 -s 2``, both ranks on ``cuda:0``
+   on their own data, plain SGD (lr 0.1): 2 steps each, then on rank 0
+   every weight is w0 - 0.1 (S_0 + S_1) within 1e-5 x max|w0| (max|w|
+   for a tensor that starts at 0), S_r the float64 sum of rank r's pushed
+   gradients, while the control w0 - 0.1 S_0 fails on most tensors (the
+   word embedding and the decoder are split across both servers).  (d)
+   The ten ops ``ops/nn.py`` gained (``AdaptiveAvgPooling2D``,
+   ``BilinearResize2D`` shrinking and enlarging, ``UpSampling``,
+   ``softmin``, ``SoftmaxOutput``, ``RMSNorm`` and the three
+   ``*RegressionOutput``) on the card against the CPU, output and
+   gradient within 1e-5 x max(1, |ref|).
 
 The last lines of standard output are the ``nvidia-smi`` name and power
 limit, one JSON object ``{"kernels": [...]}`` and, last,
@@ -298,6 +326,15 @@ PEAKS = {
 
 def log(*args):
     print(*args, flush=True)
+
+
+def emit(line):
+    """Write one whole line of a process that shares its standard output
+    with others (a launcher's ranks): one write call, so that two ranks'
+    lines never interleave, even unbuffered (``PYTHONUNBUFFERED``, where
+    ``print`` writes the text and the newline apart)."""
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
 
 
 # ---------------------------------------------------------------------------
@@ -4763,7 +4800,7 @@ def dist_worker(part):
                                       "c": "nccl"}[part])
     try:
         rec = dist_part_a(dev) if part == "a" else dist_part_b(dev)
-        print("dist-worker: " + json.dumps(rec), flush=True)
+        emit("dist-worker: " + json.dumps(rec))
     finally:
         dist.destroy_process_group()
 
@@ -4825,6 +4862,419 @@ def phase_dist(smi):
     log("dist: %s" % json.dumps({"launches": launches,
                                  "phase_s": time.perf_counter() - t_phase,
                                  "card": smi}))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 17. the dist_async parameter server
+# ---------------------------------------------------------------------------
+
+PS_BATCH = 8                    # a worker's batch (T = SEQ_LEN)
+PS_STEPS_A = 3                  # server steps, then as many local ones
+PS_STEPS_B = 2                  # each rank's steps in part (b)
+PS_LR_B = 0.1                   # part (b)'s plain SGD
+PS_TOL_A = 1e-4                 # the port's fp32 rule, x max|ref|
+PS_TOL_B = 1e-5                 # x max|w0| (max|w| for a zero-init tensor)
+PS_OPS_TOL = 1e-5               # R1's ops, card against CPU, x max(1, |ref|)
+PS_TIMEOUT = 300                # seconds a part's launcher may take
+
+
+def train_dist_async(argv=None):
+    """The port's copy of ``examples/train_dist_async.py``: each worker
+    streams its own batches of a linear regression and the server applies
+    every push the moment it arrives (server-side SGD), so workers never
+    wait for each other.  Run (one server, two workers)::
+
+        python -m mxnet_tpu_torch.tools.launch -n 2 -s 1 --launcher local \\
+            -- python chip_smoke.py --train-dist-async [--steps 50] \\
+            [--device cpu]
+
+    Prints ``rank R FINAL loss L (workers=N)`` at the end."""
+    import argparse
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, kvstore, nd, optimizer
+    p = argparse.ArgumentParser(description=train_dist_async.__doc__)
+    p.add_argument("--steps", type=int, default=50)
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--lr", type=float, default=0.05)
+    p.add_argument("--device", default="gpu", choices=["gpu", "cpu"])
+    args = p.parse_args(argv)
+    ctx = mx.cpu() if args.device == "cpu" else mx.gpu(0)
+    with ctx:
+        kv = kvstore.create("dist_async")
+        rank, nworkers = kv.rank, kv.num_workers
+        mx.random.seed(rank)                  # workers see different data
+        # a tiny regression net; its weights live on the server
+        net = gluon.nn.Dense(1, in_units=8)
+        net.initialize(mx.init.Xavier(), device=ctx, seed=rank)
+        params = list(net.collect_params().values())
+        for i, param in enumerate(params):
+            kv.init(i, param.data())
+        kv.set_optimizer(optimizer.SGD(learning_rate=args.lr))
+        for i, param in enumerate(params):    # start from the server's
+            kv.pull(i, out=param.data())
+        rng = np.random.RandomState(100 + rank)
+        w_true = np.arange(8, dtype=np.float32).reshape(8, 1) / 8.0
+        for step in range(args.steps):
+            X = nd.array(rng.randn(args.batch_size, 8).astype(np.float32))
+            y = nd.array(X.asnumpy() @ w_true)
+            with autograd.record():
+                loss = ((net(X) - y) ** 2).mean()
+            loss.backward()
+            for i, param in enumerate(params):
+                kv.push(i, param.grad())      # applied on the server now
+                kv.pull(i, out=param.data())  # whatever is current
+            if step % 10 == 0:
+                emit("rank %d step %d loss %.4f"
+                     % (rank, step, float(loss.asnumpy())))
+        kv._barrier()
+        emit("rank %d FINAL loss %.4f (workers=%d)"
+             % (rank, float(loss.asnumpy()), nworkers))
+        kv.close()
+
+
+def ps_batch_host(step, rank):
+    """One worker's batch of step ``step`` as numpy arrays: token ids,
+    segment ids (0) and MLM labels, different for each rank."""
+    rng = np.random.RandomState(SEED + 1000 + 10 * step + rank)
+    tok = rng.randint(0, VOCAB, size=(PS_BATCH, SEQ_LEN)).astype(np.int64)
+    lab = rng.randint(0, VOCAB, size=(PS_BATCH, SEQ_LEN)).astype(np.int64)
+    return tok, np.zeros_like(tok), lab
+
+
+def ps_model(dev):
+    """BERT-base with the MLM decoder at its published widths, fp32,
+    dropout 0, from the seed; and its gluon Parameters in key order."""
+    net = dist_bert(dev, "float32")
+    return net, list(net.collect_params().values())
+
+
+def ps_step(net, params, loss_fn, batch, kv, timing=None):
+    """One step of ``examples/train_dist_async.py``'s loop: forward,
+    backward, then for each parameter ``kv.push(i, grad)`` and
+    ``kv.pull(i, out=weight)``.  ``timing`` (a dict) gains the host-clock
+    seconds of the pushes and of the pulls and each leg's wire bytes.
+    Returns the loss."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.engine import engine
+    loss = dist_fwd_bwd(net, loss_fn, batch)
+    pulled = telemetry.registry.counter("kvstore.pull_wire_bytes")
+    push_s = pull_s = 0.0
+    push_b = pull_b = 0
+    for i, p in enumerate(params):
+        w0, t0 = engine.wire_bytes, time.perf_counter()
+        kv.push(i, p.grad())
+        w1, t1 = engine.wire_bytes, time.perf_counter()
+        r0 = pulled.value
+        kv.pull(i, out=p.data())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        push_s, pull_s = push_s + t1 - t0, pull_s + t2 - t1
+        push_b, pull_b = push_b + w1 - w0, pull_b + pulled.value - r0
+    if timing is not None:
+        for k, v in (("push_ms", push_s * 1e3), ("pull_ms", pull_s * 1e3),
+                     ("push_wire_bytes", push_b),
+                     ("pull_wire_bytes", pull_b)):
+            timing.setdefault(k, []).append(v)
+    return loss
+
+
+def ps_device_batch(host, dev):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    return [nd.array(a, ctx=mx.Context.from_torch(dev)) for a in host]
+
+
+def ps_profiled_step(net, params, loss_fn, batch, kv, trace_dir):
+    """(c) One more server step under the profiler with a device trace:
+    the chrome trace must name K1-K3's kernels and ``profiler.dumps()``
+    the client's PUSH and PULL spans."""
+    from mxnet_tpu_torch import profiler
+    profiler.set_config(profile_all=True, device_trace_dir=trace_dir)
+    profiler.set_state("run")
+    try:
+        ps_step(net, params, loss_fn, batch, kv)
+    finally:
+        profiler.set_state("stop")
+    with open(profiler.device_trace_path()) as f:
+        names = {ev.get("name", "") for ev in json.load(f)["traceEvents"]}
+    flash = sorted({m.group(0) for m in map(_TRACED_FLASH.search, names)
+                    if m})
+    table = profiler.dumps()
+    spans = [s for s in ("kv.client.PUSH", "kv.client.PULL") if s in table]
+    profiler.set_config(profile_all=False, device_trace_dir=None)
+    profiler.reset()
+    if len(flash) != 3 or len(spans) != 2:
+        raise RuntimeError("ps (c): the trace names %s (want K1-K3's three "
+                           "kernels) and profiler.dumps() has %s (want "
+                           "kv.client.PUSH and kv.client.PULL)"
+                           % (flash, spans))
+    return flash, spans
+
+
+def ps_part_a(dev, trace_dir):
+    """(a) One worker, one server: 3 steps with the server's SGD (momentum
+    0.9), one profiled step (c), then 3 steps from the same weights and
+    batches with a local updater of the same SGD on the card.  Step 1's
+    loss bitwise equal, every weight after step 3 within 1e-4 x max|ref|
+    of the local run's."""
+    from mxnet_tpu_torch import kvstore, optimizer
+    from mxnet_tpu_torch.ops import _kernels
+    loss_fn = dist_mlm_loss(cast=False)
+    net, params = ps_model(dev)
+    kv = kvstore.create("dist_async")
+    if kv.type != "dist_async":
+        raise RuntimeError("ps (a): the store is %r" % kv.type)
+    for i, p in enumerate(params):
+        kv.init(i, p.data())
+    kv.set_optimizer(optimizer.SGD(learning_rate=TRAIN_LR,
+                                   momentum=TRAIN_MOMENTUM))
+    for i, p in enumerate(params):
+        kv.pull(i, out=p.data())
+    w0 = [p.data().data.detach().clone() for p in params]
+    batches = [ps_device_batch(ps_batch_host(s, 0), dev)
+               for s in range(PS_STEPS_A + 1)]
+    timing = {}
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    # --- the ps main path, counted ---
+    losses = [ps_step(net, params, loss_fn, batches[s], kv, timing)
+              for s in range(PS_STEPS_A)]
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    # --- end of the counted main path ---
+    want = len(net.encoder.transformer_cells) * PS_STEPS_A
+    if any(counts[k] != want for k in _FLASH):
+        raise RuntimeError("ps (a): launched %s, expected %d of each of %s"
+                           % (counts, want, _FLASH))
+    w_ps = [p.data().data.detach().clone() for p in params]
+    t_c = time.perf_counter()
+    flash, spans = ps_profiled_step(net, params, loss_fn,
+                                    batches[PS_STEPS_A], kv, trace_dir)
+    secs_c = time.perf_counter() - t_c
+    # the control: the same steps with a local updater on the card
+    with torch.no_grad():
+        for p, w in zip(params, w0):
+            p.data().data.copy_(w)
+    upd = optimizer.get_updater(optimizer.SGD(learning_rate=TRAIN_LR,
+                                              momentum=TRAIN_MOMENTUM))
+    ref_losses = []
+    for s in range(PS_STEPS_A):
+        ref_losses.append(dist_fwd_bwd(net, loss_fn, batches[s]))
+        for i, p in enumerate(params):
+            upd(i, p.grad(), p.data())
+    torch.cuda.synchronize()
+    if not torch.equal(losses[0], ref_losses[0]):
+        raise RuntimeError("ps (a): step 1's loss %r through the server, "
+                           "%r with the local updater"
+                           % (float(losses[0]), float(ref_losses[0])))
+    worst = max(float((a - p.data().data.detach()).abs().max())
+                / (float(p.data().data.detach().abs().max()) + 1e-30)
+                for a, p in zip(w_ps, params))
+    if not worst <= PS_TOL_A:
+        raise RuntimeError("ps (a): the server's weights are %.3g x "
+                           "max|ref| from the local updater's, tolerance %g"
+                           % (worst, PS_TOL_A))
+    kv.close()
+    return {"part": "a", "servers": len(kv._addrs), "keys": len(params),
+            "entries": sum(p.data().size for p in params),
+            "losses": [float(v) for v in losses],
+            "ref_losses": [float(v) for v in ref_losses],
+            "weights_worst": worst, **timing, "launches": counts,
+            "profiled_kernels": flash, "profiled_spans": spans,
+            "profiled_step_s": secs_c}
+
+
+def ps_part_b(dev, tmp):
+    """(b) Two workers on ``cuda:0``, two servers, plain SGD (lr 0.1): each
+    rank takes 2 steps on its own data and keeps the float64 sum S_r of
+    the gradients it pushed.  After the barrier rank 0 pulls every weight:
+    w = w0 - 0.1 (S_0 + S_1) on every tensor, and the control
+    w0 - 0.1 S_0 fails on most of them."""
+    from mxnet_tpu_torch import kvstore, optimizer
+    from mxnet_tpu_torch.ops import _kernels
+    loss_fn = dist_mlm_loss(cast=False)
+    net, params = ps_model(dev)
+    kv = kvstore.create("dist_async")
+    rank = kv.rank
+    for i, p in enumerate(params):
+        kv.init(i, p.data())
+    kv.set_optimizer(optimizer.SGD(learning_rate=PS_LR_B))   # + a barrier
+    for i, p in enumerate(params):
+        kv.pull(i, out=p.data())
+    w0 = [p.data().data.detach().clone() for p in params] \
+        if rank == 0 else None
+    sums = [torch.zeros(p.data().shape, dtype=torch.float64, device=dev)
+            for p in params]
+    timing = {}
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    for s in range(PS_STEPS_B):
+        batch = ps_device_batch(ps_batch_host(s, rank), dev)
+        loss = dist_fwd_bwd(net, loss_fn, batch)
+        for i, p in enumerate(params):
+            sums[i] += p.grad().data.detach().double()
+        # the pushes and pulls of this step (gradients read before them)
+        for i, p in enumerate(params):
+            kv.push(i, p.grad())
+            kv.pull(i, out=p.data())
+        timing.setdefault("losses", []).append(float(loss))
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    if rank == 1:
+        torch.save([s.cpu() for s in sums], os.path.join(tmp, "S_1.pt"))
+    kv._barrier()
+    rec = {"part": "b", "rank": rank, "servers": len(kv._addrs),
+           "launches": counts, **timing}
+    if rank == 0:
+        from mxnet_tpu_torch import nd
+        s1 = torch.load(os.path.join(tmp, "S_1.pt"))
+        worst, control_fail, split = 0.0, 0, 0
+        for i, p in enumerate(params):
+            got = torch.empty_like(p.data().data)
+            kv.pull(i, out=nd.NDArray(got))
+            split += kv._shard_plan(got.numel()) is not None
+            base = w0[i].double()
+            scale = float(base.abs().max()) or \
+                float(got.abs().max()) or 1.0     # 1.0: a tensor left at 0
+            both = base - PS_LR_B * (sums[i] + s1[i].to(dev))
+            alone = base - PS_LR_B * sums[i]
+            err = float((got.double() - both).abs().max()) / scale
+            worst = max(worst, err)
+            if float((got.double() - alone).abs().max()) > PS_TOL_B * scale:
+                control_fail += 1
+        rec.update({"keys": len(params), "split_keys": split,
+                    "residual_worst": worst,
+                    "control_failing_keys": control_fail})
+        if not worst <= PS_TOL_B:
+            raise RuntimeError("ps (b): w0 - lr (S_0 + S_1) misses by %.3g "
+                               "x max|w0|, tolerance %g" % (worst, PS_TOL_B))
+        if not control_fail > len(params) // 2:
+            raise RuntimeError("ps (b): the control w0 - lr S_0 fails on "
+                               "only %d of %d tensors" % (control_fail,
+                                                          len(params)))
+    kv.close()
+    return rec
+
+
+def ps_worker(part, tmp):
+    """One worker of a ``phase_ps`` part, started by the port's launcher
+    beside the servers: the part on the card, its record printed."""
+    if not torch.cuda.is_available():
+        raise SystemExit("ps-worker: CUDA is not available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    rec = ps_part_a(dev, tmp) if part == "a" else ps_part_b(dev, tmp)
+    emit("ps-worker: " + json.dumps(rec))
+
+
+def ps_launch(n, s, part, tmp):
+    """Run part ``part`` as ``n`` workers beside ``s`` servers through the
+    port's launcher, bounded by :data:`PS_TIMEOUT`; raises unless it exits
+    0 with a record from every worker.  Returns (records, seconds)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n",
+           str(n), "-s", str(s), "--launcher", "local", "--",
+           sys.executable, os.path.join(root, "chip_smoke.py"),
+           "--ps-worker", part, tmp]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                       timeout=PS_TIMEOUT)
+    secs = time.perf_counter() - t0
+    recs = [json.loads(line[len("ps-worker: "):])
+            for line in r.stdout.splitlines()
+            if line.startswith("ps-worker: ")]
+    if r.returncode != 0 or len(recs) != n:
+        raise RuntimeError("ps (%s): the launcher exited %d with %d of %d "
+                           "records:\n%s\n%s" % (part, r.returncode,
+                                                 len(recs), n,
+                                                 r.stdout[-4000:],
+                                                 r.stderr[-4000:]))
+    return recs, secs
+
+
+#: R1's ops, each with its inputs (numpy, from the seed) and parameters
+def ps_op_cases():
+    rng = np.random.RandomState(SEED)
+    x16 = rng.randn(4, 8, 16, 16).astype(np.float32)
+    x8 = rng.randn(4, 8, 8, 8).astype(np.float32)
+    gamma = rng.randn(8).astype(np.float32)
+    return [("AdaptiveAvgPooling2D", [x16], {"output_size": 4}),
+            ("BilinearResize2D", [x16], {"height": 8, "width": 8}),
+            ("BilinearResize2D", [x8], {"height": 5, "width": 13}),
+            ("UpSampling", [x8], {"scale": 2, "sample_type": "nearest"}),
+            ("UpSampling", [x8], {"scale": 2, "sample_type": "bilinear"}),
+            ("softmin", [x8], {"axis": 1}),
+            ("SoftmaxOutput", [x8, x8], {"multi_output": True}),
+            ("RMSNorm", [x8, gamma], {}),
+            ("LinearRegressionOutput", [x8, x8], {}),
+            ("MAERegressionOutput", [x8, x8], {}),
+            ("LogisticRegressionOutput", [x8, x8], {})]
+
+
+def ps_ops():
+    """(d) R1's ten ops on the card against the CPU, each output and the
+    gradient of ``sum(out * cot)`` w.r.t. the first input."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd
+    out = {}
+    for name, inputs, params in ps_op_cases():
+        res = []
+        for ctx in (mx.gpu(0), mx.cpu()):
+            arrs = [nd.array(a, ctx=ctx) for a in inputs]
+            arrs[0].attach_grad()
+            with autograd.record():
+                y = getattr(nd, name)(*arrs, **params)
+                cot = nd.array(np.random.RandomState(SEED + 7).randn(
+                    *y.shape).astype(np.float32), ctx=ctx)
+                head = (y * cot).sum()
+            head.backward()
+            res.append((y.asnumpy(), arrs[0].grad.asnumpy()))
+        (gy, gg), (cy, cg) = res
+        err = max(float(np.abs(gy - cy).max()) / max(1.0, float(
+            np.abs(cy).max())), float(np.abs(gg - cg).max()) / max(
+                1.0, float(np.abs(cg).max())))
+        key = "%s%s" % (name, "" if name not in out else
+                        ":" + str(sorted(params.items())))
+        out[key] = err
+        if not err <= PS_OPS_TOL:
+            raise RuntimeError("ps (d): %s %s differs on the card from the "
+                               "CPU by %.3g x max(1, |ref|)"
+                               % (name, params, err))
+    return out
+
+
+def phase_ps(smi):
+    """The dist_async parameter server, no kernel of its own (the servers
+    run SGD on the host; K1-K3 run in BERT-base on the workers): each part
+    started by ``python -m mxnet_tpu_torch.tools.launch -s ...`` as a
+    subprocess with a time limit.  (a) and (c) ``-n 1 -s 1``; (b) ``-n 2
+    -s 2``; (d) the ten ops of ``ops/nn.py`` this slice registered.
+    Returns every kernel's launches in the counted runs (the ``ps``
+    path)."""
+    import tempfile
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ps-") as tmp:
+        (a,), secs_a = ps_launch(1, 1, "a", tmp)
+        log("ps: (a) %s" % json.dumps(dict(a, seconds=secs_a)))
+        b, secs_b = ps_launch(2, 2, "b", tmp)
+        for rec in b:
+            log("ps: (b) %s" % json.dumps(dict(rec, seconds=secs_b)))
+    t_d = time.perf_counter()
+    ops = ps_ops()
+    secs_d = time.perf_counter() - t_d
+    log("ps: (d) %s" % json.dumps({"ops_worst": ops, "seconds": secs_d}))
+    launches = {}
+    for p in [a] + b:
+        for k, v in p["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    log("ps: %s" % json.dumps({"launches": launches,
+                               "phase_s": time.perf_counter() - t_phase,
+                               "card": smi}))
     return launches
 
 
@@ -4894,13 +5344,17 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     dist_launches = phase_dist(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ps_launches = phase_ps(smi)
     by_path = {k: {"serve": serve_launches[k], "train": train_launches[k],
                    "imperative": imperative_launches[k],
                    "resnet": resnet_launches[k],
                    "eager": eager_launches[k], "amp": amp_launches[k],
                    "data": data_launches[k], "det": det_launches[k],
                    "ssd": ssd_launches[k], "lm": lm_launches[k],
-                   "zoo": zoo_launches[k], "dist": dist_launches.get(k, 0)}
+                   "zoo": zoo_launches[k], "dist": dist_launches.get(k, 0),
+                   "ps": ps_launches.get(k, 0)}
                for k in imperative_launches}
     fp32, bf16 = torch.float32, torch.bfloat16
     kernels = [
@@ -4927,7 +5381,8 @@ def main():
                      "ssd": ssd_launches.get("tpu_kernel:" + body, 0),
                      "lm": lm_launches.get("tpu_kernel:" + body, 0),
                      "zoo": zoo_launches.get("tpu_kernel:" + body, 0),
-                     "dist": dist_launches.get("tpu_kernel:" + body, 0)},
+                     "dist": dist_launches.get("tpu_kernel:" + body, 0),
+                     "ps": ps_launches.get("tpu_kernel:" + body, 0)},
                     user[(body, fp32)], user[(body, bf16)],
                     {"default_grid_": user[(body + ":default_grid", fp32)],
                      "bf16_default_grid_": user[(body + ":default_grid",
@@ -4945,5 +5400,9 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-worker"]:
         dist_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--ps-worker"]:
+        ps_worker(sys.argv[2], sys.argv[3])
+    elif sys.argv[1:2] == ["--train-dist-async"]:
+        train_dist_async(sys.argv[2:])
     else:
         main()

@@ -28,7 +28,10 @@ rest of ``gluon.nn`` and the vision zoo; then data-parallel training
 across processes: ``kvstore`` over ``torch.distributed`` (NCCL on the
 GPU, gloo on the CPU) with fusion buckets and gradient compression,
 ``gluon.Trainer`` and ``parallel.TrainStep`` across ranks, and the
-launcher ``python -m mxnet_tpu_torch.tools.launch``.
+launcher ``python -m mxnet_tpu_torch.tools.launch``; then the
+``dist_async`` parameter server (``kvstore.server``, the store
+``KVStoreDistAsync`` and the launcher's ``-s``) with the host modules it
+stands on: ``fault``, ``profiler``, ``telemetry`` and ``engine``.
 """
 import sys as _sys
 
@@ -39,6 +42,10 @@ from .device import (Context, Device, cpu, gpu, current_context,
 from . import device as context
 from . import initializer
 from . import initializer as init
+from . import fault
+from . import profiler
+from . import telemetry
+from . import engine
 from . import ops
 from . import lr_scheduler
 from . import optimizer
@@ -64,8 +71,8 @@ _sys.modules[__name__ + ".context"] = context
 __all__ = ["MXNetError", "get_env", "Context", "Device", "cpu", "gpu",
            "current_context", "current_device", "default_device",
            "num_gpus", "gpu_memory_info", "context", "waitall",
-           "initializer", "init",
-           "ops", "lr_scheduler", "optimizer", "metric", "autograd",
+           "initializer", "init", "fault", "profiler", "telemetry",
+           "engine", "ops", "lr_scheduler", "optimizer", "metric", "autograd",
            "ndarray", "nd", "gluon", "serve", "kvstore", "parallel",
            "tpu_kernel",
            "random", "recordio", "image", "io", "amp"]

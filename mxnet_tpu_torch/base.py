@@ -54,6 +54,80 @@ ENV_CATALOG = {
                                      "read ends there, instead of raising "
                                      "OSError with the uri and byte "
                                      "offset."),
+    # -- the engine, the profiler and telemetry ------------------------------
+    "MXNET_ENGINE_TYPE": ("ThreadedEnginePerDevice", "'NaiveEngine' "
+                          "synchronises the device after every eager op "
+                          "(for bisecting asynchronous faults); any other "
+                          "value keeps CUDA's asynchronous launches."),
+    "MXNET_PROFILER_SYNC": ("0", "1 = the profiler waits for each "
+                            "annotated range's device work before stamping "
+                            "its duration."),
+    "MX_TELEMETRY": ("1", "Runtime telemetry (telemetry.py): 1 records "
+                     "per-phase step histograms and a flight-recorder step "
+                     "record a training step; 0 turns both off.  The "
+                     "engine's counters count regardless."),
+    "MX_TELEMETRY_TRACE": ("", "Directory for per-process trace files: "
+                           "every span is buffered and written to "
+                           "<dir>/trace-<role>-r<rank>-p<pid>.trace.json "
+                           "at exit.  Empty turns span buffering off."),
+    "MX_TELEMETRY_RING": ("256", "Flight-recorder capacity in step "
+                          "records."),
+    "MX_CRASH_DIR": ("", "Crash-dump directory for the flight recorder's "
+                     "ring and a counters snapshot.  Empty turns crash "
+                     "dumps off."),
+    # -- fault tolerance -----------------------------------------------------
+    "MX_FAULT_INJECT": ("", "Fault-injection spec "
+                        "'site:action[:k=v,...];...' armed at import "
+                        "(launcher --fault); see fault.py."),
+    "MX_KVSTORE_RETRY_DEADLINE": ("60", "dist_async client: seconds to "
+                                  "keep retrying a failed RPC (reconnect "
+                                  "and replay) before the terminal "
+                                  "MXNetError; also bounds the first "
+                                  "connect to each server."),
+    "MX_KVSTORE_RETRY_BASE": ("0.05", "dist_async client: first backoff "
+                              "delay in seconds; doubles an attempt."),
+    "MX_KVSTORE_RETRY_MAX": ("2.0", "dist_async client: backoff delay cap "
+                             "in seconds."),
+    "MX_KVSTORE_RETRY_JITTER": ("0.2", "dist_async client: uniform jitter "
+                                "fraction added to each backoff delay."),
+    "MX_KVSTORE_RECV_TIMEOUT": ("", "Seconds a kvstore recv_msg may block "
+                                "mid-message before TimeoutError (empty: "
+                                "no bound; the dist_async client uses 30)."),
+    "MX_KVSTORE_BARRIER_TIMEOUT": ("120", "Seconds a kvstore server BARRIER "
+                                   "waits for stragglers."),
+    "MX_KVSTORE_HEARTBEAT": ("5", "dist_async client: seconds between "
+                             "background PINGs to each server (0 turns "
+                             "them off)."),
+    "MX_KVSTORE_STALE_TIMEOUT": ("30", "kvstore server: a worker silent "
+                                 "this long is left out of barrier "
+                                 "accounting."),
+    # -- the parameter server ------------------------------------------------
+    "MX_PS_ROOT": ("", "dist_async parameter-server address host:port (one "
+                   "server)."),
+    "MX_PS_ROOTS": ("", "Comma-separated parameter-server addresses; keys "
+                    "shard across them by hash (launcher -s N)."),
+    "MX_PS_PORT": ("9600", "Port a kvstore server process binds."),
+    "MX_PS_SNAPSHOT": ("", "Path where a kvstore server keeps its store "
+                       "(an atomically replaced pickle) after mutations and "
+                       "on STOP; a server restarted with it resumes."),
+    "MX_PS_SNAPSHOT_EVERY": ("1", "Snapshot the server's store every N "
+                             "mutating requests."),
+    "MXNET_KVSTORE_BIGARRAY_BOUND": ("1000000", "dist_async: a value of at "
+                                     "least this many entries is split "
+                                     "evenly across all servers."),
+    "MX_ELASTIC": ("0", "1 = a dist_async worker JOINs the servers' "
+                   "membership table at store init."),
+    "MX_ELASTIC_EPOCH": ("0", "The membership epoch a worker plans its "
+                         "fusion buckets under (the bucket-name salt); 0 "
+                         "keeps the unsalted names."),
+    "MX_ELASTIC_EVICT_AFTER": ("", "kvstore server: a member silent this "
+                               "many seconds leaves the membership table "
+                               "(an epoch bump).  Empty/0: never."),
+    "MX_EXCHANGE_HIERARCHICAL": ("0", "1 = the dist_async pull leg comes "
+                                 "back int8 (PULLQ), each bucket's pull on "
+                                 "its own connection as it is ready."),
+    "MX_EXCHANGE_PARALLEL": ("4", "Concurrent bucket pulls a worker under "
+                             "MX_EXCHANGE_HIERARCHICAL."),
 }
 
 

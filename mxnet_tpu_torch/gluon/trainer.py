@@ -236,6 +236,9 @@ class Trainer:
         if not idxs:
             return
         sess = self._kvstore.begin_exchange(idxs, grad_lists)
+        if sess is None:        # the store cannot overlap (dist_async)
+            self._overlap = False
+            return
         with self._hook_lock:
             self._exchange_session = sess
         self._armed_set = (idxs, [self._params[i]._tensor() for i in idxs])
@@ -295,6 +298,8 @@ class Trainer:
             if idxs:
                 sess = self._kvstore.begin_exchange(idxs, grad_lists,
                                                     reverse=self._overlap)
+                if sess is None:    # the store cannot overlap (dist_async)
+                    self._overlap = False
         if sess is not None:
             with self._hook_lock:
                 self._exchange_session = None
@@ -302,11 +307,14 @@ class Trainer:
         else:
             idxs, grad_lists = self._exchange_set()
             if idxs:
-                # the store runs the optimizer on the batched push; the
-                # weights come back
-                self._kvstore.push(idxs, [g() for g in grad_lists])
+                # one batched push and pull: the store runs the optimizer
+                # on the push and the weights come back, or (a store that
+                # cannot overlap) the exchanged gradients do
+                grads = [g() for g in grad_lists]
+                self._kvstore.push(idxs, grads)
                 self._kvstore.pull(
-                    idxs, [self._params[i].list_data() for i in idxs])
+                    idxs, [self._params[i].list_data() for i in idxs]
+                    if self._update_on_kvstore else grads)
         self._arm_exchange()
 
     def update(self, batch_size, ignore_stale_grad=False):

@@ -11,7 +11,8 @@ descriptors and the byte cap, so every rank derives the same key->bucket
 mapping without talking to the others.  A bucket's name carries a CRC of
 its members' ``key:shape:dtype`` descriptors: a change of any member
 renames the bucket, and with it the error-feedback residual kept under
-that name.  A dtype is described by its numpy name (``float32``,
+that name, and so does a ``salt`` (an elastic job's membership epoch).
+A dtype is described by its numpy name (``float32``,
 ``bfloat16``), never by torch's, so the names are the JAX package's.
 Values over the cap stay solo.
 """
@@ -42,7 +43,8 @@ class Bucket:
 
     def __init__(self, index: int, positions: Sequence[int],
                  keys: Sequence, sizes: Sequence[int],
-                 shapes: Sequence[Tuple[int, ...]], dtype: str):
+                 shapes: Sequence[Tuple[int, ...]], dtype: str,
+                 salt=None):
         self.positions = list(positions)     # indices into the caller's keys
         self.keys = list(keys)
         self.sizes = list(sizes)
@@ -56,6 +58,11 @@ class Bucket:
         self.total = off
         desc = ";".join("%s:%s:%s" % (k, "x".join(map(str, s)), dtype)
                         for k, s in zip(self.keys, self.shapes))
+        if salt:
+            # an elastic job's membership epoch: a resize renames every
+            # bucket, so a server's accumulator from the old world is
+            # never read as the new one's; 0/None keeps the plain names
+            desc += "|salt:%s" % (salt,)
         self.name = "__fusedb%d_%08x" % (index, zlib.crc32(desc.encode()))
 
     def slices(self):
@@ -81,7 +88,7 @@ class Bucket:
 def plan_buckets(keys: Sequence, shapes: Sequence[Tuple[int, ...]],
                  dtypes: Sequence[str], itemsizes: Sequence[int],
                  stypes: Sequence[str], max_bytes: int,
-                 reverse: bool = False):
+                 reverse: bool = False, salt=None):
     """Greedy first fit in key order, one dtype a bucket: ``(buckets,
     solo_positions)``.  Sparse values, values over the cap and a dtype's
     lone member stay solo.
@@ -89,7 +96,8 @@ def plan_buckets(keys: Sequence, shapes: Sequence[Tuple[int, ...]],
     ``reverse=True`` packs in reverse key order: backward gives the last
     layers' gradients first, so their buckets are the first to fill and
     the overlap scheduler (:class:`ReadinessPlanner`) can launch them
-    while earlier layers are still being differentiated.
+    while earlier layers are still being differentiated.  ``salt``
+    (the membership epoch) enters every bucket's name.
     """
     solo: List[int] = []
     open_by_dtype = {}    # dtype -> (positions, nbytes)
@@ -134,7 +142,7 @@ def plan_buckets(keys: Sequence, shapes: Sequence[Tuple[int, ...]],
             sizes.append(n)
         buckets.append(Bucket(bi, poss, [keys[p] for p in poss], sizes,
                               [shapes[p] for p in poss],
-                              str(dtypes[poss[0]])))
+                              str(dtypes[poss[0]]), salt=salt))
     return buckets, sorted(solo)
 
 

@@ -263,18 +263,23 @@ def recv_msg(sock: socket.socket, timeout: Optional[float] = None,
                 sock.settimeout(timeout)
             head += chunk
         (n,) = struct.unpack("<Q", head)
-        buf = bytearray()
-        while len(buf) < n:
+        # read straight into one buffer and unpickle from it: a frame may
+        # hold a parameter-sized array, so no extra copies of it
+        buf = bytearray(n)
+        view = memoryview(buf)
+        got = 0
+        while got < n:
             try:
-                chunk = sock.recv(min(1 << 20, n - len(buf)))
+                k = sock.recv_into(view[got:], min(1 << 20, n - got))
             except socket.timeout:
                 raise TimeoutError("recv_msg: peer stalled mid-message "
                                    "(%d/%d bytes) for %ss"
-                                   % (len(buf), n, timeout))
-            if not chunk:
+                                   % (got, n, timeout))
+            if not k:
                 raise ConnectionError("peer closed mid-message")
-            buf += chunk
-        return pickle.loads(bytes(buf))
+            got += k
+        view.release()
+        return pickle.loads(buf)
     finally:
         try:
             sock.settimeout(saved)

@@ -108,7 +108,10 @@ class EvalMetric:
         self._dev_inst = None
 
     def _accumulate(self, device, batch_sum, batch_count):
-        """Add one batch to the device sums (no host sync)."""
+        """Add one batch to the device sums (no host sync); counts one
+        dispatch, as the reference's jitted accumulate does."""
+        from .engine import engine as _engine
+        _engine.count_dispatch()
         if self._dev_sum is None:
             self._dev_sum = torch.zeros((), dtype=torch.float32,
                                         device=device)

@@ -13,12 +13,13 @@ from types import ModuleType
 
 from ..ops import registry as _registry
 from .ndarray import (NDArray, invoke, array, zeros, ones, full, empty,
-                      arange, eye, zeros_like, ones_like, waitall)
+                      arange, eye, zeros_like, ones_like, concatenate,
+                      waitall)
 from .ndarray import stack_arrays as _stack_arrays
 
 __all__ = ["NDArray", "invoke", "array", "zeros", "ones", "full", "empty",
-           "arange", "eye", "zeros_like", "ones_like", "waitall", "stack",
-           "concat"]
+           "arange", "eye", "zeros_like", "ones_like", "concatenate",
+           "waitall", "stack", "concat"]
 
 
 def _make_op_func(opname: str):

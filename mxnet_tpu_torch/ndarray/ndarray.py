@@ -31,14 +31,16 @@ import numpy as np
 import torch
 
 from .. import autograd
+from .. import profiler as _profiler
+from ..engine import engine as _engine
 from ..base import MXNetError, dtype_name, torch_dtype
 from ..device import Context, resolve
 from ..ops.matrix import infer_reshape
 from ..ops.registry import amp_cast, get_op
 
 __all__ = ["NDArray", "invoke", "array", "zeros", "ones", "full", "empty",
-           "arange", "eye", "zeros_like", "ones_like", "stack_arrays",
-           "waitall"]
+           "arange", "eye", "zeros_like", "ones_like", "concatenate",
+           "stack_arrays", "waitall"]
 
 # NDArray <op> number dispatches to the scalar family (ops/scalar.py);
 # reverse forms swap the operands' roles
@@ -301,6 +303,7 @@ class NDArray:
             if isinstance(value, torch.Tensor):
                 value = value.to(device=t.device, dtype=t.dtype)
             t[key] = value
+        _engine.maybe_sync(t)
 
     # ------------------------------------------------------------------
     # reshape (a view where torch can make one)
@@ -482,8 +485,27 @@ def invoke(op_name: str, *inputs, out: Optional[NDArray] = None, **params):
     inputs in place and are not returned; an op that mutates an input
     (``OpDef.mutates_input``: the optimizer updates' weight) writes its
     first visible output there and returns that input.  ``out=`` receives
-    the result in place."""
+    the result in place.
+
+    Each call counts one dispatch (``engine.dispatch_count``); under
+    ``MXNET_ENGINE_TYPE=NaiveEngine`` it waits for the device after the
+    op, and while the profiler runs with ``profile_imperative`` (or
+    ``profile_all``) it is one span of the profiler's table."""
+    if _profiler.IMPERATIVE:
+        with _profiler.op_span(op_name):
+            ret = _invoke_impl(op_name, *inputs, out=out, **params)
+            if _profiler.want_sync():
+                _engine.wait_for_var(ret[0] if isinstance(ret, list)
+                                     else ret)
+        return ret
+    return _invoke_impl(op_name, *inputs, out=out, **params)
+
+
+def _invoke_impl(op_name: str, *inputs, out: Optional[NDArray] = None,
+                 _counted: bool = True, **params):
     op = get_op(op_name)
+    if _counted:
+        _engine.count_dispatch()
     inputs = op.split_pos_attrs(inputs, params, NDArray)
     ctx = params.pop("ctx", None)
     params.pop("name", None)
@@ -502,6 +524,7 @@ def invoke(op_name: str, *inputs, out: Optional[NDArray] = None, **params):
             if isinstance(o, torch.Tensor):
                 setattr(o, autograd.RECORDED, True)
     outs = _wrap_outputs(op, outs)
+    _engine.maybe_sync(outs[0] if isinstance(outs, list) else outs)
     aux = op.aux_map(params)
     if aux and isinstance(outs, list):
         outs = _write_aux(aux, inputs, outs)
@@ -570,16 +593,22 @@ def array(source, ctx: Optional[Context] = None, dtype=None) -> NDArray:
     return NDArray(t.to(dev, copy=True))
 
 
+# The creation functions run their op uncounted: the reference makes
+# these arrays on the host and places them, no dispatch of its engine.
+
 def zeros(shape, ctx=None, dtype=None, **kw) -> NDArray:
-    return invoke("_zeros", shape=shape, dtype=dtype, ctx=ctx)
+    return _invoke_impl("_zeros", shape=shape, dtype=dtype, ctx=ctx,
+                        _counted=False)
 
 
 def ones(shape, ctx=None, dtype=None, **kw) -> NDArray:
-    return invoke("_ones", shape=shape, dtype=dtype, ctx=ctx)
+    return _invoke_impl("_ones", shape=shape, dtype=dtype, ctx=ctx,
+                        _counted=False)
 
 
 def full(shape, val, ctx=None, dtype=None, **kw) -> NDArray:
-    return invoke("_full", shape=shape, value=val, dtype=dtype, ctx=ctx)
+    return _invoke_impl("_full", shape=shape, value=val, dtype=dtype,
+                        ctx=ctx, _counted=False)
 
 
 def empty(shape, ctx=None, dtype=None) -> NDArray:
@@ -588,14 +617,15 @@ def empty(shape, ctx=None, dtype=None) -> NDArray:
 
 def arange(start, stop=None, step=1.0, repeat=1, ctx=None,
            dtype=None) -> NDArray:
-    return invoke("_arange", start=start, stop=stop, step=step,
-                  repeat=repeat, dtype=dtype, ctx=ctx)
+    return _invoke_impl("_arange", start=start, stop=stop, step=step,
+                        repeat=repeat, dtype=dtype, ctx=ctx, _counted=False)
 
 
 def eye(N, M=0, k=0, ctx=None, dtype=None) -> NDArray:
     """An N x M (N x N when M is 0) matrix of ones on the k-th diagonal
     (reference: ``mx.nd.eye``)."""
-    return invoke("_eye", N=N, M=M, k=k, dtype=dtype, ctx=ctx)
+    return _invoke_impl("_eye", N=N, M=M, k=k, dtype=dtype, ctx=ctx,
+                        _counted=False)
 
 
 def zeros_like(a: NDArray, **kw) -> NDArray:
@@ -604,6 +634,11 @@ def zeros_like(a: NDArray, **kw) -> NDArray:
 
 def ones_like(a: NDArray, **kw) -> NDArray:
     return ones(a.shape, ctx=a.context, dtype=a.dtype)
+
+
+def concatenate(arrays: Sequence[NDArray], axis=0) -> NDArray:
+    """Join ``arrays`` along ``axis`` (the ``concat`` op)."""
+    return invoke("concat", *arrays, dim=axis)
 
 
 def stack_arrays(arrays: Sequence[NDArray], axis=0) -> NDArray:

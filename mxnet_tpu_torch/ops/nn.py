@@ -249,6 +249,60 @@ register("softmax", softmax, aliases=["Softmax"])
 register("log_softmax", log_softmax)
 
 
+@register("softmin")
+def softmin(data: torch.Tensor, axis: int = -1,
+            temperature: Optional[float] = None, dtype=None) -> torch.Tensor:
+    """The softmax of ``-data``."""
+    return softmax(-data, axis=axis, temperature=temperature, dtype=dtype)
+
+
+@register("SoftmaxOutput", aliases=["softmax_output"])
+def softmax_output(data: torch.Tensor, label: torch.Tensor,
+                   grad_scale: float = 1.0, ignore_label: float = -1.0,
+                   multi_output: bool = False, use_ignore: bool = False,
+                   preserve_shape: bool = False, normalization: str = "null",
+                   out_grad: bool = False,
+                   smooth_alpha: float = 0.0) -> torch.Tensor:
+    """The softmax over axis 1 (``multi_output``) or the last axis.  As in
+    the JAX package its gradient is that forward's VJP: the loss gradient
+    (upstream MXNet's ``p - onehot``) comes from the loss or Module level,
+    not from the op."""
+    return torch.softmax(data, dim=1 if multi_output else -1)
+
+
+@register("LinearRegressionOutput", aliases=["linear_regression_output"])
+def linear_regression_output(data: torch.Tensor, label: torch.Tensor,
+                             grad_scale: float = 1.0) -> torch.Tensor:
+    """The identity (a copy: the output must not alias ``data``); the l2
+    loss gradient comes from the Module level, as in the JAX package."""
+    return data.clone()
+
+
+@register("MAERegressionOutput", aliases=["mae_regression_output"])
+def mae_regression_output(data: torch.Tensor, label: torch.Tensor,
+                          grad_scale: float = 1.0) -> torch.Tensor:
+    """The identity (a copy), as :func:`linear_regression_output`."""
+    return data.clone()
+
+
+@register("LogisticRegressionOutput", aliases=["logistic_regression_output"])
+def logistic_regression_output(data: torch.Tensor, label: torch.Tensor,
+                               grad_scale: float = 1.0) -> torch.Tensor:
+    """The sigmoid of ``data``."""
+    return torch.sigmoid(data)
+
+
+@register("RMSNorm")
+def rms_norm(data: torch.Tensor, gamma: torch.Tensor, axis: int = -1,
+             eps: float = 1e-6) -> torch.Tensor:
+    """Normalise by the root mean square over ``axis`` in float32, cast
+    back to data's dtype, then scale by ``gamma``, in the JAX package's
+    order."""
+    x32 = data.float()
+    ms = x32.square().mean(dim=axis, keepdim=True)
+    return (x32 * torch.rsqrt(ms + eps)).to(data.dtype) * gamma
+
+
 @register("Dropout", aliases=["dropout"])
 def dropout(data: torch.Tensor, p: float = 0.5, mode: str = "training",
             axes=(), cudnn_off: bool = False, training: bool = True,
@@ -428,6 +482,91 @@ def pooling(data: torch.Tensor, kernel=None, pool_type: str = "max",
                             stride)
         return powed ** (1.0 / p_value)
     raise ValueError("bad pool_type %r" % pool_type)
+
+
+@register("AdaptiveAvgPooling2D", aliases=["_contrib_AdaptiveAvgPooling2D"])
+def adaptive_avg_pooling_2d(data: torch.Tensor,
+                            output_size=1) -> torch.Tensor:
+    """The mean over equal bins, by a reshape, as in the JAX package.  A
+    size that the output size does not divide raises there (its reshape
+    fails), so it raises here too, rather than taking
+    ``F.adaptive_avg_pool2d``'s uneven bins."""
+    oh, ow = _tup(output_size, 2)
+    n, c, h, w = data.shape
+    if h % oh or w % ow:
+        raise TypeError("AdaptiveAvgPooling2D: cannot reshape array of shape "
+                        "%s into equal %d x %d bins"
+                        % (tuple(data.shape), oh, ow))
+    return data.reshape(n, c, oh, h // oh, ow, w // ow).mean(dim=(3, 5))
+
+
+_F32_EPS = float(torch.finfo(torch.float32).eps)
+
+
+def _linear_resize_weights(in_size: int, out_size: int,
+                           device) -> torch.Tensor:
+    """The (in_size, out_size) weights of ``jax.image.resize``'s ``linear``
+    method along one axis: half-pixel centres and a triangle kernel,
+    widened by the scale when shrinking (jax antialiases by default),
+    each column normalised, and zero for a sample outside the input.  The
+    arithmetic is float32, step for step ``compute_weight_mat``'s."""
+    inv_scale = 1.0 / (out_size / in_size)
+    kernel_scale = max(inv_scale, 1.0)
+    f32 = torch.float32
+    sample_f = (torch.arange(out_size, dtype=f32, device=device) + 0.5) \
+        * inv_scale - 0.0 - 0.5
+    x = (sample_f[None, :] - torch.arange(in_size, dtype=f32,
+                                          device=device)[:, None]).abs() \
+        / kernel_scale
+    weights = (1.0 - x.abs()).clamp_min(0.0)
+    total = weights.sum(dim=0, keepdim=True)
+    weights = torch.where(
+        total.abs() > 1000.0 * _F32_EPS,
+        weights / torch.where(total != 0, total, torch.ones_like(total)),
+        torch.zeros_like(weights))
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return torch.where(inside[None, :], weights, torch.zeros_like(weights))
+
+
+def _resize_linear(data: torch.Tensor, th: int, tw: int) -> torch.Tensor:
+    """``jax.image.resize(data, (n, c, th, tw), method="linear")`` as two
+    products with explicit weight matrices (an axis whose size does not
+    change is left as it is, as jax does)."""
+    x = data if data.is_floating_point() else data.float()
+    h, w = x.shape[2], x.shape[3]
+    if th != h:
+        x = torch.einsum("nchw,ho->ncow", x,
+                         _linear_resize_weights(h, th, x.device).to(x.dtype))
+    if tw != w:
+        x = torch.einsum("nchw,wp->nchp", x,
+                         _linear_resize_weights(w, tw, x.device).to(x.dtype))
+    return x
+
+
+@register("BilinearResize2D", aliases=["_contrib_BilinearResize2D"])
+def bilinear_resize_2d(data: torch.Tensor, height=None, width=None,
+                       scale_height=None, scale_width=None,
+                       mode: str = "size") -> torch.Tensor:
+    """Resize the spatial axes to ``height`` x ``width`` (or by the
+    scales), with ``jax.image.resize``'s linear method: it antialiases
+    when it shrinks, where ``F.interpolate(mode="bilinear")`` does not."""
+    h, w = data.shape[2], data.shape[3]
+    th = height or int(h * scale_height)
+    tw = width or int(w * scale_width)
+    return _resize_linear(data, th, tw)
+
+
+@register("UpSampling")
+def up_sampling(data: torch.Tensor, scale: int = 2,
+                sample_type: str = "nearest", num_args: int = 1
+                ) -> torch.Tensor:
+    """Enlarge the spatial axes by ``scale``: each pixel repeated
+    (``nearest``), or ``jax.image.resize``'s linear method."""
+    if sample_type == "nearest":
+        return data.repeat_interleave(scale, dim=2).repeat_interleave(
+            scale, dim=3)
+    h, w = data.shape[2], data.shape[3]
+    return _resize_linear(data, h * scale, w * scale)
 
 
 def _channel_shape(data, axis):

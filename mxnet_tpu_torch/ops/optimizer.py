@@ -449,7 +449,11 @@ def tree_apply(kind: str, arrays: Sequence, lrs: Sequence[float],
     ``lrs``, ``wds`` and, for 'adamw', ``decays`` (``lr * wd``, applied to
     the new weight) hold one Python float per leaf.  Under ``mp`` the
     update runs on the masters with the gradients cast to float32 and the
-    weights receive the masters cast back."""
+    weights receive the masters cast back.  One apply counts one dispatch
+    (``engine.dispatch_count``), as the reference's jitted tree update
+    does."""
+    from ..engine import engine as _engine
+    _engine.count_dispatch()
     weights, grads = list(arrays[0]), list(arrays[1])
     states = [list(col) for col in arrays[2:-1]]
     masters = list(arrays[-1]) if mp else None

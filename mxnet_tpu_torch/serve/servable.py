@@ -133,12 +133,16 @@ class Servable:
     def dispatch(self, bucket: int, padded_inputs: Sequence[np.ndarray],
                  warming: bool = False) -> Tuple[torch.Tensor, ...]:
         """Run the forward over already-padded host inputs; returns the
-        output leaves on the device (the caller syncs when it reads)."""
+        output leaves on the device (the caller syncs when it reads).  One
+        forward counts one dispatch (``engine.dispatch_count``), as the
+        reference's bucket program does."""
+        from ..engine import engine as _engine
         key = (int(bucket), self.signature_of(padded_inputs))
         with torch.inference_mode(), self._device_scope():
             xs = [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                   for a in padded_inputs]
             outs = tuple(_leaves(self.block(*xs)))
+        _engine.count_dispatch(1)
         if not warming:
             with self._lock:
                 self.batches += 1

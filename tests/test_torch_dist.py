@@ -473,19 +473,45 @@ def test_dp_trainstep_starts_every_rank_from_rank_0s_weights(tmp_path):
     _assert_ranks_bitwise(ranks, key_prefix="w_")
 
 
-@pytest.mark.parametrize("argv, refused", [
-    (["-s", "1"], "-s: not ported"),
-    (["--launcher", "ssh"], "--launcher ssh: not ported"),
-    (["--restart", "on-failure"], "unrecognized arguments: --restart"),
-    (["--hang-timeout=30"], "unrecognized arguments: --hang-timeout=30"),
+@pytest.mark.parametrize("argv, refused, why", [
+    (["--launcher", "ssh"], "--launcher ssh: not ported", "part (b)"),
+    (["-H", "hosts"], "-H: not ported", "part (b)"),
+    (["--restart", "on-failure"], "--restart: not ported", "part (b)"),
+    (["--max-restarts", "5"], "--max-restarts: not ported", "part (b)"),
+    (["--hang-timeout=30"], "--hang-timeout: not ported", "part (b)"),
+    (["--status-interval", "5"], "--status-interval: not ported",
+     "part (b)"),
+    (["--elastic"], "--elastic: not ported", "part (b)"),
+    (["--resize-file", "f"], "--resize-file: not ported", "part (b)"),
+    (["--drain-timeout", "9"], "--drain-timeout: not ported", "part (b)"),
+    (["--serve-port-base", "9000"], "--serve-port-base: not ported",
+     "item 6"),
+    (["--route", "9100"], "--route: not ported", "item 6"),
+    (["--autoscale", "1:4"], "--autoscale: not ported", "item 6"),
+    (["--compile-cache", "d"], "--compile-cache: not ported", "item 6"),
+    (["--bogus"], "unrecognized arguments: --bogus", ""),
 ])
-def test_the_launcher_refuses_what_is_not_ported(capsys, argv, refused):
+def test_the_launcher_refuses_what_is_not_ported(capsys, argv, refused,
+                                                 why):
     from mxnet_tpu_torch.tools import launch
     with pytest.raises(SystemExit) as e:
-        launch.main(["-n", "2"] + argv + ["--", sys.executable, "-c", ""])
+        launch.main(["-n", "2", "-s", "1"] + argv +
+                    ["--", sys.executable, "-c", ""])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert refused in err and "parameter-server slice" in err, err
+    assert refused in err and why in err, err
+
+
+def test_the_launcher_gives_servers_and_workers_the_reference_s_env():
+    from mxnet_tpu_torch.tools import launch
+    assert launch.server_env(9601, 3) == {
+        "DMLC_ROLE": "server", "DMLC_NUM_WORKER": "3",
+        "MX_PS_PORT": "9601", "MX_FORCE_CPU": "1"}
+    assert launch.ps_worker_env(["127.0.0.1:9601", "127.0.0.1:9602"]) == {
+        "MX_PS_ROOT": "127.0.0.1:9601",
+        "MX_PS_ROOTS": "127.0.0.1:9601,127.0.0.1:9602",
+        "DMLC_PS_ROOT_URI": "127.0.0.1", "DMLC_PS_ROOT_PORT": "9601",
+        "DMLC_NUM_SERVER": "2"}
 
 
 def test_a_failing_rank_stops_the_job(tmp_path):

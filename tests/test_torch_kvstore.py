@@ -13,7 +13,12 @@
 * ``create`` takes the reference's aliases, refuses an unknown name, and
   gives ``dist_async`` without a server the reference's warning and
   store.
-The cross-process cases are in ``tests/test_torch_dist.py``.
+* Bucket names under a salt (an elastic job's membership epoch: 0,
+  None, 1, 7) on BERT-base's descriptors are the reference's, and a
+  store's plan cache is keyed by its salt.
+The cross-process cases are in ``tests/test_torch_dist.py``; the
+parameter server's in ``tests/test_torch_ps_server.py`` and
+``tests/test_torch_ps_dist.py``.
 """
 import warnings
 
@@ -87,6 +92,40 @@ def test_plan_buckets_gives_the_reference_layout(model_descriptors, model,
         assert not got[0] and len(got[1]) == len(desc[0])
     else:
         assert got[0], "no bucket planned"
+
+
+@pytest.mark.parametrize("salt", (0, None, 1, 7))
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_salted_bucket_names_are_the_reference_s(model_descriptors, salt,
+                                                 dtype):
+    """An elastic job's membership epoch salts every bucket's name; 0 and
+    None keep the plain names."""
+    desc = _descriptors(model_descriptors["bert-base"], dtype)
+    want = _plan_fields(jb.plan_buckets(*desc, 4 << 20, salt=salt))
+    got = _plan_fields(tb.plan_buckets(*desc, 4 << 20, salt=salt))
+    assert got == want
+    plain = _plan_fields(tb.plan_buckets(*desc, 4 << 20))
+    names = [b[0] for b in got[0]]
+    assert (names == [b[0] for b in plain[0]]) == (not salt)
+
+
+@pytest.mark.parametrize("salt", (0, None, 1, 7))
+def test_a_store_plans_under_its_bucket_salt_as_the_reference(salt):
+    rng = np.random.RandomState(0)
+    shapes = [(3, 4), (5,), (2, 2, 2), (7,)]
+    vals = [rng.randn(*s).astype(np.float32) for s in shapes]
+    keys = [3, "w", 9, "b"]
+    jkvs, tkvs = jkv.KVStoreLocal(), tkv.KVStoreLocal()
+    jkvs._bucket_salt = tkvs._bucket_salt = salt
+    got = _plan_fields(tkvs._bucket_plans(keys, [tnd.array(v)
+                                                 for v in vals]))
+    assert got == _plan_fields(jkvs._bucket_plans(
+        keys, [jnd.array(v) for v in vals]))
+    # the cache is keyed by the salt: a new epoch plans anew
+    tkvs._bucket_salt = (salt or 0) + 1
+    again = _plan_fields(tkvs._bucket_plans(keys, [tnd.array(v)
+                                                   for v in vals]))
+    assert again[0][0][0] != got[0][0][0]
 
 
 def test_bucket_bytes_reads_the_knob(monkeypatch):
@@ -356,9 +395,35 @@ def test_dist_async_without_a_server_warns_and_gives_ici(monkeypatch):
 
 @pytest.mark.parametrize("var", ("MX_PS_ROOT", "MX_PS_ROOTS"))
 def test_dist_async_with_a_server_is_not_ported(monkeypatch, var):
-    monkeypatch.setenv(var, "127.0.0.1:9600")
-    with pytest.raises(MXNetError, match="not ported"):
-        tkv.create("dist_async")
+    """The parameter-server store is ported now: with ``MX_PS_ROOT`` set,
+    both packages build it and try to connect (here to a port where no
+    server listens, so both give the connect error once the retry
+    deadline passes); ``MX_PS_ROOTS`` alone does not select it in the
+    reference's ``create``, which warns and gives the collective store,
+    and neither does it in the port's."""
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    addr = "127.0.0.1:%d" % s.getsockname()[1]
+    s.close()
+    for other in ("MX_PS_ROOT", "MX_PS_ROOTS", "DMLC_PS_ROOT_URI"):
+        monkeypatch.delenv(other, raising=False)
+    monkeypatch.setenv(var, addr)
+    monkeypatch.setenv("MX_KVSTORE_RETRY_DEADLINE", "0.3")
+    monkeypatch.setenv("MX_KVSTORE_HEARTBEAT", "0")
+    if var == "MX_PS_ROOT":
+        for create in (jkv.create, tkv.create):
+            with pytest.raises(OSError):
+                create("dist_async")
+        assert tkv._STORES["dist_async"] is tkv.KVStoreDistAsync
+        return
+    kinds = []
+    for create in (jkv.create, tkv.create):
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            kinds.append(create("dist_async").type)
+        assert any("parameter server" in str(x.message) for x in w)
+    assert kinds == ["ici", "ici"]
 
 
 def test_row_sparse_pull_is_not_ported():

@@ -698,3 +698,21 @@ def test_asnumpy_of_bfloat16_is_float32_with_the_bf16_values():
     got = tnd.array(x).astype("bfloat16").asnumpy()
     assert got.dtype == np.float32 and ref.dtype.name == "bfloat16"
     np.testing.assert_array_equal(got, ref.astype(np.float32))
+
+
+@pytest.mark.parametrize("axis", [0, 1, -1])
+def test_nd_concatenate(axis):
+    rng = np.random.RandomState(3)
+    xs = [rng.randn(2, 3).astype(np.float32) for _ in range(3)]
+    out = {}
+    for pkg, (_, nd, _) in PACKAGES.items():
+        out[pkg] = nd.concatenate([nd.array(x) for x in xs],
+                                  axis=axis).asnumpy()
+    np.testing.assert_array_equal(out["port"], out["jax"])
+
+
+def test_nd_exports_are_the_reference_s():
+    """Less ``save`` / ``load`` (ROADMAP Queue 1 item 5); the port adds
+    ``stack`` and ``concat`` to ``__all__``."""
+    assert sorted(set(tnd.__all__) - {"stack", "concat"}) == \
+        sorted(set(jnd.__all__) - {"save", "load"})

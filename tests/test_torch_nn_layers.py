@@ -250,3 +250,27 @@ def test_lambda_names_an_nd_function_or_takes_a_callable():
     np.testing.assert_allclose(net(tnd.array(x), tnd.array(x)).asnumpy(),
                                x * x, rtol=1e-6)
     assert tnn.SiLU is tnn.Swish
+
+
+def test_gluon_nn_exports_are_the_reference_s():
+    """The reference re-exports the base blocks (``class
+    Net(gluon.nn.HybridBlock)``, upstream MXNet's tutorial idiom).  Less
+    ``SymbolBlock`` (ROADMAP Queue 1 item 8); the port adds only
+    ``set_dropout_generator``."""
+    from mxnet_tpu_torch.gluon import block as tblock
+    assert sorted(set(tnn.__all__) - {"set_dropout_generator"}) == \
+        sorted(set(jnn.__all__) - {"SymbolBlock"})
+    assert tnn.Block is tblock.Block and tnn.HybridBlock is tblock.HybridBlock
+    assert tmx.gluon.nn.HybridBlock is tmx.gluon.HybridBlock
+
+    class Net(tnn.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.dense = tnn.Dense(2, in_units=3)
+
+        def forward(self, x):
+            return self.dense(x)
+
+    net = Net()
+    net.initialize(device="cpu")
+    assert net(tnd.ones((4, 3))).shape == (4, 2)

@@ -538,3 +538,161 @@ def test_identity_returns_a_copy():
     y = tnd.identity(x)
     y[:] = 0.0
     np.testing.assert_array_equal(x.asnumpy(), ANY)
+
+
+# ---------------------------------------------------------------------------
+# ops/nn.py's legacy names (the 11 ``_npx_*`` ones wait for ``numpy/``)
+# ---------------------------------------------------------------------------
+
+NN_LEGACY_NAMES = [
+    "AdaptiveAvgPooling2D", "_contrib_AdaptiveAvgPooling2D",
+    "BilinearResize2D", "_contrib_BilinearResize2D", "UpSampling",
+    "softmin", "SoftmaxOutput", "softmax_output", "RMSNorm",
+    "LinearRegressionOutput", "linear_regression_output",
+    "MAERegressionOutput", "mae_regression_output",
+    "LogisticRegressionOutput", "logistic_regression_output",
+]
+NN_TOL = 1e-5       # resizing and pooling: the arithmetic is the same
+IMG16 = rnd(2, 3, 16, 16, seed=11)
+IMG8 = rnd(2, 3, 8, 8, seed=12)
+LOGITS = rnd(4, 5, 3, seed=13)
+LAB = rnd(4, 5, 3, seed=14)
+NN_CASES = {
+    "AdaptiveAvgPooling2D": ([IMG16], {"output_size": (4, 2)}),
+    "BilinearResize2D": ([IMG16], {"height": 8, "width": 8}),
+    "UpSampling": ([IMG8], {"scale": 2, "sample_type": "nearest"}),
+    "softmin": ([LOGITS], {"axis": 1, "temperature": 2.0}),
+    "SoftmaxOutput": ([LOGITS, LAB], {}),
+    "RMSNorm": ([LOGITS, rnd(3, seed=15)], {}),
+    "LinearRegressionOutput": ([LOGITS, LAB], {}),
+    "MAERegressionOutput": ([LOGITS, LAB], {"grad_scale": 2.0}),
+    "LogisticRegressionOutput": ([LOGITS, LAB], {}),
+}
+for _n in ("AdaptiveAvgPooling2D", "BilinearResize2D"):
+    NN_CASES["_contrib_" + _n] = NN_CASES[_n]
+for _n, _a in (("SoftmaxOutput", "softmax_output"),
+               ("LinearRegressionOutput", "linear_regression_output"),
+               ("MAERegressionOutput", "mae_regression_output"),
+               ("LogisticRegressionOutput", "logistic_regression_output")):
+    NN_CASES[_a] = NN_CASES[_n]
+
+
+def test_every_nn_legacy_name_is_a_port_op_under_the_references_op():
+    assert len(NN_LEGACY_NAMES) == len(set(NN_LEGACY_NAMES)) == 15
+    missing = [n for n in NN_LEGACY_NAMES if n not in registry.list_ops()]
+    assert not missing, missing
+    for n in NN_LEGACY_NAMES:
+        same = [m for m in NN_LEGACY_NAMES
+                if jregistry.get_op(m) is jregistry.get_op(n)]
+        assert {registry.get_op(m).name for m in same} == \
+            {registry.get_op(n).name}, (n, same)
+        assert registry.get_op(n).differentiable == \
+            jregistry.get_op(n).differentiable, n
+        assert registry.get_op(n).num_outputs == \
+            jregistry.get_op(n).num_outputs, n
+        assert registry.get_op(n).name == jregistry.get_op(n).name, n
+
+
+def test_every_nn_legacy_name_has_a_parity_case():
+    assert sorted(NN_CASES) == sorted(NN_LEGACY_NAMES)
+
+
+@pytest.mark.parametrize("name", NN_LEGACY_NAMES)
+def test_nn_legacy_op_answers_as_the_reference(name):
+    """Forward, and the gradient through autograd with respect to the
+    data (the ``*Output`` ops: the VJP of their forward, not upstream
+    MXNet's ``p - onehot``)."""
+    inputs, params = NN_CASES[name]
+    grad_of = (0, 1) if name == "RMSNorm" else (0,)
+    assert_same(run(name, inputs, params, grad_of), tol=NN_TOL)
+    if name.isidentifier() and hasattr(jnd, name):
+        assert_same(run(name, inputs, params, via="nd"), tol=NN_TOL)
+
+
+@pytest.mark.parametrize("src,dst", [((16, 16), (8, 8)), ((8, 8), (5, 5)),
+                                     ((8, 8), (13, 11)), ((16, 8), (5, 13)),
+                                     ((7, 9), (7, 4)), ((6, 6), (6, 6))])
+def test_bilinear_resize_shrinks_with_jax_s_antialiasing(src, dst):
+    """jax.image.resize(method="linear") antialiases when it shrinks, so
+    F.interpolate(mode="bilinear") would miss it there."""
+    x = rnd(2, 3, *src, seed=16)
+    params = {"height": dst[0], "width": dst[1]}
+    res = run("BilinearResize2D", [x], params, grad_of=(0,))
+    assert_same(res, tol=NN_TOL)
+    if dst[0] < src[0]:
+        import torch
+        import torch.nn.functional as F
+        plain = F.interpolate(torch.from_numpy(x), size=dst, mode="bilinear",
+                              align_corners=False).numpy()
+        assert np.abs(plain - res["jax"][0][0]).max() > 1e-3
+
+
+@pytest.mark.parametrize("params", [{"scale_height": 0.5, "scale_width": 2.0},
+                                    {"height": 9, "scale_width": 0.75}])
+def test_bilinear_resize_by_scales(params):
+    assert_same(run("BilinearResize2D", [IMG16], params, grad_of=(0,)),
+                tol=NN_TOL)
+
+
+@pytest.mark.parametrize("scale", [2, 3])
+@pytest.mark.parametrize("sample_type", ["nearest", "bilinear"])
+def test_up_sampling(scale, sample_type):
+    assert_same(run("UpSampling", [IMG8], {"scale": scale,
+                                           "sample_type": sample_type},
+                    grad_of=(0,)), tol=NN_TOL)
+
+
+@pytest.mark.parametrize("output_size", [1, 2, (8, 4), 16])
+def test_adaptive_avg_pooling_over_bins_that_divide(output_size):
+    assert_same(run("AdaptiveAvgPooling2D", [IMG16],
+                    {"output_size": output_size}, grad_of=(0,)), tol=NN_TOL)
+
+
+@pytest.mark.parametrize("output_size", [3, (5, 4), 7])
+def test_adaptive_avg_pooling_raises_where_the_reference_does(output_size):
+    """The reference averages equal bins by a reshape, which fails on a
+    size the output does not divide; the port raises too, and never takes
+    F.adaptive_avg_pool2d's uneven bins."""
+    for pkg, (nd, _, invoke) in PACKAGES.items():
+        with pytest.raises(TypeError):
+            invoke("AdaptiveAvgPooling2D", nd.array(IMG16),
+                   output_size=output_size)
+
+
+@pytest.mark.parametrize("multi_output", [False, True])
+def test_softmax_output_takes_the_vjp_of_its_softmax(multi_output):
+    res = run("SoftmaxOutput", [LOGITS, LAB], {"multi_output": multi_output,
+                                               "ignore_label": 1.0,
+                                               "use_ignore": True},
+              grad_of=(0,))
+    assert_same(res, tol=NN_TOL)
+    axis = 1 if multi_output else -1
+    np.testing.assert_allclose(res["port"][0][0].sum(axis=axis), 1.0,
+                               rtol=1e-5)
+
+
+def test_rms_norm_rounds_to_bf16_before_gamma():
+    x = rnd(4, 6, seed=17)
+    gamma = rnd(6, seed=18)
+    out = {}
+    for pkg, (nd, _, invoke) in PACKAGES.items():
+        y = invoke("RMSNorm", nd.array(x, dtype="bfloat16"),
+                   nd.array(gamma), axis=-1, eps=1e-6)
+        out[pkg] = (str(y.dtype), y.asnumpy().astype(np.float32))
+    assert out["port"][0] == out["jax"][0] == "float32"
+    np.testing.assert_allclose(out["port"][1], out["jax"][1], rtol=1e-6,
+                               atol=1e-6)
+    bf = {}
+    for pkg, (nd, _, invoke) in PACKAGES.items():
+        y = invoke("RMSNorm", nd.array(x, dtype="bfloat16"),
+                   nd.array(gamma, dtype="bfloat16"), axis=0)
+        bf[pkg] = y.asnumpy().astype(np.float32)
+    np.testing.assert_array_equal(bf["port"], bf["jax"])
+
+
+def test_the_regression_outputs_do_not_alias_their_data():
+    x = tnd.array(ANY)
+    for name in ("LinearRegressionOutput", "MAERegressionOutput"):
+        y = getattr(tnd, name)(x, x)
+        y[:] = 0.0
+        np.testing.assert_array_equal(x.asnumpy(), ANY)

@@ -281,7 +281,10 @@ def test_port_imports_neither_jax_nor_mxnet_tpu():
             "mxnet_tpu_torch.kvstore.bucketing, "
             "mxnet_tpu_torch.kvstore.gradient_compression, "
             "mxnet_tpu_torch.ops.quantization, mxnet_tpu_torch.parallel.mesh, "
-            "mxnet_tpu_torch.tools.launch; "
+            "mxnet_tpu_torch.tools.launch, mxnet_tpu_torch.fault, "
+            "mxnet_tpu_torch.profiler, mxnet_tpu_torch.telemetry, "
+            "mxnet_tpu_torch.engine, mxnet_tpu_torch.kvstore.server, "
+            "mxnet_tpu_torch.kvstore.wire_verbs; "
             "import chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "

@@ -103,3 +103,16 @@ def test_predict_forward_matches_the_reference(name):
     scale = float(np.abs(want).max())
     assert scale > 0
     np.testing.assert_allclose(got, want, rtol=0, atol=TOL * scale)
+
+
+def test_model_zoo_exports_are_the_reference_s():
+    import mxnet_tpu.gluon.model_zoo as jzoo
+    import mxnet_tpu_torch.gluon.model_zoo as tzoo
+    from mxnet_tpu_torch.gluon.model_zoo import bert as tbert
+    assert sorted(tzoo.__all__) == sorted(jzoo.__all__)
+    assert tzoo.get_model is tvision.get_model
+    assert tzoo.BERTModel is tbert.BERTModel
+    assert tzoo.bert_12_768_12 is tbert.bert_12_768_12
+    assert tzoo.bert_24_1024_16 is tbert.bert_24_1024_16
+    assert type(tzoo.get_model("resnet18_v1")).__name__ == \
+        type(jzoo.get_model("resnet18_v1")).__name__ == "ResNetV1"
