@@ -283,6 +283,34 @@ Phases (each raises on failure, so any failure exits nonzero):
    ``softmin``, ``SoftmaxOutput``, ``RMSNorm`` and the three
    ``*RegressionOutput``) on the card against the CPU, output and
    gradient within 1e-5 x max(1, |ref|).
+18. resume -- supervised training: ``checkpoint`` (on
+   ``torch.distributed.checkpoint``), ``health`` and the launcher's
+   supervisor, no kernel of their own (K1-K3 run in BERT-base and are
+   counted under ``resume``).  (a) In this process, BERT-base with the MLM
+   decoder at the bench's configuration (bf16, batch 16, T = 512): 3
+   ``TrainStep`` steps, ``save``, a fresh step's ``restore`` and 3 more
+   steps equal 6 uninterrupted steps bitwise, parameters and momenta;
+   ``CheckpointManager(max_to_keep=2)`` over 3 saves keeps the last 2; a
+   save killed by an armed ``checkpoint.commit:crash`` leaves the previous
+   checkpoint restorable and bitwise intact; printed: the save and restore
+   seconds and GB/s.  (b) ``chip_smoke.py --resume-worker`` (BERT-base
+   fp32, batch 8, T = 128, 2 epochs of 4 batches, each batch a function of
+   the seed, the epoch and the batch) under ``python -m
+   mxnet_tpu_torch.tools.launch``: the uninterrupted ``-n 1`` run; ``-n 2
+   --restart on-failure --max-restarts 2 --fault
+   worker.step:crash:after=5`` (both ranks restarted, resumed from epoch
+   0's checkpoint); ``-n 1`` with ``worker.step:delay:delay=60,after=5``
+   under ``MX_STEP_TIMEOUT`` (the watchdog's exit 86, named by the
+   supervisor) and under ``--hang-timeout`` (the stale rank killed and
+   restarted).  (c) ``-n 1 --elastic --resize-file F --drain-timeout 60``,
+   F set to 2 once rank 0's checkpoint directory appears: rank 0 drains
+   at an epoch boundary and resumes, rank 1 joins under generation 1.  The
+   five jobs run at once; each exits 0 with every rank's final parameters
+   within rtol 1e-5 / atol 1e-6 of the uninterrupted run's (the largest
+   difference and whether they are bitwise printed), and every worker
+   process launched each of K1-K3 12 times a step it ran, replays
+   included.  Printed: the restart-to-first-step latency of each
+   restarted process, the drain's time and which interleaving happened.
 
 The last lines of standard output are the ``nvidia-smi`` name and power
 limit, one JSON object ``{"kernels": [...]}`` and, last,
@@ -5278,6 +5306,610 @@ def phase_ps(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 18. supervised training: checkpoints, crashes, hangs and resizes
+# ---------------------------------------------------------------------------
+
+#: the worker's model and batch: BERT-base with the MLM decoder at its
+#: published widths, batch 8, T = 128 (parts (b) and (c)); the CPU tests'
+#: BERT (2 layers, 64 units, 2 heads), batch 4, T = 16.  (layers, units,
+#: heads, vocabulary, batch, T)
+RESUME_SIZES = {"base": (12, 768, 12, VOCAB, 8, 128),
+                "tiny": (2, 64, 2, 97, 4, 16)}
+RESUME_EPOCHS, RESUME_BATCHES = 2, 4
+RESUME_RTOL, RESUME_ATOL = 1e-5, 1e-6   # the reference's own acceptance
+RESUME_STEP_TIMEOUT = "5"               # MX_STEP_TIMEOUT of the watchdog run
+RESUME_HANG_TIMEOUT = "15"              # --hang-timeout of the heartbeat run
+RESUME_TIMEOUT = 300                    # seconds a launcher job may take
+RESUME_FAULT_AT = 5                     # worker.step calls before the fault
+
+
+def resume_bert(size, seq_len, dev, dtype):
+    """The worker's BERT with the MLM decoder (dropout 0), from the seed,
+    on ``dev`` in ``dtype``."""
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.model_zoo.bert import get_bert
+    layers, units, heads, vocab = RESUME_SIZES[size][:4]
+    net = get_bert(layers, units, heads, vocab_size=vocab,
+                   max_length=seq_len, dropout=0.0, use_classifier=False)
+    net.initialize(initializer.Normal(0.02), device=dev, seed=SEED)
+    if dtype != "float32":
+        net.cast(dtype)
+    return net
+
+
+def resume_loss(out, lab):
+    """The bench's loss on tensors: the mean MLM cross-entropy of the
+    logits in fp32."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    return SoftmaxCrossEntropyLoss()(out[-1].float(), lab).mean()
+
+
+def resume_batch_host(epoch, nbatch, batch, seq_len, vocab):
+    """Batch ``nbatch`` of epoch ``epoch``: a function of (seed, epoch,
+    batch) alone, so a resumed rank replays it exactly."""
+    rng = np.random.RandomState(SEED + 100_003 * epoch + nbatch)
+    tok = rng.randint(0, vocab, size=(batch, seq_len)).astype(np.int64)
+    lab = rng.randint(0, vocab, size=(batch, seq_len)).astype(np.int64)
+    return tok, np.zeros_like(tok), lab
+
+
+def process_start_wall():
+    """This process's start on the wall clock, from ``/proc`` (Linux):
+    boot time plus the process's start in clock ticks."""
+    with open("/proc/stat") as f:
+        btime = next(int(line.split()[1]) for line in f
+                     if line.startswith("btime"))
+    with open("/proc/self/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return btime + int(fields[19]) / os.sysconf("SC_CLK_TCK")
+
+
+def _state_bytes(state):
+    return sum(t.numel() * t.element_size()
+               for part in state.values() for t in part.values())
+
+
+def resume_worker(argv=None):
+    """A supervised training worker: the supervision contract of the
+    reference's ``Module.fit`` around the port's ``TrainStep``, with the
+    per-rank setup of its ``tools/chaos_fit.py``.  Every rank trains on its
+    own (no process group) from the seed, into ``<ckpt-dir>/rank<r>``
+    (``MX_PROCESS_ID``):
+
+    * it resumes from the rank's latest checkpoint
+      (``checkpoint.resume_or_init``, parameters and momenta), at the epoch
+      after it;
+    * ``health.StepGuard.from_env()`` (``MX_STEP_TIMEOUT``,
+      ``MX_HEARTBEAT_FILE``) guards every batch, and the ``worker.step``
+      fault site fires at each batch's start;
+    * each epoch ends with ``StepGuard.epoch_end`` and
+      ``CheckpointManager.save(epoch, ...)``;
+    * under ``MX_ELASTIC`` a SIGTERM sets a flag, and the loop drains at
+      the next epoch boundary: it synchronises the card, saves, and exits
+      0;
+    * any death but ``SystemExit(0)`` leaves ``telemetry.dump_crash`` in
+      ``MX_CRASH_DIR``.
+
+    With ``--out`` it appends one JSON event a line to
+    ``<out>.rank<r>.log`` (start, each batch's start, each step with the
+    kernels' launch counts, each save, the drain) and at the end writes
+    the parameters to ``<out>.rank<r>.npz``; it prints one line
+    ``RESUME_DONE {...}``.  Run it under the launcher::
+
+        python -m mxnet_tpu_torch.tools.launch -n 2 --restart on-failure \\
+            --fault 'worker.step:crash:after=5' -- python chip_smoke.py \\
+            --resume-worker --ckpt-dir DIR --out DIR/run [--device cpu \\
+            --size tiny]
+    """
+    import argparse
+    import signal
+    # imported here, so that the restore time below is the load's alone
+    import torch.distributed.checkpoint  # noqa: F401
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import fault, health, telemetry
+    from mxnet_tpu_torch.base import get_env
+    from mxnet_tpu_torch.checkpoint import resume_or_init
+    from mxnet_tpu_torch.ops import _kernels
+    from mxnet_tpu_torch.parallel import TrainStep
+    p = argparse.ArgumentParser(description=resume_worker.__doc__)
+    p.add_argument("--ckpt-dir", required=True,
+                   help="checkpoint root; each rank uses <dir>/rank<r>")
+    p.add_argument("--out", default=None,
+                   help="write <out>.rank<r>.log and <out>.rank<r>.npz")
+    p.add_argument("--epochs", type=int, default=RESUME_EPOCHS)
+    p.add_argument("--batches", type=int, default=RESUME_BATCHES)
+    p.add_argument("--dtype", default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--device", default="gpu", choices=["gpu", "cpu"])
+    p.add_argument("--size", default="base", choices=sorted(RESUME_SIZES))
+    args = p.parse_args(argv)
+    rank = int(os.environ.get("MX_PROCESS_ID", "0"))
+    if get_env("MX_NAN_POLICY", ""):
+        raise SystemExit("resume-worker: MX_NAN_POLICY needs the gradients "
+                         "between backward and the update, which TrainStep "
+                         "applies inside its step")
+    if args.device == "gpu":
+        if not torch.cuda.is_available():
+            raise SystemExit("resume-worker: CUDA is not available")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        ctx = mx.gpu(0)
+    else:
+        dev, ctx = torch.device("cpu"), mx.cpu()
+    events = open("%s.rank%d.log" % (args.out, rank), "a") \
+        if args.out else None
+
+    def record(**ev):
+        if events is not None:
+            ev.update(pid=os.getpid(), t=time.time())
+            events.write(json.dumps(ev) + "\n")
+            events.flush()
+
+    drain = None
+    if get_env("MX_ELASTIC", 0, int):
+        drain = threading.Event()
+        signal.signal(signal.SIGTERM, lambda signum, frame: drain.set())
+    vocab, batch, seq_len = RESUME_SIZES[args.size][3:]
+    with ctx:
+        step = TrainStep(resume_bert(args.size, seq_len, dev, args.dtype),
+                         resume_loss, device=dev, learning_rate=TRAIN_LR,
+                         momentum=TRAIN_MOMENTUM)
+        t0 = time.perf_counter()
+        state, start, mgr = resume_or_init(
+            os.path.join(args.ckpt_dir, "rank%d" % rank),
+            lambda: {"params": step.params, "opt_state": step.opt_state})
+        record(event="start", process_start=process_start_wall(),
+               start_epoch=start, restore_s=time.perf_counter() - t0,
+               generation=os.environ.get("MX_ELASTIC_EPOCH"))
+        guard = health.StepGuard.from_env()
+        _kernels.reset_launches()
+        steps = 0
+        try:
+            for epoch in range(start, args.epochs):
+                for nbatch in range(args.batches):
+                    guard.batch_start()
+                    record(event="batch", epoch=epoch, batch=nbatch)
+                    fault.fire("worker.step")
+                    loss = float(step(*resume_batch_host(
+                        epoch, nbatch, batch, seq_len, vocab)))
+                    steps += 1
+                    guard.batch_end(epoch, nbatch)
+                    record(event="step", epoch=epoch, batch=nbatch,
+                           loss=loss, launches=_kernels.launch_counts())
+                guard.epoch_end(epoch)
+                draining = drain is not None and drain.is_set()
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mgr.save(epoch, state)
+                record(event="saved", epoch=epoch,
+                       save_s=time.perf_counter() - t0,
+                       bytes=_state_bytes(state))
+                if draining:
+                    record(event="drain", epoch=epoch)
+                    raise SystemExit(0)
+        except BaseException as e:
+            # an elastic drain's SystemExit(0) is a clean quiesce, not a
+            # death
+            if not (isinstance(e, SystemExit) and not e.code):
+                telemetry.dump_crash("resume-worker: %r" % (e,))
+            raise
+        finally:
+            guard.close()
+    if args.out:
+        np.savez("%s.rank%d.npz" % (args.out, rank),
+                 **{n: t.detach().float().cpu().numpy()
+                    for n, t in step.params.items()})
+    record(event="done", steps=steps)
+    emit("RESUME_DONE " + json.dumps({
+        "rank": rank, "pid": os.getpid(), "start_epoch": start,
+        "steps": steps, "launches": _kernels.launch_counts(),
+        "generation": os.environ.get("MX_ELASTIC_EPOCH")}))
+
+
+def resume_part_a(dev, tmp, smi):
+    """(a) In one process, BERT-base bf16 at the bench's configuration
+    (batch 16, T = 512): 3 steps, ``TrainStep.save``, a fresh step's
+    ``restore`` and 3 more steps equal 6 uninterrupted steps bitwise
+    (parameters and momenta); ``CheckpointManager(max_to_keep=2)`` over 3
+    saves keeps the last 2; an armed ``checkpoint.commit:crash`` leaves the
+    previous checkpoint restorable and bitwise intact.  Returns its record
+    with the kernels' launches."""
+    # imported here, so that the first save's time below is the save's
+    import torch.distributed.checkpoint  # noqa: F401
+    from mxnet_tpu_torch import fault
+    from mxnet_tpu_torch.checkpoint import CheckpointManager, saved_specs
+    from mxnet_tpu_torch.ops import _kernels
+    from mxnet_tpu_torch.parallel import TrainStep
+    batches = [resume_batch_host(0, i, TRAIN_BATCH, SEQ_LEN, VOCAB)
+               for i in range(6)]
+
+    def new_step():
+        return TrainStep(dist_bert(dev, "bfloat16"), resume_loss, device=dev,
+                         learning_rate=TRAIN_LR, momentum=TRAIN_MOMENTUM)
+
+    def state_of(s):
+        return {"params": s.params, "opt_state": s.opt_state}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def same(x, y):
+        return all(torch.equal(x[k][n], y[k][n]) for k in x for n in x[k])
+
+    path = os.path.join(tmp, "a", "step3")
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    a = new_step()
+    for i in range(3):
+        a(*batches[i])
+    save_s = timed(lambda: a.save(path))
+    nbytes = _state_bytes(state_of(a))
+    for i in range(3, 6):
+        a(*batches[i])
+    b = new_step()
+    for part in state_of(b).values():      # every tensor must be restored
+        for t in part.values():
+            t.fill_(0.5)
+    restore_s = timed(lambda: b.restore(path))
+    at3 = {k: {n: t.clone() for n, t in v.items()}
+           for k, v in state_of(b).items()}
+    for i in range(3, 6):
+        b(*batches[i])
+    torch.cuda.synchronize()
+    launches = _kernels.launch_counts()
+    layers = RESUME_SIZES["base"][0]
+    if any(launches[k] != layers * 9 for k in _FLASH):
+        raise RuntimeError("resume (a): launched %s in 9 steps, expected %d "
+                           "of each of %s" % (launches, layers * 9, _FLASH))
+    bitwise = same(state_of(a), state_of(b))
+    if not bitwise:
+        raise RuntimeError("resume (a): 3 steps, save, restore and 3 steps "
+                           "differ from 6 uninterrupted steps")
+    specs = saved_specs(path)
+    if specs is None or specs["mesh_axes"] != {"dp": 1} or \
+            specs["leaf_specs"] != [[]] * (2 * len(a.params)):
+        raise RuntimeError("resume (a): sidecar %s" % (specs,))
+    mgr = CheckpointManager(os.path.join(tmp, "a", "mgr"), max_to_keep=2)
+    mgr_s = [timed(lambda s=s: mgr.save(s, state_of(b))) for s in range(3)]
+    if mgr.all_steps() != [1, 2]:
+        raise RuntimeError("resume (a): max_to_keep=2 over 3 saves kept %s"
+                           % mgr.all_steps())
+    fault.inject("checkpoint.commit", action="crash")
+    try:
+        a.save(path)                     # a holds step 6: the kill
+        raise RuntimeError("resume (a): checkpoint.commit:crash did not "
+                           "fire")
+    except SystemExit:
+        pass
+    finally:
+        fault.clear()
+    debris = os.path.exists(path + ".saving-tmp")
+    crash_restore_s = timed(lambda: b.restore(path))
+    intact = same(at3, state_of(b))
+    if not (debris and intact):
+        raise RuntimeError("resume (a): after a kill in the commit the "
+                           "previous checkpoint is %s (debris %s)"
+                           % ("intact" if intact else "changed", debris))
+    gb = nbytes / 1e9
+    rec = {"part": "a", "state_bytes": nbytes, "save_s": save_s,
+           "save_GBps": gb / save_s, "restore_s": restore_s,
+           "restore_GBps": gb / restore_s, "manager_save_s": mgr_s,
+           "kept_steps": mgr.all_steps(), "bitwise": bitwise,
+           "commit_crash_intact": intact,
+           "commit_crash_restore_s": crash_restore_s,
+           "launches": launches, "card": smi}
+    del a, b, at3
+    return rec
+
+
+def resume_job(tmp, tag, n, launcher_args=(), env=None,
+               worker_args=()):
+    """Start ``python -m mxnet_tpu_torch.tools.launch -n n`` over
+    ``chip_smoke.py --resume-worker`` into ``tmp/<tag>``, its output into
+    files; returns the job (a dict)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(tmp, tag)
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n",
+           str(n), "--launcher", "local", *launcher_args, "--",
+           sys.executable, os.path.join(root, "chip_smoke.py"),
+           "--resume-worker", "--ckpt-dir", out, "--out", out,
+           *worker_args]
+    full_env = dict(os.environ, MX_CRASH_DIR=os.path.join(tmp, tag + ".crash"),
+                    **(env or {}))
+    full_env.pop("MX_FAULT_INJECT", None)
+    stdout = open(out + ".stdout", "w")
+    stderr = open(out + ".stderr", "w")
+    # a session of its own: resume_stop ends the launcher and its workers
+    proc = subprocess.Popen(cmd, cwd=root, env=full_env, stdout=stdout,
+                            stderr=stderr, text=True, start_new_session=True)
+    return {"tag": tag, "out": out, "proc": proc, "files": (stdout, stderr),
+            "t0": time.perf_counter()}
+
+
+def resume_stop(job):
+    """Kill a job's launcher and every process it started, if running."""
+    import signal
+    if job["proc"].poll() is None:
+        os.killpg(job["proc"].pid, signal.SIGKILL)
+        job["proc"].wait()
+
+
+def resume_wait(job, timeout=RESUME_TIMEOUT):
+    """Wait for a job (killing it past ``timeout``): raises unless it exits
+    0; returns its stdout, stderr, events by pid and seconds."""
+    proc = job["proc"]
+    try:
+        proc.wait(timeout=max(1.0, timeout - (time.perf_counter()
+                                              - job["t0"])))
+    except subprocess.TimeoutExpired:
+        resume_stop(job)
+    secs = time.perf_counter() - job["t0"]
+    for f in job["files"]:
+        f.close()
+    with open(job["out"] + ".stdout") as f:
+        out = f.read()
+    with open(job["out"] + ".stderr") as f:
+        err = f.read()
+    if proc.returncode != 0:
+        raise RuntimeError("resume (%s): the launcher exited %s after %.1f "
+                           "s:\n%s\n%s" % (job["tag"], proc.returncode, secs,
+                                           out[-3000:], err[-5000:]))
+    return dict(job, stdout=out, stderr=err, seconds=secs,
+                events=resume_events(job["out"]))
+
+
+def resume_events(out):
+    """Every worker process's events, by rank and pid in start order."""
+    by_proc = {}
+    for path in sorted(os.listdir(os.path.dirname(out))):
+        name = os.path.basename(out) + ".rank"
+        if path.startswith(name) and path.endswith(".log"):
+            rank = int(path[len(name):-4])
+            with open(os.path.join(os.path.dirname(out), path)) as f:
+                for line in f:
+                    ev = json.loads(line)
+                    by_proc.setdefault((rank, ev["pid"]), []).append(ev)
+    return sorted(by_proc.items(), key=lambda kv: kv[1][0]["t"])
+
+
+def resume_kernel_counts(job, per_step):
+    """Each worker process's K1-K3 launches: ``per_step`` a step of each,
+    times the steps it ran (its last step event's counts); returns their
+    sum and the steps."""
+    total, steps = dict.fromkeys(_FLASH, 0), 0
+    for (rank, pid), evs in job["events"]:
+        ran = [e for e in evs if e["event"] == "step"]
+        counts = ran[-1]["launches"] if ran else dict.fromkeys(_FLASH, 0)
+        for k in _FLASH:
+            if counts.get(k, 0) != per_step * len(ran):
+                raise RuntimeError(
+                    "resume (%s): rank %d pid %d ran %d steps and launched "
+                    "%s %d times, expected %d" % (
+                        job["tag"], rank, pid, len(ran), k,
+                        counts.get(k, 0), per_step * len(ran)))
+            total[k] += counts.get(k, 0)
+        steps += len(ran)
+    return total, steps
+
+
+def resume_compare(job, want, ranks):
+    """Each rank's final parameters against the reference run's: the
+    largest absolute difference, whether bitwise; raises past rtol 1e-5 /
+    atol 1e-6."""
+    worst, bitwise = 0.0, True
+    for rank in ranks:
+        got = np.load("%s.rank%d.npz" % (job["out"], rank))
+        if set(got.files) != set(want.files):
+            raise RuntimeError("resume (%s): rank %d's parameter names "
+                               "differ" % (job["tag"], rank))
+        for k in want.files:
+            d = np.abs(got[k] - want[k])
+            worst = max(worst, float(d.max()))
+            bitwise = bitwise and np.array_equal(got[k], want[k])
+            if not np.all(d <= RESUME_ATOL + RESUME_RTOL * np.abs(want[k])):
+                raise RuntimeError(
+                    "resume (%s): rank %d %s differs from the uninterrupted "
+                    "run by %.3g" % (job["tag"], rank, k, float(d.max())))
+    return {"max_abs_diff": worst, "bitwise": bitwise}
+
+
+def resume_restarts(job):
+    """Restart-to-first-step latency of each restarted process: from its
+    predecessor's last batch start (the fault fired right after it) to the
+    process's start, on to the end of its restore (imports, the model, the
+    checkpoint) and to its first completed step."""
+    last, out = {}, []
+    for (rank, pid), evs in job["events"]:
+        start = evs[0]
+        first = next((e for e in evs if e["event"] == "step"), None)
+        if rank in last and first is not None:
+            dead = last[rank]
+            out.append({"rank": rank, "start_epoch": start["start_epoch"],
+                        "death_to_start_s": start["process_start"] - dead,
+                        "start_to_restored_s":
+                            start["t"] - start["process_start"],
+                        "start_to_first_step_s":
+                            first["t"] - start["process_start"],
+                        "restart_to_first_step_s": first["t"] - dead,
+                        "restore_s": start["restore_s"]})
+        batches = [e for e in evs if e["event"] == "batch"]
+        last[rank] = batches[-1]["t"] if batches else evs[-1]["t"]
+    return out
+
+
+def resume_done(job, n, generation=None):
+    """The RESUME_DONE records of the workers of ``generation`` (None: not
+    elastic); raises unless there are ``n``."""
+    done = [json.loads(line[len("RESUME_DONE "):])
+            for line in job["stdout"].splitlines()
+            if line.startswith("RESUME_DONE ")]
+    done = [d for d in done if d["generation"] == generation]
+    if len(done) != n:
+        raise RuntimeError("resume (%s): %d RESUME_DONE lines, expected %d:"
+                           "\n%s" % (job["tag"], len(done), n,
+                                     job["stdout"][-2000:]))
+    return done
+
+
+def resume_expect(job, *needles):
+    for needle in needles:
+        if needle not in job["stderr"]:
+            raise RuntimeError("resume (%s): %r not in the launcher's "
+                               "stderr:\n%s" % (job["tag"], needle,
+                                                job["stderr"][-4000:]))
+
+
+def resume_elastic(tmp, worker_args=(), grow=(1, 2), timeout=RESUME_TIMEOUT):
+    """(c) ``--elastic --resize-file F --drain-timeout 60`` with ``grow[0]``
+    workers, F set to ``grow[1]`` once rank 0's checkpoint directory
+    appears.  Returns the job, the interleaving and the drain's times."""
+    job = resume_job(tmp, "elastic", grow[0], [
+        "--elastic", "--resize-file", os.path.join(tmp, "elastic.resize"),
+        "--drain-timeout", "60"], worker_args=worker_args)
+    ckpt0 = os.path.join(job["out"], "rank0")
+    deadline = time.perf_counter() + timeout
+    while not os.path.isdir(ckpt0) and job["proc"].poll() is None and \
+            time.perf_counter() < deadline:
+        time.sleep(0.02)
+    t_resize = time.time()
+    with open(os.path.join(tmp, "elastic.resize.tmp"), "w") as f:
+        f.write(str(grow[1]))
+    os.replace(os.path.join(tmp, "elastic.resize.tmp"),
+               os.path.join(tmp, "elastic.resize"))
+    try:
+        job = resume_wait(job, timeout)
+    finally:
+        resume_stop(job)
+    resume_expect(job, "elastic resize")
+    gen0 = [evs for (rank, _pid), evs in job["events"]
+            if rank == 0 and evs[0].get("generation") == "0"]
+    drained = [e for evs in gen0 for e in evs if e["event"] == "drain"]
+    finished = any(e["event"] == "done" for evs in gen0 for e in evs)
+    if drained:
+        where = "drain at epoch %d" % drained[0]["epoch"]
+        drain_s = drained[0]["t"] - t_resize
+    elif finished:
+        where, drain_s = "after the fit ended", None
+    else:
+        where, drain_s = "before the first epoch ended (no drain)", None
+    gen1 = [evs for (_rank, _pid), evs in job["events"]
+            if evs[0].get("generation") == "1"]
+    first = min((e["t"] for evs in gen1 for e in evs
+                 if e["event"] == "step"), default=None)
+    return job, {"interleaving": where, "resize_to_drained_s": drain_s,
+                 "resize_to_first_step_s":
+                     None if first is None else first - t_resize}
+
+
+def resume_part_b(tmp, worker_args=(), per_step=RESUME_SIZES["base"][0],
+                  grow=(1, 2)):
+    """(b) and (c) Under the port's launcher, all five jobs at once: the
+    reference ``-n 1``; the crash run ``-n 2 --restart on-failure
+    --max-restarts 2 --fault worker.step:crash:after=5``; the watchdog run
+    ``-n 1 --restart on-failure`` with ``worker.step:delay:delay=60,after=5``
+    and ``MX_STEP_TIMEOUT``; the heartbeat run, the same delay with
+    ``--hang-timeout`` and no watchdog; and (c), ``-n 1 --elastic`` grown
+    to 2 (``grow``).  Each ends at exit 0 with every rank's final
+    parameters within rtol 1e-5 / atol 1e-6 of the reference run's, and
+    every worker process launched each of K1-K3 ``per_step`` times a step
+    (BERT-base's 12 layers on the card; none on the CPU).  Returns the
+    records."""
+    delay = "worker.step:delay:delay=60,after=%d" % RESUME_FAULT_AT
+    restart = ["--restart", "on-failure", "--max-restarts", "2"]
+    jobs = [resume_job(tmp, "ref", 1, worker_args=worker_args),
+            resume_job(tmp, "crash", 2, restart + [
+                "--fault", "worker.step:crash:after=%d" % RESUME_FAULT_AT],
+                worker_args=worker_args),
+            resume_job(tmp, "watchdog", 1, restart + ["--fault", delay],
+                       env={"MX_STEP_TIMEOUT": RESUME_STEP_TIMEOUT},
+                       worker_args=worker_args),
+            resume_job(tmp, "heartbeat", 1, restart + [
+                "--fault", delay, "--hang-timeout", RESUME_HANG_TIMEOUT],
+                worker_args=worker_args)]
+    try:
+        elastic, elastic_rec = resume_elastic(tmp, worker_args, grow)
+        ref, crash, watchdog, heartbeat = [resume_wait(j) for j in jobs]
+    finally:
+        for j in jobs:
+            resume_stop(j)
+    resume_done(ref, 1)
+    resume_expect(crash, "rank 0 failed (exit", "rank 1 failed (exit",
+                  "restart 1/")
+    resume_expect(watchdog, "watchdog: no training-step progress",
+                  "exit 86", "MX_STEP_TIMEOUT watchdog", "restart 1/")
+    resume_expect(heartbeat, "heartbeat stale", "restart 1/")
+    want = np.load(ref["out"] + ".rank0.npz")
+    recs = {}
+    for job, n in [(ref, 1), (crash, 2), (watchdog, 1), (heartbeat, 1),
+                   (elastic, grow[1])]:
+        done = resume_done(job, n, "1" if job is elastic else None)
+        launches, steps = resume_kernel_counts(job, per_step)
+        rec = {"seconds": job["seconds"], "steps": steps,
+               "launches": launches,
+               "start_epochs": [d["start_epoch"] for d in sorted(
+                   done, key=lambda d: d["rank"])],
+               "crash_dumps": sorted(os.listdir(job["out"] + ".crash"))
+               if os.path.isdir(job["out"] + ".crash") else []}
+        if job is elastic:
+            rec.update(elastic_rec)
+        else:
+            rec["restarts"] = resume_restarts(job)
+        if job is not ref:
+            rec.update(resume_compare(job, want, range(n)))
+        recs[job["tag"]] = rec
+    for tag in ("crash", "watchdog", "heartbeat"):
+        if recs[tag]["start_epochs"] != [1] * (2 if tag == "crash" else 1):
+            raise RuntimeError("resume (%s): the restarted ranks began at "
+                               "epochs %s, not after epoch 0's checkpoint"
+                               % (tag, recs[tag]["start_epochs"]))
+    return recs
+
+
+def phase_resume(smi):
+    """Supervised training: ``checkpoint``, ``health``, ``TrainStep.save``
+    / ``restore`` and the launcher's supervisor, no kernel of their own
+    (K1-K3 run in BERT-base and are counted under ``resume``).  (a) in this
+    process; (b) and (c) ``chip_smoke.py --resume-worker`` under ``python
+    -m mxnet_tpu_torch.tools.launch``, the five jobs at once, BERT-base
+    fp32, batch 8, T = 128, 2 epochs of 4 batches.  Returns every kernel's
+    launches in the counted runs (the ``resume`` path)."""
+    import tempfile
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-resume-") as tmp:
+        t0 = time.perf_counter()
+        a = resume_part_a(dev, tmp, smi)
+        a["seconds"] = time.perf_counter() - t0
+        log("resume: (a) %s" % json.dumps(a))
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        recs = resume_part_b(tmp)
+        secs_b = time.perf_counter() - t0
+    for tag, rec in recs.items():
+        log("resume: (%s) %s %s" % ("c" if tag == "elastic" else "b", tag,
+                                    json.dumps(rec)))
+    launches = dict(a["launches"])
+    for rec in recs.values():
+        for k, v in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    log("resume: %s" % json.dumps({"launches": launches,
+                                   "jobs_s": secs_b,
+                                   "phase_s": time.perf_counter() - t_phase,
+                                   "card": smi}))
+    return launches
+
+
 def kernel_row(name, source, replaces, launches, fp32, bf16, extra=None):
     """One entry of the kernels line: the fp32 figures under the contract's
     keys, the bf16 ones under ``bf16_``, and those of ``extra`` (another
@@ -5347,6 +5979,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     ps_launches = phase_ps(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resume_launches = phase_resume(smi)
     by_path = {k: {"serve": serve_launches[k], "train": train_launches[k],
                    "imperative": imperative_launches[k],
                    "resnet": resnet_launches[k],
@@ -5354,7 +5989,8 @@ def main():
                    "data": data_launches[k], "det": det_launches[k],
                    "ssd": ssd_launches[k], "lm": lm_launches[k],
                    "zoo": zoo_launches[k], "dist": dist_launches.get(k, 0),
-                   "ps": ps_launches.get(k, 0)}
+                   "ps": ps_launches.get(k, 0),
+                   "resume": resume_launches.get(k, 0)}
                for k in imperative_launches}
     fp32, bf16 = torch.float32, torch.bfloat16
     kernels = [
@@ -5382,7 +6018,9 @@ def main():
                      "lm": lm_launches.get("tpu_kernel:" + body, 0),
                      "zoo": zoo_launches.get("tpu_kernel:" + body, 0),
                      "dist": dist_launches.get("tpu_kernel:" + body, 0),
-                     "ps": ps_launches.get("tpu_kernel:" + body, 0)},
+                     "ps": ps_launches.get("tpu_kernel:" + body, 0),
+                     "resume": resume_launches.get("tpu_kernel:" + body,
+                                                   0)},
                     user[(body, fp32)], user[(body, bf16)],
                     {"default_grid_": user[(body + ":default_grid", fp32)],
                      "bf16_default_grid_": user[(body + ":default_grid",
@@ -5402,6 +6040,8 @@ if __name__ == "__main__":
         dist_worker(sys.argv[2])
     elif sys.argv[1:2] == ["--ps-worker"]:
         ps_worker(sys.argv[2], sys.argv[3])
+    elif sys.argv[1:2] == ["--resume-worker"]:
+        resume_worker(sys.argv[2:])
     elif sys.argv[1:2] == ["--train-dist-async"]:
         train_dist_async(sys.argv[2:])
     else:

@@ -31,7 +31,12 @@ GPU, gloo on the CPU) with fusion buckets and gradient compression,
 launcher ``python -m mxnet_tpu_torch.tools.launch``; then the
 ``dist_async`` parameter server (``kvstore.server``, the store
 ``KVStoreDistAsync`` and the launcher's ``-s``) with the host modules it
-stands on: ``fault``, ``profiler``, ``telemetry`` and ``engine``.
+stands on: ``fault``, ``profiler``, ``telemetry`` and ``engine``; then
+supervised training: ``checkpoint`` (crash-safe checkpoints on
+``torch.distributed.checkpoint``, ``TrainStep.save`` / ``restore``),
+``health`` (the NaN policy, the step watchdog, the heartbeat file) and
+the launcher's supervisor (``--restart``, ``--hang-timeout``,
+``--elastic``) and ssh mode.
 """
 import sys as _sys
 
@@ -58,6 +63,8 @@ from . import gluon
 from . import serve
 from . import kvstore
 from . import parallel
+from . import checkpoint
+from . import health
 from . import tpu_kernel
 from . import random
 from . import recordio
@@ -74,5 +81,6 @@ __all__ = ["MXNetError", "get_env", "Context", "Device", "cpu", "gpu",
            "initializer", "init", "fault", "profiler", "telemetry",
            "engine", "ops", "lr_scheduler", "optimizer", "metric", "autograd",
            "ndarray", "nd", "gluon", "serve", "kvstore", "parallel",
+           "checkpoint", "health",
            "tpu_kernel",
            "random", "recordio", "image", "io", "amp"]

@@ -79,6 +79,23 @@ ENV_CATALOG = {
     "MX_FAULT_INJECT": ("", "Fault-injection spec "
                         "'site:action[:k=v,...];...' armed at import "
                         "(launcher --fault); see fault.py."),
+    "MX_NAN_POLICY": ("", "Training-loop gradient guard (health.py): "
+                      "'warn' logs non-finite gradients, 'skip_batch' also "
+                      "drops the poisoned update so the parameters stay "
+                      "finite, 'raise' fails the rank fast for the "
+                      "supervisor to restart; empty turns it off."),
+    "MX_STEP_TIMEOUT": ("", "Seconds a training step may stall before the "
+                        "watchdog thread dumps every thread's stack to "
+                        "stderr and exits the process with code 86, so "
+                        "the launcher's --restart on-failure restarts the "
+                        "rank from its last checkpoint; empty turns it "
+                        "off."),
+    "MX_HEARTBEAT_FILE": ("", "Per-rank liveness file the training loop "
+                          "atomically rewrites every batch; the launcher's "
+                          "--hang-timeout sets it for each worker and reads "
+                          "its mtime to tell a slow rank (fresh file) from "
+                          "a wedged one (stale file: killed and "
+                          "restarted)."),
     "MX_KVSTORE_RETRY_DEADLINE": ("60", "dist_async client: seconds to "
                                   "keep retrying a failed RPC (reconnect "
                                   "and replay) before the terminal "

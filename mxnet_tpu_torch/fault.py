@@ -25,6 +25,13 @@ Instrumented sites of the port (grep for ``fault.fire``):
   ``kvstore.recv``        before each dist_async client RPC receive
   ``server.handle``       server side, before dispatching a request
   ``kvstore.membership``  server side, before a JOIN/LEAVE mutation
+  ``checkpoint.commit``   between a checkpoint's write and its atomic
+                          rename (checkpoint.py)
+  ``worker.step``         start of each batch of a supervised training
+                          loop -- what ``launch --restart on-failure
+                          --fault 'worker.step:crash:after=N'`` kills into
+                          (a ``delay`` spec here models a hang for the
+                          ``MX_STEP_TIMEOUT`` watchdog)
 """
 from __future__ import annotations
 

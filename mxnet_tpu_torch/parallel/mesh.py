@@ -177,8 +177,13 @@ class TrainStep:
     mean over the global batch.  Batch statistics would differ (each rank
     would normalise by its own shard), so a block holding a BatchNorm
     raises over more than one rank until a synchronised batch norm is
-    ported.  The reference's tensor-parallel rules and sharded checkpoint
-    (``save``/``restore``) come with later slices.
+    ported.  The reference's tensor-parallel rules come with a later
+    slice.
+
+    :meth:`save` and :meth:`restore` checkpoint ``{"params",
+    "opt_state"}`` through :mod:`..checkpoint` (crash-safe; over a dp mesh
+    every rank calls both, collectively), so a restored step continues
+    bitwise where the saved one stopped.
     """
 
     def __init__(self, block: torch.nn.Module, loss_fn: Callable,
@@ -289,6 +294,28 @@ class TrainStep:
         for _ in range(k):
             loss = self._step(placed)
         return loss.float()
+
+    def _mesh(self) -> Mesh:
+        """The mesh the state lives on: a step without one runs on one
+        device, the reference's one-device mesh."""
+        if self.mesh is not None:
+            return self.mesh
+        return Mesh(np.asarray([0]), ("dp",))
+
+    def save(self, path: str) -> None:
+        """Checkpoint ``{"params", "opt_state"}`` to ``path``
+        (:func:`..checkpoint.save_sharded`; every leaf replicated on the
+        step's mesh)."""
+        from ..checkpoint import save_sharded
+        save_sharded(path, {"params": self.params,
+                            "opt_state": self.opt_state}, mesh=self._mesh())
+
+    def restore(self, path: str) -> None:
+        """Load a checkpoint of :meth:`save` in place into this step's
+        tensors, on its device and in its dtypes."""
+        from ..checkpoint import restore_sharded
+        restore_sharded(path, template={"params": self.params,
+                                        "opt_state": self.opt_state})
 
     def write_back(self, block: torch.nn.Module) -> None:
         """Copy the step's parameters into ``block``'s by name."""

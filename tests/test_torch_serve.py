@@ -284,11 +284,14 @@ def test_port_imports_neither_jax_nor_mxnet_tpu():
             "mxnet_tpu_torch.tools.launch, mxnet_tpu_torch.fault, "
             "mxnet_tpu_torch.profiler, mxnet_tpu_torch.telemetry, "
             "mxnet_tpu_torch.engine, mxnet_tpu_torch.kvstore.server, "
-            "mxnet_tpu_torch.kvstore.wire_verbs; "
+            "mxnet_tpu_torch.kvstore.wire_verbs, "
+            "mxnet_tpu_torch.checkpoint, mxnet_tpu_torch.health; "
+            "import torch.distributed.checkpoint; "
             "import chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "
-            "m.startswith('mxnet_tpu.')]; print(bad); "
+            "m.startswith('mxnet_tpu.') or m == 'orbax' or "
+            "m.startswith('orbax.')]; print(bad); "
             "sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
