@@ -311,6 +311,29 @@ Phases (each raises on failure, so any failure exits nonzero):
    process launched each of K1-K3 12 times a step it ran, replays
    included.  Printed: the restart-to-first-step latency of each
    restarted process, the drain's time and which interleaving happened.
+19. context -- sequence, pipeline and expert parallelism
+   (``parallel/ring.py``, ``pipeline.py``, ``moe.py``, ``collectives.py``),
+   no kernel of their own: ``chip_smoke.py --context-worker`` as two gloo
+   ranks on ``cuda:0`` under the port's launcher (their point-to-point and
+   all-to-all exchanges staged through pinned host buffers).  (a) The
+   port's copy of ``examples/train_long_context.py`` at BERT-base widths
+   (768, 12 heads, 12 layers), L = 16384, batch 1, fp32, on a (dp = 1, sp
+   = 2) mesh: 5 Adam steps through the ring (K1 on each hop, K2 and K3 on
+   each hop backward; a causal hop past the rank's own launches nothing),
+   one step through Ulysses; rank 0 then trains the model at sp = 1 on the
+   same seeds.  The first step's losses within 1e-4 of sp = 1's, Ulysses'
+   gradients within 1e-4 x max|ref|, the ring's within 1e-4 plus what the
+   ring's and sp = 1's attention gradients deviate from float64 at L =
+   16384 in the same run (4 heads, each within 2e-3), every ring loss
+   within 1e-3 relative, and each rank's K1-K3 launches equal to layers x
+   hops x steps.  Printed per rank: step
+   ms (CUDA events), peak memory, the hop's bytes and ms, K1's ms a hop.
+   (b) GPipe over pp = 2, a BERT-base encoder layer a stage, T = 512,
+   batch 16 in 4 microbatches: outputs and stage gradients against the
+   sequential stack, K1-K3 once a tick.  (c) Top-1 MoE over ep = 2, 8
+   BERT-base FFN experts, 4096 tokens a rank, capacity factor 2: outputs,
+   the auxiliary loss and gradients against the token-by-token
+   computation; the share of tokens dropped.
 
 The last lines of standard output are the ``nvidia-smi`` name and power
 limit, one JSON object ``{"kernels": [...]}`` and, last,
@@ -663,6 +686,10 @@ KERNEL_CASES = [
     ("d128", 2, 8, 512, 512, 128, torch.bfloat16, False, False),
     ("no-keys", 2, 3, 70, 0, 64, torch.float32, False, False),
     ("no-keys", 2, 3, 70, 0, 64, torch.bfloat16, False, False),
+    # a ring hop of phase_context's LM (L = 16384 over sp = 2): an earlier
+    # shard seen whole, and the rank's own, causal
+    ("ring-hop", 1, 12, 8192, 8192, 64, torch.float32, False, True),
+    ("ring-hop-diag", 1, 12, 8192, 8192, 64, torch.float32, True, True),
 ]
 
 
@@ -755,6 +782,8 @@ BWD_CASES = [
     ("top-left-causal", 2, 2, 64, 128, 64, torch.bfloat16, True, False),
     ("ragged-cross", 2, 2, 77, 333, 64, torch.float32, False, False),
     ("ragged-cross", 2, 2, 77, 333, 64, torch.bfloat16, False, False),
+    ("ring-hop", 1, 12, 8192, 8192, 64, torch.float32, False, True),
+    ("ring-hop-diag", 1, 12, 8192, 8192, 64, torch.float32, True, True),
 ]
 
 
@@ -819,7 +848,7 @@ def phase_bwd_kernels(peaks):
                    "mbytes": nbytes / 1e6, "ops": ops,
                    "max_abs_err": max(e[0] for e in errs)}
             rec.update(flash_bound(ops, nbytes, dtype, peaks))
-            results[(kern, dtype)] = rec
+            results[(kern, dtype, name)] = rec
         if timed:
             qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
             out = F.scaled_dot_product_attention(qg, kg, vg,
@@ -830,7 +859,7 @@ def phase_bwd_kernels(peaks):
             lib_ms, lib_dev_ms = time_ms(sdpa_bwd), device_ms(sdpa_bwd)
             del out, qg, kg, vg, sdpa_bwd
             for kern in ("flash_bwd_dq", "flash_bwd_dkv"):
-                rec = results[(kern, dtype)]
+                rec = results[(kern, dtype, name)]
                 rec.update(library_ms=lib_ms, library_device_ms=lib_dev_ms)
                 add_ratios(rec, rec.pop("ops"))
                 log("kernels: timing %s %s %s" % (kern, tag,
@@ -847,9 +876,9 @@ def log_library_ratios(fwd, bwd):
     against SDPA's fp32 forward, and K2 and K3 in fp32 against SDPA's fp32
     backward, as the pair that call replaces and each alone."""
     recs = [("K1", fwd[("bert-train", torch.bfloat16)], "forward"),
-            ("K2", bwd[("flash_bwd_dq", torch.bfloat16)],
+            ("K2", bwd[("flash_bwd_dq", torch.bfloat16, "bert-train")],
              "backward, dQ+dK+dV"),
-            ("K3", bwd[("flash_bwd_dkv", torch.bfloat16)],
+            ("K3", bwd[("flash_bwd_dkv", torch.bfloat16, "bert-train")],
              "backward, dQ+dK+dV")]
     for how, key in (("CUDA events", ""), ("device time", "device_")):
         ms = "kernel_ms" if not key else "device_ms"
@@ -866,8 +895,8 @@ def log_library_ratios(fwd, bwd):
             "%.4f ms" % (how, k1[ms], k1[key + "x_library"],
                          k1["library_" + key + "ms"], k1[key + "x_bound"],
                          k1["bound_ms"]))
-    dq, dkv = bwd[("flash_bwd_dq", torch.float32)], \
-        bwd[("flash_bwd_dkv", torch.float32)]
+    dq, dkv = bwd[("flash_bwd_dq", torch.float32, "bert-train")], \
+        bwd[("flash_bwd_dkv", torch.float32, "bert-train")]
     for how, key in (("CUDA events", ""), ("device time", "device_")):
         ms = "kernel_ms" if not key else "device_ms"
         lib = dq["library_" + key + "ms"]
@@ -5438,6 +5467,10 @@ def resume_worker(argv=None):
         torch.cuda.set_device(dev)
         ctx = mx.gpu(0)
     else:
+        # CPU workers run several to a host (the tests start eight at
+        # once): one intra-op thread each, or their thread pools contend
+        # and a step outlasts MX_STEP_TIMEOUT
+        torch.set_num_threads(1)
         dev, ctx = torch.device("cpu"), mx.cpu()
     events = open("%s.rank%d.log" % (args.out, rank), "a") \
         if args.out else None
@@ -5910,6 +5943,642 @@ def phase_resume(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 19. sequence, pipeline and expert parallelism
+# ---------------------------------------------------------------------------
+
+#: examples/train_long_context.py's model at BERT-base's widths (768, 12
+#: heads, so D = 64, 12 layers) and L = 16384, batch 1 (the phase's); the
+#: vocabulary and the corpus are the example's.  The CPU tests run it at
+#: LC_TINY (D = 64 too, so the ring takes its kernel route).
+LC_BASE = {"seq_len": 16384, "d_model": 768, "heads": 12, "layers": 12,
+           "vocab": 64, "batch": 1}
+LC_TINY = {"seq_len": 64, "d_model": 128, "heads": 2, "layers": 2,
+           "vocab": 64, "batch": 4}
+LC_LR = 3e-3                    # the example's default
+LC_STEPS = 5
+CONTEXT_TOL = 1e-4              # x max|ref|: the port's fp32 rule
+#: attention's own rule (x max|ref|), for the attention check of the LM's
+#: length against float64
+CONTEXT_ATTN_TOL = 2e-3
+#: the ring's first-step gradients against sp = 1's (x max|ref|).  K2 and K3
+#: in fp32 lose accuracy with the sequence's length: at L = 16384 sp = 1's
+#: attention gradients are up to 1.81e-4 x max from float64, the ring's
+#: 1.10e-4, and the two sides 1.57e-4 apart on the H100.  A fixed limit
+#: above that reading and below the sum of the two deviations and
+#: CONTEXT_TOL (3.91e-4); the deviations are logged beside it, not added
+CONTEXT_RING_TOL = 3e-4
+#: the losses of sp = 2 against sp = 1 after the first step: Adam divides
+#: each gradient by its own scale, so a gradient that differs in the
+#: rounding (up to CONTEXT_TOL x max|ref| at step 1) moves its parameter
+#: by up to 2 x lr where it is near zero; ten times the first step's rule
+CONTEXT_LOSS_RTOL = 1e-3
+CONTEXT_TIMEOUT = 600           # seconds the phase's launcher may take
+PIPE_WIDTH, PIPE_HEADS, PIPE_FFN = 768, 12, 3072    # a BERT-base layer
+PIPE_T, PIPE_BATCH, PIPE_MICRO = 512, 16, 4
+MOE_D, MOE_HIDDEN, MOE_EXPERTS = 768, 3072, 8       # BERT-base's FFN
+MOE_TOKENS, MOE_CF, MOE_AUX = 4096, 2.0, 0.01       # a rank's tokens
+
+
+def long_context_init(cfg, dev):
+    """The example's corpus permutation, then its parameters as a flat
+    dict by name, from ``RandomState(0)`` in its draw order (the
+    permutation; each layer's wqkv, wo, w1, w2; the embedding); returns
+    (params, rng, perm): the batches continue the same stream."""
+    d, vocab = cfg["d_model"], cfg["vocab"]
+    rng = np.random.RandomState(0)
+    perm = rng.permutation(vocab)
+
+    def g(*shape):
+        return torch.tensor(rng.randn(*shape) * 0.02, dtype=torch.float32,
+                            device=dev)
+
+    params = {}
+    for i in range(cfg["layers"]):
+        params.update({"layers.%d.wqkv" % i: g(d, 3 * d),
+                       "layers.%d.wo" % i: g(d, d),
+                       "layers.%d.w1" % i: g(d, 4 * d),
+                       "layers.%d.w2" % i: g(4 * d, d),
+                       "layers.%d.ln1" % i: torch.ones(d, device=dev),
+                       "layers.%d.ln2" % i: torch.ones(d, device=dev)})
+    params["emb"] = g(vocab, d)
+    params["lnf"] = torch.ones(d, device=dev)
+    return params, rng, perm
+
+
+def long_context_batch(rng, perm, batch, seq_len):
+    """The example's ``batch()``: a start token a row, then the map
+    ``perm`` applied L times; (tokens, targets)."""
+    seq = np.zeros((batch, seq_len + 1), np.int32)
+    seq[:, 0] = rng.randint(0, len(perm), batch)
+    for t in range(1, seq_len + 1):
+        seq[:, t] = perm[seq[:, t - 1]]
+    return seq[:, :-1], seq[:, 1:]
+
+
+def _lc_norm(x, gamma):
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    return gamma * (x - mu) / torch.sqrt(var + 1e-5)
+
+
+def long_context_loss(params, tokens, targets, cfg, attn):
+    """The example's ``loss_fn`` on this rank's tokens: the embedding; per
+    layer LN -> QKV -> ``attn`` -> WO and LN -> GELU MLP, with residuals;
+    the tied head; the mean next-token cross-entropy."""
+    import torch.nn.functional as F
+    x = params["emb"][tokens]
+    B, L, D = x.shape
+    for i in range(cfg["layers"]):
+        p = {n: params["layers.%d.%s" % (i, n)]
+             for n in ("wqkv", "wo", "w1", "w2", "ln1", "ln2")}
+        h = _lc_norm(x, p["ln1"])
+        qkv = (h @ p["wqkv"]).reshape(B, L, 3, cfg["heads"],
+                                      D // cfg["heads"])
+        o = attn(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]).reshape(B, L, D)
+        x = x + o @ p["wo"]
+        h = _lc_norm(x, p["ln2"])
+        x = x + F.gelu(h @ p["w1"], approximate="tanh") @ p["w2"]
+    logits = _lc_norm(x, params["lnf"]) @ params["emb"].T
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, targets[..., None].long()).mean()
+
+
+def mesh_mean(tensors, mesh, axes):
+    """Each tensor's mean over the ranks of ``axes``: one flat buffer,
+    all-reduced over each axis's group in turn."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    n = 1
+    for axis in axes:
+        if mesh.axis_size(axis) > 1:
+            dist.all_reduce(flat, group=mesh.group(axis))
+        n *= mesh.axis_size(axis)
+    flat /= n
+    return [f.view_as(t) for f, t in
+            zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
+def long_context_train(cfg, mesh, dev, steps, method="ring", lr=LC_LR):
+    """The port's copy of the example's training: its model, parameters,
+    corpus and Adam step, on a (dp, sp) mesh.  Each rank takes its (B/dp,
+    L/sp) shard of every global batch, attention is
+    ``context_parallel_attention(..., causal=True, method=method)`` over
+    sp, and each rank's loss is the mean over its tokens, so the gradients
+    (and the loss) are averaged over every rank of both axes.  Returns the
+    losses, the first step's gradients, the final parameters and each
+    step's ms (CUDA events on the card, the host clock on the CPU)."""
+    from mxnet_tpu_torch.parallel import context_parallel_attention
+    params, rng, perm = long_context_init(cfg, dev)
+    coords = mesh.coords()
+    bl = cfg["batch"] // mesh.axis_size("dp")
+    ll = cfg["seq_len"] // mesh.axis_size("sp")
+    rows = slice(coords["dp"] * bl, (coords["dp"] + 1) * bl)
+    cols = slice(coords["sp"] * ll, (coords["sp"] + 1) * ll)
+
+    def attn(q, k, v):
+        return context_parallel_attention(q, k, v, mesh, causal=True,
+                                          method=method)
+
+    names = list(params)
+    mom = {n: torch.zeros_like(p) for n, p in params.items()}
+    vel = {n: torch.zeros_like(p) for n, p in params.items()}
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    out = {"losses": [], "step_ms": [], "grads": None}
+    for t in range(steps):
+        tok, tgt = (torch.from_numpy(np.ascontiguousarray(a[rows, cols]))
+                    .to(dev) for a in long_context_batch(
+                        rng, perm, cfg["batch"], cfg["seq_len"]))
+        if dev.type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+        else:
+            t0 = time.perf_counter()
+        leaves = [params[n].detach().requires_grad_(True) for n in names]
+        loss = long_context_loss(dict(zip(names, leaves)), tok, tgt, cfg,
+                                 attn)
+        grads = torch.autograd.grad(loss, leaves)
+        *grads, loss = mesh_mean(list(grads) + [loss.detach()[None]], mesh,
+                                 ("sp", "dp"))
+        with torch.no_grad():
+            tt = t + 1
+            for n, g in zip(names, grads):
+                mom[n] = b1 * mom[n] + (1 - b1) * g
+                vel[n] = b2 * vel[n] + (1 - b2) * g * g
+                params[n] = params[n] - lr * (mom[n] / (1 - b1 ** tt)) / (
+                    torch.sqrt(vel[n] / (1 - b2 ** tt)) + eps)
+        if dev.type == "cuda":
+            end.record()
+            end.synchronize()
+            out["step_ms"].append(start.elapsed_time(end))
+        else:
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["losses"].append(float(loss))
+        if t == 0:
+            out["grads"] = dict(zip(names, grads))
+        del leaves, grads
+    out["params"] = params
+    return out
+
+
+def long_context_worker(argv=None):
+    """The port's copy of ``examples/train_long_context.py``: a causal
+    transformer LM whose sequence is split over the ``sp`` axis of a (dp,
+    sp) mesh, every attention layer ``parallel.ring_attention``.  Run
+    under the launcher::
+
+        python -m mxnet_tpu_torch.tools.launch -n 2 --launcher local \\
+            -- python chip_smoke.py --long-context-worker --sp 2 \\
+            [--device cpu] [--seq-len 512 ...]
+
+    Prints the example's ``step``, ``final loss`` lines (rank 0)."""
+    import argparse
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.device import resolve
+    from mxnet_tpu_torch.parallel import init_process_group, make_mesh
+    p = argparse.ArgumentParser(description=long_context_worker.__doc__)
+    p.add_argument("--seq-len", type=int, default=512)
+    p.add_argument("--d-model", type=int, default=64)
+    p.add_argument("--heads", type=int, default=4)
+    p.add_argument("--layers", type=int, default=2)
+    p.add_argument("--vocab", type=int, default=64)
+    p.add_argument("--batch", type=int, default=4, help="global batch")
+    p.add_argument("--steps", type=int, default=30)
+    p.add_argument("--lr", type=float, default=LC_LR)
+    p.add_argument("--sp", type=int, default=0,
+                   help="sequence-parallel degree (0 = all ranks)")
+    p.add_argument("--device", default="gpu", choices=["gpu", "cpu"])
+    args = p.parse_args(argv)
+    if args.device == "cpu":
+        torch.set_num_threads(1)
+    ctx = mx.cpu() if args.device == "cpu" else mx.gpu(0)
+    # a caller that already joined the group keeps it
+    own_group = not dist.is_initialized()
+    dev = init_process_group(device=ctx) if own_group else resolve(ctx)
+    world = dist.get_world_size()
+    sp = args.sp or world
+    mesh = make_mesh(("dp", "sp"), (-1, sp))
+    cfg = {"seq_len": args.seq_len, "d_model": args.d_model,
+           "heads": args.heads, "layers": args.layers, "vocab": args.vocab,
+           "batch": args.batch}
+    if dist.get_rank() == 0:
+        emit("mesh: %s | L=%d (L/sp=%d per rank)" % (
+            dict(mesh.shape), args.seq_len, args.seq_len // sp))
+    res = long_context_train(cfg, mesh, dev, args.steps, lr=args.lr)
+    if dist.get_rank() == 0:
+        for i, loss in enumerate(res["losses"]):
+            if i % 10 == 0 or i == args.steps - 1:
+                emit("step %3d  loss %.4f" % (i, loss))
+        emit("final loss %.4f (from %.4f) over L=%d with sp=%d"
+             % (res["losses"][-1], res["losses"][0], args.seq_len, sp))
+    if own_group:
+        dist.destroy_process_group()
+
+
+def _k123(counts):
+    return {k: counts.get(k, 0) for k in _FLASH}
+
+
+def context_attention_check(dev, mesh):
+    """The ring's attention alone at the LM's length (L = 16384, causal,
+    4 heads of 64, fp32): its output and gradients (sp = 2), one rank's on
+    the whole L (K1-K3 at T = 16384) and the plain version's in float64
+    (rank 0), each side's deviation from float64 x max|ref| for O, dQ, dK
+    and dV; None on the other ranks."""
+    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.parallel import ring_attention
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    L, n, idx = LC_BASE["seq_len"], mesh.axis_size("sp"), \
+        mesh.axis_index("sp")
+    q, k, v, do = (torch.randn((1, L, 4, 64), generator=g, device=dev)
+                   for _ in range(4))
+    mine = slice(idx * L // n, (idx + 1) * L // n)
+    leaves = [t[:, mine].clone().requires_grad_(True) for t in (q, k, v)]
+    out = ring_attention(*leaves, causal=True, mesh=mesh)
+    out.backward(do[:, mine])
+    ring = []
+    for part in [out.detach()] + [t.grad for t in leaves]:
+        every = [torch.empty_like(part) for _ in range(n)]
+        dist.all_gather(every, part.contiguous(), group=mesh.group("sp"))
+        ring.append(torch.cat(every, dim=1).transpose(1, 2))
+    del out, leaves
+    if idx != 0:
+        return None
+    scale = 64 ** -0.5
+    heads = [t.transpose(1, 2).contiguous() for t in (q, k, v, do)]
+    leaves = [t.clone().requires_grad_(True) for t in heads[:3]]
+    o1 = att.flash_attention(*leaves, scale, True)
+    o1.backward(heads[3])
+    one = [o1.detach()] + [t.grad for t in leaves]
+    del o1, leaves
+    x = [t.double() for t in heads]
+    o64, lse64 = att.flash_attention_plain(*x[:3], scale, True)
+    ref = [o64, att.flash_bwd_dq_plain(*x[:3], o64, lse64, x[3], scale,
+                                       True)]
+    ref += list(att.flash_bwd_dkv_plain(*x[:3], o64, lse64, x[3], scale,
+                                        True))
+    del x, o64, lse64
+
+    def dev64(got):
+        return [float((a.double() - b).abs().max() / b.abs().max())
+                for a, b in zip(got, ref)]
+    return {"ring_vs_f64": dev64(ring), "sp1_vs_f64": dev64(one)}
+
+
+def context_part_a(dev):
+    """(a) The long-context LM at BERT-base widths, L = 16384, on a (dp =
+    1, sp = 2) mesh: LC_STEPS Adam steps through the ring (K1-K3 on every
+    hop that is not skipped), one through Ulysses; then rank 0 trains the
+    model at sp = 1 (one rank, K1-K3 on the whole L) on the same seeds.
+    Against sp = 1's first step: both losses within CONTEXT_TOL, Ulysses'
+    gradients within CONTEXT_TOL x max|ref|, the ring's within
+    CONTEXT_RING_TOL; both sides' attention at this length within
+    CONTEXT_ATTN_TOL of float64 (:func:`context_attention_check`); every
+    ring loss within CONTEXT_LOSS_RTOL.  Each rank launched each of K1-K3
+    once a layer for each hop it did not skip (rank r: r + 1 hops, causal)
+    a step, and once a layer a step through Ulysses."""
+    from mxnet_tpu_torch.ops import _kernels
+    from mxnet_tpu_torch.parallel import collectives, make_mesh
+    rank, cfg = dist.get_rank(), LC_BASE
+    mesh = make_mesh(("dp", "sp"), (1, 2))
+    hops = mesh.axis_index("sp") + 1
+    rec = {"part": "a", "rank": rank, "mesh": dict(mesh.shape)}
+    torch.cuda.reset_peak_memory_stats(dev)
+    collectives.reset_stats()
+    _kernels.reset_launches()
+    ring = long_context_train(cfg, mesh, dev, LC_STEPS)
+    torch.cuda.synchronize()
+    rec["ring"] = {"launches": _kernels.launch_counts(),
+                   "expected": cfg["layers"] * hops * LC_STEPS,
+                   "losses": ring["losses"], "step_ms": ring["step_ms"],
+                   "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                   "collectives": collectives.stats()}
+    pp = rec["ring"]["collectives"]["ppermute"]
+    rec["ring"]["hop"] = {"bytes": pp["bytes"] / pp["calls"],
+                          "ms": pp["seconds"] / pp["calls"] * 1e3,
+                          "calls": pp["calls"]}
+    del ring["params"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    collectives.reset_stats()
+    _kernels.reset_launches()
+    uly = long_context_train(cfg, mesh, dev, 1, method="ulysses")
+    torch.cuda.synchronize()
+    rec["ulysses"] = {"launches": _kernels.launch_counts(),
+                      "expected": cfg["layers"], "losses": uly["losses"],
+                      "step_ms": uly["step_ms"],
+                      "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                      "collectives": collectives.stats()}
+    del uly["params"]
+    faults = ["%s launched %s, expected %d of each of K1-K3"
+              % (path, rec[path]["launches"], rec[path]["expected"])
+              for path in ("ring", "ulysses")
+              if set(_k123(rec[path]["launches"]).values()) !=
+              {rec[path]["expected"]}]
+    gc.collect()
+    torch.cuda.empty_cache()
+    attn = context_attention_check(dev, mesh)
+    if attn is not None:
+        rec["attention"] = attn
+        if max(max(v) for v in attn.values()) > CONTEXT_ATTN_TOL:
+            faults.append("attention at L = %d: %s from float64 x max|ref|, "
+                          "beyond %g" % (cfg["seq_len"], attn,
+                                         CONTEXT_ATTN_TOL))
+    if rank == 0:
+        gc.collect()
+        torch.cuda.empty_cache()
+        _kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        one = long_context_train(cfg, make_mesh(("dp", "sp"), (1, 1),
+                                                devices=[0]), dev, LC_STEPS)
+        torch.cuda.synchronize()
+        del one["params"]
+        rec["sp1"] = {"launches": _k123(_kernels.launch_counts()),
+                      "losses": one["losses"], "step_ms": one["step_ms"],
+                      "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+        ref = one["losses"]
+        for path, res, tol in (("ring", ring, CONTEXT_RING_TOL),
+                               ("ulysses", uly, CONTEXT_TOL)):
+            worst = _worst_rel(res["grads"], one["grads"])
+            first = abs(res["losses"][0] - ref[0]) / abs(ref[0])
+            rec[path].update(first_grad_worst=worst, first_loss_rel=first)
+            if not (worst <= tol and first <= CONTEXT_TOL):
+                faults.append("%s's first step is %.3g (gradients, tolerance "
+                              "%g) and %.3g (loss, tolerance %g) x max|ref| "
+                              "from sp = 1's" % (path, worst, tol, first,
+                                                 CONTEXT_TOL))
+        rel = [abs(a - b) / abs(b) for a, b in zip(ring["losses"], ref)]
+        rec["ring"]["loss_rel"] = rel
+        if max(rel) > CONTEXT_LOSS_RTOL:
+            faults.append("the ring's losses %s are %s relative from sp = "
+                          "1's %s, tolerance %g" % (ring["losses"], rel, ref,
+                                                    CONTEXT_LOSS_RTOL))
+    return rec, faults
+
+
+def pipe_params(n_stages, dev):
+    """One BERT-base encoder layer's parameters per stage, stacked on a
+    leading stage axis, from the seed (weights N(0, 0.02), LN 1 and 0)."""
+    rng = np.random.RandomState(SEED)
+    d, f = PIPE_WIDTH, PIPE_FFN
+
+    def g(*shape):
+        return torch.tensor(rng.randn(n_stages, *shape) * 0.02,
+                            dtype=torch.float32, device=dev)
+
+    def const(value, n):
+        return torch.full((n_stages, n), value, device=dev)
+
+    return (g(d, 3 * d), g(3 * d), g(d, d), g(d), const(1.0, d),
+            const(0.0, d), g(d, f), g(f), g(f, d), g(d), const(1.0, d),
+            const(0.0, d))
+
+
+def pipe_stage(p, x):
+    """A BERT-base encoder layer (post-LN, GELU, attention through
+    ``attention_core``: K1-K3) on (batch, T, 768)."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops.attention import attention_core
+    wqkv, bqkv, wo, bo, g1, c1, w1, b1, w2, b2, g2, c2 = p
+    B, T, d = x.shape
+    qkv = (x @ wqkv + bqkv).reshape(B, T, 3, PIPE_HEADS, d // PIPE_HEADS)
+    qkv = qkv.permute(2, 0, 3, 1, 4)
+    a = attention_core(qkv[0], qkv[1], qkv[2]).transpose(1, 2)
+    x = F.layer_norm(x + a.reshape(B, T, d) @ wo + bo, (d,), g1, c1, 1e-12)
+    h = F.gelu(x @ w1 + b1) @ w2 + b2
+    return F.layer_norm(x + h, (d,), g2, c2, 1e-12)
+
+
+def context_part_b(dev):
+    """(b) GPipe over pp = 2, each stage a BERT-base encoder layer, T =
+    512, batch 16 in 4 microbatches: the outputs and each rank's stage
+    gradients of the squared error to a random target within CONTEXT_TOL x
+    max|ref| of the sequential stack on this rank; K1-K3 launched once a
+    tick (5 ticks) on each rank.  (Not mean(out^2): the last layer norm
+    makes that 1 whatever the parameters, and its gradients rounding
+    noise.)"""
+    from mxnet_tpu_torch.ops import _kernels
+    from mxnet_tpu_torch.parallel import make_mesh, pipeline_parallel
+    mesh = make_mesh(("pp",), (2,))
+    idx = mesh.axis_index("pp")
+    stacked = [t.requires_grad_(True) for t in pipe_params(2, dev)]
+    rng = np.random.RandomState(SEED + 1)
+    x, y = (torch.tensor(rng.randn(PIPE_BATCH, PIPE_T, PIPE_WIDTH),
+                         dtype=torch.float32, device=dev) for _ in range(2))
+    apply = pipeline_parallel(pipe_stage, mesh, n_microbatches=PIPE_MICRO)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = apply(tuple(stacked), x)
+    grads = torch.autograd.grad(((out - y) ** 2).mean(), stacked)
+    end.record()
+    end.synchronize()
+    launches = _kernels.launch_counts()
+    ticks = PIPE_MICRO + mesh.axis_size("pp") - 1
+    ref_leaves = [t.detach().clone().requires_grad_(True) for t in stacked]
+    h = x
+    for s in range(mesh.axis_size("pp")):
+        h = pipe_stage(tuple(t[s] for t in ref_leaves), h)
+    ref_grads = torch.autograd.grad(((h - y) ** 2).mean(), ref_leaves)
+    worst_out = _worst_rel({"out": out.detach()}, {"out": h.detach()})
+    worst_grad = _worst_rel(
+        {i: g[idx] for i, g in enumerate(grads)},
+        {i: g[idx] for i, g in enumerate(ref_grads)})
+    rec = {"part": "b", "rank": dist.get_rank(), "stage": idx,
+           "ticks": ticks, "launches": launches, "ms": start.elapsed_time(end),
+           "out_worst": worst_out, "grad_worst": worst_grad}
+    faults = []
+    if set(_k123(launches).values()) != {ticks}:
+        faults.append("pipeline launched %s, expected %d of each of K1-K3"
+                      % (launches, ticks))
+    if not (worst_out <= CONTEXT_TOL and worst_grad <= CONTEXT_TOL):
+        faults.append("pipeline: outputs %.3g, gradients %.3g x max|ref| "
+                      "from the sequential stack, tolerance %g"
+                      % (worst_out, worst_grad, CONTEXT_TOL))
+    return rec, faults
+
+
+def moe_expert(p, x):
+    import torch.nn.functional as F
+    w1, w2 = p
+    return F.gelu(x @ w1) @ w2
+
+
+def moe_reference(x, gate_w, w1, w2, shards, cf):
+    """Top-1 MoE token by token, on one rank: each shard's tokens routed
+    to their most probable expert, the first ``capacity`` of each expert's
+    in token order kept, each kept token's expert output scaled by its
+    gate probability (a dropped token: 0).  Returns (y, the Switch loss
+    averaged over the shards, the tokens dropped)."""
+    n_experts = gate_w.shape[1]
+    ys, auxes, dropped = [], [], 0
+    for xs in x.chunk(shards):
+        cap = max(1, int(cf * xs.shape[0] / n_experts))
+        probs = torch.softmax(xs @ gate_w, dim=-1)
+        pick = probs.argmax(dim=-1)
+        y = torch.zeros_like(xs)
+        for e in range(n_experts):
+            mine = (pick == e).nonzero()[:, 0]
+            kept = mine[:cap]
+            dropped += len(mine) - len(kept)
+            y = y.index_put((kept,), probs[kept, e, None] * moe_expert(
+                (w1[e], w2[e]), xs[kept]))
+        ys.append(y)
+        frac = torch.nn.functional.one_hot(pick, n_experts).float().mean(0)
+        auxes.append(n_experts * (frac * probs.mean(0)).sum())
+    return torch.cat(ys), torch.stack(auxes).mean(), dropped
+
+
+def context_part_c(dev):
+    """(c) Top-1 MoE over ep = 2: 8 BERT-base FFN experts (768 -> 3072 ->
+    768, GELU), 4096 tokens a rank, capacity factor 2.  This rank's
+    outputs, the auxiliary loss and the gradients of its share of the loss
+    (mean(y^2) / n + MOE_AUX x aux) within CONTEXT_TOL x max|ref| of
+    :func:`moe_reference` on this rank; the share of tokens dropped."""
+    from mxnet_tpu_torch.ops import _kernels
+    from mxnet_tpu_torch.parallel import make_mesh, moe_parallel
+    mesh = make_mesh(("ep",), (2,))
+    n, idx = mesh.axis_size("ep"), mesh.axis_index("ep")
+    rng = np.random.RandomState(SEED + 2)
+
+    def g(*shape, s=0.02):
+        return torch.tensor(rng.randn(*shape) * s, dtype=torch.float32,
+                            device=dev)
+
+    w1 = g(MOE_EXPERTS, MOE_D, MOE_HIDDEN)
+    w2 = g(MOE_EXPERTS, MOE_HIDDEN, MOE_D)
+    gate_w = g(MOE_D, MOE_EXPERTS, s=0.1)
+    x = g(n * MOE_TOKENS, MOE_D, s=1.0)
+    leaves = [t.requires_grad_(True) for t in (gate_w, w1, w2)]
+    mine = x[idx * MOE_TOKENS:(idx + 1) * MOE_TOKENS]
+    apply = moe_parallel(moe_expert, mesh, capacity_factor=MOE_CF)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    y, aux = apply(mine, leaves[0], tuple(leaves[1:]))
+    grads = torch.autograd.grad((y ** 2).mean() / n + MOE_AUX * aux, leaves)
+    end.record()
+    end.synchronize()
+    launches = _kernels.launch_counts()
+    ref_leaves = [t.detach().clone().requires_grad_(True) for t in leaves]
+    y_ref, aux_ref, dropped = moe_reference(x, *ref_leaves, n, MOE_CF)
+    ref_loss = sum((ys ** 2).mean() / n for ys in y_ref.chunk(n)) + \
+        MOE_AUX * aux_ref
+    ref_grads = torch.autograd.grad(ref_loss, ref_leaves)
+    rows = slice(idx * MOE_EXPERTS // n, (idx + 1) * MOE_EXPERTS // n)
+    worst = {"y": _worst_rel({0: y.detach()}, {0: y_ref.detach().chunk(n)[
+                 idx]}),
+             "aux": abs(float(aux.detach()) - float(aux_ref.detach()))
+             / abs(float(aux_ref.detach())),
+             "gate": _worst_rel({0: grads[0]}, {0: ref_grads[0]}),
+             "experts": _worst_rel({1: grads[1][rows], 2: grads[2][rows]},
+                                   {1: ref_grads[1][rows],
+                                    2: ref_grads[2][rows]})}
+    rec = {"part": "c", "rank": dist.get_rank(), "launches": launches,
+           "ms": start.elapsed_time(end),
+           "capacity": max(1, int(MOE_CF * MOE_TOKENS / MOE_EXPERTS)),
+           "dropped_share": dropped / float(n * MOE_TOKENS),
+           "aux": float(aux.detach()), "worst": worst}
+    faults = ["moe: %s is %.3g x max|ref| from the per-token reference, "
+              "tolerance %g" % (k, v, CONTEXT_TOL)
+              for k, v in worst.items() if not v <= CONTEXT_TOL]
+    return rec, faults
+
+
+def context_worker():
+    """One rank of ``phase_context``, started by the port's launcher with
+    two ranks on ``cuda:0`` over gloo: parts (a), (b), (c) in turn; prints
+    each part's record; raises if any check failed on any rank."""
+    from mxnet_tpu_torch.parallel import init_process_group
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_process_group(backend="gloo")
+    faults = []
+    try:
+        for part in (context_part_a, context_part_b, context_part_c):
+            rec, bad = part(dev)
+            emit("context-worker: " + json.dumps(rec))
+            faults += bad
+            gc.collect()
+            torch.cuda.empty_cache()
+            dist.barrier()
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, faults)
+    finally:
+        dist.destroy_process_group()
+    every = [f for fs in every for f in fs]
+    if every:
+        raise RuntimeError("context: " + "; ".join(every))
+
+
+def context_launch(timeout=CONTEXT_TIMEOUT):
+    """``python -m mxnet_tpu_torch.tools.launch -n 2`` over
+    ``chip_smoke.py --context-worker`` in a session of its own (killed,
+    workers and all, past ``timeout``); returns the records and seconds."""
+    import signal
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n", "2",
+           "--launcher", "local", "--", sys.executable,
+           os.path.join(root, "chip_smoke.py"), "--context-worker"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+    secs = time.perf_counter() - t0
+    recs = [json.loads(line[len("context-worker: "):])
+            for line in out.splitlines()
+            if line.startswith("context-worker: ")]
+    if proc.returncode != 0 or len(recs) != 6:
+        raise RuntimeError("context: the launcher exited %s after %.1f s "
+                           "with %d of 6 records:\n%s\n%s" % (
+                               proc.returncode, secs, len(recs),
+                               out[-4000:], err[-6000:]))
+    return recs, secs
+
+
+def phase_context(smi, fwd):
+    """Sequence, pipeline and expert parallelism (``parallel/ring.py``,
+    ``pipeline.py``, ``moe.py``, ``collectives.py``), no kernel of their
+    own: K1-K3 run on every ring hop, in Ulysses' local attention and in
+    the pipeline's stages, and are counted under ``context``.  Two ranks
+    on ``cuda:0`` over gloo (NCCL refuses two ranks on one card), their
+    point-to-point and all-to-all exchanges staged through pinned host
+    buffers.  K1's ms a hop are ``phase_kernels``' ``ring-hop`` (whole)
+    and ``ring-hop-diag`` (causal) cases, ``fwd``: rank r runs one diagonal
+    hop and r whole ones a layer.  Returns every kernel's launches in (a)'s
+    ring and Ulysses runs, (b)'s pipeline and (c)'s MoE, summed over the
+    ranks."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    recs, secs = context_launch()
+    diag = fwd[("ring-hop-diag", torch.float32)]["kernel_ms"]
+    whole = fwd[("ring-hop", torch.float32)]["kernel_ms"]
+    launches = {}
+    for rec in sorted(recs, key=lambda r: (r["part"], r["rank"])):
+        if rec["part"] == "a":
+            rec["k1_hop_ms"] = {"diag": diag,
+                                "full": whole if rec["rank"] else None}
+        log("context: (%s) %s" % (rec["part"], json.dumps(rec)))
+        paths = [rec["ring"], rec["ulysses"]] if rec["part"] == "a" else \
+            [rec]
+        for path in paths:
+            for k, v in path["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    log("context: %s" % json.dumps({"launches": launches, "job_s": secs,
+                                    "phase_s": time.perf_counter() - t_phase,
+                                    "card": smi}))
+    return launches
+
+
 def kernel_row(name, source, replaces, launches, fp32, bf16, extra=None):
     """One entry of the kernels line: the fp32 figures under the contract's
     keys, the bf16 ones under ``bf16_``, and those of ``extra`` (another
@@ -5982,6 +6651,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     resume_launches = phase_resume(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    context_launches = phase_context(smi, fwd)
     by_path = {k: {"serve": serve_launches[k], "train": train_launches[k],
                    "imperative": imperative_launches[k],
                    "resnet": resnet_launches[k],
@@ -5990,21 +6662,24 @@ def main():
                    "ssd": ssd_launches[k], "lm": lm_launches[k],
                    "zoo": zoo_launches[k], "dist": dist_launches.get(k, 0),
                    "ps": ps_launches.get(k, 0),
-                   "resume": resume_launches.get(k, 0)}
+                   "resume": resume_launches.get(k, 0),
+                   "context": context_launches.get(k, 0)}
                for k in imperative_launches}
     fp32, bf16 = torch.float32, torch.bfloat16
     kernels = [
         kernel_row("flash_fwd", "mxnet_tpu_torch/csrc/flash_fwd.cu",
                    "mxnet_tpu/ops/attention.py:148", by_path["flash_fwd"],
                    fwd[("bert-base", fp32)], fwd[("bert-base", bf16)],
-                   {"bf16_train_": fwd[("bert-train", bf16)]}),
-        kernel_row("flash_bwd_dq", "mxnet_tpu_torch/csrc/flash_bwd.cu",
-                   "mxnet_tpu/ops/attention.py:260", by_path["flash_bwd_dq"],
-                   bwd[("flash_bwd_dq", fp32)], bwd[("flash_bwd_dq", bf16)]),
-        kernel_row("flash_bwd_dkv", "mxnet_tpu_torch/csrc/flash_bwd.cu",
-                   "mxnet_tpu/ops/attention.py:304",
-                   by_path["flash_bwd_dkv"], bwd[("flash_bwd_dkv", fp32)],
-                   bwd[("flash_bwd_dkv", bf16)]),
+                   {"bf16_train_": fwd[("bert-train", bf16)],
+                    "ring_hop_": fwd[("ring-hop", fp32)],
+                    "ring_hop_diag_": fwd[("ring-hop-diag", fp32)]}),
+    ] + [kernel_row(kern, "mxnet_tpu_torch/csrc/flash_bwd.cu",
+                    "mxnet_tpu/ops/attention.py:%d" % line, by_path[kern],
+                    bwd[(kern, fp32, "bert-train")],
+                    bwd[(kern, bf16, "bert-train")],
+                    {"ring_hop_": bwd[(kern, fp32, "ring-hop")],
+                     "ring_hop_diag_": bwd[(kern, fp32, "ring-hop-diag")]})
+         for kern, line in (("flash_bwd_dq", 260), ("flash_bwd_dkv", 304))
     ] + [kernel_row("tpu_kernel:" + body, USER_KERNEL_SOURCE,
                     "mxnet_tpu/tpu_kernel.py:96",
                     {"user_kernels": user_launches[body],
@@ -6020,7 +6695,9 @@ def main():
                      "dist": dist_launches.get("tpu_kernel:" + body, 0),
                      "ps": ps_launches.get("tpu_kernel:" + body, 0),
                      "resume": resume_launches.get("tpu_kernel:" + body,
-                                                   0)},
+                                                   0),
+                     "context": context_launches.get("tpu_kernel:" + body,
+                                                     0)},
                     user[(body, fp32)], user[(body, bf16)],
                     {"default_grid_": user[(body + ":default_grid", fp32)],
                      "bf16_default_grid_": user[(body + ":default_grid",
@@ -6044,5 +6721,9 @@ if __name__ == "__main__":
         resume_worker(sys.argv[2:])
     elif sys.argv[1:2] == ["--train-dist-async"]:
         train_dist_async(sys.argv[2:])
+    elif sys.argv[1:2] == ["--context-worker"]:
+        context_worker()
+    elif sys.argv[1:2] == ["--long-context-worker"]:
+        long_context_worker(sys.argv[2:])
     else:
         main()

@@ -1,0 +1,268 @@
+"""The collectives over one mesh axis, as autograd Functions.
+
+Counterpart of the ``lax`` collectives that ``mxnet_tpu/parallel/ring.py``,
+``pipeline.py`` and ``moe.py`` call inside ``shard_map``.  The reference
+runs one program over a device mesh; the port runs one process a rank, and
+each rank calls these on its own shard, over the process group of one axis
+of a :class:`~.mesh.Mesh`.  Every rank of the axis must call the same
+collectives in the same order, forward and backward.
+
+Each is a ``torch.autograd.Function`` whose backward is JAX's transpose:
+
+* :func:`ppermute` shifts along the axis (index i sends to i + shift);
+  its backward is the inverse shift.
+* :func:`all_to_all` (tiled: split ``split_axis`` into n chunks, chunk j
+  to index j, received chunks concatenated along ``concat_axis`` in
+  source order); its backward is the swapped ``all_to_all``.
+* :func:`psum` sums over the axis into a value that every rank holds
+  alike.  A loss computed from it on every rank is one loss, not n, so
+  the backward passes each rank's cotangent through unchanged (JAX's
+  transpose of a sum into an axis-invariant value).  An all-reduce of the
+  cotangents (``torch.distributed.nn.functional.all_reduce``) would count
+  such a loss n times.
+* :func:`pmean` is the sum over n; its backward divides by n.
+* :func:`pvary` marks a value that every rank holds alike (a
+  ``shard_map`` input replicated over the axis) as used by each rank on
+  its own: the identity forward, the sum of every rank's cotangent
+  backward, so each rank's gradient is the whole one.
+
+With these rules a value every rank holds alike carries its cotangent
+once, and a value each rank holds its own carries its own, as in the
+reference.
+
+**Transport.**  NCCL takes device tensors.  Gloo moves host memory: its
+``all_reduce``, ``broadcast`` and ``all_gather`` copy CUDA tensors through
+the host themselves, but its send/recv and ``all_to_all`` hand a CUDA
+pointer to the socket, which fails (``writev: Bad address`` on the H100
+machine).  So on a gloo group a CUDA tensor's point-to-point and
+all-to-all exchanges are staged here through pinned host buffers: a copy
+to the host, the exchange, a copy back.  The rule is the group's backend,
+never a caught error.  :func:`stats` counts each operation's calls, bytes
+sent, bytes staged and host seconds; :func:`record` lists the operations
+this process issued, in order, so that tests can show that every rank
+issues the same sequence.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from ..base import MXNetError
+from .mesh import Mesh
+
+__all__ = ["ppermute", "all_to_all", "psum", "pmean", "pvary",
+           "axis_index", "axis_size", "stats",
+           "reset_stats", "record"]
+
+_STATS: Dict[str, Dict[str, float]] = {}
+_RECORD: Optional[List[Tuple]] = None
+
+
+def axis_index(axis: str, mesh: Mesh) -> int:
+    """This rank's index along ``axis`` (``lax.axis_index``)."""
+    return mesh.axis_index(axis)
+
+
+def axis_size(axis: str, mesh: Mesh) -> int:
+    """The number of ranks along ``axis`` (``lax.psum(1, axis)``)."""
+    return mesh.axis_size(axis)
+
+
+def stats() -> Dict[str, Dict[str, float]]:
+    """Per operation: ``calls``, ``bytes`` (this rank's payload sent),
+    ``staged_bytes`` (copied through the host) and ``seconds`` (host
+    clock around the exchange; on a staged exchange it includes the copies
+    and the waits for them)."""
+    return {k: dict(v) for k, v in _STATS.items()}
+
+
+def reset_stats() -> None:
+    _STATS.clear()
+
+
+class record:
+    """``with record() as ops:`` lists, in issue order, every collective
+    this process issues inside the block: (op, axis, shape, dtype)."""
+
+    def __enter__(self) -> List[Tuple]:
+        global _RECORD
+        self._prev, _RECORD = _RECORD, []
+        return _RECORD
+
+    def __exit__(self, *exc) -> bool:
+        global _RECORD
+        _RECORD = self._prev
+        return False
+
+
+def _account(op: str, axis: str, x: torch.Tensor, staged: bool,
+             seconds: float) -> None:
+    nbytes = x.numel() * x.element_size()
+    s = _STATS.setdefault(op, {"calls": 0, "bytes": 0, "staged_bytes": 0,
+                               "seconds": 0.0})
+    s["calls"] += 1
+    s["bytes"] += nbytes
+    s["staged_bytes"] += nbytes if staged else 0
+    s["seconds"] += seconds
+    if _RECORD is not None:
+        _RECORD.append((op, axis, tuple(x.shape), str(x.dtype)))
+
+
+def _staged(group, x: torch.Tensor) -> bool:
+    """Whether a point-to-point or all-to-all exchange of ``x`` goes
+    through the host: a CUDA tensor on a gloo group."""
+    return x.is_cuda and dist.get_backend(group) == dist.Backend.GLOO
+
+
+def _to_host(x: torch.Tensor) -> torch.Tensor:
+    h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    h.copy_(x)                      # waits for x's producers and the copy
+    return h
+
+
+def _from_host(h: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    out = torch.empty(h.shape, dtype=h.dtype, device=like.device)
+    out.copy_(h, non_blocking=True)
+    return out
+
+
+def _line(mesh: Mesh, axis: str):
+    return mesh.line(axis), mesh.group(axis), mesh.axis_index(axis)
+
+
+def _shift(x: torch.Tensor, mesh, axis: str, shift: int) -> torch.Tensor:
+    """Index i sends ``x`` to index i + shift and returns what index
+    i - shift sent."""
+    line, group, i = _line(mesh, axis)
+    n = len(line)
+    if n == 1 or shift % n == 0:
+        return x.clone()
+    t0 = time.perf_counter()
+    x = x.contiguous()
+    staged = _staged(group, x)
+    send = _to_host(x) if staged else x
+    recv = torch.empty_like(send)
+    ops = [dist.P2POp(dist.isend, send, line[(i + shift) % n], group),
+           dist.P2POp(dist.irecv, recv, line[(i - shift) % n], group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    out = _from_host(recv, x) if staged else recv
+    _account("ppermute", axis, x, staged, time.perf_counter() - t0)
+    return out
+
+
+def _exchange(x: torch.Tensor, mesh, axis: str, split_axis: int,
+              concat_axis: int) -> torch.Tensor:
+    """The tiled all-to-all: chunk j of ``split_axis`` to index j; the
+    chunks received concatenated along ``concat_axis`` by source index."""
+    line, group, _ = _line(mesh, axis)
+    n = len(line)
+    if n == 1:
+        return x.clone()
+    if x.shape[split_axis] % n:
+        raise MXNetError("all_to_all: dimension %d (%d) does not split into "
+                         "%d chunks over %r" % (split_axis,
+                                                x.shape[split_axis], n, axis))
+    t0 = time.perf_counter()
+    chunks = x.chunk(n, dim=split_axis)
+    # a group's ranks are numbered in ascending global rank; the line is
+    # in axis order
+    order = [line.index(r) for r in sorted(line)]
+    inp = torch.stack([chunks[j] for j in order]).contiguous()
+    staged = _staged(group, inp)
+    send = _to_host(inp) if staged else inp
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    out = _from_host(recv, inp) if staged else recv
+    pieces = [out[order.index(j)] for j in range(n)]
+    _account("all_to_all", axis, inp, staged, time.perf_counter() - t0)
+    return torch.cat(pieces, dim=concat_axis)
+
+
+def _sum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    line, group, _ = _line(mesh, axis)
+    out = x.clone()
+    if len(line) > 1:
+        t0 = time.perf_counter()
+        dist.all_reduce(out, group=group)
+        _account("psum", axis, out, False, time.perf_counter() - t0)
+    return out
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, shift):
+        ctx.mesh, ctx.axis, ctx.shift = mesh, axis, shift
+        return _shift(x, mesh, axis, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, ctx.mesh, ctx.axis, -ctx.shift), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_axis, concat_axis):
+        ctx.args = mesh, axis, split_axis, concat_axis
+        return _exchange(x, mesh, axis, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, split_axis, concat_axis = ctx.args
+        return (_exchange(g, mesh, axis, concat_axis, split_axis), None,
+                None, None, None)
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, scale):
+        ctx.scale = scale
+        out = _sum(x, mesh, axis)
+        return out if scale == 1.0 else out.mul_(scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.scale == 1.0 else g * ctx.scale), None, None, None
+
+
+class _Pvary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g.contiguous(), ctx.mesh, ctx.axis), None, None
+
+
+def ppermute(x: torch.Tensor, axis: str, mesh: Mesh,
+             shift: int = 1) -> torch.Tensor:
+    """The cyclic shift ``lax.ppermute(x, axis, [(j, j + shift)])``."""
+    return _PPermute.apply(x, mesh, axis, int(shift))
+
+
+def all_to_all(x: torch.Tensor, axis: str, split_axis: int,
+               concat_axis: int, mesh: Mesh) -> torch.Tensor:
+    """``lax.all_to_all(x, axis, split_axis, concat_axis, tiled=True)``."""
+    nd = x.dim()
+    return _AllToAll.apply(x, mesh, axis, split_axis % nd, concat_axis % nd)
+
+
+def psum(x: torch.Tensor, axis: str, mesh: Mesh) -> torch.Tensor:
+    """The sum over ``axis``, held alike by every rank of it."""
+    return _Psum.apply(x, mesh, axis, 1.0)
+
+
+def pmean(x: torch.Tensor, axis: str, mesh: Mesh) -> torch.Tensor:
+    """The mean over ``axis``, held alike by every rank of it."""
+    return _Psum.apply(x, mesh, axis, 1.0 / mesh.axis_size(axis))
+
+
+def pvary(x: torch.Tensor, axis: str, mesh: Mesh) -> torch.Tensor:
+    """``x``, held alike over ``axis``, used by each rank on its own: the
+    backward sums the ranks' cotangents."""
+    return _Pvary.apply(x, mesh, axis)

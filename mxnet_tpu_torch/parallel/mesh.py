@@ -6,22 +6,26 @@ Counterpart of ``mxnet_tpu/parallel/mesh.py``:
   launcher's environment (``mxnet_tpu_torch.tools.launch``), where the
   reference starts ``jax.distributed``: NCCL for the GPU, gloo for the
   CPU.
-* :func:`make_mesh` is a mesh over the group's ranks with one ``dp``
-  axis; :func:`replicated` and :func:`batch_sharded` name its two
-  layouts.  Tensor parallelism (a second axis of size above 1) comes with
-  its own slice.
+* :func:`make_mesh` lays the group's ranks out on named axes of any size,
+  row-major as the reference lays out its devices, and makes one process
+  group for every line of every axis (:meth:`Mesh.group`); a rank reads
+  its place with :meth:`Mesh.axis_index` and :meth:`Mesh.axis_size`.
+  :func:`replicated` and :func:`batch_sharded` name two layouts.  The
+  collectives over an axis's group are in :mod:`.collectives`.
 * :class:`TrainStep` is the step: forward in training mode, the loss, the
   gradient and an SGD-momentum update, over a block lifted by
-  :func:`~..gluon.block.functionalize`.  Over a dp mesh of W ranks each
+  :func:`~..gluon.block.functionalize`.  Over a dp axis of W ranks each
   rank passes its own shard of the batch and the step all-reduces the
-  gradients (a sum divided by W, on fusion buckets) before the update.
+  gradients over that axis's group (a sum divided by W, on fusion
+  buckets) before the update.
 """
 from __future__ import annotations
 
 import datetime
 import inspect
 from collections import OrderedDict
-from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -88,10 +92,23 @@ def init_process_group(coordinator_address: Optional[str] = None,
     return dev
 
 
+def _my_rank() -> int:
+    return dist.get_rank() if dist.is_available() and \
+        dist.is_initialized() else 0
+
+
 class Mesh(NamedTuple):
-    """Ranks laid out on named axes: ``devices`` holds ranks."""
+    """Ranks laid out on named axes: ``devices`` holds ranks.
+
+    ``groups`` maps each axis to the process group of this rank's line
+    along it: None for a line of one rank, and for a line of the whole
+    world in rank order, whose group is the default one (``group=None``
+    in every ``torch.distributed`` call).  :func:`make_mesh` fills it; a
+    mesh built by hand has none, and its axes of more than one rank have
+    no group."""
     devices: np.ndarray
     axis_names: Tuple[str, ...]
+    groups: Optional[Dict[str, Any]] = None
 
     @property
     def shape(self) -> "OrderedDict[str, int]":
@@ -101,6 +118,41 @@ class Mesh(NamedTuple):
     def size(self) -> int:
         return int(self.devices.size)
 
+    def coords(self, rank: Optional[int] = None) -> Dict[str, int]:
+        """A rank's (default: this process's) index along every axis."""
+        rank = _my_rank() if rank is None else int(rank)
+        where = np.argwhere(self.devices == rank)
+        if len(where) != 1:
+            raise MXNetError("rank %d is not on the mesh %s"
+                             % (rank, dict(self.shape)))
+        return OrderedDict(zip(self.axis_names, map(int, where[0])))
+
+    def axis_size(self, axis: str) -> int:
+        return int(self.shape[axis])
+
+    def axis_index(self, axis: str) -> int:
+        """This rank's index along ``axis`` (``lax.axis_index``)."""
+        return self.coords()[axis]
+
+    def line(self, axis: str) -> Tuple[int, ...]:
+        """The ranks along ``axis`` through this rank, in axis order."""
+        c = self.coords()
+        idx = tuple(slice(None) if a == axis else c[a]
+                    for a in self.axis_names)
+        return tuple(int(r) for r in self.devices[idx])
+
+    def group(self, axis: str):
+        """The process group of this rank's line along ``axis``, None for
+        the default group (the whole world) or a line of one rank."""
+        if self.axis_size(axis) == 1:
+            return None
+        if self.groups is None:
+            raise MXNetError("the mesh %s has no process groups: build it "
+                             "with make_mesh inside a process group"
+                             % dict(self.shape))
+        self.coords()                       # raises: not on the mesh
+        return self.groups[axis]
+
 
 class Sharding(NamedTuple):
     """A layout on a mesh: the mesh axis each leading array axis is split
@@ -109,13 +161,39 @@ class Sharding(NamedTuple):
     spec: Tuple[str, ...]
 
 
+def _line_groups(devices: np.ndarray, axes: Sequence[str]):
+    """One process group for every line of every axis, made by every rank
+    in the same order (``new_group`` is collective over the world); the
+    group of this rank's line on each axis.  A line of one rank has no
+    group, and a line of the whole world in rank order the default one
+    (None: the mesh keeps no reference to it past the group's end)."""
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if devices.size and int(devices.max()) >= world:
+        raise MXNetError("make_mesh: rank %d is not in the process group of "
+                         "%d" % (int(devices.max()), world))
+    mine = {}
+    for i, axis in enumerate(axes):
+        size = devices.shape[i]
+        for line in np.moveaxis(devices, i, -1).reshape(-1, size):
+            ranks = tuple(int(r) for r in line)
+            if size == 1 or ranks == tuple(range(world)):
+                group = None
+            else:
+                group = dist.new_group(list(ranks))
+            if rank in ranks:
+                mine[axis] = group
+    return mine
+
+
 def make_mesh(axes: Sequence[str] = ("dp",),
               shape: Optional[Sequence[int]] = None,
               devices=None) -> Mesh:
     """A mesh over ``devices`` (default: the process group's ranks, or
     rank 0 alone without a group), all on the first axis unless ``shape``
-    says otherwise (-1 infers one size).  Only the first axis may exceed
-    1: tensor parallelism comes with its own slice."""
+    says otherwise (-1 infers one size).  Ranks fill the shape row-major,
+    as the reference's devices do.  Inside a process group every rank
+    calls it with the same arguments: it makes the groups of every axis's
+    lines collectively."""
     if devices is None:
         n = dist.get_world_size() if dist.is_available() and \
             dist.is_initialized() else 1
@@ -127,13 +205,17 @@ def make_mesh(axes: Sequence[str] = ("dp",),
     if -1 in shape:
         known = int(np.prod([s for s in shape if s != -1]))
         shape[shape.index(-1)] = n // known
-    if any(s > 1 for s in shape[1:]):
-        raise MXNetError("make_mesh: shape %s splits a second axis; tensor "
-                         "parallelism is still to come (ROADMAP: tensor, "
-                         "sequence, pipeline and expert parallelism)"
-                         % (shape,))
+    if len(shape) != len(axes):
+        raise MXNetError("make_mesh: %d axes %s but a shape of %d %s"
+                         % (len(axes), tuple(axes), len(shape), shape))
+    if int(np.prod(shape)) > n:
+        raise MXNetError("make_mesh: shape %s needs %d ranks, %d given"
+                         % (shape, int(np.prod(shape)), n))
     arr = np.asarray(devices[:int(np.prod(shape))]).reshape(shape)
-    return Mesh(arr, tuple(axes))
+    groups = None
+    if dist.is_available() and dist.is_initialized():
+        groups = _line_groups(arr, tuple(axes))
+    return Mesh(arr, tuple(axes), groups)
 
 
 def replicated(mesh: Mesh) -> Sharding:
@@ -166,19 +248,22 @@ class TrainStep:
     does not reach gets a zero gradient, as ``jax.grad`` gives it.
 
     With ``mesh=None`` or a mesh of one rank the step runs on ``device``
-    (default: the GPU).  Over a dp mesh of W ranks (the process group's)
-    every rank starts from rank 0's parameters (a broadcast at
-    construction) and passes its own shard of the global batch, as the
-    reference's ``shard_batch`` takes it; the gradients are all-reduced as
-    a sum divided by W, on fusion buckets of ``MX_KVSTORE_BUCKET_KB``,
-    before the momentum update, and the step returns the loss averaged
-    over the ranks.  For a loss that is a mean over the batch axis (every
+    (default: the GPU).  Over a dp axis of W ranks every rank of the axis's
+    line starts from its first rank's parameters (a broadcast over the
+    axis's group at construction) and passes its own shard of the global
+    batch, as the reference's ``shard_batch`` takes it; the gradients are
+    all-reduced over that group as a sum divided by W, on fusion buckets of
+    ``MX_KVSTORE_BUCKET_KB``, before the momentum update, and the step
+    returns the loss averaged over the axis.  For a loss that is a mean over the batch axis (every
     step in the repo uses one) and equal shards, that is the reference's
     mean over the global batch.  Batch statistics would differ (each rank
     would normalise by its own shard), so a block holding a BatchNorm
     raises over more than one rank until a synchronised batch norm is
-    ported.  The reference's tensor-parallel rules come with a later
-    slice.
+    ported.  The step trains over the dp axis only: another axis of more
+    than one rank raises (tensor parallelism is ROADMAP Queue 1 item 4.2
+    (b); sequence, pipeline and expert parallelism run through
+    :mod:`.ring`, :mod:`.pipeline` and :mod:`.moe` with an update of the
+    caller's).
 
     :meth:`save` and :meth:`restore` checkpoint ``{"params",
     "opt_state"}`` through :mod:`..checkpoint` (crash-safe; over a dp mesh
@@ -192,13 +277,25 @@ class TrainStep:
                  dp_axis: str = "dp"):
         self.mesh = mesh
         self._world = 1 if mesh is None else mesh.shape[dp_axis]
+        others = {} if mesh is None else {
+            a: n for a, n in mesh.shape.items() if a != dp_axis and n > 1}
+        if others:
+            raise MXNetError(
+                "TrainStep trains over the %r axis only, and the mesh also "
+                "splits %s: tensor parallelism (explicit column/row layers "
+                "and the sharded step) is still to come, ROADMAP Queue 1 "
+                "item 4.2 (b); sequence, pipeline and expert parallelism "
+                "run through parallel.ring, pipeline and moe with an update "
+                "of the caller's" % (dp_axis, others))
+        self._group = self._root = None
         if self._world > 1:
-            if not (dist.is_available() and dist.is_initialized()) or \
-                    dist.get_world_size() != self._world:
+            if mesh.groups is None:
                 raise MXNetError(
                     "TrainStep: a dp mesh of %d ranks needs a process group "
-                    "of that size (parallel.init_process_group)"
+                    "(parallel.init_process_group, then make_mesh)"
                     % self._world)
+            self._group = mesh.group(dp_axis)
+            self._root = mesh.line(dp_axis)[0]
             norms = _batch_norms(block)
             if norms:
                 raise MXNetError(
@@ -214,7 +311,7 @@ class TrainStep:
             # every rank starts from rank 0's weights, as the Trainer's
             # store makes it: blocks initialised apart would train apart
             for p in self.params.values():
-                dist.broadcast(p, src=0)
+                dist.broadcast(p, src=self._root, group=self._group)
         self.opt_state = OrderedDict(
             (n, torch.zeros_like(p)) for n, p in self.params.items())
         self.learning_rate = float(learning_rate)
@@ -243,7 +340,7 @@ class TrainStep:
         """Replace each gradient by its mean over the ranks: one
         ``all_reduce`` a fusion bucket (or solo tensor), in place."""
         def mean(flat):
-            dist.all_reduce(flat)
+            dist.all_reduce(flat, group=self._group)
             return flat.div_(self._world)
 
         buckets, solo = self._buckets
@@ -269,7 +366,7 @@ class TrainStep:
         if self._world > 1:
             self._allreduce_mean(grads)
             loss = loss.clone()
-            dist.all_reduce(loss)
+            dist.all_reduce(loss, group=self._group)
             loss.div_(self._world)
         moms = [self.opt_state[n] for n in names]
         params = [self.params[n] for n in names]

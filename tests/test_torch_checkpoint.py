@@ -371,8 +371,8 @@ def test_a_dp_step_saves_and_restores_collectively(tmp_path):
     r = subprocess.run(
         [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n", "2",
          "--", sys.executable, str(script), str(tmp_path)],
-        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
-        text=True, timeout=120)
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"),
+        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, (r.stdout, r.stderr[-3000:])
     assert r.stdout.count("DP_CKPT_OK") == 2
     doc = json.load(open(tmp_path / "dp.speclayout.json"))

@@ -101,7 +101,8 @@ def _launch(tmp_path, body, n=2, env=None, expect_rc=0):
     script.write_text(textwrap.dedent(_PRELUDE % (
         str(tmp_path), IN, HID, OUT, HALF, STEPS)) + textwrap.dedent(body)
         + "\ndone()\n")
-    full_env = dict(os.environ, PYTHONPATH=REPO, **(env or {}))
+    full_env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
+                    **(env or {}))
     t0 = time.monotonic()
     r = subprocess.run([sys.executable, "-m", "mxnet_tpu_torch.tools.launch",
                         "-n", str(n), "--launcher", "local", "--",
@@ -392,8 +393,9 @@ def test_overlap_on_and_off_give_bitwise_equal_weights(tmp_path):
 def test_dp_trainstep_matches_the_reference_on_the_global_batch(tmp_path):
     """Each rank passes its half; the dp step's parameters and losses
     (``run_steps`` too) are the reference ``TrainStep``'s on the whole
-    batch within 1e-5, and a block with a BatchNorm is refused over two
-    ranks."""
+    batch within 1e-5; a block with a BatchNorm is refused over two ranks,
+    and so is a mesh with a tp axis of two (tensor parallelism is still to
+    come)."""
     lr, mom = 0.1, 0.9
     _launch(tmp_path, """
         mesh = make_mesh()
@@ -418,11 +420,13 @@ def test_dp_trainstep_matches_the_reference_on_the_global_batch(tmp_path):
         else:
             raise AssertionError("TrainStep over 2 ranks took a BatchNorm")
         try:
-            make_mesh(axes=("dp", "tp"), shape=(1, 2))
+            TrainStep(mlp(weights0()), lambda o, y: o.mean(),
+                      mesh=make_mesh(axes=("dp", "tp"), shape=(1, 2)),
+                      device="cpu")
         except MXNetError as e:
             assert "tensor parallelism" in str(e), e
         else:
-            raise AssertionError("a tp axis of size 2 was taken")
+            raise AssertionError("TrainStep took a tp axis of size 2")
     """ % (lr, mom))
     ranks = _load(tmp_path, "trainstep")
     _assert_ranks_bitwise(ranks)

@@ -49,6 +49,7 @@ def _launch(tmp_path, body, n=2, s=1, args=(), env=None, expect_rc=0,
         script.write_text(textwrap.dedent(_PRELUDE) + textwrap.dedent(body))
         command = [sys.executable, str(script)]
     full_env = dict(os.environ, PYTHONPATH=REPO, MX_KVSTORE_HEARTBEAT="0",
+                    OMP_NUM_THREADS="1",
                     PYTHONPROFILEIMPORTTIME="1", **(env or {}))
     for var in ("MX_PS_ROOT", "MX_PS_ROOTS", "DMLC_PS_ROOT_URI",
                 "MX_FAULT_INJECT", "MXNET_KVSTORE_BIGARRAY_BOUND"):

@@ -285,7 +285,11 @@ def test_port_imports_neither_jax_nor_mxnet_tpu():
             "mxnet_tpu_torch.profiler, mxnet_tpu_torch.telemetry, "
             "mxnet_tpu_torch.engine, mxnet_tpu_torch.kvstore.server, "
             "mxnet_tpu_torch.kvstore.wire_verbs, "
-            "mxnet_tpu_torch.checkpoint, mxnet_tpu_torch.health; "
+            "mxnet_tpu_torch.checkpoint, mxnet_tpu_torch.health, "
+            "mxnet_tpu_torch.parallel.ring, "
+            "mxnet_tpu_torch.parallel.pipeline, "
+            "mxnet_tpu_torch.parallel.moe, "
+            "mxnet_tpu_torch.parallel.collectives; "
             "import torch.distributed.checkpoint; "
             "import chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or "
