@@ -346,6 +346,7 @@ import json
 import os
 import re
 import socket
+import shutil
 import subprocess
 import sys
 import threading
@@ -867,6 +868,113 @@ def phase_bwd_kernels(peaks):
     check_lse_rule()
     check_nonfinite_scores()
     return results
+
+
+#: the long-sequence fp32 stage check: B * H = 12 heads of D = 64 at these
+#: lengths, causal and not, each stage of K1 -> K2/K3 held to float64
+LONG_FP32_T = (8192, 16384)
+LONG_FP32_HEADS = 12
+LONG_FP32_TOL = 1e-4                # x max|ref|: the port's fp32 rule
+
+
+def _rel(got, want):
+    """max |got - want| / max |want| (float64)."""
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+def phase_long_fp32():
+    """K1 -> K2/K3 in fp32 at the long lengths of LONG_FP32_T, each stage
+    held to a float64 computation of the same inputs, one head at a time
+    (a float64 T x T matrix at T = 16384 is 2 GiB): K1's O and LSE; then,
+    from K1's O and LSE in fp32 as the kernels take them, delta =
+    rowsum(dO * O), P, dP and dS recomputed by plain fp32 PyTorch (no TF32);
+    K2's dQ and K3's dK and dV on K1's O and LSE.  Each is max |x - x64| /
+    max |x64| over the heads (LSE: max |d|, stricter than x max|LSE|).
+    Fails unless every kernel output (K1's O and LSE, K2's dQ, K3's dK and
+    dV) is within LONG_FP32_TOL."""
+    from mxnet_tpu_torch.ops import attention as att
+    tf32_was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    records, faults = [], []
+    try:
+        for T in LONG_FP32_T:
+            for causal in (False, True):
+                g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+                q, k, v, do = (torch.randn((1, LONG_FP32_HEADS, T, 64),
+                                           generator=g, device="cuda")
+                               for _ in range(4))
+                scale = 64 ** -0.5
+                o, lse = att.flash_attention_with_lse(q, k, v, scale, causal)
+                kern = [att._flash_bwd_dq_cuda(q, k, v, o, lse, do, scale,
+                                               causal)]
+                kern += list(att._flash_bwd_dkv_cuda(q, k, v, o, lse, do,
+                                                     scale, causal))
+                names = ("O", "LSE", "delta", "P", "dP", "dS", "dQ", "dK",
+                         "dV")
+                err = dict.fromkeys(names, 0.0)
+                peak = dict.fromkeys(names, 0.0)
+                keep = att._causal_keep(T, T, "cuda") if causal else None
+                for h in range(LONG_FP32_HEADS):
+                    x = [t[0, h].double() for t in (q, k, v, do)]
+                    s = (x[0] @ x[1].T) * scale
+                    if causal:
+                        s.masked_fill_(~keep, float("-inf"))
+                    lse64 = torch.logsumexp(s, dim=-1)
+                    p = torch.exp(s - lse64[:, None])
+                    del s
+                    o64 = p @ x[2]
+                    dp = x[3] @ x[2].T
+                    delta = (x[3] * o64).sum(-1)
+                    ds = p * (dp - delta[:, None])
+                    want = {"O": o64, "LSE": lse64, "delta": delta, "P": p,
+                            "dP": dp, "dS": ds,
+                            "dQ": (ds @ x[1]) * scale,
+                            "dK": (ds.T @ x[0]) * scale, "dV": p.T @ x[3]}
+                    del ds
+                    # fp32 stages from K1's O and LSE, as the kernels
+                    # recompute them
+                    f = [t[0, h] for t in (q, k, v, do)]
+                    o32, l32 = o[0, h], lse[0, h]
+                    s32 = (f[0] @ f[1].T) * scale
+                    if causal:
+                        s32.masked_fill_(~keep, float("-inf"))
+                    p32 = torch.exp(s32 - l32[:, None])
+                    del s32
+                    dp32 = f[3] @ f[2].T
+                    d32 = (f[3] * o32).sum(-1)
+                    ds32 = p32 * (dp32 - d32[:, None])
+                    got = {"O": o32, "LSE": l32, "delta": d32, "P": p32,
+                           "dP": dp32, "dS": ds32, "dQ": kern[0][0, h],
+                           "dK": kern[1][0, h], "dV": kern[2][0, h]}
+                    del p32, dp32, ds32
+                    for nm in names:
+                        ref = want[nm]
+                        d = got[nm].double() - ref
+                        if nm == "LSE":
+                            err[nm] = max(err[nm], float(d.abs().max()))
+                            continue
+                        err[nm] = max(err[nm], float(d.abs().max()))
+                        peak[nm] = max(peak[nm], float(ref.abs().max()))
+                    del want, got, p, dp
+                rel = {nm: (err[nm] if nm == "LSE" else err[nm] / peak[nm])
+                       for nm in names}
+                rec = {"T": T, "heads": LONG_FP32_HEADS, "causal": causal,
+                       "rel_to_f64": rel}
+                records.append(rec)
+                log("long_fp32: %s" % json.dumps(rec))
+                bad = {nm: rel[nm] for nm in ("O", "LSE", "dQ", "dK", "dV")
+                       if not rel[nm] <= LONG_FP32_TOL}
+                if bad:
+                    faults.append("T = %d causal=%s: %s from float64"
+                                  % (T, causal, bad))
+                del q, k, v, do, o, lse, kern
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32_was
+    if faults:
+        raise RuntimeError("long_fp32: fp32 K1-K3 beyond %g x max|ref| of "
+                           "float64: %s" % (LONG_FP32_TOL, faults))
+    return records
 
 
 def log_library_ratios(fwd, bwd):
@@ -5961,13 +6069,6 @@ CONTEXT_TOL = 1e-4              # x max|ref|: the port's fp32 rule
 #: attention's own rule (x max|ref|), for the attention check of the LM's
 #: length against float64
 CONTEXT_ATTN_TOL = 2e-3
-#: the ring's first-step gradients against sp = 1's (x max|ref|).  K2 and K3
-#: in fp32 lose accuracy with the sequence's length: at L = 16384 sp = 1's
-#: attention gradients are up to 1.81e-4 x max from float64, the ring's
-#: 1.10e-4, and the two sides 1.57e-4 apart on the H100.  A fixed limit
-#: above that reading and below the sum of the two deviations and
-#: CONTEXT_TOL (3.91e-4); the deviations are logged beside it, not added
-CONTEXT_RING_TOL = 3e-4
 #: the losses of sp = 2 against sp = 1 after the first step: Adam divides
 #: each gradient by its own scale, so a gradient that differs in the
 #: rounding (up to CONTEXT_TOL x max|ref| at step 1) moves its parameter
@@ -6230,9 +6331,9 @@ def context_part_a(dev):
     1, sp = 2) mesh: LC_STEPS Adam steps through the ring (K1-K3 on every
     hop that is not skipped), one through Ulysses; then rank 0 trains the
     model at sp = 1 (one rank, K1-K3 on the whole L) on the same seeds.
-    Against sp = 1's first step: both losses within CONTEXT_TOL, Ulysses'
-    gradients within CONTEXT_TOL x max|ref|, the ring's within
-    CONTEXT_RING_TOL; both sides' attention at this length within
+    Against sp = 1's first step: both losses within CONTEXT_TOL, both
+    paths' gradients within CONTEXT_TOL x max|ref|; both sides' attention
+    at this length within
     CONTEXT_ATTN_TOL of float64 (:func:`context_attention_check`); every
     ring loss within CONTEXT_LOSS_RTOL.  Each rank launched each of K1-K3
     once a layer for each hop it did not skip (rank r: r + 1 hops, causal)
@@ -6298,7 +6399,7 @@ def context_part_a(dev):
                       "losses": one["losses"], "step_ms": one["step_ms"],
                       "peak_bytes": torch.cuda.max_memory_allocated(dev)}
         ref = one["losses"]
-        for path, res, tol in (("ring", ring, CONTEXT_RING_TOL),
+        for path, res, tol in (("ring", ring, CONTEXT_TOL),
                                ("ulysses", uly, CONTEXT_TOL)):
             worst = _worst_rel(res["grads"], one["grads"])
             first = abs(res["losses"][0] - ref[0]) / abs(ref[0])
@@ -6579,6 +6680,507 @@ def phase_context(smi, fwd):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 20. tensor and FSDP parallelism
+# ---------------------------------------------------------------------------
+
+#: BERT-base at full width, fp32, T = SEQ_LEN, batch 8, random weights from
+#: the seed and phase_train's MLM loss, on two gloo ranks of the one card
+TENSOR_BATCH, TENSOR_STEPS = 8, 3
+TENSOR_TOL = 1e-4               # x max|ref|: first-step parameters
+TENSOR_LOSS_RTOL = 2e-4         # the reference's rule for losses
+#: the first gradient where no parameter's rounding hides it: SGD's
+#: momentum after one step is -lr x g, Adam's moments are 0.1 x g and
+#: 0.001 x g^2.  Each tensor against the one-process run's by norm,
+#: ||got - want|| / ||want||: the port's fp32 rule; under int8 an element
+#: whose sum rounds otherwise lands on the neighbouring level, 1/127 of its
+#: block's max away, and g^2 doubles that
+TENSOR_GRAD_RTOL = 1e-4
+TENSOR_INT8_GRAD_RTOL = 2e-2
+#: each parameter's change from init against the one-process run's by
+#: norm, ||got - want|| / ||want - init||: a change that differs by
+#: rounding may land on the neighbouring fp32 value of the parameter, an
+#: ulp of it against a change of lr x |g|, and Adam's first step maps a
+#: gradient within its eps (1e-8) of 0 (the key bias's is 0 up to
+#: rounding) to a change that rounding decides
+TENSOR_CHANGE_RTOL = 1e-2
+#: (b)'s Adam lr: a gradient within rounding (or, under int8, within one
+#: quantisation step) of 0 may take the other sign on the other side, and
+#: Adam's first step moves such a parameter by up to 2 x lr whatever the
+#: gradient's size; at this lr that is under TENSOR_TOL x max|ref| (the
+#: LayerNorm gains are 1)
+TENSOR_ADAM_LR = 1e-5
+TENSOR_TIMEOUT = 300            # seconds each part's launcher may take
+
+
+def tensor_net(dev):
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.model_zoo.bert import bert_12_768_12
+    net = bert_12_768_12(vocab_size=VOCAB, max_length=SEQ_LEN, dropout=0.0,
+                         use_classifier=False)
+    net.initialize(initializer.Normal(0.02), seed=SEED, device=dev)
+    return net
+
+
+def _tensor_stats(dev, n_steps, step_ms):
+    """A rank's figures of one run: step ms (CUDA events), collective
+    bytes and host ms a step, peak memory, K1-K4 launches."""
+    from mxnet_tpu_torch.ops import _kernels
+    from mxnet_tpu_torch.parallel import collectives
+    st = collectives.stats()
+    return {"step_ms": step_ms,
+            "collective_bytes_per_step":
+                sum(v["bytes"] for v in st.values()) / n_steps,
+            "collective_ms_per_step":
+                sum(v["seconds"] for v in st.values()) * 1e3 / n_steps,
+            "collectives": st,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev),
+            "launches": _kernels.launch_counts()}
+
+
+def _tensor_reset(dev):
+    from mxnet_tpu_torch.ops import _kernels
+    from mxnet_tpu_torch.parallel import collectives
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    collectives.reset_stats()
+    _kernels.reset_launches()
+
+
+def _timed_steps(run, n):
+    """``run()`` n times; (results, CUDA-event ms of each but the
+    first)."""
+    out, ms = [run()], []
+    for _ in range(n - 1):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out.append(run())
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    return out, ms
+
+
+def _host(tensors):
+    """A copy of each tensor in host memory (a rank's snapshots stay off
+    the card, so that its peak memory is the step's)."""
+    return {n: v.detach().to("cpu", copy=True) for n, v in tensors.items()}
+
+
+def _compare(got, want, base=None):
+    """Each tensor of ``want`` against ``got`` (either may lie on the
+    host; the arithmetic runs on the card, a tensor at a time, in
+    float64): ``{"worst", "at", "rels"}`` of ||got - want|| / ||want -
+    base|| (``base`` None: 0; a tensor equal on both sides reads 0), for
+    :func:`_held`; ``max_abs``, max |got - want| / max |want| over every
+    tensor, and ``max_abs_each``, the worst tensor's own.  A tensor that
+    ``got`` lacks reads inf."""
+    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    rels, d_max, w_max, each = {}, 0.0, 0.0, 0.0
+    for n, w in want.items():
+        if n not in got:
+            rels[n] = d_max = each = float("inf")
+            continue
+        w = w.to(dev).double()
+        d = got[n].to(dev).double() - w
+        dn, da, wa = float(d.norm()), float(d.abs().max()), \
+            float(w.abs().max())
+        if base is not None:
+            w = w - base[n].to(dev).double()
+        ref = float(w.norm())
+        rels[n] = 0.0 if dn == 0 else dn / ref if ref else float("inf")
+        d_max, w_max = max(d_max, da), max(w_max, wa)
+        each = max(each, da / (wa + 1e-30))
+    at = max(rels, key=rels.get)
+    return {"worst": rels[at], "at": at, "rels": rels,
+            "max_abs": d_max / w_max if w_max
+            else float("inf") if d_max else 0.0,
+            "max_abs_each": each}
+
+
+def _held(reading, limit):
+    """A :func:`_compare` reading against ``limit``, for the record:
+    the worst, where, and how many of the tensors are above the limit."""
+    rels = reading.pop("rels")
+    reading.update(limit=limit, tensors=len(rels),
+                   over=sum(1 for v in rels.values() if not v <= limit))
+    return reading["worst"] <= limit
+
+
+def _opt_states(tr):
+    """``{"<parameter>[j]": its updater's j-th state}`` of a Trainer,
+    copied to the host (Adam's: 0 the first moment, 1 the second)."""
+    upd = tr._updaters[0]
+    out = {}
+    for i, p in enumerate(tr._params):
+        st = upd.states.get(i)
+        st = () if st is None else st if isinstance(st, (tuple, list)) \
+            else (st,)
+        for j, s in enumerate(st):
+            out["%s[%d]" % (p.name, j)] = s.data
+    return _host(out)
+
+
+def tensor_part_a(dev):
+    """(a) ``TrainStep`` over (dp = 1, tp = 2) with the default
+    alternation (Dense weights column- and row-parallel in turn, the
+    word and position tables vocab-parallel), TENSOR_STEPS SGD-momentum
+    steps; rank 0 then runs the one-process ``TrainStep`` on the same
+    seeds.  Held after the first step, each tensor against it: the
+    parameters within TENSOR_TOL x max|ref|, the momentum (-lr x the
+    first gradient) within TENSOR_GRAD_RTOL and the parameters' change
+    from init within TENSOR_CHANGE_RTOL by norm; every loss within
+    TENSOR_LOSS_RTOL; each rank launched each of K1-K3 once a layer a
+    step, and K4 never.  A planted fault, the one-process first step on
+    half the batch, must fail the momentum's check."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.parallel import TrainStep, collectives, make_mesh
+    from mxnet_tpu_torch.parallel.tensor import assemble
+    ce = SoftmaxCrossEntropyLoss()
+
+    def loss_fn(outputs, labels):
+        return ce(outputs[-1].float(), labels).mean()
+
+    def sgd(mesh=None):
+        return TrainStep(net, loss_fn, mesh, device=dev,
+                         learning_rate=TRAIN_LR, momentum=TRAIN_MOMENTUM)
+
+    rank = dist.get_rank()
+    batch = train_batch_host(TENSOR_BATCH)
+    mesh = make_mesh(("dp", "tp"), (1, 2))
+    net = tensor_net(dev)
+    p0 = _host(dict(net.named_parameters())) if rank == 0 else None
+    layers = len(net.encoder.transformer_cells)
+    _tensor_reset(dev)
+    step = sgd(mesh)
+    first = float(step(*batch))
+    first_stats = _tensor_stats(dev, 1, None)
+    # the whole parameters and momenta (collective); the counters restart
+    # after the gathers, so that the later steps' figures are theirs alone
+    p1 = _host(step.gathered())
+    m1 = _host({n: assemble(v, step.specs[n], mesh) if tuple(step.specs[n])
+                else v for n, v in step.opt_state.items()})
+    collectives.reset_stats()
+    losses, ms = _timed_steps(lambda: float(step(*batch)), TENSOR_STEPS - 1)
+    torch.cuda.synchronize()
+    losses = [first] + losses
+    rec = {"part": "a", "rank": rank, "mesh": dict(mesh.shape),
+           "losses": losses,
+           "split": sorted(n for n, sp in step.specs.items() if tuple(sp))}
+    rec.update(_tensor_stats(dev, TENSOR_STEPS - 1, sum(ms) / len(ms)))
+    rec["first_step"] = {k: first_stats[k] for k in (
+        "collective_bytes_per_step", "collective_ms_per_step")}
+    faults = []
+    want = layers * TENSOR_STEPS
+    if set(_k123(rec["launches"]).values()) != {want} or any(
+            v for k, v in rec["launches"].items() if k not in _FLASH):
+        faults.append("(a) rank %d launched %s, expected %d of each of "
+                      "K1-K3 and no K4" % (rank, rec["launches"], want))
+    del step
+    if rank == 0:
+        _tensor_reset(dev)
+        one = sgd()
+        ref = [float(one(*batch))]
+        grad = _compare(m1, one.opt_state)
+        change = _compare(p1, one.params, p0)
+        worst = change["max_abs_each"]
+        m1_one = _host(one.opt_state)
+        more, ms1 = _timed_steps(lambda: float(one(*batch)),
+                                 TENSOR_STEPS - 1)
+        ref += more
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+        rec["one_process"] = {"losses": ref,
+                              "step_ms": sum(ms1) / len(ms1),
+                              "peak_bytes":
+                                  torch.cuda.max_memory_allocated(dev)}
+        del one
+        half = sgd()
+        half(*(a[:TENSOR_BATCH // 2] for a in batch))
+        planted = _compare(half.opt_state, m1_one)
+        del half
+        ok = [worst <= TENSOR_TOL, _held(grad, TENSOR_GRAD_RTOL),
+              _held(change, TENSOR_CHANGE_RTOL), max(rel) <= TENSOR_LOSS_RTOL]
+        caught = not _held(planted, TENSOR_GRAD_RTOL)
+        rec.update(first_params_worst=worst, first_grad=grad,
+                   first_change=change, loss_rel=rel,
+                   planted_half_batch=planted)
+        if not all(ok):
+            faults.append("(a) tp = 2 against one process: first-step "
+                          "parameters %.3g x max|ref| (tolerance %g), "
+                          "momentum %s, change from init %s, losses %s "
+                          "relative (tolerance %g)" % (
+                              worst, TENSOR_TOL, grad, change, rel,
+                              TENSOR_LOSS_RTOL))
+        if not caught:
+            faults.append("(a) the momentum's check passes the first step "
+                          "on half the batch: %s" % planted)
+    return rec, faults
+
+
+def tensor_part_b(dev):
+    """(b) ``Trainer(params, "adam").make_compiled_step(net, loss,
+    layout=SpecLayout(make_mesh(("data", "fsdp"), (1, 2))))``:
+    TENSOR_STEPS steps, a ``save`` after the second; then the same with
+    ``compression_params={"type": "int8"}``.  Rank 0 runs the one-process
+    compiled steps (no layout; for int8, a layout of one rank, whose
+    exchange body is the replicated one) on the same seeds.  Held against
+    them: every loss within TENSOR_LOSS_RTOL; after the first step the
+    parameters within TENSOR_TOL x max|ref| (over every tensor), Adam's
+    moments within TENSOR_GRAD_RTOL (int8: TENSOR_INT8_GRAD_RTOL) and the
+    parameters' change from init within TENSOR_CHANGE_RTOL, each tensor
+    by norm; the per-rank bytes of parameters plus Adam state within 15 %
+    of half the one-process figure.  The checkpoint is restored into a
+    one-process step (every rank: the load is collective): right after
+    the restore its parameters' change from init and its moments are held
+    to the uninterrupted one-process run's after its second step, and
+    after one more step the parameters to its last within TENSOR_TOL x
+    max|ref| and their change from init within TENSOR_CHANGE_RTOL (which
+    a lost update count, Adam's bias correction, would miss).  Each rank
+    launched each of K1-K3 once a layer a step, and K4 never.  A planted
+    fault, the one-process first step on half the batch, must fail the
+    moments' check."""
+    import tempfile
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.parallel import SpecLayout, make_mesh
+    ce = SoftmaxCrossEntropyLoss()
+
+    def loss_fn(outputs, labels):
+        return ce(outputs[-1], labels)
+
+    rank = dist.get_rank()
+    tok, typ, lab = train_batch_host(TENSOR_BATCH)
+    fsdp = SpecLayout(make_mesh(("data", "fsdp"), (1, 2)))
+    ck = os.path.join(tempfile.gettempdir(), "tensor_ck_%d" % os.getppid())
+
+    def build(compress=None, kvstore="device"):
+        net = tensor_net(dev)
+        tr = gluon.Trainer(net.collect_params(), "adam",
+                           {"learning_rate": TENSOR_ADAM_LR},
+                           kvstore=kvstore, compression_params=compress)
+        return net, tr
+
+    def params(net):
+        return _host(dict(net.named_parameters()))
+
+    def run(step, tr, net, n, save_after=None, snap_at=None):
+        """n steps: (losses, rank 0's ``{k: {"params", "states"}}`` after
+        the first step and after step ``snap_at`` (a step without a
+        layout), ms of the later steps, the first step's figures, state
+        bytes); a sharded step's parameters and states are gathered for
+        the first copy, and the collectives' counters restart after it,
+        so that the later steps' figures are theirs alone."""
+        from mxnet_tpu_torch.parallel import collectives
+        losses, snaps, ms = [], {}, []
+        for i in range(n):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            losses.append(float(step.step([tok, typ], lab).data.mean()))
+            b.record()
+            b.synchronize()
+            if i:
+                ms.append(a.elapsed_time(b))
+            if i == 0:
+                stats = _tensor_stats(dev, 1, None)
+                state = step.state_bytes()
+                if step._layout is not None:
+                    step.release()
+                collectives.reset_stats()
+            if rank == 0 and i + 1 in (1, snap_at):
+                snaps[i + 1] = {"params": params(net),
+                                "states": _opt_states(tr)}
+            if save_after == i + 1:
+                step.save(ck)
+        return losses, snaps, ms, stats, state
+
+    rec, faults = {"part": "b", "rank": rank, "mesh": dict(fsdp.mesh.shape)}, []
+    layers = 12
+    p0 = None
+    for name, compress in (("fsdp", None), ("fsdp_int8", {"type": "int8"})):
+        _tensor_reset(dev)
+        net, tr = build(compress)
+        if p0 is None and rank == 0:
+            p0 = params(net)
+        step = tr.make_compiled_step(net, loss_fn, layout=fsdp)
+        losses, got, ms, first, state = run(
+            step, tr, net, TENSOR_STEPS,
+            save_after=2 if compress is None else None)
+        torch.cuda.synchronize()
+        part = {"losses": losses, "state_bytes": state,
+                "compiled": step.compiled}
+        part.update(_tensor_stats(dev, TENSOR_STEPS - 1, sum(ms) / len(ms)))
+        part["first_step"] = {k: first[k] for k in (
+            "collective_bytes_per_step", "collective_ms_per_step")}
+        want = layers * TENSOR_STEPS
+        if set(_k123(part["launches"]).values()) != {want} or any(
+                v for k, v in part["launches"].items() if k not in _FLASH):
+            faults.append("(b) %s: rank %d launched %s, expected %d of "
+                          "each of K1-K3 and no K4" % (name, rank,
+                                                       part["launches"],
+                                                       want))
+        step.release()
+        del step, tr, net
+        if rank == 0:
+            _tensor_reset(dev)
+            one_layout = None if compress is None else SpecLayout(
+                make_mesh(("data", "fsdp"), (1, 1), devices=[0]))
+            net1, tr1 = build(compress, kvstore=None)
+            one = tr1.make_compiled_step(net1, loss_fn, layout=one_layout)
+            ref, snaps, ms1, _, state1 = run(
+                one, tr1, net1, TENSOR_STEPS,
+                snap_at=2 if compress is None else None)
+            rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+            grad = _compare(got[1]["states"], snaps[1]["states"])
+            change = _compare(got[1]["params"], snaps[1]["params"], p0)
+            worst = change["max_abs"]
+            ratio = state1 / state
+            grad_tol = TENSOR_GRAD_RTOL if compress is None \
+                else TENSOR_INT8_GRAD_RTOL
+            ok = [max(rel) <= TENSOR_LOSS_RTOL, worst <= TENSOR_TOL,
+                  _held(grad, grad_tol), _held(change, TENSOR_CHANGE_RTOL),
+                  0.85 * 2 <= ratio <= 1.15 * 2]
+            part.update(one_process={
+                "losses": ref, "step_ms": sum(ms1) / len(ms1),
+                "state_bytes": state1,
+                "peak_bytes": torch.cuda.max_memory_allocated(dev)},
+                loss_rel=rel, first_params_worst=worst, first_grad=grad,
+                first_change=change, bytes_ratio=ratio)
+            if not all(ok):
+                faults.append("(b) %s against one process: losses %s "
+                              "relative (tolerance %g), first-step "
+                              "parameters %.3g x max|ref| (tolerance %g), "
+                              "moments %s, change from init %s, state "
+                              "bytes %.3g x fewer (want 2 +- 15 %%)"
+                              % (name, rel, TENSOR_LOSS_RTOL, worst,
+                                 TENSOR_TOL, grad, change, ratio))
+            if one_layout is not None:
+                one.release()
+            if compress is None:
+                at2, final = snaps[2], params(net1)
+            del one, tr1, net1
+            if compress is None:
+                net3, tr3 = build(kvstore=None)
+                half = tr3.make_compiled_step(net3, loss_fn)
+                h = TENSOR_BATCH // 2
+                half.step([tok[:h], typ[:h]], lab[:h])
+                planted = _compare(_opt_states(tr3), snaps[1]["states"])
+                part["planted_half_batch"] = planted
+                if _held(planted, TENSOR_GRAD_RTOL):
+                    faults.append("(b) the moments' check passes the first "
+                                  "step on half the batch: %s" % planted)
+                del half, tr3, net3
+        rec[name] = part
+    # the checkpoint of the fsdp run's second step, into one process
+    gc.collect()
+    torch.cuda.empty_cache()
+    net2, tr2 = build(kvstore=None)
+    two = tr2.make_compiled_step(net2, loss_fn)
+    two.restore(ck)
+    if rank == 0:
+        restored = {
+            "change": _compare(params(net2), at2["params"], p0),
+            "moments": _compare(_opt_states(tr2), at2["states"])}
+    two.step([tok, typ], lab)
+    if rank == 0:
+        restored["next_change"] = _compare(params(net2), final, p0)
+        worst = restored["next_change"]["max_abs"]
+        ok = [worst <= TENSOR_TOL,
+              _held(restored["change"], TENSOR_CHANGE_RTOL),
+              _held(restored["moments"], TENSOR_GRAD_RTOL),
+              _held(restored["next_change"], TENSOR_CHANGE_RTOL)]
+        rec.update(restored_worst=worst, restored=restored)
+        if not all(ok):
+            faults.append("(b) the fsdp checkpoint restored into one "
+                          "process: %s; one step on, %.3g x max|ref| from "
+                          "the uninterrupted run (tolerance %g)"
+                          % (restored, worst, TENSOR_TOL))
+        shutil.rmtree(ck, ignore_errors=True)
+    return rec, faults
+
+
+def tensor_worker(part):
+    """One rank of ``phase_tensor``'s part ``a`` or ``b``, started by the
+    port's launcher with two ranks on ``cuda:0`` over gloo; prints the
+    part's record; raises if a check failed on any rank."""
+    from mxnet_tpu_torch.parallel import init_process_group
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_process_group(backend="gloo")
+    try:
+        rec, faults = {"a": tensor_part_a, "b": tensor_part_b}[part](dev)
+        emit("tensor-worker: " + json.dumps(rec))
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, faults)
+    finally:
+        dist.barrier()
+        dist.destroy_process_group()
+    every = [f for fs in every for f in fs]
+    if every:
+        raise RuntimeError("tensor: " + "; ".join(every))
+
+
+def tensor_launch(part, timeout=TENSOR_TIMEOUT):
+    """``python -m mxnet_tpu_torch.tools.launch -n 2`` over
+    ``chip_smoke.py --tensor-worker <part>`` in a session of its own
+    (killed, workers and all, past ``timeout``); returns the records and
+    seconds."""
+    import signal
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n", "2",
+           "--launcher", "local", "--", sys.executable,
+           os.path.join(root, "chip_smoke.py"), "--tensor-worker", part]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+    secs = time.perf_counter() - t0
+    recs = [json.loads(line[len("tensor-worker: "):])
+            for line in out.splitlines()
+            if line.startswith("tensor-worker: ")]
+    if proc.returncode != 0 or len(recs) != 2:
+        raise RuntimeError("tensor (%s): the launcher exited %s after %.1f "
+                           "s with %d of 2 records:\n%s\n%s" % (
+                               part, proc.returncode, secs, len(recs),
+                               out[-4000:], err[-6000:]))
+    return recs, secs
+
+
+def phase_tensor(smi):
+    """Tensor and FSDP parallelism (``parallel/speclayout.py``,
+    ``parallel/tensor.py``, ``step.py``): (a) ``TrainStep`` over (dp = 1,
+    tp = 2), (b) the sharded ``CompiledStep`` over (data = 1, fsdp = 2),
+    plain and int8, each two gloo ranks on ``cuda:0`` (NCCL refuses two
+    ranks on one card) against one process.  No kernel of their own:
+    K1-K3 run in BERT's attention (heads whole on every rank) and are
+    counted under ``tensor``.  Returns every kernel's launches, summed
+    over the ranks and parts."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches, secs = {}, {}
+    for part in ("a", "b"):
+        recs, secs[part] = tensor_launch(part)
+        for rec in sorted(recs, key=lambda r: r["rank"]):
+            log("tensor: (%s) %s" % (part, json.dumps(rec)))
+            runs = [rec] if part == "a" else [rec["fsdp"],
+                                              rec["fsdp_int8"]]
+            for run in runs:
+                for k, v in run["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+    log("tensor: %s" % json.dumps({"launches": launches, "jobs_s": secs,
+                                   "phase_s": time.perf_counter() - t_phase,
+                                   "card": smi}))
+    return launches
+
+
 def kernel_row(name, source, replaces, launches, fp32, bf16, extra=None):
     """One entry of the kernels line: the fp32 figures under the contract's
     keys, the bf16 ones under ``bf16_``, and those of ``extra`` (another
@@ -6607,6 +7209,7 @@ def main():
     fwd = phase_kernels(peaks)
     bwd = phase_bwd_kernels(peaks)
     log_library_ratios(fwd, bwd)
+    long_fp32 = phase_long_fp32()
     net, sv, answers, serve_launches = phase_slice()
     tokens, types = make_requests()
     phase_breakdown(sv, tokens, types)
@@ -6654,6 +7257,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     context_launches = phase_context(smi, fwd)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tensor_launches = phase_tensor(smi)
     by_path = {k: {"serve": serve_launches[k], "train": train_launches[k],
                    "imperative": imperative_launches[k],
                    "resnet": resnet_launches[k],
@@ -6663,7 +7269,8 @@ def main():
                    "zoo": zoo_launches[k], "dist": dist_launches.get(k, 0),
                    "ps": ps_launches.get(k, 0),
                    "resume": resume_launches.get(k, 0),
-                   "context": context_launches.get(k, 0)}
+                   "context": context_launches.get(k, 0),
+                   "tensor": tensor_launches.get(k, 0)}
                for k in imperative_launches}
     fp32, bf16 = torch.float32, torch.bfloat16
     kernels = [
@@ -6697,13 +7304,21 @@ def main():
                      "resume": resume_launches.get("tpu_kernel:" + body,
                                                    0),
                      "context": context_launches.get("tpu_kernel:" + body,
-                                                     0)},
+                                                     0),
+                     "tensor": tensor_launches.get("tpu_kernel:" + body,
+                                                   0)},
                     user[(body, fp32)], user[(body, bf16)],
                     {"default_grid_": user[(body + ":default_grid", fp32)],
                      "bf16_default_grid_": user[(body + ":default_grid",
                                                  bf16)]}
                     if body == "double" else None)
          for body in USER_KERNELS]
+    # the fp32 rows' worst deviation from float64 at the long lengths
+    for row, stages in zip(kernels, (("O",), ("dQ",), ("dK", "dV"))):
+        row["fp32_long_rel_to_f64"] = {
+            "T=%d%s" % (r["T"], " causal" if r["causal"] else ""):
+                max(r["rel_to_f64"][st] for st in stages)
+            for r in long_fp32}
     log("smoke: all phases in %.1f s" % (time.perf_counter() - t_script))
     log(smi)
     log(json.dumps({"kernels": kernels}))
@@ -6713,17 +7328,23 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--dist-worker"]:
-        dist_worker(sys.argv[2])
-    elif sys.argv[1:2] == ["--ps-worker"]:
+    if sys.argv[1:2] == ["--ps-worker"]:
         ps_worker(sys.argv[2], sys.argv[3])
     elif sys.argv[1:2] == ["--resume-worker"]:
         resume_worker(sys.argv[2:])
     elif sys.argv[1:2] == ["--train-dist-async"]:
         train_dist_async(sys.argv[2:])
-    elif sys.argv[1:2] == ["--context-worker"]:
-        context_worker()
-    elif sys.argv[1:2] == ["--long-context-worker"]:
-        long_context_worker(sys.argv[2:])
+    elif sys.argv[1:2] in (["--dist-worker"], ["--context-worker"],
+                           ["--long-context-worker"], ["--tensor-worker"]):
+        {"--dist-worker": lambda: dist_worker(sys.argv[2]),
+         "--context-worker": context_worker,
+         "--long-context-worker": lambda: long_context_worker(sys.argv[2:]),
+         "--tensor-worker": lambda: tensor_worker(sys.argv[2]),
+         }[sys.argv[1]]()
+        # a worker of a process group leaves without the interpreter's
+        # teardown, where a two-rank gloo worker could abort after its
+        # work was done
+        from mxnet_tpu_torch.parallel import end_process_group
+        end_process_group(0)
     else:
         main()

@@ -145,6 +145,50 @@ ENV_CATALOG = {
                                  "its own connection as it is ready."),
     "MX_EXCHANGE_PARALLEL": ("4", "Concurrent bucket pulls a worker under "
                              "MX_EXCHANGE_HIERARCHICAL."),
+    # -- the compiled step and its sharded lane --------------------------------
+    "MX_STEP_COMPILE": ("0", "1 = the whole-step lane: "
+                        "Trainer.make_compiled_step's CompiledStep runs "
+                        "loss forward, backward, the bucketed (int8 "
+                        "error-feedback quantized) gradient exchange and "
+                        "the fused multi-tensor optimizer apply as one "
+                        "call a step (mxnet_tpu_torch/step.py).  Each call "
+                        "runs eagerly for now; the PS/dist_async transport, "
+                        "optimizers without a fused form, grad_req='add' "
+                        "and row-sparse gradients fall back to the eager "
+                        "pipeline.  Nothing in the port reads it yet: its "
+                        "reader, Module.fit, is not ported, so build the "
+                        "step with Trainer.make_compiled_step."),
+    "MX_STEP_SCAN": ("0", "N>1 = window size for the compiled step lane's "
+                     "window consumers (step.scan_window(), "
+                     "CompiledStep.run_window): N micro-batches a call, "
+                     "gradient accumulation folded in through "
+                     "run_window(accum=k).  0/1 = one step a call.  "
+                     "Nothing in the port reads it yet: its reader, "
+                     "Module.fit, is not ported, so pass the window to "
+                     "run_window."),
+    "MX_MESH_AXES": ("", "Named mesh axes for the SpecLayout sharded "
+                     "training lane (mxnet_tpu_torch/parallel/"
+                     "speclayout.py), as comma-separated name[=size] "
+                     "tokens, e.g. 'data,fsdp=2' or 'data,fsdp=2,tp=2'.  "
+                     "When set, CompiledStep/Trainer.make_compiled_step "
+                     "run the step over this mesh of ranks: the batch "
+                     "splits over data*fsdp, parameters + optimizer state "
+                     "live sheet-sharded (fsdp) / tensor-split (tp), so "
+                     "per-rank state bytes drop ~linearly with the fsdp "
+                     "axis, and gradients reduce-scatter onto the "
+                     "parameter shards (int8-quantized per bucket under "
+                     "gradient compression, error-feedback residuals "
+                     "sharded per rank).  An unsized data axis infers -1 "
+                     "(all remaining ranks); unsized model axes default "
+                     "to 2.  Empty keeps the replicated step.  Sharding "
+                     "never changes results - only placement and "
+                     "communication."),
+    "MX_FSDP": ("", "Size of the fsdp (ZeRO sheet-sharding) mesh axis for "
+                "the SpecLayout lane.  Overrides the fsdp entry of "
+                "MX_MESH_AXES; setting MX_FSDP=N alone implies "
+                "MX_MESH_AXES='data,fsdp=N'.  Per-rank params + "
+                "optimizer-state bytes drop ~1/N.  Empty/1 = no fsdp "
+                "sharding."),
 }
 
 

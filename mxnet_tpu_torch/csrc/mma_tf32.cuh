@@ -155,29 +155,48 @@ __device__ __forceinline__ void mma3_abt(float (&acc)[N][4], const float* a,
 // acc[n] += C B, where C (16 x 8K) is held as the accumulators c of K m16n8
 // tiles (P or dS) and B is rows 0 .. 8K - 1 of a k-major tile `b` (row k,
 // col n; all D columns): O += P V in K1, dQ += dS K in K2, dV += P^T dO and
-// dK += dS^T Q in K3.  m16n8k8's A fragment wants columns (t, t + 4) where
+// dK += dS^T Q in K3.  m16n8k8's A fragment wants columns (t, t + 4), where
 // an accumulator holds (2t, 2t + 1), so the k index is permuted: k-slot t
 // <- column 2t, k-slot t + 4 <- column 2t + 1, and the B fragment reads
 // rows 2t and 2t + 1 by scalar loads.
+//
+// Each n8 tile's product over the 8K rows goes into a fresh zeroed
+// fragment, which then enters acc by a CUDA-core add.  The tensor core's
+// fp32 sum does not round to nearest: each mma moves the accumulator a
+// fraction of an ulp toward zero, the same way every time, so a sum carried
+// in the mma accumulators through a whole row of 3 K mma a tile drifts by
+// a share that grows with the number of tiles.  At T = 16384 the fp32 dK
+// and dV of K3 came out 1.8e-4 x max|ref| from float64 (and K1's O, not
+// causal, 1.2e-4), twice their values at T = 8192, while the plain fp32
+// composition stayed near 3e-6 (chip_smoke.py's phase_long_fp32).  The
+// chain in the tensor core is now 3 K mma long, whatever T is, and the
+// add of a tile's part rounds to nearest.  c's hi halves are c itself; its
+// lo halves are split once, before the n loop.
 template <int D, int K>
 __device__ __forceinline__ void mma3_cb(float (&acc)[D / 8][4],
                                         const float (&c)[K][4],
                                         const float* b, int g, int t) {
+  uint32_t ah[K][4], al[K][4];
 #pragma unroll
   for (int kk = 0; kk < K; ++kk) {
-    uint32_t ah[4], al[4];
-    split(c[kk][0], ah[0], al[0]);
-    split(c[kk][2], ah[1], al[1]);
-    split(c[kk][1], ah[2], al[2]);
-    split(c[kk][3], ah[3], al[3]);
-    const float* row = b + Padded::at<D>(8 * kk + 2 * t, g);
+    split(c[kk][0], ah[kk][0], al[kk][0]);
+    split(c[kk][2], ah[kk][1], al[kk][1]);
+    split(c[kk][1], ah[kk][2], al[kk][2]);
+    split(c[kk][3], ah[kk][3], al[kk][3]);
+  }
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < D / 8; ++n) {
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk) {
+      const float* row = b + Padded::at<D>(8 * kk + 2 * t, g);
       uint32_t bh[2], bl[2];
       split(row[8 * n], bh[0], bl[0]);
       split(row[D + 4 + 8 * n], bh[1], bl[1]);
-      mma3(acc[n], ah, al, bh[0], bh[1], bl[0], bl[1]);
+      mma3(part, ah[kk], al[kk], bh[0], bh[1], bl[0], bl[1]);
     }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
   }
 }
 

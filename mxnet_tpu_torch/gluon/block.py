@@ -98,6 +98,18 @@ class Block(torch.nn.Module):
         expression the name must match."""
         return collect(self, select)
 
+    def sharding_spec(self, layout):
+        """Per-parameter partition specs for sharded training (the
+        :class:`~..parallel.speclayout.SpecLayout` hook): called by
+        ``SpecLayout.resolve`` on every block of the tree; return
+        ``{parameter attribute name or Parameter: PartitionSpec}`` to pin
+        this block's own parameters (``"weight"``), or an empty mapping
+        to take the layout's defaults (embeddings and linears split on
+        ``tp``, everything else sheet-sharded on ``fsdp``).  A
+        ``PartitionSpec()`` replicates; an axis the mesh lacks, or one
+        that does not divide the dimension, drops out."""
+        return {}
+
     def initialize(self, init=None, ctx: DeviceLike = None,
                    verbose: bool = False, force_reinit: bool = False, *,
                    device: DeviceLike = None,

@@ -10,7 +10,9 @@ reference's op name (``FullyConnected``, ``LayerNorm``, ``GroupNorm``,
 ``InstanceNorm``, ``Embedding``, ``Activation``, ``LeakyReLU``,
 ``flatten``, ``concat``, ``sigmoid``; a ``Lambda`` named by a string,
 its op), where the
-AMP policy casts the op's inputs; ``BatchNorm`` computes its op in parts
+AMP policy casts the op's inputs.  Inside
+``parallel.tensor.placement_scope`` a ``Dense`` or ``Embedding`` whose
+weight is split over tp computes column-, row- or vocab-parallel; ``BatchNorm`` computes its op in parts
 and takes the same cast (``registry.amp_cast``).
 A parameter whose gluon ``grad_req`` is 'null' (BatchNorm's running
 statistics; gamma without ``scale``, beta without ``center``) has
@@ -29,6 +31,7 @@ from ... import initializer
 from ...base import MXNetError
 from ...ops import nn as _ops
 from ...ops.registry import amp_cast, dispatch, get_op
+from ...parallel import tensor as _tensor
 from ..block import Block, HybridBlock
 from ..parameter import meta_parameter, param_handle
 
@@ -98,9 +101,14 @@ class Dense(HybridBlock):
     def forward(self, x):
         p = self._parameters
         bias = p.get("bias")
-        out = dispatch("FullyConnected", x, p["weight"], bias,
-                       num_hidden=self._units, no_bias=bias is None,
-                       flatten=self._flatten)
+        place = _tensor.placement(self, "weight")
+        if place is None:
+            out = dispatch("FullyConnected", x, p["weight"], bias,
+                           num_hidden=self._units, no_bias=bias is None,
+                           flatten=self._flatten)
+        else:
+            out = _tensor.dense_forward(x, p["weight"], bias, self._units,
+                                        self._flatten, place)
         if self._act:
             out = dispatch("Activation", out, act_type=self._act)
         return out
@@ -304,6 +312,10 @@ class Embedding(HybridBlock):
         self.weight = meta_parameter((input_dim, output_dim), dtype)
 
     def forward(self, x):
+        place = _tensor.placement(self, "weight")
+        if place is not None:
+            return _tensor.embedding_forward(x, self._parameters["weight"],
+                                             place)
         return dispatch("Embedding", x, self._parameters["weight"],
                         input_dim=self._dims[0], output_dim=self._dims[1])
 

@@ -21,9 +21,10 @@ runs the same exchange.  Without a group the Trainer makes no store, as
 the reference makes none for one device in one process.
 
 Parameters with a copy on each of several devices in one process raise
-(ROADMAP Queue 1: several-device parameters).  Not ported: sparse
-gradients, ``make_compiled_step`` (it raises; the CUDA-graph step is its
-counterpart to come) and the telemetry spans.
+(ROADMAP Queue 1: several-device parameters).  ``make_compiled_step``
+returns the whole-step lane (:mod:`..step`), sharded over a
+``SpecLayout`` when one is given or set in the environment.  Not ported:
+sparse gradients and the telemetry spans.
 """
 from __future__ import annotations
 
@@ -191,9 +192,16 @@ class Trainer:
         self._optimizer.set_learning_rate(lr)
 
     def make_compiled_step(self, net, loss_fn, metric=None, layout=None):
-        raise MXNetError("Trainer.make_compiled_step is not ported: its "
-                         "counterpart is the CUDA-graph training step, "
-                         "still to come")
+        """The whole-step lane (:class:`~..step.CompiledStep`) over this
+        Trainer: ``step(data, label)`` runs forward, backward, the
+        exchange, the update and the metric as one call, reading and
+        writing this Trainer's parameters and states.  ``layout`` (a
+        :class:`~..parallel.speclayout.SpecLayout`; None reads
+        ``MX_MESH_AXES`` / ``MX_FSDP``) runs it sharded over the layout's
+        mesh of ranks."""
+        from ..step import CompiledStep
+        return CompiledStep(net, loss_fn, self, metric=metric,
+                            layout=layout)
 
     # -- the step ----------------------------------------------------------
     def step(self, batch_size, ignore_stale_grad=False):

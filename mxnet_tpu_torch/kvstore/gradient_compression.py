@@ -69,6 +69,18 @@ class GradientCompression:
                               device=like.device)
         return res
 
+    def peek_residual(self, key, shape, dtype=torch.float32,
+                      device=None) -> torch.Tensor:
+        """The residual of ``key`` (zeros of ``shape`` when there is none
+        or its shape differs: a new bucket layout starts afresh)."""
+        res = self._residuals.get(key)
+        if res is None or tuple(res.shape) != tuple(shape):
+            return torch.zeros(tuple(shape), dtype=dtype, device=device)
+        return res
+
+    def put_residual(self, key, value: torch.Tensor) -> None:
+        self._residuals[key] = value
+
     # -- overlap-session checkpoints -----------------------------------------
     def checkpoint(self, keys) -> None:
         """Keep the current residuals of ``keys`` until :meth:`commit`, so

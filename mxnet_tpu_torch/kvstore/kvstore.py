@@ -47,6 +47,7 @@ import torch.distributed as dist
 from ..base import MXNetError, dtype_name, get_env
 from ..engine import engine as _engine
 from ..ndarray.ndarray import NDArray
+from ..ops import quantization as _qops
 
 __all__ = ["KVStore", "create", "KVStoreLocal", "KVStoreDevice",
            "KVStoreICI", "KVStoreDistAsync"]
@@ -216,6 +217,42 @@ class KVStore:
                 [s[3] for s in sig], cap, reverse=reverse, salt=salt)
             self._bucket_cache[cache_key] = cached
         return cached
+
+    # -- the compiled step's exchange body --------------------------------
+    def build_exchange_body(self, keys, arrays, layout=None):
+        """The int8 gradient exchange of :class:`~..step.CompiledStep`:
+        what one worker's batched push and pull observe of this store's
+        int8 wire, as a callable ``(grads, residuals) -> (grads,
+        residuals)`` (:class:`ExchangeBody`), or None when the store runs
+        the optimizer.  ``arrays`` are per-key templates (NDArrays; shapes
+        and dtypes).
+
+        Without ``layout`` the body takes each key's summed gradient and
+        quantizes per fusion bucket (the store's :meth:`_bucket_plans`:
+        concatenated, an error-feedback roundtrip keyed by the bucket's
+        name, split) and per solo key, as the reference's ICI body does.
+        With ``layout`` (a :class:`~..parallel.speclayout.SpecLayout`
+        whose mesh this rank is on) it is the **reduce-scatter** variant:
+        the body takes this rank's partial gradients (its share of the
+        batch), pads each flat payload to the block x fsdp grain
+        (:func:`~..ops.quantization.rs_block_bytes`), sums it over the
+        data axis (``all_reduce``) and reduce-scatters it over fsdp; each
+        rank quantizes its whole blocks against its own residual shard
+        (:func:`~..ops.quantization.rs_roundtrip_int8`), and the
+        dequantized shards are all-gathered back into whole gradients.
+        Its residuals live split per rank (``residual_shardings``).  The
+        two variants compute the same values.  The reference's bodies
+        for 2-bit and bf16 compression are not ported: they raise."""
+        if self._updater is not None or self._optimizer is not None:
+            return None
+        if self._gc is None or self._gc.type != "int8":
+            raise MXNetError(
+                "build_exchange_body: the port's compiled exchange carries "
+                "int8 compression; %s is the eager store's"
+                % ("bf16" if self._compress_bf16 else
+                   getattr(self._gc, "type", "no compression")))
+        return ExchangeBody(self, [_key(k) for k in keys], list(arrays),
+                            layout)
 
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
         keys, outs = self._normalize(key, out)
@@ -451,6 +488,96 @@ class _ExchangeSession:
         self._launched.clear()
         self._results.clear()
         self._snaps.clear()
+
+
+class ExchangeBody:
+    """The callable of :meth:`KVStore.build_exchange_body`.
+
+    ``residual_specs`` lists ``(wire key, whole shape, dtype)`` of each
+    error-feedback residual the body reads and returns, in order;
+    ``residual_shardings`` their placements (a
+    :class:`~..parallel.mesh.Sharding`, or None without a layout): split
+    over fsdp on the reduce-scatter grain, where each rank holds the
+    slice of its index.  ``wire_bytes`` is one call's payload on the
+    wire."""
+
+    def __init__(self, store: KVStore, keys, arrays, layout):
+        self.store, self.layout = store, layout
+        gc = store._gc
+        floating = [torch.is_floating_point(a.data) for a in arrays]
+        buckets, solo = [], list(range(len(keys)))
+        if len(keys) > 1:
+            buckets, solo = store._bucket_plans(keys, arrays)
+        self.sizes = [int(a.data.numel()) for a in arrays]
+        self.fsdp = 0 if layout is None else int(layout.fsdp)
+        self.use_rs = self.fsdp > 1
+        # (positions, payload length, padded length) of each payload
+        units = [(b.positions, b.name, b.total) for b in buckets]
+        units += [([p], keys[p], self.sizes[p]) for p in solo
+                  if floating[p]]
+        self.payloads, self.residual_specs = [], []
+        self.wire_bytes = sum(self.sizes[p] * a.data.element_size()
+                              for p, a in enumerate(arrays)
+                              if not floating[p])
+        for poss, wk, n in units:
+            npad = _qops.rs_block_bytes(n, gc.block, self.fsdp) \
+                if self.use_rs else n
+            self.payloads.append((list(poss), n, npad))
+            self.residual_specs.append((wk, (npad,), torch.float32))
+            self.wire_bytes += gc.wire_nbytes(n)
+        if layout is None:
+            sh = None
+        elif self.use_rs:
+            from ..parallel.speclayout import P
+            sh = layout.sharding(P(layout.fsdp_axis))
+        else:
+            sh = layout.replicated()
+        self.residual_shardings = [sh] * len(self.residual_specs)
+        self.floating = floating
+
+    def residual_local_shape(self, i: int):
+        """The shape of residual ``i`` on this rank."""
+        _, shape, _ = self.residual_specs[i]
+        return (shape[0] // self.fsdp,) if self.use_rs else shape
+
+    def _sum(self, x: torch.Tensor, axes) -> torch.Tensor:
+        from ..parallel import collectives as C
+        for a in axes:
+            if self.layout.axis_size(a) > 1:
+                x = C.psum(x, a, self.layout.mesh)
+        return x
+
+    def __call__(self, grads, residuals):
+        from ..parallel import collectives as C
+        grads = list(grads)
+        lay, block = self.layout, self.store._gc.block
+        if lay is not None:
+            batch = (lay.data_axis, lay.fsdp_axis)
+            # the sum over the batch: in the reduce-scatter below for the
+            # payloads, here for the rest (and all of it without fsdp)
+            grads = [g if self.use_rs and self.floating[p] else
+                     self._sum(g, batch) for p, g in enumerate(grads)]
+        new_res = []
+        for (poss, n, npad), res in zip(self.payloads, residuals):
+            flat = torch.cat([grads[p].reshape(-1) for p in poss]) \
+                if len(poss) > 1 else grads[poss[0]].reshape(-1)
+            if not self.use_rs:
+                deq, nr = _qops.roundtrip_int8_blocks(flat, res, block)
+            else:
+                if npad > n:
+                    flat = torch.cat([flat, flat.new_zeros(npad - n)])
+                flat = self._sum(flat, (lay.data_axis,))
+                shard = C.scatter_sum_along(flat, lay.mesh, lay.fsdp_axis, 0)
+                deq, nr = _qops.rs_roundtrip_int8(shard, res, block)
+                deq = C.gather_along(deq, lay.mesh, lay.fsdp_axis, 0)[:n]
+            new_res.append(nr)
+            off = 0
+            for p in poss:
+                size = self.sizes[p]
+                grads[p] = deq[off:off + size].view(grads[p].shape).to(
+                    grads[p].dtype)
+                off += size
+        return grads, new_res
 
 
 class KVStoreLocal(KVStore):

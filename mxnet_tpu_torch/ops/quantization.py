@@ -30,6 +30,7 @@ from ..base import get_env
 __all__ = ["GRAD_BLOCK_DEFAULT", "grad_compress_block", "int8_wire_bytes",
            "two_bit_wire_bytes", "quantize_int8_blocks",
            "dequantize_int8_blocks", "roundtrip_int8_blocks",
+           "rs_block_bytes", "rs_roundtrip_int8",
            "dequant_sum_requant_int8", "quantize_2bit_ef",
            "pack_2bit_words", "unpack_2bit_words"]
 
@@ -107,6 +108,30 @@ def roundtrip_int8_blocks(flat: torch.Tensor, residual: torch.Tensor,
     q, scales, new_res = quantize_int8_blocks(flat, residual, block)
     return (dequantize_int8_blocks(q, scales, flat.shape[0]).to(flat.dtype),
             new_res)
+
+
+def rs_block_bytes(n: int, block: int, fsdp: int) -> int:
+    """Padded flat length of the reduce-scatter int8 grain: whole blocks
+    per fsdp shard, so that shard-local blockwise quantization is the
+    whole payload's blockwise quantization."""
+    grain = block * max(1, int(fsdp))
+    return -(-int(n) // grain) * grain
+
+
+def rs_roundtrip_int8(shard: torch.Tensor, residual: torch.Tensor,
+                      block: int):
+    """The error-feedback int8 roundtrip of one fsdp rank's shard of a
+    reduce-scattered payload (padded by :func:`rs_block_bytes`, so the
+    shard is whole blocks) against its own residual shard:
+    ``(dequantized shard, new residual shard)``, the same values as
+    :func:`roundtrip_int8_blocks` gives these blocks of the whole payload.
+    The reference runs it under ``shard_map`` over the fsdp axis; here
+    each rank calls it on its shard."""
+    block = int(block)
+    if shard.shape[0] % block:
+        raise ValueError("rs_roundtrip_int8: a shard of %d is not whole "
+                         "blocks of %d" % (shard.shape[0], block))
+    return roundtrip_int8_blocks(shard, residual, block)
 
 
 def dequant_sum_requant_int8(q_stacked: torch.Tensor,

@@ -25,6 +25,20 @@ Each is a ``torch.autograd.Function`` whose backward is JAX's transpose:
   ``shard_map`` input replicated over the axis) as used by each rank on
   its own: the identity forward, the sum of every rank's cotangent
   backward, so each rank's gradient is the whole one.
+* :func:`all_gather` concatenates every rank's piece along a dimension
+  (``lax.all_gather(tiled=True)``).  Its backward depends on how the
+  whole value is used: ``backward="slice"`` (a weight used whole by a
+  computation every rank of the axis repeats alike, as a tp rank does)
+  takes this rank's slice of the cotangent, which every rank holds
+  alike; ``backward="reduce_scatter"`` (the batch is split over the
+  axis, as over fsdp, so each rank's cotangent is a partial sum) sums
+  the ranks' cotangents and keeps this rank's slice.
+* :func:`reduce_scatter` sums over the axis and keeps this rank's slice
+  of a dimension (``lax.psum_scatter(tiled=True)``); its backward is the
+  all-gather.
+* :func:`axis_slice` takes this rank's slice of a value every rank holds
+  alike; its backward all-gathers the cotangents (the transpose of a
+  slice of an axis-invariant value).
 
 With these rules a value every rank holds alike carries its cotangent
 once, and a value each rank holds its own carries its own, as in the
@@ -54,7 +68,8 @@ from ..base import MXNetError
 from .mesh import Mesh
 
 __all__ = ["ppermute", "all_to_all", "psum", "pmean", "pvary",
-           "axis_index", "axis_size", "stats",
+           "all_gather", "reduce_scatter", "axis_slice", "gather_along",
+           "scatter_sum_along", "axis_index", "axis_size", "stats",
            "reset_stats", "record"]
 
 _STATS: Dict[str, Dict[str, float]] = {}
@@ -192,6 +207,102 @@ def _sum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return out
 
 
+def gather_along(x: torch.Tensor, mesh, axis: str, dim: int
+                 ) -> torch.Tensor:
+    """Every rank's ``x`` along ``axis``, concatenated along ``dim`` in
+    axis order (no autograd)."""
+    line, group, _ = _line(mesh, axis)
+    n = len(line)
+    if n == 1:
+        return x.clone()
+    t0 = time.perf_counter()
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    # gloo's and NCCL's all_gather take CUDA tensors (gloo copies them
+    # through the host itself); the list is in group order, which is
+    # ascending global rank, and the line is in axis order
+    dist.all_gather(parts, x, group=group)
+    by_rank = dict(zip(sorted(line), parts))
+    out = torch.cat([by_rank[r] for r in line], dim=dim)
+    _account("all_gather", axis, x, False, time.perf_counter() - t0)
+    return out
+
+
+def scatter_sum_along(x: torch.Tensor, mesh, axis: str, dim: int
+                      ) -> torch.Tensor:
+    """This rank's slice along ``dim`` of the sum of every rank's ``x``
+    over ``axis`` (no autograd).  On NCCL one ``reduce_scatter_tensor``;
+    gloo has no reduce-scatter for CUDA tensors, so on a gloo group it is
+    an ``all_reduce`` and a slice (each rank moves the whole payload)."""
+    line, group, i = _line(mesh, axis)
+    n = len(line)
+    if n == 1:
+        return x.clone()
+    if x.shape[dim] % n:
+        raise MXNetError("reduce_scatter: dimension %d (%d) does not split "
+                         "into %d over %r" % (dim, x.shape[dim], n, axis))
+    t0 = time.perf_counter()
+    if dist.get_backend(group) == dist.Backend.NCCL and \
+            list(line) == sorted(line):
+        moved = x.movedim(dim, 0).contiguous()
+        out = torch.empty((moved.shape[0] // n,) + moved.shape[1:],
+                          dtype=x.dtype, device=x.device)
+        dist.reduce_scatter_tensor(out, moved, group=group)
+        out = out.movedim(0, dim).contiguous()
+        _account("reduce_scatter", axis, x, False, time.perf_counter() - t0)
+        return out
+    full = x.contiguous().clone()
+    dist.all_reduce(full, group=group)
+    out = full.chunk(n, dim=dim)[i].contiguous()
+    _account("reduce_scatter", axis, x, False, time.perf_counter() - t0)
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, backward):
+        ctx.args = mesh, axis, dim, backward
+        return gather_along(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim, backward = ctx.args
+        if backward == "slice":
+            n, i = mesh.axis_size(axis), mesh.axis_index(axis)
+            out = g.chunk(n, dim=dim)[i].contiguous()
+        else:
+            out = scatter_sum_along(g, mesh, axis, dim)
+        return out, None, None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = mesh, axis, dim
+        return scatter_sum_along(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.args
+        return gather_along(g, mesh, axis, dim), None, None, None
+
+
+class _AxisSlice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = mesh, axis, dim
+        n, i = mesh.axis_size(axis), mesh.axis_index(axis)
+        if x.shape[dim] % n:
+            raise MXNetError("axis_slice: dimension %d (%d) does not split "
+                             "into %d over %r" % (dim, x.shape[dim], n, axis))
+        return x.chunk(n, dim=dim)[i].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.args
+        return gather_along(g, mesh, axis, dim), None, None, None
+
+
 class _PPermute(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, shift):
@@ -260,6 +371,31 @@ def psum(x: torch.Tensor, axis: str, mesh: Mesh) -> torch.Tensor:
 def pmean(x: torch.Tensor, axis: str, mesh: Mesh) -> torch.Tensor:
     """The mean over ``axis``, held alike by every rank of it."""
     return _Psum.apply(x, mesh, axis, 1.0 / mesh.axis_size(axis))
+
+
+def all_gather(x: torch.Tensor, axis: str, dim: int, mesh: Mesh,
+               backward: str = "slice") -> torch.Tensor:
+    """Every rank's piece along ``dim``, in axis order; ``backward`` is
+    ``"slice"`` (the whole value is used alike by every rank of the axis)
+    or ``"reduce_scatter"`` (each rank's use is a partial: the batch is
+    split over the axis)."""
+    if backward not in ("slice", "reduce_scatter"):
+        raise ValueError("all_gather: backward is 'slice' or "
+                         "'reduce_scatter', not %r" % (backward,))
+    return _AllGather.apply(x, mesh, axis, dim % x.dim(), backward)
+
+
+def reduce_scatter(x: torch.Tensor, axis: str, dim: int,
+                   mesh: Mesh) -> torch.Tensor:
+    """This rank's slice along ``dim`` of the sum over ``axis``."""
+    return _ReduceScatter.apply(x, mesh, axis, dim % x.dim())
+
+
+def axis_slice(x: torch.Tensor, axis: str, dim: int,
+               mesh: Mesh) -> torch.Tensor:
+    """This rank's slice along ``dim`` of ``x``, held alike over
+    ``axis``."""
+    return _AxisSlice.apply(x, mesh, axis, dim % x.dim())
 
 
 def pvary(x: torch.Tensor, axis: str, mesh: Mesh) -> torch.Tensor:

@@ -17,7 +17,11 @@ Counterpart of ``mxnet_tpu/parallel/mesh.py``:
   :func:`~..gluon.block.functionalize`.  Over a dp axis of W ranks each
   rank passes its own shard of the batch and the step all-reduces the
   gradients over that axis's group (a sum divided by W, on fusion
-  buckets) before the update.
+  buckets) before the update.  Over a tp axis the step stores each
+  parameter on its :func:`~.speclayout.tp_alternation_specs` shard and
+  computes through :mod:`.tensor`'s column- and row-parallel layers.
+* :func:`shard_params_tp` is the reference's deprecated alias of
+  :func:`.speclayout.shard_params_tp`.
 """
 from __future__ import annotations
 
@@ -36,7 +40,8 @@ from ..device import DeviceLike, resolve
 from ..gluon.block import functionalize
 
 __all__ = ["init_process_group", "Mesh", "Sharding", "make_mesh",
-           "replicated", "batch_sharded", "TrainStep"]
+           "replicated", "batch_sharded", "shard_params_tp", "TrainStep",
+           "end_process_group"]
 
 
 def init_process_group(coordinator_address: Optional[str] = None,
@@ -90,6 +95,25 @@ def init_process_group(coordinator_address: Optional[str] = None,
         timeout=datetime.timedelta(seconds=int(initialization_timeout)),
         **kwargs)
     return dev
+
+
+def end_process_group(exit_code: Optional[int] = None) -> None:
+    """End this worker's process group explicitly: a barrier (every rank
+    is past its last collective), then ``destroy_process_group``.  With
+    ``exit_code`` the process then flushes its standard streams and leaves
+    through ``os._exit``, without the interpreter's teardown: a two-rank
+    gloo worker that printed its last line could abort in that teardown
+    ("terminate called without an active exception", a C++ thread still
+    joinable), which failed its exit code after the work was done."""
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+    if exit_code is not None:
+        import os
+        import sys
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(int(exit_code))
 
 
 def _my_rank() -> int:
@@ -227,6 +251,19 @@ def batch_sharded(mesh: Mesh, axis: str = "dp") -> Sharding:
     return Sharding(mesh, (axis,))
 
 
+def shard_params_tp(param_values, mesh: Mesh, tp_axis: str = "tp",
+                    rules: Optional[Dict[str, Any]] = None):
+    """Deprecated alias: tensor-parallel placement of Dense weights, now
+    owned by :mod:`.speclayout` (the one source of parameter
+    placements): explicit ``rules`` ({name-substring: spec}; a parameter
+    no rule matches replicates), else column/row alternation of
+    consecutive 2-D '...weight' parameters.  Returns this rank's shards;
+    new code builds a :class:`~.speclayout.SpecLayout` and calls
+    :func:`~.speclayout.shard_params`."""
+    from .speclayout import shard_params_tp as _impl
+    return _impl(param_values, mesh, tp_axis=tp_axis, rules=rules)
+
+
 def _batch_norms(block: torch.nn.Module) -> List[str]:
     from ..gluon.nn.basic_layers import BatchNorm
     kinds = (BatchNorm, torch.nn.modules.batchnorm._BatchNorm)
@@ -259,41 +296,55 @@ class TrainStep:
     mean over the global batch.  Batch statistics would differ (each rank
     would normalise by its own shard), so a block holding a BatchNorm
     raises over more than one rank until a synchronised batch norm is
-    ported.  The step trains over the dp axis only: another axis of more
-    than one rank raises (tensor parallelism is ROADMAP Queue 1 item 4.2
-    (b); sequence, pipeline and expert parallelism run through
-    :mod:`.ring`, :mod:`.pipeline` and :mod:`.moe` with an update of the
-    caller's).
+    ported.
+
+    Over a ``tp_axis`` of more than one rank (the reference's tensor
+    parallelism) each parameter and its momentum are stored as this
+    rank's shard of its :func:`~.speclayout.tp_alternation_specs` spec
+    (``tp_rules``, or column- and row-parallel in turn for consecutive
+    2-D weights; the rest replicate), and every rank of a tp line passes
+    the same batch shard (the batch splits over dp only).  The forward
+    runs in a :class:`~.tensor.placement_scope`: a ``Dense`` weight split
+    on its output computes column-parallel, one split on its input
+    row-parallel, an ``Embedding`` split on its rows vocab-parallel, and
+    any other split parameter is gathered at its use.  A split leaf's
+    gradient stays its shard; every leaf is all-reduced over dp.  Another
+    axis of more than one rank raises: sequence, pipeline and expert
+    parallelism run through :mod:`.ring`, :mod:`.pipeline` and
+    :mod:`.moe` with an update of the caller's.
 
     :meth:`save` and :meth:`restore` checkpoint ``{"params",
-    "opt_state"}`` through :mod:`..checkpoint` (crash-safe; over a dp mesh
-    every rank calls both, collectively), so a restored step continues
-    bitwise where the saved one stopped.
+    "opt_state"}`` through :mod:`..checkpoint` (crash-safe; over a mesh
+    every rank calls both, collectively; split leaves are saved as their
+    shards with their specs), so a restored step continues bitwise where
+    the saved one stopped.
     """
 
     def __init__(self, block: torch.nn.Module, loss_fn: Callable,
                  mesh: Optional[Mesh] = None, device: DeviceLike = None,
                  learning_rate: float = 0.01, momentum: float = 0.9,
-                 dp_axis: str = "dp"):
+                 dp_axis: str = "dp", tp_axis: str = "tp",
+                 tp_rules: Optional[Dict[str, Any]] = None):
         self.mesh = mesh
-        self._world = 1 if mesh is None else mesh.shape[dp_axis]
+        self._world = 1 if mesh is None else mesh.shape.get(dp_axis, 1)
+        self._tp = 1 if mesh is None else mesh.shape.get(tp_axis, 1)
         others = {} if mesh is None else {
-            a: n for a, n in mesh.shape.items() if a != dp_axis and n > 1}
+            a: n for a, n in mesh.shape.items()
+            if a not in (dp_axis, tp_axis) and n > 1}
         if others:
             raise MXNetError(
-                "TrainStep trains over the %r axis only, and the mesh also "
-                "splits %s: tensor parallelism (explicit column/row layers "
-                "and the sharded step) is still to come, ROADMAP Queue 1 "
-                "item 4.2 (b); sequence, pipeline and expert parallelism "
+                "TrainStep trains over the %r and %r axes, and the mesh "
+                "also splits %s: sequence, pipeline and expert parallelism "
                 "run through parallel.ring, pipeline and moe with an update "
-                "of the caller's" % (dp_axis, others))
+                "of the caller's" % (dp_axis, tp_axis, others))
+        self._dp_axis, self._tp_axis = dp_axis, tp_axis
         self._group = self._root = None
+        if (self._world > 1 or self._tp > 1) and mesh.groups is None:
+            raise MXNetError(
+                "TrainStep: a mesh of %s needs a process group "
+                "(parallel.init_process_group, then make_mesh)"
+                % dict(mesh.shape))
         if self._world > 1:
-            if mesh.groups is None:
-                raise MXNetError(
-                    "TrainStep: a dp mesh of %d ranks needs a process group "
-                    "(parallel.init_process_group, then make_mesh)"
-                    % self._world)
             self._group = mesh.group(dp_axis)
             self._root = mesh.line(dp_axis)[0]
             norms = _batch_norms(block)
@@ -305,13 +356,31 @@ class TrainStep:
                     "come" % (self._world, norms[:3]))
         pure_fn, params = functionalize(block)
         self.device = resolve(device)
-        self.params = OrderedDict(
+        whole = OrderedDict(
             (n, p.to(self.device, copy=True)) for n, p in params.items())
-        if self._world > 1:
-            # every rank starts from rank 0's weights, as the Trainer's
-            # store makes it: blocks initialised apart would train apart
-            for p in self.params.values():
-                dist.broadcast(p, src=self._root, group=self._group)
+        for axis, n in ((dp_axis, self._world), (tp_axis, self._tp)):
+            if n > 1:
+                # every rank starts from the line's first rank's weights,
+                # as the Trainer's store makes it: blocks initialised
+                # apart would train apart
+                for p in whole.values():
+                    dist.broadcast(p, src=mesh.line(axis)[0],
+                                   group=mesh.group(axis))
+        from .speclayout import P, place_value, tp_alternation_specs
+        if self._tp > 1:
+            self.specs = tp_alternation_specs(whole, mesh, tp_axis, tp_rules)
+        else:
+            self.specs = OrderedDict((n, P()) for n in whole)
+        self._shapes = {n: tuple(p.shape) for n, p in whole.items()}
+        self.params = OrderedDict(
+            (n, place_value(p, Sharding(mesh, self.specs[n]))
+             if tuple(self.specs[n]) else p) for n, p in whole.items())
+        del whole
+        self._use, self._places = {}, {}
+        if self._tp > 1:
+            from .tensor import use_plan
+            self._use, self._places = use_plan(
+                block, self.specs, lambda spec: spec, mesh, tp_axis)
         self.opt_state = OrderedDict(
             (n, torch.zeros_like(p)) for n, p in self.params.items())
         self.learning_rate = float(learning_rate)
@@ -337,7 +406,7 @@ class TrainStep:
     shard_batch = _place
 
     def _allreduce_mean(self, grads: List[torch.Tensor]) -> None:
-        """Replace each gradient by its mean over the ranks: one
+        """Replace each gradient by its mean over the dp ranks: one
         ``all_reduce`` a fusion bucket (or solo tensor), in place."""
         def mean(flat):
             dist.all_reduce(flat, group=self._group)
@@ -351,12 +420,23 @@ class TrainStep:
         for p in solo:
             grads[p] = mean(grads[p].contiguous())
 
+    def _uses(self, names, leaves):
+        """The tensors the forward takes: each leaf on its use spec."""
+        if self._tp == 1:
+            return dict(zip(names, leaves))
+        from .tensor import to_use
+        return {n: to_use(leaf, self.specs[n], self._use.get(n, ()),
+                          self.mesh, self._shapes[n],
+                          batch_axes=(self._dp_axis,))
+                for n, leaf in zip(names, leaves)}
+
     def _step(self, batch: List[torch.Tensor]) -> torch.Tensor:
+        from .tensor import placement_scope
         names = list(self.params)
         leaves = [self.params[n].detach().requires_grad_(True)
                   for n in names]
-        with torch.enable_grad():
-            out = self._pure_fn(dict(zip(names, leaves)), *batch[:-1],
+        with torch.enable_grad(), placement_scope(self._places):
+            out = self._pure_fn(self._uses(names, leaves), *batch[:-1],
                                 training=True)
             loss = self._loss_fn(out, batch[-1])
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -399,24 +479,39 @@ class TrainStep:
             return self.mesh
         return Mesh(np.asarray([0]), ("dp",))
 
+    def _state(self):
+        return ({"params": self.params, "opt_state": self.opt_state},
+                {"params": self.specs, "opt_state": self.specs})
+
     def save(self, path: str) -> None:
         """Checkpoint ``{"params", "opt_state"}`` to ``path``
-        (:func:`..checkpoint.save_sharded`; every leaf replicated on the
-        step's mesh)."""
+        (:func:`..checkpoint.save_sharded`; split leaves as their shards,
+        with their specs in the sidecar)."""
         from ..checkpoint import save_sharded
-        save_sharded(path, {"params": self.params,
-                            "opt_state": self.opt_state}, mesh=self._mesh())
+        state, specs = self._state()
+        save_sharded(path, state, mesh=self._mesh(), specs=specs)
 
     def restore(self, path: str) -> None:
-        """Load a checkpoint of :meth:`save` in place into this step's
+        """Load a checkpoint of :meth:`save` (on this mesh or another: the
+        leaves are re-sharded by axis name) in place into this step's
         tensors, on its device and in its dtypes."""
         from ..checkpoint import restore_sharded
-        restore_sharded(path, template={"params": self.params,
-                                        "opt_state": self.opt_state})
+        state, specs = self._state()
+        restore_sharded(path, template=state, mesh=self._mesh(),
+                        specs=specs)
+
+    def gathered(self) -> "OrderedDict[str, torch.Tensor]":
+        """The whole parameters (a gather of the split ones over the mesh;
+        collective: every rank calls it)."""
+        from .tensor import assemble
+        return OrderedDict(
+            (n, assemble(v, self.specs[n], self.mesh)
+             if tuple(self.specs[n]) else v) for n, v in self.params.items())
 
     def write_back(self, block: torch.nn.Module) -> None:
-        """Copy the step's parameters into ``block``'s by name."""
+        """Copy the step's parameters into ``block``'s by name (split ones
+        gathered first: every rank calls it)."""
         named = dict(block.named_parameters())
         with torch.no_grad():
-            for name, value in self.params.items():
+            for name, value in self.gathered().items():
                 named[name].copy_(value)

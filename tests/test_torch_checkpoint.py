@@ -332,8 +332,8 @@ _DP_SAVE = textwrap.dedent("""
     import torch.distributed as dist
     from mxnet_tpu_torch import checkpoint
     from mxnet_tpu_torch.gluon import nn
-    from mxnet_tpu_torch.parallel import TrainStep, init_process_group, \\
-        make_mesh
+    from mxnet_tpu_torch.parallel import TrainStep, end_process_group, \\
+        init_process_group, make_mesh
     init_process_group(device="cpu")
     rank, out = dist.get_rank(), sys.argv[1]
 
@@ -357,9 +357,8 @@ _DP_SAVE = textwrap.dedent("""
     a(x, y)
     b(x, y)
     assert all(torch.equal(v, b.params[n]) for n, v in a.params.items())
-    dist.barrier()
     print("DP_CKPT_OK", rank, flush=True)
-    dist.destroy_process_group()
+    end_process_group(0)
 """)
 
 

@@ -43,7 +43,8 @@ import torch.distributed as dist
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import autograd, gluon, kvstore, nd
 from mxnet_tpu_torch.base import MXNetError
-from mxnet_tpu_torch.parallel import TrainStep, init_process_group, make_mesh
+from mxnet_tpu_torch.parallel import (TrainStep, end_process_group,
+                                      init_process_group, make_mesh)
 
 init_process_group(device="cpu")
 mx.cpu().__enter__()
@@ -91,8 +92,8 @@ def done():
     bad = [m for m in sys.modules if m in ("jax", "mxnet_tpu")
            or m.startswith(("jax.", "mxnet_tpu."))]
     assert not bad, bad
-    dist.destroy_process_group()
     print("CLEAN rank", RANK, flush=True)
+    end_process_group(0)
 """
 
 
@@ -394,8 +395,8 @@ def test_dp_trainstep_matches_the_reference_on_the_global_batch(tmp_path):
     """Each rank passes its half; the dp step's parameters and losses
     (``run_steps`` too) are the reference ``TrainStep``'s on the whole
     batch within 1e-5; a block with a BatchNorm is refused over two ranks,
-    and so is a mesh with a tp axis of two (tensor parallelism is still to
-    come)."""
+    and so is a mesh with an sp axis of two (sequence parallelism runs
+    through parallel.ring; dp and tp are the step's axes)."""
     lr, mom = 0.1, 0.9
     _launch(tmp_path, """
         mesh = make_mesh()
@@ -421,12 +422,12 @@ def test_dp_trainstep_matches_the_reference_on_the_global_batch(tmp_path):
             raise AssertionError("TrainStep over 2 ranks took a BatchNorm")
         try:
             TrainStep(mlp(weights0()), lambda o, y: o.mean(),
-                      mesh=make_mesh(axes=("dp", "tp"), shape=(1, 2)),
+                      mesh=make_mesh(axes=("dp", "sp"), shape=(1, 2)),
                       device="cpu")
         except MXNetError as e:
-            assert "tensor parallelism" in str(e), e
+            assert "parallel.ring" in str(e), e
         else:
-            raise AssertionError("TrainStep took a tp axis of size 2")
+            raise AssertionError("TrainStep took an sp axis of size 2")
     """ % (lr, mom))
     ranks = _load(tmp_path, "trainstep")
     _assert_ranks_bitwise(ranks)

@@ -52,6 +52,7 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import attention as att
 from mxnet_tpu_torch.parallel import (TrainStep, collectives as C,
                                       context_parallel_attention,
+                                      end_process_group,
                                       init_process_group, make_mesh,
                                       moe_parallel, pipeline_parallel)
 
@@ -282,8 +283,8 @@ np.savez(os.path.join(OUT, "rank%d.npz" % RANK), **res)
 bad = [m for m in sys.modules if m in ("jax", "mxnet_tpu")
        or m.startswith(("jax.", "mxnet_tpu."))]
 assert not bad, bad
-dist.destroy_process_group()
 print("CLEAN rank", RANK, flush=True)
+end_process_group(0)
 '''
 
 
@@ -455,8 +456,10 @@ def test_make_mesh_lays_ranks_out_as_the_reference_devices(job):
 
 
 def test_trainstep_trains_over_dp_only(job):
+    """Of the mesh axes, TrainStep trains over dp (and tp): an sp axis
+    raises, naming where sequence parallelism runs."""
     msg = str(job.get()[0]["trainstep_axes"])
-    assert "'sp': 2" in msg and "4.2 (b)" in msg
+    assert "'sp': 2" in msg and "parallel.ring" in msg
 
 
 def test_ulysses_rejects_indivisible_heads(job):

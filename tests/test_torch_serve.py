@@ -289,7 +289,9 @@ def test_port_imports_neither_jax_nor_mxnet_tpu():
             "mxnet_tpu_torch.parallel.ring, "
             "mxnet_tpu_torch.parallel.pipeline, "
             "mxnet_tpu_torch.parallel.moe, "
-            "mxnet_tpu_torch.parallel.collectives; "
+            "mxnet_tpu_torch.parallel.collectives, "
+            "mxnet_tpu_torch.parallel.speclayout, "
+            "mxnet_tpu_torch.parallel.tensor, mxnet_tpu_torch.step; "
             "import torch.distributed.checkpoint; "
             "import chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or "
