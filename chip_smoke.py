@@ -334,6 +334,26 @@ Phases (each raises on failure, so any failure exits nonzero):
    BERT-base FFN experts, 4096 tokens a rank, capacity factor 2: outputs,
    the auxiliary loss and gradients against the token-by-token
    computation; the share of tokens dropped.
+20. tensor -- tensor and FSDP parallelism (``phase_tensor``): BERT-base
+   through ``TrainStep`` at tp = 2 and the sharded ``CompiledStep`` at
+   fsdp = 2, plain and int8, two gloo ranks against one process.
+21. several -- parameters with a copy on each of two contexts in one
+   process (``phase_several``): BERT-base fp32, T = 128, batch 4 over
+   ``[gpu(0), cpu(0)]`` (two cards: ``[gpu(0), gpu(1)]``), 3 steps of the
+   eager loop (``split_and_load``, a forward and backward a copy,
+   ``Trainer.step`` through ``kvstore="device"``), then 3 through
+   ``make_compiled_step``, against one context on the whole batch: the
+   first reduced gradient, the change from init, the copies after every
+   step, the compiled lane against the eager, and a planted one-copy
+   gradient that must fail; K1-K3 run in the card's copy (``several``).
+22. resnet_dp -- global batch statistics in the dp ``TrainStep``
+   (``phase_resnet_dp``): ``chip_smoke.py --resnet-dp-worker`` as two
+   gloo ranks on ``cuda:0``, ``resnet50_v1`` on 8 images a rank, 3 steps
+   in fp32 (timed; the BatchNorm all-reduces and the gradient exchange
+   counted) and 3 in float64, against one process on the 16 images in
+   float64 (the momentum, the change, the batch statistics, the running
+   statistics, and a planted fault, each rank's own statistics, that must
+   fail); none of K1-K4 launched (``resnet_dp``).
 
 The last lines of standard output are the ``nvidia-smi`` name and power
 limit, one JSON object ``{"kernels": [...]}`` and, last,
@@ -7181,6 +7201,521 @@ def phase_tensor(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 21. parameters with a copy on each of several contexts in one process
+# ---------------------------------------------------------------------------
+
+#: BERT-base at full width, fp32, T = SEVERAL_T, a copy on each of two
+#: contexts with SEVERAL_BATCH / 2 samples a copy, dropout 0, SGD
+SEVERAL_T, SEVERAL_BATCH, SEVERAL_STEPS = 128, 4, 3
+#: the first reduced gradient against one context's on the whole batch,
+#: each tensor by norm, ||got - want|| / ||want||: the port's fp32 rule
+SEVERAL_GRAD_RTOL = 1e-4
+#: each parameter's change from init against one context's, by norm
+#: (TENSOR_CHANGE_RTOL's reasons)
+SEVERAL_CHANGE_RTOL = 1e-2
+#: the two copies after every step, max |gpu - other| / max |gpu| over a
+#: tensor: each copy applies the one reduced gradient with its own
+#: context's arithmetic (the card's fused multiply-adds against the
+#: host's), so they are equal to an ulp or so, not bitwise
+SEVERAL_COPY_RTOL = 1e-6
+#: the compiled lane against the eager loop, each tensor by norm against
+#: its change from init
+SEVERAL_COMPILED_RTOL = 1e-5
+
+
+def several_contexts():
+    """The two contexts of :func:`phase_several` and why: two cards where
+    the machine has them; else the card and the host, the only two devices
+    a one-card machine has (upstream MXNet takes that mix, and the store
+    reduces on the first copy's device), which is no fallback."""
+    import mxnet_tpu_torch as mx
+    if torch.cuda.device_count() >= 2:
+        return [mx.gpu(0), mx.gpu(1)], "two cards"
+    return [mx.gpu(0), mx.cpu(0)], (
+        "one card: its copy and a copy on the host, the second device "
+        "this machine has")
+
+
+def several_batch_host():
+    rng = np.random.RandomState(SEED + 21)
+    tok = rng.randint(0, VOCAB, size=(SEVERAL_BATCH, SEVERAL_T))
+    lab = rng.randint(0, VOCAB, size=(SEVERAL_BATCH, SEVERAL_T))
+    return tok.astype(np.int64), np.zeros_like(tok, np.int64), \
+        lab.astype(np.int64)
+
+
+def several_net(ctxs):
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.model_zoo.bert import bert_12_768_12
+    net = bert_12_768_12(vocab_size=VOCAB, max_length=SEQ_LEN, dropout=0.0,
+                         use_classifier=False)
+    net.initialize(initializer.Normal(0.02), seed=SEED, device=ctxs)
+    return net
+
+
+def _copy_gap(net):
+    """max over tensors of max |copy 0 - copy d| / max |copy 0|, and the
+    tensor that reaches it."""
+    worst, at = 0.0, None
+    for n, p in net.collect_params().items():
+        ds = [d.data.detach() for d in p.list_data()]
+        ref = ds[0].double()
+        for d in ds[1:]:
+            gap = float((d.to(ref.device).double() - ref).abs().max()) / \
+                max(float(ref.abs().max()), 1e-30)
+            if not gap <= worst:
+                worst, at = gap, n
+    return worst, at
+
+
+def phase_several(smi):
+    """Parameters with a copy on each of two contexts in one process
+    (``Parameter.initialize(ctx=[...])``, ``gluon.Trainer`` over the copies
+    with ``kvstore="device"``, ``make_compiled_step`` over them): BERT-base
+    fp32 at T = SEVERAL_T, SEVERAL_BATCH samples split over the copies,
+    SGD lr TRAIN_LR, momentum TRAIN_MOMENTUM, SEVERAL_STEPS steps of the
+    eager loop (``split_and_load``, a forward and backward a copy,
+    ``Trainer.step``), then the same start through the compiled lane.  The
+    card's copy runs K1-K3; the host's the plain attention, the port's CPU
+    route.  Held against one context (``gpu(0)``) on the whole batch: the
+    first reduced gradient (SEVERAL_GRAD_RTOL), the change from init
+    (SEVERAL_CHANGE_RTOL), the copies after every step
+    (SEVERAL_COPY_RTOL), the compiled lane against the eager loop
+    (SEVERAL_COMPILED_RTOL); a planted fault, one copy's gradient alone
+    (half the batch), must fail the gradient's check.  Returns the kernel
+    launches of the two several-context runs."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.ops import _kernels
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctxs, why = several_contexts()
+    log("several: contexts %s (%s)" % (ctxs, why))
+    ce = SoftmaxCrossEntropyLoss()
+
+    def loss_fn(outputs, labels):
+        return ce(outputs[-1], labels)
+
+    host = several_batch_host()
+    opt = {"learning_rate": TRAIN_LR, "momentum": TRAIN_MOMENTUM}
+
+    def params(net):
+        return _host({n: p.list_data()[0].data
+                      for n, p in net.collect_params().items()})
+
+    def grads(net, d=0):
+        return _host({n: p.list_grad()[d].data
+                      for n, p in net.collect_params().items()
+                      if p.grad_req != "null"})
+
+    def eager_step(net, tr, cs, first=False):
+        parts = [gluon.utils.split_and_load(a, cs) for a in host]
+        with autograd.record():
+            losses = [loss_fn(net(t, s), y) for t, s, y in zip(*parts)]
+        autograd.backward(losses)
+        snap = None
+        if first:
+            snap = grads(net)           # this copy's own, before the merge
+            tr.allreduce_grads()
+            tr.update(SEVERAL_BATCH)
+        else:
+            tr.step(SEVERAL_BATCH)
+        return [float(l.asnumpy().sum()) for l in losses], snap
+
+    # one context on the whole batch: the yardstick
+    one = several_net(ctxs[:1])
+    p0 = params(one)
+    tr1 = gluon.Trainer(one.collect_params(), "sgd", dict(opt))
+    one_losses, g_one = [], None
+    for i in range(SEVERAL_STEPS):
+        ls, _ = eager_step(one, tr1, ctxs[:1])
+        if i == 0:
+            g_one = grads(one)
+        one_losses.append(sum(ls))
+    p_one = params(one)
+    del one, tr1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- the several-context main path, counted ---
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    net = several_net(ctxs)
+    tr = gluon.Trainer(net.collect_params(), "sgd", dict(opt),
+                       kvstore="device")
+    losses, copy_gaps, ms = [], [], []
+    g_own = g_reduced = None
+    for i in range(SEVERAL_STEPS):
+        t0 = time.perf_counter()
+        ls, own = eager_step(net, tr, ctxs, first=i == 0)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            g_own, g_reduced = own, grads(net)
+        losses.append(sum(ls))
+        copy_gaps.append(_copy_gap(net))
+    p_eager = params(net)
+    del net, tr
+    gc.collect()
+    cnet = several_net(ctxs)
+    ctr = gluon.Trainer(cnet.collect_params(), "sgd", dict(opt),
+                        kvstore="device")
+    step = ctr.make_compiled_step(cnet, loss_fn)
+    c_losses, c_ms = [], []
+    for i in range(SEVERAL_STEPS):
+        t0 = time.perf_counter()
+        out = step.step(list(host[:2]), host[2], batch_size=SEVERAL_BATCH)
+        torch.cuda.synchronize()
+        c_ms.append((time.perf_counter() - t0) * 1e3)
+        c_losses.append(float(out.asnumpy().sum()))
+    counts = _kernels.launch_counts()
+    # --- end of the counted main path ---
+    c_gap = _copy_gap(cnet)
+    p_comp = params(cnet)
+    compiled = step.compiled
+    del cnet, ctr, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    grad = _compare(g_reduced, g_one)
+    planted = _compare(g_own, g_one)
+    change = _compare(p_eager, p_one, p0)
+    comp = _compare(p_comp, p_eager, p0)
+    rec = {"contexts": [str(c) for c in ctxs], "why": why,
+           "batch": SEVERAL_BATCH, "seq": SEVERAL_T,
+           "losses": losses, "one_context_losses": one_losses,
+           "compiled_losses": c_losses, "compiled": compiled,
+           "eager_step_ms": ms, "compiled_step_ms": c_ms,
+           "copy_gaps": [g for g, _ in copy_gaps],
+           "copy_gap_at": [a for _, a in copy_gaps],
+           "compiled_copy_gap": c_gap[0], "launches": _k123(counts),
+           "card": smi}
+    ok = [_held(grad, SEVERAL_GRAD_RTOL), _held(change, SEVERAL_CHANGE_RTOL),
+          all(g <= SEVERAL_COPY_RTOL for g, _ in copy_gaps + [c_gap]),
+          _held(comp, SEVERAL_COMPILED_RTOL), compiled]
+    caught = not _held(planted, SEVERAL_GRAD_RTOL)
+    rec.update(first_grad=grad, change=change, compiled_vs_eager=comp,
+               planted_one_copy=planted)
+    log("several: %s" % json.dumps(rec))
+    log("several: first reduced gradient %.3g (limit %g); planted fault, "
+        "one copy's gradient alone, %.3g (must exceed the limit); change "
+        "from init %.3g (limit %g); copies %.3g (limit %g); compiled "
+        "against eager %.3g (limit %g); phase %.1f s"
+        % (grad["worst"], SEVERAL_GRAD_RTOL, planted["worst"],
+           change["worst"], SEVERAL_CHANGE_RTOL,
+           max(g for g, _ in copy_gaps + [c_gap]), SEVERAL_COPY_RTOL,
+           comp["worst"], SEVERAL_COMPILED_RTOL,
+           time.perf_counter() - t_phase))
+    if not all(np.isfinite(losses + c_losses)):
+        raise RuntimeError("several: losses %s %s are not all finite"
+                           % (losses, c_losses))
+    if not all(ok):
+        raise RuntimeError("several: against one context: gradient %s, "
+                           "change %s, copies %s / %s, compiled %s (%s)"
+                           % (grad, change, copy_gaps, c_gap, comp,
+                              compiled))
+    if not caught:
+        raise RuntimeError("several: the gradient's check passes one copy's "
+                           "gradient alone: %s" % planted)
+    if min(_k123(counts).values()) < 1:
+        raise RuntimeError("several: the card's copy launched %s; K1-K3 "
+                           "must run in its attention" % counts)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# 22. ResNet-50 data-parallel: global batch statistics in the dp TrainStep
+# ---------------------------------------------------------------------------
+
+#: the port's copy of examples/train_resnet_dp.py: resnet50_v1, two gloo
+#: ranks on the card, RESNET_DP_BATCH samples a rank, RESNET_DP_STEPS steps
+RESNET_DP_BATCH, RESNET_DP_STEPS = 8, 3
+#: the checks, each tensor by norm, run in float64: at its initialisation
+#: this net amplifies rounding ~1000x through the training-mode
+#: BatchNorms, so fp32 one-process runs miss float64 by percents
+#: (resnet_fp32_checks), and a dp step differs from one process by the
+#: same; the fp32 workload's readings are logged beside that floor
+RESNET_DP_GRAD_RTOL = 1e-4      # the momentum after one step (-lr x g)
+RESNET_DP_CHANGE_RTOL = 1e-2    # the change from init after the steps
+RESNET_DP_STATS_RTOL = 1e-4     # the first step's batch statistics
+RESNET_DP_TIMEOUT = 300
+
+
+def biases_under_norms(net):
+    """The structural names of the biases of layers whose output goes
+    straight into a BatchNorm (a conv bias of ``resnet50_v1``'s bottleneck):
+    the normalisation takes the bias out again, so their gradient is 0 up
+    to rounding, and a norm relative to it measures rounding alone."""
+    from mxnet_tpu_torch.gluon.nn import BatchNorm
+    out = set()
+    for prefix, m in net.named_modules():
+        kids = list(m.named_children())
+        for (name, a), (_, b) in zip(kids, kids[1:]):
+            if isinstance(b, BatchNorm) and \
+                    a._parameters.get("bias") is not None:
+                out.add("%s%s.bias" % (prefix + "." if prefix else "", name))
+    return out
+
+
+def _split_zero(tensors, zero):
+    return {n: v for n, v in tensors.items() if n not in zero}
+
+
+def _zero_reading(got, want, zero):
+    """max over the ``zero`` tensors of ||got|| and ||want||, each over
+    the largest norm of a tensor of ``want``."""
+    top = max(float(v.double().norm()) for v in want.values())
+    return max(max(float(got[n].double().norm()),
+                   float(want[n].double().norm())) for n in zero) / top
+
+
+def _stats_tree(stats):
+    """``{"<i>.mean", "<i>.var"}`` of a list of per-BatchNorm (mean,
+    var)."""
+    return {"%d.%s" % (i, k): st[j].double()
+            for i, st in enumerate(stats)
+            for j, k in ((0, "mean"), (1, "var"))}
+
+
+def resnet_dp_worker():
+    """One rank of :func:`phase_resnet_dp`, under the port's launcher (two
+    ranks on ``cuda:0`` over gloo): ``TrainStep`` over dp = 2 of
+    ``resnet50_v1`` on its half of the global batch, RESNET_DP_STEPS steps
+    in fp32 (the workload: timed, its collectives counted), then in
+    float64 (the checks).  Rank 0 then runs the one-process steps on the
+    whole batch in both dtypes, and in float64 one step on each half alone
+    (the planted fault: each rank normalising by its own shard's
+    statistics).  Prints its record; raises if a check failed on any
+    rank."""
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.gluon.nn import BatchNorm
+    from mxnet_tpu_torch.ops import _kernels
+    from mxnet_tpu_torch.parallel import (TrainStep, collectives,
+                                          init_process_group, make_mesh)
+    ce = SoftmaxCrossEntropyLoss()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_process_group(backend="gloo")
+    rank = dist.get_rank()
+    x32, y = resnet_batch_host(2 * RESNET_DP_BATCH)
+    x64 = x32.astype(np.float64)
+    half = slice(rank * RESNET_DP_BATCH, (rank + 1) * RESNET_DP_BATCH)
+
+    def build(dtype="float32"):
+        net = resnet50_v1(classes=RESNET_CLASSES)
+        net.initialize(initializer.Xavier(), seed=SEED, device=dev)
+        return net if dtype == "float32" else net.cast(dtype)
+
+    def loss64(logits, labels):
+        # the float64 checks take the loss in float64 too
+        return ce(logits, labels).mean()
+
+    def sgd(net, mesh=None):
+        dt = next(net.parameters()).dtype
+        return TrainStep(net, resnet_loss if dt == torch.float32 else loss64,
+                         mesh, device=dev, learning_rate=RESNET_LR,
+                         momentum=RESNET_MOMENTUM)
+
+    def dp_run(dtype, x):
+        """RESNET_DP_STEPS dp steps: (losses, first momenta, first batch
+        statistics, parameters, ms of the timed steps, the BatchNorm
+        collectives a later step, the parameters' bytes)."""
+        step = sgd(build(dtype), make_mesh())
+        losses = [float(step(x[half], y[half]))]
+        m1 = _host(step.opt_state)
+        stats = [tuple(t.detach().cpu() for t in st)
+                 for st in step.batch_stats]
+        collectives.reset_stats()
+        more, ms = _timed_steps(lambda: float(step(x[half], y[half])),
+                                RESNET_DP_STEPS - 1)
+        bn = {k: v / (RESNET_DP_STEPS - 1) for k, v in collectives.stats(
+            ).get("batch_norm", {"bytes": 0, "calls": 0}).items()}
+        nbytes = sum(p.numel() * p.element_size()
+                     for p in step.params.values())
+        return losses + more, m1, stats, _host(step.params), ms, bn, nbytes
+
+    def one_run(dtype, x, steps):
+        """The one-process steps on the whole batch: (losses, first
+        momenta, the first step's batch statistics at every BatchNorm's
+        input, in float64, parameters)."""
+        seen = []
+        net = build(dtype)
+        hooks = [m.register_forward_pre_hook(
+            lambda m, a: seen.append(torch.var_mean(
+                a[0].detach().double(), dim=(0, 2, 3), correction=0)[::-1]))
+            for m in net.modules() if isinstance(m, BatchNorm)]
+        step = sgd(net)
+        losses = [float(step(x, y))]
+        for h in hooks:
+            h.remove()
+        m1 = _host(step.opt_state)
+        losses += [float(step(x, y)) for _ in range(steps - 1)]
+        return losses, m1, seen, _host(step.params)
+
+    p0 = {n: v.double() for n, v in _host(dict(
+        build().named_parameters())).items()} if rank == 0 else None
+    _tensor_reset(dev)
+    losses, m32, stats32, p32, ms, bn, nbytes = dp_run("float32", x32)
+    rec = {"rank": rank, "losses": losses, "step_ms": sum(ms) / len(ms),
+           "batch_norm_bytes_per_step": bn["bytes"],
+           "batch_norm_calls_per_step": bn["calls"],
+           "gradient_exchange_bytes_per_step": nbytes,
+           "batch_norms": len(stats32),
+           "peak_bytes": torch.cuda.max_memory_allocated(dev),
+           "launches": _kernels.launch_counts()}
+    losses64, m64, stats64, p64, _, _, _ = dp_run("float64", x64)
+    rec["losses_float64"] = losses64
+    faults = []
+    if any(rec["launches"].values()):
+        faults.append("rank %d launched %s; none of K1-K4 is on the path"
+                      % (rank, rec["launches"]))
+    if rank == 0:
+        _tensor_reset(dev)
+        zero = biases_under_norms(build())
+        one32, m_one32, seen32, p_one32 = one_run("float32", x32,
+                                                  RESNET_DP_STEPS)
+        one64, m_one64, seen64, p_one64 = one_run("float64", x64,
+                                                  RESNET_DP_STEPS)
+        # the planted fault: each half's own statistics, the momenta of
+        # the two one-process steps averaged (what the ranks' all-reduce
+        # of unsynchronised gradients gives)
+        planted_m = None
+        for r in range(2):
+            h = sgd(build("float64"))
+            sl = slice(r * RESNET_DP_BATCH, (r + 1) * RESNET_DP_BATCH)
+            h(x64[sl], y[sl])
+            mom = _host(h.opt_state)
+            planted_m = mom if planted_m is None else {
+                n: (planted_m[n] + mom[n]) / 2 for n in mom}
+            del h
+
+        def trained(t):
+            return _split_zero(t, zero)
+
+        # the checks, in float64
+        grad = _compare(trained(m64), trained(m_one64))
+        zero_grad = _zero_reading(m64, m_one64, zero)
+        planted = _compare(trained(planted_m), trained(m_one64))
+        change = _compare(trained(p64), trained(p_one64), p0)
+        stats = _compare(_stats_tree(stats64), _stats_tree(seen64))
+        running = _compare(
+            {n: v for n, v in {**p32, **p64}.items()
+             if n.endswith(RESNET_STATS)},
+            {n: p0[n] for n in p0 if n.endswith(RESNET_STATS)})
+        # the fp32 workload's readings, and the fp32 floor: the one-process
+        # fp32 run against float64
+        fp32 = {"first_grad": _compare(trained(m32), trained(m_one32)),
+                "first_grad_to_float64": _compare(trained(m32),
+                                                  trained(m_one64)),
+                "floor_one_process_to_float64": _compare(
+                    trained(m_one32), trained(m_one64)),
+                "change": _compare(trained(p32), trained(p_one32), p0),
+                "batch_stats": _compare(_stats_tree(stats32),
+                                        _stats_tree(seen32)),
+                "loss_rel": [abs(a - b) / abs(b)
+                             for a, b in zip(losses, one32)]}
+        for v in fp32.values():
+            if isinstance(v, dict):
+                v.pop("rels")
+        rec.update(one_process={"losses": one32, "losses_float64": one64},
+                   float64={"first_grad": grad, "change": change,
+                            "batch_stats": stats,
+                            "biases_under_norms": len(zero),
+                            "biases_under_norms_momentum": zero_grad,
+                            "planted_local_stats": planted},
+                   running_stats=running, fp32=fp32)
+        ok = [_held(grad, RESNET_DP_GRAD_RTOL),
+              zero_grad <= RESNET_DP_GRAD_RTOL,
+              _held(change, RESNET_DP_CHANGE_RTOL),
+              _held(stats, RESNET_DP_STATS_RTOL),
+              _held(running, 0.0), len(seen64) == len(stats64) > 0,
+              all(np.isfinite(losses + losses64))]
+        if not all(ok):
+            faults.append("dp = 2 against one process (float64): momentum "
+                          "%s, biases under norms %.3g, change %s, batch "
+                          "statistics %s, running statistics %s, %d of %d "
+                          "BatchNorms seen, losses %s %s" % (
+                              grad, zero_grad, change, stats, running,
+                              len(stats64), len(seen64), losses, losses64))
+        if _held(planted, RESNET_DP_GRAD_RTOL):
+            faults.append("the momentum's check passes each rank's own "
+                          "statistics: %s" % planted)
+    emit("resnet-dp-worker: " + json.dumps(rec))
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, faults)
+    every = [f for fs in every for f in fs]
+    if every:
+        raise RuntimeError("resnet_dp: " + "; ".join(every))
+
+
+def phase_resnet_dp(smi):
+    """The port's copy of ``examples/train_resnet_dp.py``: ``resnet50_v1``
+    (1000 classes, 224 x 224) through the dp ``TrainStep`` over two gloo
+    ranks on ``cuda:0``, every BatchNorm on the global batch's statistics
+    (:func:`resnet_dp_worker`), started through the port's launcher.
+    Returns every kernel's launches, summed over the ranks (none of K1-K4
+    is on this path)."""
+    import signal
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n", "2",
+           "--launcher", "local", "--", sys.executable,
+           os.path.join(root, "chip_smoke.py"), "--resnet-dp-worker"]
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=RESNET_DP_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+    secs = time.perf_counter() - t_phase
+    recs = [json.loads(line[len("resnet-dp-worker: "):])
+            for line in out.splitlines()
+            if line.startswith("resnet-dp-worker: ")]
+    if proc.returncode != 0 or len(recs) != 2:
+        raise RuntimeError("resnet_dp: the launcher exited %s after %.1f s "
+                           "with %d of 2 records:\n%s\n%s" % (
+                               proc.returncode, secs, len(recs),
+                               out[-4000:], err[-6000:]))
+    launches = {}
+    for rec in sorted(recs, key=lambda r: r["rank"]):
+        log("resnet_dp: %s" % json.dumps(rec))
+        for k, v in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    r0 = [r for r in recs if r["rank"] == 0][0]
+    c64, c32 = r0["float64"], r0["fp32"]
+    log("resnet_dp: float64: first momentum %.3g (limit %g) over %d "
+        "tensors, the %d biases under a BatchNorm %.3g of the largest "
+        "momentum's norm (limit %g), change from init %.3g (limit %g), "
+        "batch statistics %.3g (limit %g), planted fault (each rank's own "
+        "statistics) %.3g (must exceed %g); running statistics %.3g (the "
+        "step leaves them as they are); fp32: first momentum %.3g from one "
+        "process, %.3g from its float64, where one fp32 process is %.3g "
+        "from float64; change %.3g, batch statistics %.3g; %.1f ms a step "
+        "a rank; phase %.1f s; %s"
+        % (c64["first_grad"]["worst"], RESNET_DP_GRAD_RTOL,
+           c64["first_grad"]["tensors"], c64["biases_under_norms"],
+           c64["biases_under_norms_momentum"], RESNET_DP_GRAD_RTOL,
+           c64["change"]["worst"], RESNET_DP_CHANGE_RTOL,
+           c64["batch_stats"]["worst"], RESNET_DP_STATS_RTOL,
+           c64["planted_local_stats"]["worst"], RESNET_DP_GRAD_RTOL,
+           r0["running_stats"]["worst"], c32["first_grad"]["worst"],
+           c32["first_grad_to_float64"]["worst"],
+           c32["floor_one_process_to_float64"]["worst"],
+           c32["change"]["worst"], c32["batch_stats"]["worst"],
+           r0["step_ms"], secs, smi))
+    return launches
+
+
 def kernel_row(name, source, replaces, launches, fp32, bf16, extra=None):
     """One entry of the kernels line: the fp32 figures under the contract's
     keys, the bf16 ones under ``bf16_``, and those of ``extra`` (another
@@ -7260,6 +7795,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     tensor_launches = phase_tensor(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    several_launches = phase_several(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet_dp_launches = phase_resnet_dp(smi)
     by_path = {k: {"serve": serve_launches[k], "train": train_launches[k],
                    "imperative": imperative_launches[k],
                    "resnet": resnet_launches[k],
@@ -7270,7 +7811,9 @@ def main():
                    "ps": ps_launches.get(k, 0),
                    "resume": resume_launches.get(k, 0),
                    "context": context_launches.get(k, 0),
-                   "tensor": tensor_launches.get(k, 0)}
+                   "tensor": tensor_launches.get(k, 0),
+                   "several": several_launches.get(k, 0),
+                   "resnet_dp": resnet_dp_launches.get(k, 0)}
                for k in imperative_launches}
     fp32, bf16 = torch.float32, torch.bfloat16
     kernels = [
@@ -7306,7 +7849,11 @@ def main():
                      "context": context_launches.get("tpu_kernel:" + body,
                                                      0),
                      "tensor": tensor_launches.get("tpu_kernel:" + body,
-                                                   0)},
+                                                   0),
+                     "several": several_launches.get("tpu_kernel:" + body,
+                                                     0),
+                     "resnet_dp": resnet_dp_launches.get(
+                         "tpu_kernel:" + body, 0)},
                     user[(body, fp32)], user[(body, bf16)],
                     {"default_grid_": user[(body + ":default_grid", fp32)],
                      "bf16_default_grid_": user[(body + ":default_grid",
@@ -7335,8 +7882,10 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--train-dist-async"]:
         train_dist_async(sys.argv[2:])
     elif sys.argv[1:2] in (["--dist-worker"], ["--context-worker"],
-                           ["--long-context-worker"], ["--tensor-worker"]):
+                           ["--long-context-worker"], ["--tensor-worker"],
+                           ["--resnet-dp-worker"]):
         {"--dist-worker": lambda: dist_worker(sys.argv[2]),
+         "--resnet-dp-worker": resnet_dp_worker,
          "--context-worker": context_worker,
          "--long-context-worker": lambda: long_context_worker(sys.argv[2:]),
          "--tensor-worker": lambda: tensor_worker(sys.argv[2]),

@@ -20,6 +20,10 @@ python/mxnet/autograd.py).  The reference keeps a tape of its own (one
   (``_mx_grad``, ``grad_req``); any other leaf (a block's parameter) is
   written to its ``.grad`` with its ``grad_req`` attribute, 'write' by
   default as in gluon.  Leaves the heads do not reach keep their gradient.
+  Heads on several contexts (one per copy of a block whose parameters
+  have a copy on each, :mod:`.gluon.parameter`) go through one call: each
+  copy is a leaf of its own, so its gradient lands on it, and a copy no
+  head reaches keeps its gradient.
   A 'write' leaf with post-accumulate-grad hooks (a ``gluon.Trainer``
   whose exchange overlaps backward hooks its parameters) is written the
   moment torch has its gradient, while the rest of the backward runs, and
@@ -246,7 +250,10 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
         raise MXNetError("autograd.grad: %s (a variable does not require "
                          "gradient or is unreachable from the heads)"
                          % e) from e
-    return [NDArray(g) for g in got]
+    ctxs = [v.context if isinstance(v, NDArray) else None
+            for v in (variables if isinstance(variables, (list, tuple))
+                      else [variables])]
+    return [NDArray(g, c) for g, c in zip(got, ctxs)]
 
 
 class _FunctionBridge(torch.autograd.Function):

@@ -83,25 +83,27 @@ def trainer_states_from_mxnet_tpu(exported: Mapping[str, Any],
     arrays may come as float32).  Each state is made by the port's
     optimizer for the parameter at that index and filled from the
     arrays, and the update counts go to the counts of the parameters'
-    device."""
-    updater = trainer._updaters[0]
-    optimizer = updater.optimizer
-    for index, values in exported["states"].items():
-        weight = trainer._params[index].data()
-        state = optimizer.create_state_multi_precision(index, weight)
-        dst, src = _leaves(state), _leaves(values)
-        if len(dst) != len(src):
-            raise ValueError("state %d: %d arrays, the port's optimizer "
-                             "keeps %d" % (index, len(src), len(dst)))
-        with torch.no_grad():
-            for d, a in zip(dst, src):
-                d.data.copy_(torch.from_numpy(
-                    np.array(a, dtype=np.float32)).reshape(d.shape))
-        updater.states[index] = state
-        updater.states_synced[index] = True
-    ctx = trainer._params[0].list_ctx()[0]
-    optimizer._set_current_context((ctx.device_type, ctx.device_id))
-    optimizer._index_update_count.clear()
-    optimizer._index_update_count.update(
-        {int(k): int(v) for k, v in exported["index_update_count"].items()})
+    device; with copies on several contexts every context's updater and
+    counts take them."""
+    for d, updater in enumerate(trainer._updaters):
+        optimizer = updater.optimizer
+        for index, values in exported["states"].items():
+            weight = trainer._params[index].list_data()[d]
+            state = optimizer.create_state_multi_precision(index, weight)
+            dst, src = _leaves(state), _leaves(values)
+            if len(dst) != len(src):
+                raise ValueError("state %d: %d arrays, the port's optimizer "
+                                 "keeps %d" % (index, len(src), len(dst)))
+            with torch.no_grad():
+                for t, a in zip(dst, src):
+                    t.data.copy_(torch.from_numpy(
+                        np.array(a, dtype=np.float32)).reshape(t.shape))
+            updater.states[index] = state
+            updater.states_synced[index] = True
+        ctx = trainer._params[0].list_ctx()[d]
+        optimizer._set_current_context((ctx.device_type, ctx.device_id))
+        optimizer._index_update_count.clear()
+        optimizer._index_update_count.update(
+            {int(k): int(v)
+             for k, v in exported["index_update_count"].items()})
     optimizer.num_update = int(exported["num_update"])

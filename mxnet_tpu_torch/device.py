@@ -22,7 +22,8 @@ import torch
 from .base import MXNetError
 
 __all__ = ["Context", "Device", "cpu", "gpu", "current_context",
-           "current_device", "default_device", "resolve", "in_context",
+           "current_device", "default_device", "resolve", "as_context",
+           "in_context",
            "num_gpus", "gpu_memory_info"]
 
 
@@ -75,9 +76,20 @@ class Context:
             return torch.device("cpu")
         return torch.device("cuda", self.device_id)
 
+    def holds(self, device: torch.device) -> bool:
+        """Whether a tensor on ``device`` can belong to this context:
+        ``cpu(i)`` for any host tensor (the host is one torch device;
+        the contexts ``cpu(0)``, ``cpu(1)`` ... tell copies apart, as in
+        the reference), ``gpu(i)`` for one on ``cuda:i``."""
+        if self.device_type == "cpu":
+            return device.type == "cpu"
+        return device.type == "cuda" and (device.index or 0) == \
+            self.device_id
+
     @staticmethod
     def from_torch(device: torch.device) -> "Context":
-        """The context of a tensor's device."""
+        """The context of a tensor's device, for a tensor made without
+        one (a host tensor: ``cpu(0)``)."""
         if device.type == "cuda":
             return Context("gpu", device.index or 0)
         if device.type == "cpu":
@@ -141,7 +153,9 @@ def default_device() -> torch.device:
 def resolve(device: DeviceLike = None) -> torch.device:
     """``device`` (a ``torch.device``, its name, a :class:`Context`, or None
     for :func:`current_context`) as a ``torch.device``.  Raises
-    :class:`MXNetError` for a CUDA device when CUDA is unavailable."""
+    :class:`MXNetError` for a CUDA device when CUDA is unavailable, and
+    for ``gpu(i)`` past the visible cards, naming how many there are (the
+    reference's ``jax_device``)."""
     if device is None:
         dev = default_device()
     elif isinstance(device, Context):
@@ -156,9 +170,23 @@ def resolve(device: DeviceLike = None) -> torch.device:
                 % (dev, " (the default)" if device is None else ""))
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
+        n = torch.cuda.device_count()
+        if dev.index >= n:
+            raise MXNetError("gpu(%d): device_id %d out of range (%d gpu "
+                             "device(s) visible)" % (dev.index, dev.index, n))
     elif dev.type != "cpu":
         raise MXNetError("unsupported device %s (cpu or cuda)" % dev)
     return dev
+
+
+def as_context(device: DeviceLike = None) -> Context:
+    """``device`` as a :class:`Context`: a context as it is, None as the
+    current context, a ``torch.device`` or its name as its context."""
+    if isinstance(device, Context):
+        return device
+    if device is None:
+        return current_context()
+    return Context.from_torch(torch.device(device))
 
 
 def in_context(ctx: Context, fn):

@@ -37,9 +37,18 @@ Counterpart of ``mxnet_tpu/gluon/block.py``.  What differs, and why:
   running statistics: ``_write_aux``), as the reference's NDArray
   dispatch does.  A call with plain tensors, as ``Servable`` and
   ``TrainStep`` make them, is ``torch.nn.Module``'s own and writes none.
+* Parameters with a copy on each of several contexts
+  (``initialize(ctx=[c0, c1])``): a call on NDArrays runs on the copies of
+  its first NDArray input's context (the reference's ``p.data(ctx)``), by
+  ``torch.func.functional_call`` over those copies when the context is
+  not the first, so that backward writes that copy's gradient and a
+  training call that copy's BatchNorm statistics; its outputs carry that
+  context.  A child whose deferred parameters the call materialises runs
+  on its own new copies the same way.
 """
 from __future__ import annotations
 
+import threading
 from collections import OrderedDict
 from typing import Callable, Mapping, Optional, Tuple
 
@@ -47,13 +56,17 @@ import torch
 
 from .. import autograd
 from ..base import MXNetError
-from ..device import DeviceLike, resolve
+from ..device import Context, DeviceLike, resolve
 from ..ndarray.ndarray import NDArray
 from .parameter import (DeferredInitializationError, ParameterDict,
-                        collect, meta_parameter, param_handle, param_slots)
+                        collect, ctx_copies, meta_parameter, param_handle,
+                        param_slots)
 
 __all__ = ["Block", "HybridBlock", "to_dtype", "meta_parameter",
            "functionalize"]
+
+#: the context a call on NDArrays runs in, for the children it reaches
+_CALL = threading.local()
 
 _DTYPES = {"float32": torch.float32, "float16": torch.float16,
            "bfloat16": torch.bfloat16, "float64": torch.float64}
@@ -115,8 +128,9 @@ class Block(torch.nn.Module):
                    device: DeviceLike = None,
                    generator: Optional[torch.Generator] = None,
                    seed: int = 0) -> "Block":
-        """Materialise every parameter on ``device`` (or ``ctx``; default:
-        the GPU) and fill it with ``init`` (default
+        """Materialise every parameter on ``device`` (or ``ctx``: a context
+        or a list of them, a copy on each; default: the GPU) and fill it
+        with ``init`` (default
         :class:`~..initializer.Uniform`), in ``named_parameters()`` order,
         drawing from ``generator`` or, when none is given, from a new
         generator on that device seeded with ``seed``.  A parameter already
@@ -129,6 +143,11 @@ class Block(torch.nn.Module):
             init, device=ctx if device is None else device,
             force_reinit=force_reinit, generator=generator, seed=seed)
         return self
+
+    def reset_ctx(self, ctx) -> None:
+        """Move every parameter to ``ctx`` (a context or a list of them,
+        a copy on each)."""
+        self.collect_params().reset_ctx(ctx)
 
     def load_dict(self, params: Mapping[str, torch.Tensor],
                   device: DeviceLike = None) -> "Block":
@@ -161,6 +180,8 @@ class Block(torch.nn.Module):
                                       tuple(value.shape)))
                 p._replace(torch.empty(tuple(value.shape), dtype=old.dtype,
                                        device=dev)).copy_(value)
+                for t in list(p._tensors().values())[1:]:
+                    t.copy_(value)
                 p._set_pending(None)
         return self
 
@@ -190,8 +211,13 @@ class Block(torch.nn.Module):
                 param_handle(self, attr)._finish_deferred_init()
 
     def cast(self, dtype) -> "Block":
-        """Cast every floating-point parameter to ``dtype``."""
-        return self.to(dtype=to_dtype(dtype))
+        """Cast every floating-point parameter (every copy) to
+        ``dtype``."""
+        self.to(dtype=to_dtype(dtype))
+        for p in self.collect_params().values():
+            if p._copies and p._tensor().is_floating_point():
+                p._cast_copies(to_dtype(dtype))
+        return self
 
     def hybridize(self, active: bool = True, **kwargs) -> None:
         """No-op: PyTorch runs eagerly; CUDA graphs are a later change."""
@@ -199,8 +225,18 @@ class Block(torch.nn.Module):
     def __call__(self, *args, **kwargs):
         if self.__dict__.get("_pending"):
             self._finish_deferred(_unwrap(args))
+            outer = getattr(_CALL, "ctx", None)
+            own = None if outer is None else \
+                ctx_copies(self, outer, recurse=False)
+            if own is not None and not any(
+                    _has_ndarray(a) for a in args + tuple(kwargs.values())):
+                # materialised inside a call on another context's copies
+                return torch.func.functional_call(self, own, tuple(args),
+                                                  kwargs, strict=False)
         if not any(_has_ndarray(a) for a in args + tuple(kwargs.values())):
             return super().__call__(*args, **kwargs)
+        ctx = _first_ctx(args + tuple(kwargs.values()))
+        copies = ctx_copies(self, ctx)
         args = _unwrap(args)
         kwargs = {k: _unwrap(v) for k, v in kwargs.items()}
         modes = [(m, m.training, getattr(m, "_write_aux", False))
@@ -208,21 +244,41 @@ class Block(torch.nn.Module):
         self.train(autograd.is_training())
         for m, _, _ in modes:
             m._write_aux = True
+        outer = getattr(_CALL, "ctx", None)
+        _CALL.ctx = ctx
         try:
             with (torch.enable_grad() if autograd.is_recording()
                   else torch.no_grad()):
-                out = super().__call__(*args, **kwargs)
+                if copies is None:
+                    out = super().__call__(*args, **kwargs)
+                else:
+                    out = torch.func.functional_call(
+                        self, copies, tuple(args), kwargs, strict=False)
         finally:
+            _CALL.ctx = outer
             for m, mode, write in modes:
                 m.training = mode
                 m._write_aux = write
-        return _wrap(out)
+        return _wrap(out, ctx)
 
 
 def _has_ndarray(a) -> bool:
     if isinstance(a, (tuple, list)):
         return any(_has_ndarray(x) for x in a)
     return isinstance(a, NDArray)
+
+
+def _first_ctx(args) -> Optional[Context]:
+    """The context of the first NDArray among ``args`` (also inside
+    tuples and lists)."""
+    for a in args:
+        if isinstance(a, NDArray):
+            return a.context
+        if isinstance(a, (tuple, list)):
+            c = _first_ctx(a)
+            if c is not None:
+                return c
+    return None
 
 
 def _unwrap(a):
@@ -235,12 +291,13 @@ def _unwrap(a):
     return a
 
 
-def _wrap(out):
-    """A forward's tensors (alone, or in a tuple or list) as NDArrays."""
+def _wrap(out, ctx=None):
+    """A forward's tensors (alone, or in a tuple or list) as NDArrays of
+    ``ctx``."""
     if isinstance(out, torch.Tensor):
-        return NDArray(out)
+        return NDArray(out, ctx)
     if isinstance(out, (tuple, list)):
-        return type(out)(_wrap(o) for o in out)
+        return type(out)(_wrap(o, ctx) for o in out)
     return out
 
 

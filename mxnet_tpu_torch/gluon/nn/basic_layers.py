@@ -31,6 +31,7 @@ from ... import initializer
 from ...base import MXNetError
 from ...ops import nn as _ops
 from ...ops.registry import amp_cast, dispatch, get_op
+from ...parallel import collectives as _coll
 from ...parallel import tensor as _tensor
 from ..block import Block, HybridBlock
 from ..parameter import meta_parameter, param_handle
@@ -178,7 +179,10 @@ class BatchNorm(HybridBlock):
     biased variance, in their own dtype) only by a training forward called
     on NDArrays (:meth:`Block.__call__` under ``autograd`` training), as
     the reference writes them; a forward on tensors, as ``functionalize``
-    and ``TrainStep`` run it, leaves them as they are."""
+    and ``TrainStep`` run it, leaves them as they are.  Inside a
+    :class:`~...parallel.collectives.batch_stats_scope` (the dp
+    ``TrainStep`` over more than one rank) the batch statistics are the
+    whole batch's, over the ranks of the scope's axis."""
 
     def __init__(self, axis: int = 1, momentum: float = 0.9,
                  epsilon: float = 1e-5, center: bool = True,
@@ -209,6 +213,18 @@ class BatchNorm(HybridBlock):
         x, gamma, beta, mean, var = amp_cast(
             self._OP, {}, (x, p["gamma"], p["beta"], p["running_mean"],
                            p["running_var"]))
+        line = _coll.batch_stats_line() if batch else None
+        if line is not None:
+            g = gamma if self._scale else torch.ones_like(gamma)
+            out, b_mean, b_var = _coll.global_batch_norm(
+                x, g, beta, self._eps, self._axis, *line.line)
+            line.stats.append((b_mean, b_var))
+            if self._write_aux:
+                m = self._momentum
+                with torch.no_grad():
+                    p["running_mean"].copy_(m * mean + (1.0 - m) * b_mean)
+                    p["running_var"].copy_(m * var + (1.0 - m) * b_var)
+            return out
         out = _ops.batch_norm_out(x, gamma, beta, mean, var, self._eps,
                                   not self._scale, batch, self._axis)
         if batch and self._write_aux:
@@ -225,7 +241,12 @@ class BatchNorm(HybridBlock):
 
 
 class SyncBatchNorm(BatchNorm):
-    """Cross-device BatchNorm; on one device it is :class:`BatchNorm`."""
+    """Cross-device BatchNorm (reference: ``contrib.nn.SyncBatchNorm``):
+    :class:`BatchNorm` outside the dp step, so that in the eager loop over
+    several contexts each copy normalises by its own slice of the batch,
+    as in the reference; inside the dp ``TrainStep`` over more than one
+    rank it (like every BatchNorm there) normalises by the global batch's
+    statistics.  ``num_devices`` is kept and not read."""
 
     def __init__(self, in_channels: int = 0, num_devices=None, **kwargs):
         super().__init__(in_channels=in_channels, **kwargs)

@@ -30,28 +30,36 @@ python/mxnet/gluon/parameter.py).  What differs, and why:
   for a parameter loaded without it (``load_dict``).
 * ``grad_req`` lives on the tensor (its ``grad_req`` attribute and
   ``requires_grad``), where ``autograd.backward`` reads it.
-* One device per parameter: data parallelism runs one process a device
-  (``gluon.Trainer`` over a process group), and the reference's
-  per-context copies in one process are still to come;
-  ``ParameterDict.save``/``load`` wait for ``nd.save``'s file format.
+* A copy on each of several contexts (``initialize(ctx=[c0, c1])``, the
+  reference's ``_data`` dict): the slot holds the first context's copy,
+  so ``functionalize``, ``TrainStep``, ``state_dict`` and the serving
+  path read what they read with one context, and the handle keeps the
+  other contexts' copies (``torch.nn.Parameter`` tensors of their own,
+  each with its ``.grad``).  ``data(ctx)``/``grad(ctx)`` pick a copy by
+  the reference's ``_check_and_get`` rules, ``list_*`` give them all, and
+  ``set_data``, ``zero_grad``, ``cast`` and ``reset_ctx`` act on every
+  one.  A block called on NDArrays of a context runs on that context's
+  copies (``Block.__call__``).
+* ``ParameterDict.save``/``load`` wait for ``nd.save``'s file format.
 """
 from __future__ import annotations
 
 import re
 from collections import OrderedDict
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import initializer as init_mod
 from ..base import MXNetError, dtype_name, torch_dtype
-from ..device import Context, DeviceLike, resolve
+from ..device import (Context, DeviceLike, as_context, current_context,
+                      resolve)
 from ..ndarray.ndarray import NDArray
 
 __all__ = ["DeferredInitializationError", "Parameter", "Constant",
            "ParameterDict", "meta_parameter", "param_handle",
-           "param_slots", "collect"]
+           "param_slots", "collect", "context_list", "ctx_copies"]
 
 _GRAD_REQS = ("write", "add", "null")
 
@@ -143,9 +151,14 @@ class Parameter:
         self.wd_mult = wd_mult
         self.init = init
         self.allow_deferred_init = allow_deferred_init
-        #: (init, device, generator) recorded by initialize() for a shape
-        #: still unknown
+        #: (init, contexts, generator) recorded by initialize() for a
+        #: shape still unknown
         self._deferred: Optional[Tuple] = None
+        #: the contexts of the copies, the slot's first (None: the slot's
+        #: device's), and the copies of the contexts after the first
+        self._ctxs: Optional[List[Context]] = None
+        self._copies: "OrderedDict[Context, torch.nn.Parameter]" = \
+            OrderedDict()
 
     # -- the slot ----------------------------------------------------------
     def _tensor(self) -> torch.nn.Parameter:
@@ -154,11 +167,47 @@ class Parameter:
     def _replace(self, new: torch.Tensor) -> torch.nn.Parameter:
         """Put ``new`` in the slot as a parameter carrying the old one's
         ``grad_req``; returns it."""
-        req = self.grad_req
-        param = torch.nn.Parameter(new, requires_grad=req != "null")
-        param.grad_req = req
+        param = self._leaf(new)
         setattr(self._owner, self._attr, param)
         return param
+
+    def _leaf(self, value: torch.Tensor) -> torch.nn.Parameter:
+        """``value`` as a parameter tensor carrying this one's
+        ``grad_req``."""
+        req = self.grad_req
+        param = torch.nn.Parameter(value, requires_grad=req != "null")
+        param.grad_req = req
+        return param
+
+    def _contexts(self) -> List[Context]:
+        """The contexts of the copies, the slot's first: the recorded ones
+        while the slot lies on the first, else the slot's device's."""
+        t = self._tensor()
+        if self._ctxs and self._ctxs[0].holds(t.device):
+            return list(self._ctxs)
+        return [Context.from_torch(t.device)]
+
+    def _tensors(self) -> "OrderedDict[Context, torch.nn.Parameter]":
+        """Every copy by context, the slot first."""
+        ctxs = self._contexts()
+        out = OrderedDict([(ctxs[0], self._tensor())])
+        for c in ctxs[1:]:
+            out[c] = self._copies[c]
+        return out
+
+    def _spread(self, ctxs: List[Context]) -> None:
+        """Record ``ctxs`` and make each later context's copy from the
+        slot's value (with a zero gradient unless ``grad_req`` is
+        'null')."""
+        t = self._tensor()
+        self._ctxs = list(ctxs)
+        self._copies = OrderedDict()
+        with torch.no_grad():
+            for c in ctxs[1:]:
+                cp = self._leaf(t.detach().to(resolve(c), copy=True))
+                if self.grad_req != "null":
+                    cp.grad = torch.zeros_like(cp)
+                self._copies[c] = cp
 
     def _set_pending(self, record) -> None:
         self._deferred = record
@@ -216,13 +265,14 @@ class Parameter:
         if req not in _GRAD_REQS:
             raise ValueError("grad_req must be 'write', 'add' or 'null', "
                              "got %r" % (req,))
-        t = self._tensor()
-        t.requires_grad_(req != "null")
-        t.grad_req = req
-        if req == "null":
-            t.grad = None
-        elif not t.is_meta and t.grad is None:
-            t.grad = torch.zeros_like(t)
+        for t in [self._tensor()] + list(
+                getattr(self, "_copies", {}).values()):
+            t.requires_grad_(req != "null")
+            t.grad_req = req
+            if req == "null":
+                t.grad = None
+            elif not t.is_meta and t.grad is None:
+                t.grad = torch.zeros_like(t)
 
     @property
     def stype(self) -> str:
@@ -234,37 +284,39 @@ class Parameter:
                    device: DeviceLike = None,
                    generator: Optional[torch.Generator] = None,
                    seed: int = 0) -> None:
-        """Materialise on ``device`` (or ``ctx``; default: the GPU) and fill
-        with ``init``, else this parameter's own ``init``, else
-        ``default_init`` (default :class:`~...initializer.Uniform`), drawing
-        from ``generator`` (default: a new one on that device seeded with
-        ``seed``).  An initialised parameter is left as it is unless
-        ``force_reinit``; one whose shape is not known yet records the
-        request for its block's first forward when ``allow_deferred_init``
-        and raises otherwise."""
+        """Materialise on ``device`` (or ``ctx``: a context or a list of
+        them, one copy each; default: the GPU) and fill with ``init``, else
+        this parameter's own ``init``, else ``default_init`` (default
+        :class:`~...initializer.Uniform`), drawing from ``generator``
+        (default: a new one on the first context's device seeded with
+        ``seed``); every copy holds the first's value.  An initialised
+        parameter is left as it is unless ``force_reinit``; one whose shape
+        is not known yet records the request for its block's first forward
+        when ``allow_deferred_init`` and raises otherwise."""
         if not self._tensor().is_meta and not force_reinit:
             return
-        dev = _one_device(ctx if device is None else device)
+        ctxs = context_list(ctx if device is None else device)
         if init is None:
             init = self.init if self.init is not None else default_init
         if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(int(seed))
+            generator = torch.Generator(
+                device=resolve(ctxs[0])).manual_seed(int(seed))
         if not _complete(self.shape):
             if not self.allow_deferred_init:
                 raise ValueError(
                     "Cannot initialize Parameter %s because it has invalid "
                     "shape %s and deferred init is not allowed"
                     % (self.name, self.shape))
-            self._set_pending((init, dev, generator))
+            self._set_pending((init, ctxs, generator))
             return
-        self._init_impl(init, dev, generator)
+        self._init_impl(init, ctxs, generator)
 
-    def _init_impl(self, init, device: torch.device,
+    def _init_impl(self, init, ctxs: List[Context],
                    generator: torch.Generator) -> None:
         t = self._tensor()
         with torch.no_grad():
             new = self._replace(torch.empty(t.shape, dtype=t.dtype,
-                                            device=device))
+                                            device=resolve(ctxs[0])))
             fill = init_mod.create(init)
             if init is not None and init is self.init:
                 # a parameter's own initializer applies whatever its name
@@ -273,11 +325,12 @@ class Parameter:
                 fill(self.name, new.data, generator)
             if self.grad_req != "null":
                 new.grad = torch.zeros_like(new)
+        self._spread(ctxs)
         self._set_pending(None)
 
     def _finish_deferred_init(self) -> None:
         """Materialise a parameter whose shape is now known with the
-        recorded ``(init, device, generator)``."""
+        recorded ``(init, contexts, generator)``."""
         if self._deferred is None:
             raise DeferredInitializationError(
                 "Parameter %s was not initialized" % self.name)
@@ -301,105 +354,161 @@ class Parameter:
         return t
 
     # -- access ------------------------------------------------------------
-    def _on(self, t: torch.Tensor, ctx) -> torch.Tensor:
-        if ctx is not None and ctx is not list and \
-                Context(ctx) != Context.from_torch(t.device):
-            raise RuntimeError("Parameter %s was not initialized on context "
-                               "%s (it lives on %s)"
-                               % (self.name, ctx,
-                                  Context.from_torch(t.device)))
-        return t
+    def _check_and_get(self, arrays, ctx):
+        """The reference's rules: ``ctx`` None takes the only copy, or the
+        current context's among several; a context without a copy
+        raises."""
+        if ctx is None:
+            if len(arrays) == 1:
+                return next(iter(arrays.items()))
+            ctx = current_context()
+        ctx = as_context(ctx)
+        if ctx in arrays:
+            return ctx, arrays[ctx]
+        raise RuntimeError("Parameter %s was not initialized on context %s "
+                           "(it lives on %s)"
+                           % (self.name, ctx, list(arrays)))
 
     def data(self, ctx: Optional[Context] = None) -> NDArray:
-        """The value, as an NDArray sharing the slot tensor's storage."""
-        return NDArray(self._on(self._check_initialized(), ctx))
+        """The value of ``ctx``'s copy, as an NDArray sharing its storage."""
+        self._check_initialized()
+        c, t = self._check_and_get(self._tensors(), ctx)
+        return NDArray(t, c)
 
     def list_data(self) -> List[NDArray]:
-        return [self.data()]
+        """Every copy's value, the first context's first."""
+        self._check_initialized()
+        return [NDArray(t, c) for c, t in self._tensors().items()]
 
-    def grad(self, ctx: Optional[Context] = None) -> NDArray:
-        """The gradient the last ``backward`` wrote (zeros before any)."""
-        t = self._check_initialized()
+    def _grads(self) -> "OrderedDict[Context, torch.Tensor]":
+        self._check_initialized()
         if self.grad_req == "null":
             raise RuntimeError("Cannot get gradient array for Parameter %s "
                                "because grad_req='null'" % self.name)
-        if t.grad is None:
-            t.grad = torch.zeros_like(t)
-        return NDArray(self._on(t.grad, ctx))
+        out = OrderedDict()
+        for c, t in self._tensors().items():
+            if t.grad is None:
+                t.grad = torch.zeros_like(t)
+            out[c] = t.grad
+        return out
+
+    def grad(self, ctx: Optional[Context] = None) -> NDArray:
+        """The gradient the last ``backward`` wrote into ``ctx``'s copy
+        (zeros before any)."""
+        c, g = self._check_and_get(self._grads(), ctx)
+        return NDArray(g, c)
 
     def list_grad(self) -> List[NDArray]:
-        return [self.grad()]
+        return [NDArray(g, c) for c, g in self._grads().items()]
 
     def list_ctx(self) -> List[Context]:
         t = self._tensor()
         if t.is_meta:
             if self._deferred is not None:
-                return [Context.from_torch(self._deferred[1])]
+                return list(self._deferred[1])
             raise RuntimeError("Parameter %s has not been initialized"
                                % self.name)
-        return [Context.from_torch(t.device)]
+        return self._contexts()
 
     def set_data(self, data) -> None:
-        """Copy ``data`` (an NDArray, tensor or array) into the value; a
+        """Copy ``data`` (an NDArray, tensor or array) into every copy; a
         parameter waiting for its shape takes ``data``'s and is
-        materialised on its recorded device."""
+        materialised on its recorded contexts."""
         src = data.data if isinstance(data, NDArray) else \
             torch.as_tensor(np.asarray(data)) \
             if not isinstance(data, torch.Tensor) else data
         self.shape = src.shape
-        t = self._tensor()
-        if t.is_meta:
+        if self._tensor().is_meta:
             if self._deferred is None:
                 raise RuntimeError("initialize Parameter %s first"
                                    % self.name)
             self._init_impl(init_mod.Zero(), *self._deferred[1:])
-            t = self._tensor()
         with torch.no_grad():
-            t.copy_(src)
+            for t in self._tensors().values():
+                t.copy_(src)
 
     def zero_grad(self) -> None:
-        t = self._tensor()
-        if self.grad_req != "null" and t.grad is not None:
-            with torch.no_grad():
-                t.grad.zero_()
+        if self.grad_req == "null" or self._tensor().is_meta:
+            return
+        with torch.no_grad():
+            for t in self._tensors().values():
+                if t.grad is not None:
+                    t.grad.zero_()
 
     def reset_ctx(self, ctx) -> None:
-        """Move the value (or the deferred request) to ``ctx``."""
-        dev = _one_device(ctx)
+        """Move the value (or the deferred request) to ``ctx``, a context
+        or a list of them: one copy each, of the first copy's value."""
+        ctxs = context_list(ctx)
         t = self._tensor()
         if not t.is_meta:
             with torch.no_grad():
-                new = self._replace(t.detach().to(dev, copy=True))
+                new = self._replace(t.detach().to(resolve(ctxs[0]),
+                                                  copy=True))
                 if self.grad_req != "null":
                     new.grad = torch.zeros_like(new)
+            self._spread(ctxs)
         elif self._deferred is not None:
             init, _, _ = self._deferred
-            self._set_pending((init, dev, torch.Generator(device=dev)))
+            self._set_pending((init, ctxs,
+                               torch.Generator(device=resolve(ctxs[0]))))
         else:
             raise ValueError("Cannot reset context for uninitialized "
                              "Parameter %s" % self.name)
 
     def cast(self, dtype) -> None:
-        """Cast the value (and give a zero gradient of the new dtype)."""
-        t = self._tensor()
+        """Cast every copy (and give each a zero gradient of the new
+        dtype)."""
         with torch.no_grad():
-            new = self._replace(t.detach().to(torch_dtype(dtype)))
+            new = self._replace(self._tensor().detach().to(
+                torch_dtype(dtype)))
             if not new.is_meta and self.grad_req != "null":
                 new.grad = torch.zeros_like(new)
+        self._cast_copies(dtype)
+
+    def _cast_copies(self, dtype) -> None:
+        """Cast the copies after the first, each its own value (a
+        BatchNorm's copies hold statistics of their own)."""
+        for c in self._contexts()[1:]:
+            with torch.no_grad():
+                cp = self._leaf(self._copies[c].detach().to(
+                    torch_dtype(dtype)))
+                if self.grad_req != "null":
+                    cp.grad = torch.zeros_like(cp)
+            self._copies[c] = cp
 
 
-def _one_device(ctx) -> torch.device:
-    """The one device of ``ctx`` (a device, a context, or a list holding
-    one); several raise: a copy on each of several devices in one process
-    is still to come (data parallelism runs one process a device)."""
-    if isinstance(ctx, (list, tuple)):
-        if len(ctx) != 1:
-            raise MXNetError("one device per parameter; got %s (a copy on "
-                             "each of several devices is still to come: "
-                             "ROADMAP Queue 1, several-device parameters; "
-                             "run one process a device)" % (ctx,))
-        ctx = ctx[0]
-    return resolve(ctx)
+def context_list(ctx) -> List[Context]:
+    """``ctx`` (a device, a context, None for the current one, or a list
+    of them) as a list of distinct contexts, in order; an empty list
+    raises."""
+    ctxs = list(ctx) if isinstance(ctx, (list, tuple)) else [ctx]
+    if not ctxs:
+        raise MXNetError("no context given")
+    return list(OrderedDict.fromkeys(as_context(c) for c in ctxs))
+
+
+def ctx_copies(module: torch.nn.Module, ctx: Context, recurse: bool = True
+               ) -> Optional[Dict[str, torch.Tensor]]:
+    """``{structural name: ctx's copy}`` of every parameter of
+    ``module``'s tree (``recurse`` False: its own) that has copies and
+    whose first context is not ``ctx``, for ``functional_call`` (None when
+    there is none); a parameter with copies but none on ``ctx`` raises,
+    as :meth:`Parameter.data` does."""
+    out = {}
+    for prefix, m in (module.named_modules() if recurse
+                      else [("", module)]):
+        handles = m.__dict__.get("_gluon_params")
+        if not handles:
+            continue
+        for attr, h in handles.items():
+            if not h._copies or m._parameters.get(attr) is None:
+                continue
+            tensors = h._tensors()
+            if len(tensors) < 2 or next(iter(tensors)) == ctx:
+                continue
+            out[(prefix + "." if prefix else "") + attr] = \
+                h._check_and_get(tensors, ctx)[1]
+    return out or None
 
 
 class Constant(Parameter):
@@ -487,16 +596,18 @@ class ParameterDict:
                    device: DeviceLike = None,
                    generator: Optional[torch.Generator] = None,
                    seed: int = 0) -> None:
-        """Initialise every parameter on one device with ``init`` (default
+        """Initialise every parameter on ``device`` (or ``ctx``: a context
+        or a list of them, a copy on each) with ``init`` (default
         :class:`~...initializer.Uniform`) where it has no initializer of
         its own, in order, all drawing from one ``generator`` (default: a
-        new one on that device seeded with ``seed``)."""
-        dev = _one_device(ctx if device is None else device)
+        new one on the first context's device seeded with ``seed``)."""
+        ctxs = context_list(ctx if device is None else device)
         default = init_mod.create(init)
         if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(int(seed))
+            generator = torch.Generator(
+                device=resolve(ctxs[0])).manual_seed(int(seed))
         for param in self._params.values():
-            param.initialize(None, device=dev, default_init=default,
+            param.initialize(None, device=ctxs, default_init=default,
                              force_reinit=force_reinit, generator=generator)
 
     def zero_grad(self) -> None:

@@ -17,11 +17,18 @@ The weights start from rank 0's (``broadcast``), ``compression_params``
 (or ``MX_GRAD_COMPRESS``) compress the exchange, and
 ``MX_EXCHANGE_OVERLAP=1`` launches each fusion bucket's exchange the
 moment backward has written its last gradient.  A group of one rank
-runs the same exchange.  Without a group the Trainer makes no store, as
-the reference makes none for one device in one process.
+runs the same exchange.  Without a group the Trainer makes no store for
+parameters on one context, as the reference makes none for one device in
+one process.
 
-Parameters with a copy on each of several devices in one process raise
-(ROADMAP Queue 1: several-device parameters).  ``make_compiled_step``
+Parameters with a copy on each of several contexts in one process
+(``initialize(ctx=[c0, c1])``, the classic Gluon data-parallel loop) get
+one updater a context, each advancing its own context's update counts,
+and a store (``kvstore``, ``'device'`` by default; ``'ici'`` across
+processes, which sums the copies first and then the ranks): ``step``
+pushes every copy's gradient, pulls the sum back into every copy and
+updates each copy with its context's updater.  The store starts every
+copy from the first context's value.  ``make_compiled_step``
 returns the whole-step lane (:mod:`..step`), sharded over a
 ``SpecLayout`` when one is given or set in the environment.  Not ported:
 sparse gradients and the telemetry spans.
@@ -35,7 +42,7 @@ from typing import Dict, List
 import torch.distributed as dist
 
 from .. import optimizer as opt
-from ..base import MXNetError, get_env
+from ..base import get_env
 from ..kvstore import create as kv_create
 from .parameter import Parameter, ParameterDict
 
@@ -85,8 +92,8 @@ class Trainer:
         # gradient hooks fire on the thread that runs backward; every
         # hand-off of the armed overlap session goes through this lock
         self._hook_lock = threading.Lock()
-        #: index -> (parameter tensor, its post-accumulate-grad hook)
-        self._hooks: Dict[int, tuple] = {}
+        #: (index, copy) -> (its tensor, its post-accumulate-grad hook)
+        self._hooks: Dict[tuple, tuple] = {}
         self._reset_kvstore()
 
     def _check_contexts(self):
@@ -99,12 +106,6 @@ class Trainer:
                 "previous Parameters are initialized on %s" % (
                     param.name, str(ctx), str(contexts))
             contexts = ctx
-        if contexts is not None and len(contexts) > 1:
-            raise MXNetError("Trainer: parameters on %d devices in one "
-                             "process; a copy on each of several devices "
-                             "is still to come (ROADMAP Queue 1, "
-                             "several-device parameters); run one process "
-                             "a device" % len(contexts))
         return contexts or []
 
     def _init_optimizer(self, optimizer, optimizer_params):
@@ -118,7 +119,10 @@ class Trainer:
         else:
             self._optimizer = opt.create(optimizer, param_dict=param_dict,
                                          **optimizer_params)
-        self._updaters = [opt.get_updater(self._optimizer)]
+        # one updater a context over the one optimizer, as the reference
+        # keeps them: each advances its own context's update counts
+        self._updaters = [opt.get_updater(self._optimizer)
+                          for _ in (self._contexts or [None])]
 
     def _reset_kvstore(self):
         self._kv_initialized = False
@@ -134,12 +138,15 @@ class Trainer:
         config = self._kvstore_params
         kvstore = config["kvstore"]
         update_on_kvstore = config["update_on_kvstore"]
-        if kvstore and _in_process_group():
-            # across processes the cross-rank sum lives in the store; the
-            # default 'device' becomes 'ici', as the reference picks it
-            # for accelerators and several processes
+        in_group = _in_process_group()
+        if kvstore and (in_group or len(self._contexts) > 1):
+            # the sum over the copies, and across processes over the
+            # ranks, lives in the store; across processes the default
+            # 'device' becomes 'ici', as the reference picks it for
+            # accelerators and several processes
             if isinstance(kvstore, str):
-                kv = kv_create("ici" if kvstore == "device" else kvstore)
+                kv = kv_create("ici" if kvstore == "device" and in_group
+                               else kvstore)
             else:
                 kv = kvstore
             self._kvstore = kv
@@ -167,8 +174,10 @@ class Trainer:
                 # a broadcast parameter is not pulled again: after the
                 # first step its store slot holds a gradient
                 continue
-            # every worker starts from the store's agreed (rank 0's) value
-            self._kvstore.broadcast(i, param.data(), out=param.list_data())
+            # every copy, and every worker, starts from the store's agreed
+            # value: the first context's (rank 0's)
+            self._kvstore.broadcast(i, param.data(self._contexts[0]),
+                                    out=param.list_data())
             self._kv_broadcast_done.add(i)
         self._params_to_init = [p for p in self._params_to_init
                                 if p._tensor().is_meta]
@@ -249,22 +258,28 @@ class Trainer:
             return
         with self._hook_lock:
             self._exchange_session = sess
-        self._armed_set = (idxs, [self._params[i]._tensor() for i in idxs])
+        self._armed_set = (idxs, [self._copy_tensors(i) for i in idxs])
         for i in idxs:
-            self._hook(i)
+            for d, t in enumerate(self._copy_tensors(i)):
+                self._hook(i, d, t)
 
-    def _hook(self, i):
-        """Give parameter ``i``'s tensor the hook that notifies the armed
-        session (``autograd.backward`` runs it when it writes the
-        gradient, as torch's own backward runs it after accumulating)."""
-        t = self._params[i]._tensor()
-        old = self._hooks.get(i)
+    def _copy_tensors(self, i):
+        """Parameter ``i``'s tensors, one a context."""
+        return list(self._params[i]._tensors().values())
+
+    def _hook(self, i, d, t):
+        """Give copy ``d`` of parameter ``i`` (tensor ``t``) the hook that
+        notifies the armed session (``autograd.backward`` runs it when it
+        writes the gradient, as torch's own backward runs it after
+        accumulating); a bucket launches when every copy of every member
+        has landed."""
+        old = self._hooks.get((i, d))
         if old is not None and old[0] is t:
             return
         if old is not None:
             old[1].remove()
-        self._hooks[i] = (t, t.register_post_accumulate_grad_hook(
-            functools.partial(self._on_grad_ready, i)))
+        self._hooks[(i, d)] = (t, t.register_post_accumulate_grad_hook(
+            functools.partial(self._on_grad_ready, i, d)))
 
     def _armed_set_current(self):
         """The armed session still covers this step's exchange: the same
@@ -275,14 +290,15 @@ class Trainer:
         idxs, _ = self._exchange_set()
         a_idxs, tensors = self._armed_set
         return idxs == a_idxs and all(
-            self._params[i]._tensor() is t for i, t in zip(idxs, tensors))
+            len(ts) == len(cur) and all(a is b for a, b in zip(ts, cur))
+            for ts, cur in zip(tensors, map(self._copy_tensors, idxs)))
 
-    def _on_grad_ready(self, i, _tensor=None):
+    def _on_grad_ready(self, i, d, _tensor=None):
         with self._hook_lock:
             sess = self._exchange_session
         if sess is not None:
             # outside the lock: the session may launch a collective here
-            sess.notify_key(i)
+            sess.notify_key(i, d)
 
     def _allreduce_grads(self):
         if self._kvstore is None:
@@ -348,21 +364,21 @@ class Trainer:
     def _update(self, ignore_stale_grad=False):
         if self._update_on_kvstore:
             return
-        idxs, grads, weights = [], [], []
-        for i, param in enumerate(self._params):
-            if param.grad_req == "null":
-                continue
-            idxs.append(i)
-            weights.append(param.data())
-            grads.append(param.grad())
-        if idxs:
-            self._updaters[0](idxs, grads, weights)
+        idxs = [i for i, p in enumerate(self._params) if p.grad_req != "null"]
+        if not idxs:
+            return
+        weights = [self._params[i].list_data() for i in idxs]
+        grads = [self._params[i].list_grad() for i in idxs]
+        for d, upd in enumerate(self._updaters):
+            # one call a context: its updater keys that context's counts
+            upd(idxs, [g[d] for g in grads], [w[d] for w in weights])
 
     # -- states ------------------------------------------------------------
     def save_states(self, fname):
-        """Pickle the updater's states (momenta, moments, float32
-        masters) and the optimizer to ``fname`` (the store's, when it runs
-        the optimizer)."""
+        """Pickle the first context's updater's states (momenta, moments,
+        float32 masters) and the optimizer to ``fname`` (the store's, when
+        it runs the optimizer); :meth:`load_states` gives them to every
+        context's updater."""
         self._init_store()
         if self._update_on_kvstore:
             self._kvstore.save_optimizer_states(fname, dump_optimizer=True)

@@ -5,8 +5,9 @@ python/mxnet/kvstore/kvstore.py, src/kvstore/kvstore_local.h, comm.h,
 kvstore_nccl.h).
 
 * ``local`` / ``device``: one process; ``push`` sums a key's list of
-  values (each process in the port has one device a parameter, so the
-  list is usually one value).
+  values (one a context of a parameter with copies on several) on the
+  first value's context, and ``pull(out=[...])`` writes every copy.
+  Every array the stores make keeps its context.
 * ``ici``: the collective store.  Inside a ``torch.distributed`` process
   group (:func:`~..parallel.init_process_group`: NCCL on the GPU, gloo on
   the CPU) every push is also an ``all_reduce(SUM)`` across the ranks,
@@ -345,7 +346,8 @@ class KVStore:
         if self._gc is not None and key is not None and \
                 _floating(merged.data):
             _engine.count_dispatch()
-            merged = NDArray(self._gc.quantize(key, merged.data))
+            merged = NDArray(self._gc.quantize(key, merged.data),
+                             merged.context)
         return merged
 
     def _reduce_local(self, values: List[NDArray]) -> NDArray:
@@ -360,7 +362,7 @@ class KVStore:
             out = out + x.to(target)
         if orig_dtype is not None:
             out = out.to(orig_dtype)
-        return NDArray(out)
+        return NDArray(out, values[0].context)
 
 
 class _ExchangeSession:
@@ -653,7 +655,7 @@ class KVStoreICI(KVStoreLocal):
         dist.all_reduce(payload)
         if orig_dtype is not None:
             payload = payload.to(orig_dtype)
-        return NDArray(payload)
+        return NDArray(payload, merged.context)
 
     def _wire_nbytes(self, n_elems: int, itemsize: int,
                      floating: bool = True) -> int:
@@ -697,7 +699,7 @@ class KVStoreICI(KVStoreLocal):
         if key is not None and self._int8_active(values[0].data):
             merged = self._reduce_local(values)
             out = self._exchange_flat(key, merged.data.reshape(-1))
-            return NDArray(out.reshape(merged.shape))
+            return NDArray(out.reshape(merged.shape), merged.context)
         merged = super()._reduce(values, key=key)
         if self._group is not None:
             merged = self._cross_reduce_one(merged)
@@ -723,9 +725,9 @@ class KVStoreICI(KVStoreLocal):
     def _exchange_bucket(self, b, merged: List[NDArray]) -> List[NDArray]:
         """One fusion bucket's exchange, split back into its members."""
         _engine.count_dispatch()   # the concatenation
-        return [NDArray(t) for t in b.exchange(
+        return [NDArray(t, m.context) for t, m in zip(b.exchange(
             [m.data for m in merged],
-            functools.partial(self._exchange_payload, b.name))]
+            functools.partial(self._exchange_payload, b.name)), merged)]
 
     def _reduce_many(self, keys, vlists) -> List[NDArray]:
         """The batched exchange: the local merge of each key (and its 2-bit

@@ -19,6 +19,13 @@ one ``torch.Tensor``.  What differs from the reference, and why:
   (``a[:] = x``, ``a += 1``) are never recorded, as in the reference.
 * Creation functions take ``ctx=`` and default to
   :func:`~..device.current_context`, which is the GPU.
+* An array keeps the context it was made on (the reference's
+  ``_chunk.ctx``), so ``cpu(0)`` and ``cpu(1)``, which are one torch
+  device, stay apart: ``nd.array(x, ctx=cpu(1)).context`` is ``cpu(1)``,
+  an op's output takes ``ctx=``, else its first NDArray input's context,
+  else the current context (:func:`invoke`), and ``as_in_context`` to
+  another context copies.  A tensor wrapped without a context (or one
+  whose device no longer matches it) takes its device's.
 * ``dtype`` is a numpy dtype, or the string ``'bfloat16'``, which numpy
   lacks; ``asnumpy`` returns bfloat16 data as float32.
 """
@@ -34,7 +41,7 @@ from .. import autograd
 from .. import profiler as _profiler
 from ..engine import engine as _engine
 from ..base import MXNetError, dtype_name, torch_dtype
-from ..device import Context, resolve
+from ..device import Context, as_context, current_context, resolve
 from ..ops.matrix import infer_reshape
 from ..ops.registry import amp_cast, get_op
 
@@ -68,16 +75,17 @@ def _grad_mode():
 
 
 class NDArray:
-    __slots__ = ("_data", "__weakref__")
+    __slots__ = ("_data", "_ctx", "__weakref__")
 
     # higher than numpy's so ndarray.__op__(NDArray) defers to us
     __array_priority__ = 1000.0
 
-    def __init__(self, data: torch.Tensor):
+    def __init__(self, data: torch.Tensor, ctx: Optional[Context] = None):
         if not isinstance(data, torch.Tensor):
             raise TypeError("NDArray wraps a torch.Tensor, got %s"
                             % type(data).__name__)
         self._data = data
+        self._ctx = None if ctx is None else as_context(ctx)
 
     # ------------------------------------------------------------------
     # basic properties
@@ -107,6 +115,11 @@ class NDArray:
 
     @property
     def context(self) -> Context:
+        """The context the array was made on; its tensor's device's when
+        it was made without one or has moved off it."""
+        ctx = getattr(self, "_ctx", None)
+        if ctx is not None and ctx.holds(self._data.device):
+            return ctx
         return Context.from_torch(self._data.device)
 
     ctx = context
@@ -185,13 +198,14 @@ class NDArray:
     # copies / context movement
     # ------------------------------------------------------------------
     def copy(self) -> "NDArray":
-        return NDArray(self._data.detach().clone())
+        return NDArray(self._data.detach().clone(), self.context)
 
     def copyto(self, other: Union["NDArray", Context]) -> "NDArray":
         """Copy into ``other`` (an NDArray, cast to its dtype) or onto a new
         array in context ``other``."""
         if isinstance(other, Context):
-            return NDArray(self._data.detach().to(resolve(other), copy=True))
+            return NDArray(self._data.detach().to(resolve(other), copy=True),
+                           other)
         if not isinstance(other, NDArray):
             raise TypeError("copyto expects NDArray or Context")
         with torch.no_grad():
@@ -199,6 +213,9 @@ class NDArray:
         return other
 
     def as_in_context(self, ctx: Context) -> "NDArray":
+        """This array when it is on ``ctx``, else a copy there (also
+        between two contexts of one torch device, as the reference's
+        ``copyto``)."""
         if ctx == self.context:
             return self
         return self.copyto(ctx)
@@ -230,10 +247,10 @@ class NDArray:
     @property
     def grad(self) -> Optional["NDArray"]:
         g = getattr(self._data, "_mx_grad", None)
-        return None if g is None else NDArray(g)
+        return None if g is None else NDArray(g, self.context)
 
     def detach(self) -> "NDArray":
-        return NDArray(self._data.detach())
+        return NDArray(self._data.detach(), self.context)
 
     def backward(self, out_grad: Optional["NDArray"] = None,
                  retain_graph: bool = False, train_mode: bool = True) -> None:
@@ -291,7 +308,7 @@ class NDArray:
     def __getitem__(self, key) -> "NDArray":
         t, key = self._key(key)
         with _grad_mode():
-            return NDArray(t[key])
+            return NDArray(t[key], self.context)
 
     def __setitem__(self, key, value) -> None:
         t, key = self._key(key, for_write=True)
@@ -313,7 +330,7 @@ class NDArray:
             shape = tuple(shape[0])
         shape = infer_reshape(self.shape, shape)
         with _grad_mode():
-            return NDArray(self._data.reshape(shape))
+            return NDArray(self._data.reshape(shape), self.context)
 
     def reshape_like(self, other: "NDArray") -> "NDArray":
         return self.reshape(other.shape)
@@ -471,7 +488,9 @@ def invoke(op_name: str, *inputs, out: Optional[NDArray] = None, **params):
     Positional plain values in defaulted slots become attributes (the
     classic-API convention, :meth:`OpDef.split_pos_attrs`).  ``ctx=`` places
     the outputs; an op with no array input is a creation op and gets the
-    device (``ctx``, else the current context) as ``device=``.  The op runs
+    device (``ctx``, else the current context) as ``device=``.  The
+    outputs' context is ``ctx``, else the first NDArray input's, else the
+    current context (the reference's rule).  The op runs
     under ``torch.enable_grad()`` when autograd is recording and the op is
     differentiable, else under ``torch.no_grad()``, so a non-differentiable
     op's output carries no gradient.  The outputs of a differentiable op run
@@ -512,6 +531,9 @@ def _invoke_impl(op_name: str, *inputs, out: Optional[NDArray] = None,
     args = [x._data if isinstance(x, NDArray) else x for x in inputs]
     if not any(isinstance(a, torch.Tensor) for a in args):
         params["device"] = resolve(ctx)
+    out_ctx = as_context(ctx) if ctx is not None else next(
+        (x.context for x in inputs if isinstance(x, NDArray)), None) \
+        or current_context()
     record = autograd.is_recording() and op.differentiable
     with (torch.enable_grad() if record else torch.no_grad()):
         outs = op.fn(*amp_cast(op, params, args), **params)
@@ -523,7 +545,7 @@ def _invoke_impl(op_name: str, *inputs, out: Optional[NDArray] = None,
         for o in (outs if isinstance(outs, (tuple, list)) else (outs,)):
             if isinstance(o, torch.Tensor):
                 setattr(o, autograd.RECORDED, True)
-    outs = _wrap_outputs(op, outs)
+    outs = _wrap_outputs(op, outs, out_ctx)
     _engine.maybe_sync(outs[0] if isinstance(outs, list) else outs)
     aux = op.aux_map(params)
     if aux and isinstance(outs, list):
@@ -557,12 +579,12 @@ def _write_aux(aux, inputs, outs):
     return visible[0] if len(visible) == 1 else visible
 
 
-def _wrap_outputs(op, outs):
+def _wrap_outputs(op, outs, ctx):
     if isinstance(outs, (tuple, list)):
         if len(outs) == 1 and op.num_outputs == 1:
-            return NDArray(outs[0])
-        return [NDArray(o) for o in outs]
-    return NDArray(outs)
+            return NDArray(outs[0], ctx)
+        return [NDArray(o, ctx) for o in outs]
+    return NDArray(outs, ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -577,6 +599,7 @@ def array(source, ctx: Optional[Context] = None, dtype=None) -> NDArray:
     reference; int64 data, and a ``dtype`` of int64, become int32, as the
     reference's arrays hold them (``base.NARROWED``); other dtypes keep
     their type."""
+    ctx = as_context(ctx)
     dev = resolve(ctx)
     if isinstance(source, NDArray):
         source = source._data
@@ -590,7 +613,7 @@ def array(source, ctx: Optional[Context] = None, dtype=None) -> NDArray:
         # np.ascontiguousarray would make a 0-d array 1-d
         t = torch.as_tensor(np.array(arr, order="C"))
     t = t.to(torch_dtype(t.dtype if dtype is None else dtype))
-    return NDArray(t.to(dev, copy=True))
+    return NDArray(t.to(dev, copy=True), ctx)
 
 
 # The creation functions run their op uncounted: the reference makes

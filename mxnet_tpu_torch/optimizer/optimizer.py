@@ -500,6 +500,12 @@ class Updater:
                 self.states[i] = \
                     self.optimizer.create_state_multi_precision(i, w)
                 self.states_synced[i] = True
+            elif not self.states_synced.get(i, True):
+                # loaded states go to their weight's context first (the
+                # reference's sync_state_context): a Trainer gives every
+                # context's updater the first context's states
+                self.states[i] = _on_context(self.states[i], w.context)
+                self.states_synced[i] = True
         todo = list(zip(index, grad, weight))
         if self.aggregate_updates and len(todo) > 1 and \
                 self.optimizer.fused_update(
@@ -523,6 +529,16 @@ class Updater:
         else:
             self.states = loaded
         self.states_synced = dict.fromkeys(self.states.keys(), False)
+
+
+def _on_context(state, ctx):
+    """An updater state (an NDArray, or nested tuples or lists of them)
+    on ``ctx``."""
+    if isinstance(state, NDArray):
+        return state.as_in_context(ctx)
+    if isinstance(state, (tuple, list)):
+        return type(state)(_on_context(s, ctx) for s in state)
+    return state
 
 
 def get_updater(optimizer: Optimizer) -> Updater:

@@ -44,6 +44,23 @@ With these rules a value every rank holds alike carries its cotangent
 once, and a value each rank holds its own carries its own, as in the
 reference.
 
+**Global batch statistics.**  :func:`global_batch_norm` is BatchNorm's
+training forward over a batch split over an axis, normalised by the
+statistics of the whole batch, as the reference's ``jnp.mean`` over a
+dp-sharded batch gives them (XLA turns it into a ``psum``).  Its forward
+all-reduces the per-channel count and sum, then the sum of squared
+deviations from the global mean (two passes, without the cancellation of
+E[x^2] - E[x]^2); its backward all-reduces the two per-channel sums the
+input's gradient needs (of dy and of dy x the normalised input).
+``gamma`` and ``beta`` get this rank's own sums, as every parameter's
+gradient is this rank's before the step's all-reduce.  PyTorch's
+``torch.nn.SyncBatchNorm`` refuses CPU tensors, and the gloo backend on
+the host is what the CPU tests run, so it is written here over these
+collectives.  :class:`batch_stats_scope` is the scope in which
+``nn.BatchNorm`` takes it (``TrainStep`` enters it around the forward
+over a dp axis of more than one rank); its ``stats`` list the last
+forward's (mean, variance) of each layer, in call order.
+
 **Transport.**  NCCL takes device tensors.  Gloo moves host memory: its
 ``all_reduce``, ``broadcast`` and ``all_gather`` copy CUDA tensors through
 the host themselves, but its send/recv and ``all_to_all`` hand a CUDA
@@ -58,6 +75,7 @@ issues the same sequence.
 """
 from __future__ import annotations
 
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -70,7 +88,8 @@ from .mesh import Mesh
 __all__ = ["ppermute", "all_to_all", "psum", "pmean", "pvary",
            "all_gather", "reduce_scatter", "axis_slice", "gather_along",
            "scatter_sum_along", "axis_index", "axis_size", "stats",
-           "reset_stats", "record"]
+           "reset_stats", "record", "global_batch_norm",
+           "batch_stats_scope", "batch_stats_line"]
 
 _STATS: Dict[str, Dict[str, float]] = {}
 _RECORD: Optional[List[Tuple]] = None
@@ -197,13 +216,14 @@ def _exchange(x: torch.Tensor, mesh, axis: str, split_axis: int,
     return torch.cat(pieces, dim=concat_axis)
 
 
-def _sum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+def _sum(x: torch.Tensor, mesh, axis: str, op: str = "psum"
+         ) -> torch.Tensor:
     line, group, _ = _line(mesh, axis)
     out = x.clone()
     if len(line) > 1:
         t0 = time.perf_counter()
         dist.all_reduce(out, group=group)
-        _account("psum", axis, out, False, time.perf_counter() - t0)
+        _account(op, axis, out, False, time.perf_counter() - t0)
     return out
 
 
@@ -402,3 +422,95 @@ def pvary(x: torch.Tensor, axis: str, mesh: Mesh) -> torch.Tensor:
     """``x``, held alike over ``axis``, used by each rank on its own: the
     backward sums the ranks' cotangents."""
     return _Pvary.apply(x, mesh, axis)
+
+
+# ---------------------------------------------------------------------------
+# global batch statistics (the synchronised BatchNorm of the dp step)
+# ---------------------------------------------------------------------------
+
+_BN = threading.local()
+
+
+class batch_stats_scope:
+    """``with batch_stats_scope(mesh, axis):`` -- every ``nn.BatchNorm``
+    that normalises by batch statistics inside the block normalises by
+    those of the batch split over ``axis`` (:func:`global_batch_norm`).
+    ``stats`` lists each such forward's (mean, biased variance) in call
+    order."""
+
+    def __init__(self, mesh: Mesh, axis: str):
+        self.line = (mesh, axis)
+        self.stats: List[Tuple[torch.Tensor, torch.Tensor]] = []
+
+    def __enter__(self) -> "batch_stats_scope":
+        self._prev = getattr(_BN, "scope", None)
+        _BN.scope = self
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        _BN.scope = self._prev
+        return False
+
+
+def batch_stats_line() -> Optional[batch_stats_scope]:
+    """The innermost :class:`batch_stats_scope`, or None."""
+    return getattr(_BN, "scope", None)
+
+
+def _channel(t: torch.Tensor, ndim: int, ax: int) -> torch.Tensor:
+    shape = [1] * ndim
+    shape[ax] = -1
+    return t.reshape(shape)
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, ax, mesh, axis):
+        red = [i for i in range(x.dim()) if i != ax]
+        # float32 at least, as the reference takes the statistics
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        n = x.numel() // x.shape[ax]
+        s = _sum(torch.cat([xf.sum(red), xf.new_tensor([float(n)])]),
+                 mesh, axis, "batch_norm")
+        count = s[-1]
+        mean = s[:-1] / count
+        xc = xf - _channel(mean, x.dim(), ax)
+        var = _sum((xc * xc).sum(red), mesh, axis, "batch_norm") / count
+        invstd = torch.rsqrt(var + eps)
+        xhat = xc * _channel(invstd, x.dim(), ax)
+        out = xhat * _channel(gamma.to(xf.dtype), x.dim(), ax) + \
+            _channel(beta.to(xf.dtype), x.dim(), ax)
+        ctx.save_for_backward(xhat, invstd, gamma, count)
+        ctx.ax, ctx.mesh, ctx.axis = ax, mesh, axis
+        ctx.mark_non_differentiable(mean, var)
+        return out.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        xhat, invstd, gamma, count = ctx.saved_tensors
+        ax, nd = ctx.ax, xhat.dim()
+        red = [i for i in range(nd) if i != ax]
+        dyf = dy.to(xhat.dtype)
+        sum_dy = dyf.sum(red)
+        sum_dy_xhat = (dyf * xhat).sum(red)
+        c = sum_dy.numel()
+        both = _sum(torch.cat([sum_dy, sum_dy_xhat]), ctx.mesh, ctx.axis,
+                    "batch_norm") / count
+        dx = _channel(gamma.to(xhat.dtype) * invstd, nd, ax) * (
+            dyf - _channel(both[:c], nd, ax)
+            - xhat * _channel(both[c:], nd, ax))
+        return (dx.to(dy.dtype), sum_dy_xhat.to(gamma.dtype),
+                sum_dy.to(gamma.dtype), None, None, None, None)
+
+
+def global_batch_norm(x: torch.Tensor, gamma: torch.Tensor,
+                      beta: torch.Tensor, eps: float, axis_dim: int,
+                      mesh: Mesh, axis: str):
+    """BatchNorm's training output over ``x``, this rank's part of a
+    batch split over mesh axis ``axis``, normalised by the whole batch's
+    per-channel mean and biased variance (channels on ``axis_dim``);
+    returns ``(out, mean, var)``, the statistics in float32 (float64 for
+    float64 data) and without gradient.  Every rank of the axis must call it alike."""
+    ax = axis_dim % x.dim()
+    return _GlobalBatchNorm.apply(x, gamma, beta, float(eps), ax, mesh,
+                                  axis)

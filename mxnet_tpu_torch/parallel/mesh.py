@@ -264,13 +264,6 @@ def shard_params_tp(param_values, mesh: Mesh, tp_axis: str = "tp",
     return _impl(param_values, mesh, tp_axis=tp_axis, rules=rules)
 
 
-def _batch_norms(block: torch.nn.Module) -> List[str]:
-    from ..gluon.nn.basic_layers import BatchNorm
-    kinds = (BatchNorm, torch.nn.modules.batchnorm._BatchNorm)
-    return [n or type(block).__name__ for n, m in block.named_modules()
-            if isinstance(m, kinds)]
-
-
 class TrainStep:
     """One training step of ``block`` under ``loss_fn(outputs, label)``.
 
@@ -293,10 +286,15 @@ class TrainStep:
     ``MX_KVSTORE_BUCKET_KB``, before the momentum update, and the step
     returns the loss averaged over the axis.  For a loss that is a mean over the batch axis (every
     step in the repo uses one) and equal shards, that is the reference's
-    mean over the global batch.  Batch statistics would differ (each rank
-    would normalise by its own shard), so a block holding a BatchNorm
-    raises over more than one rank until a synchronised batch norm is
-    ported.
+    mean over the global batch.  Every ``nn.BatchNorm`` (and so
+    ``SyncBatchNorm``) in training mode normalises by the global batch's
+    statistics (:func:`~.collectives.global_batch_norm` over the dp
+    line's group, as XLA's psum gives them in the reference); the last
+    step's (mean, variance) of each are in :attr:`batch_stats`.  The
+    running statistics stay as they are, as the single-device step and the
+    reference's leave them (the forward runs on tensors).  A tp rank of a
+    line holds the same batch shard as the others, so it computes the
+    same statistics.
 
     Over a ``tp_axis`` of more than one rank (the reference's tensor
     parallelism) each parameter and its momentum are stored as this
@@ -347,13 +345,8 @@ class TrainStep:
         if self._world > 1:
             self._group = mesh.group(dp_axis)
             self._root = mesh.line(dp_axis)[0]
-            norms = _batch_norms(block)
-            if norms:
-                raise MXNetError(
-                    "TrainStep over %d dp ranks: %s hold a BatchNorm, whose "
-                    "batch statistics would be each rank's and not the "
-                    "global batch's; a synchronised batch norm is still to "
-                    "come" % (self._world, norms[:3]))
+        #: each BatchNorm's global (mean, variance) of the last step
+        self.batch_stats: List[Tuple[torch.Tensor, torch.Tensor]] = []
         pure_fn, params = functionalize(block)
         self.device = resolve(device)
         whole = OrderedDict(
@@ -431,14 +424,20 @@ class TrainStep:
                 for n, leaf in zip(names, leaves)}
 
     def _step(self, batch: List[torch.Tensor]) -> torch.Tensor:
+        import contextlib
+        from .collectives import batch_stats_scope
         from .tensor import placement_scope
         names = list(self.params)
         leaves = [self.params[n].detach().requires_grad_(True)
                   for n in names]
-        with torch.enable_grad(), placement_scope(self._places):
+        stats = batch_stats_scope(self.mesh, self._dp_axis) \
+            if self._world > 1 else contextlib.nullcontext()
+        with torch.enable_grad(), placement_scope(self._places), stats:
             out = self._pure_fn(self._uses(names, leaves), *batch[:-1],
                                 training=True)
             loss = self._loss_fn(out, batch[-1])
+        if self._world > 1:
+            self.batch_stats = stats.stats
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]

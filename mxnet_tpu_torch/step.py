@@ -25,6 +25,18 @@ Semantics kept from the reference:
   leaves: every ``accum`` consecutive micro-batches accumulate into one
   optimizer step.
 
+**Several contexts.**  Over a Trainer whose parameters have a copy on each
+of several contexts in one process, each micro-batch splits over the
+contexts (the last takes the remainder), each copy runs forward and
+backward on its slice on its own device (a BatchNorm writes that copy's
+statistics), the Trainer's store merges the copies' gradients as the eager
+``Trainer.step`` does (its compression and error-feedback residuals
+included), and every context's updater applies the merged gradient to its
+copy, advancing that context's update counts, so that an eager <->
+compiled switch continues one trajectory.  The reference traces the same
+exchange body over one copy and writes the result to every copy; a
+``layout`` with several contexts falls back, with the reference's reason.
+
 **The sharded lane.**  With a :class:`~.parallel.speclayout.SpecLayout`
 (or ``MX_MESH_AXES`` / ``MX_FSDP``) the step spans the layout's mesh, one
 process a rank.  Every rank calls it with the same global batch and each
@@ -109,6 +121,13 @@ def _tensor_of(x, device) -> torch.Tensor:
     return x.to(device)
 
 
+def _dev_of(x) -> torch.device:
+    """Where a batch leaf lies (numpy data: the host)."""
+    if isinstance(x, NDArray):
+        return x.data.device
+    return x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
+
+
 def _fused(opt) -> bool:
     """Whether the optimizer has a fused (tree) form."""
     from .optimizer.optimizer import Optimizer
@@ -128,6 +147,24 @@ def _state_arrays(state) -> List[NDArray]:
             out.extend(_state_arrays(s))
         return out
     return []
+
+
+def _clone_state(state):
+    """A copy of an updater state (an NDArray, or nested tuples or lists
+    of them)."""
+    if isinstance(state, NDArray):
+        return state.copy()
+    if isinstance(state, (tuple, list)):
+        return type(state)(_clone_state(s) for s in state)
+    return state
+
+
+def _slices(n: int, parts: int) -> List[slice]:
+    """``n`` samples over ``parts`` contexts, the last taking the
+    remainder (the reference's eager split)."""
+    per = n // parts
+    return [slice(d * per, (d + 1) * per if d < parts - 1 else n)
+            for d in range(parts)]
 
 
 def _local_shape(whole, spec, mesh):
@@ -207,7 +244,9 @@ class CompiledStep:
         tr = self._trainer
         if not tr._kv_initialized:
             tr._init_kvstore()
-        if tr._params_to_init:
+        if tr._params_to_init and len(tr._contexts) <= 1:
+            # over several contexts the first broadcast waits for the first
+            # forward, as in the eager Trainer.step (:meth:`_run_copies`)
             tr._init_params()
         sig = self._plan_signature()
         if self._plan_cached is not None and sig == self._plan_sig:
@@ -238,8 +277,14 @@ class CompiledStep:
                                   "gather/scatter path")
             else:
                 trainable_idx.append(i)
+        ctxs = list(tr._contexts)
+        if self._layout is not None and len(ctxs) > 1:
+            return self._fall(
+                "SpecLayout sharded lane is SPMD over the mesh — use ONE "
+                "Trainer context (the mesh owns the devices)")
         names = self._names()
         plan = {"trainable_idx": trainable_idx, "frozen": frozen,
+                "ctxs": ctxs,
                 "names": [names[i] for i in trainable_idx],
                 "layout": self._layout, "exchange": None}
         if self._layout is not None:
@@ -411,7 +456,7 @@ class CompiledStep:
             specs["update_counts"][name] = ()
             if i not in upd.states:
                 upd.states[i] = tr._optimizer.create_state_multi_precision(
-                    i, tr._params[i].data())
+                    i, tr._params[i].list_data()[0])
                 upd.states_synced[i] = True
             state["params"][name] = tr._params[i]._tensor().data
             sts = _state_arrays(upd.states[i])
@@ -430,11 +475,11 @@ class CompiledStep:
                     specs["opt_state"][name][str(j)] = sspec
         return state, specs
 
-    def _update_counts(self) -> Dict[int, int]:
-        """The optimizer's update counts of the device the updater keys
-        them by (the parameters')."""
+    def _update_counts(self, d: int = 0) -> Dict[int, int]:
+        """The optimizer's update counts of the parameters' ``d``-th
+        context, by which the updaters key them."""
         opt = self._trainer._optimizer
-        ctx = self._trainer._params[0].data().context
+        ctx = self._trainer._params[0].list_ctx()[d]
         opt._set_current_context((ctx.device_type, ctx.device_id))
         return opt._index_update_count
 
@@ -462,12 +507,25 @@ class CompiledStep:
         state, specs = self.checkpoint_state()
         restore_sharded(path, template=state, mesh=self._mesh(),
                         specs=specs)
-        plan, opt = self._plan(), self._trainer._optimizer
-        counts = self._update_counts()
-        for i, name in zip(plan["trainable_idx"], plan["names"]):
-            counts[i] = int(state["update_counts"][name][0])
-        if counts:
-            opt.num_update = max(opt.num_update, max(counts.values()))
+        plan, tr = self._plan(), self._trainer
+        opt = tr._optimizer
+        for d in range(len(plan["ctxs"])):
+            counts = self._update_counts(d)
+            for i, name in zip(plan["trainable_idx"], plan["names"]):
+                counts[i] = int(state["update_counts"][name][0])
+            if counts:
+                opt.num_update = max(opt.num_update, max(counts.values()))
+        # the other contexts' copies and updater states take the first's
+        from .optimizer.optimizer import _on_context
+        for i in plan["trainable_idx"]:
+            p = tr._params[i]
+            with torch.no_grad():
+                for t in list(p._tensors().values())[1:]:
+                    t.copy_(p._tensor())
+            for c, upd in zip(plan["ctxs"][1:], tr._updaters[1:]):
+                upd.states[i] = _on_context(_clone_state(
+                    tr._updaters[0].states[i]), c)
+                upd.states_synced[i] = True
 
     # -- the step -----------------------------------------------------------
     def _device(self):
@@ -494,13 +552,14 @@ class CompiledStep:
         from .parallel.tensor import assemble
         return assemble(x.contiguous(), layout.batch_spec(), layout.mesh)
 
-    def _micro(self, plan, leaves, uses, x_list, y):
-        """Forward and backward of one micro-batch: (per-sample loss,
-        first output, gradients of the leaves)."""
+    def _micro(self, plan, leaves, uses, x_list, y, ctx=None):
+        """Forward and backward of one micro-batch (on context ``ctx``'s
+        copies): (per-sample loss, first output, gradients of the
+        leaves)."""
         from . import autograd
         from .parallel.tensor import placement_scope
-        x_nds = [NDArray(x) for x in x_list]
-        y_nd = NDArray(y)
+        x_nds = [NDArray(x, ctx) for x in x_list]
+        y_nd = NDArray(y, ctx)
         with autograd.record(), placement_scope(plan.get("places", {})):
             if uses is None:
                 out = self._net(*x_nds)
@@ -636,6 +695,8 @@ class CompiledStep:
         over ``xs``/``y`` leaves shaped ``(n_steps * accum, B, ...)``;
         returns the per-micro-batch losses and first outputs (whole
         batch)."""
+        if len(plan["ctxs"]) > 1:
+            return self._run_copies(plan, n_steps, accum, xs, y, batch_size)
         if self._layout is not None:
             self._adopt(plan)
         losses, outs = [], []
@@ -654,8 +715,63 @@ class CompiledStep:
             self._apply(plan, acc, batch_size)
         return losses, outs
 
+    def _run_copies(self, plan, n_steps, accum, xs, y, batch_size):
+        """:meth:`_run` over a Trainer with a copy on each of several
+        contexts; see the module's note."""
+        tr = self._trainer
+        ctxs, idxs = plan["ctxs"], plan["trainable_idx"]
+        copies = [list(tr._params[i]._tensors().values()) for i in idxs]
+        losses, outs = [], []
+        for t in range(n_steps):
+            acc = None
+            for m in range(accum):
+                k = t * accum + m
+                parts = _slices(int(y[k].shape[0]), len(ctxs))
+                step_loss, step_out, grads = [], [], []
+                for d, (c, sl) in enumerate(zip(ctxs, parts)):
+                    dev = c.torch_device
+                    loss, out, g = self._micro(
+                        plan, [cp[d] for cp in copies], None,
+                        [x[k][sl].to(dev) for x in xs], y[k][sl].to(dev),
+                        ctx=c)
+                    step_loss.append(loss.to(xs[0].device))
+                    step_out.append(out.to(xs[0].device))
+                    grads.append(g)
+                acc = grads if acc is None else [
+                    [a + g for a, g in zip(ad, gd)]
+                    for ad, gd in zip(acc, grads)]
+                losses.append(torch.cat(step_loss))
+                outs.append(torch.cat(step_out))
+            if tr._params_to_init:
+                tr._init_params()
+            merged = [[NDArray(acc[d][p].detach(), c)
+                       for d, c in enumerate(ctxs)] for p in range(len(idxs))]
+            self._exchange(idxs, merged)
+            tr._check_and_rescale_grad(tr._scale / batch_size)
+            for d, upd in enumerate(tr._updaters):
+                upd(idxs, [g[d] for g in merged],
+                    [NDArray(cp[d], ctxs[d]) for cp in copies])
+        return losses, outs
+
+    def _exchange(self, idxs, vlists) -> None:
+        """The Trainer store's merge of each key's copies, written into
+        every copy: the exchange the eager ``Trainer.step`` runs when no
+        overlap session is armed (buckets packed as it packs them)."""
+        tr = self._trainer
+        kv = tr._kvstore
+        sess = kv.begin_exchange(idxs, vlists, reverse=tr._overlap)
+        if sess is not None:
+            sess.drain()
+            return
+        kv.push(idxs, vlists)
+        kv.pull(idxs, vlists)
+
     def _split_batch(self, xs, y, batch_dim):
-        """This rank's slices of the batch leaves, on the device."""
+        """This rank's slices of the batch leaves, on the device (on the
+        host as given, for several contexts: each takes its slice)."""
+        if len(self._trainer._contexts) > 1:
+            return [_tensor_of(x, _dev_of(x)) for x in xs], \
+                _tensor_of(y, _dev_of(y))
         dev = self._device()
         xs = [_tensor_of(x, dev) for x in xs]
         y = _tensor_of(y, dev)
@@ -688,7 +804,7 @@ class CompiledStep:
         losses, outs = self._run(plan, 1, 1, [x[None] for x in xs],
                                  y[None], batch_size)
         self._update_metric([y], outs)
-        return NDArray(losses[0])
+        return NDArray(losses[0], plan["ctxs"][0])
 
     def run_window(self, data, label, batch_size=None, accum=1):
         """A window of ``n_micro = n_steps * accum`` micro-batches: ``data``
@@ -724,20 +840,32 @@ class CompiledStep:
         xs, y = self._split_batch(datas, label, 1)
         losses, outs = self._run(plan, n_steps, accum, xs, y, batch_size)
         self._update_metric(list(y), outs)
-        return NDArray(torch.stack(losses))
+        return NDArray(torch.stack(losses), plan["ctxs"][0])
 
     # -- the debug path -----------------------------------------------------
     def _eager_step(self, datas, label, batch_size):
+        """record/backward/``Trainer.step``; over several contexts the
+        batch splits over them, each copy runs its own forward and
+        backward, and the Trainer's exchange merges (the classic Gluon
+        data-parallel loop).  Returns the first context's loss."""
         from . import autograd
-        dev = self._device()
-        x_nds = [NDArray(_tensor_of(d, dev)) for d in datas]
-        y_nd = NDArray(_tensor_of(label, dev))
+        ctxs = self._trainer._contexts
+        n = int(label.shape[0])
+        losses, first = [], None
         with autograd.record():
-            out = self._net(*x_nds)
-            loss = self._loss_fn(out, y_nd)
-        loss.backward()
+            for c, sl in zip(ctxs, _slices(n, len(ctxs))):
+                dev = c.torch_device
+                x_nds = [NDArray(_tensor_of(d, dev)[sl], c) for d in datas]
+                y_nd = NDArray(_tensor_of(label, dev)[sl], c)
+                out = self._net(*x_nds)
+                loss = self._loss_fn(out, y_nd)
+                losses.append(loss)
+                if first is None:
+                    first = (out, y_nd)
+        autograd.backward(losses)
         self._trainer.step(batch_size)
         if self._metric is not None:
+            out, y_nd = first
             out0 = out[0] if isinstance(out, (list, tuple)) else out
             self._metric.update([y_nd], [out0])
-        return loss
+        return losses[0]

@@ -8,10 +8,12 @@ worker ends by checking that neither ``jax`` nor ``mxnet_tpu`` is in its
 ``sys.modules``.  The workers write what they computed to ``.npz`` files;
 the test process holds them against the JAX reference run in one process
 on both ranks' halves of the batch: the reference's ``Trainer`` (rtol
-1e-5, atol 1e-6), its ``TrainStep`` on the global batch (1e-5), and, with
-compression, the reference's 2-bit and int8 arithmetic on the ranks' own
-gradients (the sum and the residuals).  The ranks' weights are bitwise
-equal.
+1e-5, atol 1e-6; also with a copy on ``cpu(0)`` and ``cpu(1)`` in each
+process), its ``TrainStep`` on the global batch (1e-5; a conv +
+BatchNorm net's dp step on the global batch's statistics against the
+reference's step over a 2-device mesh), and, with compression, the
+reference's 2-bit and int8 arithmetic on the ranks' own gradients (the
+sum and the residuals).  The ranks' weights are bitwise equal.
 """
 import os
 import subprocess
@@ -247,6 +249,27 @@ _TRAINER_BODY = """
     assert sorted(saved) == sorted(loaded) == [0, 1, 2, 3], sorted(loaded)
     for k in saved:
         assert torch.equal(loaded[k].data, saved[k].data), k
+    # a copy on cpu(0) and cpu(1) in each process: the store sums the
+    # copies, then the ranks; each copy's loss is its quarter's mean over
+    # two, so that the two copies' sum is the half's mean
+    net = mlp(weights0())
+    ctxs = [mx.cpu(0), mx.cpu(1)]
+    net.collect_params().reset_ctx(ctxs)
+    trainer = gluon.Trainer(net.collect_params(), "sgd", %r,
+                            kvstore="ici", update_on_kvstore=%r)
+    for s in range(STEPS):
+        x, y = batch(s, RANK)
+        with autograd.record():
+            losses = [((net(nd.array(x[sl], ctx=c)) - nd.array(y[sl], ctx=c))
+                       ** 2).mean() * 0.5
+                      for c, sl in zip(ctxs, (slice(0, HALF // 2),
+                                              slice(HALF // 2, HALF)))]
+        autograd.backward(losses)
+        trainer.step(2)
+    params = [p for layer in net for p in (layer.weight, layer.bias)]
+    save("trainer_copies", **{"w%%d_%%d" %% (i, d): p.list_data()[d].asnumpy()
+                              for i, p in enumerate(params)
+                              for d in range(2)})
 """
 
 
@@ -256,12 +279,17 @@ def test_trainer_step_matches_the_reference_on_both_halves(
     opt_args = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-3}
     _launch(tmp_path, _TRAINER_BODY % (
         opt_args, update_on_kvstore, update_on_kvstore, opt_args,
-        update_on_kvstore, update_on_kvstore))
+        update_on_kvstore, update_on_kvstore, opt_args, update_on_kvstore))
     results = _load(tmp_path, "trainer")
+    copies = _load(tmp_path, "trainer_copies")
     _assert_ranks_bitwise(results)
+    _assert_ranks_bitwise(copies)
     for i, w in enumerate(_ref_trainer_run(opt_args)):
         np.testing.assert_allclose(results[0]["w%d" % i], w, rtol=RTOL,
                                    atol=ATOL)
+        for d in range(2):
+            np.testing.assert_allclose(copies[0]["w%d_%d" % (i, d)], w,
+                                       rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("mode", ("2bit", "int8"))
@@ -394,9 +422,13 @@ def test_overlap_on_and_off_give_bitwise_equal_weights(tmp_path):
 def test_dp_trainstep_matches_the_reference_on_the_global_batch(tmp_path):
     """Each rank passes its half; the dp step's parameters and losses
     (``run_steps`` too) are the reference ``TrainStep``'s on the whole
-    batch within 1e-5; a block with a BatchNorm is refused over two ranks,
-    and so is a mesh with an sp axis of two (sequence parallelism runs
-    through parallel.ring; dp and tp are the step's axes)."""
+    batch within 1e-5.  A conv + BatchNorm net trains on the global
+    batch's statistics: its losses, parameters and running statistics are
+    the reference ``TrainStep``'s over a 2-device mesh on the whole batch
+    within 1e-5, and its first step's batch statistics are the whole
+    batch's.  A mesh with an sp axis of two is refused (sequence
+    parallelism runs through parallel.ring; dp and tp are the step's
+    axes)."""
     lr, mom = 0.1, 0.9
     _launch(tmp_path, """
         mesh = make_mesh()
@@ -412,14 +444,28 @@ def test_dp_trainstep_matches_the_reference_on_the_global_batch(tmp_path):
         out = {"w_" + n: v.numpy() for n, v in step.params.items()}
         save("trainstep", losses=np.array(losses), **out)
         bn = gluon.nn.HybridSequential()
-        bn.add(gluon.nn.Dense(4, in_units=IN), gluon.nn.BatchNorm(in_channels=4))
+        bn.add(gluon.nn.Conv2D(4, 3, padding=1, in_channels=2),
+               gluon.nn.BatchNorm(in_channels=4),
+               gluon.nn.Activation("relu"), gluon.nn.Dense(OUT, in_units=64))
         bn.initialize(device="cpu")
-        try:
-            TrainStep(bn, lambda o, y: o.mean(), mesh=mesh, device="cpu")
-        except MXNetError as e:
-            assert "BatchNorm" in str(e), e
-        else:
-            raise AssertionError("TrainStep over 2 ranks took a BatchNorm")
+        rng = np.random.RandomState(7)
+        for n, p in sorted(bn.collect_params().items()):
+            p.set_data(rng.randn(*p.shape).astype(np.float32) * 0.3
+                       + (1.0 if n.endswith(("gamma", "running_var"))
+                          else 0.0))
+        bstep = TrainStep(bn, lambda o, y: ((o - y) ** 2).mean(), mesh=mesh,
+                          device="cpu", learning_rate=%r, momentum=%r)
+        blosses = []
+        for s in range(STEPS):
+            rng = np.random.RandomState(300 + 10 * s + RANK)
+            blosses.append(float(bstep(
+                rng.randn(HALF, 2, 4, 4).astype(np.float32),
+                rng.randn(HALF, OUT).astype(np.float32))))
+            if s == 0:
+                stats0 = [t.numpy() for t in bstep.batch_stats[0]]
+        out = {"w_" + n: v.numpy() for n, v in bstep.params.items()}
+        save("trainstep_bn", losses=np.array(blosses), mean0=stats0[0],
+             var0=stats0[1], **out)
         try:
             TrainStep(mlp(weights0()), lambda o, y: o.mean(),
                       mesh=make_mesh(axes=("dp", "sp"), shape=(1, 2)),
@@ -428,7 +474,7 @@ def test_dp_trainstep_matches_the_reference_on_the_global_batch(tmp_path):
             assert "parallel.ring" in str(e), e
         else:
             raise AssertionError("TrainStep took an sp axis of size 2")
-    """ % (lr, mom))
+    """ % (lr, mom, lr, mom))
     ranks = _load(tmp_path, "trainstep")
     _assert_ranks_bitwise(ranks)
     np.testing.assert_array_equal(ranks[1]["losses"], ranks[0]["losses"])
@@ -455,6 +501,46 @@ def test_dp_trainstep_matches_the_reference_on_the_global_batch(tmp_path):
         sorted(k for k in ranks[0] if k.startswith("w_"))
     for n, w in jstep.params.items():
         np.testing.assert_allclose(ranks[0]["w_" + n], np.asarray(w),
+                                   rtol=1e-5, atol=1e-5)
+    # the BatchNorm net over two ranks against the reference's step over a
+    # 2-device mesh on the whole batch (XLA's psum makes its statistics
+    # the global batch's)
+    franks = _load(tmp_path, "trainstep_bn")
+    _assert_ranks_bitwise(franks)
+    jbn = jgluon.nn.HybridSequential()
+    jbn.add(jgluon.nn.Conv2D(4, 3, padding=1, in_channels=2),
+            jgluon.nn.BatchNorm(in_channels=4),
+            jgluon.nn.Activation("relu"), jgluon.nn.Dense(OUT, in_units=64))
+    jbn.initialize()
+    rng = np.random.RandomState(7)
+    for n, p in sorted(jbn.collect_params().items()):
+        p.set_data(jnd.array(rng.randn(*p.shape).astype(np.float32) * 0.3
+                             + (1.0 if n.endswith(("gamma", "running_var"))
+                                else 0.0)))
+    xs = []
+    for s in range(STEPS):
+        halves = [np.random.RandomState(300 + 10 * s + r) for r in range(2)]
+        halves = [(g.randn(HALF, 2, 4, 4).astype(np.float32),
+                   g.randn(HALF, OUT).astype(np.float32)) for g in halves]
+        xs.append((np.concatenate([h[0] for h in halves]),
+                   np.concatenate([h[1] for h in halves])))
+    # the first step's global statistics: the conv's output on the whole
+    # batch, before any update
+    h = np.asarray(jbn[0](jnd.array(xs[0][0])).asnumpy(), np.float64)
+    np.testing.assert_allclose(franks[0]["mean0"], h.mean(axis=(0, 2, 3)),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(franks[0]["var0"], h.var(axis=(0, 2, 3)),
+                               rtol=1e-5, atol=1e-6)
+    jbstep = JTrainStep(jbn, loss_fn,
+                        make_mesh(axes=("dp",), devices=jax.devices("cpu")[:2]),
+                        learning_rate=lr, momentum=mom)
+    blosses = [float(jbstep(jnp.asarray(x), jnp.asarray(y))) for x, y in xs]
+    np.testing.assert_allclose(franks[0]["losses"], blosses, rtol=1e-5,
+                               atol=1e-5)
+    assert sorted("w_" + n for n in jbstep.params) == \
+        sorted(k for k in franks[0] if k.startswith("w_"))
+    for n, w in jbstep.params.items():
+        np.testing.assert_allclose(franks[0]["w_" + n], np.asarray(w),
                                    rtol=1e-5, atol=1e-5)
 
 

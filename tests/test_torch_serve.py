@@ -291,7 +291,11 @@ def test_port_imports_neither_jax_nor_mxnet_tpu():
             "mxnet_tpu_torch.parallel.moe, "
             "mxnet_tpu_torch.parallel.collectives, "
             "mxnet_tpu_torch.parallel.speclayout, "
-            "mxnet_tpu_torch.parallel.tensor, mxnet_tpu_torch.step; "
+            "mxnet_tpu_torch.parallel.tensor, mxnet_tpu_torch.step, "
+            "mxnet_tpu_torch.device, mxnet_tpu_torch.ndarray.ndarray, "
+            "mxnet_tpu_torch.autograd, mxnet_tpu_torch.gluon.block, "
+            "mxnet_tpu_torch.gluon.nn.basic_layers, "
+            "mxnet_tpu_torch.optimizer.optimizer; "
             "import torch.distributed.checkpoint; "
             "import chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or "

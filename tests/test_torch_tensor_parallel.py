@@ -87,13 +87,17 @@ LAYOUTS = %(layouts)s
 # -- TrainStep over (dp, tp) --------------------------------------------------
 def make_net(conv):
     net = nn.HybridSequential()
-    if conv:
+    if conv == "bn":
+        net.add(nn.Conv2D(4, 3, padding=1, use_bias=False), nn.BatchNorm(),
+                nn.Activation("relu"), nn.MaxPool2D(), nn.Flatten())
+    elif conv:
         net.add(nn.Conv2D(4, 3, padding=1, activation="relu"),
                 nn.MaxPool2D(), nn.Flatten())
     net.add(nn.Dense(16, activation="relu"), nn.Dense(10))
     net.initialize(device="cpu")
     net(nd.zeros((1, 3, 8, 8) if conv else (1, 8)))
-    net.load_dict(weights("conv." if conv else "mlp."), device="cpu")
+    net.load_dict(weights("bn." if conv == "bn" else "conv." if conv
+                          else "mlp."), device="cpu")
     return net
 
 
@@ -136,6 +140,9 @@ for name, shape in (("dp4", (4, 1)), ("tp2", (2, 2))):
                                   for k in want))
 tp_case("tp_conv", True, 1, 4)
 tp_case("tp_rules", False, 2, 2, rules={"0.weight": ("tp", None)})
+# a BatchNorm over (dp, tp): the statistics of the batch split over dp,
+# which every tp rank of a line holds alike
+tp_case("tp_bn", "bn", 2, 2)
 
 
 # -- the sharded compiled step ------------------------------------------------
@@ -395,11 +402,16 @@ def _devices(n=8):
 
 
 def _make_net(seed=0, conv=False):
-    """tests/test_parallel.py's net."""
+    """tests/test_parallel.py's net (``conv="bn"``: a BatchNorm after its
+    convolution, which has no bias: the BatchNorm would make its gradient
+    0 up to rounding)."""
     mx.random.seed(seed)
     np.random.seed(seed)
     net = nn.HybridSequential()
-    if conv:
+    if conv == "bn":
+        net.add(nn.Conv2D(4, 3, padding=1, use_bias=False), nn.BatchNorm(),
+                nn.Activation("relu"), nn.MaxPool2D(), nn.Flatten())
+    elif conv:
         net.add(nn.Conv2D(4, 3, padding=1, activation="relu"),
                 nn.MaxPool2D(), nn.Flatten())
     net.add(nn.Dense(16, activation="relu"))
@@ -462,6 +474,8 @@ class _Job:
             w["mlp." + k] = v
         for k, v in _params(_make_net(0, conv=True)).items():
             w["conv." + k] = v
+        for k, v in _params(_make_net(0, conv="bn")).items():
+            w["bn." + k] = v
         for seed in (0, 1):
             for k, v in _params(_build(seed)[0]).items():
                 w["small%d.%s" % (seed, k)] = v
@@ -545,6 +559,8 @@ def _ref_tp(conv, mesh, tp_rules=None):
     ("tp_conv", True, (1, 4), None),
     # explicit rules (test_shard_params_tp_explicit_rules)
     ("tp_rules", False, (2, 2), {"0.weight": JP("tp", None)}),
+    # a BatchNorm on the global batch's statistics over dp x tp
+    ("tp_bn", "bn", (2, 2), None),
 ])
 def test_trainstep_dp_tp_matches_reference(job, case, conv, shape, rules):
     dp_only = jmake_mesh(axes=("dp",), devices=_devices(4))

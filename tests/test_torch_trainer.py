@@ -31,7 +31,6 @@ from mxnet_tpu.gluon import nn as jgnn, utils as jutils
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import nd as tnd, autograd as tag, gluon as tgluon
 from mxnet_tpu_torch import metric as tmetric
-from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.convert import (params_from_mxnet_tpu,
                                      params_to_numpy,
                                      trainer_states_from_mxnet_tpu)
@@ -359,19 +358,39 @@ def test_split_and_load_match_reference():
     (loaded,) = tutils.split_and_load(x, [tmx.cpu()])
     assert loaded.context == tmx.cpu()
     np.testing.assert_array_equal(loaded.asnumpy(), x)
-    parts = tutils.split_and_load(tnd.array(x), [tmx.cpu(), tmx.cpu()])
+    parts = tutils.split_and_load(tnd.array(x), [tmx.cpu(0), tmx.cpu(1)])
+    jparts = jutils.split_and_load(jnd.array(x), [jmx.cpu(0), jmx.cpu(1)])
     assert [p.shape for p in parts] == [(5, 3), (5, 3)]
+    assert [str(p.context) for p in parts] == \
+        [str(p.context) for p in jparts] == ["cpu(0)", "cpu(1)"]
 
 
-def test_several_devices_in_one_process_raise_naming_the_queue_item(
-        monkeypatch):
-    """A copy on each of several devices is still to come; both refusals
-    name the ROADMAP item (data parallelism runs one process a device)."""
-    param = tgluon.Parameter("w", shape=(2,))
-    with pytest.raises(MXNetError, match="several-device parameters"):
-        param.initialize(ctx=[tmx.cpu(0), tmx.cpu(1)])
-    param.initialize(ctx=tmx.cpu())
-    monkeypatch.setattr(tgluon.Parameter, "list_ctx",
-                        lambda self: [tmx.cpu(0), tmx.cpu(1)])
-    with pytest.raises(MXNetError, match="several-device parameters"):
-        tgluon.Trainer([param], "sgd", {"learning_rate": 0.1})
+def test_several_contexts_in_one_process_train_as_the_reference():
+    """The conv net moved onto copies on cpu(0) and cpu(1)
+    (``Block.reset_ctx``) trains through the classic loop, each copy on
+    half the batch, as the reference's does: every copy's parameters (each
+    BatchNorm copy's statistics included) within rtol 1e-4, atol 1e-5."""
+    jnet, tnet = _pair()
+    x, y = _batch()
+    got = []
+    for pkg, net in ((jmx, jnet), (tmx, tnet)):
+        ctxs = [pkg.cpu(0), pkg.cpu(1)]
+        net.collect_params().reset_ctx(ctxs)
+        trainer = pkg.gluon.Trainer(net.collect_params(), "sgd",
+                                    {"learning_rate": 0.1, "momentum": 0.9})
+        loss_fn = pkg.gluon.loss.SoftmaxCrossEntropyLoss()
+        for _ in range(STEPS):
+            xs = pkg.gluon.utils.split_and_load(x, ctxs)
+            ys = pkg.gluon.utils.split_and_load(y, ctxs)
+            with pkg.autograd.record():
+                losses = [loss_fn(net(a), b) for a, b in zip(xs, ys)]
+            pkg.autograd.backward(losses)
+            trainer.step(B)
+        got.append({n: [d.asnumpy() for d in p.list_data()]
+                    for n, p in net.collect_params().items()})
+    assert list(got[1]) == list(got[0])
+    for name, copies in got[0].items():
+        assert len(got[1][name]) == len(copies) == 2
+        for a, b in zip(got[1][name], copies):
+            np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL,
+                                       err_msg=name)
