@@ -41,6 +41,19 @@ Phases (each raises on failure, so any failure exits nonzero):
    ServeClient threads; every answer is checked against an in-process
    forward through the plain attention composition, and the flash kernel's
    launch count against 12 x dispatched micro-batches (warm-up included).
+4b. save_load -- parameter files on the card (``phase_save_load``, right
+   after ``slice``): (a) the served BERT-base's ``save_parameters`` file
+   (the reference's ``nd.save`` format; bytes and save / load GB/s
+   printed) loaded into a fresh block by ``Servable.from_block`` and
+   deployed over the first (``ModelHost``), the same 32 requests served
+   one a micro-batch: every answer bitwise the first block's served the
+   same way, within the slice's tolerance of the slice's burst, K1
+   launched 12 times a micro-batch; (b) BERT-base with the MLM decoder
+   (bf16, batch 16) through ``Trainer.step`` with Nadam: step 3 after
+   ``save_parameters`` + ``Trainer.save_states`` and a fresh block and
+   Trainer loaded from both, bitwise the uninterrupted step 3, K1-K3
+   launched 12 times a step; (c) one step of each of the thirteen newer
+   optimizers (``rmsprop`` ... ``sgld``) on the card against the CPU.
 5. bf16    -- the same model cast to bfloat16, one 8 x 512 forward through
    the kernel; its deviation from the fp32 answer is printed for the record.
 6. train   -- the training path: BERT-base with the MLM decoder (vocab
@@ -1348,6 +1361,266 @@ def phase_slice():
     rec.update(idle)
     log("slice: %s" % json.dumps(rec))
     return net, sv, answers, launches
+
+
+# ---------------------------------------------------------------------------
+# 4b. save_load: the parameter file, the loaded servable, the resumed loop
+# ---------------------------------------------------------------------------
+
+# (name, optimizer parameters) of the thirteen optimizers' on-card checks
+SAVE_LOAD_OPTIMIZERS = [
+    ("rmsprop", {"learning_rate": 1e-3, "wd": 1e-4, "clip_weights": 2.0}),
+    ("rmsprop", {"learning_rate": 1e-3, "centered": True}),
+    ("adagrad", {"learning_rate": 0.1, "wd": 1e-4}),
+    ("adadelta", {"wd": 1e-4}),
+    ("ftrl", {"learning_rate": 0.1, "wd": 1e-4}),
+    ("lars", {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}),
+    ("signsgd", {"learning_rate": 1e-2, "wd": 1e-4}),
+    ("signum", {"learning_rate": 1e-2, "wd": 1e-4, "wd_lh": 1e-4}),
+    ("dcasgd", {"learning_rate": 0.1, "momentum": 0.9}),
+    ("test", {}),
+    ("ftml", {"learning_rate": 1e-2, "wd": 1e-4}),
+    ("adamax", {"learning_rate": 2e-3, "wd": 1e-4}),
+    ("nadam", {"learning_rate": 1e-3, "wd": 1e-4}),
+    ("sgld", {"learning_rate": 1e-4}),
+]
+SAVE_LOAD_STEPS = 3             # the uninterrupted eager run; saved after 2
+
+
+def _serve_burst(host, sv, tokens, types):
+    """Deploy ``sv`` on ``host`` (warm, flip, drain the predecessor) and
+    answer the requests over the wire, one request a micro-batch (bucket
+    1, so that an answer does not depend on which requests arrived
+    together); returns (answers, deploy s, burst s)."""
+    from mxnet_tpu_torch.serve import ServeClient, ServeServer, serve_forever
+    state = ServeServer(host, max_batch=1, max_delay_us=0, queue_cap=256)
+    port = _free_port()
+    stop, ready = threading.Event(), threading.Event()
+    t0 = time.perf_counter()
+    host.deploy(sv, example=[tokens[0], types[0]])
+    t_deploy = time.perf_counter() - t0
+    server = threading.Thread(
+        target=serve_forever, name="chip-smoke-save-load",
+        kwargs=dict(port=port, state=state, stop_event=stop,
+                    bind="127.0.0.1", ready_event=ready))
+    server.start()
+    try:
+        if not ready.wait(30):
+            raise RuntimeError("serve_forever did not come up")
+        answers, _, t_burst = run_burst(port, tokens, types)
+        with ServeClient(["127.0.0.1:%d" % port], timeout=60) as cli:
+            cli.stop()
+    finally:
+        stop.set()
+        server.join(30)
+    if server.is_alive():
+        raise RuntimeError("serve_forever did not exit after STOP")
+    return answers, t_deploy, t_burst
+
+
+def save_load_serve(net, slice_answers, tmp):
+    """(a) The served BERT-base's parameters written on the card with
+    ``save_parameters``, loaded into a fresh block by
+    ``Servable.from_block``, and served: every answer bitwise the first
+    block's served the same way, the loaded parameters bitwise the
+    saved ones, K1 launched 12 times a dispatched micro-batch."""
+    from mxnet_tpu_torch.gluon.model_zoo.bert import bert_12_768_12
+    from mxnet_tpu_torch.ops import _kernels
+    from mxnet_tpu_torch.serve import BucketTable, ModelHost, Servable
+    import mxnet_tpu_torch as mx
+    tokens, types = make_requests()
+    n_layers = len(net.encoder.transformer_cells)
+    fname = os.path.join(tmp, "bert_12_768_12.params")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.save_parameters(fname)
+    t_save = time.perf_counter() - t0
+    nbytes = os.path.getsize(fname)
+    host = ModelHost()
+    first = Servable(net, name="bert_12_768_12", version=1,
+                     buckets=BucketTable(BUCKETS))
+    want, _, _ = _serve_burst(host, first, tokens, types)
+    fresh = bert_12_768_12(use_decoder=False, dropout=0.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded = Servable.from_block(fresh, fname, ctx=mx.gpu(0),
+                                 name="bert_12_768_12", version=2,
+                                 buckets=BucketTable(BUCKETS))
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    same = [n for (n, a), (_, b) in zip(net.named_parameters(),
+                                        fresh.named_parameters())
+            if not torch.equal(a, b)]
+    if same:
+        raise RuntimeError("save_load: %d loaded parameters differ from the "
+                           "saved ones, first %s" % (len(same), same[0]))
+    # --- the loaded servable's main path, counted ---
+    _kernels.reset_launches()
+    got, t_deploy, t_burst = _serve_burst(host, loaded, tokens, types)
+    launches = _kernels.launch_counts()
+    served = loaded.batches
+    # --- end of the counted main path ---
+    expect = n_layers * (len(BUCKETS) + served)
+    if launches != {"flash_fwd": expect, "flash_bwd_dq": 0,
+                    "flash_bwd_dkv": 0}:
+        raise RuntimeError("save_load: the loaded servable launched %s, "
+                           "expected flash_fwd %d (%d layers x %d micro-"
+                           "batches)" % (launches, expect, n_layers,
+                                         len(BUCKETS) + served))
+    unequal, worst_slice, bitwise_slice = 0, 0.0, 0
+    for i, ((vg, og), (_, ow), (_, os_)) in enumerate(
+            zip(got, want, slice_answers)):
+        if vg != 2 or len(og) != len(ow):
+            raise RuntimeError("save_load: request %d answered by version "
+                               "%r with %d outputs" % (i, vg, len(og)))
+        unequal += any(not np.array_equal(a, b) for a, b in zip(og, ow))
+        bitwise_slice += all(np.array_equal(a, b) for a, b in zip(og, os_))
+        worst_slice = max([worst_slice] + [float(np.abs(a - b).max())
+                                           for a, b in zip(og, os_)])
+    if unequal:
+        raise RuntimeError("save_load: %d of %d answers of the loaded block "
+                           "differ from the first block's" % (unequal,
+                                                               len(got)))
+    if worst_slice > SLICE_TOL:
+        raise RuntimeError("save_load: answers %.3g from the slice's burst"
+                           % worst_slice)
+    rec = {"file_bytes": nbytes, "save_s": t_save, "load_s": t_load,
+           "save_gb_per_s": nbytes / t_save / 1e9,
+           "load_gb_per_s": nbytes / t_load / 1e9,
+           "deploy_s": t_deploy, "burst_s": t_burst,
+           "requests": len(got), "served_batches": served,
+           "bitwise_equal_answers": len(got) - unequal,
+           "bitwise_equal_to_slice_burst": bitwise_slice,
+           "max_abs_diff_to_slice_burst": worst_slice,
+           "launches": launches}
+    log("save_load: serve %s" % json.dumps(rec))
+    del first, loaded, fresh
+    return launches
+
+
+def _nadam_bert(gluon, initializer, bert_12_768_12):
+    net = bert_12_768_12(vocab_size=VOCAB, max_length=SEQ_LEN, dropout=0.0,
+                         use_classifier=False)
+    net.initialize(initializer.Normal(0.02), seed=SEED)
+    net.cast("bfloat16")
+    trainer = gluon.Trainer(net.collect_params(), "nadam",
+                            {"learning_rate": 1e-4,
+                             "multi_precision": True})
+    return net, trainer
+
+
+def save_load_resume(tmp):
+    """(b) BERT-base with the MLM decoder (bf16, batch 16, T = 512) through
+    ``autograd.record()``, ``backward()`` and ``Trainer.step`` with Nadam
+    (``multi_precision``): 2 steps, ``save_parameters`` +
+    ``Trainer.save_states``, and the uninterrupted step 3; then a fresh
+    block and Trainer loaded from both files take step 3: its loss and
+    every parameter bitwise the uninterrupted step 3's; K1-K3 launched 12
+    times a step (4 steps)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, initializer, nd
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.bert import bert_12_768_12
+    from mxnet_tpu_torch.ops import _kernels
+    ce = SoftmaxCrossEntropyLoss()
+    host = train_batch_host(TRAIN_BATCH)
+    tok, seg, lab = (nd.array(a, ctx=mx.gpu(0)) for a in host)
+
+    def step(net, trainer):
+        with autograd.record():
+            loss = ce(net(tok, seg)[-1].astype("float32"), lab).mean()
+        loss.backward()
+        trainer.step(1)
+        return float(loss.asscalar())
+
+    def weights(net):
+        return [(n, t.detach().clone()) for n, t in net.named_parameters()]
+
+    # --- the resumed eager loop's main path, counted ---
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    net, trainer = _nadam_bert(gluon, initializer, bert_12_768_12)
+    n_layers = len(net.encoder.transformer_cells)
+    want = [step(net, trainer) for _ in range(SAVE_LOAD_STEPS - 1)]
+    pfile = os.path.join(tmp, "bert_mlm.params")
+    sfile = os.path.join(tmp, "bert_mlm.states")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.save_parameters(pfile)
+    trainer.save_states(sfile)
+    t_save = time.perf_counter() - t0
+    want.append(step(net, trainer))             # the uninterrupted step 3
+    want_w = weights(net)
+    got = want[:-1]
+    del net, trainer
+    torch.cuda.empty_cache()
+    net = bert_12_768_12(vocab_size=VOCAB, max_length=SEQ_LEN, dropout=0.0,
+                         use_classifier=False)
+    net.cast("bfloat16")
+    t0 = time.perf_counter()
+    net.load_parameters(pfile, ctx=mx.gpu(0))
+    trainer = gluon.Trainer(net.collect_params(), "nadam",
+                            {"learning_rate": 1e-4,
+                             "multi_precision": True})
+    trainer.load_states(sfile)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    got.append(step(net, trainer))
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    # --- end of the counted main path ---
+    launches = {k: counts[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                       "flash_bwd_dkv")}
+    got_w = weights(net)
+    differ = [n for (n, a), (_, b) in zip(got_w, want_w)
+              if not torch.equal(a, b)]
+    rec = {"steps": SAVE_LOAD_STEPS, "losses": want, "resumed_losses": got,
+           "params_bytes": os.path.getsize(pfile),
+           "states_bytes": os.path.getsize(sfile), "save_s": t_save,
+           "load_s": t_load, "params_differing": len(differ),
+           "launches": launches}
+    log("save_load: resume %s" % json.dumps(rec))
+    if got != want or differ:
+        raise RuntimeError("save_load: the resumed step 3 is not the "
+                           "uninterrupted one: losses %s vs %s, %d "
+                           "parameters differ (first %s)"
+                           % (got, want, len(differ),
+                              differ[0] if differ else None))
+    n_steps = SAVE_LOAD_STEPS + 1
+    if launches != {k: n_layers * n_steps for k in launches}:
+        raise RuntimeError("save_load: launched %s, expected %d of each "
+                           "kernel (%d layers x %d steps)"
+                           % (launches, n_layers * n_steps, n_layers,
+                              n_steps))
+    del net, trainer
+    return launches
+
+
+def phase_save_load(net, slice_answers):
+    """Parameter files on the card (:func:`save_load_serve`,
+    :func:`save_load_resume`) and (c) one step of each of the thirteen
+    newer optimizers (:data:`SAVE_LOAD_OPTIMIZERS`, RMSProp plain and
+    centred) on the card against the CPU (:func:`eager_optimizers`);
+    returns K1-K3's launches on (a) and (b)."""
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_save_load_")
+    try:
+        launches = dict(save_load_serve(net, slice_answers, tmp))
+        gc.collect()
+        torch.cuda.empty_cache()
+        for k, n in save_load_resume(tmp).items():
+            launches[k] = launches.get(k, 0) + n
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the thirteen have no fused form: one step a parameter
+    eager_optimizers(SAVE_LOAD_OPTIMIZERS, aggregates=(True,),
+                     tag="save_load")
+    log("save_load: phase %.1f s, launches %s"
+        % (time.perf_counter() - t0, json.dumps(launches)))
+    return launches
 
 
 def traced_burst(port, tokens, types, sv):
@@ -2768,14 +3041,18 @@ def eager_bert(train_step_ms):
     return rec, launches
 
 
-def eager_optimizers():
-    """(c) Each optimizer of :data:`EAGER_OPTIMIZERS`, in fp32 and in bf16
-    with ``multi_precision``, fused (the default ``aggregate_num``) and one
-    parameter at a time (``aggregate_num=0``): one ``Updater`` step from one
-    numpy state (weights, gradients, every state buffer set to |N(0,
-    0.01)|) on the card and on the CPU.  fp32 weights, states and masters
-    within 1e-6 + 1e-5 * |CPU|; a bf16 weight against the CPU's float32
-    master by :func:`compare`'s bf16 rule at 1e-5."""
+def eager_optimizers(optimizers=EAGER_OPTIMIZERS, aggregates=(True, False),
+                     tag="eager"):
+    """(c) Each optimizer of ``optimizers``, in fp32 and in bf16 with
+    ``multi_precision``, fused (the default ``aggregate_num``) and, where
+    ``aggregates`` holds False, one parameter at a time
+    (``aggregate_num=0``): one ``Updater`` step from one numpy state
+    (weights, gradients, every state buffer set to |N(0, 0.01)|) on the
+    card and on the CPU.  fp32 weights, states and masters within 1e-6 +
+    1e-5 * |CPU|; a bf16 weight against the CPU's float32 master by
+    :func:`compare`'s bf16 rule at 1e-5.  SGLD draws its noise from a
+    ``torch.Generator`` on each device, and a twin of it takes the noise
+    out before the comparison (its bf16 weight is not compared)."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import nd, optimizer
     rng = np.random.RandomState(SEED + 10)
@@ -2789,6 +3066,9 @@ def eager_optimizers():
         return [t.data.detach().float().cpu() for t in tensors]
 
     def run(ctx, name, kw, dtype, aggregate):
+        dev = "cuda" if ctx.device_type == "gpu" else "cpu"
+        if name == "sgld":
+            kw = dict(kw, generator=torch.Generator(device=dev).manual_seed(1))
         opt = optimizer.create(name, rescale_grad=1.0 / 64,
                                multi_precision=dtype == "bfloat16",
                                **dict(kw, **({} if aggregate
@@ -2808,12 +3088,19 @@ def eager_optimizers():
             upd.states[i] = state
         upd(list(range(len(ws))), gs, ws)
         torch.cuda.synchronize()
-        return host(ws), host(inner), host(masters)
+        out = host(ws), host(inner), host(masters)
+        if name == "sgld":
+            # the noise each weight (or its master) got, in update order
+            twin = torch.Generator(device=dev).manual_seed(1)
+            for t in (out[2] if masters else out[0]):
+                t -= (torch.randn(t.shape, generator=twin, device=dev)
+                      * np.sqrt(kw["learning_rate"])).float().cpu()
+        return out
 
     rows = []
-    for name, kw in EAGER_OPTIMIZERS:
+    for name, kw in optimizers:
         for dtype in ("float32", "bfloat16"):
-            for aggregate in (True, False):
+            for aggregate in aggregates:
                 card = run(mx.gpu(0), name, kw, dtype, aggregate)
                 cpu = run(mx.cpu(), name, kw, dtype, aggregate)
                 exact = card[1] + card[2] + \
@@ -2825,7 +3112,7 @@ def eager_optimizers():
                     err = (a - b).abs()
                     worst = max(worst, float(err.max()))
                     ok = ok and bool((err <= 1e-6 + 1e-5 * b.abs()).all())
-                if dtype == "bfloat16":
+                if dtype == "bfloat16" and name != "sgld":
                     for a, m in zip(card[0], cpu[2]):
                         err, good = compare(a.bfloat16(), m, 1e-5)
                         worst = max(worst, err)
@@ -2833,10 +3120,11 @@ def eager_optimizers():
                 row = {"optimizer": name, "params": kw, "dtype": dtype,
                        "fused": aggregate, "max_abs_err": worst, "ok": ok}
                 rows.append(row)
-                log("eager: optimizer %s" % json.dumps(row))
+                log("%s: optimizer %s" % (tag, json.dumps(row)))
     bad = [r for r in rows if not r["ok"]]
     if bad:
-        raise RuntimeError("eager: optimizers off their CPU step: %s" % bad)
+        raise RuntimeError("%s: optimizers off their CPU step: %s"
+                           % (tag, bad))
     return rows
 
 
@@ -7746,6 +8034,9 @@ def main():
     log_library_ratios(fwd, bwd)
     long_fp32 = phase_long_fp32()
     net, sv, answers, serve_launches = phase_slice()
+    save_load_launches = phase_save_load(net, answers)
+    gc.collect()
+    torch.cuda.empty_cache()
     tokens, types = make_requests()
     phase_breakdown(sv, tokens, types)
     phase_bf16(net, answers, tokens, types)
@@ -7813,7 +8104,8 @@ def main():
                    "context": context_launches.get(k, 0),
                    "tensor": tensor_launches.get(k, 0),
                    "several": several_launches.get(k, 0),
-                   "resnet_dp": resnet_dp_launches.get(k, 0)}
+                   "resnet_dp": resnet_dp_launches.get(k, 0),
+                   "save_load": save_load_launches.get(k, 0)}
                for k in imperative_launches}
     fp32, bf16 = torch.float32, torch.bfloat16
     kernels = [
@@ -7853,6 +8145,8 @@ def main():
                      "several": several_launches.get("tpu_kernel:" + body,
                                                      0),
                      "resnet_dp": resnet_dp_launches.get(
+                         "tpu_kernel:" + body, 0),
+                     "save_load": save_load_launches.get(
                          "tpu_kernel:" + body, 0)},
                     user[(body, fp32)], user[(body, bf16)],
                     {"default_grid_": user[(body + ":default_grid", fp32)],

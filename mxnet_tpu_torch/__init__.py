@@ -58,7 +58,7 @@ from . import metric
 from . import autograd
 from . import ndarray
 from . import ndarray as nd
-from .ndarray import waitall
+from .ndarray import NDArray, waitall
 from . import gluon
 from . import serve
 from . import kvstore
@@ -77,7 +77,7 @@ _sys.modules[__name__ + ".context"] = context
 
 __all__ = ["MXNetError", "get_env", "Context", "Device", "cpu", "gpu",
            "current_context", "current_device", "default_device",
-           "num_gpus", "gpu_memory_info", "context", "waitall",
+           "num_gpus", "gpu_memory_info", "context", "NDArray", "waitall",
            "initializer", "init", "fault", "profiler", "telemetry",
            "engine", "ops", "lr_scheduler", "optimizer", "metric", "autograd",
            "ndarray", "nd", "gluon", "serve", "kvstore", "parallel",

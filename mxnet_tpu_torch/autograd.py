@@ -206,7 +206,13 @@ def backward(heads, head_grads=None, retain_graph: bool = False,
              train_mode: bool = True) -> None:
     """Compute the gradients of ``heads`` (default head gradient: ones)
     with respect to every leaf they reach, and write them by each leaf's
-    ``grad_req``."""
+    ``grad_req`` (the ``backward`` phase of the step's telemetry)."""
+    from . import telemetry as _telemetry
+    with _telemetry.phase("backward"):
+        _backward(heads, head_grads, retain_graph)
+
+
+def _backward(heads, head_grads, retain_graph) -> None:
     heads = _tensors(heads)
     live = _check_heads(heads)
     hgs = _head_grads(heads, head_grads)

@@ -12,11 +12,17 @@ import numpy as np
 import torch
 
 __all__ = ["MXNetError", "ENV_CATALOG", "get_env", "DTYPES", "NARROWED",
-           "torch_dtype", "dtype_name"]
+           "torch_dtype", "dtype_name", "string_types", "numeric_types",
+           "integer_types"]
 
 
 class MXNetError(RuntimeError):
     """Default error type raised by the framework."""
+
+
+string_types = (str,)
+numeric_types = (float, int)
+integer_types = (int,)
 
 
 #: name -> (default, doc)
@@ -217,14 +223,15 @@ DTYPES = {
     "float16": torch.float16, "bfloat16": torch.bfloat16,
     "uint8": torch.uint8, "int8": torch.int8, "int16": torch.int16,
     "int32": torch.int32, "int64": torch.int64, "bool": torch.bool,
+    "uint16": torch.uint16, "uint32": torch.uint32, "uint64": torch.uint64,
 }
 _NAMES = {v: k for k, v in DTYPES.items()}
 
 #: what the reference's arrays hold in place of a type that JAX without its
-#: x64 mode does not keep: int64 data and int64 requests become int32.  Ops
-#: that need int64 indices (gather, scatter, embedding ids, cross-entropy
-#: targets) cast to int64 internally.
-NARROWED = {torch.int64: torch.int32}
+#: x64 mode does not keep: int64 data and int64 requests become int32, and
+#: uint64 ones uint32.  Ops that need int64 indices (gather, scatter,
+#: embedding ids, cross-entropy targets) cast to int64 internally.
+NARROWED = {torch.int64: torch.int32, torch.uint64: torch.uint32}
 
 
 def torch_dtype(dtype) -> torch.dtype:

@@ -25,6 +25,13 @@ Counterpart of ``mxnet_tpu/gluon/block.py``.  What differs, and why:
   eagerly, and CUDA graphs are a later change.
 * :func:`functionalize` lifts a block into ``(pure_fn, params)``, the
   bridge ``parallel.TrainStep`` trains through, as in the JAX package.
+* ``save_parameters`` / ``load_parameters`` (and the v1.x
+  ``save_params`` / ``load_params``) write and read the reference's
+  ``.params`` file (``nd.save``'s byte format, keyed by structural name),
+  so a file of either package loads in the other.  ``share_parameters``
+  makes slots hold one parameter; ``params`` and ``summary`` are the
+  reference's.  Constructors take the reference's ``prefix`` and
+  ``params`` keywords and raise its ``TypeError`` on any other.
 * A block called with ``NDArray`` inputs (the imperative front end; also
   in lists or tuples, as a recurrent layer's states come) unwraps
   them, runs with grad enabled only under ``autograd.record()`` and in
@@ -58,9 +65,9 @@ from .. import autograd
 from ..base import MXNetError
 from ..device import Context, DeviceLike, resolve
 from ..ndarray.ndarray import NDArray
-from .parameter import (DeferredInitializationError, ParameterDict,
-                        collect, ctx_copies, meta_parameter, param_handle,
-                        param_slots)
+from .parameter import (DeferredInitializationError, ParameterDict, assign,
+                        collect, ctx_copies, load_host, meta_parameter,
+                        param_handle, param_slots)
 
 __all__ = ["Block", "HybridBlock", "to_dtype", "meta_parameter",
            "functionalize"]
@@ -87,9 +94,11 @@ class Block(torch.nn.Module):
     #: True only inside a call on NDArrays (see :meth:`__call__`)
     _write_aux = False
 
-    def __init__(self, **kwargs):
+    def __init__(self, prefix: Optional[str] = None, params=None):
         super().__init__()
         self.training = False
+        self._prefix = prefix or ""
+        self._shared_params = params
 
     def __getattr__(self, name: str):
         # a parameter attribute (``net.weight``) is its gluon Parameter, as
@@ -184,6 +193,118 @@ class Block(torch.nn.Module):
                     t.copy_(value)
                 p._set_pending(None)
         return self
+
+    @property
+    def params(self) -> ParameterDict:
+        """This block's own parameters (not its children's), keyed by the
+        block's prefix and the attribute name (the v1.x surface)."""
+        out = ParameterDict(self._prefix, shared=self._shared_params)
+        for attr, t in self._parameters.items():
+            if t is not None:
+                out[self._prefix + attr] = param_handle(self, attr)
+        return out
+
+    def _all_slots(self):
+        """``(structural name, handle)`` of every parameter slot of the
+        tree, a slot that shares another's parameter included (the
+        reference's ``_iter_params``)."""
+        for name, owner, attr in param_slots(self, shared=True):
+            yield name, param_handle(owner, attr)
+
+    def share_parameters(self, shared) -> "Block":
+        """Make the slots named in ``shared`` (structural name ->
+        :class:`~.parameter.Parameter`, or a ``ParameterDict``) hold those
+        parameters, as the reference's 2.x ``share_parameters`` grafts
+        them; a name with no slot here is ignored."""
+        slots = {name: (owner, attr)
+                 for name, owner, attr in param_slots(self, shared=True)}
+        for name, param in shared.items():
+            if name not in slots:
+                continue
+            owner, attr = slots[name]
+            if (owner, attr) in param._slots():
+                continue
+            setattr(owner, attr, param._tensor())
+            owner.__dict__.setdefault("_gluon_params", {})[attr] = param
+            param._aliases.append((owner, attr))
+            pending = owner.__dict__.setdefault("_pending", set())
+            pending.discard(attr)
+            if param._deferred is not None:
+                pending.add(attr)
+        return self
+
+    def save_parameters(self, filename: str,
+                        deduplicate: bool = False) -> None:
+        """Write every parameter (the mean of its copies) to ``filename``
+        by structural name in ``nd.save``'s format, the reference's
+        ``.params`` file; with ``deduplicate`` a parameter that several
+        slots share is written once, under its first name."""
+        from ..ndarray.serialize import save
+        arg, seen = OrderedDict(), set()
+        for name, p in self._all_slots():
+            if deduplicate and id(p) in seen:
+                continue
+            seen.add(id(p))
+            arg[name] = p._reduce()
+        save(filename, arg)
+
+    def load_parameters(self, filename: str, ctx: DeviceLike = None,
+                        allow_missing: bool = False,
+                        ignore_extra: bool = False, cast_dtype: bool = False,
+                        dtype_source: str = "current") -> "Block":
+        """Copy a :meth:`save_parameters` (or ``nd.save``) file's arrays
+        into the parameters of the same structural names (``arg:`` /
+        ``aux:`` dropped), into every copy.  A parameter not initialised
+        yet is initialised on ``ctx`` (default: the current context, the
+        GPU unless the caller says otherwise) and takes its shape from the
+        file.  A missing or extra name raises the reference's
+        ``AssertionError`` unless ``allow_missing`` / ``ignore_extra``;
+        ``cast_dtype`` with ``dtype_source`` 'current' casts the values to
+        the parameters' dtypes, with 'saved' the parameters to the
+        file's."""
+        loaded = OrderedDict(
+            (k[4:] if k.startswith(("arg:", "aux:")) else k, v)
+            for k, v in load_host(filename).items())
+        params = OrderedDict(self._all_slots())
+        if not allow_missing:
+            for name in params:
+                if name not in loaded:
+                    raise AssertionError(
+                        "Parameter %s is missing in %s. Set "
+                        "allow_missing=True to ignore missing parameters"
+                        % (name, filename))
+        for name, value in loaded.items():
+            if name not in params:
+                if not ignore_extra:
+                    raise AssertionError(
+                        "Parameter %s loaded from %s is not present in the "
+                        "Block. Set ignore_extra=True to ignore"
+                        % (name, filename))
+                continue
+            assign(params[name], value, cast_dtype, dtype_source, init=True,
+                   ctx=ctx)
+        return self
+
+    save_params = save_parameters       # the v1.x names
+    load_params = load_parameters
+
+    def summary(self, *inputs) -> None:
+        """Print each block of the tree with its type and its own
+        parameters' count, then the total (reference: ``Block.summary``;
+        ``inputs`` are accepted and not run)."""
+        rows = []
+        for name, m in self.named_modules():
+            depth = name.count(".") + 1 if name else 0
+            label = name.rsplit(".", 1)[-1] if name else type(self).__name__
+            n = sum(t.numel() for t in m._parameters.values()
+                    if t is not None)
+            rows.append(("  " * depth + label, type(m).__name__, n))
+        total = sum(r[2] for r in rows)
+        lines = ["%-40s %-20s %12s" % ("Layer", "Type", "Params"),
+                 "-" * 74]
+        lines += ["%-40s %-20s %12d" % r for r in rows]
+        lines += ["-" * 74, "Total params: %d" % total]
+        print("\n".join(lines))
 
     def zero_grad(self, set_to_none: bool = False) -> None:
         """Zero every parameter's gradient in place (gluon's
@@ -303,6 +424,11 @@ def _wrap(out, ctx=None):
 
 class HybridBlock(Block):
     """Gluon ``HybridBlock``; see :meth:`Block.hybridize`."""
+
+    def __init__(self, prefix: Optional[str] = None, params=None):
+        # its own signature, so that an unknown keyword raises the
+        # reference's TypeError ("HybridBlock.__init__() got an ...")
+        super().__init__(prefix, params)
 
 
 def functionalize(block: torch.nn.Module

@@ -3,9 +3,10 @@
 
 The reference loads a local weight file and, with none dropped in place
 and no network, raises ``FileNotFoundError``.  The port has no weight
-store (the reference's ``.params`` format waits for ``nd.save``/``load``),
-so ``pretrained=True`` raises the same error everywhere; weights come in
-through :func:`mxnet_tpu_torch.convert.params_from_mxnet_tpu`.
+store (``get_model_file`` and its cache are Queue 1 item 8), so
+``pretrained=True`` raises the same error everywhere; weights come in
+through ``Block.load_parameters`` (a reference ``.params`` file) or
+:func:`mxnet_tpu_torch.convert.params_from_mxnet_tpu`.
 """
 from __future__ import annotations
 

@@ -10,7 +10,11 @@ reference's op name (``FullyConnected``, ``LayerNorm``, ``GroupNorm``,
 ``InstanceNorm``, ``Embedding``, ``Activation``, ``LeakyReLU``,
 ``flatten``, ``concat``, ``sigmoid``; a ``Lambda`` named by a string,
 its op), where the
-AMP policy casts the op's inputs.  Inside
+AMP policy casts the op's inputs.  The ``*_initializer`` keywords are the
+reference's; each becomes its parameter's own ``init``, which the
+reference's name rule applies (``initializer.Initializer.__call__``), so
+``BatchNorm(gamma_initializer='zeros')`` keeps gamma at ones in both
+packages.  Inside
 ``parallel.tensor.placement_scope`` a ``Dense`` or ``Embedding`` whose
 weight is split over tp computes column-, row- or vocab-parallel; ``BatchNorm`` computes its op in parts
 and takes the same cast (``registry.amp_cast``).
@@ -34,7 +38,7 @@ from ...ops.registry import amp_cast, dispatch, get_op
 from ...parallel import collectives as _coll
 from ...parallel import tensor as _tensor
 from ..block import Block, HybridBlock
-from ..parameter import meta_parameter, param_handle
+from ..parameter import meta_parameter, param_handle, set_inits
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
            "SyncBatchNorm", "LayerNorm", "GroupNorm", "InstanceNorm",
@@ -86,14 +90,16 @@ class Dense(HybridBlock):
     """Fully connected layer; weight (units, in_units) as in gluon."""
 
     def __init__(self, units: int, activation=None, use_bias: bool = True,
-                 flatten: bool = True, dtype="float32", in_units: int = 0,
-                 **kwargs):
+                 flatten: bool = True, dtype="float32",
+                 weight_initializer=None, bias_initializer="zeros",
+                 in_units: int = 0, **kwargs):
         super().__init__(**kwargs)
         self._units = units
         self._flatten = flatten
         self._act = activation
         self.weight = meta_parameter((units, in_units), dtype)
         self.bias = meta_parameter((units,), dtype) if use_bias else None
+        set_inits(self, weight=weight_initializer, bias=bias_initializer)
 
     def infer_shape(self, x, *args):
         in_units = math.prod(x.shape[1:]) if self._flatten else x.shape[-1]
@@ -187,6 +193,9 @@ class BatchNorm(HybridBlock):
     def __init__(self, axis: int = 1, momentum: float = 0.9,
                  epsilon: float = 1e-5, center: bool = True,
                  scale: bool = True, use_global_stats: bool = False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 running_mean_initializer="zeros",
+                 running_variance_initializer="ones",
                  in_channels: int = 0, **kwargs):
         super().__init__(**kwargs)
         self._axis = axis
@@ -200,6 +209,9 @@ class BatchNorm(HybridBlock):
                                            requires_grad=False)
         self.running_var = meta_parameter((in_channels,),
                                           requires_grad=False)
+        set_inits(self, gamma=gamma_initializer, beta=beta_initializer,
+                  running_mean=running_mean_initializer,
+                  running_var=running_variance_initializer)
 
     def infer_shape(self, x, *args):
         for attr in ("gamma", "beta", "running_mean", "running_var"):
@@ -259,12 +271,14 @@ class LayerNorm(HybridBlock):
 
     def __init__(self, axis: int = -1, epsilon: float = 1e-5,
                  center: bool = True, scale: bool = True,
+                 beta_initializer="zeros", gamma_initializer="ones",
                  in_channels: int = 0, **kwargs):
         super().__init__(**kwargs)
         self._axis = axis
         self._eps = epsilon
         self.gamma = meta_parameter((in_channels,), requires_grad=scale)
         self.beta = meta_parameter((in_channels,), requires_grad=center)
+        set_inits(self, gamma=gamma_initializer, beta=beta_initializer)
 
     def infer_shape(self, x, *args):
         for attr in ("gamma", "beta"):
@@ -298,8 +312,10 @@ class GroupNorm(_ChannelNorm):
 
     def __init__(self, num_groups: int = 1, epsilon: float = 1e-5,
                  center: bool = True, scale: bool = True,
+                 beta_initializer="zeros", gamma_initializer="ones",
                  in_channels: int = 0, **kwargs):
         super().__init__(epsilon, center, scale, in_channels, **kwargs)
+        set_inits(self, gamma=gamma_initializer, beta=beta_initializer)
         self._groups = num_groups
 
     def forward(self, x):
@@ -310,7 +326,8 @@ class GroupNorm(_ChannelNorm):
 
 class InstanceNorm(_ChannelNorm):
     """Instance normalisation: each channel of each example over its
-    spatial axes; ``scale`` is off by default, as in the reference."""
+    spatial axes; ``scale`` is off by default, and it takes no initializer
+    keywords, as in the reference."""
 
     def __init__(self, axis: int = 1, epsilon: float = 1e-5,
                  center: bool = True, scale: bool = False,
@@ -324,13 +341,20 @@ class InstanceNorm(_ChannelNorm):
 
 
 class Embedding(HybridBlock):
-    """Lookup table (input_dim, output_dim)."""
+    """Lookup table (input_dim, output_dim).  ``sparse_grad=True`` (a
+    row-sparse gradient) raises: sparse storage is Queue 1 item 8."""
 
     def __init__(self, input_dim: int, output_dim: int, dtype="float32",
+                 weight_initializer=None, sparse_grad: bool = False,
                  **kwargs):
+        if sparse_grad:
+            raise MXNetError("Embedding(sparse_grad=True): row-sparse "
+                             "gradients wait for sparse storage (Queue 1 "
+                             "item 8)")
         super().__init__(**kwargs)
         self._dims = (input_dim, output_dim)
         self.weight = meta_parameter((input_dim, output_dim), dtype)
+        set_inits(self, weight=weight_initializer)
 
     def forward(self, x):
         place = _tensor.placement(self, "weight")

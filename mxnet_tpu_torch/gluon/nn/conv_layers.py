@@ -3,8 +3,10 @@
 Counterpart of ``mxnet_tpu/gluon/nn/conv_layers.py`` (``_Conv``,
 Conv1D-3D, Conv1D-3DTranspose, ``_Pooling``, Max/Avg/GlobalMax/GlobalAvg
 Pool 1D-3D, ReflectionPad2D), with the gluon parameter names ``weight``
-(OIHW; IOHW for the transposes) and ``bias``; ``in_channels`` of 0 (the
-default) is inferred from the first input (``infer_shape``).  Layouts
+(OIHW; IOHW for the transposes) and ``bias``, each filled by its
+``weight_initializer`` / ``bias_initializer`` under the reference's name
+rule; ``in_channels`` of 0 (the default) is inferred from the first
+input (``infer_shape``).  Layouts
 are channel-first (NCW, NCHW, NCDHW), the reference's; the convolutions
 and pools are cuDNN's through :mod:`...ops.nn`, reached as the registered
 ops ``Convolution``, ``Deconvolution``, ``Pooling`` and ``pad`` through
@@ -14,7 +16,7 @@ from __future__ import annotations
 
 from ...ops.registry import dispatch
 from ..block import HybridBlock
-from ..parameter import meta_parameter, param_handle
+from ..parameter import meta_parameter, param_handle, set_inits
 
 __all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose", "Conv2DTranspose",
            "Conv3DTranspose", "MaxPool1D", "MaxPool2D", "MaxPool3D",
@@ -40,7 +42,8 @@ class _Conv(HybridBlock):
 
     def __init__(self, channels, kernel_size, strides, padding, dilation,
                  groups, layout, in_channels=0, activation=None,
-                 use_bias=True, dtype="float32", **kwargs):
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", dtype="float32", **kwargs):
         super().__init__(**kwargs)
         if layout not in _LAYOUTS:
             raise ValueError("layout %r: only channel-first layouts %s"
@@ -56,6 +59,7 @@ class _Conv(HybridBlock):
         self._act = activation
         self.weight = meta_parameter(self._weight_shape(in_channels), dtype)
         self.bias = meta_parameter((channels,), dtype) if use_bias else None
+        set_inits(self, weight=weight_initializer, bias=bias_initializer)
 
     def _weight_shape(self, in_channels):
         # OIHW: (num_filter, in_channels / groups, *kernel)

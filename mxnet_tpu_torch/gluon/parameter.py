@@ -40,7 +40,13 @@ python/mxnet/gluon/parameter.py).  What differs, and why:
   ``set_data``, ``zero_grad``, ``cast`` and ``reset_ctx`` act on every
   one.  A block called on NDArrays of a context runs on that context's
   copies (``Block.__call__``).
-* ``ParameterDict.save``/``load`` wait for ``nd.save``'s file format.
+* ``ParameterDict.save``/``load`` and ``Block.save_parameters`` /
+  ``load_parameters`` write and read ``nd.save``'s file (the reference's
+  byte format); a parameter with copies is saved as their mean
+  (:meth:`Parameter._reduce`) and loaded into every copy.
+* ``Block.share_parameters`` makes two slots hold one parameter: the
+  handle keeps the other slots (``_aliases``) and puts every new tensor in
+  all of them.
 """
 from __future__ import annotations
 
@@ -53,12 +59,12 @@ import torch
 
 from .. import initializer as init_mod
 from ..base import MXNetError, dtype_name, torch_dtype
-from ..device import (Context, DeviceLike, as_context, current_context,
+from ..device import (Context, DeviceLike, as_context, cpu, current_context,
                       resolve)
 from ..ndarray.ndarray import NDArray
 
 __all__ = ["DeferredInitializationError", "Parameter", "Constant",
-           "ParameterDict", "meta_parameter", "param_handle",
+           "ParameterDict", "meta_parameter", "param_handle", "set_inits",
            "param_slots", "collect", "context_list", "ctx_copies"]
 
 _GRAD_REQS = ("write", "add", "null")
@@ -81,14 +87,16 @@ def _complete(shape) -> bool:
     return all(int(d) > 0 for d in shape)
 
 
-def param_slots(module: torch.nn.Module):
+def param_slots(module: torch.nn.Module, shared: bool = False):
     """``(structural name, owner, attribute)`` of every parameter of
-    ``module``'s tree, in ``named_parameters()`` order (a tensor held by two
-    slots counts once)."""
+    ``module``'s tree, in ``named_parameters()`` order: a tensor held by
+    two slots counts once, or under each slot's name with ``shared`` (the
+    reference's walk, which ``save_parameters`` and ``share_parameters``
+    take)."""
     seen = set()
-    for prefix, owner in module.named_modules():
+    for prefix, owner in module.named_modules(remove_duplicate=not shared):
         for attr, t in owner._parameters.items():
-            if t is None or id(t) in seen:
+            if t is None or (id(t) in seen and not shared):
                 continue
             seen.add(id(t))
             yield (prefix + "." + attr if prefix else attr), owner, attr
@@ -104,6 +112,16 @@ def param_handle(owner: torch.nn.Module, attr: str) -> "Parameter":
                  allow_deferred_init=True)
         handles[attr] = p
     return p
+
+
+def set_inits(owner: torch.nn.Module, **inits) -> None:
+    """Give each of ``owner``'s slots named in ``inits`` that holds a
+    parameter its own initializer (an ``Initializer``, a name such as
+    'zeros', or None for the caller's default), as a layer's
+    ``*_initializer`` keyword does."""
+    for attr, init in inits.items():
+        if owner._parameters.get(attr) is not None:
+            param_handle(owner, attr).init = init
 
 
 class _Holder(torch.nn.Module):
@@ -159,6 +177,9 @@ class Parameter:
         self._ctxs: Optional[List[Context]] = None
         self._copies: "OrderedDict[Context, torch.nn.Parameter]" = \
             OrderedDict()
+        #: other (owner, attribute) slots that share this parameter
+        #: (``Block.share_parameters``): they hold the same tensor
+        self._aliases: List[Tuple[torch.nn.Module, str]] = []
 
     # -- the slot ----------------------------------------------------------
     def _tensor(self) -> torch.nn.Parameter:
@@ -168,8 +189,13 @@ class Parameter:
         """Put ``new`` in the slot as a parameter carrying the old one's
         ``grad_req``; returns it."""
         param = self._leaf(new)
-        setattr(self._owner, self._attr, param)
+        for owner, attr in self._slots():
+            setattr(owner, attr, param)
         return param
+
+    def _slots(self) -> List[Tuple[torch.nn.Module, str]]:
+        """The slot and every slot that shares it."""
+        return [(self._owner, self._attr)] + self._aliases
 
     def _leaf(self, value: torch.Tensor) -> torch.nn.Parameter:
         """``value`` as a parameter tensor carrying this one's
@@ -211,11 +237,12 @@ class Parameter:
 
     def _set_pending(self, record) -> None:
         self._deferred = record
-        pending = self._owner.__dict__.setdefault("_pending", set())
-        if record is None:
-            pending.discard(self._attr)
-        else:
-            pending.add(self._attr)
+        for owner, attr in self._slots():
+            pending = owner.__dict__.setdefault("_pending", set())
+            if record is None:
+                pending.discard(attr)
+            else:
+                pending.add(attr)
 
     # -- identity ----------------------------------------------------------
     @property
@@ -317,12 +344,8 @@ class Parameter:
         with torch.no_grad():
             new = self._replace(torch.empty(t.shape, dtype=t.dtype,
                                             device=resolve(ctxs[0])))
-            fill = init_mod.create(init)
-            if init is not None and init is self.init:
-                # a parameter's own initializer applies whatever its name
-                fill._init_weight(self.name, new.data, generator)
-            else:
-                fill(self.name, new.data, generator)
+            # the reference's name rule, a parameter's own init included
+            init_mod.create(init)(self.name, new.data, generator)
             if self.grad_req != "null":
                 new.grad = torch.zeros_like(new)
         self._spread(ctxs)
@@ -465,6 +488,22 @@ class Parameter:
                 new.grad = torch.zeros_like(new)
         self._cast_copies(dtype)
 
+    def _reduce(self) -> NDArray:
+        """The mean of every copy's value, taken in float64 and cast back
+        to this parameter's dtype, on the CPU (reference:
+        ``Parameter._reduce``; what ``save_parameters`` writes)."""
+        self._check_initialized()
+        tensors = list(self._tensors().values())
+        if len(tensors) == 1:
+            # the mean of one value is that value
+            return NDArray(tensors[0].detach().to("cpu", copy=True), cpu())
+        values = [t.detach().to("cpu", torch.float64) for t in tensors]
+        out = values[0].clone()
+        for v in values[1:]:
+            out += v
+        out /= len(values)
+        return NDArray(out.to(self._tensor().dtype), cpu())
+
     def _cast_copies(self, dtype) -> None:
         """Cast the copies after the first, each its own value (a
         BatchNorm's copies hold statistics of their own)."""
@@ -526,8 +565,9 @@ class Constant(Parameter):
 
 class ParameterDict:
     """Ordered name -> :class:`Parameter` mapping (reference:
-    gluon.ParameterDict): the mapping protocol, ``get``, ``update`` and the
-    bulk ``initialize``, ``zero_grad``, ``reset_ctx`` and ``setattr``."""
+    gluon.ParameterDict): the mapping protocol, ``get``, ``update``, the
+    bulk ``initialize``, ``zero_grad``, ``reset_ctx`` and ``setattr``, and
+    ``save`` / ``load``."""
 
     def __init__(self, prefix: str = "", shared=None):
         self._prefix = prefix
@@ -621,6 +661,78 @@ class ParameterDict:
     def setattr(self, name: str, value) -> None:
         for p in self._params.values():
             setattr(p, name, value)
+
+    def save(self, filename: str, strip_prefix: str = "") -> None:
+        """Write every parameter's value (the mean of its copies,
+        :meth:`Parameter._reduce`) to ``filename`` in ``nd.save``'s format,
+        keyed by ``Parameter.name`` less ``strip_prefix``."""
+        from ..ndarray.serialize import save
+        arg = OrderedDict()
+        for p in self._params.values():
+            name = p.name
+            if strip_prefix and name.startswith(strip_prefix):
+                name = name[len(strip_prefix):]
+            arg[name] = p._reduce()
+        save(filename, arg)
+
+    def load(self, filename: str, ctx: DeviceLike = None,
+             allow_missing: bool = False, ignore_extra: bool = False,
+             restore_prefix: str = "", cast_dtype: bool = False,
+             dtype_source: str = "current") -> None:
+        """Copy a :meth:`save` (or ``nd.save``) file's arrays into the
+        parameters of the same names (``restore_prefix`` put before each
+        file name, ``arg:`` / ``aux:`` dropped), into every copy.  A
+        parameter not initialised yet is initialised on ``ctx`` first when
+        ``ctx`` is given."""
+        loaded = OrderedDict(
+            (restore_prefix + (k[4:] if k.startswith(("arg:", "aux:"))
+                               else k), v)
+            for k, v in load_host(filename).items())
+        if not allow_missing:
+            for name in self.keys():
+                if name not in loaded:
+                    raise AssertionError(
+                        "Parameter %s is missing in file %s"
+                        % (name, filename))
+        for name, value in loaded.items():
+            if name not in self._params:
+                if not ignore_extra:
+                    raise AssertionError(
+                        "Parameter %s loaded from %s is not present in "
+                        "this ParameterDict" % (name, filename))
+                continue
+            assign(self._params[name], value, cast_dtype, dtype_source,
+                   init=ctx is not None, ctx=ctx)
+
+
+def load_host(filename: str) -> "OrderedDict[str, NDArray]":
+    """A parameter file's arrays by name, on the CPU (a file of a bare
+    list has no names and raises)."""
+    from ..ndarray.serialize import load
+    with cpu():
+        loaded = load(filename)
+    if not isinstance(loaded, dict):
+        raise MXNetError("%s holds a list of %d arrays without names, not "
+                         "parameters" % (filename, len(loaded)))
+    return OrderedDict(loaded)
+
+
+def assign(param: Parameter, value: NDArray, cast_dtype: bool,
+           dtype_source: str, init: bool, ctx: DeviceLike = None) -> None:
+    """Copy a loaded ``value`` into every copy of ``param``, as the
+    reference's loaders do: under ``cast_dtype`` the parameter takes the
+    saved dtype (``dtype_source='saved'``) or the value takes the
+    parameter's; a parameter never initialised is first initialised on
+    ``ctx`` when ``init``, and one whose shape is unknown takes the
+    value's."""
+    if cast_dtype:
+        if dtype_source == "saved":
+            param.cast(value.dtype)
+        else:
+            value = value.astype(param.dtype)
+    if init and param._tensor().is_meta and param._deferred is None:
+        param.initialize(init_mod.Zero(), ctx=ctx)
+    param.set_data(value)
 
 
 def collect(module: torch.nn.Module,

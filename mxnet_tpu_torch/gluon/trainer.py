@@ -30,8 +30,10 @@ pushes every copy's gradient, pulls the sum back into every copy and
 updates each copy with its context's updater.  The store starts every
 copy from the first context's value.  ``make_compiled_step``
 returns the whole-step lane (:mod:`..step`), sharded over a
-``SpecLayout`` when one is given or set in the environment.  Not ported:
-sparse gradients and the telemetry spans.
+``SpecLayout`` when one is given or set in the environment.  ``step``
+times its ``exchange`` and ``optimizer_apply`` phases and ends with one
+flight-recorder record (``telemetry.note_step``), as the reference's
+does.  Not ported: sparse gradients.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ from typing import Dict, List
 import torch.distributed as dist
 
 from .. import optimizer as opt
+from .. import telemetry as _telemetry
 from ..base import get_env
 from ..kvstore import create as kv_create
 from .parameter import Parameter, ParameterDict
@@ -220,6 +223,9 @@ class Trainer:
         self._init_store()
         self._allreduce_grads()
         self._update(ignore_stale_grad)
+        # one flight-recorder record a step: the phases above and the
+        # dispatch counts, without a host sync
+        _telemetry.note_step(batch_size=batch_size)
 
     def allreduce_grads(self):
         """The allreduce alone, for work on the gradients between it and
@@ -327,7 +333,8 @@ class Trainer:
         if sess is not None:
             with self._hook_lock:
                 self._exchange_session = None
-            sess.drain()
+            with _telemetry.phase("exchange"):
+                sess.drain()
         else:
             idxs, grad_lists = self._exchange_set()
             if idxs:
@@ -335,10 +342,11 @@ class Trainer:
                 # on the push and the weights come back, or (a store that
                 # cannot overlap) the exchanged gradients do
                 grads = [g() for g in grad_lists]
-                self._kvstore.push(idxs, grads)
-                self._kvstore.pull(
-                    idxs, [self._params[i].list_data() for i in idxs]
-                    if self._update_on_kvstore else grads)
+                with _telemetry.phase("exchange"):
+                    self._kvstore.push(idxs, grads)
+                    self._kvstore.pull(
+                        idxs, [self._params[i].list_data() for i in idxs]
+                        if self._update_on_kvstore else grads)
         self._arm_exchange()
 
     def update(self, batch_size, ignore_stale_grad=False):
@@ -369,9 +377,11 @@ class Trainer:
             return
         weights = [self._params[i].list_data() for i in idxs]
         grads = [self._params[i].list_grad() for i in idxs]
-        for d, upd in enumerate(self._updaters):
-            # one call a context: its updater keys that context's counts
-            upd(idxs, [g[d] for g in grads], [w[d] for w in weights])
+        with _telemetry.phase("optimizer_apply"):
+            for d, upd in enumerate(self._updaters):
+                # one call a context: its updater keys that context's
+                # counts
+                upd(idxs, [g[d] for g in grads], [w[d] for w in weights])
 
     # -- states ------------------------------------------------------------
     def save_states(self, fname):

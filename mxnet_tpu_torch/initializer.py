@@ -4,7 +4,8 @@ Counterpart of ``mxnet_tpu/initializer.py``.  An initializer is called
 with a parameter's structural name and its tensor and dispatches on the
 name's suffix as the JAX package does: ``*weight`` (and anything not
 listed) draws from the initializer, ``*bias``, ``*beta`` and
-``*running_mean`` / ``*moving_mean`` are zero, ``*gamma`` and
+``*running_mean`` / ``*moving_mean`` (and ``*moving_inv_var``,
+``*moving_avg``) are zero, ``*gamma`` and
 ``*running_var`` / ``*moving_var`` are one.  The JAX package draws from
 ``jax.random`` and PyTorch cannot reproduce those bits; tests carry
 parameters across by name (:mod:`mxnet_tpu_torch.convert`) instead of
@@ -28,7 +29,8 @@ class Initializer:
     def __call__(self, name: str, arr: torch.Tensor,
                  generator: torch.Generator) -> None:
         lname = name.lower()
-        if lname.endswith(("bias", "beta", "running_mean", "moving_mean")):
+        if lname.endswith(("bias", "beta", "running_mean", "moving_mean",
+                           "moving_inv_var", "moving_avg")):
             arr.zero_()
         elif lname.endswith(("gamma", "running_var", "moving_var")):
             arr.fill_(1.0)

@@ -40,8 +40,8 @@ means that context's device.
 
 The wait the consumer does pay is measured: :meth:`data_wait` gives the
 sum of seconds and the count of ``next()`` calls, by the injectable
-``clock``.  (The reference records the same wait as the ``data_wait``
-phase of its telemetry, which is not ported yet.)
+``clock``; each wait is also observed as the ``data_wait`` phase of
+the step's telemetry, as the reference records it.
 """
 from __future__ import annotations
 
@@ -54,6 +54,7 @@ from typing import Any, Callable, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import telemetry as _telemetry
 from ..base import MXNetError, get_env
 from ..device import Context, current_context, resolve
 from ..ndarray.ndarray import NDArray
@@ -243,8 +244,10 @@ class DevicePrefetcher:
                 self._cv.wait(timeout=_POLL_S)
             item = self._q.popleft()
             self._cv.notify_all()
-        self._wait_s += self._clock() - t0
+        waited = self._clock() - t0
+        self._wait_s += waited
         self._waits += 1
+        _telemetry.observe_phase("data_wait", waited)
         if item is _Stop:
             raise StopIteration
         if isinstance(item, _Err):

@@ -26,8 +26,17 @@ from ..ops import quantization as _qops
 from .wire_codec import (decode_wire, encode_wire, is_wire_payload,  # noqa: F401
                          pack_2bit, unpack_2bit)
 
-__all__ = ["GradientCompression", "wire_nbytes", "pack_2bit",
-           "unpack_2bit", "encode_wire", "decode_wire", "is_wire_payload"]
+__all__ = ["GradientCompression", "quantize_2bit", "wire_nbytes",
+           "pack_2bit", "unpack_2bit", "encode_wire", "decode_wire",
+           "is_wire_payload"]
+
+
+def quantize_2bit(grad, residual, threshold: float):
+    """One error-feedback quantization step: ``(levels in {-threshold, 0,
+    +threshold}, new residual)`` of tensors (or NDArrays), in ``grad``'s
+    dtype; ``residual`` is not written."""
+    unwrap = (lambda a: a.data if hasattr(a, "asnumpy") else a)
+    return _qops.quantize_2bit_ef(unwrap(grad), unwrap(residual), threshold)
 
 
 def wire_nbytes(mode: str, n: int, block: int = None) -> int:

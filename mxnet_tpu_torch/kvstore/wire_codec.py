@@ -23,6 +23,7 @@ import numpy as np
 
 __all__ = ["WireCodecError", "encode_array", "decode_array", "encode_text",
            "decode_text", "encode_json", "decode_json", "is_array_payload",
+           "is_text_payload", "is_json_payload",
            "is_wire_payload", "encode_wire", "decode_wire",
            "quantize_int8_np", "pack_2bit", "unpack_2bit",
            "send_msg", "recv_msg"]
@@ -86,12 +87,16 @@ def decode_array(obj) -> np.ndarray:
     return np.frombuffer(raw, dtype=dt).reshape(shape).copy()
 
 
+def is_text_payload(obj) -> bool:
+    return isinstance(obj, tuple) and len(obj) == 2 and obj[0] == _TXT_TAG
+
+
 def encode_text(text: str) -> tuple:
     return (_TXT_TAG, str(text).encode("utf-8"))
 
 
 def decode_text(obj) -> str:
-    if not (isinstance(obj, tuple) and len(obj) == 2 and obj[0] == _TXT_TAG):
+    if not is_text_payload(obj):
         raise WireCodecError("not a TXT payload: %r" % (type(obj),))
     try:
         return _expect_bytes("TXT", obj[1]).decode("utf-8")
@@ -99,12 +104,16 @@ def decode_text(obj) -> str:
         raise WireCodecError("TXT: payload is not valid utf-8 (%s)" % (e,))
 
 
+def is_json_payload(obj) -> bool:
+    return isinstance(obj, tuple) and len(obj) == 2 and obj[0] == _JSN_TAG
+
+
 def encode_json(obj) -> tuple:
     return (_JSN_TAG, json.dumps(obj, default=str).encode("utf-8"))
 
 
 def decode_json(obj):
-    if not (isinstance(obj, tuple) and len(obj) == 2 and obj[0] == _JSN_TAG):
+    if not is_json_payload(obj):
         raise WireCodecError("not a JSN payload: %r" % (type(obj),))
     try:
         return json.loads(_expect_bytes("JSN", obj[1]).decode("utf-8"))

@@ -111,25 +111,30 @@ class EvalMetric:
         """Add one batch to the device sums (no host sync); counts one
         dispatch, as the reference's jitted accumulate does."""
         from .engine import engine as _engine
-        _engine.count_dispatch()
-        if self._dev_sum is None:
-            self._dev_sum = torch.zeros((), dtype=torch.float32,
-                                        device=device)
-            self._dev_inst = torch.zeros((), dtype=torch.int64,
-                                         device=device)
-        self._dev_sum += batch_sum.to(device=self._dev_sum.device,
-                                      dtype=torch.float32)
-        self._dev_inst += batch_count.to(self._dev_inst.device) \
-            if isinstance(batch_count, torch.Tensor) else int(batch_count)
+        from . import telemetry as _telemetry
+        with _telemetry.phase("metric_update"):
+            _engine.count_dispatch()
+            if self._dev_sum is None:
+                self._dev_sum = torch.zeros((), dtype=torch.float32,
+                                            device=device)
+                self._dev_inst = torch.zeros((), dtype=torch.int64,
+                                             device=device)
+            self._dev_sum += batch_sum.to(device=self._dev_sum.device,
+                                          dtype=torch.float32)
+            self._dev_inst += batch_count.to(self._dev_inst.device) \
+                if isinstance(batch_count, torch.Tensor) \
+                else int(batch_count)
 
     def _drain_device(self):
         """The host sync: move the device sums into ``sum_metric`` and
-        ``num_inst``."""
+        ``num_inst`` (the ``metric_drain`` phase shows its cost)."""
         if self._dev_sum is not None:
-            self.sum_metric += float(self._dev_sum)
-            self.num_inst += int(self._dev_inst)
-            self._dev_sum = None
-            self._dev_inst = None
+            from . import telemetry as _telemetry
+            with _telemetry.phase("metric_drain"):
+                self.sum_metric += float(self._dev_sum)
+                self.num_inst += int(self._dev_inst)
+                self._dev_sum = None
+                self._dev_inst = None
 
     def get(self):
         self._drain_device()

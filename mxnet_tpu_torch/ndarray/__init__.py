@@ -16,10 +16,11 @@ from .ndarray import (NDArray, invoke, array, zeros, ones, full, empty,
                       arange, eye, zeros_like, ones_like, concatenate,
                       waitall)
 from .ndarray import stack_arrays as _stack_arrays
+from .serialize import save, load, save_bytes, load_bytes
 
 __all__ = ["NDArray", "invoke", "array", "zeros", "ones", "full", "empty",
            "arange", "eye", "zeros_like", "ones_like", "concatenate",
-           "waitall", "stack", "concat"]
+           "waitall", "stack", "concat", "save", "load"]
 
 
 def _make_op_func(opname: str):

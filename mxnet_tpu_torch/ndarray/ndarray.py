@@ -476,6 +476,12 @@ class NDArray:
         return invoke("split", self, num_outputs=num_outputs, axis=axis,
                       squeeze_axis=squeeze_axis)
 
+    def save(self, fname: str) -> None:
+        """Write this array to ``fname`` in the reference's file format
+        (``nd.save(fname, self)``)."""
+        from .serialize import save
+        save(fname, self)
+
 
 # ---------------------------------------------------------------------------
 # eager dispatch (reference: MXImperativeInvokeEx -> Imperative::Invoke)

@@ -7,6 +7,7 @@ ops (``_image_*``, the ``_cv*`` ops) and the spatial ops
 (``GridGenerator``, ``BilinearSampler``, the ROI ops, ...) and the
 detection ops (box IoU and NMS, the SSD MultiBox family)."""
 from . import registry
+from .registry import OpDef, get_op, list_ops, register
 from . import attention, nn
 from . import creation, elemwise, scalar, reduce, matrix
 from . import optimizer
@@ -15,6 +16,7 @@ from . import image, spatial
 from . import detection
 from . import rnn
 
-__all__ = ["registry", "attention", "nn", "creation", "elemwise", "scalar",
+__all__ = ["registry", "OpDef", "get_op", "list_ops", "register",
+           "attention", "nn", "creation", "elemwise", "scalar",
            "reduce", "matrix", "optimizer", "random", "image", "spatial",
            "detection", "rnn"]

@@ -22,10 +22,8 @@ multi-tensor apply), with each leaf's arithmetic in the order of the
 per-tensor op.  The update ops are elementwise compositions, which the
 reference left to XLA, so no hand-written kernel stands behind them.
 
-Not ported yet: the sparse (``_sparse_*``), ``rmsprop*``, ``ftrl``,
-``signsgd``/``signum``, ``ftml``, ``group_adagrad``, ``adagrad``,
-``preloaded_multi_*``, ``multi_lars``, ``multi_lamb`` and ``multi_lans``
-updates.
+The four ``_sparse_*`` updates (a row-sparse weight) are registered and
+raise: sparse storage is Queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -34,6 +32,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from ..base import MXNetError
 from .registry import register
 
 __all__ = ["tree_apply"]
@@ -399,6 +398,308 @@ def _multi_mp_adamw_update(*arrays, lrs=None, wds=None, etas=None,
                         _per_weight(wds, num_weights, 0.0),
                         _per_weight(etas, num_weights, 1.0), beta1, beta2,
                         epsilon, clip_gradient, mp=True)
+
+
+# ---------------------------------------------------------------------------
+# the adaptive single-tensor updates (RMSProp, AdaGrad, Ftrl, FTML, the sign
+# family) and row-wise AdaGrad
+# ---------------------------------------------------------------------------
+
+def _clip_weights(w, clip_weights):
+    if clip_weights is not None and clip_weights > 0:
+        c = _scalar(clip_weights, w.dtype)
+        w = w.clamp(-c, c)
+    return w
+
+
+@register("rmsprop_update", differentiable=False, num_outputs=2,
+          mutates_input=0, aux_writeback={1: 2})
+def _rmsprop_update(weight, grad, n, lr=0.001, gamma1=0.9, epsilon=1e-8,
+                    wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
+                    clip_weights=-1.0):
+    g = _prep(grad, rescale_grad, clip_gradient, wd, weight).to(n.dtype)
+    new_n = _mul(g, 1.0 - gamma1) * g + _mul(n, gamma1)
+    step = _mul(g, lr) / (new_n + _scalar(epsilon, n.dtype)).sqrt()
+    return _clip_weights(weight - step.to(weight.dtype), clip_weights), new_n
+
+
+@register("rmspropalex_update", differentiable=False, num_outputs=4,
+          mutates_input=0, aux_writeback={1: 2, 2: 3, 3: 4})
+def _rmspropalex_update(weight, grad, n, g_buf, delta, lr=0.001, gamma1=0.95,
+                        gamma2=0.9, epsilon=1e-8, wd=0.0, rescale_grad=1.0,
+                        clip_gradient=-1.0, clip_weights=-1.0):
+    """Centred RMSProp with momentum (Graves 2013)."""
+    g = _prep(grad, rescale_grad, clip_gradient, wd, weight).to(n.dtype)
+    new_n = _mul(g, 1.0 - gamma1) * g + _mul(n, gamma1)
+    new_g = _mul(g, 1.0 - gamma1) + _mul(g_buf, gamma1)
+    new_delta = _mul(delta, gamma2) - _mul(g, lr) / (
+        new_n - new_g * new_g + _scalar(epsilon, n.dtype)).sqrt()
+    new_w = _clip_weights(weight + new_delta.to(weight.dtype), clip_weights)
+    return new_w, new_n, new_g, new_delta
+
+
+@register("adagrad_update", differentiable=False, num_outputs=2,
+          mutates_input=0, aux_writeback={1: 2})
+def _adagrad_update(weight, grad, history, lr=0.01, epsilon=1e-7, wd=0.0,
+                    rescale_grad=1.0, clip_gradient=-1.0):
+    g = _prep(grad, rescale_grad, clip_gradient)
+    new_h = history + g * g
+    update = g / (new_h + _scalar(epsilon, new_h.dtype)).sqrt() + \
+        _mul(weight, wd)
+    return (weight - _mul(update, lr)).to(weight.dtype), new_h
+
+
+@register("ftrl_update", differentiable=False, num_outputs=3,
+          mutates_input=0, aux_writeback={1: 2, 2: 3})
+def _ftrl_update(weight, grad, z, n, lr=0.1, lamda1=0.01, beta=1.0, wd=0.0,
+                 rescale_grad=1.0, clip_gradient=-1.0):
+    g = _prep(grad, rescale_grad, clip_gradient).to(z.dtype)
+    new_n = n + g * g
+    sigma = (new_n.sqrt() - n.sqrt()) / _scalar(lr, z.dtype)
+    new_z = z + g - sigma * weight.to(z.dtype)
+    shrunk = (torch.sign(new_z) * _scalar(lamda1, z.dtype) - new_z) / (
+        (new_n.sqrt() + _scalar(beta, z.dtype)) / _scalar(lr, z.dtype)
+        + _scalar(wd, z.dtype))
+    new_w = torch.where(new_z.abs() <= _scalar(lamda1, z.dtype),
+                        torch.zeros_like(new_z), shrunk)
+    return new_w.to(weight.dtype), new_z, new_n
+
+
+@register("ftml_update", differentiable=False, num_outputs=4,
+          mutates_input=0, aux_writeback={1: 2, 2: 3, 3: 4})
+def _ftml_update(weight, grad, d, v, z, lr=0.0025, beta1=0.6, beta2=0.999,
+                 epsilon=1e-8, t=1, wd=0.0, rescale_grad=1.0,
+                 clip_grad=-1.0):
+    g = _prep(grad, rescale_grad, clip_grad, wd, weight)
+    v_new = _lerp_sq(v, beta2, g)
+    d_new = _mul((v_new / _scalar(1.0 - beta2 ** t, v_new.dtype)).sqrt()
+                 + _scalar(epsilon, v_new.dtype), (1.0 - beta1 ** t) / lr)
+    sigma = d_new - _mul(d, beta1)
+    z_new = _lerp(z, beta1, g) - sigma * weight
+    return (-z_new / d_new).to(weight.dtype), d_new, v_new, z_new
+
+
+@register("signsgd_update", differentiable=False, mutates_input=0)
+def _signsgd_update(weight, grad, lr=0.01, wd=0.0, rescale_grad=1.0,
+                    clip_gradient=-1.0):
+    g = _prep(grad, rescale_grad, clip_gradient)
+    return weight - _mul((torch.sign(g) + _mul(weight, wd)).to(weight.dtype),
+                         lr)
+
+
+@register("signum_update", differentiable=False, num_outputs=2,
+          mutates_input=0, aux_writeback={1: 2})
+def _signum_update(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
+                   rescale_grad=1.0, clip_gradient=-1.0, wd_lh=0.0):
+    g = _prep(grad, rescale_grad, clip_gradient, wd, weight)
+    new_mom = _mul(mom, momentum) - _mul(g.to(mom.dtype), 1.0 - momentum)
+    new_w = _mul(weight, 1.0 - lr * wd_lh) + \
+        _mul(torch.sign(new_mom).to(weight.dtype), lr)
+    return new_w, new_mom
+
+
+@register("_contrib_group_adagrad_update", aliases=["group_adagrad_update"],
+          differentiable=False, num_outputs=2, mutates_input=0,
+          aux_writeback={1: 2})
+def _group_adagrad_update(weight, grad, history, lr=0.01, rescale_grad=1.0,
+                          clip_gradient=-1.0, epsilon=1e-5):
+    """AdaGrad with one accumulator a row (the mean square of the row's
+    gradient)."""
+    g = _prep(grad, rescale_grad, clip_gradient)
+    sq = (g * g).mean(dim=tuple(range(1, g.dim())), keepdim=True) \
+        if g.dim() > 1 else g * g
+    new_h = history + sq
+    step = _mul(g, lr) / (new_h.sqrt() + _scalar(epsilon, new_h.dtype))
+    return (weight - step).to(weight.dtype), new_h
+
+
+def _not_sparse(name):
+    def fn(*arrays, **params):
+        raise MXNetError("%s updates a row-sparse weight: sparse storage is "
+                         "Queue 1 item 8" % name)
+    fn.__name__ = name
+    return fn
+
+
+for _name in ("_sparse_sgd_update", "_sparse_sgd_mom_update",
+              "_sparse_adam_update", "_sparse_adagrad_update"):
+    register(_name, _not_sparse(_name), differentiable=False)
+
+
+# ---------------------------------------------------------------------------
+# LARS: the lrs from stacked per-layer norms, and the multi-SGD updates that
+# read lrs and wds from tensors ("preloaded")
+# ---------------------------------------------------------------------------
+
+@register("multi_lars", differentiable=False)
+def _multi_lars(lrs, weights_sum_sq, grads_sum_sq, wds, eta=0.001,
+                eps=1e-8, rescale_grad=1.0):
+    """Each layer's lr times its trust ratio ``eta * |w| / (|g| + wd *
+    |w| + eps)`` (1 where a norm is 0)."""
+    w_norm = weights_sum_sq.sqrt()
+    g_norm = _mul(grads_sum_sq.sqrt(), rescale_grad)
+    ratio = _mul(w_norm, eta) / (g_norm + wds * w_norm +
+                                 _scalar(eps, w_norm.dtype))
+    trust = torch.where((w_norm > 0) & (g_norm > 0), ratio,
+                        torch.ones_like(ratio))
+    return lrs * trust
+
+
+def _preloaded(arrays, stride):
+    """``(groups of stride, lrs, wds)`` of a preloaded multi op's
+    inputs; lr and wd of weight i are the tensors' entries i."""
+    return _groups(arrays[:-2], stride), arrays[-2], arrays[-1]
+
+
+@register("preloaded_multi_sgd_update", differentiable=False,
+          num_outputs=0, aux_writeback=_stride_map(2, (0,)))
+def _preloaded_multi_sgd_update(*arrays, rescale_grad=1.0,
+                                clip_gradient=-1.0, num_weights=1):
+    groups, lrs, wds = _preloaded(arrays, 2)
+    return tuple(w - lrs[i] * (_prep(g, rescale_grad, clip_gradient)
+                               + wds[i] * w).to(w.dtype)
+                 for i, (w, g) in enumerate(groups))
+
+
+@register("preloaded_multi_sgd_mom_update", differentiable=False,
+          num_outputs=0, aux_writeback=_stride_map(3, (0, 2)))
+def _preloaded_multi_sgd_mom_update(*arrays, momentum=0.0, rescale_grad=1.0,
+                                    clip_gradient=-1.0, num_weights=1):
+    groups, lrs, wds = _preloaded(arrays, 3)
+    outs = []
+    for i, (w, g, m) in enumerate(groups):
+        gg = _prep(g, rescale_grad, clip_gradient) + wds[i] * w
+        new_m = _mul(m, momentum) - lrs[i] * gg.to(m.dtype)
+        outs.extend([w + new_m.to(w.dtype), new_m])
+    return tuple(outs)
+
+
+@register("preloaded_multi_mp_sgd_update", differentiable=False,
+          num_outputs=0, aux_writeback=_stride_map(3, (0, 2)))
+def _preloaded_multi_mp_sgd_update(*arrays, rescale_grad=1.0,
+                                   clip_gradient=-1.0, num_weights=1):
+    groups, lrs, wds = _preloaded(arrays, 3)
+    outs = []
+    for i, (w, g, w32) in enumerate(groups):
+        gg = _prep(g.float(), rescale_grad, clip_gradient) + wds[i] * w32
+        new_w32 = w32 - lrs[i] * gg
+        outs.extend([new_w32.to(w.dtype), new_w32])
+    return tuple(outs)
+
+
+@register("preloaded_multi_mp_sgd_mom_update", differentiable=False,
+          num_outputs=0, aux_writeback=_stride_map(4, (0, 2, 3)))
+def _preloaded_multi_mp_sgd_mom_update(*arrays, momentum=0.0,
+                                       rescale_grad=1.0, clip_gradient=-1.0,
+                                       num_weights=1):
+    groups, lrs, wds = _preloaded(arrays, 4)
+    outs = []
+    for i, (w, g, m, w32) in enumerate(groups):
+        gg = _prep(g.float(), rescale_grad, clip_gradient) + wds[i] * w32
+        new_m = _mul(m, momentum) - lrs[i] * gg
+        new_w32 = w32 + new_m
+        outs.extend([new_w32.to(w.dtype), new_m, new_w32])
+    return tuple(outs)
+
+
+# ---------------------------------------------------------------------------
+# the LAMB and LANS fleets: (w, g, mean, var[, w32]) * N in one call, in
+# float32
+# ---------------------------------------------------------------------------
+
+def _fleet_moments(g32, m, v, beta1, beta2, t, bias_correction):
+    new_m = _lerp(m, beta1, g32)
+    new_v = _lerp_sq(v, beta2, g32)
+    mh, vh = new_m, new_v
+    if bias_correction:
+        mh = mh / _scalar(1.0 - beta1 ** t, mh.dtype)
+        vh = vh / _scalar(1.0 - beta2 ** t, vh.dtype)
+    return new_m, new_v, mh, vh
+
+
+def _bounded(x, lower_bound, upper_bound):
+    if lower_bound is not None and lower_bound > 0:
+        x = x.clamp_min(float(lower_bound))
+    if upper_bound is not None and upper_bound > 0:
+        x = x.clamp_max(float(upper_bound))
+    return x
+
+
+def _lamb_member(g, m, v, w32, lr, wd, beta1, beta2, epsilon, t,
+                 bias_correction, lower_bound, upper_bound, clip_gradient,
+                 rescale_grad):
+    """One LAMB fleet member: the Adam direction, then one trust ratio a
+    layer on the whole update; ``(new w32, new mean, new var)``."""
+    g32 = _prep(g.float(), rescale_grad, clip_gradient)
+    new_m, new_v, mh, vh = _fleet_moments(g32, m, v, beta1, beta2, t,
+                                          bias_correction)
+    upd = mh / (vh.sqrt() + _scalar(epsilon, vh.dtype)) + _mul(w32, wd)
+    wnorm = _bounded(_norm32(w32), lower_bound, upper_bound)
+    ratio = _trust_ratio(wnorm, _norm32(upd))
+    return w32 - (ratio * float(lr)) * upd, new_m, new_v
+
+
+def _lans_member(g, m, v, w32, lr, wd, beta1, beta2, epsilon, t,
+                 bias_correction, lower_bound, upper_bound, clip_gradient,
+                 rescale_grad):
+    """One LANS fleet member: the gradient normalised by its norm, and a
+    trust ratio each on the momentum and the gradient terms."""
+    g32 = _mul(g.float(), rescale_grad)
+    g32 = g32 / _norm32(g32).clamp_min(1e-12)
+    if _clipping(clip_gradient):
+        g32 = g32.clamp(-float(clip_gradient), float(clip_gradient))
+    new_m, new_v, mh, vh = _fleet_moments(g32, m, v, beta1, beta2, t,
+                                          bias_correction)
+    wnorm = _norm32(w32)
+
+    def trust(upd):
+        ratio = _trust_ratio(wnorm, _norm32(upd))
+        return _bounded(ratio, lower_bound, upper_bound) * upd
+
+    denom = vh.sqrt() + _scalar(epsilon, vh.dtype)
+    upd = _mul(trust(mh / denom + _mul(w32, wd)), beta1) + \
+        _mul(trust(g32 / denom + _mul(w32, wd)), 1.0 - beta1)
+    return w32 - _mul(upd, lr), new_m, new_v
+
+
+def _fleet(member, arrays, mp, learning_rates, wds, num_weights, **kw):
+    lrs = _per_weight(learning_rates, num_weights, 0.001)
+    wds = _per_weight(wds, num_weights, 0.0)
+    outs = []
+    for i, grp in enumerate(_groups(arrays, 5 if mp else 4)):
+        w, g, m, v = grp[:4]
+        new_w32, new_m, new_v = member(g, m, v, grp[4] if mp else w.float(),
+                                       lrs[i], wds[i], **kw)
+        outs.extend([new_w32.to(w.dtype), new_m, new_v] +
+                    ([new_w32] if mp else []))
+    return tuple(outs)
+
+
+def _fleet_op(name, aliases, member, mp):
+    def op(*arrays, learning_rates=None, wds=None, beta1=0.9, beta2=0.999,
+           epsilon=1e-6, t=1, bias_correction=True, lower_bound=-1.0,
+           upper_bound=-1.0, clip_gradient=-1.0, rescale_grad=1.0,
+           num_weights=1):
+        return _fleet(member, arrays, mp, learning_rates, wds, num_weights,
+                      beta1=beta1, beta2=beta2, epsilon=epsilon, t=t,
+                      bias_correction=bias_correction,
+                      lower_bound=lower_bound, upper_bound=upper_bound,
+                      clip_gradient=clip_gradient, rescale_grad=rescale_grad)
+    op.__name__ = name
+    op.__doc__ = "%s over (w, g, mean, var%s) * num_weights." % (
+        "LAMB" if member is _lamb_member else "LANS", ", w32" if mp else "")
+    register(name, op, aliases=aliases, differentiable=False, num_outputs=0,
+             aux_writeback=_stride_map(5, (0, 2, 3, 4)) if mp
+             else _stride_map(4, (0, 2, 3)))
+
+
+_fleet_op("multi_lamb_update", ["_contrib_multi_lamb_update"], _lamb_member,
+          False)
+_fleet_op("multi_mp_lamb_update", ["_contrib_multi_mp_lamb_update"],
+          _lamb_member, True)
+_fleet_op("multi_lans_update", ["_multi_lans_update"], _lans_member, False)
+_fleet_op("multi_mp_lans_update", ["_multi_mp_lans_update"], _lans_member,
+          True)
 
 
 # ---------------------------------------------------------------------------

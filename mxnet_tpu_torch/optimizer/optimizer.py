@@ -6,7 +6,10 @@ python/mxnet/optimizer/optimizer.py): the ``Optimizer`` base (registry,
 per-index update counts and ``num_update``, ``multi_precision`` with a
 float32 master copy of a float16/bfloat16 weight, ``aggregate_num``
 chunking and the fused apply), ``SGD``, ``NAG``, ``Adam``, ``AdamW``,
-``LAMB``, ``Updater`` and ``get_updater``.
+``LAMB``, the reference's other thirteen (``RMSProp``, ``AdaGrad``,
+``AdaDelta``, ``Ftrl``, ``LARS``, ``SignSGD``, ``Signum``, ``DCASGD``,
+``Test``, ``FTML``, ``Adamax``, ``Nadam``, ``SGLD``), ``Updater`` and
+``get_updater``.
 
 An update on one parameter dispatches the registered op of
 ``ops/optimizer.py`` on NDArrays (``invoke("sgd_mom_update", ...)``), as
@@ -16,10 +19,12 @@ one :func:`~..ops.optimizer.tree_apply` per ``aggregate_num`` chunk
 NAG, Adam, AdamW; LAMB has none in the reference either).  States are
 NDArrays on their weight's device.
 
-Not ported yet: RMSProp, AdaGrad, AdaDelta, Ftrl, LARS, SignSGD, Signum,
-DCASGD, Test, FTML, Adamax, Nadam and SGLD; sparse gradients; the
-whole-step compiled lane's ``_compiled_spec`` (it waits for the CUDA-graph
-step).
+Those thirteen update one parameter at a time, through their registered
+ops or as compositions of ``nd`` ops, as the reference's do (they have no
+fused form there either).
+
+Not ported yet: sparse gradients; the whole-step compiled lane's
+``_compiled_spec`` (it waits for the CUDA-graph step).
 """
 from __future__ import annotations
 
@@ -34,7 +39,9 @@ from ..ndarray.ndarray import NDArray, invoke, zeros
 from ..ops.optimizer import tree_apply
 
 __all__ = ["Optimizer", "Updater", "get_updater", "register", "create",
-           "SGD", "NAG", "Adam", "AdamW", "LAMB"]
+           "SGD", "NAG", "Adam", "AdamW", "LAMB", "RMSProp", "AdaGrad",
+           "AdaDelta", "Ftrl", "LARS", "SignSGD", "Signum", "DCASGD", "Test",
+           "FTML", "Adamax", "Nadam", "SGLD"]
 
 _LOW_PRECISION = (torch.float16, torch.bfloat16)
 
@@ -472,6 +479,366 @@ class LAMB(Optimizer):
         invoke("lamb_update_phase2", weight, g_update, lr=lr,
                lower_bound=_clip(self.lower_bound),
                upper_bound=_clip(self.upper_bound))
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp (reference: optimizer.RMSProp -> rmsprop_update; centred,
+    with momentum, -> rmspropalex_update)."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        if self.centered:
+            return tuple(_zeros_like(weight) for _ in range(3))
+        return _zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kw = dict(lr=self._get_lr(index), wd=self._get_wd(index),
+                  rescale_grad=self.rescale_grad, gamma1=self.gamma1,
+                  epsilon=self.epsilon,
+                  clip_gradient=_clip(self.clip_gradient),
+                  clip_weights=_clip(self.clip_weights))
+        if self.centered:
+            invoke("rmspropalex_update", weight, grad, *state,
+                   gamma2=self.gamma2, **kw)
+        else:
+            invoke("rmsprop_update", weight, grad, state, **kw)
+
+
+def _prepped(opt, grad):
+    """``grad * rescale_grad``, clipped when the optimizer clips."""
+    grad = grad * opt.rescale_grad
+    if opt.clip_gradient is not None:
+        grad = grad.clip(-opt.clip_gradient, opt.clip_gradient)
+    return grad
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad (reference: optimizer.AdaGrad): the history sums g^2, the
+    decay stays outside the adaptive denominator."""
+
+    def __init__(self, learning_rate=0.01, eps=1e-7, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        grad = _prepped(self, grad)
+        state += grad * grad
+        div = grad / (state + self.float_stable_eps).sqrt()
+        weight -= lr * (div + wd * weight)
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta (reference: optimizer.AdaDelta); its two accumulators
+    are float32 whatever the weight's dtype, as the reference's."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (zeros(weight.shape, ctx=weight.context),
+                zeros(weight.shape, ctx=weight.context))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        wd = self._get_wd(index)
+        grad = _prepped(self, grad) + wd * weight
+        acc_g, acc_delta = state
+        acc_g[:] = self.rho * acc_g + (1.0 - self.rho) * grad * grad
+        current_delta = ((acc_delta + self.epsilon).sqrt() /
+                         (acc_g + self.epsilon).sqrt()) * grad
+        acc_delta[:] = self.rho * acc_delta + \
+            (1.0 - self.rho) * current_delta * current_delta
+        weight -= current_delta
+
+
+@register
+class Ftrl(Optimizer):
+    """Follow the regularised leader (reference: optimizer.Ftrl ->
+    ftrl_update); states z and n in float32."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1.0, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1 = lamda1
+        self.beta = beta
+
+    def create_state(self, index, weight):
+        return (zeros(weight.shape, ctx=weight.context),
+                zeros(weight.shape, ctx=weight.context))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        z, n = state
+        invoke("ftrl_update", weight, grad, z, n, lr=self._get_lr(index),
+               lamda1=self.lamda1, beta=self.beta, wd=self._get_wd(index),
+               rescale_grad=self.rescale_grad,
+               clip_gradient=_clip(self.clip_gradient))
+
+
+@register
+class LARS(Optimizer):
+    """Layer-wise adaptive rate scaling (reference: optimizer.LARS): the
+    lr scaled by ``eta * |w| / (|g| + wd * |w| + epsilon)``, read on the
+    host, then SGD (with momentum)."""
+
+    def __init__(self, learning_rate=0.1, momentum=0.0, eta=0.001,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.eta = eta
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return None if self.momentum == 0.0 else _zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        w_norm = float(invoke("norm", weight).asscalar())
+        g_norm = float(invoke("norm", _prepped(self, grad)).asscalar())
+        if w_norm > 0 and g_norm > 0:
+            lr = lr * self.eta * w_norm / \
+                (g_norm + wd * w_norm + self.epsilon)
+        kw = dict(lr=lr, wd=wd, rescale_grad=self.rescale_grad,
+                  clip_gradient=_clip(self.clip_gradient))
+        if state is not None:
+            invoke("sgd_mom_update", weight, grad, state,
+                   momentum=self.momentum, **kw)
+        else:
+            invoke("sgd_update", weight, grad, **kw)
+
+
+@register
+class SignSGD(Optimizer):
+    """SGD on the gradient's sign (reference: optimizer.SignSGD ->
+    signsgd_update)."""
+
+    def __init__(self, learning_rate=0.01, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        invoke("signsgd_update", weight, grad, lr=self._get_lr(index),
+               wd=self._get_wd(index), rescale_grad=self.rescale_grad,
+               clip_gradient=_clip(self.clip_gradient))
+
+
+@register
+class Signum(Optimizer):
+    """The sign of a momentum (reference: optimizer.Signum ->
+    signum_update; SignSGD's update without momentum)."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def create_state(self, index, weight):
+        return None if self.momentum == 0.0 else _zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kw = dict(lr=self._get_lr(index), wd=self._get_wd(index),
+                  rescale_grad=self.rescale_grad,
+                  clip_gradient=_clip(self.clip_gradient))
+        if state is not None:
+            invoke("signum_update", weight, grad, state,
+                   momentum=self.momentum, wd_lh=self.wd_lh, **kw)
+        else:
+            invoke("signsgd_update", weight, grad, **kw)
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD (reference: optimizer.DCASGD):
+    the state keeps the momentum (None without one) and the previous
+    weight."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.0, lamda=0.04,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.weight_previous = {}
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        mom = None if self.momentum == 0.0 else _zeros_like(weight)
+        return (mom, weight.copy())
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        grad = _prepped(self, grad)
+        mom, previous_weight = state
+        delta = -lr * (grad + wd * weight + self.lamda *
+                       grad * grad * (weight - previous_weight))
+        if mom is not None:
+            mom[:] = self.momentum * mom + delta
+            delta = mom
+        previous_weight[:] = weight
+        weight += delta
+
+
+@register
+class Test(Optimizer):
+    """The reference's test optimizer: ``weight += grad * rescale_grad``,
+    and the state keeps the new weight."""
+
+    def create_state(self, index, weight):
+        return zeros(weight.shape, ctx=weight.context)
+
+    def update(self, index, weight, grad, state):
+        weight += grad * self.rescale_grad
+        state[:] = weight
+
+
+@register
+class FTML(Optimizer):
+    """Follow the moving leader (reference: optimizer.FTML ->
+    ftml_update); states d, v, z."""
+
+    def __init__(self, learning_rate=0.0025, beta1=0.6, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return tuple(_zeros_like(weight) for _ in range(3))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        d, v, z = state
+        invoke("ftml_update", weight, grad, d, v, z,
+               lr=self._get_lr(index), beta1=self.beta1, beta2=self.beta2,
+               epsilon=self.epsilon, t=self._index_update_count[index],
+               wd=self._get_wd(index), rescale_grad=self.rescale_grad,
+               clip_grad=_clip(self.clip_gradient))
+
+
+@register
+class Adamax(Optimizer):
+    """Adam on the infinity norm (reference: optimizer.Adamax, an update
+    of nd ops)."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        t = self._index_update_count[index]
+        lr = self._get_lr(index) / (1.0 - self.beta1 ** t)
+        grad = grad * self.rescale_grad + self._get_wd(index) * weight
+        if self.clip_gradient is not None:
+            grad = grad.clip(-self.clip_gradient, self.clip_gradient)
+        m, u = state
+        m[:] = self.beta1 * m + (1.0 - self.beta1) * grad
+        u[:] = invoke("maximum", self.beta2 * u, invoke("abs", grad))
+        weight[:] = weight - lr * m / (u + 1e-8)
+
+
+@register
+class Nadam(Optimizer):
+    """Adam with Nesterov momentum and a momentum schedule (reference:
+    optimizer.Nadam, an update of nd ops).  ``m_schedule`` is one product
+    over every update of every parameter, as in the reference."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.0
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        t = self._index_update_count[index]
+        lr = self._get_lr(index)
+        grad = grad * self.rescale_grad + self._get_wd(index) * weight
+        if self.clip_gradient is not None:
+            grad = grad.clip(-self.clip_gradient, self.clip_gradient)
+        mu_t = self.beta1 * (1.0 - 0.5 * 0.96 ** (t * self.schedule_decay))
+        mu_tp1 = self.beta1 * (1.0 - 0.5 * 0.96 ** ((t + 1)
+                                                    * self.schedule_decay))
+        self.m_schedule = self.m_schedule * mu_t
+        m_schedule_next = self.m_schedule * mu_tp1
+        m, v = state
+        m[:] = self.beta1 * m + (1.0 - self.beta1) * grad
+        v[:] = self.beta2 * v + (1.0 - self.beta2) * grad * grad
+        g_prime = grad / (1.0 - self.m_schedule)
+        m_prime = m / (1.0 - m_schedule_next)
+        v_prime = v / (1.0 - self.beta2 ** t)
+        m_bar = (1.0 - mu_t) * g_prime + mu_tp1 * m_prime
+        weight[:] = weight - lr * m_bar / (v_prime.sqrt() + self.epsilon)
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics (reference: optimizer.SGLD):
+    a half-lr gradient step plus N(0, lr) noise.  The noise comes from
+    ``generator`` (a ``torch.Generator`` on the weight's device) when one
+    is given, else from ``mx.random``'s stream; its bits cannot match the
+    reference's JAX keys."""
+
+    def __init__(self, learning_rate=0.01, generator=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.generator = generator
+
+    def create_state(self, index, weight):
+        return None
+
+    def _noise(self, weight, lr):
+        if self.generator is None:
+            return invoke("_random_normal", loc=0.0, scale=math.sqrt(lr),
+                          shape=weight.shape, ctx=weight.context)
+        draw = torch.randn(weight.shape, generator=self.generator,
+                           device=weight.data.device)
+        return NDArray(draw * math.sqrt(lr), weight.context)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr = self._get_lr(index)
+        grad = _prepped(self, grad) + self._get_wd(index) * weight
+        weight[:] = weight - lr / 2.0 * grad + self._noise(weight, lr)
+
+    def __getstate__(self):
+        ret = super().__getstate__()
+        ret["generator"] = None
+        return ret
 
 
 class Updater:

@@ -316,13 +316,18 @@ class TrainStep:
     every rank calls both, collectively; split leaves are saved as their
     shards with their specs), so a restored step continues bitwise where
     the saved one stopped.
+
+    ``donate`` is accepted and ignored: the reference donates the
+    parameter and state buffers to XLA so that its step updates them in
+    place; this step already updates its tensors in place.
     """
 
     def __init__(self, block: torch.nn.Module, loss_fn: Callable,
                  mesh: Optional[Mesh] = None, device: DeviceLike = None,
                  learning_rate: float = 0.01, momentum: float = 0.9,
                  dp_axis: str = "dp", tp_axis: str = "tp",
-                 tp_rules: Optional[Dict[str, Any]] = None):
+                 tp_rules: Optional[Dict[str, Any]] = None,
+                 donate: bool = True):
         self.mesh = mesh
         self._world = 1 if mesh is None else mesh.shape.get(dp_axis, 1)
         self._tp = 1 if mesh is None else mesh.shape.get(tp_axis, 1)

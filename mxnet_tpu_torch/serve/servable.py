@@ -7,7 +7,8 @@ Dispatch pads to a bucket (by the batcher) and runs the forward under
 runs every bucket once before the version goes live, so the first real
 request pays no first-call cost (allocator growth, kernel build and
 library autotuning).  :class:`ModelHost` owns the version lifecycle: warm,
-flip, drain the predecessor.
+flip, drain the predecessor.  :meth:`Servable.from_block` hosts a block
+after loading a ``save_parameters`` file into it.
 
 PyTorch runs eagerly, so there are no per-bucket programs to compile;
 ``bucket_hits`` counts dispatches whose (bucket, signature) was warmed and
@@ -101,6 +102,29 @@ class Servable:
         self._inflight = 0
         self._inflight_cv = threading.Condition()
         self._closed = False
+
+    @staticmethod
+    def from_block(block: torch.nn.Module, params_file: Optional[str] = None,
+                   ctx: DeviceLike = None, **kwargs) -> "Servable":
+        """Host a live gluon block, after loading a ``save_parameters``
+        file into it (on ``ctx``: default the current context, the GPU
+        unless the caller says otherwise) when one is given; ``kwargs``
+        go to :class:`Servable`."""
+        if params_file:
+            block.load_parameters(params_file, ctx=ctx)
+        return Servable(block, **kwargs)
+
+    @staticmethod
+    def from_checkpoint(prefix: str, epoch: int = 0,
+                        input_names: Sequence[str] = ("data",),
+                        **kwargs) -> "Servable":
+        """Not ported: an exported ``<prefix>-symbol.json`` loads through
+        ``gluon.SymbolBlock``, which waits for the symbol API (Queue 1
+        item 8)."""
+        raise MXNetError("Servable.from_checkpoint(%r) needs "
+                         "gluon.SymbolBlock, which waits for the symbol API "
+                         "(Queue 1 item 8); build the block and use "
+                         "Servable.from_block(block, params_file)" % prefix)
 
     @staticmethod
     def signature_of(arrays: Sequence) -> Tuple:

@@ -44,6 +44,10 @@ from mxnet_tpu_torch.gluon.model_zoo.vision import resnet as tresnet
 from mxnet_tpu_torch.ops import attention as tatt
 from mxnet_tpu_torch.parallel import TrainStep
 
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 BF16_TOL = 2e-3
 PKGS = {"jax": (jmx, jamp, jautograd, jgluon, jnn),
         "port": (tmx, tamp, tautograd, tgluon, tnn)}

@@ -19,6 +19,10 @@ from mxnet_tpu_torch.ops import _kernels
 from mxnet_tpu_torch.ops import attention as tatt
 from mxnet_tpu_torch.ops import nn as tnn
 
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 TOL = 1e-4
 
 

@@ -19,6 +19,10 @@ import jax.numpy as jnp
 from mxnet_tpu.ops import attention as jatt
 from mxnet_tpu_torch.ops import attention as tatt
 
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 TOL = 1e-4
 
 

@@ -55,6 +55,10 @@ import chip_smoke as cs
 from mxnet_tpu.ops import attention as jatt
 from mxnet_tpu_torch.ops import attention as tatt
 
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 TOL = 1e-4
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453

@@ -31,6 +31,10 @@ from mxnet_tpu_torch.gluon import loss as tloss
 from mxnet_tpu_torch.gluon.model_zoo import bert as tbert
 from mxnet_tpu_torch.ops import attention as tatt
 
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 RTOL, RTOL_HIGHER = 1e-6, 1e-5
 PACKAGES = {"jax": (jmx, jnd, jag), "port": (tmx, tnd, tag)}
 

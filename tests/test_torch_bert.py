@@ -22,6 +22,10 @@ from mxnet_tpu_torch.gluon import nn as tgnn
 from mxnet_tpu_torch.gluon.model_zoo import bert as tbert
 from mxnet_tpu_torch.ops import nn as tnn
 
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 TOL = 1e-4
 CFG = dict(vocab_size=100, max_length=64, dropout=0.0)
 B, T = 2, 64

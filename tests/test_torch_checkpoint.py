@@ -35,6 +35,10 @@ from mxnet_tpu_torch.convert import params_from_mxnet_tpu
 from mxnet_tpu_torch.gluon import nn as tnn
 from mxnet_tpu_torch.parallel import Mesh, TrainStep
 
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL, ATOL = 1e-4, 1e-5
 LR, MOM = 0.1, 0.9

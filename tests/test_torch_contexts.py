@@ -33,6 +33,10 @@ from mxnet_tpu_torch import autograd as tag, gluon as tgluon, nd as tnd
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.device import resolve
 
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-5, 1e-6
 IN, HID, OUT, N, STEPS = 5, 6, 3, 8, 3
 OPT = ("sgd", {"learning_rate": 0.1, "momentum": 0.9})

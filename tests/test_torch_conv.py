@@ -30,6 +30,10 @@ from mxnet_tpu_torch.gluon import nn as tgnn
 from mxnet_tpu_torch.ops import nn as tops
 from mxnet_tpu_torch.ops.registry import get_op
 
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-4, 1e-5
 
 

@@ -29,6 +29,10 @@ from mxnet_tpu_torch.convert import params_from_mxnet_tpu
 from mxnet_tpu_torch.gluon import data as tdata, nn as tgnn
 from mxnet_tpu_torch.gluon.data.vision import transforms as TT
 
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True)
 def _on_cpu():

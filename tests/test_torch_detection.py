@@ -23,6 +23,11 @@ import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import image as timage, recordio as trec
 from mxnet_tpu_torch.image import detection as tdet
 
+import torch
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True)
 def _cpu():

@@ -11,6 +11,11 @@ import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch.base import MXNetError
 
+import torch
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 
 def test_device_is_context_and_current_device_is_current_context():
     for mx in (jmx, tmx):

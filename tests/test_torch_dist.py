@@ -32,6 +32,11 @@ from mxnet_tpu.kvstore import bucketing as jb
 from mxnet_tpu.ops import quantization as jq
 from mxnet_tpu.parallel import TrainStep as JTrainStep, make_mesh
 
+import torch
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 120
 IN, HID, OUT, HALF, STEPS = 5, 8, 3, 4, 3

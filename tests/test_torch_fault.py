@@ -15,6 +15,11 @@ import pytest
 from mxnet_tpu import fault as jfault
 from mxnet_tpu_torch import fault as tfault
 
+import torch
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 PACKAGES = {"jax": jfault, "port": tfault}
 
 

@@ -22,6 +22,10 @@ from mxnet_tpu_torch.kvstore import gradient_compression as tgc
 from mxnet_tpu_torch.kvstore import wire_codec as twc
 from mxnet_tpu_torch.ops import quantization as tq
 
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 SEEDS = (0, 1, 2)
 SIZES = (77, 1000, 4096, 65536)
 DEQ_RTOL = 1e-6

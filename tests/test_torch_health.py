@@ -29,6 +29,10 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import fault, health, nd, telemetry
 from mxnet_tpu_torch.base import MXNetError
 
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGES = {"port": (health, fault, MXNetError),
             "reference": (jhealth, jfault, JMXNetError)}

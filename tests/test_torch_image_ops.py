@@ -28,6 +28,10 @@ from mxnet_tpu_torch import nd as tnd
 from mxnet_tpu_torch.gluon.data.vision import transforms as ttf
 from mxnet_tpu_torch.ops import image as timage
 
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 TOL = 1e-4
 N_DRAWS = 2000
 

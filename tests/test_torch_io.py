@@ -27,6 +27,11 @@ from mxnet_tpu_torch import recordio as trec, image as timg, io as tio
 from mxnet_tpu_torch import nd as tnd
 from mxnet_tpu_torch.base import MXNetError
 
+import torch
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 MAGIC = (0xced7230a).to_bytes(4, "little")
 PAYLOADS = [b"x", b"hello world", b"", b"z" * 4097, MAGIC,
             b"ab" + MAGIC + b"cd", MAGIC + MAGIC, b"tail" + MAGIC]

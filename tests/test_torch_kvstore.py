@@ -42,6 +42,10 @@ from mxnet_tpu_torch.gluon.model_zoo.bert import bert_12_768_12
 from mxnet_tpu_torch.kvstore import bucketing as tb
 from mxnet_tpu_torch.kvstore import kvstore as tkv
 
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 STORES = ("local", "device", "ici")
 CAPS = (4 << 20, 64 << 10, 0)
 

@@ -22,6 +22,11 @@ from mxnet_tpu_torch import autograd as tautograd, gluon, nd as tnd
 from mxnet_tpu_torch.gluon import loss as tloss
 from mxnet_tpu_torch.ops import registry
 
+import torch
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 TOL = 1e-4
 PACKAGES = {"jax": (jnd, jautograd, jloss), "port": (tnd, tautograd, tloss)}
 

@@ -22,6 +22,11 @@ from mxnet_tpu_torch import autograd as tautograd, nd as tnd
 from mxnet_tpu_torch.convert import params_from_mxnet_tpu, params_to_numpy
 from mxnet_tpu_torch.gluon import nn as tnn
 
+import torch
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 TOL = 1e-4
 
 

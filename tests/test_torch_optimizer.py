@@ -26,6 +26,10 @@ from mxnet_tpu_torch import nd as tnd
 from mxnet_tpu_torch import lr_scheduler as tsched
 from mxnet_tpu_torch import optimizer as topt
 
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 SHAPE = (4, 6)
 
 
@@ -266,14 +270,14 @@ def test_fused_and_per_param_updates_agree_in_the_port():
 
 def test_optimizer_registry_and_learning_rate():
     assert sorted(topt.Optimizer.opt_registry) == \
-        ["adam", "adamw", "lamb", "nag", "sgd"]
+        sorted(jmx.optimizer.Optimizer.opt_registry)
     sgd = topt.create("SGD", learning_rate=0.3)
     assert isinstance(sgd, topt.SGD) and topt.create(sgd) is sgd
     assert sgd.learning_rate == 0.3 and sgd.aggregate_num == 64
     sgd.set_learning_rate(0.2)
     assert sgd.learning_rate == 0.2
     with pytest.raises(ValueError, match="Cannot find optimizer"):
-        topt.create("rmsprop")
+        topt.create("rmsprop2")
     sched = topt.create("adam", lr_scheduler=tsched.FactorScheduler(1, 0.5),
                         learning_rate=0.4)
     assert sched.learning_rate == 0.4

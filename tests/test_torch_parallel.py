@@ -37,6 +37,11 @@ sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
 
+import torch
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 WORLD = 4
 TIMEOUT = 300
 

@@ -27,6 +27,11 @@ from mxnet_tpu_torch.convert import params_from_mxnet_tpu
 from mxnet_tpu_torch.io import DevicePrefetcher
 from mxnet_tpu_torch.io.prefetch import prefetch_depth, prefetch_enabled
 
+import torch
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True)
 def _on_cpu():

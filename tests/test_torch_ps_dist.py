@@ -18,6 +18,11 @@ import textwrap
 
 import numpy as np
 
+import torch
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 120
 

@@ -44,6 +44,11 @@ from mxnet_tpu_torch.kvstore import server as tserver, wire_verbs as tverbs
 from mxnet_tpu_torch.kvstore import kvstore as tkvstore
 from mxnet_tpu_torch.kvstore.wire_codec import encode_wire, pack_2bit
 
+import torch
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 SERVERS = {"jax": jserver, "port": tserver}
 CLIENTS = {"jax": (jmx, jkvstore), "port": (tmx, tkvstore)}
 

@@ -25,6 +25,10 @@ import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import nd as tnd
 from mxnet_tpu_torch.ndarray.ndarray import invoke
 
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 N = 40_000
 _ROWS = [m for m in __import__("test_random").MOMENTS
          if m[0].startswith("_random_")]

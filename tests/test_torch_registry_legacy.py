@@ -24,6 +24,11 @@ from mxnet_tpu_torch import autograd as tautograd, nd as tnd
 from mxnet_tpu_torch.ndarray.ndarray import invoke as tinvoke
 from mxnet_tpu_torch.ops import registry
 
+import torch
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 TOL = 1e-4
 PACKAGES = {"jax": (jnd, jautograd, jinvoke),
             "port": (tnd, tautograd, tinvoke)}

@@ -37,6 +37,10 @@ from mxnet_tpu_torch.gluon.model_zoo import vision as tvision
 from mxnet_tpu_torch.gluon.model_zoo.vision import resnet as tresnet
 from mxnet_tpu_torch.parallel import TrainStep
 
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-4, 1e-5
 B, HW, CLASSES = 2, 32, 10
 LAYERS, CHANNELS = [2, 1], [16, 32, 64]

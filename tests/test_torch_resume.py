@@ -24,6 +24,11 @@ sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
 
+import torch
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 TINY = ["--device", "cpu", "--size", "tiny"]
 #: the worker runs 2 epochs of 4 batches; a fault fires at the 6th batch
 STEPS, FAULT_AT = 8, 6

@@ -38,6 +38,10 @@ from mxnet_tpu_torch.ops.registry import get_op
 
 import chip_smoke
 
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 TOL = 1e-4
 T, N, I, H = 5, 3, 4, 6
 REPO = pathlib.Path(__file__).resolve().parents[1]

@@ -37,6 +37,10 @@ from mxnet_tpu_torch.serve import (Batcher, BucketTable, ModelHost,
                                    Overloaded, Servable, ServeClient,
                                    ServeServer, serve_forever)
 
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 TOL = 1e-4
 CFG = dict(vocab_size=100, max_length=32, dropout=0.0, use_decoder=False)
@@ -295,7 +299,11 @@ def test_port_imports_neither_jax_nor_mxnet_tpu():
             "mxnet_tpu_torch.device, mxnet_tpu_torch.ndarray.ndarray, "
             "mxnet_tpu_torch.autograd, mxnet_tpu_torch.gluon.block, "
             "mxnet_tpu_torch.gluon.nn.basic_layers, "
-            "mxnet_tpu_torch.optimizer.optimizer; "
+            "mxnet_tpu_torch.optimizer.optimizer, "
+            "mxnet_tpu_torch.ndarray.serialize, "
+            "mxnet_tpu_torch.serve.servable, mxnet_tpu_torch.initializer, "
+            "mxnet_tpu_torch.gluon.nn.conv_layers, "
+            "mxnet_tpu_torch.kvstore.wire_codec, mxnet_tpu_torch.io.prefetch; "
             "import torch.distributed.checkpoint; "
             "import chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or "

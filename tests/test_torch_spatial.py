@@ -15,6 +15,11 @@ from mxnet_tpu import autograd as jautograd, nd as jnd
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import autograd as tautograd, nd as tnd
 
+import torch
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 TOL = 1e-4
 PKGS = {"jax": (jnd, jautograd), "port": (tnd, tautograd)}
 

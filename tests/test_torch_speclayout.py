@@ -36,6 +36,10 @@ from mxnet_tpu_torch.parallel.speclayout import (P, layout_from_env,
                                                  parse_mesh_axes,
                                                  place_value, shard_slices)
 
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 RNG = np.random.RandomState(7)
 X = RNG.randn(16, 8).astype(np.float32)
 Y = RNG.randn(16, 4).astype(np.float32)

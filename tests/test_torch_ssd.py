@@ -30,6 +30,10 @@ from mxnet_tpu_torch.gluon.block import functionalize
 from mxnet_tpu_torch.gluon.model_zoo import ssd as tssd
 from mxnet_tpu_torch.ops import registry
 
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 TOL = 1e-4
 
 

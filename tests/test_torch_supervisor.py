@@ -37,6 +37,11 @@ from mxnet_tpu_torch import fault, telemetry
 from mxnet_tpu_torch.kvstore.server import recv_msg, send_msg, serve_forever
 from mxnet_tpu_torch.tools import launch
 
+import torch
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

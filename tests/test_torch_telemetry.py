@@ -28,6 +28,11 @@ import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import profiler as tprof, telemetry as ttel
 from mxnet_tpu_torch.engine import engine as teng
 
+import torch
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 PACKAGES = {"jax": (jmx, jtel, jprof, jeng), "port": (tmx, ttel, tprof, teng)}
 
 
@@ -110,6 +115,53 @@ def test_phases_give_the_same_snapshot_keys_and_counts(monkeypatch):
                       "torch_parity_queue_wait": 1}
     assert fields["torch_parity_forward"] == ["avg_ms", "count", "max_ms",
                                               "total_ms"]
+
+
+_EAGER_PHASES = ("backward", "exchange", "optimizer_apply", "metric_update",
+                 "metric_drain", "data_wait")
+
+
+def test_the_eager_loop_records_the_reference_s_phases(monkeypatch):
+    """Two steps of a Dense net over ``[cpu(0), cpu(1)]`` (so the Trainer
+    exchanges through a store) with the batches from a
+    ``DevicePrefetcher``, ``autograd.backward``, ``Trainer.step`` and an
+    accuracy metric: each phase and the flight records grow by the
+    reference's counts."""
+    monkeypatch.setenv("MX_TELEMETRY", "1")
+
+    def run(mx, tel, prof, eng):
+        ctxs = [mx.cpu(0), mx.cpu(1)]
+        net = mx.gluon.nn.Dense(3, in_units=4)
+        net.initialize(ctx=ctxs)
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": 0.1})
+        metric = mx.metric.Accuracy()
+        rng = np.random.RandomState(0)
+        batches = [(rng.randn(2, 4).astype(np.float32),
+                    np.array([0, 2], np.float32)) for _ in range(2)]
+        before = tel.phase_snapshot()
+        steps = (tel.flight_recorder.last() or {}).get("step", 0)
+        with mx.cpu():
+            for x, y in mx.io.DevicePrefetcher(iter(batches)):
+                outs = []
+                with mx.autograd.record():
+                    for c in ctxs:
+                        out = net(mx.nd.array(np.asarray(x), ctx=c))
+                        outs.append(out)
+                        loss = (out * out).sum()
+                        mx.autograd.backward(loss)
+                trainer.step(2)
+                metric.update([mx.nd.array(np.asarray(y), ctx=c)
+                               for c in ctxs], outs)
+            metric.get()
+        after = tel.phase_snapshot()
+        grown = {k: after.get(k, {}).get("count", 0)
+                 - before.get(k, {}).get("count", 0) for k in _EAGER_PHASES}
+        return grown, tel.flight_recorder.last()["step"] - steps
+
+    grown, steps = _both(run)
+    assert all(grown.values()), grown
+    assert steps == 2
 
 
 def test_telemetry_off_gives_the_shared_no_op(monkeypatch):

@@ -33,6 +33,11 @@ from mxnet_tpu.parallel import (SpecLayout as JSpecLayout, TrainStep as
                                 JTrainStep, make_mesh as jmake_mesh,
                                 tp_alternation_specs as jtp_specs)
 
+import torch
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 4
 TIMEOUT = 300

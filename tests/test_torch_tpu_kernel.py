@@ -30,6 +30,10 @@ from mxnet_tpu_torch import nd as tnd, autograd as tag, tpu_kernel as tk
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import _kernels
 
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 RTOL = 1e-6
 
 

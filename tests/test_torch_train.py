@@ -38,6 +38,10 @@ from mxnet_tpu_torch.ops import attention as tatt
 from mxnet_tpu_torch.ops import nn as tnn
 from mxnet_tpu_torch.parallel import TrainStep
 
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-4, 1e-5
 VOCAB, T, B = 1000, 128, 2
 CFG = dict(vocab_size=VOCAB, max_length=T, dropout=0.0,

@@ -37,6 +37,10 @@ from mxnet_tpu_torch.convert import (params_from_mxnet_tpu,
 from mxnet_tpu_torch.gluon import nn as tgnn, utils as tutils
 from mxnet_tpu_torch.parallel import TrainStep
 
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 B, C, HW, CLASSES, STEPS = 4, 3, 6, 5, 3
 LOSS_RTOL, RTOL, ATOL = 1e-5, 1e-4, 1e-5
 OPTIMIZERS = {"sgd": ("sgd", {"learning_rate": 0.1, "momentum": 0.9}),

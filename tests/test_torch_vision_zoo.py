@@ -23,6 +23,11 @@ from mxnet_tpu_torch import nd as tnd
 from mxnet_tpu_torch.convert import params_from_mxnet_tpu, params_to_numpy
 from mxnet_tpu_torch.gluon.model_zoo import vision as tvision
 
+import torch
+# six xdist workers share the host's cores: cap torch's intra-op
+# threads so that they do not starve one another
+torch.set_num_threads(1)
+
 TOL = 1e-4
 CLASSES = 10
 #: (the smallest input edge the architecture takes, the batch)
