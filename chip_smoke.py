@@ -152,7 +152,11 @@ Phases (each raises on failure, so any failure exits nonzero):
    ``amp.init(target_dtype="float16")`` with the dynamic ``LossScaler``: a
    step whose gradient is forced to inf leaves every weight and momentum
    bitwise unchanged and halves the scale; the next step updates.  (b) and
-   (c) launch none of K1-K4.
+   (c) launch none of K1-K4.  After (a)'s steps, ``nd.multi_all_finite``
+   over its gradients agrees with ``LossScaler.has_overflow`` and reads 0
+   with one inf planted in one gradient (``nd.all_finite`` of that one
+   too), and ``nd.amp_multicast`` casts a bf16 / fp32 pair to fp32
+   exactly.
 12. data -- the input pipeline (``io.DevicePrefetcher``, ``gluon.data``,
    ``recordio``, ``mx.random``, ``image.ImageDetIter``), no kernel of its
    own, none of K1-K4 launched (the counts are set to 0 at the start of
@@ -179,7 +183,10 @@ Phases (each raises on failure, so any failure exits nonzero):
    on the card of each ``_random_*`` row of ``tests/test_random.py``'s
    moment table within its tolerances, bitwise repeatable under one seed,
    the uniform draws through its chi-square test; the time of 10^6
-   uniform and normal draws.  (e) The SSD-300 input: ``ImageDetIter`` over
+   uniform and normal draws; then 10^6 draws of each of the 14 ``_npi_*``
+   samplers that carry the legacy aliases, held by the ``_npi_*`` rows of
+   the same table and the closed-form moments of the others.  (e) The
+   SSD-300 input: ``ImageDetIter`` over
    an indexed .rec of 128 seeded 375 x 500 PNG images with 1-8 boxes each
    (no JPEG decode on the card's machine), ``CreateDetAugmenter``'s chain
    (``rand_crop=0.5, rand_pad=0.5, rand_mirror=True, mean=True,
@@ -367,6 +374,25 @@ Phases (each raises on failure, so any failure exits nonzero):
    float64 (the momentum, the change, the batch statistics, the running
    statistics, and a planted fault, each rank's own statistics, that must
    fail); none of K1-K4 launched (``resnet_dp``).
+23. decode -- the GENERATE path (``phase_decode``): the demo LM (weights
+   from one numpy seed) at the reference bench's geometry (dim 8, 1 head,
+   6 layers, 8 slots, 48 tokens, prompt buckets 4 and 8) and at BERT-base's
+   widths (vocab 30522, 768, 12 heads, 12 layers, 32 slots, 128 tokens,
+   prompt buckets 64, 128 and 256).  At each: 32 seeded prompts (at the
+   wide geometry 8 over one 128-token prefix) through the flat engine and
+   the paged one (prefix sharing, chunked prefill), every token against
+   ``reference_generate`` (the unbatched oracle) on the card, a difference
+   allowed only at a float tie (the oracle's top-two logit gap in float64
+   below 1e-4 x max|logit|; at most one a 1,000 tokens); the same burst
+   over the wire (``serve_forever``, one streaming ``ServeClient.generate``
+   a prompt) answering the engine's lists; tokens/s, the step's p50 / p99
+   ms, the KV bytes and peak memory.  At BERT-base's widths and 12
+   layers the demo LM is ill-conditioned in float32 (float32's logits
+   ~10-30 % from float64's), so there the float32 run only measures, and
+   that rule is held with the engines, the oracle and the wire built on
+   float64 weights, and again in float32 at 4 layers of the same widths
+   (float32 ~4e-6 from float64's logits).  Decode's
+   attention is the composition: none of K1-K4 launched (``decode``).
 
 The last lines of standard output are the ``nvidia-smi`` name and power
 limit, one JSON object ``{"kernels": [...]}`` and, last,
@@ -3317,8 +3343,55 @@ def amp_bert(peaks, train_step_ms):
                            % (flash_calls, want))
     if dtypes != ["torch.float32"]:
         raise RuntimeError("amp bert: the master weights are %s" % dtypes)
+    rec["finite_checks"] = amp_finite_checks(net)
     del net, step
     return rec, counts
+
+
+def amp_finite_checks(net):
+    """After (a)'s steps: ``nd.multi_all_finite`` over every gradient of
+    ``net`` agrees with ``LossScaler.has_overflow``; with one inf planted
+    in one gradient it reads 0 (so does ``nd.all_finite`` of that
+    gradient, and the scaler sees the overflow); ``nd.amp_multicast`` of a
+    bf16 / fp32 pair casts both to fp32 with the bf16 values exact."""
+    from mxnet_tpu_torch import amp, nd
+    params = list(net.collect_params().values())
+    grads = [g for p in params for g in p.list_grad()]
+    scaler = amp.LossScaler()
+
+    def flag():
+        return float(nd.multi_all_finite(*grads, num_arrays=len(grads))
+                     .asnumpy()[0])
+    clean = flag()
+    overflow = scaler.has_overflow(params)
+    ms = time_ms(flag, iters=5, warmup=1)
+    target = grads[len(grads) // 2]
+    keep = target.data.view(-1)[0].clone()
+    target.data.view(-1)[0] = float("inf")
+    try:
+        planted = flag()
+        planted_one = float(nd.all_finite(target).asnumpy()[0])
+        planted_overflow = scaler.has_overflow(params)
+    finally:
+        target.data.view(-1)[0] = keep
+    a = nd.array(np.linspace(-3, 3, 64, dtype=np.float32),
+                 ctx=target.context).astype("bfloat16")
+    b = nd.array(np.ones(16, np.float32), ctx=target.context)
+    cast = nd.amp_multicast(a, b, num_outputs=2)
+    rec = {"gradients": len(grads), "multi_all_finite": clean,
+           "has_overflow": overflow, "multi_all_finite_ms": ms,
+           "planted": planted, "planted_all_finite": planted_one,
+           "planted_has_overflow": planted_overflow,
+           "multicast_dtypes": [str(c.dtype) for c in cast]}
+    log("amp: finite %s" % json.dumps(rec))
+    if (clean == 1.0) == overflow or planted != 0.0 or planted_one != 0.0 \
+            or not planted_overflow:
+        raise RuntimeError("amp: the finite checks disagree: %s" % rec)
+    if rec["multicast_dtypes"] != ["float32", "float32"] or not \
+            torch.equal(cast[0].data, a.data.float()):
+        raise RuntimeError("amp: amp_multicast of bf16 / fp32 gave %s"
+                           % rec["multicast_dtypes"])
+    return rec
 
 
 def amp_resnet18():
@@ -3537,7 +3610,7 @@ RECORD_MAX = RESNET_IMAGE * RESNET_IMAGE * 3    # one 224 x 224 x 3 image
 RECORD_MAGIC = (0xced7230a).to_bytes(4, "little")
 RANDOM_N = 1_000_000
 # the _random_* rows of tests/test_random.py's MOMENTS table: (op,
-# params, mean, variance); its _npi_* rows wait for the numpy front end
+# params, mean, variance); its _npi_* rows are NPI_MOMENTS's first six
 RANDOM_MOMENTS = [
     ("_random_uniform", {"low": -1.0, "high": 3.0}, 1.0, 16.0 / 12.0),
     ("_random_normal", {"loc": 2.0, "scale": 3.0}, 2.0, 9.0),
@@ -3983,6 +4056,99 @@ def data_random():
     return rec
 
 
+def _logseries_moments(p):
+    lg = np.log(1 - p)
+    return (-p / ((1 - p) * lg), -p * (p + lg) / ((1 - p) ** 2 * lg ** 2))
+
+
+def _zeta(s, terms=100000):
+    """Riemann's zeta by its series and the integral of the tail."""
+    n = np.arange(1, terms + 1, dtype=np.float64)
+    return float((n ** -s).sum() + terms ** (1 - s) / (s - 1))
+
+
+# the 14 numpy-era samplers carrying the legacy aliases: the _npi_* rows of
+# tests/test_random.py's MOMENTS table, then the closed-form moments of the
+# other eight (dirichlet by its first component; vonmises by its circular
+# mean and resultant length i1(4) / i0(4); standard_cauchy by its
+# quartiles, -1 and 1) -- (op, params, mean, variance)
+NPI_MOMENTS = [
+    ("_npi_laplace", {"loc": -1.0, "scale": 0.5}, -1.0, 2.0 * 0.25),
+    ("_npi_beta", {"a": 2.0, "b": 6.0}, 0.25, 2.0 * 6.0 / (64.0 * 9.0)),
+    ("_npi_chisquare", {"df": 5.0}, 5.0, 10.0),
+    ("_npi_standard_t", {"df": 10.0}, 0.0, 10.0 / 8.0),
+    ("_npi_lognormal", {"mean": 0.0, "sigma": 0.5}, np.exp(0.125),
+     (np.exp(0.25) - 1) * np.exp(0.25)),
+    ("_npi_triangular", {"left": 0.0, "mode": 1.0, "right": 2.0}, 1.0,
+     4.0 / 24.0),
+    ("_npi_standard_gamma", {"shape_param": 2.0}, 2.0, 2.0),
+    ("_npi_noncentral_chisquare", {"df": 3.0, "nonc": 2.0}, 5.0, 14.0),
+    ("_npi_wald", {"mean": 3.0, "scale": 2.0}, 3.0, 13.5),
+    ("_npi_logseries", {"p": 0.5}) + _logseries_moments(0.5),
+    ("_npi_zipf", {"a": 6.0}, _zeta(5.0) / _zeta(6.0),
+     _zeta(4.0) / _zeta(6.0) - (_zeta(5.0) / _zeta(6.0)) ** 2),
+    ("_npi_dirichlet", {"alpha": (1.0, 2.0, 3.0)}, 1.0 / 6.0,
+     5.0 / (36.0 * 7.0)),
+    ("_npi_vonmises", {"mu": 0.5, "kappa": 4.0}, 0.5, None),
+    ("_npi_standard_cauchy", {}, 0.0, None),
+]
+VONMISES_R = 0.8635078        # i1(4) / i0(4)
+
+
+def data_samplers():
+    """(d) continued: 10^6 draws on the card of each of ``NPI_MOMENTS``'s
+    14 samplers, held by mean and variance at ``tests/test_random.py``'s
+    tolerances (5 standard errors + 1e-3, 15 % + 5e-3); ``vonmises`` by its
+    circular mean (within 0.02) and resultant length (within 0.01), the
+    Cauchy by its quartiles (5 standard errors of a sample quantile); each
+    repeats bitwise under one seed; ms of each draw (CUDA events)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray.ndarray import invoke
+    gpu = mx.gpu(0)
+    rows, bad = [], []
+    for op, params, mean, var in NPI_MOMENTS:
+        mx.random.seed(7)
+        x = invoke(op, size=(RANDOM_N,), ctx=gpu, **params).data
+        mx.random.seed(7)
+        again = invoke(op, size=(RANDOM_N,), ctx=gpu, **params).data
+        xd = x.double()
+        if op == "_npi_dirichlet":
+            xd = xd[:, 0]
+        row = {"op": op, "repeat_bitwise": torch.equal(x, again),
+               "ms": time_ms(lambda: invoke(op, size=(RANDOM_N,), ctx=gpu,
+                                            **params), iters=5, warmup=1)}
+        ok = x.is_cuda and row["repeat_bitwise"] and \
+            bool(torch.isfinite(xd).all())
+        if op == "_npi_vonmises":
+            z = torch.complex(torch.cos(xd), torch.sin(xd)).mean()
+            row.update(circular_mean=float(torch.angle(z)),
+                       resultant=float(z.abs()))
+            ok = ok and abs(row["circular_mean"] - mean) < 0.02 and \
+                abs(row["resultant"] - VONMISES_R) < 0.01
+        elif op == "_npi_standard_cauchy":
+            q = torch.quantile(xd, torch.tensor(
+                [0.25, 0.5, 0.75], dtype=torch.float64, device=xd.device))
+            se = np.sqrt(0.25 * 0.75 / RANDOM_N) * 2 * np.pi
+            row.update(quartiles=[float(v) for v in q])
+            ok = ok and abs(row["quartiles"][0] + 1) < 5 * se and \
+                abs(row["quartiles"][2] - 1) < 5 * se and \
+                abs(row["quartiles"][1]) < 5 * np.pi * np.sqrt(0.25 /
+                                                              RANDOM_N)
+        else:
+            m, v = float(xd.mean()), float(xd.var(unbiased=False))
+            row.update(mean=m, want_mean=mean, var=v, want_var=var)
+            ok = ok and abs(m - mean) < 5 * np.sqrt(var / RANDOM_N) + \
+                1e-3 and abs(v - var) < 0.15 * var + 5e-3
+        row["ok"] = bool(ok)
+        rows.append(row)
+        if not ok:
+            bad.append(row)
+    log("data: samplers %s" % json.dumps({"n": RANDOM_N, "rows": rows}))
+    if bad:
+        raise RuntimeError("data: the _npi_* samplers on the card: %s" % bad)
+    return rows
+
+
 DET_SHAPE = (3, 300, 300)        # SSD-300's input
 DET_BATCH, DET_BATCHES = 32, 4
 DET_MAX_OBJECTS = 8
@@ -4149,6 +4315,7 @@ def phase_data():
     torch.cuda.empty_cache()
     data_recordio()
     data_random()
+    data_samplers()
     launches = _kernels.launch_counts()
     _kernels.reset_launches()
     data_det()
@@ -8004,6 +8171,387 @@ def phase_resnet_dp(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 23. decode: the GENERATE path (serve/decode.py, serve/paging.py)
+# ---------------------------------------------------------------------------
+
+# the demo LM at two geometries: the reference bench's decode lane
+# (bench.py run_decode_bench) and BERT-base's widths.  ``exact``: the
+# float32 engines' tokens must equal reference_generate's (a float tie
+# aside).  At BERT-base's widths and 12 layers the demo LM is
+# ill-conditioned in float32 (its residual stream grows ~400x over the 12
+# layers and the attention softmax sharpens with it, so float32's logits
+# are ~10-30 % from float64's and two float32 computations that only sum
+# in another order part ways): float32 cannot decide the tokens there, so
+# that run is measured and gated only on lengths, retraces and KV bytes.
+# The exact rule is held there twice: in float64 at 12 layers, and in
+# float32 at DECODE_EXACT_LAYERS layers of the same widths (the first
+# layers of the same weights, float32 within ~4e-6 of float64's logits).
+DECODE_GEOMETRIES = [
+    ("bench", dict(dim=8, heads=1, layers=6, slots=8, max_tokens=48,
+                   prompt_buckets=(4, 8)),
+     dict(long_new=48, short_new=2), True),
+    ("bert_base", dict(vocab=VOCAB, dim=768, heads=12, layers=12, slots=32,
+                       max_tokens=128, prompt_buckets=(64, 128, 256),
+                       prefill_chunk=64),
+     dict(long_new=64, short_new=16), False),
+]
+DECODE_EXACT_LAYERS = 4
+DECODE_PROMPTS = 32
+DECODE_SHARED = 8               # prompts over one 128-token prefix (wide)
+DECODE_SHARED_LEN = 128
+DECODE_TIE_REL = 1e-4           # a top-two logit gap below this x max|logit|
+DECODE_TIES_PER_1000 = 1        # is a float tie; at most this many
+DECODE_STEP_TIMED = 50
+
+
+def decode_workload(cfg, long_new, short_new, seed):
+    """32 seeded prompts and their max_new: a quarter short generations;
+    at the wide geometry the first 8 share one 128-token prefix (the
+    second is the prefix alone: a full-coverage hit, the copy-on-write
+    fork).  The bursts admit the first prompt alone, so its prefix pages
+    are published before the others arrive."""
+    rng = np.random.RandomState(seed)
+    top = cfg.prompt_buckets[-1]
+    lo = 2 if top <= 8 else 16
+    prompts = [rng.randint(1, cfg.vocab, size=rng.randint(lo, top + 1))
+               .tolist() for _ in range(DECODE_PROMPTS)]
+    if top >= 2 * DECODE_SHARED_LEN:
+        prefix = rng.randint(1, cfg.vocab, size=DECODE_SHARED_LEN).tolist()
+        for i in range(min(DECODE_SHARED, DECODE_PROMPTS)):
+            extra = 0 if i == 1 else rng.randint(1, top - DECODE_SHARED_LEN)
+            prompts[i] = prefix + rng.randint(1, cfg.vocab,
+                                              size=extra).tolist()
+    news = [short_new if i % 4 == 3 else long_new
+            for i in range(DECODE_PROMPTS)]
+    return prompts, news
+
+
+def lm_logits(params, cfg, seq):
+    """The demo LM's next-token logits at every position of ``seq``, in
+    ``params``' dtype: a causal recompute without any cache."""
+    x = params["emb"][torch.tensor(seq, device=params["emb"].device)]
+    n = x.shape[0]
+    causal = torch.ones(n, n, dtype=torch.bool, device=x.device).tril()
+    for l in range(cfg.layers):
+        def heads(w):
+            return (x @ params["l%d.%s" % (l, w)]).reshape(
+                n, cfg.heads, cfg.head_dim).transpose(0, 1)
+        s = heads("wq") @ heads("wk").transpose(1, 2) / \
+            np.sqrt(cfg.head_dim)
+        att = torch.softmax(s.masked_fill(~causal, float("-inf")), -1) @ \
+            heads("wv")
+        x = x + att.transpose(0, 1).reshape(n, cfg.dim) @ \
+            params["l%d.wo" % l]
+        x = x + torch.clamp_min(x @ params["l%d.w1" % l], 0.0) @ \
+            params["l%d.w2" % l]
+    return x @ params["unemb"]
+
+
+def decode_compare(label, got, want, prompts, p64, cfg):
+    """The exact rule: each generated list equals the oracle's, or equal
+    up to a float tie at the first differing position (the oracle's
+    top-two logit gap there, in float64, below ``DECODE_TIE_REL`` x
+    max|logit|), after which that sequence is compared no further.
+    Returns the ties; any other difference raises."""
+    ties, bad = [], []
+    for i, (g, w, p) in enumerate(zip(got, want, prompts)):
+        if g == w:
+            continue
+        j = next((k for k, (a, b) in enumerate(zip(g, w)) if a != b),
+                 min(len(g), len(w)))
+        rel = None
+        if j < min(len(g), len(w)):
+            logits = lm_logits(p64, cfg, p + w[:j])[-1]
+            top2 = torch.topk(logits, 2).values
+            rel = float(top2[0] - top2[1]) / float(logits.abs().max())
+        if rel is not None and rel < DECODE_TIE_REL:
+            ties.append({"seq": i, "pos": j, "rel_gap": rel})
+            log("decode: %s: a float tie in sequence %d at position %d "
+                "(%.3g of max|logit|)" % (label, i, j, rel))
+        else:
+            bad.append({"seq": i, "pos": j, "got": g[j:j + 4],
+                        "want": w[j:j + 4], "rel_gap": rel})
+    if bad:
+        raise RuntimeError("decode: %s differs from reference_generate: %s"
+                           % (label, bad[:4]))
+    return ties
+
+
+def decode_planted(label, outs, oracle, prompts, p64, cfg):
+    """The exact rule on a planted fault: one token of a sequence that
+    equals the oracle's, moved to the next vocabulary id, must fail
+    :func:`decode_compare`.  Returns where it was planted."""
+    i = next(k for k, (g, w) in enumerate(zip(outs, oracle)) if g == w)
+    bad = [list(o) for o in outs]
+    j = len(bad[i]) // 2
+    bad[i][j] = (bad[i][j] + 1) % cfg.vocab
+    try:
+        decode_compare(label + " planted", bad, oracle, prompts, p64, cfg)
+    except RuntimeError:
+        return {"seq": i, "pos": j, "failed": True}
+    raise RuntimeError("decode: %s: a planted wrong token passed the exact "
+                       "rule" % label)
+
+
+def decode_burst(eng, prompts, news):
+    """The first prompt, then, once its first token is out, the rest at
+    once; (token lists, seconds, inter-token gaps in ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gens = [eng.submit(prompts[0], max_new=news[0])]
+    gens[0].wait_new(0, timeout=60)
+    gens += [eng.submit(p, max_new=n) for p, n in zip(prompts[1:],
+                                                      news[1:])]
+    outs = [g.result(timeout=300) for g in gens]
+    dt = time.perf_counter() - t0
+    gaps = sorted(t * 1e3 for g in gens for t in g.token_times[1:])
+    return outs, dt, gaps
+
+
+def decode_wire(eng, prompts, news):
+    """The burst over the wire: ``serve_forever`` hosting ``eng``, one
+    streaming ``ServeClient.generate`` a prompt from its own thread, the
+    first alone until its prefill is done; (terminal lists, streamed
+    lists, seconds)."""
+    from mxnet_tpu_torch.serve import ServeClient, ServeServer, serve_forever
+    from mxnet_tpu_torch.telemetry import registry
+    port = _free_port()
+    state = ServeServer(decode=eng)
+    stop_ev, ready = threading.Event(), threading.Event()
+    srv = threading.Thread(target=serve_forever, daemon=True, kwargs=dict(
+        port=port, state=state, stop_event=stop_ev, bind="127.0.0.1",
+        ready_event=ready))
+    srv.start()
+    if not ready.wait(60):
+        raise RuntimeError("decode: the replica did not come up")
+    out, streamed, errors = {}, {}, []
+
+    def call(i):
+        got = []
+        try:
+            with ServeClient(["127.0.0.1:%d" % port], timeout=120) as cli:
+                out[i] = cli.generate(prompts[i], max_tokens=news[i],
+                                      on_token=got.extend)[1]
+            streamed[i] = got
+        except Exception as e:          # noqa: BLE001 — raised below
+            errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=call, args=(i,))
+               for i in range(len(prompts))]
+    prefills = registry.value("serve.decode.prefills")
+    threads[0].start()
+    while registry.value("serve.decode.prefills") == prefills and \
+            time.perf_counter() - t0 < 60:
+        time.sleep(0.001)
+    for t in threads[1:]:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    dt = time.perf_counter() - t0
+    stop_ev.set()
+    srv.join(timeout=30)
+    if errors or len(out) != len(prompts):
+        raise RuntimeError("decode: GENERATE over the wire failed: %s"
+                           % errors[:4])
+    return ([out[i] for i in range(len(prompts))],
+            [streamed[i] for i in range(len(prompts))], dt)
+
+
+def decode_step_ms(sv):
+    """Device ms of one decode step over every slot (the full bucket),
+    CUDA events around each of ``DECODE_STEP_TIMED`` steps: p50, p99."""
+    ids = np.arange(sv.config.slots, dtype=np.int32)
+    sv._reset_bookkeeping()             # every slot from position 0
+    times = []
+    for _ in range(DECODE_STEP_TIMED + 3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        sv.dispatch_step(ids)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    sv._reset_bookkeeping()
+    times = sorted(times[3:])
+    return {"p50": float(np.percentile(times, 50)),
+            "p99": float(np.percentile(times, 99))}
+
+
+def decode_run(label, cfg, params, prompts, news, check):
+    """(a) The flat and the paged engine (prefix sharing, chunked prefill)
+    built on ``params`` (their dtype is the engines') on the burst; with
+    ``check``, every token against ``reference_generate`` (the unbatched
+    oracle) in that dtype by the exact rule (:func:`decode_compare`), and
+    then (b) the burst over the wire through the paged engine, streamed,
+    answering (a)'s lists; without, measured.  Returns the record."""
+    from mxnet_tpu_torch.serve.decode import (
+        DecodeBatcher, DecodeServable, PagedDecodeBatcher,
+        PagedDecodeServable, reference_generate)
+    from mxnet_tpu_torch.telemetry import registry
+    t0 = time.perf_counter()
+    oracle = [reference_generate(p, n, params=params, config=cfg)
+              for p, n in zip(prompts, news)] if check else None
+    n_tokens = sum(news)
+    rec = {"dtype": str(params["emb"].dtype), "layers": cfg.layers,
+           "tokens": n_tokens, "held": bool(check),
+           "oracle_s": time.perf_counter() - t0}
+    p64 = {k: v.double() for k, v in params.items()}
+    ties = []
+    for engine, sv_cls, eng_cls in (("flat", DecodeServable, DecodeBatcher),
+                                    ("paged", PagedDecodeServable,
+                                     PagedDecodeBatcher)):
+        torch.cuda.reset_peak_memory_stats()
+        sv = sv_cls(config=cfg, params=params, device=params["emb"].device)
+        if sv.params["emb"].dtype != params["emb"].dtype or \
+                sv._state["k"].dtype != params["emb"].dtype:
+            raise RuntimeError("decode: %s %s did not keep the parameters' "
+                               "dtype" % (label, engine))
+        t_warm = time.perf_counter()
+        sv.warm()
+        t_warm = time.perf_counter() - t_warm
+        retraces = sv.retraces
+        kv0 = sv.kv_state_bytes()
+        cow0 = registry.value("serve.decode.cow_forks")
+        shared0 = registry.value("serve.decode.shared_page_hits")
+        eng = eng_cls(sv, queue_cap=4 * DECODE_PROMPTS)
+        outs, dt, gaps = decode_burst(eng, prompts, news)
+        r = {"warm_s": t_warm, "burst_s": dt,
+             "tokens_per_s": sum(len(o) for o in outs) / dt,
+             "inter_token_p50_ms": float(np.percentile(gaps, 50)),
+             "inter_token_p99_ms": float(np.percentile(gaps, 99)),
+             "kv_bytes": sv.kv_state_bytes(),
+             "serve_retraces": sv.retraces - retraces,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if [len(o) for o in outs] != list(news):
+            raise RuntimeError("decode: %s %s generated other lengths than "
+                               "asked" % (label, engine))
+        if check:
+            ties += decode_compare("%s %s" % (label, engine), outs, oracle,
+                                   prompts, p64, cfg)
+            r["planted"] = decode_planted(label, outs, oracle, prompts, p64,
+                                          cfg)
+        if sv.retraces != retraces or sv.kv_state_bytes() != kv0:
+            raise RuntimeError("decode: %s %s retraced %d programs or its KV "
+                               "bytes moved" % (label, engine,
+                                                sv.retraces - retraces))
+        if engine == "paged":
+            r["page_stats"] = eng.page_stats()
+            r["cow_forks"] = registry.value("serve.decode.cow_forks") - cow0
+            r["shared_page_hits"] = registry.value(
+                "serve.decode.shared_page_hits") - shared0
+            if cfg.prompt_buckets[-1] >= 2 * DECODE_SHARED_LEN and not (
+                    r["cow_forks"] and r["shared_page_hits"]):
+                raise RuntimeError("decode: %s paged shared no prefix page "
+                                   "(%r)" % (label, r))
+        if engine == "paged" and check:
+            # (b) the same burst over the wire, through this engine: the
+            # same lists (a sequence with a tie in (a) may part there)
+            wire, streamed, wdt = decode_wire(eng, prompts, news)
+            tied = {t["seq"] for t in ties}
+            if streamed != wire or any(wire[i] != outs[i]
+                                       for i in range(len(outs))
+                                       if i not in tied):
+                raise RuntimeError("decode: %s GENERATE over the wire "
+                                   "answered other tokens than the engine"
+                                   % label)
+            r["wire_burst_s"] = wdt
+            r["wire_tokens_per_s"] = sum(len(o) for o in wire) / wdt
+        if engine == "flat" and params["emb"].dtype == torch.float32:
+            eng.close()
+            r["step_ms"] = decode_step_ms(sv)
+        eng.close()
+        rec[engine] = r
+        del eng, sv
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the flat and the paged burst each compare every token
+    if len(ties) * 1000 > DECODE_TIES_PER_1000 * 2 * n_tokens:
+        raise RuntimeError("decode: %s has %d float ties in %d tokens"
+                           % (label, len(ties), n_tokens))
+    rec["ties"] = ties
+    return rec
+
+
+def decode_conditioning(kw, params, prompt):
+    """float32's distance from float64 at each depth of the model: over
+    the positions of ``prompt``, max|logits32 - logits64| / max|logits64|
+    of the first 1, 2, ... layers of ``params`` (:func:`lm_logits`)."""
+    from mxnet_tpu_torch.serve.decode import DecodeConfig
+    p64 = {k: v.double() for k, v in params.items()}
+    out = []
+    for depth in range(1, kw["layers"] + 1):
+        cut = DecodeConfig(**dict(kw, layers=depth))
+        l32 = lm_logits(params, cut, prompt).double()
+        l64 = lm_logits(p64, cut, prompt)
+        out.append(float(((l32 - l64).abs().max(dim=1).values /
+                          l64.abs().max(dim=1).values).max()))
+    return out
+
+
+def decode_geometry(label, kw, load, exact, smi):
+    """One geometry: :func:`decode_run` in float32, held (``exact``) or
+    measured; at a geometry that is not ``exact``, held again in float64
+    at the full depth and in float32 at ``DECODE_EXACT_LAYERS`` layers;
+    (c) the figures."""
+    from mxnet_tpu_torch.serve.decode import DecodeConfig, demo_lm_params
+    dev = torch.device("cuda", 0)
+    cfg = DecodeConfig(**kw)
+    params = demo_lm_params(cfg, dev)
+    prompts, news = decode_workload(cfg, seed=SEED, **load)
+    rec = {"geometry": label, "config": repr(cfg), "prompts": len(prompts),
+           "float32": decode_run(label, cfg, params, prompts, news, exact)}
+    if not exact:
+        rec["float32_logit_err_by_depth"] = decode_conditioning(
+            kw, params, prompts[0])
+        rec["float64"] = decode_run(label + " float64", cfg,
+                                    {k: v.double() for k, v in
+                                     params.items()}, prompts, news, True)
+        del params
+        cut = DecodeConfig(**dict(kw, layers=DECODE_EXACT_LAYERS))
+        rec["float32_cut"] = decode_run(
+            "%s float32 at %d layers" % (label, DECODE_EXACT_LAYERS), cut,
+            demo_lm_params(cut, dev), prompts, news, True)
+    held = [k for k in ("float32", "float64", "float32_cut")
+            if k in rec and rec[k]["held"]]
+    f32 = rec["float32"]
+    log("decode: %s %s" % (label, json.dumps(rec)))
+    if not exact:
+        log("decode: %s float32 from float64, max|d logits| / max|logit| "
+            "by depth 1..%d: %s" % (label, cfg.layers, " ".join(
+                "%.3g" % e for e in rec["float32_logit_err_by_depth"])))
+    log("decode: %s flat %.1f tokens/s, paged %.1f (float32, %d layers), "
+        "over the wire %s tokens/s; step p50 %.3f / p99 %.3f ms at %d "
+        "slots; KV %d bytes; every token held in %s; %s"
+        % (label, f32["flat"]["tokens_per_s"], f32["paged"]["tokens_per_s"],
+           cfg.layers, " / ".join("%.1f (%s)" % (
+               rec[k]["paged"]["wire_tokens_per_s"], k) for k in held),
+           f32["flat"]["step_ms"]["p50"], f32["flat"]["step_ms"]["p99"],
+           cfg.slots, f32["flat"]["kv_bytes"], ", ".join(held), smi))
+    return rec
+
+
+def phase_decode(smi):
+    """The decode engine on the card at the two geometries of
+    ``DECODE_GEOMETRIES`` (:func:`decode_geometry`).  The launch counts are
+    set to 0 at the start and read at the end: decode's attention is the
+    composition in both packages, so none of K1-K4 may launch.  Returns
+    the launches."""
+    from mxnet_tpu_torch.ops import _kernels
+    t0 = time.perf_counter()
+    _kernels.reset_launches()
+    recs = [decode_geometry(label, kw, load, exact, smi)
+            for label, kw, load, exact in DECODE_GEOMETRIES]
+    launches = _kernels.launch_counts()
+    if any(launches.values()):
+        raise RuntimeError("decode: launched %s; decode takes the "
+                           "composition, none of K1-K4" % launches)
+    log("decode: both geometries in %.1f s, K1-K4 launches %s"
+        % (time.perf_counter() - t0, launches))
+    return launches, recs
+
+
 def kernel_row(name, source, replaces, launches, fp32, bf16, extra=None):
     """One entry of the kernels line: the fp32 figures under the contract's
     keys, the bf16 ones under ``bf16_``, and those of ``extra`` (another
@@ -8092,6 +8640,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     resnet_dp_launches = phase_resnet_dp(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    decode_launches, _decode = phase_decode(smi)
     by_path = {k: {"serve": serve_launches[k], "train": train_launches[k],
                    "imperative": imperative_launches[k],
                    "resnet": resnet_launches[k],
@@ -8105,7 +8656,8 @@ def main():
                    "tensor": tensor_launches.get(k, 0),
                    "several": several_launches.get(k, 0),
                    "resnet_dp": resnet_dp_launches.get(k, 0),
-                   "save_load": save_load_launches.get(k, 0)}
+                   "save_load": save_load_launches.get(k, 0),
+                   "decode": decode_launches.get(k, 0)}
                for k in imperative_launches}
     fp32, bf16 = torch.float32, torch.bfloat16
     kernels = [
@@ -8147,7 +8699,9 @@ def main():
                      "resnet_dp": resnet_dp_launches.get(
                          "tpu_kernel:" + body, 0),
                      "save_load": save_load_launches.get(
-                         "tpu_kernel:" + body, 0)},
+                         "tpu_kernel:" + body, 0),
+                     "decode": decode_launches.get("tpu_kernel:" + body,
+                                                   0)},
                     user[(body, fp32)], user[(body, bf16)],
                     {"default_grid_": user[(body + ":default_grid", fp32)],
                      "bf16_default_grid_": user[(body + ":default_grid",

@@ -40,8 +40,9 @@ the launcher's supervisor (``--restart``, ``--hang-timeout``,
 """
 import sys as _sys
 
-from .base import MXNetError, get_env
-from .device import (Context, Device, cpu, gpu, current_context,
+from .base import MXNetError, get_env, set_env, environment
+from .device import (Context, Device, cpu, gpu, cpu_pinned,
+                     current_context,
                      current_device, default_device, num_gpus,
                      gpu_memory_info)
 from . import device as context
@@ -62,6 +63,7 @@ from .ndarray import NDArray, waitall
 from . import gluon
 from . import serve
 from . import kvstore
+from . import kvstore as kv
 from . import parallel
 from . import checkpoint
 from . import health
@@ -71,16 +73,20 @@ from . import recordio
 from . import image
 from . import io
 from . import amp
+from . import contrib
 
 # the reference's ``mx.context`` is a module of its own
 _sys.modules[__name__ + ".context"] = context
+# ``mx.nd.contrib`` is importable by its dotted name from the start (the
+# reference registers it only at the first attribute access)
+_sys.modules[__name__ + ".ndarray.contrib"] = contrib.ndarray
 
-__all__ = ["MXNetError", "get_env", "Context", "Device", "cpu", "gpu",
-           "current_context", "current_device", "default_device",
+__all__ = ["MXNetError", "get_env", "set_env", "environment", "Context",
+           "Device", "cpu", "gpu", "cpu_pinned", "current_context", "current_device", "default_device",
            "num_gpus", "gpu_memory_info", "context", "NDArray", "waitall",
            "initializer", "init", "fault", "profiler", "telemetry",
            "engine", "ops", "lr_scheduler", "optimizer", "metric", "autograd",
-           "ndarray", "nd", "gluon", "serve", "kvstore", "parallel",
+           "ndarray", "nd", "gluon", "serve", "kvstore", "kv", "parallel",
            "checkpoint", "health",
            "tpu_kernel",
-           "random", "recordio", "image", "io", "amp"]
+           "random", "recordio", "image", "io", "amp", "contrib"]

@@ -1,17 +1,20 @@
 """Errors and environment knobs of the PyTorch port.
 
-Counterpart of ``mxnet_tpu/base.py``: :class:`MXNetError` and
-:func:`get_env`, with the catalog limited to the knobs the port reads.
+Counterpart of ``mxnet_tpu/base.py``: :class:`MXNetError`,
+:func:`get_env` with the process-local overrides of :func:`set_env` and
+:class:`environment`, and the catalog limited to the knobs the port reads.
 """
 from __future__ import annotations
 
 import os
-from typing import Any, Callable
+import threading
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "ENV_CATALOG", "get_env", "DTYPES", "NARROWED",
+__all__ = ["MXNetError", "ENV_CATALOG", "get_env", "set_env",
+           "environment", "DTYPES", "NARROWED",
            "torch_dtype", "dtype_name", "string_types", "numeric_types",
            "integer_types"]
 
@@ -42,6 +45,41 @@ ENV_CATALOG = {
     "MX_SERVE_TIMEOUT": ("30", "Seconds a client waits for one reply, and "
                          "the server-side bound on a request waiting for its "
                          "batch."),
+    "MX_SERVE_DECODE_SLOTS": ("8", "Decode engine (serve/decode.py): "
+                              "concurrent generation slots in the KV-cache "
+                              "pool, allocated once on the device and "
+                              "updated in place by every dispatch; decode "
+                              "steps bucket by active-slot count (powers "
+                              "of two up to this)."),
+    "MX_SERVE_DECODE_MAX_TOKENS": ("32", "Decode engine: cap on generated "
+                                   "tokens per GENERATE request (a "
+                                   "request's max_tokens clamps to it)."),
+    "MX_SERVE_DECODE_PAGE": ("16", "Decode engine: KV page size in token "
+                             "positions; each slot's extent (top prompt "
+                             "bucket + max tokens + the overrun margin) "
+                             "rounds up to whole pages."),
+    "MX_SERVE_DECODE_PROMPT_BUCKETS": ("4,8,16", "Decode engine: "
+                                       "comma-separated prompt-length "
+                                       "buckets; a prompt pads to the "
+                                       "smallest covering one, a longer "
+                                       "prompt is refused at admission."),
+    "MX_SERVE_KV_PAGES": ("0", "Paged decode engine: physical pages in the "
+                          "shared KV page heap; 0 sizes it to (slots + 1) "
+                          "x pages per slot, the flat pool's bytes."),
+    "MX_SERVE_KV_PAGE_LEN": ("0", "Paged decode engine: token positions "
+                             "per physical page; 0 takes "
+                             "MX_SERVE_DECODE_PAGE."),
+    "MX_SERVE_PREFIX_SHARE": ("1", "Paged decode engine: 1 shares full "
+                              "prompt pages across sessions by a chained "
+                              "content hash (copy-on-write at a "
+                              "divergence); 0 disables sharing."),
+    "MX_SERVE_PREFILL_CHUNK": ("0", "Paged decode engine: prefill chunk "
+                               "length in positions (rounded up to whole "
+                               "pages; 0 = one page); chunks interleave "
+                               "with decode steps."),
+    "MX_SERVE_SPEC_K": ("4", "Speculative decoding: tokens the draft "
+                        "proposes per window (1..8); one verify dispatch "
+                        "commits 1..spec_k of them."),
     "MX_SERVE_REPLAY_CAP": ("512", "Bound on the exactly-once replay cache "
                             "(one entry per client id, LRU over resolved "
                             "entries; values < 1 clamp to 1)."),
@@ -198,11 +236,18 @@ ENV_CATALOG = {
 }
 
 
+_env_overrides: Dict[str, str] = {}
+_env_lock = threading.Lock()
+
+
 def get_env(name: str, default: Any = None, dtype: Callable = str) -> Any:
-    """Read an environment knob, falling back to ``default`` and then to
-    the catalog default; a value ``dtype`` cannot parse gives the
-    default."""
-    val = os.environ.get(name)
+    """Read an environment knob (a :func:`set_env` override first, then
+    ``os.environ``), falling back to ``default`` and then to the catalog
+    default; a value ``dtype`` cannot parse gives the default."""
+    with _env_lock:
+        val = _env_overrides.get(name)
+        if val is None:
+            val = os.environ.get(name)
     if val is None:
         if default is None and name in ENV_CATALOG:
             default = ENV_CATALOG[name][0]
@@ -215,6 +260,45 @@ def get_env(name: str, default: Any = None, dtype: Callable = str) -> Any:
         return dtype(val)
     except (TypeError, ValueError):
         return default
+
+
+def set_env(name: str, value: Optional[str]) -> None:
+    """Set (or with None, unset) a process-local override of knob
+    ``name``, kept in step with ``os.environ``.  Unsetting removes the
+    override, so a later direct ``os.environ`` write is read again."""
+    with _env_lock:
+        if value is None:
+            _env_overrides.pop(name, None)
+            os.environ.pop(name, None)
+        else:
+            _env_overrides[name] = str(value)
+            os.environ[name] = str(value)
+
+
+class environment:
+    """A scope of knob overrides: ``environment(name, value)`` or
+    ``environment({name: value, ...})``; a value of None unsets the knob
+    inside the scope, and leaving the scope restores what was there."""
+
+    def __init__(self, *args):
+        if len(args) == 1 and isinstance(args[0], dict):
+            self._kwargs = dict(args[0])
+        elif len(args) == 2:
+            self._kwargs = {args[0]: args[1]}
+        else:
+            raise ValueError("environment() takes (name, value) or a dict")
+        self._saved: Dict[str, Optional[str]] = {}
+
+    def __enter__(self):
+        for k, v in self._kwargs.items():
+            self._saved[k] = os.environ.get(k)
+            set_env(k, v)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self._saved.items():
+            set_env(k, v)
+        return False
 
 
 #: dtype names (the reference's, numpy's) -> torch dtypes

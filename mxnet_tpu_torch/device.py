@@ -21,17 +21,23 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "Device", "cpu", "gpu", "current_context",
+__all__ = ["Context", "Device", "cpu", "gpu", "cpu_pinned",
+           "current_context",
            "current_device", "default_device", "resolve", "as_context",
            "in_context",
            "num_gpus", "gpu_memory_info"]
 
 
 class Context:
-    """A device context; ``device_type`` is 'cpu' or 'gpu'."""
+    """A device context; ``device_type`` is 'cpu', 'gpu' or 'cpu_pinned'.
 
-    devtype2str = {1: "cpu", 2: "gpu"}
-    devstr2type = {"cpu": 1, "gpu": 2}
+    'cpu_pinned' (device type 3) names host memory and aliases the CPU, as
+    in the reference: it is the same torch device as 'cpu', equal to
+    ``cpu(i)`` of the same id, and an array made on it holds the same
+    values (the port does not pin it; pinning changes no value)."""
+
+    devtype2str = {1: "cpu", 2: "gpu", 3: "cpu_pinned"}
+    devstr2type = {"cpu": 1, "gpu": 2, "cpu_pinned": 3}
     _default_ctx = threading.local()
 
     __slots__ = ("device_typeid", "device_id", "_old_ctx")
@@ -42,8 +48,8 @@ class Context:
             self.device_id = device_type.device_id
         elif isinstance(device_type, str):
             if device_type not in Context.devstr2type:
-                raise MXNetError("unknown device type %r (cpu or gpu)"
-                                 % device_type)
+                raise MXNetError("unknown device type %r (cpu, gpu or "
+                                 "cpu_pinned)" % device_type)
             self.device_typeid = Context.devstr2type[device_type]
             self.device_id = int(device_id)
         else:
@@ -55,12 +61,18 @@ class Context:
     def device_type(self) -> str:
         return Context.devtype2str[self.device_typeid]
 
+    @property
+    def canonical_type(self) -> str:
+        """'cpu_pinned' is the host, 'cpu'."""
+        t = self.device_type
+        return "cpu" if t == "cpu_pinned" else t
+
     def __hash__(self):
-        return hash((self.device_typeid, self.device_id))
+        return hash((self.canonical_type, self.device_id))
 
     def __eq__(self, other):
         return (isinstance(other, Context)
-                and self.device_typeid == other.device_typeid
+                and self.canonical_type == other.canonical_type
                 and self.device_id == other.device_id)
 
     def __repr__(self):
@@ -72,7 +84,7 @@ class Context:
     def torch_device(self) -> torch.device:
         """The ``torch.device`` this context names (no availability
         check; :func:`resolve` makes it)."""
-        if self.device_type == "cpu":
+        if self.canonical_type == "cpu":
             return torch.device("cpu")
         return torch.device("cuda", self.device_id)
 
@@ -81,7 +93,7 @@ class Context:
         ``cpu(i)`` for any host tensor (the host is one torch device;
         the contexts ``cpu(0)``, ``cpu(1)`` ... tell copies apart, as in
         the reference), ``gpu(i)`` for one on ``cuda:i``."""
-        if self.device_type == "cpu":
+        if self.canonical_type == "cpu":
             return device.type == "cpu"
         return device.type == "cuda" and (device.index or 0) == \
             self.device_id
@@ -119,6 +131,11 @@ def cpu(device_id: int = 0) -> Context:
 
 def gpu(device_id: int = 0) -> Context:
     return Context("gpu", device_id)
+
+
+def cpu_pinned(device_id: int = 0) -> Context:
+    """Host memory (the reference's pinned staging context): the CPU."""
+    return Context("cpu_pinned", device_id)
 
 
 def current_context() -> Context:

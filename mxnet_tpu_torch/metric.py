@@ -25,7 +25,8 @@ import torch
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
            "F1", "MCC", "Perplexity", "MAE", "MSE", "RMSE", "CrossEntropy",
-           "NegativeLogLikelihood", "PearsonCorrelation", "Loss",
+           "NegativeLogLikelihood", "PearsonCorrelation", "Loss", "Torch",
+           "Caffe",
            "CustomMetric", "VOCMApMetric", "VOC07MApMetric", "np", "create",
            "check_label_shapes"]
 
@@ -499,6 +500,26 @@ class Loss(EvalMetric):
             pred = _as_numpy(pred)
             self.sum_metric += float(pred.sum())
             self.num_inst += int(_np.prod(pred.shape))
+
+
+@register
+class Torch(Loss):
+    """The reference's deprecated alias of :class:`Loss` for torch
+    criterion outputs."""
+
+    def __init__(self, name="torch", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+
+@register
+class Caffe(Loss):
+    """The reference's deprecated alias of :class:`Loss` for caffe
+    criterion outputs."""
+
+    def __init__(self, name="caffe", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
 
 
 @register

@@ -71,7 +71,14 @@ sys.modules[random.__name__] = random
 
 
 def __getattr__(name):
-    """An op registered after import (a user kernel) as ``nd.<name>``."""
+    """``nd.contrib`` (the contrib op namespace, the same module as
+    ``mx.contrib.nd``, registered in ``sys.modules`` so that ``import
+    mxnet_tpu_torch.ndarray.contrib`` works too), else an op registered
+    after import (a user kernel) as ``nd.<name>``."""
+    if name == "contrib":
+        from ..contrib import ndarray as contrib
+        sys.modules[__name__ + ".contrib"] = contrib
+        return contrib
     if name.startswith("__"):
         raise AttributeError(name)
     try:

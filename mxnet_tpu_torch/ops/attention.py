@@ -30,6 +30,10 @@ every public function, as in the JAX package.
   implementation: ``"pallas"`` (or None) means the kernels wherever the
   gate holds, ``"xla"`` means the composition.  The names are the JAX
   package's, so callers port unchanged.
+* The decode-time attention (:func:`cached_attention`,
+  :func:`cached_attention_multi`, :func:`paged_attention`,
+  :func:`paged_attention_multi`) is a composition in both packages (XLA
+  gather + softmax in the reference), so it launches none of the kernels.
 """
 from __future__ import annotations
 
@@ -47,7 +51,8 @@ __all__ = ["attention_core", "attention_composition", "flash_attention",
            "flash_bwd_dq_plain", "flash_bwd_dkv_plain",
            "set_attention_impl", "current_attention_impl",
            "attention_impl_scope", "flash_eligible", "KERNEL_HEAD_DIMS",
-           "KERNEL_DTYPES"]
+           "KERNEL_DTYPES", "cached_attention", "cached_attention_multi",
+           "paged_attention", "paged_attention_multi"]
 
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -176,10 +181,12 @@ def flash_bwd_dkv_plain(q, k, v, o, lse, g, scale: float, causal: bool
 
 def attention_composition(q, k, v, scale: float, causal: bool = False,
                           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The JAX package's jnp composition: fp32 logits, the bottom-right
-    causal mask ``tril(ones, Tk - Tq)``, a key mask with finite -1e30,
-    softmax cast to q's dtype, then the value product."""
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    """The JAX package's jnp composition: fp32 logits (float64 for float64
+    inputs), the bottom-right causal mask ``tril(ones, Tk - Tq)``, a key
+    mask with finite -1e30, softmax cast to q's dtype, then the value
+    product."""
+    acc = _acc_dtype(q)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) * scale
     if causal:
         tq, tk = q.shape[2], k.shape[2]
         cm = torch.ones((tq, tk), dtype=torch.bool, device=q.device).tril(
@@ -465,3 +472,93 @@ def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
     the fused projection by a transpose, so ``contiguous`` copies them)."""
     t = t.contiguous()
     return t if t.data_ptr() % _ALIGN == 0 else t.clone()
+
+
+# ---------------------------------------------------------------------------
+# cached (decode-time) attention: one query token per sequence over a
+# fixed-capacity KV page buffer under a valid-length mask — the decode
+# engine's path (serve/decode.py).  The buffer is the slot's whole extent,
+# so the shapes never depend on how far a generation has progressed.
+# ---------------------------------------------------------------------------
+
+
+def _masked_softmax_dtype(logits: torch.Tensor, valid: torch.Tensor,
+                          dtype: torch.dtype) -> torch.Tensor:
+    """Softmax of ``logits`` (float32, or float64 for float64 inputs) with
+    the invalid keys at a finite -1e30 (never -inf: every row keeps a live
+    key, so even a scratch lane stays NaN-free), cast to ``dtype``."""
+    logits = logits.masked_fill(~valid, -1e30)
+    return torch.softmax(logits, dim=-1).to(dtype)
+
+
+def cached_attention(q, k_pages, v_pages, cur_len, scale=None):
+    """Single-position attention over per-sequence KV cache pages.
+
+    ``q``: (B, H, D), the current token's query per sequence;
+    ``k_pages``/``v_pages``: (B, P, H, D), each sequence's buffer at its
+    full capacity P (positions >= ``cur_len`` hold stale or zero entries);
+    ``cur_len``: (B,) integer, the valid leading positions (the current
+    token's just-written entry included; >= 1).  Returns (B, H, D)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    P = k_pages.shape[1]
+    acc = _acc_dtype(q)
+    logits = torch.einsum("bhd,bphd->bhp", q.to(acc), k_pages.to(acc)) \
+        * scale
+    valid = torch.arange(P, device=q.device)[None, None, :] < \
+        cur_len.to(q.device)[:, None, None]
+    probs = _masked_softmax_dtype(logits, valid, q.dtype)
+    return torch.einsum("bhp,bphd->bhd", probs, v_pages)
+
+
+def cached_attention_multi(q, k_pages, v_pages, pos, scale=None):
+    """Multi-position attention over per-sequence KV cache pages (the
+    speculative verify's form): T query rows per sequence, row t attending
+    keys [0, pos[b, t]] (its own entry already written).
+
+    ``q``: (B, T, H, D); ``k_pages``/``v_pages``: (B, P, H, D); ``pos``:
+    (B, T) integer absolute positions.  Returns (B, T, H, D)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    P = k_pages.shape[1]
+    acc = _acc_dtype(q)
+    logits = torch.einsum("bthd,bphd->bthp", q.to(acc), k_pages.to(acc)) \
+        * scale
+    valid = torch.arange(P, device=q.device)[None, None, :] <= \
+        pos.to(q.device)[:, :, None]
+    probs = _masked_softmax_dtype(logits, valid[:, :, None, :], q.dtype)
+    return torch.einsum("bthp,bphd->bthd", probs, v_pages)
+
+
+def _gather_pages(heap, block_tables):
+    """Each lane's pages of one layer's heap (n_pages, page_len, H, D),
+    through its block table (B, pages_per_slot), as the lane's logical
+    extent (B, pages_per_slot * page_len, H, D)."""
+    B = block_tables.shape[0]
+    extent = block_tables.shape[1] * heap.shape[1]
+    return heap[block_tables.long()].reshape((B, extent) + heap.shape[2:])
+
+
+def paged_attention(q, k_heap, v_heap, block_tables, cur_len, scale=None):
+    """Single-position attention over a paged KV heap: gathers each lane's
+    pages into the (B, extent, H, D) view :func:`cached_attention` takes
+    and delegates, so the masking and softmax are the same.
+
+    ``q``: (B, H, D); ``k_heap``/``v_heap``: (n_pages, page_len, H, D),
+    one layer's heap; ``block_tables``: (B, pages_per_slot) physical page
+    ids (scratch lanes: all zeros, page 0 is reserved); ``cur_len``: (B,).
+    Returns (B, H, D)."""
+    return cached_attention(q, _gather_pages(k_heap, block_tables),
+                            _gather_pages(v_heap, block_tables), cur_len,
+                            scale=scale)
+
+
+def paged_attention_multi(q, k_heap, v_heap, block_tables, pos,
+                          scale=None):
+    """Multi-position attention over a paged KV heap (the speculative
+    verify's core): :func:`paged_attention`'s gather, then
+    :func:`cached_attention_multi`.  ``q``: (B, T, H, D); ``pos``: (B, T).
+    Returns (B, T, H, D)."""
+    return cached_attention_multi(q, _gather_pages(k_heap, block_tables),
+                                  _gather_pages(v_heap, block_tables), pos,
+                                  scale=scale)

@@ -19,8 +19,9 @@ unique_sample_op.cc; src/resource.cc's per-device random states seeded by
 * An op with no array input gets its device from dispatch (``ctx=``,
   else the current context); the others draw on their input's device.
   Draws are made in float32 (float64 when asked) and cast to the
-  requested dtype.  The ``_npi_*`` samplers wait for the ``numpy``
-  front end.
+  requested dtype.  Of the ``_npi_*`` samplers, the 14 that carry the
+  legacy aliases (``laplace``, ``random_laplace``, ...) are here; the
+  others wait for the ``numpy`` front end.
 """
 from __future__ import annotations
 
@@ -420,3 +421,226 @@ def _negative_binomial_like(data, k=1, p=1.0):
 def _gnb_like(data, mu=1.0, alpha=1.0):
     return _gen_negative_binomial(mu, max(alpha, 1e-12), tuple(data.shape),
                                   device=data.device).to(data.dtype)
+
+
+# -- the numpy-era samplers that carry the legacy aliases
+# (src/operator/numpy/random/*.cc): ``size`` is the output shape (None: a
+# scalar), the parameters are Python scalars, as the reference's static
+# parameters are (an array raises TypeError there too) ------------------------
+
+def _scalars(op, **params):
+    """Each parameter as a float; an array raises ``TypeError``."""
+    out = []
+    for name, v in params.items():
+        if isinstance(v, bool) or not isinstance(v, (int, float, np.number)):
+            raise TypeError("%s: parameter %r must be a scalar, got %r"
+                            % (op, name, type(v).__name__))
+        out.append(float(v))
+    return out
+
+
+@register("_npi_laplace", aliases=["random_laplace", "laplace"],
+          differentiable=False)
+def _npi_laplace(loc=0.0, scale=1.0, size=None, dtype=None, device=None):
+    loc, scale = _scalars("laplace", loc=loc, scale=scale)
+    dt = _dt(dtype)
+    u = _rand(size, device, dt).clamp_min(1e-7) - 0.5     # (-0.5, 0.5)
+    x = -torch.sign(u) * torch.log1p(-2.0 * u.abs())
+    return (x * scale + loc).to(dt)
+
+
+@register("_npi_beta", aliases=["random_beta", "beta"],
+          differentiable=False)
+def _npi_beta(a=1.0, b=1.0, size=None, dtype=None, device=None):
+    """X / (X + Y) for X ~ Gamma(a), Y ~ Gamma(b)."""
+    a, b = _scalars("beta", a=a, b=b)
+    dt = _dt(dtype)
+    x = _gamma_draw(_full(size, a, device).to(_work(dt)), device)
+    y = _gamma_draw(_full(size, b, device).to(_work(dt)), device)
+    return (x / (x + y)).to(dt)
+
+
+@register("_npi_chisquare", aliases=["random_chisquare", "chisquare"],
+          differentiable=False)
+def _npi_chisquare(df=1.0, size=None, dtype=None, device=None):
+    (df,) = _scalars("chisquare", df=df)
+    dt = _dt(dtype)
+    g = _gamma_draw(_full(size, df / 2.0, device).to(_work(dt)), device)
+    return (2.0 * g).to(dt)
+
+
+@register("_npi_standard_t", aliases=["random_standard_t", "standard_t"],
+          differentiable=False)
+def _npi_standard_t(df=1.0, size=None, dtype=None, device=None):
+    """Z / sqrt(V / df) for Z ~ N(0, 1), V ~ chi-square(df)."""
+    (df,) = _scalars("standard_t", df=df)
+    dt = _dt(dtype)
+    z = _randn(size, device, dt)
+    v = 2.0 * _gamma_draw(_full(size, df / 2.0, device).to(z.dtype), device)
+    return (z / torch.sqrt(v / df)).to(dt)
+
+
+@register("_npi_lognormal", aliases=["random_lognormal", "lognormal"],
+          differentiable=False)
+def _npi_lognormal(mean=0.0, sigma=1.0, size=None, dtype=None, device=None):
+    mean, sigma = _scalars("lognormal", mean=mean, sigma=sigma)
+    dt = _dt(dtype)
+    return torch.exp(_randn(size, device, dt) * sigma + mean).to(dt)
+
+
+@register("_npi_triangular", aliases=["random_triangular", "triangular"],
+          differentiable=False)
+def _npi_triangular(left=0.0, mode=0.5, right=1.0, size=None, dtype=None,
+                    device=None):
+    left, mode, right = _scalars("triangular", left=left, mode=mode,
+                                 right=right)
+    dt = _dt(dtype)
+    u = _rand(size, device, dt)
+    c = (mode - left) / (right - left)
+    lo = left + torch.sqrt(u * (right - left) * (mode - left))
+    hi = right - torch.sqrt((1 - u) * (right - left) * (right - mode))
+    return torch.where(u < c, lo, hi).to(dt)
+
+
+@register("_npi_dirichlet", aliases=["random_dirichlet", "dirichlet"],
+          differentiable=False)
+def _npi_dirichlet(alpha=(1.0,), size=None, dtype=None, device=None):
+    """Normalised Gamma(alpha_i) draws: shape ``size + (len(alpha),)``."""
+    if not isinstance(alpha, (tuple, list)):
+        raise TypeError("dirichlet: alpha must be a tuple of scalars, got "
+                        "%r" % type(alpha).__name__)
+    alpha = _scalars("dirichlet", **{"alpha%d" % i: a
+                                     for i, a in enumerate(alpha)})
+    dt = _dt(dtype)
+    a = torch.tensor(alpha, dtype=_work(dt), device=device)
+    g = _gamma_draw(a.expand(_shape(size) + (len(alpha),)).contiguous(),
+                    device)
+    return (g / g.sum(-1, keepdim=True)).to(dt)
+
+
+@register("_npi_standard_cauchy",
+          aliases=["random_standard_cauchy", "standard_cauchy"],
+          differentiable=False)
+def _npi_standard_cauchy(size=None, dtype=None, device=None):
+    """tan(pi (U - 1/2)), U in (0, 1)."""
+    dt = _dt(dtype)
+    u = _rand(size, device, dt).clamp_min(1e-7)
+    return torch.tan(np.pi * (u - 0.5)).to(dt)
+
+
+@register("_npi_standard_gamma",
+          aliases=["random_standard_gamma", "standard_gamma"],
+          differentiable=False)
+def _npi_standard_gamma(shape_param=1.0, size=None, dtype=None, device=None):
+    (k,) = _scalars("standard_gamma", shape_param=shape_param)
+    dt = _dt(dtype)
+    return _gamma_draw(_full(size, k, device).to(_work(dt)),
+                       device).to(dt)
+
+
+@register("_npi_noncentral_chisquare",
+          aliases=["random_noncentral_chisquare", "noncentral_chisquare"],
+          differentiable=False)
+def _npi_noncentral_chisquare(df=1.0, nonc=0.0, size=None, dtype=None,
+                              device=None):
+    """The Poisson mixture: chi-square(df + 2K) for K ~ Poisson(nonc / 2)."""
+    df, nonc = _scalars("noncentral_chisquare", df=df, nonc=nonc)
+    dt = _dt(dtype)
+    k = _poisson_draw(_full(size, nonc / 2.0, device), device)
+    g = _gamma_draw(((df + 2.0 * k) / 2.0).to(_work(dt)), device)
+    return (2.0 * g).to(dt)
+
+
+@register("_npi_wald", aliases=["random_wald", "wald"],
+          differentiable=False)
+def _npi_wald(mean=1.0, scale=1.0, size=None, dtype=None, device=None):
+    """The inverse Gaussian by the Michael-Schucany-Haas transform."""
+    mean, scale = _scalars("wald", mean=mean, scale=scale)
+    dt = _dt(dtype)
+    v = _randn(size, device, dt) ** 2
+    x = (mean + (mean ** 2) * v / (2.0 * scale)
+         - (mean / (2.0 * scale))
+         * torch.sqrt(4.0 * mean * scale * v + (mean * v) ** 2))
+    u = _rand(size, device, dt)
+    return torch.where(u <= mean / (mean + x), x, (mean ** 2) / x).to(dt)
+
+
+@register("_npi_logseries", aliases=["random_logseries", "logseries"],
+          differentiable=False)
+def _npi_logseries(p=0.5, size=None, dtype=None, device=None):
+    """Kemp's exact two-uniform sampler: floor(1 + ln(V) / ln(1 - (1 -
+    p)^U)), U and V in [1e-7, 1), as the reference draws them.  One
+    elementwise pass on the device; no rejection."""
+    (p,) = _scalars("logseries", p=p)
+    u = _rand(size, device) * (1.0 - 1e-7) + 1e-7
+    v = _rand(size, device) * (1.0 - 1e-7) + 1e-7
+    q = 1.0 - torch.pow(torch.tensor(1.0 - p, device=device), u)
+    x = torch.floor(1.0 + torch.log(v) / torch.log(q))
+    return x.clamp_min(1.0).to(torch_dtype(dtype or "int32"))
+
+
+_REJECTION_ROUNDS = 64
+
+
+@register("_npi_vonmises", aliases=["random_vonmises", "vonmises"],
+          differentiable=False)
+def _npi_vonmises(mu=0.0, kappa=1.0, size=None, dtype=None, device=None):
+    """Best and Fisher's (1979) rejection sampler, drawn as the reference
+    draws it: 64 rounds, each proposing for every entry at once on the
+    device and keeping an entry's first accepted proposal (a round accepts
+    65 % or more, so an entry unfilled after 64 rounds has odds below
+    1e-29).  No per-sample loop and no host read.  ``kappa`` below 1e-6 is
+    the uniform circular distribution, as in numpy."""
+    mu, kappa = _scalars("vonmises", mu=mu, kappa=kappa)
+    dt = _dt(dtype)
+    shape = _shape(size)
+    if kappa < 1e-6:
+        theta = 2.0 * np.pi * _rand(shape, device, dt) - np.pi
+        return (torch.remainder(theta + mu + np.pi, 2.0 * np.pi)
+                - np.pi).to(dt)
+    r = 1.0 + np.sqrt(1.0 + 4.0 * kappa ** 2)
+    rho = (r - np.sqrt(2.0 * r)) / (2.0 * kappa)
+    s = (1.0 + rho ** 2) / (2.0 * rho)
+    out = torch.zeros(shape, dtype=_work(dt), device=device)
+    done = torch.zeros(shape, dtype=torch.bool, device=device)
+    for _ in range(_REJECTION_ROUNDS):
+        u1, u2, u3 = (_rand(shape, device, dt) * (1.0 - 1e-7) + 1e-7
+                      for _ in range(3))
+        z = torch.cos(np.pi * u1)
+        f = (1.0 + s * z) / (s + z)
+        c = kappa * (s - f)
+        accept = (c * (2.0 - c) - u2 > 0) | \
+            (torch.log(c / u2) + 1.0 - c >= 0)
+        theta = torch.sign(u3 - 0.5) * torch.arccos(f.clamp(-1.0, 1.0))
+        out = torch.where(done | ~accept, out, theta)
+        done = done | accept
+    return (torch.remainder(out + mu + np.pi, 2.0 * np.pi) - np.pi).to(dt)
+
+
+@register("_npi_zipf", aliases=["random_zipf", "zipf"],
+          differentiable=False)
+def _npi_zipf(a=2.0, size=None, dtype=None, device=None):
+    """Devroye's rejection-inversion sampler, drawn as the reference draws
+    it: 64 rounds, each proposing x = floor(U^(-1 / (a - 1))) for every
+    entry at once on the device and keeping an entry's first accepted
+    proposal (a round accepts half or more for a > 1, so an entry unfilled
+    after 64 rounds has odds below 1e-19; it keeps 1).  No per-sample loop
+    and no host read."""
+    (a,) = _scalars("zipf", a=a)
+    if not a > 1.0:
+        raise ValueError("zipf: a must be > 1 (got %r)" % (a,))
+    shape = _shape(size)
+    am1 = a - 1.0
+    b = 2.0 ** am1
+    out = torch.ones(shape, dtype=torch.float32, device=device)
+    done = torch.zeros(shape, dtype=torch.bool, device=device)
+    for _ in range(_REJECTION_ROUNDS):
+        u = _rand(shape, device) * (1.0 - 1e-7) + 1e-7
+        v = _rand(shape, device)
+        x = torch.floor(torch.pow(u, -1.0 / am1))
+        t = torch.pow(1.0 + 1.0 / x, am1)
+        accept = (v * x * (t - 1.0) / (b - 1.0) <= t / b) & (x >= 1.0) & \
+            torch.isfinite(x)
+        out = torch.where(done | ~accept, out, x)
+        done = done | accept
+    return out.to(torch_dtype(dtype or "int32"))

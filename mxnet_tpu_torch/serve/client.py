@@ -1,13 +1,16 @@
 """Serving client: SEQ-tagged RPCs with replica failover.
 
-Counterpart of ``mxnet_tpu/serve/client.py`` for PREDICT, HEALTH and STOP.
-The client sticks to one replica of its address list; when a connection
-drops or times out it reconnects, rotating to the next replica, and
-replays the same ``(client_id, seq)``, so a lost reply is answered from
-the server's replay cache rather than recomputed.  Attempts back off
-exponentially (50 ms doubling to 1 s) until the request's deadline.
-An ``overloaded`` reply raises :class:`Overloaded`: the replica is
-healthy and shedding load.
+Counterpart of ``mxnet_tpu/serve/client.py`` for PREDICT, GENERATE,
+HEALTH and STOP.  The client sticks to one replica of its address list;
+when a connection drops or times out it reconnects, rotating to the next
+replica (``serve.client_failovers``), and replays the same ``(client_id,
+seq)``, so a lost reply is answered from the server's replay cache rather
+than recomputed, and a generation cut by a dead replica is generated again
+on the next one (greedy decode is deterministic).  Attempts back off
+exponentially (50 ms doubling to 1 s) until the request's deadline.  An
+``overloaded`` reply raises :class:`Overloaded`: the replica is healthy
+and shedding load; a ``draining`` reply moves the request to the next
+replica.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..base import MXNetError, get_env
+from .. import telemetry as _telemetry
 from ..kvstore.wire_codec import (decode_array, encode_array, recv_msg,
                                   send_msg)
 from .batcher import Overloaded
@@ -48,6 +52,10 @@ class ServeClient:
                               or 30.0)
         self._lock = threading.Lock()
         self._seq = 0
+        self._c_failover = _telemetry.registry.counter(
+            "serve.client_failovers",
+            doc="requests replayed on another replica after a "
+                "connection failure/timeout")
 
     def _kill_sock(self, idx: int) -> None:
         s = self._socks[idx]
@@ -67,8 +75,11 @@ class ServeClient:
             self._socks[idx] = s
         return s
 
-    def _rpc(self, *msg, idx: Optional[int] = None):
-        """One SEQ-enveloped RPC; ``idx`` pins one replica (no failover)."""
+    def _rpc(self, *msg, idx: Optional[int] = None, on_stream=None):
+        """One SEQ-enveloped RPC; ``idx`` pins one replica (no failover).
+        ``on_stream(offset, tokens)`` receives each ("STREAM", offset,
+        tokens) frame a streaming GENERATE sends ahead of its terminal
+        reply (at least once across a failover: the offset dedupes)."""
         pinned = idx is not None
         deadline_s = {"STOP": 1.0, "HEALTH": 5.0 if pinned else
                       self._timeout}.get(msg[0], self._timeout)
@@ -89,13 +100,21 @@ class ServeClient:
                 try:
                     sock = self._ensure_sock(at)
                     send_msg(sock, ("SEQ", self._client_id, seq, msg))
-                    ok, payload = recv_msg(sock, timeout=self._timeout)
-                    return ok, payload
+                    while True:
+                        resp = recv_msg(sock, timeout=self._timeout)
+                        if isinstance(resp, tuple) and resp and \
+                                resp[0] == "STREAM":
+                            if on_stream is not None:
+                                on_stream(resp[1], resp[2])
+                            continue      # a chunk; the terminal follows
+                        ok, payload = resp
+                        return ok, payload
                 except (ConnectionError, OSError, TimeoutError) as e:
                     last_err = e
                     self._kill_sock(at)
                     if not pinned and len(self._addrs) > 1:
                         self._idx = (at + 1) % len(self._addrs)
+                        self._c_failover.inc()
         raise MXNetError("serve: %r unreachable on %r for %.3gs; last error: "
                          "%s" % (msg[0], self._addrs if not pinned
                                  else self._addrs[idx], deadline_s, last_err))
@@ -111,6 +130,69 @@ class ServeClient:
         if isinstance(resp, str) and resp.startswith("overloaded"):
             raise Overloaded(resp)
         raise MXNetError("serve: %s" % resp)
+
+    def generate(self, prompt: Sequence[int],
+                 max_tokens: Optional[int] = None,
+                 eos: Optional[int] = None, on_token=None,
+                 spill: bool = False,
+                 model: Optional[str] = None) -> Tuple[int, List[int]]:
+        """One autoregressive generation: prompt token ids in,
+        ``(servable_version, [generated token, ...])`` out, through the
+        replica's continuous-batching decode engine.
+
+        ``on_token(tokens)`` arms streaming: the callback receives each
+        new token list once, in order (chunks sent again after a failover
+        are deduped by offset; the replayed generation is deterministic,
+        so the offsets line up).  The returned list is always the whole
+        sequence.  ``spill`` moves an overloaded request to the next
+        replica; a draining replica's refusal always does.  Raises
+        :class:`Overloaded` when the replicas shed it, MXNetError on a
+        terminal failure."""
+        opts = {"stream": on_token is not None}
+        if max_tokens is not None:
+            opts["max_tokens"] = int(max_tokens)
+        if eos is not None:
+            opts["eos"] = int(eos)
+        if model is not None:
+            opts["model"] = str(model)
+        seen = [0]
+
+        def _dedupe(offset, tokens):
+            if offset > seen[0]:       # a gap (failover skew): drop it,
+                return                 # the terminal reply has everything
+            fresh = tokens[seen[0] - offset:]
+            if fresh:
+                seen[0] = offset + len(tokens)
+                on_token([int(t) for t in fresh])
+
+        tried = 0
+        while True:
+            ok, resp = self._rpc(
+                "GENERATE", [int(t) for t in prompt], opts,
+                on_stream=_dedupe if on_token is not None else None)
+            if ok:
+                version, tokens = resp
+                return int(version), [int(t) for t in tokens]
+            if isinstance(resp, str) and resp.startswith(("overloaded",
+                                                          "draining")):
+                tried += 1
+                # draining: the session must move (re-prefill on the next
+                # replica); overload spills only when asked
+                if ((spill or resp.startswith("draining"))
+                        and tried < len(self._addrs)):
+                    with self._lock:
+                        self._idx = (self._idx + 1) % len(self._addrs)
+                    continue
+                if resp.startswith("overloaded"):
+                    raise Overloaded(resp)
+            raise MXNetError("serve: %s" % resp)
+
+    def decode_stats(self, idx: Optional[int] = None) -> Optional[dict]:
+        """The replica's decode-engine section of HEALTH, or None when it
+        hosts no decode engine (on a paged replica it carries the page
+        headroom: ``engine='paged'``, ``kv_free_pages``,
+        ``shared_saved_bytes``)."""
+        return self.health(idx=idx).get("decode")
 
     def health(self, idx: Optional[int] = None) -> dict:
         """One replica's health dict (``idx`` pins; default = sticky)."""

@@ -230,6 +230,9 @@ class ModelHost:
         self._lock = threading.Lock()
         self._servables: Dict[str, Servable] = {}
         self._default: Optional[str] = None
+        #: engines hosted beside the servables, by model name (a decode
+        #: engine joins here when a server is given one)
+        self.engines: Dict[str, object] = {}
 
     def active(self, model: Optional[str] = None) -> Servable:
         with self._lock:
