@@ -56,6 +56,40 @@ Phases (each raises on failure, so any failure exits nonzero):
    optimizers (``rmsprop`` ... ``sgld``) on the card against the CPU.
 5. bf16    -- the same model cast to bfloat16, one 8 x 512 forward through
    the kernel; its deviation from the fp32 answer is printed for the record.
+5c. serve_tier -- the serving tier around the engines
+   (``phase_serve_tier``): two replica processes (``chip_smoke.py
+   --serve-replica-worker``: BERT-base with the slice's weights beside
+   the flat demo LM at the decode phase's bench geometry, under a
+   ``ModelHost`` with an HBM budget), a ``FleetCollector`` scraping them
+   over METRICS and serving FLEET, and a ``ServeRouter`` fed by it through
+   ``serve_router_forever``.  (1) The slice's 32 requests from 8 clients
+   through the router: every answer within the slice's tolerance of the
+   composition, each client's requests on one replica (the replicas'
+   ``serve.requests`` and the router's pins), both replicas with
+   sessions, K1 launched exactly 12 x (2 x 4 warm + served micro-batches)
+   over the two processes and K2-K4 never.  (2) GENERATE through the
+   router by the decode phase's exact rule.  (3) Each replica's METRICS
+   parse, carry ``program_compile_seconds`` and ``program_temp_bytes`` > 0
+   for every bucket program and ``serve.active_version``, no
+   ``program_retraces`` grow over the burst, and FLEET's counters sum
+   the replicas'.  (4) In each replica the census's ``serve`` bytes are
+   BERT-base's and the LM's parameter bytes, ``kv_cache`` the KV state's,
+   the footprint live bytes plus the largest bucket's temp bytes, and the
+   conv demo (resnet18) is refused under a budget of the two footprints +
+   1 MiB, leaving the models and the census as they were.  (5) DRAIN of
+   replica A with long generations in flight: they finish with the
+   oracle's tokens, new sessions go to B, A exits 0 by itself within the
+   deadline, the router shows A draining, then (after a SWAP's fan-out,
+   refused in-band: no loader) dead.  (6) A restarted on its port, the
+   router's probe takes it back; B killed (SIGKILL) mid-burst: every
+   request answered once and right, ``router.failovers`` and
+   ``router.sessions_unpinned`` at least 1.  (7) ``python -m
+   mxnet_tpu_torch.serve --demo --decode`` behind ``python -m
+   mxnet_tpu_torch.serve.router``: PREDICT equals the demo block, GENERATE
+   the oracle, both exit 0 on STOP.  Printed: each replica's deploy and
+   warm, bucket temp bytes and first-dispatch seconds, routed requests/s
+   and p50/p99, the drain's and the failover's seconds, the command
+   line's time to ready.
 6. train   -- the training path: BERT-base with the MLM decoder (vocab
    30522, T = 512, dropout 0, ``initializer.Normal(0.02)`` from a seed)
    under ``parallel.TrainStep`` (SGD, lr 1e-3, momentum 0.9, mean MLM
@@ -284,8 +318,8 @@ Phases (each raises on failure, so any failure exits nonzero):
    ``kv.set_optimizer``, a pull, then per step forward, backward and a
    ``kv.push(i, grad)`` / ``kv.pull(i, out=weight)`` a parameter), on
    BERT-base with the MLM decoder (fp32, K1-K3 in 3xTF32, batch 8 a
-   worker, T = 512, dropout 0).  (a) ``-n 1 -s 1``: 3 steps with the
-   server's SGD (momentum 0.9), then the same 3 from the same weights
+   worker, T = 512, dropout 0).  (a) ``-n 1 -s 1``: 2 steps with the
+   server's SGD (momentum 0.9), then the same 2 from the same weights
    and batches with a local updater on the card: step 1's loss bitwise
    equal, every weight within 1e-4 x max|ref|; printed: the push and
    pull ms a step (host clock) and each leg's wire bytes a step.  (c)
@@ -293,7 +327,7 @@ Phases (each raises on failure, so any failure exits nonzero):
    device_trace_dir=...)``: the torch.profiler chrome trace names K1-K3's
    kernels, and ``profiler.dumps()`` telemetry's ``kv.client.PUSH`` and
    ``kv.client.PULL`` spans.  (b) ``-n 2 -s 2``, both ranks on ``cuda:0``
-   on their own data, plain SGD (lr 0.1): 2 steps each, then on rank 0
+   on their own data, plain SGD (lr 0.1): 1 step each, then on rank 0
    every weight is w0 - 0.1 (S_0 + S_1) within 1e-5 x max|w0| (max|w|
    for a tensor that starts at 0), S_r the float64 sum of rank r's pushed
    gradients, while the control w0 - 0.1 S_0 fails on most tensors (the
@@ -338,7 +372,7 @@ Phases (each raises on failure, so any failure exits nonzero):
    all-to-all exchanges staged through pinned host buffers).  (a) The
    port's copy of ``examples/train_long_context.py`` at BERT-base widths
    (768, 12 heads, 12 layers), L = 16384, batch 1, fp32, on a (dp = 1, sp
-   = 2) mesh: 5 Adam steps through the ring (K1 on each hop, K2 and K3 on
+   = 2) mesh: 3 Adam steps through the ring (K1 on each hop, K2 and K3 on
    each hop backward; a causal hop past the rank's own launches nothing),
    one step through Ulysses; rank 0 then trains the model at sp = 1 on the
    same seeds.  The first step's losses within 1e-4 of sp = 1's, Ulysses'
@@ -1278,11 +1312,46 @@ def device_busy_ms(prof):
     return busy / 1e3
 
 
+def composition_outputs(net, tokens, types):
+    """Each request's outputs (seq_out, pooled, nsp) from an in-process
+    forward through the plain attention composition, 8 rows at a time,
+    as host arrays."""
+    from mxnet_tpu_torch.ops.attention import attention_impl_scope
+    refs = []
+    with torch.inference_mode(), attention_impl_scope("xla"):
+        for lo in range(0, N_REQUESTS, max(BUCKETS)):
+            hi = lo + max(BUCKETS)
+            ref = net(torch.from_numpy(tokens[lo:hi, 0]).cuda(),
+                      torch.from_numpy(types[lo:hi, 0]).cuda())
+            ref = [r.float().cpu().numpy() for r in ref]
+            refs += [[r[i:i + 1] for r in ref] for i in range(hi - lo)]
+    return refs
+
+
+def check_answers(label, answers, refs, version=1):
+    """Every served answer (version, [3 outputs]) against its composition
+    outputs at ``SLICE_TOL``; returns the worst |difference|."""
+    worst = 0.0
+    for i, ((got_version, outs), ref) in enumerate(zip(answers, refs)):
+        if got_version != version or len(outs) != 3:
+            raise RuntimeError("%s: request %d: version %r, %d outputs"
+                               % (label, i, got_version, len(outs)))
+        for o, r in zip(outs, ref):
+            if o.shape != r.shape or not np.isfinite(o).all():
+                raise RuntimeError("%s: request %d: output %s vs %s"
+                                   % (label, i, o.shape, r.shape))
+            err = float(np.abs(o - r).max())
+            worst = max(worst, err)
+            if not np.allclose(o, r, atol=SLICE_TOL, rtol=SLICE_TOL):
+                raise RuntimeError("%s: request %d disagrees with the "
+                                   "composition by %.3g" % (label, i, err))
+    return worst
+
+
 def phase_slice():
     from mxnet_tpu_torch import initializer
     from mxnet_tpu_torch.gluon.model_zoo.bert import bert_12_768_12
     from mxnet_tpu_torch.ops import _kernels
-    from mxnet_tpu_torch.ops.attention import attention_impl_scope
     from mxnet_tpu_torch.serve import (BucketTable, ModelHost, Servable,
                                        ServeClient, ServeServer,
                                        serve_forever)
@@ -1347,29 +1416,8 @@ def phase_slice():
         raise RuntimeError("HEALTH says %r" % (health,))
 
     # every answer against the plain composition, in process
-    worst = 0.0
-    with torch.inference_mode(), attention_impl_scope("xla"):
-        for lo in range(0, N_REQUESTS, max(BUCKETS)):
-            hi = lo + max(BUCKETS)
-            ref = net(torch.from_numpy(tokens[lo:hi, 0]).cuda(),
-                      torch.from_numpy(types[lo:hi, 0]).cuda())
-            ref = [r.float().cpu().numpy() for r in ref]
-            for i in range(lo, hi):
-                version, outs = answers[i]
-                if version != 1 or len(outs) != 3:
-                    raise RuntimeError("request %d: version %r, %d outputs"
-                                       % (i, version, len(outs)))
-                for o, r in zip(outs, ref):
-                    r = r[i - lo:i - lo + 1]
-                    if o.shape != r.shape or not np.isfinite(o).all():
-                        raise RuntimeError("request %d: output %s vs %s"
-                                           % (i, o.shape, r.shape))
-                    err = float(np.abs(o - r).max())
-                    worst = max(worst, err)
-                    if not np.allclose(o, r, atol=SLICE_TOL, rtol=SLICE_TOL):
-                        raise RuntimeError(
-                            "request %d disagrees with the composition by "
-                            "%.3g" % (i, err))
+    worst = check_answers("slice", answers,
+                          composition_outputs(net, tokens, types))
     lat = np.array(latency) * 1e3
     log("slice: latency ms by request (client c sends c, c+8, c+16, c+24 "
         "in turn): %s" % json.dumps(lat.tolist()))
@@ -1731,6 +1779,674 @@ def phase_bf16(net, answers, tokens, types):
         devs.append(float(np.abs(o - ref).max()))
     log("bf16: max |bf16 - fp32| (seq_out, pooled, nsp) = %s" % devs)
     return devs
+
+
+# ---------------------------------------------------------------------------
+# 5c. serve_tier: two BERT-base replicas behind the router and the fleet
+# ---------------------------------------------------------------------------
+
+# the flat demo LM at the decode phase's bench geometry, beside BERT-base
+TIER_LM = dict(dim=8, heads=1, layers=6, slots=8, max_tokens=48,
+               prompt_buckets=(4, 8))
+TIER_TICK_S = 0.005             # the replicas' decode pump tick (a drain
+#                                 must land mid-generation)
+TIER_DRAIN_S = 30.0             # the DRAIN's deadline
+TIER_READY_S = 180              # seconds a replica process may take to warm
+TIER_LONG = 8                   # long generations in flight at the DRAIN
+TIER_PACE_S = 0.1               # a client's pause between the failover
+#                                 burst's requests (the kill lands mid-burst)
+_PROM_LINE = re.compile(r'^([A-Za-z_:][\w:]*)(?:\{(.*)\})? (\S+)$')
+_PROM_LABEL = re.compile(r'(\w+)="((?:[^"\\]|\\.)*)"')
+
+
+def parse_prometheus(text):
+    """{(name, ((label, value), ...)): value} of a Prometheus text
+    exposition; raises on a line that is not a comment or a sample."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = _PROM_LINE.match(line)
+        if m is None:
+            raise RuntimeError("serve_tier: METRICS line does not parse: %r"
+                               % line)
+        labels = tuple(sorted(_PROM_LABEL.findall(m.group(2) or "")))
+        out[(m.group(1), labels)] = float(m.group(3))
+    return out
+
+
+def serve_replica_worker(argv):
+    """One replica of ``phase_serve_tier``: BERT-base (``phase_slice``'s
+    seeded weights, fp32, ``BUCKETS``) beside the flat demo LM under a
+    ``ModelHost`` with an HBM budget, behind ``serve_forever`` on
+    ``127.0.0.1:<port>``.  After its warm it checks the census and the
+    packer (the ``serve`` bytes, ``kv_cache``, the footprint, a refused
+    resnet18) and writes them to ``<out>.rec``; once the port is free (a
+    restarted replica waits for its predecessor's exit) and, when a third
+    argument names a file, once that file exists, it serves, and
+    ``serve_forever`` writes the bound port to ``<out>.ready``.  Its
+    METRICS carry its launch counts; when ``serve_forever`` returns it
+    writes ``<out>.exit``."""
+    if not torch.cuda.is_available():
+        raise SystemExit("serve-replica-worker: CUDA is not available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    port, out = int(argv[0]), argv[1]
+    go = argv[2] if len(argv) > 2 else None
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    from mxnet_tpu_torch import initializer, programs
+    from mxnet_tpu_torch.gluon.model_zoo.bert import bert_12_768_12
+    from mxnet_tpu_torch.ops import _kernels
+    from mxnet_tpu_torch.serve import (BucketTable, BudgetExceeded,
+                                       ModelHost, Servable, ServeServer,
+                                       serve_forever)
+    from mxnet_tpu_torch.serve.decode import (DecodeBatcher, DecodeConfig,
+                                              DecodeServable, demo_lm_params)
+    from mxnet_tpu_torch.serve.demo import demo_conv_block, demo_conv_example
+    from mxnet_tpu_torch.telemetry import registry
+    t0 = time.perf_counter()
+    net = bert_12_768_12(use_decoder=False, dropout=0.0)
+    net.initialize(initializer.Normal(0.02), seed=SEED)
+    tokens, types = make_requests()
+    # --- this replica's counted path starts at its deploy ---
+    _kernels.reset_launches()
+    host = ModelHost()
+    sv = Servable(net, name="bert_12_768_12", version=1,
+                  buckets=BucketTable(BUCKETS))
+    t_deploy = time.perf_counter()
+    host.deploy(sv, example=[tokens[0], types[0]])
+    t_deploy = time.perf_counter() - t_deploy
+    cfg = DecodeConfig(**TIER_LM)
+    dsv = DecodeServable(config=cfg, params=demo_lm_params(cfg, dev))
+    eng = DecodeBatcher(dsv, on_tick=lambda: time.sleep(TIER_TICK_S))
+
+    class SmokeServer(ServeServer):
+        def metrics_text(self, fmt="prometheus"):
+            for k, v in _kernels.launch_counts().items():
+                registry.gauge("smoke.launches", labels={"kernel": k}).set(v)
+            registry.gauge("smoke.served").set(sv.batches)
+            return super().metrics_text(fmt)
+
+    state = SmokeServer(host, decode=eng, max_batch=max(BUCKETS),
+                        max_delay_us=2000, queue_cap=256)
+    # the census and the packer
+    census = programs.buffer_census()
+    table = programs.program_table()
+    temps = {b: table["serve.bert_12_768_12.b%d" % b]["temp_bytes_peak"]
+             for b in BUCKETS}
+    compile_s = {b: table["serve.bert_12_768_12.b%d" % b]
+                 ["compile_seconds"]["total"] for b in BUCKETS}
+    bert_bytes = sum(int(p.nbytes) for p in net.parameters())
+    lm_bytes = sum(int(t.nbytes) for t in dsv.params.values())
+    f_bert, f_lm = sv.footprint_bytes(), dsv.footprint_bytes()
+    checks = {
+        "serve_bytes": (census["serve"]["bytes"], bert_bytes + lm_bytes),
+        "kv_cache_bytes": (census["kv_cache"]["bytes"],
+                           dsv.kv_state_bytes()),
+        "bert_footprint": (f_bert, sv.live_bytes() + max(temps.values())),
+        "lm_footprint": (f_lm, dsv.live_bytes() + programs.
+                         program_memory_bytes("serve.decode.")
+                         ["temp_bytes_peak"]),
+    }
+    bad = {k: v for k, v in checks.items() if v[0] != v[1]}
+    if bad or not all(t and t > 0 for t in temps.values()):
+        raise RuntimeError("serve-replica: census %s, bucket temp bytes %s"
+                           % (bad, temps))
+    host.hbm_budget = f_bert + f_lm + (1 << 20)
+    owners = programs.CENSUS_OWNERS
+    models0 = host.models()
+    before = {k: census[k]["bytes"] for k in owners}
+    t_refuse = time.perf_counter()
+    try:
+        state.add_model(Servable(demo_conv_block(dev), name="demo-conv",
+                                 buckets=BucketTable(BUCKETS)),
+                        example=demo_conv_example())
+    except BudgetExceeded as e:
+        refused = str(e)
+    else:
+        raise RuntimeError("serve-replica: resnet18 was admitted past the "
+                           "budget")
+    t_refuse = time.perf_counter() - t_refuse
+    gc.collect()
+    after = programs.buffer_census()
+    if host.models() != models0 or "demo-conv" in host.engines or any(
+            after[k]["bytes"] != before[k] for k in owners):
+        raise RuntimeError("serve-replica: the refused model left %s / %s"
+                           % (host.models(), {k: (before[k],
+                                                  after[k]["bytes"])
+                                              for k in owners}))
+    rec = {"port": port, "pid": os.getpid(),
+           "build_and_warm_s": time.perf_counter() - t0,
+           "deploy_warm_s": t_deploy, "bert_warm_s": sv.warm_seconds,
+           "census": {k: census[k]["bytes"] for k in owners + ("other",)},
+           "checks": checks, "bucket_temp_bytes": temps,
+           "bucket_compile_s": compile_s, "hbm_budget": host.hbm_budget,
+           "refused_s": t_refuse, "refused": refused[:160]}
+    with open(out + ".rec", "w") as f:
+        json.dump(rec, f)
+    t_free = time.perf_counter()
+    while go is not None and not os.path.exists(go):
+        if time.perf_counter() - t_free > TIER_READY_S:
+            raise RuntimeError("serve-replica: %s never appeared" % go)
+        time.sleep(0.02)
+    while True:
+        probe = socket.socket()
+        probe.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            probe.bind(("127.0.0.1", port))
+            break
+        except OSError:
+            if time.perf_counter() - t_free > TIER_READY_S:
+                raise
+            time.sleep(0.02)
+        finally:
+            probe.close()
+    serve_forever(port=port, state=state, bind="127.0.0.1",
+                  ready_file=out + ".ready")
+    with open(out + ".exit", "w") as f:
+        json.dump({"launches": _kernels.launch_counts(),
+                   "served": sv.batches, "draining": state.draining}, f)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def _tier_spawn(port, out, go=None):
+    root = os.path.dirname(os.path.abspath(__file__))
+    log_f = open(out + ".log", "w")
+    return subprocess.Popen(
+        [sys.executable, os.path.join(root, "chip_smoke.py"),
+         "--serve-replica-worker", str(port), out] + ([go] if go else []),
+        cwd=root, stdout=log_f, stderr=subprocess.STDOUT)
+
+
+def _tier_wait_file(path, proc, what, timeout=TIER_READY_S):
+    """Wait until ``path`` holds something; raise with the process's log
+    if it dies or the wait runs out."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        if os.path.exists(path) and os.path.getsize(path):
+            return time.perf_counter() - t0
+        if proc.poll() is not None:
+            break
+        time.sleep(0.05)
+    tail = ""
+    for log_path in (path.rsplit(".", 1)[0] + ".log", path + ".log"):
+        if os.path.exists(log_path):
+            tail = open(log_path).read()[-3000:]
+    raise RuntimeError("serve_tier: %s never became ready (exit %r):\n%s"
+                       % (what, proc.poll(), tail))
+
+
+def _tier_metrics(addr):
+    """One replica's METRICS: (the registry snapshot as a dict, the
+    Prometheus text)."""
+    from mxnet_tpu_torch.serve import ServeClient
+    with ServeClient([addr], timeout=30) as cli:
+        return (json.loads(cli.metrics(idx=0, fmt="json")),
+                cli.metrics(idx=0))
+
+
+def _tier_value(snap, key, default=0.0):
+    ent = snap.get(key)
+    return default if ent is None else float(ent.get("value", default))
+
+
+def _tier_launches(snap):
+    return {k[len("smoke.launches{kernel="):-1]: int(v["value"])
+            for k, v in snap.items() if k.startswith("smoke.launches{")}
+
+
+def _tier_burst(port, tokens, types, pace=0.0, on_first_round=None):
+    """``run_burst`` through the router with a pause of ``pace`` seconds
+    between a client's requests; ``on_first_round()`` runs once every
+    client has its first answer.  Returns (answers, latencies, wall,
+    each client's id)."""
+    from mxnet_tpu_torch.serve import ServeClient
+    answers, latency = [None] * N_REQUESTS, [None] * N_REQUESTS
+    starts = [None] * N_REQUESTS
+    cids, errors = [None] * N_CLIENTS, []
+    barrier = threading.Barrier(N_CLIENTS + 1)
+    first = threading.Barrier(N_CLIENTS + 1) if on_first_round else None
+
+    def client(c):
+        try:
+            with ServeClient(["127.0.0.1:%d" % port], timeout=120) as cli:
+                cids[c] = cli._client_id
+                cli.health()
+                barrier.wait(60)
+                for n, i in enumerate(range(c, N_REQUESTS, N_CLIENTS)):
+                    if n and pace:
+                        time.sleep(pace)
+                    starts[i] = time.perf_counter()
+                    answers[i] = cli.predict([tokens[i], types[i]])
+                    latency[i] = time.perf_counter() - starts[i]
+                    if n == 0 and first is not None:
+                        first.wait(60)
+        except Exception as e:    # reported and failed below
+            errors.append("client %d: %r" % (c, e))
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(N_CLIENTS)]
+    for t in threads:
+        t.start()
+    barrier.wait(60)
+    t0 = time.perf_counter()
+    if first is not None:
+        first.wait(60)
+        on_first_round()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if errors or any(a is None for a in answers):
+        raise RuntimeError("serve_tier: PREDICT failed: %s" % errors)
+    return answers, latency, wall, cids, starts
+
+
+def phase_serve_tier(refs, smi):
+    """The serving tier on the card (after ``bf16``): two replica
+    processes (:func:`serve_replica_worker`), a ``FleetCollector``
+    scraping them over METRICS and serving FLEET, a ``ServeRouter`` fed by
+    it through ``serve_router_forever``.  Holds routed PREDICT (every
+    answer against ``refs``, the slice's composition, each client on one
+    replica, K1 exactly 12 x (2 x 4 warm + served micro-batches) over the
+    replicas, no K2-K4), routed GENERATE (the exact rule), METRICS and the
+    registry, the census and the packer (in each replica), a DRAIN, a
+    failover after SIGKILL, and the two command lines.  Returns the
+    launches of the routed burst, summed over the replicas."""
+    import signal
+    import tempfile
+    from mxnet_tpu_torch import fleet
+    from mxnet_tpu_torch.serve import ServeClient
+    from mxnet_tpu_torch.serve.decode import (DecodeConfig, demo_lm_params,
+                                              reference_generate)
+    from mxnet_tpu_torch.serve.demo import demo_block, demo_requests
+    from mxnet_tpu_torch.serve.router import ServeRouter, serve_router_forever
+    from mxnet_tpu_torch.telemetry import registry
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-tier-")
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs, stops, threads = [], [], []
+    rec = {"card": smi}
+    tokens, types = make_requests()
+    try:
+        # the command lines come up while the replicas build
+        cli_ready = os.path.join(tmp, "cli.port")
+        t_cli = time.perf_counter()
+        cli_rep = subprocess.Popen(
+            [sys.executable, "-m", "mxnet_tpu_torch.serve", "--demo",
+             "--decode", "--port", "0", "--ready-file", cli_ready],
+            cwd=root, stdout=open(cli_ready + ".log", "w"),
+            stderr=subprocess.STDOUT)
+        procs.append(cli_rep)
+        pa, pb = _free_port(), _free_port()
+        addr_a, addr_b = "127.0.0.1:%d" % pa, "127.0.0.1:%d" % pb
+        out_a, out_b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        t_spawn = time.perf_counter()
+        proc_a, proc_b = _tier_spawn(pa, out_a), _tier_spawn(pb, out_b)
+        procs += [proc_a, proc_b]
+        ready = {}
+        for name, out, proc in (("a", out_a, proc_a), ("b", out_b, proc_b)):
+            _tier_wait_file(out + ".ready", proc, "replica " + name)
+            ready[name] = json.load(open(out + ".rec"))
+        rec["replicas_ready_s"] = time.perf_counter() - t_spawn
+        rec["replicas"] = ready
+        for name, r in ready.items():
+            log("serve_tier: replica %s deploy+warm %.3f s (bucket temp "
+                "bytes %s, first-dispatch s %s), process ready in %.1f s; "
+                "census %s; resnet18 refused under a budget of %d bytes "
+                "(%s)" % (name, r["deploy_warm_s"],
+                          json.dumps(r["bucket_temp_bytes"]),
+                          json.dumps(r["bucket_compile_s"]),
+                          r["build_and_warm_s"], json.dumps(r["census"]),
+                          r["hbm_budget"], r["refused"][:80]))
+        _tier_wait_file(cli_ready, cli_rep, "the CLI replica")
+        rec["cli_ready_s"] = time.perf_counter() - t_cli
+        cli_rt_ready = os.path.join(tmp, "clirt.port")
+        cli_rt = subprocess.Popen(
+            [sys.executable, "-m", "mxnet_tpu_torch.serve.router", "--port",
+             "0", "--replicas", "127.0.0.1:%s" % open(cli_ready).read(),
+             "--ready-file", cli_rt_ready],
+            cwd=root, stdout=open(cli_rt_ready + ".log", "w"),
+            stderr=subprocess.STDOUT)
+        procs.append(cli_rt)
+
+        # the fleet collector and the router
+        coll = fleet.FleetCollector(
+            [fleet.FleetMember("serve", 0, addr=addr_a),
+             fleet.FleetMember("serve", 1, addr=addr_b)],
+            interval=0.25).start(port=0)
+        faddr = "127.0.0.1:%d" % coll.bound_ports["wire"]
+        rt = ServeRouter(replicas=[addr_a, addr_b], fleet_addr=faddr,
+                         refresh=0.2)
+        rport = _free_port()
+        rstop = threading.Event()
+        rthread = threading.Thread(
+            target=serve_router_forever, daemon=True,
+            kwargs=dict(port=rport, router=rt, stop_event=rstop))
+        rthread.start()
+        stops.append(rstop)
+        threads.append(rthread)
+        deadline = time.perf_counter() + 30
+        while True:
+            try:
+                socket.create_connection(("127.0.0.1", rport), 1).close()
+                break
+            except OSError:
+                if time.perf_counter() > deadline:
+                    raise RuntimeError("serve_tier: the router never bound")
+                time.sleep(0.02)
+
+        # 1. routed PREDICT
+        m0 = {a: _tier_metrics(a)[0] for a in (addr_a, addr_b)}
+        answers, latency, wall, cids, _ = _tier_burst(rport, tokens, types)
+        worst = check_answers("serve_tier routed", answers, refs)
+        m1 = {}
+        for a in (addr_a, addr_b):
+            m1[a] = _tier_metrics(a)
+        req = {a: _tier_value(m1[a][0], "serve.requests")
+               - _tier_value(m0[a], "serve.requests")
+               for a in (addr_a, addr_b)}
+        pins = {cid: rt._pins.get(cid) for cid in cids}
+        per_replica = {a: sum(1 for p in pins.values() if p == a)
+                       for a in (addr_a, addr_b)}
+        per = N_REQUESTS // N_CLIENTS
+        sessions = rt.health()["sessions"]
+        if any(p is None for p in pins.values()) \
+                or any(req[a] != per * per_replica[a] for a in req) \
+                or min(per_replica.values()) < 1 or sessions < N_CLIENTS:
+            raise RuntimeError("serve_tier: sessions %s (the router holds "
+                               "%d), requests by replica %s"
+                               % (per_replica, sessions, req))
+        launches = {}
+        served = 0
+        for a in (addr_a, addr_b):
+            for k, v in _tier_launches(m1[a][0]).items():
+                launches[k] = launches.get(k, 0) + v
+            served += int(_tier_value(m1[a][0], "smoke.served"))
+        want = 12 * (2 * len(BUCKETS) + served)
+        if launches.get("flash_fwd") != want or any(
+                v for k, v in launches.items() if k != "flash_fwd"):
+            raise RuntimeError("serve_tier: the replicas launched %s, "
+                               "expected flash_fwd 12 x (2 x %d + %d) = %d "
+                               "and nothing else" % (launches, len(BUCKETS),
+                                                     served, want))
+        lat = np.array(latency) * 1e3
+        rec["routed"] = {"requests_per_s": N_REQUESTS / wall,
+                         "p50_ms": float(np.percentile(lat, 50)),
+                         "p99_ms": float(np.percentile(lat, 99)),
+                         "served_batches": served,
+                         "sessions_by_replica": per_replica,
+                         "requests_by_replica": req,
+                         "max_abs_err_vs_composition": worst,
+                         "launches": launches}
+        log("serve_tier: routed burst %s" % json.dumps(rec["routed"]))
+
+        # 3. METRICS and the registry
+        for a in (addr_a, addr_b):
+            snap0, (snap, text) = m0[a], m1[a]
+            prom = parse_prometheus(text)
+            for b in BUCKETS:
+                lbl = (("program", "serve.bert_12_768_12.b%d" % b),)
+                if prom.get(("mx_program_compile_seconds_count", lbl), 0) \
+                        < 1 or prom.get(("mx_program_temp_bytes", lbl),
+                                        0) <= 0:
+                    raise RuntimeError("serve_tier: %s METRICS lacks bucket "
+                                       "%d's program rows" % (a, b))
+            if prom.get(("mx_serve_active_version",
+                         (("model", "bert_12_768_12"),))) != 1.0:
+                raise RuntimeError("serve_tier: %s has no "
+                                   "serve.active_version" % a)
+            grew = {k: (_tier_value(snap0, k), v["value"])
+                    for k, v in snap.items()
+                    if k.startswith("program_retraces{")
+                    and v["value"] != _tier_value(snap0, k)}
+            if grew:
+                raise RuntimeError("serve_tier: retraces grew over the burst "
+                                   "%s" % grew)
+        merged = coll.scrape_once()
+        direct = {a: _tier_metrics(a)[0] for a in (addr_a, addr_b)}
+        for name in ("serve.requests", "serve.batches", "serve.rows",
+                     "serve.decode.tokens"):
+            total = merged["counters"].get(name, {}).get("total")
+            want_total = sum(_tier_value(direct[a], name) for a in direct)
+            if total != want_total:
+                raise RuntimeError("serve_tier: FLEET %s = %r, the replicas "
+                                   "sum to %r" % (name, total, want_total))
+        snap = fleet.fetch_fleet(faddr)
+        if snap.get("schema") != fleet.SCHEMA or sorted(
+                fleet.replica_signals(snap)) != sorted((addr_a, addr_b)):
+            raise RuntimeError("serve_tier: FLEET snapshot %s" % snap.keys())
+
+        # 2. GENERATE through the router, by the exact rule
+        cfg = DecodeConfig(**TIER_LM)
+        params = demo_lm_params(cfg, torch.device("cuda", 0))
+        p64 = {k: v.double() for k, v in params.items()}
+        prompts, news = decode_workload(cfg, 48, 2, SEED)
+        oracle = {}
+
+        def want_tokens(i):
+            if i not in oracle:
+                oracle[i] = reference_generate(prompts[i], news[i],
+                                               params=params, config=cfg)
+            return oracle[i]
+        with ServeClient(["127.0.0.1:%d" % rport], timeout=120) as cli:
+            gen = [cli.generate(prompts[i], max_tokens=news[i])[1]
+                   for i in range(4)]
+        decode_compare("serve_tier routed", gen,
+                       [want_tokens(i) for i in range(4)], prompts[:4],
+                       p64, cfg)
+
+        # 5. DRAIN replica A
+        pinned_a = None
+        for _ in range(8):
+            c = ServeClient(["127.0.0.1:%d" % rport], timeout=120)
+            c.generate(prompts[3], max_tokens=news[3])
+            if rt._pins.get(c._client_id) == addr_a:
+                pinned_a = c
+                break
+            c.close()
+        if pinned_a is None:
+            raise RuntimeError("serve_tier: no session pinned to A")
+        long_out, errors = {}, []
+
+        def long_gen(i):
+            try:
+                with ServeClient([addr_a], timeout=120) as c:
+                    long_out[i] = c.generate(prompts[i], max_tokens=48)[1]
+            except Exception as e:      # noqa: BLE001 — raised below
+                errors.append(repr(e))
+        longs = [i for i in range(len(prompts)) if news[i] == 48][:TIER_LONG]
+        gthreads = [threading.Thread(target=long_gen, args=(i,))
+                    for i in longs]
+        with ServeClient([addr_a], timeout=30) as probe:
+            done0 = probe.decode_stats(idx=0)["sequences"]
+            for t in gthreads:
+                t.start()
+            # every long generation admitted before the DRAIN closes the
+            # door (a later one would be refused)
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < 30:
+                st = probe.decode_stats(idx=0)
+                if st["active"] + st["queued"] + st["sequences"] - done0 \
+                        >= len(longs):
+                    break
+                time.sleep(0.002)
+            t_drain = time.perf_counter()
+            status = probe.drain(timeout=TIER_DRAIN_S, idx=0)
+        inflight = status.get("active", 0) + status.get("queued", 0)
+        if inflight < 1:
+            raise RuntimeError("serve_tier: the DRAIN found nothing in "
+                               "flight: %s" % status)
+        # A's successor builds meanwhile; it binds A's port once A is gone
+        # and the router has seen A dead (the go file)
+        t_restart = time.perf_counter()
+        go_a2 = out_a + "2.go"
+        proc_a2 = _tier_spawn(pa, out_a + "2", go=go_a2)
+        procs.append(proc_a2)
+        sp0 = registry.value("router.spills")
+        moved = pinned_a.generate(prompts[5], max_tokens=news[5])[1]
+        fresh = ServeClient(["127.0.0.1:%d" % rport], timeout=120)
+        fresh_out = fresh.generate(prompts[6], max_tokens=news[6])[1]
+        new_pins = (rt._pins.get(pinned_a._client_id),
+                    rt._pins.get(fresh._client_id))
+        state_after = rt._replicas.get(addr_a)
+        pinned_a.close()
+        fresh.close()
+        for t in gthreads:
+            t.join(120)
+        if errors or len(long_out) != len(longs):
+            raise RuntimeError("serve_tier: in-flight generations on the "
+                               "drained replica failed: %s" % errors[:3])
+        decode_compare("serve_tier drained", [long_out[i] for i in longs],
+                       [reference_generate(prompts[i], 48, params=params,
+                                           config=cfg) for i in longs],
+                       [prompts[i] for i in longs], p64, cfg)
+        decode_compare("serve_tier moved", [moved, fresh_out],
+                       [want_tokens(5), want_tokens(6)],
+                       [prompts[5], prompts[6]], p64, cfg)
+        code_a = proc_a.wait(timeout=TIER_DRAIN_S)
+        drain_s = time.perf_counter() - t_drain
+        if code_a != 0 or drain_s > TIER_DRAIN_S:
+            raise RuntimeError("serve_tier: the drained replica exited %r "
+                               "after %.1f s" % (code_a, drain_s))
+        exit_a = json.load(open(out_a + ".exit"))
+        if new_pins != (addr_b, addr_b) or state_after != "draining" or \
+                registry.value("router.spills") <= sp0:
+            raise RuntimeError("serve_tier: after the DRAIN the sessions "
+                               "went to %s, A is %r" % (new_pins,
+                                                        state_after))
+        # the fan-out of a SWAP reaches every member: A's death shows
+        with ServeClient(["127.0.0.1:%d" % rport], timeout=60) as cli:
+            try:
+                cli.swap("/nonexistent/model")
+                raise RuntimeError("serve_tier: a SWAP without a loader "
+                                   "flipped")
+            except Exception as e:      # noqa: BLE001 — checked here
+                swap_refusal = str(e)
+        if "swap failed" not in swap_refusal or \
+                rt._replicas.get(addr_a) != "dead":
+            raise RuntimeError("serve_tier: SWAP said %r, A is %r"
+                               % (swap_refusal, rt._replicas.get(addr_a)))
+        open(go_a2, "w").close()
+        rec["drain"] = {"in_flight_at_drain": inflight,
+                        "status": status, "exit_s": drain_s,
+                        "generations": len(longs), "exit": exit_a,
+                        "swap_refusal": swap_refusal[:120]}
+        log("serve_tier: drain %s" % json.dumps(rec["drain"]))
+
+        # 6. failover: A back on its port, then B killed mid-burst
+        _tier_wait_file(out_a + "2.ready", proc_a2, "replica a restarted")
+        t0 = time.perf_counter()
+        while rt._replicas.get(addr_a) != "up":
+            if time.perf_counter() - t0 > 10:
+                raise RuntimeError("serve_tier: the router's probe never "
+                                   "took A back")
+            time.sleep(0.02)
+        revive_s = time.perf_counter() - t0
+        restart_s = time.perf_counter() - t_restart
+        f0 = registry.value("router.failovers")
+        u0 = registry.value("router.sessions_unpinned")
+        killed = {}
+
+        def kill_b():
+            killed["pins"] = dict(rt._pins)
+            killed["t"] = time.perf_counter()
+            os.kill(proc_b.pid, signal.SIGKILL)
+        answers2, latency2, _wall2, cids2, starts2 = _tier_burst(
+            rport, tokens, types, pace=TIER_PACE_S, on_first_round=kill_b)
+        worst2 = check_answers("serve_tier failover", answers2, refs)
+        proc_b.wait(30)
+        failovers = registry.value("router.failovers") - f0
+        unpinned = registry.value("router.sessions_unpinned") - u0
+        # the failover's cost: the first request after the kill of each
+        # session that was pinned to B
+        on_b = {c for c, cid in enumerate(cids2)
+                if killed["pins"].get(cid) == addr_b}
+        across = [latency2[i] for i in range(N_REQUESTS)
+                  if i % N_CLIENTS in on_b and starts2[i] > killed["t"]
+                  and i // N_CLIENTS == 1]
+        if failovers < 1 or unpinned < 1 or not on_b or \
+                rt._replicas.get(addr_b) != "dead":
+            raise RuntimeError("serve_tier: failovers %d, unpinned %d, B's "
+                               "sessions %d, B is %r"
+                               % (failovers, unpinned, len(on_b),
+                                  rt._replicas.get(addr_b)))
+        snap_a2 = _tier_metrics(addr_a)[0]
+        launches_a2 = _tier_launches(snap_a2)
+        served_a2 = int(_tier_value(snap_a2, "smoke.served"))
+        if launches_a2.get("flash_fwd") != 12 * (len(BUCKETS) + served_a2):
+            raise RuntimeError("serve_tier: the restarted replica launched "
+                               "%s for %d served batches"
+                               % (launches_a2, served_a2))
+        rec["failover"] = {"restart_ready_s": restart_s,
+                           "probe_revive_s": revive_s,
+                           "failovers": failovers,
+                           "sessions_unpinned": unpinned,
+                           "burst_after_kill_s":
+                               time.perf_counter() - killed["t"],
+                           "b_sessions_at_kill": len(on_b),
+                           "failover_request_ms":
+                               sorted(x * 1e3 for x in across),
+                           "other_request_p50_ms": float(np.percentile(
+                               [latency2[i] * 1e3 for i in range(N_REQUESTS)
+                                if i % N_CLIENTS not in on_b], 50)),
+                           "max_abs_err_vs_composition": worst2,
+                           "a2_launches": launches_a2}
+        log("serve_tier: failover %s" % json.dumps(rec["failover"]))
+        with ServeClient(["127.0.0.1:%d" % rport], timeout=30) as cli:
+            cli.stop()
+        if proc_a2.wait(timeout=30) != 0:
+            raise RuntimeError("serve_tier: the restarted replica did not "
+                               "exit 0 on STOP")
+        rthread.join(30)
+
+        # 7. the command lines
+        _tier_wait_file(cli_rt_ready, cli_rt, "the CLI router")
+        x = demo_requests(1, rows=2, seed=SEED)[0][0]
+        dcfg = DecodeConfig()
+        dparams = demo_lm_params(dcfg, torch.device("cuda", 0))
+        with torch.no_grad():
+            mlp = demo_block()
+            mlp_want = mlp(torch.from_numpy(x).cuda()).cpu().numpy()
+        with ServeClient(["127.0.0.1:%s" % open(cli_rt_ready).read()],
+                         timeout=60) as cli:
+            version, mlp_out = cli.predict([x])
+            _v, toks = cli.generate([3, 1, 4], max_tokens=8)
+            cli.stop()
+        decode_compare("serve_tier CLI", [toks], [reference_generate(
+            [3, 1, 4], 8, params=dparams, config=dcfg)], [[3, 1, 4]],
+            {k: v.double() for k, v in dparams.items()}, dcfg)
+        if version != 1 or not np.allclose(mlp_out[0], mlp_want,
+                                           rtol=1e-5, atol=1e-6):
+            raise RuntimeError("serve_tier: the CLI replica answered %r"
+                               % (mlp_out,))
+        codes = (cli_rt.wait(30), cli_rep.wait(30))
+        if codes != (0, 0):
+            raise RuntimeError("serve_tier: the CLI router and replica "
+                               "exited %s" % (codes,))
+        rec["cli"] = {"replica_ready_s": rec.pop("cli_ready_s"),
+                      "mlp_max_abs_err": float(np.abs(mlp_out[0] -
+                                                      mlp_want).max())}
+    finally:
+        for ev in stops:
+            ev.set()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(10)
+        for t in threads:
+            t.join(10)
+        try:
+            coll.stop()
+        except NameError:
+            pass
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log("serve_tier: %s" % json.dumps({k: rec[k] for k in
+                                       ("replicas_ready_s", "cli",
+                                        "phase_s", "card")}))
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -5510,8 +6226,8 @@ def phase_dist(smi):
 # ---------------------------------------------------------------------------
 
 PS_BATCH = 8                    # a worker's batch (T = SEQ_LEN)
-PS_STEPS_A = 3                  # server steps, then as many local ones
-PS_STEPS_B = 2                  # each rank's steps in part (b)
+PS_STEPS_A = 2                  # server steps, then as many local ones
+PS_STEPS_B = 1                  # each rank's steps in part (b)
 PS_LR_B = 0.1                   # part (b)'s plain SGD
 PS_TOL_A = 1e-4                 # the port's fp32 rule, x max|ref|
 PS_TOL_B = 1e-5                 # x max|w0| (max|w| for a zero-init tensor)
@@ -5653,9 +6369,10 @@ def ps_profiled_step(net, params, loss_fn, batch, kv, trace_dir):
 
 
 def ps_part_a(dev, trace_dir):
-    """(a) One worker, one server: 3 steps with the server's SGD (momentum
-    0.9), one profiled step (c), then 3 steps from the same weights and
-    batches with a local updater of the same SGD on the card.  Step 1's
+    """(a) One worker, one server: PS_STEPS_A steps with the server's SGD
+    (momentum 0.9), one profiled step (c), then as many steps from the
+    same weights and batches with a local updater of the same SGD on the
+    card.  Step 1's
     loss bitwise equal, every weight after step 3 within 1e-4 x max|ref|
     of the local run's."""
     from mxnet_tpu_torch import kvstore, optimizer
@@ -5727,8 +6444,8 @@ def ps_part_a(dev, trace_dir):
 
 def ps_part_b(dev, tmp):
     """(b) Two workers on ``cuda:0``, two servers, plain SGD (lr 0.1): each
-    rank takes 2 steps on its own data and keeps the float64 sum S_r of
-    the gradients it pushed.  After the barrier rank 0 pulls every weight:
+    rank takes PS_STEPS_B steps on its own data and keeps the float64 sum
+    S_r of the gradients it pushed.  After the barrier rank 0 pulls every weight:
     w = w0 - 0.1 (S_0 + S_1) on every tensor, and the control
     w0 - 0.1 S_0 fails on most of them."""
     from mxnet_tpu_torch import kvstore, optimizer
@@ -6539,7 +7256,7 @@ LC_BASE = {"seq_len": 16384, "d_model": 768, "heads": 12, "layers": 12,
 LC_TINY = {"seq_len": 64, "d_model": 128, "heads": 2, "layers": 2,
            "vocab": 64, "batch": 4}
 LC_LR = 3e-3                    # the example's default
-LC_STEPS = 5
+LC_STEPS = 3
 CONTEXT_TOL = 1e-4              # x max|ref|: the port's fp32 rule
 #: attention's own rule (x max|ref|), for the attention check of the LM's
 #: length against float64
@@ -8587,8 +9304,13 @@ def main():
     torch.cuda.empty_cache()
     tokens, types = make_requests()
     phase_breakdown(sv, tokens, types)
+    refs = composition_outputs(net, tokens, types)
     phase_bf16(net, answers, tokens, types)
     del net, sv, answers
+    gc.collect()
+    torch.cuda.empty_cache()
+    tier_launches = phase_serve_tier(refs, smi)
+    del refs
     gc.collect()
     torch.cuda.empty_cache()
     train_launches, train_step_ms = phase_train(peaks)
@@ -8657,7 +9379,8 @@ def main():
                    "several": several_launches.get(k, 0),
                    "resnet_dp": resnet_dp_launches.get(k, 0),
                    "save_load": save_load_launches.get(k, 0),
-                   "decode": decode_launches.get(k, 0)}
+                   "decode": decode_launches.get(k, 0),
+                   "serve_tier": tier_launches.get(k, 0)}
                for k in imperative_launches}
     fp32, bf16 = torch.float32, torch.bfloat16
     kernels = [
@@ -8701,7 +9424,9 @@ def main():
                      "save_load": save_load_launches.get(
                          "tpu_kernel:" + body, 0),
                      "decode": decode_launches.get("tpu_kernel:" + body,
-                                                   0)},
+                                                   0),
+                     "serve_tier": tier_launches.get("tpu_kernel:" + body,
+                                                     0)},
                     user[(body, fp32)], user[(body, bf16)],
                     {"default_grid_": user[(body + ":default_grid", fp32)],
                      "bf16_default_grid_": user[(body + ":default_grid",
@@ -8725,6 +9450,8 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ps-worker"]:
         ps_worker(sys.argv[2], sys.argv[3])
+    elif sys.argv[1:2] == ["--serve-replica-worker"]:
+        serve_replica_worker(sys.argv[2:])
     elif sys.argv[1:2] == ["--resume-worker"]:
         resume_worker(sys.argv[2:])
     elif sys.argv[1:2] == ["--train-dist-async"]:

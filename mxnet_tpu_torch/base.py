@@ -227,6 +227,121 @@ ENV_CATALOG = {
                      "to 2.  Empty keeps the replicated step.  Sharding "
                      "never changes results - only placement and "
                      "communication."),
+    # -- the serving tier: programs, packer, drain, router, fleet ---------
+    "MX_PROGRAM_CENSUS": ("1", "Program registry and buffer census "
+                          "(programs.py): 1 (default) routes the bucket, "
+                          "decode and step programs through the registry "
+                          "(program_compile_seconds, program_temp_bytes, "
+                          "program_retraces with the retrace explainer's "
+                          "diff) and lets owners register their tensors "
+                          "for buffer_census(); 0 makes register_program "
+                          "return the plain callable."),
+    "MX_LEAK_WARN_BYTES": ("67108864", "Buffer-census leak detector "
+                           "threshold: when the census total grows over "
+                           "consecutive checks by more than this many "
+                           "bytes, census_leak_bytes latches the streak, "
+                           "census.leak_trips increments and a warning "
+                           "names the growing owners.  A shrink resets "
+                           "the streak; 0 disables the trip."),
+    "MX_SERVE_HBM_BUDGET": ("0", "Device byte budget one serving replica "
+                            "may spend across its co-hosted models "
+                            "(servables and decode engines' models).  "
+                            "ModelHost.deploy measures a candidate after "
+                            "its warm (live bytes plus the largest temp "
+                            "bytes of its registered programs) and refuses "
+                            "it with BudgetExceeded, answered in-band as "
+                            "'(False, \"budget: ...\")', when hosted + "
+                            "new would pass the budget.  0 disables the "
+                            "packer."),
+    "MX_SERVE_DRAIN_TIMEOUT": ("30", "Default deadline in seconds of a "
+                               "replica's DRAIN: admission closes at once "
+                               "(fresh PREDICT/GENERATE answered "
+                               "'draining: ...'), in-flight work finishes, "
+                               "the serve loop exits; past the deadline "
+                               "the stragglers' connections are severed "
+                               "with no reply so their clients fail over. "
+                               " A repeated DRAIN keeps the first "
+                               "deadline."),
+    "MX_SERVE_ROOTS": ("", "Comma-separated replica (or router) addresses "
+                       "host:port a ServeClient connects to when given "
+                       "none; it sticks to one and fails over to the "
+                       "next on a connection error or timeout."),
+    "MX_SERVE_DRAFT": ("0", "Speculative decoding for 'python -m "
+                       "mxnet_tpu_torch.serve --decode': layers of the "
+                       "built-in draft model (the demo LM's first N, "
+                       "demo_spec_pair); > 0 selects the speculative "
+                       "engine and needs MX_SERVE_KV_PAGES > 0."),
+    "MX_PROCESS_ID": ("", "This process's rank (launcher-set); a replica "
+                      "started with --port-base binds port-base + it."),
+    "MX_ROUTER_PORT": ("9800", "Port the serving router binds (python -m "
+                       "mxnet_tpu_torch.serve.router) when --port is not "
+                       "given."),
+    "MX_ROUTER_REPLICAS": ("", "Comma-separated static replica addresses "
+                           "host:port the router starts with.  New members "
+                           "join 'up'; a failed forward marks one 'dead' "
+                           "and a connect probe each refresh tick revives "
+                           "it."),
+    "MX_ROUTER_REPLICAS_FILE": ("", "Replica-list file (one host:port a "
+                                "line, '#' comments) the router re-reads "
+                                "every refresh tick: an address that "
+                                "appears joins 'up', one that disappears "
+                                "goes 'draining' until dead, then is "
+                                "forgotten."),
+    "MX_ROUTER_REFRESH": ("1.0", "Seconds between router refresh ticks: "
+                          "the replicas file, dead-replica probes and the "
+                          "FLEET pull of load signals."),
+    "MX_ROUTER_FLEET": ("", "Fleet collector address host:port the router "
+                        "pulls merged load signals from "
+                        "(fleet.replica_signals).  Empty: no signals, "
+                        "round-robin over 'up' replicas."),
+    "MX_ROUTER_PIN_CAP": ("4096", "Bound on the router's session-pin LRU "
+                          "(client id -> replica).  An evicted pin costs "
+                          "locality on the session's next request, never "
+                          "correctness.  Values < 1 clamp to 1."),
+    "MX_ROUTER_DRAIN_TIMEOUT": ("30", "Default deadline in seconds of the "
+                                "router's own DRAIN: new sessions refused "
+                                "'draining: ...', pinned sessions keep "
+                                "flowing, the router exits once idle and "
+                                "severs stragglers past the deadline."),
+    "MX_FLEET_INTERVAL": ("2.0", "Fleet collector (fleet.py): seconds "
+                          "between scrape rounds over its members (serve "
+                          "replicas over METRICS, workers through their "
+                          "heartbeat files).  A member whose scrape fails "
+                          "is marked absent that round."),
+    "MX_FLEET_RING": ("120", "Fleet collector: bounded ring of merged "
+                      "snapshots, one a scrape round."),
+    "MX_FLEET_WINDOW": ("5", "Fleet detectors: window in scrape rounds for "
+                        "straggler medians and SLO burn."),
+    "MX_FLEET_STRAGGLER_FACTOR": ("2.0", "Straggler detector: a worker "
+                                  "whose windowed step time passes this "
+                                  "multiple of the fleet's lower median "
+                                  "is flagged with its dominant phase."),
+    "MX_FLEET_STALE": ("", "Fleet collector: seconds a heartbeat-scraped "
+                       "member's beat may age before it is absent.  "
+                       "Empty: max(2 x MX_FLEET_INTERVAL, 30 s)."),
+    "MX_FLEET_SLO_P50_MS": ("", "Serving SLO target: the fleet-merged "
+                            "rolling p50 of MX_FLEET_SLO_PHASES in ms; "
+                            "fleet.slo_burn{slo=p50_latency} publishes "
+                            "observed/target and a burn > 1 latches a "
+                            "breach.  Empty disables."),
+    "MX_FLEET_SLO_P99_MS": ("", "Serving SLO target: the fleet-merged "
+                            "rolling p99 in ms (as MX_FLEET_SLO_P50_MS).  "
+                            "Empty disables."),
+    "MX_FLEET_SLO_REJECT_RATE": ("", "Serving SLO target: windowed "
+                                 "rejection rate rejected / (requests + "
+                                 "rejected).  Empty disables."),
+    "MX_FLEET_SLO_QUEUE": ("", "Serving SLO target: mean fleet queue depth "
+                           "in rows (serve.queue_rows).  Empty disables."),
+    "MX_FLEET_SLO_PHASES": ("queue_wait,serve_dispatch", "Comma-separated "
+                            "step_phase_seconds phases whose merged "
+                            "histograms make the serving latency the SLO "
+                            "trackers read."),
+    "MX_FLEET_PORT": ("", "Port of the fleet collector's wire server "
+                      "(FLEET: the merged snapshot; METRICS: the "
+                      "federation exposition).  Empty: none."),
+    "MX_FLEET_HTTP_PORT": ("", "Port of the collector's Prometheus "
+                           "federation HTTP endpoint (GET /metrics, GET "
+                           "/fleet.json).  Empty: none."),
     "MX_FSDP": ("", "Size of the fsdp (ZeRO sheet-sharding) mesh axis for "
                 "the SpecLayout lane.  Overrides the fsdp entry of "
                 "MX_MESH_AXES; setting MX_FSDP=N alone implies "

@@ -126,17 +126,18 @@ class Engine:
 
     def snapshot(self) -> dict:
         """One consistent view of the counter group, taken under the lock
-        every ``count_*`` holds.  The reference adds ``"programs"``, the
-        size of its compiled-program registry; the port has no
-        ``programs.py`` yet (ROADMAP Queue 1 item 6), so the key is
-        absent."""
+        every ``count_*`` holds, plus ``"programs"``: the size of the
+        program registry (:func:`.programs.program_count`)."""
         with self._snap_lock:
-            return {
+            snap = {
                 "dispatches": self._c_dispatch.value,
                 "wire_bytes": self._c_wire.value,
                 "compiled_step_windows": self._c_windows.value,
                 "compiled_steps": self._c_steps.value,
             }
+        from . import programs as _programs
+        snap["programs"] = _programs.program_count()
+        return snap
 
     # -- engine type -------------------------------------------------------
     @property

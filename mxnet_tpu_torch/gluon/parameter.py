@@ -128,6 +128,22 @@ class _Holder(torch.nn.Module):
     """The owner of a free parameter's one slot, ``value``."""
 
 
+def _param_census_tensors(p) -> List[torch.Tensor]:
+    """One parameter's tensors for the buffer census: read through the
+    slot (a parameter is a handle), every context's copy and its
+    gradient."""
+    try:
+        tensors = list(p._tensors().values())
+    except (AttributeError, KeyError):
+        return []
+    out = []
+    for t in tensors:
+        out.append(t)
+        if t.grad is not None:
+            out.append(t.grad)
+    return out
+
+
 class Parameter:
     """A weight, bias or state of a block (reference: gluon.Parameter).
 
@@ -180,6 +196,10 @@ class Parameter:
         #: other (owner, attribute) slots that share this parameter
         #: (``Block.share_parameters``): they hold the same tensor
         self._aliases: List[Tuple[torch.nn.Module, str]] = []
+        # the buffer census: the slot's tensor and every copy, with their
+        # gradients, under the "params" owner
+        from .. import programs as _programs
+        _programs.track_buffers("params", self, _param_census_tensors)
 
     # -- the slot ----------------------------------------------------------
     def _tensor(self) -> torch.nn.Parameter:

@@ -70,6 +70,12 @@ class GradientCompression:
         self._residuals: Dict = {}
         #: residuals checkpointed by an overlap session until its commit
         self._pinned: Dict = {}
+        # the buffer census: error-feedback residuals under "ef_residuals"
+        from .. import programs as _programs
+        _programs.track_buffers(
+            "ef_residuals", self,
+            lambda gc: [a for a in list(gc._residuals.values())
+                        + list(gc._pinned.values()) if a is not None])
 
     def _residual(self, key, like: torch.Tensor, dtype=None) -> torch.Tensor:
         res = self._residuals.get(key)

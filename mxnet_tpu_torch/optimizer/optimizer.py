@@ -841,6 +841,26 @@ class SGLD(Optimizer):
         return ret
 
 
+def _state_tensors(state, out) -> None:
+    if state is None:
+        return
+    if isinstance(state, (list, tuple)):
+        for s in state:
+            _state_tensors(s, out)
+        return
+    t = getattr(state, "_data", state)
+    if isinstance(t, torch.Tensor):
+        out.append(t)
+
+
+def _updater_census_tensors(u):
+    """One updater's slot-state tensors for the buffer census."""
+    out: list = []
+    for st in list(u.states.values()):
+        _state_tensors(st, out)
+    return out
+
+
 class Updater:
     """Apply an optimizer to ``(index, grad, weight)`` triples, keeping each
     index's state (reference: class Updater).  Called with lists (one
@@ -851,6 +871,11 @@ class Updater:
         self.optimizer = optimizer
         self.states: Dict[Any, Any] = {}
         self.states_synced: Dict[Any, bool] = {}
+        # the buffer census: slot states (momenta, moments, fp32 masters)
+        # under the "optimizer_state" owner
+        from .. import programs as _programs
+        _programs.track_buffers("optimizer_state", self,
+                                _updater_census_tensors)
 
     @property
     def aggregate_updates(self):

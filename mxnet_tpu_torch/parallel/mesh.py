@@ -395,6 +395,13 @@ class TrainStep:
                 [dtype_name(p.dtype) for p in ps],
                 [p.element_size() for p in ps], ["default"] * len(ps),
                 bucket_bytes())
+        # the program registry: one step, and a window of k steps, keyed
+        # by the batch's signature (the parameters are the step's own)
+        from ..programs import register_program
+        self._step_prog = register_program("mesh.train_step", self._step,
+                                           mode="light")
+        self._window_prog = register_program("mesh.train_window",
+                                             self._window, mode="light")
 
     def _place(self, batch) -> List[torch.Tensor]:
         return [torch.from_numpy(np.asarray(a)).to(self.device)
@@ -464,17 +471,19 @@ class TrainStep:
         return loss
 
     def __call__(self, *batch) -> torch.Tensor:
-        return self._step(self._place(batch))
+        return self._step_prog(self._place(batch))
+
+    def _window(self, k: int, placed: List[torch.Tensor]) -> torch.Tensor:
+        for _ in range(k):
+            loss = self._step(placed)
+        return loss.float()
 
     def run_steps(self, k: int, *batch) -> torch.Tensor:
         """Run ``k`` steps on the same batch; returns the last loss as
         float32 (the JAX package runs them under one dispatch)."""
         if k < 1:
             raise ValueError("run_steps needs k >= 1, got %d" % k)
-        placed = self._place(batch)
-        for _ in range(k):
-            loss = self._step(placed)
-        return loss.float()
+        return self._window_prog(int(k), self._place(batch))
 
     def _mesh(self) -> Mesh:
         """The mesh the state lives on: a step without one runs on one

@@ -14,6 +14,16 @@ The dispatch runs on the batcher thread.  :meth:`Servable.dispatch` sets
 the CUDA device there and launches on that thread's current stream, the
 device's default stream, which the handler threads' copies also use, so
 they are ordered after the batch's kernels.
+
+Telemetry, as in the reference: per-request ``queue_wait`` and per-batch
+``pad`` and ``serve_dispatch`` phases land in ``step_phase_seconds``
+(``scatter`` is stamped on the handler thread that reads its rows); the
+``serve_dispatch`` span carries one event per member request with its
+wire-propagated (trace_id, span_id); counters ``serve.requests`` /
+``rejected`` / ``rows`` / ``padding_rows``, the ``serve.queue_rows``
+gauge and the ``serve.batch_occupancy`` histogram, with per-model
+twins of requests, rows and occupancy.  ``on_tick`` runs once a loop
+turn (a replica's heartbeat).
 """
 from __future__ import annotations
 
@@ -25,6 +35,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..base import MXNetError, get_env
+from .. import telemetry as _telemetry
 from .servable import Servable
 
 __all__ = ["Overloaded", "Batcher", "result_timeout"]
@@ -64,12 +75,16 @@ class _Batch:
 class _Pending:
     """One admitted request and the future its handler thread waits on."""
 
-    __slots__ = ("inputs", "rows", "sig", "_event", "_lk", "_batch", "_err")
+    __slots__ = ("inputs", "rows", "sig", "trace_ctx", "enq_t", "_event",
+                 "_lk", "_batch", "_err")
 
-    def __init__(self, inputs: List[np.ndarray], rows: int, sig: Tuple):
+    def __init__(self, inputs: List[np.ndarray], rows: int, sig: Tuple,
+                 trace_ctx: Optional[Tuple[str, str]] = None):
         self.inputs = inputs
         self.rows = rows
         self.sig = sig
+        self.trace_ctx = trace_ctx
+        self.enq_t = time.perf_counter()
         self._event = threading.Event()
         self._lk = threading.Lock()
         self._batch: Optional[Tuple[_Batch, int, int]] = None
@@ -98,7 +113,12 @@ class _Pending:
         if err is not None:
             raise err
         batch, start, stop = ent
-        return batch.version, [leaf[start:stop] for leaf in batch.host()]
+        with _telemetry.phase("scatter"):
+            outs = [leaf[start:stop] for leaf in batch.host()]
+        return batch.version, outs
+
+
+_OCCUPANCY_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 
 
 class Batcher:
@@ -106,8 +126,8 @@ class Batcher:
 
     def __init__(self, host, max_batch: Optional[int] = None,
                  max_delay_us: Optional[float] = None,
-                 queue_cap: Optional[int] = None, autostart: bool = True,
-                 model: Optional[str] = None):
+                 queue_cap: Optional[int] = None, on_tick=None,
+                 autostart: bool = True, model: Optional[str] = None):
         self._host = host
         self._model = model
         self._max_batch = int(max_batch if max_batch is not None else
@@ -117,10 +137,27 @@ class Batcher:
         self._max_delay = max(0.0, float(delay_us) / 1e6)
         self._cap = int(queue_cap if queue_cap is not None else
                         get_env("MX_SERVE_QUEUE_CAP", 256, int))
+        self._on_tick = on_tick
         self._q: deque = deque()
         self._qrows = 0
         self._cv = threading.Condition()
         self._stop = threading.Event()
+        reg = _telemetry.registry
+        self._c_requests = reg.counter(
+            "serve.requests", doc="admitted predict requests")
+        self._c_rejected = reg.counter(
+            "serve.rejected", doc="requests shed at admission (queue cap) "
+            "or refused (too large / bad signature)")
+        self._c_rows = reg.counter(
+            "serve.rows", doc="admitted request rows (examples)")
+        self._c_pad_rows = reg.counter(
+            "serve.padding_rows", doc="pad rows dispatched (bucket minus "
+            "occupancy: the padding waste)")
+        self._g_depth = reg.gauge(
+            "serve.queue_rows", doc="rows currently queued")
+        self._h_occupancy = reg.histogram(
+            "serve.batch_occupancy", doc="real rows per dispatched "
+            "micro-batch", buckets=_OCCUPANCY_BUCKETS)
         self.requests = 0
         self.rejected = 0
         self.padding_rows = 0
@@ -148,9 +185,11 @@ class Batcher:
     def _refuse(self, err: MXNetError):
         with self._cv:
             self.rejected += 1
+        self._c_rejected.inc()
         raise err
 
-    def submit(self, arrays: Sequence) -> _Pending:
+    def submit(self, arrays: Sequence,
+               trace_ctx: Optional[Tuple[str, str]] = None) -> _Pending:
         """Admit one request (per-input row-batched arrays).  Raises
         :class:`Overloaded` when the queue is full, MXNetError when the
         request can never be served (too many rows, signature mismatch)."""
@@ -173,10 +212,11 @@ class Batcher:
             self._refuse(MXNetError(
                 "serve: input signature %r does not match the deployed "
                 "model's %r" % (sig, want)))
-        p = _Pending(inputs, rows, sig)
+        p = _Pending(inputs, rows, sig, trace_ctx=trace_ctx)
         with self._cv:
             if self._qrows + rows > self._cap:
                 self.rejected += 1
+                self._c_rejected.inc()
                 raise Overloaded(
                     "serve: admission queue full (%d/%d rows; "
                     "MX_SERVE_QUEUE_CAP) - retry later or add replicas"
@@ -184,7 +224,17 @@ class Batcher:
             self._q.append(p)
             self._qrows += rows
             self.requests += 1
+            self._g_depth.set(self._qrows)
             self._cv.notify_all()
+        self._c_requests.inc()
+        self._c_rows.inc(rows)
+        # per-model twins: the fleet rolls them up per hosted model
+        reg = _telemetry.registry
+        lbl = {"model": sv.name}
+        reg.counter("serve.requests", doc="admitted predict requests",
+                    labels=lbl).inc()
+        reg.counter("serve.rows", doc="admitted request rows (examples)",
+                    labels=lbl).inc(rows)
         return p
 
     # -- the dispatch loop --------------------------------------------------
@@ -193,10 +243,13 @@ class Batcher:
             batch = self._collect()
             if batch:
                 self._dispatch(batch)
+            if self._on_tick is not None:
+                self._on_tick()
         with self._cv:
             leftover = list(self._q)
             self._q.clear()
             self._qrows = 0
+            self._g_depth.set(0)
         for p in leftover:
             p._fail(MXNetError("serve: batcher stopped"))
 
@@ -236,6 +289,7 @@ class Batcher:
                 if taken >= eff:
                     break
             self._qrows -= taken
+            self._g_depth.set(self._qrows)
             return take
 
     def _dispatch(self, take: List[_Pending]) -> None:
@@ -258,18 +312,35 @@ class Batcher:
             if bucket is None:
                 raise MXNetError("serve: %d rows exceed the deployed bucket "
                                  "table" % rows)
-            pad_rows = bucket - rows
-            padded = []
-            for i, (trail, dt) in enumerate(take[0].sig):
-                parts = [p.inputs[i] for p in take]
-                if pad_rows:
-                    parts.append(np.zeros((pad_rows,) + trail, dtype=dt))
-                padded.append(parts[0] if len(parts) == 1
-                              else np.concatenate(parts, axis=0))
-            outs = sv.dispatch(bucket, padded)
+            now_t = time.perf_counter()
+            for p in take:
+                _telemetry.observe_phase("queue_wait", now_t - p.enq_t)
+            with _telemetry.phase("pad"):
+                pad_rows = bucket - rows
+                padded = []
+                for i, (trail, dt) in enumerate(take[0].sig):
+                    parts = [p.inputs[i] for p in take]
+                    if pad_rows:
+                        parts.append(np.zeros((pad_rows,) + trail,
+                                              dtype=dt))
+                    padded.append(parts[0] if len(parts) == 1
+                                  else np.concatenate(parts, axis=0))
+            with _telemetry.phase("serve_dispatch") as span:
+                # link each member's wire-propagated span into the batch
+                for p in take:
+                    if p.trace_ctx is not None:
+                        span.event("request", req_trace=p.trace_ctx[0],
+                                   req_span=p.trace_ctx[1], rows=p.rows)
+                outs = sv.dispatch(bucket, padded)
             with self._cv:
                 self.padding_rows += pad_rows
                 self.occupancy[rows] = self.occupancy.get(rows, 0) + 1
+            self._h_occupancy.observe(rows)
+            self._c_pad_rows.inc(pad_rows)
+            _telemetry.registry.histogram(
+                "serve.batch_occupancy", doc="real rows per dispatched "
+                "micro-batch", labels={"model": sv.name},
+                buckets=_OCCUPANCY_BUCKETS).observe(rows)
             batch = _Batch(outs, sv.version)
             offset = 0
             for p in take:

@@ -10,12 +10,16 @@ differs, and why:
   (one token for every active sequence) has one per active-slot-count
   bucket (powers of two up to ``MX_SERVE_DECODE_SLOTS``).  PyTorch runs
   eagerly, so a "program" here is the bucket's entry in the servable's
-  table, a callable over the bucket's shapes; building one counts as a
+  table, a callable over the bucket's shapes, registered with the program
+  registry (``serve.decode.step.s<b>``, ``serve.decode.prefill.p<p>``,
+  ...), which measures its first dispatch; building one counts as a
   retrace (``serve.retraces``), :meth:`DecodeServable.warm` builds and
   runs them all, and every later dispatch is a table hit
-  (``serve.bucket_hits``).  Registering them with ``programs.py`` (the
-  HBM census, the program contracts, ``footprint_bytes``) waits for its
-  port.
+  (``serve.bucket_hits``).  The KV state is the ``kv_cache`` (paged:
+  ``kv_pages``) owner of the buffer census and the parameters its
+  ``serve`` owner; :meth:`DecodeServable.footprint_bytes` is live bytes
+  plus the largest temp bytes of the servable's programs, what the HBM
+  packer admits.
 * **The KV pool is allocated once and updated in place.**  K and V live
   in two arrays ``(layers, slots+1, max_len, heads, head_dim)`` on the
   device (+1: the scratch slot that padded lanes park on).  torch has no
@@ -74,6 +78,7 @@ import torch
 from ..base import MXNetError, get_env
 from ..device import DeviceLike, resolve
 from .. import fault as _fault
+from .. import programs as _programs
 from .. import telemetry as _telemetry
 from ..ops.attention import (attention_core, cached_attention,
                              paged_attention, paged_attention_multi)
@@ -91,10 +96,6 @@ __all__ = ["DecodeConfig", "DecodeServable", "DecodeBatcher",
 # finished sequence is retired, and those overrun writes must still land
 # inside the slot's pages
 _OVERRUN_MARGIN = 8
-
-_PROGRAMS = ("%s waits for programs.py (the program registry, the HBM "
-             "census and the program contracts; ROADMAP Queue 1 item 6)")
-
 
 class DecodeConfig:
     """Decode-engine geometry: model dims + pool/bucket layout.
@@ -660,6 +661,22 @@ def _counter(name, doc):
     return _telemetry.registry.counter(name, doc=doc)
 
 
+class _CensusHandle:
+    """Weakref-able holder of one of a servable's tensor dicts, so one
+    servable can own two census buckets (its KV state under ``kv_cache``,
+    its parameters under ``serve``) without the census keeping it
+    alive."""
+
+    __slots__ = ("tensors", "__weakref__")
+
+    def __init__(self, tensors: Dict[str, torch.Tensor]):
+        self.tensors = tensors
+
+
+def _handle_tensors(handle: _CensusHandle) -> List[torch.Tensor]:
+    return list(handle.tensors.values())
+
+
 class DecodeServable:
     """One immutable decode-model version: parameters, the KV pool on the
     device, and the two bucketed program tables (prefill by prompt bucket,
@@ -708,6 +725,14 @@ class DecodeServable:
         self.version = int(version)
         with torch.no_grad():
             self._state: Dict[str, torch.Tensor] = self._alloc_state()
+        # the buffer census: the KV state under its engine's owner, the
+        # parameters under "serve"
+        self._kv_handle = _CensusHandle(self._state)
+        self._params_handle = _CensusHandle(self.params)
+        _programs.track_buffers(self.census_owner, self._kv_handle,
+                                _handle_tensors)
+        _programs.track_buffers("serve", self._params_handle,
+                                _handle_tensors)
         self._lock = threading.Lock()
         self._step_programs: Dict[int, object] = {}
         self._prefill_programs: Dict[int, object] = {}
@@ -722,21 +747,32 @@ class DecodeServable:
             "serve.bucket_hits", "dispatches answered by a pre-built "
             "bucket program")
 
-    # -- the HBM census (waits for programs.py) ----------------------------
+    # -- the HBM census ------------------------------------------------------
     def program_prefix(self) -> str:
-        raise NotImplementedError(_PROGRAMS % "program_prefix")
-
-    def footprint_bytes(self) -> int:
-        raise NotImplementedError(_PROGRAMS % "footprint_bytes")
+        """The registry prefix this servable's programs live under (the
+        packer reads their temp bytes there)."""
+        return "serve.decode."
 
     def live_bytes(self) -> int:
-        """Resident bytes: the parameters and the whole KV state."""
+        """Resident bytes: the parameters and the whole KV state, the
+        tensors the buffer census's owner tags claim."""
         return sum(int(a.nbytes) for a in self.params.values()) + \
             self.kv_state_bytes()
 
+    def footprint_bytes(self) -> int:
+        """Measured device footprint for the ModelHost packer: live bytes
+        plus the largest transient of any registered decode program (set
+        by :meth:`warm`)."""
+        mem = _programs.program_memory_bytes(self.program_prefix())
+        return self.live_bytes() + int(mem["temp_bytes_peak"])
+
     # -- program tables -----------------------------------------------------
-    def _program(self, table: Dict[int, object], key: int, build):
-        """``table[key]``, built (and counted as a retrace) on a miss."""
+    def _program(self, table: Dict[int, object], key: int, build,
+                 name: str):
+        """``table[key]``, built (and counted as a retrace) on a miss and
+        registered as program ``name``.  The program takes the dispatch's
+        arguments; the parameters are bound (they never change), so the
+        signature reads only what varies between dispatches."""
         with self._lock:
             prog = table.get(key)
             if prog is not None:
@@ -745,7 +781,13 @@ class DecodeServable:
             self._c_hits.inc()
             return prog
         with _telemetry.phase("retrace"):
-            prog = build()
+            body = build()
+            params = self.params
+
+            def run(*args):
+                return body(params, *args)
+            prog = _programs.register_program(name, run, device=self.device,
+                                              scalar_values=False)
         with self._lock:
             prog = table.setdefault(key, prog)
             self.retraces += 1
@@ -761,7 +803,8 @@ class DecodeServable:
             def run_decode(params, st, slot_ids):
                 return _decode_body(cfg, params, st, slot_ids)
             return run_decode
-        return self._program(self._step_programs, int(bucket), build)
+        return self._program(self._step_programs, int(bucket), build,
+                             "serve.decode.step.s%d" % int(bucket))
 
     def prefill_program(self, prompt_bucket: int):
         cfg = self.config
@@ -771,13 +814,14 @@ class DecodeServable:
                 return _prefill_body(cfg, params, st, slot_id, prompt, n)
             return run_prefill
         return self._program(self._prefill_programs, int(prompt_bucket),
-                             build)
+                             build,
+                             "serve.decode.prefill.p%d" % int(prompt_bucket))
 
     # -- dispatch (pump thread only; no host read) -------------------------
     def _run(self, prog, *args):
         from ..engine import engine as _engine
         with _device_scope(self.device), torch.no_grad():
-            out = prog(self.params, *args)
+            out = prog(*args)
         _engine.count_dispatch(1)
         return out
 
@@ -860,7 +904,8 @@ class PagedDecodeServable(DecodeServable):
                 return _paged_decode_body(cfg, params, st, slot_ids,
                                           block_tbls)
             return run_decode
-        return self._program(self._step_programs, int(bucket), build)
+        return self._program(self._step_programs, int(bucket), build,
+                             "serve.decode.paged.step.s%d" % int(bucket))
 
     def chunk_program(self):
         """The prefill program: one chunk length (``prefill_chunk``)
@@ -875,7 +920,8 @@ class PagedDecodeServable(DecodeServable):
                                            emit, cow_src, cow_dst)
             return run_chunk
         return self._program(self._prefill_programs, cfg.prefill_chunk,
-                             build)
+                             build, "serve.decode.paged.prefill.c%d"
+                             % cfg.prefill_chunk)
 
     def prefill_program(self, prompt_bucket: int):
         raise MXNetError("paged decode servable has no monolithic "
@@ -919,7 +965,9 @@ class PagedDecodeServable(DecodeServable):
                 return _verify_body(cfg, params, tst, dst, slot_ids,
                                     block_tbls)
             return run_verify
-        return self._program(self._verify_programs, int(bucket), build)
+        return self._program(self._verify_programs, int(bucket), build,
+                             "serve.decode.verify.k%d.s%d"
+                             % (cfg.spec_k, int(bucket)))
 
     def dispatch_verify(self, draft: "DraftDecodeServable",
                         slot_ids: _np.ndarray, block_tbls: _np.ndarray):
@@ -971,6 +1019,9 @@ class DraftDecodeServable(DecodeServable):
 
     engine = "draft"
 
+    def program_prefix(self) -> str:
+        return "serve.decode.draft."
+
     def _alloc_state(self) -> Dict[str, torch.Tensor]:
         st = super()._alloc_state()
         cfg = self.config
@@ -986,7 +1037,8 @@ class DraftDecodeServable(DecodeServable):
             def run_draft(params, st, slot_ids, col):
                 return _draft_step_body(cfg, params, st, slot_ids, col)
             return run_draft
-        return self._program(self._step_programs, int(bucket), build)
+        return self._program(self._step_programs, int(bucket), build,
+                             "serve.decode.draft.s%d" % int(bucket))
 
     def prefill_program(self, prompt_bucket: int):
         cfg = self.config
@@ -997,7 +1049,8 @@ class DraftDecodeServable(DecodeServable):
                                            slot_id, prompt, n)
             return run_prefill
         return self._program(self._prefill_programs, int(prompt_bucket),
-                             build)
+                             build, "serve.decode.draft.prefill.p%d"
+                             % int(prompt_bucket))
 
     # -- dispatch (pump thread only; no host read) -------------------------
     def dispatch_step(self, slot_ids: _np.ndarray, col: int):

@@ -62,6 +62,7 @@ process groups, a batch that does not split over data x fsdp) raises.
 """
 from __future__ import annotations
 
+import logging
 import warnings
 from typing import Dict, List, Optional
 
@@ -69,6 +70,8 @@ import torch
 
 from .base import MXNetError, get_env
 from .ndarray.ndarray import NDArray
+
+_logger = logging.getLogger("mxnet_tpu_torch.step")
 
 __all__ = ["CompiledStep", "scan_window", "step_compile_enabled",
            "metric_trace_kernel", "metric_cache_key"]
@@ -196,6 +199,9 @@ class CompiledStep:
         self._warned = False
         self._plan_cached = None
         self._plan_sig = None
+        #: the retrace explainer's diff of the last plan invalidation
+        #: (which configuration leaf changed), or None
+        self.last_invalidation = None
         #: index -> (whole shape, storage spec) of each adopted parameter
         self._adopted: Dict[int, tuple] = {}
         #: ({name: storage spec}, {name: whole shape}) of the layout
@@ -251,6 +257,8 @@ class CompiledStep:
         sig = self._plan_signature()
         if self._plan_cached is not None and sig == self._plan_sig:
             return self._plan_cached
+        if self._plan_sig is not None:
+            self._explain_invalidation(self._plan_sig, sig)
         if tr._update_on_kvstore:
             return self._fall("server-side optimizer (update_on_kvstore)")
         opt = tr._optimizer
@@ -292,6 +300,16 @@ class CompiledStep:
         self._plan_cached = plan
         self._plan_sig = sig
         return plan
+
+    def _explain_invalidation(self, old, new) -> None:
+        """Name the configuration leaf whose change dropped the plan (the
+        store, the optimizer, the layout, a grad_req, compression, the
+        bucket size), as the retrace explainer names an argument."""
+        from .programs import diff_signatures, signature_of
+        diff = diff_signatures(signature_of((old,)), signature_of((new,)))
+        self.last_invalidation = diff
+        if diff is not None:
+            _logger.info("CompiledStep: plan invalidated: %s", diff)
 
     def _names(self) -> List[str]:
         """Each Trainer parameter's structural name in the net."""
@@ -691,6 +709,29 @@ class CompiledStep:
         tr._updaters[0](idxs, [NDArray(g) for g in grads], ws)
 
     def _run(self, plan, n_steps, accum, xs, y, batch_size):
+        """:meth:`_run_body` through the plan's program, ``step.step``
+        (one step) or ``step.window``, registered with the program
+        registry and keyed by the trainable parameters' and the batch's
+        signatures: a dtype or shape change is a retrace, named."""
+        pname = "step.step" if n_steps * accum == 1 else "step.window"
+        progs = plan.setdefault("programs", {})
+        prog = progs.get(pname)
+        if prog is None:
+            from .programs import register_program
+
+            def run(params, xs, y, n_steps, accum, batch_size):
+                return self._run_body(plan, n_steps, accum, xs, y,
+                                      batch_size)
+            prog = progs[pname] = register_program(pname, run,
+                                                   scalar_values=False)
+        params = {}
+        if self._layout is None:
+            tps = self._trainer._params
+            params = {n: tps[i]._tensor() for n, i in
+                      zip(plan["names"], plan["trainable_idx"])}
+        return prog(params, xs, y, n_steps, accum, batch_size)
+
+    def _run_body(self, plan, n_steps, accum, xs, y, batch_size):
         """``n_steps`` optimizer steps of ``accum`` micro-batches each
         over ``xs``/``y`` leaves shaped ``(n_steps * accum, B, ...)``;
         returns the per-micro-batch losses and first outputs (whole

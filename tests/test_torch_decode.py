@@ -369,9 +369,13 @@ def test_kv_pool_constant_bytes_updated_in_place(shared_sv):
 
 @pytest.mark.parametrize("method", ["program_prefix", "footprint_bytes"])
 def test_census_methods_wait_for_programs_py(shared_sv, method):
+    """Since programs.py is ported both methods answer as the reference's
+    do: the registry prefix, and live bytes plus the largest temp bytes
+    of the servable's programs (None on the CPU, so 0)."""
     sv, _ = shared_sv
-    with pytest.raises(NotImplementedError, match="programs.py"):
-        getattr(sv, method)()
+    want = {"program_prefix": "serve.decode.",
+            "footprint_bytes": sv.live_bytes()}[method]
+    assert getattr(sv, method)() == want
 
 
 def test_phases_and_token_histogram(shared_sv):
