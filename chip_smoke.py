@@ -1826,13 +1826,26 @@ def serve_replica_worker(argv):
     argument names a file, once that file exists, it serves, and
     ``serve_forever`` writes the bound port to ``<out>.ready``.  Its
     METRICS carry its launch counts; when ``serve_forever`` returns it
-    writes ``<out>.exit``."""
+    writes ``<out>.exit``.
+
+    ``--port-base B DIR`` is the launched form (``phase_launch_tier``,
+    under the launcher's ``--serve-port-base B``): the replica binds
+    ``B + MX_PROCESS_ID``, writes ``DIR/replica<rank>.*``, records where
+    K1's library came from (the persistent compile cache or ``nvcc``) and
+    skips the packer's refusal, which ``phase_serve_tier`` holds."""
     if not torch.cuda.is_available():
         raise SystemExit("serve-replica-worker: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    port, out = int(argv[0]), argv[1]
-    go = argv[2] if len(argv) > 2 else None
+    launched = argv[0] == "--port-base"
+    if launched:
+        rank = int(os.environ.get("MX_PROCESS_ID", "0"))
+        port = int(argv[1]) + rank
+        out = os.path.join(argv[2], "replica%d" % rank)
+        go = None
+    else:
+        port, out = int(argv[0]), argv[1]
+        go = argv[2] if len(argv) > 2 else None
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     from mxnet_tpu_torch import initializer, programs
@@ -1893,30 +1906,40 @@ def serve_replica_worker(argv):
     if bad or not all(t and t > 0 for t in temps.values()):
         raise RuntimeError("serve-replica: census %s, bucket temp bytes %s"
                            % (bad, temps))
-    host.hbm_budget = f_bert + f_lm + (1 << 20)
     owners = programs.CENSUS_OWNERS
-    models0 = host.models()
-    before = {k: census[k]["bytes"] for k in owners}
-    t_refuse = time.perf_counter()
-    try:
-        state.add_model(Servable(demo_conv_block(dev), name="demo-conv",
-                                 buckets=BucketTable(BUCKETS)),
-                        example=demo_conv_example())
-    except BudgetExceeded as e:
-        refused = str(e)
-    else:
-        raise RuntimeError("serve-replica: resnet18 was admitted past the "
-                           "budget")
-    t_refuse = time.perf_counter() - t_refuse
-    gc.collect()
-    after = programs.buffer_census()
-    if host.models() != models0 or "demo-conv" in host.engines or any(
-            after[k]["bytes"] != before[k] for k in owners):
-        raise RuntimeError("serve-replica: the refused model left %s / %s"
-                           % (host.models(), {k: (before[k],
-                                                  after[k]["bytes"])
-                                              for k in owners}))
+    refused, t_refuse = "", None
+    if not launched:
+        host.hbm_budget = f_bert + f_lm + (1 << 20)
+        models0 = host.models()
+        before = {k: census[k]["bytes"] for k in owners}
+        t_refuse = time.perf_counter()
+        try:
+            state.add_model(Servable(demo_conv_block(dev), name="demo-conv",
+                                     buckets=BucketTable(BUCKETS)),
+                            example=demo_conv_example())
+        except BudgetExceeded as e:
+            refused = str(e)
+        else:
+            raise RuntimeError("serve-replica: resnet18 was admitted past "
+                               "the budget")
+        t_refuse = time.perf_counter() - t_refuse
+        gc.collect()
+        after = programs.buffer_census()
+        if host.models() != models0 or "demo-conv" in host.engines or any(
+                after[k]["bytes"] != before[k] for k in owners):
+            raise RuntimeError("serve-replica: the refused model left %s / "
+                               "%s" % (host.models(),
+                                       {k: (before[k], after[k]["bytes"])
+                                        for k in owners}))
+    from mxnet_tpu_torch import compile_cache
     rec = {"port": port, "pid": os.getpid(),
+           "start_wall": process_start_wall(),
+           "k1_from_cache": _kernels.FLASH_FWD.from_cache,
+           "k1_nvcc_s": _kernels.FLASH_FWD.build_seconds,
+           "compile_cache": compile_cache.stats(),
+           "b1_program": {k: table["serve.bert_12_768_12.b1"][k]
+                          for k in ("compiles", "cache_hits",
+                                    "deserialize_seconds")},
            "build_and_warm_s": time.perf_counter() - t0,
            "deploy_warm_s": t_deploy, "bert_warm_s": sv.warm_seconds,
            "census": {k: census[k]["bytes"] for k in owners + ("other",)},
@@ -2446,6 +2469,448 @@ def phase_serve_tier(refs, smi):
     log("serve_tier: %s" % json.dumps({k: rec[k] for k in
                                        ("replicas_ready_s", "cli",
                                         "phase_s", "card")}))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 5d. launch_tier: the program contracts on the card, then BERT-base
+# replicas started, routed and autoscaled by the launcher, warm from the
+# persistent compile cache
+# ---------------------------------------------------------------------------
+
+#: MX_FLEET_SLO_P99_MS of the launched tier: under the server-side p99
+#: (queue_wait + serve_dispatch) of LAUNCH_BURST_CLIENTS clients over two
+#: BERT-base replicas, above an idle fleet's (no samples: 0)
+LAUNCH_SLO_P99_MS = 40.0
+LAUNCH_FLEET = {"MX_FLEET_INTERVAL": "0.25", "MX_FLEET_WINDOW": "4",
+                "MX_AUTOSCALE_HOLD": "3", "MX_AUTOSCALE_COOLDOWN": "10",
+                "MX_AUTOSCALE_UP_BURN": "1.0",
+                "MX_AUTOSCALE_DOWN_BURN": "0.5"}
+LAUNCH_BURST_CLIENTS = 16       # the sustained burst's concurrent clients
+LAUNCH_WAIT_S = 90              # the longest wait on one log line
+
+
+class _LaunchLog:
+    """The launcher's output (its supervisor's lines and its processes'),
+    read as it grows."""
+
+    def __init__(self, path, proc):
+        self.path, self.proc = path, proc
+
+    def text(self):
+        with open(self.path, errors="replace") as f:
+            return f.read()
+
+    def wait(self, pattern, timeout=LAUNCH_WAIT_S):
+        """The first match of ``pattern`` and the wall time it was seen;
+        raises with the log's tail if the launcher exits or time runs
+        out."""
+        rx = re.compile(pattern)
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < timeout:
+            m = rx.search(self.text())
+            if m:
+                return m, time.time()
+            if self.proc.poll() is not None:
+                break
+            time.sleep(0.02)
+        raise RuntimeError("launch_tier: %r never appeared (launcher exit "
+                           "%r):\n%s" % (pattern, self.proc.poll(),
+                                         self.text()[-4000:]))
+
+    def rounds(self):
+        """Every autoscale round the supervisor logged: (round, burn)."""
+        return [(int(r), float(b)) for r, b in re.findall(
+            r"autoscale: round (\d+) burn (\S+)", self.text())]
+
+
+def _free_port_block(n):
+    """A port p with p .. p + n - 1 all free (the launcher's replicas bind
+    base + rank)."""
+    while True:
+        base = _free_port()
+        free = True
+        for p in range(base, base + n):
+            s = socket.socket()
+            try:
+                s.bind(("127.0.0.1", p))
+            except OSError:
+                free = False
+            finally:
+                s.close()
+        if free:
+            return base
+
+
+def _router_states(rport):
+    from mxnet_tpu_torch.serve import ServeClient
+    with ServeClient(["127.0.0.1:%d" % rport], timeout=30) as cli:
+        return cli.health()["replicas"]
+
+
+def _wait_router(rport, addr, want, proc, timeout=LAUNCH_WAIT_S):
+    """Until the router (which rereads its replicas file) holds ``addr``
+    in state ``want`` (None: not "up")."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        try:
+            st = _router_states(rport).get(addr)
+        except Exception:       # noqa: BLE001 — not bound yet
+            st = "?"
+        if (st == want) if want else (st != "up"):
+            return time.perf_counter() - t0
+        if proc.poll() is not None:
+            break
+        time.sleep(0.05)
+    raise RuntimeError("launch_tier: the router never held %s %s"
+                       % (addr, want or "out of service"))
+
+
+def _planted_dropped_donation():
+    """A contract over a fused SGD body that rebinds its weights instead
+    of writing them: the verifier must trip on it."""
+    from mxnet_tpu_torch import programs
+
+    def rebinding_sgd(weights, grads, masters, lrs):
+        return [w - lr * g for w, g, lr in zip(weights, grads,
+                                                lrs.tolist())]
+
+    def col():
+        return tuple(torch.empty((64,), device="meta") for _ in range(3))
+    case = programs.ContractCase(
+        "optimizer.fused_sgd", (col(), col(), None,
+                                torch.empty((3,), device="meta")),
+        label="planted", fn=rebinding_sgd)
+    return programs.ProgramContract("planted.fused_sgd", lambda: [case],
+                                    donate_argnums=(0, 2),
+                                    temp_budget_bytes=1 << 20,
+                                    origin=(__file__, 1))
+
+
+def launch_contracts(ver, smi):
+    """(a): the verifier's JSON from its own process: all 18 contracts,
+    no finding, every budget measured and held; then a planted dropped
+    donation verified in this process must trip."""
+    from mxnet_tpu_torch.tools import contracts as tcon
+    out, err = ver.communicate(timeout=600)
+    try:
+        doc = json.loads(out)
+        log("launch_tier: the contracts on the card (%s):\n%s"
+            % (smi, doc["budget_table"]))
+    except ValueError:
+        doc = None
+    if ver.returncode != 0:
+        raise RuntimeError("launch_tier: the contracts verifier exited %d:\n"
+                           "%s\n%s" % (ver.returncode, json.dumps(
+                               doc["violations"]) if doc else out[-3000:],
+                               err[-3000:]))
+    cases = sum(len(p["cases"]) for p in doc["programs"].values())
+    b = doc["budgets"]
+    if len(doc["contracts"]) != 18 or doc["violations"] or \
+            b["held"] != cases or b["unmeasured"] or b["over"]:
+        raise RuntimeError("launch_tier: contracts %d, findings %s, budgets "
+                           "%s of %d cases" % (len(doc["contracts"]),
+                                               doc["violations"][:3], b,
+                                               cases))
+    temps = {"%s/%s" % (p, c["label"]): c["temp_bytes"]
+             for p, row in doc["programs"].items() for c in row["cases"]}
+    diags, results, _ = tcon.verify(device="cuda",
+                                    contracts=[_planted_dropped_donation()])
+    if [d.rule for d in diags] != [tcon.RULE_DONATION] or \
+            results[0].dropped != 3:
+        raise RuntimeError("launch_tier: the planted dropped donation gave "
+                           "%s" % [repr(d) for d in diags])
+    log("launch_tier: planted dropped donation: %s" % diags[0].message[:200])
+    return {"contracts": len(doc["contracts"]), "cases": cases,
+            "budgets": b, "temp_bytes": temps,
+            "worst_temp_over_budget": max(
+                c["temp_bytes"] / c["budget"] for row in
+                doc["programs"].values() for c in row["cases"]),
+            "planted": diags[0].rule}
+
+
+def _replica_ready_s(tmp, i):
+    """Replica ``i``'s record and its seconds from process start to
+    serving (the ready file's write)."""
+    r = json.load(open(os.path.join(tmp, "replica%d.rec" % i)))
+    ready = os.path.getmtime(os.path.join(tmp, "replica%d.ready" % i))
+    return r, ready - r["start_wall"]
+
+
+def _launch_burst(rport, tokens, types, refs, stop, errors, counts):
+    """LAUNCH_BURST_CLIENTS clients through the router until ``stop``:
+    each answer held to ``refs``."""
+    from mxnet_tpu_torch.serve import ServeClient
+
+    def client(c):
+        try:
+            with ServeClient(["127.0.0.1:%d" % rport], timeout=120) as cli:
+                i = c
+                while not stop.is_set():
+                    k = i % N_REQUESTS
+                    _v, outs = cli.predict([tokens[k], types[k]])
+                    for o, r in zip(outs, refs[k]):
+                        if not np.allclose(o, r, atol=SLICE_TOL,
+                                           rtol=SLICE_TOL):
+                            raise RuntimeError("request %d off the "
+                                               "composition" % k)
+                    counts[c] = counts.get(c, 0) + 1
+                    i += LAUNCH_BURST_CLIENTS
+        except Exception as e:      # noqa: BLE001 — reported by the phase
+            errors.append("burst client %d: %r" % (c, e))
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(LAUNCH_BURST_CLIENTS)]
+    for t in threads:
+        t.start()
+    return threads
+
+
+def phase_launch_tier(refs, smi):
+    """The launcher's serving tier on the card (after ``serve_tier``).
+    (a) ``python -m mxnet_tpu_torch.tools.contracts --device cuda`` in its
+    own process: 18 contracts clean, every budget measured and held; a
+    planted dropped donation trips.  (b) ``python -m
+    mxnet_tpu_torch.tools.launch -n 2 --serve-port-base B --route P
+    --autoscale 2:3 --compile-cache DIR`` over ``chip_smoke.py
+    --serve-replica-worker --port-base B`` (BERT-base fp32, T = 512, the
+    slice's weights): the cold replicas build K1 with nvcc and store it;
+    the same 32 requests routed within SLICE_TOL; a burst holds the SLO
+    burn until the supervisor spawns replica 2, which loads K1 from the
+    cache; the router admits sessions to it; each replica launched K1
+    exactly 12 x (warm + served) and nothing else; when the load ends
+    replica 2 leaves the replicas file, is DRAINed with generations in
+    flight and exits 0; a STOP through the router ends the job with 0.
+    Returns the launches over the three replicas."""
+    import tempfile
+    from mxnet_tpu_torch.serve import ServeClient
+    from mxnet_tpu_torch.serve.decode import (DecodeConfig, demo_lm_params,
+                                              reference_generate)
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-launch-")
+    root = os.path.dirname(os.path.abspath(__file__))
+    # fresh and empty: the launcher's --compile-cache makes it
+    cache = os.path.join(tmp, "compile-cache")
+    rec = {"card": smi, "slo_p99_ms": LAUNCH_SLO_P99_MS,
+           "fleet": LAUNCH_FLEET}
+    procs, stop, threads = [], threading.Event(), []
+    tokens, types = make_requests()
+    try:
+        ver = subprocess.Popen(
+            [sys.executable, "-m", "mxnet_tpu_torch.tools.contracts",
+             "--device", "cuda", "--format", "json"], cwd=root,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        procs.append(ver)
+        base, rport = _free_port_block(3), _free_port()
+        addrs = ["127.0.0.1:%d" % (base + i) for i in range(3)]
+        env = dict(os.environ, MX_FLEET_SLO_P99_MS=str(LAUNCH_SLO_P99_MS),
+                   **LAUNCH_FLEET)
+        log_path = os.path.join(tmp, "launch.log")
+        t_launch = time.time()
+        launcher = subprocess.Popen(
+            [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n", "2",
+             "--serve-port-base", str(base), "--route", str(rport),
+             "--autoscale", "2:3", "--compile-cache", cache, "--restart",
+             "on-failure", "--", sys.executable,
+             os.path.join(root, "chip_smoke.py"), "--serve-replica-worker",
+             "--port-base", str(base), tmp],
+            cwd=root, env=env, stdout=open(log_path, "w"),
+            stderr=subprocess.STDOUT)
+        procs.append(launcher)
+        llog = _LaunchLog(log_path, launcher)
+        for i in (0, 1):
+            _tier_wait_file(os.path.join(tmp, "replica%d.ready" % i),
+                            launcher, "launched replica %d" % i)
+            _wait_router(rport, addrs[i], "up", launcher)
+        rec["cold_up_s"] = time.time() - t_launch
+        cold = {}
+        for i in (0, 1):
+            r, ready_s = _replica_ready_s(tmp, i)
+            cc = r["compile_cache"]
+            cold[i] = {"ready_s": ready_s, "k1_nvcc_s": r["k1_nvcc_s"],
+                       "hits": cc["hits"], "misses": cc["misses"],
+                       "writes": cc["writes"], "b1": r["b1_program"]}
+            if r["k1_from_cache"] or cc["misses"] < 1 or cc["writes"] < 1 \
+                    or not r["k1_nvcc_s"]:
+                raise RuntimeError("launch_tier: cold replica %d %s"
+                                   % (i, cold[i]))
+        rec["cold"] = cold
+        log("launch_tier: cold replicas %s" % json.dumps(cold))
+        rec["contracts"] = launch_contracts(ver, smi)
+
+        # 1. the same 32 requests, routed, sessions over both replicas
+        m0 = {a: _tier_metrics(a)[0] for a in addrs[:2]}
+        answers, latency, wall, _cids, _ = _tier_burst(rport, tokens, types)
+        worst = check_answers("launch_tier routed", answers, refs)
+        req = {a: _tier_value(_tier_metrics(a)[0], "serve.requests")
+               - _tier_value(m0[a], "serve.requests") for a in addrs[:2]}
+        per = N_REQUESTS // N_CLIENTS
+        if sum(req.values()) != N_REQUESTS or \
+                any(v < per or v % per for v in req.values()):
+            raise RuntimeError("launch_tier: requests by replica %s (each "
+                               "session pinned: %d a client)" % (req, per))
+        lat = np.array(latency) * 1e3
+        rec["routed"] = {"requests_per_s": N_REQUESTS / wall,
+                         "p50_ms": float(np.percentile(lat, 50)),
+                         "p99_ms": float(np.percentile(lat, 99)),
+                         "requests_by_replica": req,
+                         "max_abs_err_vs_composition": worst}
+        log("launch_tier: routed %s" % json.dumps(rec["routed"]))
+
+        # 2. a burst holds the burn until the supervisor spawns replica 2
+        errors, counts = [], {}
+        t_burst = time.time()
+        threads = _launch_burst(rport, tokens, types, refs, stop, errors,
+                                counts)
+        m, t_seen = llog.wait(r"autoscale: burn (\S+) >= (\S+) held - "
+                              r"spawning rank 2 at (\S+)")
+        if m.group(3) != addrs[2] or float(m.group(1)) < float(m.group(2)):
+            raise RuntimeError("launch_tier: %s" % m.group(0))
+        rec["scale_up"] = {"after_burst_s": t_seen - t_burst,
+                           "burn": float(m.group(1))}
+        # 3. replica 2, warm from the cache; the burst goes on meanwhile
+        _tier_wait_file(os.path.join(tmp, "replica2.ready"), launcher,
+                        "autoscaled replica 2")
+        _wait_router(rport, addrs[2], "up", launcher)
+        r2, ready2 = _replica_ready_s(tmp, 2)
+        cc2 = r2["compile_cache"]
+        warm = {"ready_s": ready2, "spawn_to_up_s": time.time() - t_seen,
+                "k1_nvcc_s": r2["k1_nvcc_s"], "hits": cc2["hits"],
+                "misses": cc2["misses"], "writes": cc2["writes"],
+                "b1": r2["b1_program"]}
+        if not r2["k1_from_cache"] or cc2["hits"] < 1 or cc2["misses"] or \
+                r2["k1_nvcc_s"] or r2["b1_program"]["cache_hits"] != 1:
+            raise RuntimeError("launch_tier: replica 2 was not warm: %s"
+                               % warm)
+        rec["warm"] = warm
+        log("launch_tier: autoscaled replica 2 %s" % json.dumps(warm))
+        # 4. the router admits fresh sessions to replica 2
+        mr2 = _tier_metrics(addrs[2])[0]
+        for attempt in range(4):
+            answers, _lat, _w, _c, _ = _tier_burst(rport, tokens, types)
+            check_answers("launch_tier admitted", answers, refs)
+            got2 = _tier_value(_tier_metrics(addrs[2])[0], "serve.requests") \
+                - _tier_value(mr2, "serve.requests")
+            if got2 >= 1:
+                break
+        if got2 < 1:
+            raise RuntimeError("launch_tier: the router admitted no session "
+                               "to replica 2")
+        rec["admitted_to_2"] = {"requests": got2, "bursts": attempt + 1}
+        # 6a. generations in flight on replica 2 from here to its DRAIN
+        cfg = DecodeConfig(**TIER_LM)
+        params = demo_lm_params(cfg, torch.device("cuda", 0))
+        prompts, news = decode_workload(cfg, 48, 2, SEED)
+        gens, gen_end = [], []
+
+        def generate_until_refused(j):
+            # two of these, so that one is mid-generation at any moment
+            i = j
+            while True:
+                k = i % len(prompts)
+                t0 = time.time()
+                try:
+                    with ServeClient([addrs[2]], timeout=60) as c:
+                        toks = c.generate(prompts[k], max_tokens=48)[1]
+                except Exception as e:      # noqa: BLE001 — the end
+                    gen_end.append((time.time(), repr(e)[:160]))
+                    return
+                gens.append((k, t0, time.time(), toks))
+                i += 2
+        gthreads = [threading.Thread(target=generate_until_refused,
+                                     args=(j,), daemon=True)
+                    for j in (0, 1)]
+        for t in gthreads:
+            t.start()
+        # 5. the load ends: each replica's launches, read while quiet
+        stop.set()
+        for t in threads:
+            t.join(120)
+        threads += gthreads
+        if errors:
+            raise RuntimeError("launch_tier: burst %s" % errors[:3])
+        t_quiet = time.time()
+        launches, per_replica = {}, {}
+        for a in addrs:
+            snap = _tier_metrics(a)[0]
+            ln = _tier_launches(snap)
+            served = int(_tier_value(snap, "smoke.served"))
+            want = 12 * (len(BUCKETS) + served)
+            per_replica[a] = {"flash_fwd": ln.get("flash_fwd"),
+                              "served": served}
+            if ln.get("flash_fwd") != want or any(
+                    v for k, v in ln.items() if k != "flash_fwd"):
+                raise RuntimeError("launch_tier: %s launched %s for %d "
+                                   "served, expected flash_fwd 12 x (%d + "
+                                   "%d) = %d and nothing else"
+                                   % (a, ln, served, len(BUCKETS), served,
+                                      want))
+            for k, v in ln.items():
+                launches[k] = launches.get(k, 0) + v
+        rec["launches_by_replica"] = per_replica
+        rec["burst_requests"] = sum(counts.values())
+        # 6b. replica 2 retired drain-not-kill
+        m, t_retire = llog.wait(r"burn (\S+) <= (\S+) held - retiring "
+                                r"rank 2 drain-not-kill")
+        _wait_router(rport, addrs[2], None, launcher)
+        for t in gthreads:
+            t.join(TIER_DRAIN_S + 30)
+        exit2 = os.path.join(tmp, "replica2.exit")
+        t0 = time.perf_counter()
+        while not os.path.exists(exit2):
+            if time.perf_counter() - t0 > TIER_DRAIN_S:
+                raise RuntimeError("launch_tier: replica 2 never exited:\n%s"
+                                   % llog.text()[-3000:])
+            time.sleep(0.05)
+        if "DRAIN failed" in llog.text() or "rank 2 failed" in llog.text():
+            raise RuntimeError("launch_tier: the retirement was not a clean "
+                               "DRAIN:\n%s" % llog.text()[-3000:])
+        # a generation that ended after the retirement was seen was
+        # admitted before the DRAIN (which refuses new ones): in flight
+        in_flight = [g for g in gens if g[2] > t_retire]
+        decode_compare("launch_tier drained", [g[3] for g in gens],
+                       [reference_generate(prompts[g[0]], 48, params=params,
+                                           config=cfg) for g in gens],
+                       [prompts[g[0]] for g in gens],
+                       {k: v.double() for k, v in params.items()}, cfg)
+        # each thread ended on the DRAIN's refusal (the supervisor logs the
+        # retirement just before it sends the DRAIN; the log is polled)
+        if not in_flight or len(gen_end) != 2 or \
+                min(t for t, _e in gen_end) < t_retire - 1.0:
+            raise RuntimeError("launch_tier: generations %d (%d in flight at "
+                               "the DRAIN), ended by %s before the "
+                               "retirement at %.3f" % (len(gens),
+                                                       len(in_flight),
+                                                       gen_end, t_retire))
+        rec["retire"] = {"after_quiet_s": t_retire - t_quiet,
+                         "generations": len(gens),
+                         "in_flight_at_drain": len(in_flight),
+                         "ended_by": [e for _t, e in gen_end],
+                         "exit": json.load(open(exit2))}
+        rec["rounds"] = llog.rounds()
+        log("launch_tier: autoscale rounds (round, worst burn) %s"
+            % json.dumps(rec["rounds"]))
+        log("launch_tier: retirement %s" % json.dumps(rec["retire"]))
+        # 7. a STOP through the router ends the job
+        with ServeClient(["127.0.0.1:%d" % rport], timeout=30) as cli:
+            cli.stop()
+        code = launcher.wait(timeout=60)
+        if code != 0 or not all(os.path.exists(os.path.join(
+                tmp, "replica%d.exit" % i)) for i in (0, 1)):
+            raise RuntimeError("launch_tier: the launcher exited %r:\n%s"
+                               % (code, llog.text()[-3000:]))
+        rec["launcher_exit"] = code
+    finally:
+        stop.set()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(10)
+        for t in threads:
+            t.join(10)
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log("launch_tier: %s" % json.dumps({k: rec[k] for k in (
+        "cold", "warm", "scale_up", "launcher_exit", "phase_s", "card")}))
     return launches
 
 
@@ -6226,7 +6691,8 @@ def phase_dist(smi):
 # ---------------------------------------------------------------------------
 
 PS_BATCH = 8                    # a worker's batch (T = SEQ_LEN)
-PS_STEPS_A = 2                  # server steps, then as many local ones
+PS_STEPS_A = 2                  # server steps (the last one profiled),
+                                # then as many local ones
 PS_STEPS_B = 1                  # each rank's steps in part (b)
 PS_LR_B = 0.1                   # part (b)'s plain SGD
 PS_TOL_A = 1e-4                 # the port's fp32 rule, x max|ref|
@@ -6342,14 +6808,14 @@ def ps_device_batch(host, dev):
 
 
 def ps_profiled_step(net, params, loss_fn, batch, kv, trace_dir):
-    """(c) One more server step under the profiler with a device trace:
-    the chrome trace must name K1-K3's kernels and ``profiler.dumps()``
-    the client's PUSH and PULL spans."""
+    """(c) A server step under the profiler with a device trace: the
+    chrome trace must name K1-K3's kernels and ``profiler.dumps()`` the
+    client's PUSH and PULL spans.  Returns ``(loss, kernels, spans)``."""
     from mxnet_tpu_torch import profiler
     profiler.set_config(profile_all=True, device_trace_dir=trace_dir)
     profiler.set_state("run")
     try:
-        ps_step(net, params, loss_fn, batch, kv)
+        loss = ps_step(net, params, loss_fn, batch, kv)
     finally:
         profiler.set_state("stop")
     with open(profiler.device_trace_path()) as f:
@@ -6365,16 +6831,16 @@ def ps_profiled_step(net, params, loss_fn, batch, kv, trace_dir):
                            "kernels) and profiler.dumps() has %s (want "
                            "kv.client.PUSH and kv.client.PULL)"
                            % (flash, spans))
-    return flash, spans
+    return loss, flash, spans
 
 
 def ps_part_a(dev, trace_dir):
     """(a) One worker, one server: PS_STEPS_A steps with the server's SGD
-    (momentum 0.9), one profiled step (c), then as many steps from the
-    same weights and batches with a local updater of the same SGD on the
-    card.  Step 1's
-    loss bitwise equal, every weight after step 3 within 1e-4 x max|ref|
-    of the local run's."""
+    (momentum 0.9), the last of them profiled (c), then as many steps
+    from the same weights and batches with a local updater of the same
+    SGD on the card.  Step 1's loss bitwise equal, every weight after step
+    PS_STEPS_A within PS_TOL_A x max|ref| of the local run's (from step 2
+    on, the weights carry the server's momentum)."""
     from mxnet_tpu_torch import kvstore, optimizer
     from mxnet_tpu_torch.ops import _kernels
     loss_fn = dist_mlm_loss(cast=False)
@@ -6390,13 +6856,19 @@ def ps_part_a(dev, trace_dir):
         kv.pull(i, out=p.data())
     w0 = [p.data().data.detach().clone() for p in params]
     batches = [ps_device_batch(ps_batch_host(s, 0), dev)
-               for s in range(PS_STEPS_A + 1)]
+               for s in range(PS_STEPS_A)]
     timing = {}
     torch.cuda.synchronize()
     _kernels.reset_launches()
-    # --- the ps main path, counted ---
+    # --- the ps main path, counted (its last step under the profiler) ---
     losses = [ps_step(net, params, loss_fn, batches[s], kv, timing)
-              for s in range(PS_STEPS_A)]
+              for s in range(PS_STEPS_A - 1)]
+    t_c = time.perf_counter()
+    loss_c, flash, spans = ps_profiled_step(net, params, loss_fn,
+                                            batches[PS_STEPS_A - 1], kv,
+                                            trace_dir)
+    secs_c = time.perf_counter() - t_c
+    losses.append(loss_c)
     torch.cuda.synchronize()
     counts = _kernels.launch_counts()
     # --- end of the counted main path ---
@@ -6405,10 +6877,6 @@ def ps_part_a(dev, trace_dir):
         raise RuntimeError("ps (a): launched %s, expected %d of each of %s"
                            % (counts, want, _FLASH))
     w_ps = [p.data().data.detach().clone() for p in params]
-    t_c = time.perf_counter()
-    flash, spans = ps_profiled_step(net, params, loss_fn,
-                                    batches[PS_STEPS_A], kv, trace_dir)
-    secs_c = time.perf_counter() - t_c
     # the control: the same steps with a local updater on the card
     with torch.no_grad():
         for p, w in zip(params, w0):
@@ -7256,7 +7724,7 @@ LC_BASE = {"seq_len": 16384, "d_model": 768, "heads": 12, "layers": 12,
 LC_TINY = {"seq_len": 64, "d_model": 128, "heads": 2, "layers": 2,
            "vocab": 64, "batch": 4}
 LC_LR = 3e-3                    # the example's default
-LC_STEPS = 3
+LC_STEPS = 2
 CONTEXT_TOL = 1e-4              # x max|ref|: the port's fp32 rule
 #: attention's own rule (x max|ref|), for the attention check of the LM's
 #: length against float64
@@ -9290,81 +9758,97 @@ def kernel_row(name, source, replaces, launches, fp32, bf16, extra=None):
     return row
 
 
+PHASE_SECONDS = {}
+
+
+def _timed(phase, *args):
+    """Run one phase and log its seconds (kept for the closing summary)."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    PHASE_SECONDS[phase.__name__] = time.perf_counter() - t0
+    log("smoke: %s took %.1f s" % (phase.__name__,
+                                   PHASE_SECONDS[phase.__name__]))
+    return out
+
+
 def main():
     t_script = time.perf_counter()
     smi, name, peaks = phase_device()
-    phase_build()
-    fwd = phase_kernels(peaks)
-    bwd = phase_bwd_kernels(peaks)
+    _timed(phase_build)
+    fwd = _timed(phase_kernels, peaks)
+    bwd = _timed(phase_bwd_kernels, peaks)
     log_library_ratios(fwd, bwd)
-    long_fp32 = phase_long_fp32()
-    net, sv, answers, serve_launches = phase_slice()
-    save_load_launches = phase_save_load(net, answers)
+    long_fp32 = _timed(phase_long_fp32)
+    net, sv, answers, serve_launches = _timed(phase_slice)
+    save_load_launches = _timed(phase_save_load, net, answers)
     gc.collect()
     torch.cuda.empty_cache()
     tokens, types = make_requests()
-    phase_breakdown(sv, tokens, types)
+    _timed(phase_breakdown, sv, tokens, types)
     refs = composition_outputs(net, tokens, types)
-    phase_bf16(net, answers, tokens, types)
+    _timed(phase_bf16, net, answers, tokens, types)
     del net, sv, answers
     gc.collect()
     torch.cuda.empty_cache()
-    tier_launches = phase_serve_tier(refs, smi)
+    tier_launches = _timed(phase_serve_tier, refs, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launch_launches = _timed(phase_launch_tier, refs, smi)
     del refs
     gc.collect()
     torch.cuda.empty_cache()
-    train_launches, train_step_ms = phase_train(peaks)
+    train_launches, train_step_ms = _timed(phase_train, peaks)
     gc.collect()
     torch.cuda.empty_cache()
-    user_launches, user = phase_user_kernels(peaks)
+    user_launches, user = _timed(phase_user_kernels, peaks)
     gc.collect()
     torch.cuda.empty_cache()
-    imperative_launches = phase_imperative(train_step_ms)
+    imperative_launches = _timed(phase_imperative, train_step_ms)
     gc.collect()
     torch.cuda.empty_cache()
-    resnet_launches = phase_resnet(peaks)
+    resnet_launches = _timed(phase_resnet, peaks)
     gc.collect()
     torch.cuda.empty_cache()
-    eager_launches = phase_eager(peaks, train_step_ms)
+    eager_launches = _timed(phase_eager, peaks, train_step_ms)
     gc.collect()
     torch.cuda.empty_cache()
-    amp_launches = phase_amp(peaks, train_step_ms)
+    amp_launches = _timed(phase_amp, peaks, train_step_ms)
     gc.collect()
     torch.cuda.empty_cache()
-    data_launches, det_launches = phase_data()
+    data_launches, det_launches = _timed(phase_data)
     gc.collect()
     torch.cuda.empty_cache()
-    ssd_launches = phase_ssd(peaks, smi)
+    ssd_launches = _timed(phase_ssd, peaks, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    lm_launches = phase_lm(peaks, smi)
+    lm_launches = _timed(phase_lm, peaks, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    zoo_launches = phase_zoo(smi)
+    zoo_launches = _timed(phase_zoo, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    dist_launches = phase_dist(smi)
+    dist_launches = _timed(phase_dist, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    ps_launches = phase_ps(smi)
+    ps_launches = _timed(phase_ps, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    resume_launches = phase_resume(smi)
+    resume_launches = _timed(phase_resume, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    context_launches = phase_context(smi, fwd)
+    context_launches = _timed(phase_context, smi, fwd)
     gc.collect()
     torch.cuda.empty_cache()
-    tensor_launches = phase_tensor(smi)
+    tensor_launches = _timed(phase_tensor, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    several_launches = phase_several(smi)
+    several_launches = _timed(phase_several, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    resnet_dp_launches = phase_resnet_dp(smi)
+    resnet_dp_launches = _timed(phase_resnet_dp, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    decode_launches, _decode = phase_decode(smi)
+    decode_launches, _decode = _timed(phase_decode, smi)
     by_path = {k: {"serve": serve_launches[k], "train": train_launches[k],
                    "imperative": imperative_launches[k],
                    "resnet": resnet_launches[k],
@@ -9380,7 +9864,8 @@ def main():
                    "resnet_dp": resnet_dp_launches.get(k, 0),
                    "save_load": save_load_launches.get(k, 0),
                    "decode": decode_launches.get(k, 0),
-                   "serve_tier": tier_launches.get(k, 0)}
+                   "serve_tier": tier_launches.get(k, 0),
+                   "launch_tier": launch_launches.get(k, 0)}
                for k in imperative_launches}
     fp32, bf16 = torch.float32, torch.bfloat16
     kernels = [
@@ -9426,7 +9911,9 @@ def main():
                      "decode": decode_launches.get("tpu_kernel:" + body,
                                                    0),
                      "serve_tier": tier_launches.get("tpu_kernel:" + body,
-                                                     0)},
+                                                     0),
+                     "launch_tier": launch_launches.get(
+                         "tpu_kernel:" + body, 0)},
                     user[(body, fp32)], user[(body, bf16)],
                     {"default_grid_": user[(body + ":default_grid", fp32)],
                      "bf16_default_grid_": user[(body + ":default_grid",
@@ -9439,6 +9926,8 @@ def main():
             "T=%d%s" % (r["T"], " causal" if r["causal"] else ""):
                 max(r["rel_to_f64"][st] for st in stages)
             for r in long_fp32}
+    log("smoke: phase seconds %s" % json.dumps(
+        {k: round(v, 1) for k, v in PHASE_SECONDS.items()}))
     log("smoke: all phases in %.1f s" % (time.perf_counter() - t_script))
     log(smi)
     log(json.dumps({"kernels": kernels}))

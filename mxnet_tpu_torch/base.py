@@ -271,6 +271,10 @@ ENV_CATALOG = {
                        "built-in draft model (the demo LM's first N, "
                        "demo_spec_pair); > 0 selects the speculative "
                        "engine and needs MX_SERVE_KV_PAGES > 0."),
+    "MX_COORDINATOR": ("", "host:port of rank 0 for the process group "
+                       "(parallel.init_process_group; set by "
+                       "tools/launch.py)."),
+    "MX_NUM_PROCESSES": ("", "Process-group size (launcher-set)."),
     "MX_PROCESS_ID": ("", "This process's rank (launcher-set); a replica "
                       "started with --port-base binds port-base + it."),
     "MX_ROUTER_PORT": ("9800", "Port the serving router binds (python -m "
@@ -339,6 +343,41 @@ ENV_CATALOG = {
     "MX_FLEET_PORT": ("", "Port of the fleet collector's wire server "
                       "(FLEET: the merged snapshot; METRICS: the "
                       "federation exposition).  Empty: none."),
+    "MX_COMPILE_CACHE": ("", "Persistent compile cache directory "
+                         "(compile_cache.py): every kernel library "
+                         "(ops/_kernels.py, tpu_kernel bodies) is looked "
+                         "up there, keyed by name, source and header "
+                         "hash, nvcc flags and the environment envelope, "
+                         "before nvcc runs, and a library built on a miss "
+                         "is stored there; _build/ is not read then.  A "
+                         "miss, envelope skew or corrupt entry is counted "
+                         "(compile_cache.misses{reason}) and builds the "
+                         "same kernel with nvcc.  Writes are temp + "
+                         "rename; concurrent writers: last write wins.  "
+                         "Empty disables it."),
+    "MX_COMPILE_CACHE_SALT": ("", "Extra compile-cache key component: set it "
+                              "to partition one shared cache directory "
+                              "without deleting entries; changing it is a "
+                              "full-miss restart."),
+    "MX_AUTOSCALE_UP_BURN": ("1.0", "Autoscaler (tools/launch.py --autoscale "
+                             "MIN:MAX): scale up when any fleet SLO burn "
+                             "(observed/target, from the merged snapshot) "
+                             "is at or above this for MX_AUTOSCALE_HOLD "
+                             "consecutive scrape rounds: one replica is "
+                             "spawned and added to the router's replicas "
+                             "file and the collector."),
+    "MX_AUTOSCALE_DOWN_BURN": ("0.5", "Autoscaler: retire one replica (the "
+                               "newest, by DRAIN) when every burn is at or "
+                               "below this for MX_AUTOSCALE_HOLD rounds.  "
+                               "The band between DOWN and UP holds "
+                               "steady."),
+    "MX_AUTOSCALE_HOLD": ("3", "Autoscaler: consecutive scrape rounds a burn "
+                          "signal must hold before an action (both "
+                          "directions)."),
+    "MX_AUTOSCALE_COOLDOWN": ("10", "Autoscaler: base seconds of the cooldown "
+                              "after an action: a fault.RetryPolicy backoff "
+                              "(base x 2^consecutive same-direction "
+                              "actions, jittered, at most 8x)."),
     "MX_FLEET_HTTP_PORT": ("", "Port of the collector's Prometheus "
                            "federation HTTP endpoint (GET /metrics, GET "
                            "/fleet.json).  Empty: none."),

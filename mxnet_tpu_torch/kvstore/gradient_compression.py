@@ -36,7 +36,8 @@ def quantize_2bit(grad, residual, threshold: float):
     +threshold}, new residual)`` of tensors (or NDArrays), in ``grad``'s
     dtype; ``residual`` is not written."""
     unwrap = (lambda a: a.data if hasattr(a, "asnumpy") else a)
-    return _qops.quantize_2bit_ef(unwrap(grad), unwrap(residual), threshold)
+    return _qops.quantize_2bit_ef(unwrap(grad), unwrap(residual),
+                                  threshold, donate=False)
 
 
 def wire_nbytes(mode: str, n: int, block: int = None) -> int:
@@ -96,11 +97,18 @@ class GradientCompression:
     def put_residual(self, key, value: torch.Tensor) -> None:
         self._residuals[key] = value
 
+    def _donate(self, key) -> bool:
+        """Whether a quantize step may write ``key``'s residual in place:
+        not while an overlap session holds it as a checkpoint."""
+        return key not in self._pinned
+
     # -- overlap-session checkpoints -----------------------------------------
     def checkpoint(self, keys) -> None:
-        """Keep the current residuals of ``keys`` until :meth:`commit`, so
-        that :meth:`rollback` can restore them.  A second checkpoint before
-        the commit keeps the first."""
+        """Keep the current residuals of ``keys`` until :meth:`commit`,
+        so that :meth:`rollback` can restore them: until then a quantize
+        step of these keys returns a new residual and writes none in place
+        (:meth:`_donate`), so the kept one is never written.  A second
+        checkpoint before the commit keeps the first."""
         for k in keys:
             if k not in self._pinned:
                 self._pinned[k] = self._residuals.get(k)
@@ -130,10 +138,12 @@ class GradientCompression:
         if self.type == "int8":
             flat = x.reshape(-1)
             deq, self._residuals[key] = _qops.roundtrip_int8_blocks(
-                flat, self._residual(key, flat), self.block)
+                flat, self._residual(key, flat), self.block,
+                donate=self._donate(key))
             return deq.reshape(x.shape)
         q, self._residuals[key] = _qops.quantize_2bit_ef(
-            x, self._residual(key, x, x.dtype), self.threshold)
+            x, self._residual(key, x, x.dtype), self.threshold,
+            donate=self._donate(key))
         return q
 
     def compress_device(self, key, flat: torch.Tensor):
@@ -141,10 +151,12 @@ class GradientCompression:
         gives ``(q, scales)``, 2-bit ``(words,)`` of the packed format."""
         if self.type == "int8":
             q, scales, self._residuals[key] = _qops.quantize_int8_blocks(
-                flat, self._residual(key, flat), self.block)
+                flat, self._residual(key, flat), self.block,
+                donate=self._donate(key))
             return q, scales
         levels, self._residuals[key] = _qops.quantize_2bit_ef(
-            flat, self._residual(key, flat, flat.dtype), self.threshold)
+            flat, self._residual(key, flat, flat.dtype), self.threshold,
+            donate=self._donate(key))
         return (_qops.pack_2bit_words(levels),)
 
     def decompress_device(self, payload, n: int) -> torch.Tensor:

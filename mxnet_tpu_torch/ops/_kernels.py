@@ -18,7 +18,12 @@ A :class:`SourceLibrary` is built the same way from source *text* (the
 user kernels of ``tpu_kernel``): the text is written to
 ``_build/<name>-<hash>.cu`` and compiled with the same flags, and the
 library is named by the hash of the text, so a new body gives a new
-library.  :func:`add_user_library` records the newest library of each user
+library.
+
+With ``MX_COMPILE_CACHE`` set (:mod:`..compile_cache`) every library is
+looked up in that persistent cache before ``nvcc`` runs, and one built on
+a miss is stored there; ``_build/`` is not read then, so a library left
+there cannot hide a miss.  A hit loads the same library ``nvcc`` built.  :func:`add_user_library` records the newest library of each user
 kernel; its counter appears in :func:`launch_counts` as
 ``tpu_kernel:<name>`` once that library is loaded on the card.
 """
@@ -35,6 +40,7 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..base import MXNetError
+from .. import compile_cache as _cc
 
 __all__ = ["KernelLibrary", "SourceLibrary", "FLASH_FWD", "FLASH_BWD",
            "build_all", "add_user_library", "launch_counts",
@@ -80,6 +86,10 @@ class KernelLibrary:
         self._signatures = signatures
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
+        #: the file this process binds (set once it is ready)
+        self._path: Optional[Path] = None
+        #: True when that file came from the persistent compile cache
+        self.from_cache = False
         #: seconds the last build took, and nvcc's -Xptxas -v report
         self.build_seconds: Optional[float] = None
         self.build_log = ""
@@ -101,12 +111,48 @@ class KernelLibrary:
                               + " ".join(NVCC_FLAGS).encode()).hexdigest()
         return BUILD_DIR / ("lib%s-%s.so" % (self.name, digest[:12]))
 
+    def cache_key(self) -> str:
+        """The library's key in the persistent compile cache: its name, the
+        hash of its source and headers, the flags and the envelope."""
+        src = hashlib.sha256(self.source_bytes() + b"\0" +
+                             self.header_bytes()).hexdigest()
+        return _cc.cache_key(self.name, src,
+                             jit_kw={"nvcc": " ".join(NVCC_FLAGS)})
+
+    def _out_path(self) -> Path:
+        """Where a build lands: ``_build/``, or with the compile cache on
+        this process's private directory (the cache keeps the library)."""
+        if _cc.enabled():
+            return Path(_cc.private_dir()) / self.library_path().name
+        return self.library_path()
+
+    def _lookup(self) -> bool:
+        """True when the library is ready to bind without a build: loaded
+        from the compile cache when it is on, else already in ``_build/``
+        from an earlier run.  A cache lookup that fails counts a miss."""
+        if self._path is not None:
+            return True
+        if _cc.enabled():
+            got = _cc.load(self.name, self.cache_key())
+            if got is None:
+                return False
+            self._path, self.from_cache = Path(got), True
+            self.build_seconds = 0.0
+            _cc.note_library(loaded=True)
+            return True
+        if self.library_path().exists():
+            self._path = self.library_path()
+            if self.build_seconds is None:
+                self.build_seconds = 0.0    # built by an earlier run
+            return True
+        return False
+
     def _start_build(self) -> Tuple[subprocess.Popen, Path, float]:
         """Start ``nvcc`` into a temporary file; :meth:`_finish_build`
         waits for it and moves the library into place."""
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         self._write_source()
-        out = self.library_path()
+        out = self._out_path()
         tmp = out.with_name(out.name + ".%d.tmp" % os.getpid())
         cmd = [nvcc_path()] + NVCC_FLAGS + ["-o", str(tmp), str(self.source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -123,11 +169,16 @@ class KernelLibrary:
             raise MXNetError("nvcc failed for %s (exit %d):\n%s"
                              % (self.source, proc.returncode,
                                 self.build_log))
-        os.replace(tmp, self.library_path())
+        out = self._out_path()
+        os.replace(tmp, out)
         self.build_seconds = time.perf_counter() - t0
+        self._path, self.from_cache = out, False
+        _cc.note_library(loaded=False)
+        if _cc.enabled():
+            _cc.store(self.name, self.cache_key(), str(out))
 
     def _bind(self) -> ctypes.CDLL:
-        lib = ctypes.CDLL(str(self.library_path()))
+        lib = ctypes.CDLL(str(self._path))
         for fn, (argtypes, restype) in self._signatures.items():
             f = getattr(lib, fn)
             f.argtypes = argtypes
@@ -138,10 +189,8 @@ class KernelLibrary:
         """The loaded library, building it first if needed."""
         with self._lock:
             if self._lib is None:
-                if not self.library_path().exists():
+                if not self._lookup():
                     self._finish_build(*self._start_build())
-                elif self.build_seconds is None:
-                    self.build_seconds = 0.0    # built by an earlier run
                 self._lib = self._bind()
             return self._lib
 
@@ -233,7 +282,8 @@ def build_all(libraries: Optional[Sequence[KernelLibrary]] = None
     try:
         for lib in libraries:
             path = lib.library_path()
-            if lib._lib is None and not path.exists() and path not in paths:
+            if lib._lib is None and path not in paths and \
+                    not lib._lookup():
                 paths.add(path)     # one nvcc for libraries of one source
                 pending.append((lib, lib._start_build()))
     finally:

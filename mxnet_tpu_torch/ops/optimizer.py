@@ -806,3 +806,101 @@ def tree_apply(kind: str, arrays: Sequence, lrs: Sequence[float],
             raise ValueError("tree_apply: unknown kind %r" % (kind,))
         if mp:
             torch._foreach_copy_(weights, masters)
+
+
+# ---------------------------------------------------------------------------
+# Program contracts: the fused applies' declared in-place writes.  The
+# reference jits each kind with its weight and state columns donated; here
+# tree_apply writes them in place (``torch._foreach_*_``), and the verifier
+# proves each donated tensor keeps its storage and is written.  Declaring is
+# a dict insert; the cases are built only in the verifier.
+# ---------------------------------------------------------------------------
+
+#: per kind: the static parameters beyond wds / rescale / clip / mp
+_CONTRACT_STATICS = {
+    "sgd": {},
+    "sgd_mom": {"momentum": 0.9},
+    "nag_mom": {"momentum": 0.9},
+    "adam": {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8},
+    "adamw": {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8},
+}
+
+#: state columns between the gradients and the masters, per kind
+_CONTRACT_N_STATE = {"sgd": 0, "sgd_mom": 1, "nag_mom": 1,
+                     "adam": 2, "adamw": 2}
+
+#: the arguments each kind donates, in the reference's order (weights,
+#: gradients, state columns, masters, lrs[, decays]): weights, states, masters
+_FUSED_DONATED = {"sgd": (0, 2), "sgd_mom": (0, 2, 3), "nag_mom": (0, 2, 3),
+                  "adam": (0, 2, 3, 4), "adamw": (0, 2, 3, 4)}
+
+
+#: each kind's temp-byte budget: the most its cases measured on an NVIDIA
+#: H100 80GB HBM3 at 700.00 W (the verifier, phase_launch_tier: sgd and
+#: sgd_mom 3,072, nag_mom 4,608, adam and adamw 6,144), x 4, a power of 2
+_FUSED_BUDGET = {"sgd": 1 << 14, "sgd_mom": 1 << 14, "nag_mom": 1 << 15,
+                 "adam": 1 << 15, "adamw": 1 << 15}
+
+
+def _fused_contract_body(kind: str, statics: dict):
+    """The fused apply as a body over the reference's argument tuple:
+    ``(weights, grads, *states, masters or None, lrs[, decays])``, the
+    per-leaf lrs and decays as float32 vectors."""
+    n_state = _CONTRACT_N_STATE[kind]
+
+    def fused_apply(weights, grads, *rest):
+        states, masters = rest[:n_state], rest[n_state]
+        lrs = rest[n_state + 1]
+        decays = rest[n_state + 2] if kind == "adamw" else None
+        arrays = [list(weights), list(grads)] + \
+            [list(c) for c in states] + \
+            [None if masters is None else list(masters)]
+        tree_apply(kind, arrays, lrs.tolist(),
+                   None if decays is None else decays.tolist(), **statics)
+    return fused_apply
+
+
+def _fused_contract_cases(kind: str, mp: bool):
+    """One case of ``kind``: 3 leaves of 64 entries, so that every donated
+    column (weights, each state column, the masters) is present."""
+    from ..programs import ContractCase
+    n, leaf = 3, (64,)
+    wdtype = torch.bfloat16 if mp else torch.float32
+
+    def col(dt=torch.float32):
+        return tuple(torch.empty(leaf, dtype=dt, device="meta")
+                     for _ in range(n))
+
+    statics = dict(_CONTRACT_STATICS[kind])
+    statics.update(wds=(0.0,) * n, rescale_grad=1.0 / 32,
+                   clip_gradient=-1.0, mp=mp)
+    args = [col(wdtype), col(wdtype)]
+    args += [col() for _ in range(_CONTRACT_N_STATE[kind])]
+    args.append(col() if mp else None)                          # masters
+    args.append(torch.empty((n,), dtype=torch.float32, device="meta"))
+    if kind == "adamw":
+        args.append(torch.empty((n,), dtype=torch.float32, device="meta"))
+    return [ContractCase("optimizer.fused_%s" % kind, tuple(args),
+                         label="%s%s" % (kind, "_mp" if mp else ""),
+                         fn=_fused_contract_body(kind, statics))]
+
+
+def _declare_fused_contracts():
+    from ..programs import declare_contract
+    for kind in sorted(_FUSED_DONATED):
+        def build(kind=kind):
+            cases = _fused_contract_cases(kind, mp=False)
+            if kind in ("adam", "adamw"):
+                # the multi-precision layout writes the masters too
+                cases += _fused_contract_cases(kind, mp=True)
+            return cases
+        declare_contract(
+            "optimizer.fused_%s" % kind, build,
+            donate_argnums=_FUSED_DONATED[kind],
+            temp_budget_bytes=_FUSED_BUDGET[kind],
+            description="fused multi-tensor %s apply: weight/state "
+                        "buffers written in place; grads and the lr "
+                        "vector survive the call" % kind)
+
+
+_declare_fused_contracts()

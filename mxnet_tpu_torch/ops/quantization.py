@@ -14,9 +14,14 @@ lives on, bitwise the JAX package's arithmetic.
   bits [2i, 2i+1], 00 = 0, 01 = -t, 10 = +t), bit-compatible with
   ``kvstore.wire_codec.pack_2bit``.
 
-Each function returns new tensors and never writes its inputs, so a
-residual the caller keeps (``GradientCompression.checkpoint``) stays
-valid; the JAX package donates the residual instead.  The inference ops
+The error-feedback quantizers take the reference's ``donate`` flag.
+With ``donate=True`` (the default) the new residual is written into the
+residual they were given, in place, where the JAX package donates it
+(the ``quant.gradient_wire`` contract: one generation of every residual
+lives on the card); with ``donate=False`` the residual is not written
+and a new one is returned, as a caller that must restore the older one
+asks (``GradientCompression`` while an overlap session holds a
+checkpoint).  The inference ops
 of the reference module (``_contrib_quantize`` and the quantized layers)
 are not ported yet.
 """
@@ -70,12 +75,24 @@ def _requantize(blocks: torch.Tensor):
     return q, scales
 
 
+def _written(residual: torch.Tensor, new_res: torch.Tensor,
+             donate: bool) -> torch.Tensor:
+    """The new residual: written into ``residual`` in place when it is
+    donated, else ``new_res`` itself."""
+    if not donate:
+        return new_res
+    with torch.no_grad():
+        residual.copy_(new_res)
+    return residual
+
+
 def quantize_int8_blocks(flat: torch.Tensor, residual: torch.Tensor,
-                         block: int = None):
+                         block: int = None, donate: bool = True):
     """One error-feedback int8 step over a flat payload: ``(q, scales,
     new_residual)``, the int8 codes padded to a whole number of blocks,
     one float32 scale a block, and the float32 residual for the next
-    step."""
+    step.  With ``donate`` the new residual is written into ``residual``
+    in place (the reference donates it), and that tensor is returned."""
     block = int(block or grad_compress_block())
     acc = flat.float() + residual
     n = acc.shape[0]
@@ -90,7 +107,8 @@ def quantize_int8_blocks(flat: torch.Tensor, residual: torch.Tensor,
     # exact in float64
     new_res = (blocks.double() - q.double() * scales.double()[:, None]
                ).float().reshape(-1)[:n]
-    return q.to(torch.int8).reshape(-1), scales, new_res
+    return q.to(torch.int8).reshape(-1), scales, \
+        _written(residual, new_res, donate)
 
 
 def dequantize_int8_blocks(q: torch.Tensor, scales: torch.Tensor,
@@ -102,10 +120,11 @@ def dequantize_int8_blocks(q: torch.Tensor, scales: torch.Tensor,
 
 
 def roundtrip_int8_blocks(flat: torch.Tensor, residual: torch.Tensor,
-                          block: int = None):
+                          block: int = None, donate: bool = True):
     """Quantize and dequantize: what a single worker's exchange observes
-    of int8 compression.  ``(values in flat's dtype, new_residual)``."""
-    q, scales, new_res = quantize_int8_blocks(flat, residual, block)
+    of int8 compression.  ``(values in flat's dtype, new_residual)``, the
+    residual donated as in :func:`quantize_int8_blocks`."""
+    q, scales, new_res = quantize_int8_blocks(flat, residual, block, donate)
     return (dequantize_int8_blocks(q, scales, flat.shape[0]).to(flat.dtype),
             new_res)
 
@@ -155,16 +174,16 @@ def dequant_sum_requant_int8(q_stacked: torch.Tensor,
 
 
 def quantize_2bit_ef(grad: torch.Tensor, residual: torch.Tensor,
-                     threshold: float):
+                     threshold: float, donate: bool = True):
     """The reference's Quantize2BitImpl with error feedback:
-    ``(levels in {-t, 0, +t}, new_residual)``, both in ``grad``'s
-    dtype."""
+    ``(levels in {-t, 0, +t}, new_residual)``, both in ``grad``'s dtype;
+    the residual donated as in :func:`quantize_int8_blocks`."""
     t = torch.tensor(threshold, dtype=grad.dtype, device=grad.device)
     acc = residual + grad
     zero = torch.zeros((), dtype=grad.dtype, device=grad.device)
     q = (torch.where(acc >= t, t, zero)
          + torch.where(acc <= -t, -t, zero)).to(grad.dtype)
-    return q, (acc - q).to(grad.dtype)
+    return q, _written(residual, (acc - q).to(grad.dtype), donate)
 
 
 _SHIFTS = tuple(2 * i for i in range(16))
@@ -193,3 +212,55 @@ def unpack_2bit_words(words: torch.Tensor, threshold: float,
     t = torch.tensor(threshold, dtype=torch.float32, device=words.device)
     zero = torch.zeros((), dtype=torch.float32, device=words.device)
     return torch.where(codes == 2, t, torch.where(codes == 1, -t, zero))
+
+
+# ---------------------------------------------------------------------------
+# Program contracts: the gradient wire's error-feedback residual is the
+# donated state (rewritten every step; rebinding it would keep both
+# generations of every bucket's residual alive).  The cases are built only
+# in the verifier.
+# ---------------------------------------------------------------------------
+
+_CONTRACT_N = 4096          # one mid-sized flat bucket payload
+
+
+def _quant_contract_cases():
+    from ..programs import ContractCase
+    block = GRAD_BLOCK_DEFAULT
+
+    def flat():
+        return torch.empty((_CONTRACT_N,), dtype=torch.float32,
+                           device="meta")
+
+    def q8(x, residual):
+        return quantize_int8_blocks(x, residual, block)
+
+    def rt8(x, residual):
+        return roundtrip_int8_blocks(x, residual, block)
+
+    def q2(x, residual, threshold):
+        return quantize_2bit_ef(x, residual, float(threshold))
+
+    return [
+        ContractCase("quant.q8_%d" % block, (flat(), flat()), label="q8",
+                     fn=q8),
+        ContractCase("quant.rt8_%d" % block, (flat(), flat()), label="rt8",
+                     fn=rt8),
+        ContractCase("quant.q2", (flat(), flat(), 0.5), label="q2", fn=q2),
+    ]
+
+
+def _declare_quant_contracts():
+    from ..programs import declare_contract
+    declare_contract(
+        "quant.gradient_wire", _quant_contract_cases,
+        donate_argnums=(1,),
+        # 132,096 temp bytes at most on an NVIDIA H100 80GB HBM3 at
+        # 700.00 W (the verifier, phase_launch_tier); x 4, a power of 2
+        temp_budget_bytes=1 << 20,
+        description="int8/2bit error-feedback kernels: the residual is "
+                    "written in place (same shape and dtype); codes, "
+                    "scales and the threshold survive the call")
+
+
+_declare_quant_contracts()

@@ -1,8 +1,8 @@
 """Program registry, retrace explainer and device-buffer census.
 
-Counterpart of ``mxnet_tpu/programs.py`` (its registry and census; the
-program contracts are not ported yet).  What PyTorch has in place of XLA's
-ahead-of-time compile, and how each record is measured:
+Counterpart of ``mxnet_tpu/programs.py``: the registry, the census and
+the program contracts.  What PyTorch has in place of XLA's ahead-of-time
+compile, and how each record is measured:
 
 * **A program is a torch callable keyed by its input signature.**
   :func:`register_program` wraps a site's callable in a :class:`Program`.
@@ -36,6 +36,24 @@ dispatch whose signature differs is a retrace, and the structured diff
 (:func:`diff_signatures`: which argument's shape, dtype or device changed,
 or that the tree itself did) is logged and kept on the record.
 
+**The persistent compile cache.**  A torch program has no executable to
+serialize; what a cold process pays and a warm one need not is the
+``nvcc`` build of its kernel libraries (:mod:`.compile_cache`).  A first
+dispatch that loaded at least one library from that cache and built none
+is a cache hit (:meth:`ProgramRecord.note_cache_hit`): it counts in
+``cache_hits`` and its seconds in ``deserialize_seconds_total``, not as a
+compile.  :meth:`Program.ensure_compiled` loads or builds the libraries
+without dispatching and answers ``"ready"`` only for a signature already
+dispatched, so callers keep their first dispatch.
+
+**Program contracts.**  :func:`declare_contract` records a program
+family's declared invariants (donated arguments, a temp-byte budget, a
+trace closure) at import time, a dict insert; its cases are built only by
+the verifier (``python -m mxnet_tpu_torch.tools.contracts``), which
+dispatches each :class:`ContractCase` once inside :func:`isolated`.  torch
+has no donation: a donated argument's tensors must be written in place
+(same storage, version counter advanced).
+
 **The buffer census.**  torch has no ``jax.live_arrays()``: owners
 register themselves through :func:`track_buffers` (held weakly) and
 :func:`buffer_census` buckets their tensors by owner, deduplicated by
@@ -51,6 +69,7 @@ it every 16th recorded step, and crash dumps carry ``buffer_census`` and
 from __future__ import annotations
 
 import logging
+import sys
 import threading
 import time
 import weakref
@@ -69,6 +88,9 @@ __all__ = [
     "signature_of", "diff_signatures",
     "track_buffers", "buffer_census", "leak_detector", "LeakDetector",
     "CENSUS_OWNERS",
+    "CONTRACT_SCHEMA", "ContractCase", "ContractClosure", "ProgramContract",
+    "declare_contract", "contracts", "contract_manifest",
+    "reset_contracts", "contract_device", "contract_scope", "isolated",
 ]
 
 logger = logging.getLogger("mxnet_tpu_torch.programs")
@@ -269,7 +291,8 @@ class ProgramRecord:
         self.compiles = 0
         self.retraces = 0
         self.specializations = 0
-        #: the persistent compile cache is not ported: always 0
+        #: first dispatches whose kernel libraries all came from the
+        #: persistent compile cache (see note_cache_hit)
         self.cache_hits = 0
         self.deserialize_seconds_total = 0.0
         self._seen_sigs: set = set()
@@ -342,6 +365,28 @@ class ProgramRecord:
         elif diff is not None:
             logger.debug("program %r specialized (first dispatch %.3fs): "
                          "%s", self.name, seconds, _format_diff(diff))
+
+    def note_cache_hit(self, seconds: float, sig: Tuple,
+                       memory: Optional[Dict[str, Any]] = None) -> None:
+        """Record one first dispatch whose kernel libraries came from the
+        persistent compile cache (at least one loaded, none built): no
+        compile and no retrace is charged, its seconds accumulate in
+        ``deserialize_seconds_total``, and its memory is kept as a
+        compile's is (the packer reads the temp bytes).  The signature
+        joins the seen set, so a later rebuild of it is attributed as
+        one."""
+        with self._lock:
+            self.cache_hits += 1
+            self.deserialize_seconds_total += seconds
+            self._seen_sigs.add(sig)
+            self.last_sig = sig
+            if memory is not None:
+                self.memory = memory
+                tb = memory["temp_bytes"]
+                if self.temp_bytes_peak is None or tb > self.temp_bytes_peak:
+                    self.temp_bytes_peak = tb
+        if memory is not None:
+            self._g_temp.set(memory["temp_bytes"])
 
     def snapshot(self) -> Dict[str, Any]:
         with self._lock:
@@ -522,13 +567,26 @@ class Program:
         """Signatures dispatched so far."""
         return len(self._seen)
 
+    def _note(self, seconds, sig, events0, memory=None) -> None:
+        """A compile, or a cache hit when this thread's libraries of the
+        dispatch all came from the persistent cache."""
+        from . import compile_cache as _cc
+        loaded, built = (a - b for a, b in zip(_cc.library_events(),
+                                                events0))
+        if loaded > 0 and built == 0:
+            self.record.note_cache_hit(seconds, sig, memory=memory)
+        else:
+            self.record.note_compile(seconds, sig, memory=memory)
+
     def _first_dispatch(self, sig, args, kwargs):
+        from . import compile_cache as _cc
         arg_tensors = _tensor_leaves((args, kwargs))
         dev = _cuda_device(arg_tensors, self._device)
+        events0 = _cc.library_events()
         if dev is None:
             t0 = time.perf_counter()
             out = self._fn(*args, **kwargs)
-            self.record.note_compile(time.perf_counter() - t0, sig)
+            self._note(time.perf_counter() - t0, sig, events0)
             return out
         with _measure_lock:
             torch.cuda.synchronize(dev)
@@ -553,8 +611,21 @@ class Program:
                   "temp_bytes": max(0, int(peak - before - new_bytes)),
                   "generated_code_bytes": None,
                   "alias_bytes": alias_bytes}
-        self.record.note_compile(seconds, sig, memory=memory)
+        self._note(seconds, sig, events0, memory=memory)
         return out
+
+    def ensure_compiled(self, *args, **kwargs):
+        """Load (from the persistent compile cache) or build the process's
+        kernel libraries without dispatching.  Returns ``"ready"`` for a
+        signature already dispatched and False otherwise: a torch program
+        has no executable apart from its first dispatch, so the caller
+        dispatches (the reference's answer in light mode)."""
+        dev = _cuda_device(_tensor_leaves((args, kwargs)), self._device)
+        if dev is not None:
+            from .ops import _kernels
+            _kernels.build_all()
+        sig = signature_of(args, kwargs, self._scalar_values)
+        return "ready" if sig in self._seen else False
 
     def __call__(self, *args, **kwargs):
         sig = signature_of(args, kwargs, self._scalar_values)
@@ -578,11 +649,272 @@ def register_program(name: str, fn: Callable, mode: str = "aot",
     runs on when its arguments do not say (host inputs copied inside);
     ``scalar_values=False`` keys Python scalar arguments by type (data,
     not static).  With ``MX_PROGRAM_CENSUS=0`` this returns ``fn``
-    itself."""
+    itself.  With ``MX_COMPILE_CACHE`` set it arms the persistent compile
+    cache first (idempotent)."""
+    from . import compile_cache as _cc
+    if _cc.enabled():
+        _cc.activate()
     if not census_enabled():
         return fn
     return Program(name, mode, fn, specializing=specializing,
                    device=device, scalar_values=scalar_values)
+
+
+# ---------------------------------------------------------------------------
+# Program contracts: the registry's declarative face
+# ---------------------------------------------------------------------------
+
+#: bumped when the manifest's JSON layout changes
+CONTRACT_SCHEMA = 1
+
+_contract_device = [torch.device("cpu")]
+
+
+def contract_device() -> torch.device:
+    """The device the contracts build their cases on: the
+    verifier's ``--device`` (set by :func:`contract_scope`)."""
+    return _contract_device[0]
+
+
+class contract_scope:
+    """``with contract_scope("cuda"):`` contracts build their cases on that
+    device for the duration."""
+
+    def __init__(self, device):
+        self._dev = torch.device(device)
+        self._prev = None
+
+    def __enter__(self):
+        self._prev = _contract_device[0]
+        _contract_device[0] = self._dev
+        return self._dev
+
+    def __exit__(self, *exc):
+        _contract_device[0] = self._prev
+        return False
+
+
+def _seeded_leaf(x, device, rng):
+    """A real tensor (or host array) for an abstract leaf: a ``meta``
+    tensor becomes seeded values on ``device``, an ndarray seeded values
+    on the host (a program that takes host inputs); every other leaf (a
+    live tensor of the site's own state, a scalar) passes as it is.
+    Floats are normal draws, integers 0 or 1 (a valid slot, page or token
+    id in every table), booleans False."""
+    if isinstance(x, torch.Tensor) and x.is_meta:
+        a = _seeded_array(tuple(x.shape), _dtype_name(x.dtype), rng)
+        if x.dtype == torch.bfloat16:
+            return torch.from_numpy(a).to(device=device, dtype=x.dtype)
+        return torch.from_numpy(a).to(device)
+    if isinstance(x, np.ndarray):
+        return _seeded_array(x.shape, str(x.dtype), rng)
+    return x
+
+
+def _seeded_array(shape, dtype: str, rng) -> np.ndarray:
+    if dtype == "bfloat16":
+        dtype = "float32"
+    dt = np.dtype(dtype)
+    if dt.kind == "f":
+        return (0.1 * rng.standard_normal(shape)).astype(dt)
+    if dt.kind in "iu":
+        return rng.integers(0, 2, size=shape).astype(dt)
+    return np.zeros(shape, dt)
+
+
+def _map_tree(tree, fn):
+    if tree is None:
+        return None
+    if isinstance(tree, tuple) and not hasattr(tree, "_fields"):
+        return tuple(_map_tree(c, fn) for c in tree)
+    if isinstance(tree, list):
+        return [_map_tree(c, fn) for c in tree]
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+class ContractCase:
+    """One concrete dispatch of a contracted program.
+
+    ``args``/``kwargs`` are the argument tree with abstract leaves:
+    tensors on the ``meta`` device (shape and dtype, no storage), ndarrays
+    for host inputs, and the site's own state tensors as they are (the
+    body must write those in place).  ``target`` is the site's registered
+    :class:`Program`, so the verifier dispatches exactly what the runtime
+    does; alternatively ``fn`` hands it a raw body, which it registers
+    under ``program`` itself (the kvstore and optimizer bodies, which no
+    site registers).  ``state`` lists tensors the body reaches through its
+    site (closed over, not passed), which count as donated too.
+    :meth:`make_args` makes the real tensors and :meth:`run` dispatches
+    them once."""
+
+    __slots__ = ("program", "label", "target", "fn", "args", "kwargs",
+                 "state")
+
+    def __init__(self, program: str, args: tuple, kwargs=None,
+                 label: Optional[str] = None, target=None,
+                 fn: Optional[Callable] = None,
+                 state: Optional[Callable] = None):
+        if (target is None) == (fn is None):
+            raise ValueError("ContractCase needs exactly one of "
+                             "target= (a registered program) or fn= (a "
+                             "raw body)")
+        self.program = str(program)
+        self.label = str(label if label is not None else program)
+        self.target = target
+        self.fn = fn
+        self.args = tuple(args)
+        self.kwargs = dict(kwargs or {})
+        #: the state the body reads through its site rather than its
+        #: arguments (a Trainer's parameters and updater states), which it
+        #: must write in place too: a callable listing those tensors now
+        self.state = state
+
+    @property
+    def scalar_values(self) -> bool:
+        """How the program keys Python scalars (its signature rule)."""
+        return bool(getattr(self.target, "_scalar_values", True))
+
+    def signature(self) -> Tuple:
+        return signature_of(self.args, self.kwargs, self.scalar_values)
+
+    def make_args(self, device, seed: int = 0):
+        """(args, kwargs) with every abstract leaf made real from ``seed``
+        (meta tensors on ``device``, ndarrays on the host)."""
+        rng = np.random.default_rng(seed)
+        dev = torch.device(device)
+        leaf = (lambda x: _seeded_leaf(x, dev, rng))
+        return _map_tree(self.args, leaf), _map_tree(self.kwargs, leaf)
+
+    def program_object(self, device=None) -> "Program":
+        """The :class:`Program` the case dispatches through: the target,
+        or the raw body registered under the case's program name."""
+        if isinstance(self.target, Program):
+            return self.target
+        return Program(self.program, "aot", self.target or self.fn,
+                       device=device)
+
+    def run(self, args, kwargs, device=None):
+        """Dispatch once through :meth:`program_object`."""
+        return self.program_object(device)(*args, **kwargs)
+
+    def dispatch(self, device, seed: int = 0):
+        """Make the tensors and dispatch once; returns the output."""
+        args, kwargs = self.make_args(device, seed)
+        return self.run(args, kwargs, device)
+
+
+class ContractClosure:
+    """The zero-retrace proof's workload: ``points`` enumerates the
+    dispatch points the runtime can reach (every admissible batch size,
+    every configured window, ...) and ``resolve(point)`` returns the
+    argument tree that point dispatches with, or None when the runtime
+    refuses the point before any dispatch.  Every resolved signature must
+    be one of the cases'."""
+
+    __slots__ = ("points", "resolve")
+
+    def __init__(self, points, resolve: Callable):
+        self.points = list(points)
+        self.resolve = resolve
+
+
+class ProgramContract:
+    """Declared invariants of one program family.
+
+    ``build()`` is lazy: declaring costs a dict insert, and only the
+    verifier builds the cases.  ``donate_argnums`` index the port's own
+    argument tuple: each tensor of those arguments must be written in
+    place (torch has no donation, so a rebound tensor keeps two
+    generations alive).  ``reference_argnums`` says, where the port's
+    argument order differs from the reference's, which of the reference's
+    argument indices each donated port index stands for; its key
+    ``"state"`` names the reference arguments that the port's body reaches
+    through its site instead (a case's ``state``).
+    ``temp_budget_bytes`` caps the allocator's temp bytes of a case's
+    first dispatch on the card."""
+
+    __slots__ = ("name", "build", "donate_argnums", "temp_budget_bytes",
+                 "closure", "description", "origin", "reference_argnums")
+
+    def __init__(self, name: str, build: Callable,
+                 donate_argnums: Tuple[int, ...] = (),
+                 temp_budget_bytes: Optional[int] = None,
+                 closure=None, description: str = "",
+                 origin: Optional[Tuple[str, int]] = None,
+                 reference_argnums: Optional[Dict[int, Tuple[int, ...]]]
+                 = None):
+        self.name = str(name)
+        self.build = build
+        self.donate_argnums = tuple(sorted(int(i) for i in donate_argnums))
+        self.temp_budget_bytes = None if temp_budget_bytes is None \
+            else int(temp_budget_bytes)
+        self.closure = closure
+        self.description = str(description)
+        #: (file, line) of the declaring site: findings anchor there
+        self.origin = origin
+        self.reference_argnums = None if reference_argnums is None else {
+            (k if k == "state" else int(k)): tuple(int(i) for i in v)
+            for k, v in reference_argnums.items()}
+
+    def manifest_entry(self) -> Dict[str, Any]:
+        return {
+            "name": self.name,
+            "donate_argnums": list(self.donate_argnums),
+            "reference_argnums": None if self.reference_argnums is None
+            else {str(k): list(v)
+                  for k, v in self.reference_argnums.items()},
+            "temp_budget_bytes": self.temp_budget_bytes,
+            "closure_points": (
+                None if self.closure is None
+                else [str(p) for p in self.closure.points]
+                if isinstance(self.closure, ContractClosure)
+                # a lazy closure is built with the cases, by the verifier
+                else "deferred"),
+            "description": self.description,
+        }
+
+
+_contracts_lock = threading.Lock()
+_contracts: Dict[str, ProgramContract] = {}
+
+
+def declare_contract(name: str, build: Callable, *,
+                     donate_argnums: Tuple[int, ...] = (),
+                     temp_budget_bytes: Optional[int] = None,
+                     closure=None, description: str = "",
+                     reference_argnums=None) -> ProgramContract:
+    """Declare the contract of one program family: ``build`` returns the
+    :class:`ContractCase` list when the verifier runs; the rest is
+    metadata recorded now.  Redeclaring a name replaces it."""
+    import sys as _sys
+    frame = _sys._getframe(1)
+    origin = (frame.f_code.co_filename, frame.f_lineno)
+    c = ProgramContract(name, build, donate_argnums=donate_argnums,
+                        temp_budget_bytes=temp_budget_bytes,
+                        closure=closure, description=description,
+                        origin=origin, reference_argnums=reference_argnums)
+    with _contracts_lock:
+        _contracts[c.name] = c
+    return c
+
+
+def contracts() -> List[ProgramContract]:
+    with _contracts_lock:
+        return [_contracts[k] for k in sorted(_contracts)]
+
+
+def contract_manifest() -> Dict[str, Any]:
+    """The declared (not built) manifest: what
+    ``mxnet_tpu_torch/tools/contracts.json`` holds."""
+    return {"schema": CONTRACT_SCHEMA,
+            "contracts": [c.manifest_entry() for c in contracts()]}
+
+
+def reset_contracts() -> None:
+    with _contracts_lock:
+        _contracts.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -793,6 +1125,83 @@ def _step_census_observer() -> Optional[Dict[str, Any]]:
     chk = leak_detector.check()
     return {"live_bytes": chk["census"]["total_bytes"],
             "leak_bytes": chk["growth_bytes"]}
+
+
+# ---------------------------------------------------------------------------
+# Isolation: what a verifier run leaves behind
+# ---------------------------------------------------------------------------
+
+class isolated:
+    """A registry scope for a verifier run: on exit the program records,
+    the census's owners, the telemetry instruments and the leak detector
+    are as they were on entry (instruments made inside are dropped, the
+    others' values put back).  What other threads record meanwhile is
+    lost with them, so the verifier runs in a process of its own
+    (``python -m mxnet_tpu_torch.tools.contracts``): the scope refuses to
+    open while ``serve_forever`` answers in this process.  The CUDA
+    allocator's peak is process-global and cannot be set back; whoever
+    reads it resets it first."""
+
+    def __enter__(self):
+        global _records
+        server = sys.modules.get(__package__ + ".serve.server")
+        if server is not None and server.serving():
+            raise RuntimeError(
+                "programs.isolated: serve_forever answers in this process, "
+                "and a verifier run would take back what its threads "
+                "record; run python -m mxnet_tpu_torch.tools.contracts in "
+                "a process of its own")
+        with _records_lock:
+            self._records = _records
+            _records = {}
+        with _owners_lock:
+            self._owners = set(id(o) for o in _owners.keys())
+        reg = _telemetry.registry
+        with reg._lock:
+            self._insts = dict(reg._instruments)
+        self._states = {k: _inst_state(v) for k, v in self._insts.items()}
+        ld = leak_detector
+        with ld._lock:
+            self._leak = (ld._prev_total, ld._prev_census, ld._growth,
+                          ld._tripped)
+        return self
+
+    def __exit__(self, *exc):
+        global _records
+        with _records_lock:
+            _records = self._records
+        with _owners_lock:
+            for o in [o for o in _owners.keys()
+                      if id(o) not in self._owners]:
+                _owners.pop(o, None)
+        reg = _telemetry.registry
+        with reg._lock:
+            reg._instruments = dict(self._insts)
+        for k, inst in self._insts.items():
+            _inst_restore(inst, self._states[k])
+        ld = leak_detector
+        with ld._lock:
+            (ld._prev_total, ld._prev_census, ld._growth,
+             ld._tripped) = self._leak
+        return False
+
+
+def _inst_state(inst):
+    with inst._lock:
+        if isinstance(inst, _telemetry.Histogram):
+            return (list(inst._counts), inst._sum, inst._count, inst._min,
+                    inst._max)
+        return inst._value
+
+
+def _inst_restore(inst, state) -> None:
+    with inst._lock:
+        if isinstance(inst, _telemetry.Histogram):
+            (counts, inst._sum, inst._count, inst._min,
+             inst._max) = state
+            inst._counts = list(counts)
+        else:
+            inst._value = state
 
 
 _telemetry.register_step_observer(_step_census_observer)

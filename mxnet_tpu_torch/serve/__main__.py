@@ -16,7 +16,9 @@ first is the default model, the rest are admitted through
 ``ServeServer.add_model`` and addressed by the wire envelope's model
 field.  ``--decode`` hosts the flat engine, or the paged one with
 ``MX_SERVE_KV_PAGES`` > 0, or the speculative pair with
-``MX_SERVE_DRAFT`` > 0 as well.
+``MX_SERVE_DRAFT`` > 0 as well.  With ``MX_COMPILE_CACHE`` set the kernel
+libraries come from the persistent compile cache (``compile_cache.py``)
+and the banner reports its hits and misses.
 
 Examples::
 
@@ -158,12 +160,18 @@ def main(argv=None) -> int:
     elif not args.decode:
         raise SystemExit("serve: need --demo, --demo-conv or --decode")
     warm_s = time.perf_counter() - t_warm0
+    # with MX_COMPILE_CACHE set, the warm loads the kernel libraries from
+    # the persistent cache instead of running nvcc: the banner (and the
+    # compile_cache.* counters on METRICS) carry the receipts
+    from ..compile_cache import stats as _cc_stats
+    cs = _cc_stats()
     if sv is not None:
-        # the persistent compile cache is not ported: always off
         print("serve: %s v%d warm on %d bucket(s) %r in %.2fs "
-              "(compile-cache off hits=0 misses=0) on %s, port %d"
+              "(compile-cache%s hits=%d misses=%d) on %s, port %d"
               % (sv.name, sv.version, len(sv.buckets.sizes),
-                 list(sv.buckets.sizes), warm_s, device, port),
+                 list(sv.buckets.sizes), warm_s,
+                 "" if cs["enabled"] else " off", cs["hits"],
+                 cs["misses"], device, port),
               file=sys.stderr, flush=True)
         if len(specs) > 1:
             rep = state.host.packing_report()

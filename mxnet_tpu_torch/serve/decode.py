@@ -2138,3 +2138,251 @@ class SpeculativeDecodeBatcher(PagedDecodeBatcher):
             return
         if not seq.chunks:
             self._finish_train(seq, seq.t0)
+
+
+# ---------------------------------------------------------------------------
+# Program contracts: the decode tables write their KV state in place (the
+# reference donates it: flat HBM across steps), and their signatures are
+# closed over every active-set size and admitted prompt length.  The
+# programs bind their parameters, so each one's argument tuple starts at the
+# state; ``reference_argnums`` names the reference's arguments each donated
+# state dict stands for.  A case passes the servable's own state (what the
+# body must write) and abstract ``meta`` tensors for the rest.  The
+# cases are built only in the verifier.
+# ---------------------------------------------------------------------------
+
+import functools as _functools
+
+
+def _meta(shape, dtype=torch.int32):
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+@_functools.lru_cache(maxsize=4)
+def _decode_contract_built(device: str):
+    from ..programs import ContractCase, ContractClosure
+    cfg = DecodeConfig()
+    sv = DecodeServable(config=cfg, device=device)
+    st = sv._state
+
+    def step_args(bucket):
+        return (st, _meta((bucket,)))
+
+    def prefill_args(lp):
+        return (st, cfg.slots, _meta((lp,)), lp)
+
+    step_cases = [ContractCase("serve.decode.step.s%d" % b, step_args(b),
+                               label="s%d" % b, target=sv.step_program(b))
+                  for b in cfg.slot_buckets]
+    prefill_cases = [ContractCase("serve.decode.prefill.p%d" % lp,
+                                  prefill_args(lp), label="p%d" % lp,
+                                  target=sv.prefill_program(lp))
+                     for lp in cfg.prompt_buckets]
+
+    def resolve_step(n):
+        # every active-set size packs to its covering slot bucket
+        return step_args(cfg.slot_bucket_for(int(n)))
+
+    def resolve_prefill(n):
+        # a prompt pads to its bucket; one past the top bucket is refused
+        # at admission
+        lp = cfg.prompt_bucket_for(int(n))
+        return None if lp is None else prefill_args(lp)
+
+    return (step_cases, ContractClosure(range(1, cfg.slots + 1),
+                                        resolve_step),
+            prefill_cases, ContractClosure(
+                range(1, cfg.prompt_buckets[-1] + 3), resolve_prefill))
+
+
+@_functools.lru_cache(maxsize=4)
+def _paged_contract_built(device: str):
+    from ..programs import ContractCase, ContractClosure
+    cfg = DecodeConfig()
+    sv = PagedDecodeServable(config=cfg, device=device)
+    st = sv._state
+
+    def step_args(bucket):
+        return (st, _meta((bucket,)), _meta((bucket, cfg.pages_per_slot)))
+
+    chunk_args = (st, cfg.slots, _meta((cfg.pages_per_slot,)),
+                  _meta((cfg.prefill_chunk,)), 0, cfg.prefill_chunk, False,
+                  0, 0)
+    step_cases = [ContractCase("serve.decode.paged.step.s%d" % b,
+                               step_args(b), label="s%d" % b,
+                               target=sv.step_program(b))
+                  for b in cfg.slot_buckets]
+    chunk_cases = [ContractCase(
+        "serve.decode.paged.prefill.c%d" % cfg.prefill_chunk, chunk_args,
+        label="c%d" % cfg.prefill_chunk, target=sv.chunk_program())]
+
+    def resolve_step(n):
+        return step_args(cfg.slot_bucket_for(int(n)))
+
+    def resolve_chunk(n):
+        # any admitted prompt prefills as a train of the one chunk
+        # signature (the copy-on-write fork rides in it)
+        if cfg.prompt_bucket_for(int(n)) is None:
+            return None
+        return chunk_args
+
+    return (step_cases, ContractClosure(range(1, cfg.slots + 1),
+                                        resolve_step),
+            chunk_cases, ContractClosure(
+                range(1, cfg.prompt_buckets[-1] + 3), resolve_chunk))
+
+
+@_functools.lru_cache(maxsize=4)
+def _spec_contract_built(device: str):
+    from ..programs import ContractCase, ContractClosure
+    cfg = DecodeConfig()
+    tparams, dcfg, dparams = demo_spec_pair(cfg, device=device)
+    sv = PagedDecodeServable(params=tparams, config=cfg, device=device)
+    draft = DraftDecodeServable(params=dparams, config=dcfg, device=device)
+    tst, dst = sv._state, draft._state
+
+    def draft_args(bucket):
+        return (dst, _meta((bucket,)), 0)
+
+    def draft_prefill_args(lp):
+        return (dst, _meta((cfg.slots + 1,)), cfg.slots, _meta((lp,)), lp)
+
+    def verify_args(bucket):
+        return (tst, dst, _meta((bucket,)),
+                _meta((bucket, cfg.pages_per_slot)))
+
+    draft_cases = [ContractCase("serve.decode.draft.s%d" % b,
+                                draft_args(b), label="s%d" % b,
+                                target=draft.step_program(b))
+                   for b in dcfg.slot_buckets]
+    dp_cases = [ContractCase("serve.decode.draft.prefill.p%d" % lp,
+                             draft_prefill_args(lp), label="p%d" % lp,
+                             target=draft.prefill_program(lp))
+                for lp in dcfg.prompt_buckets]
+    verify_cases = [ContractCase(
+        "serve.decode.verify.k%d.s%d" % (cfg.spec_k, b), verify_args(b),
+        label="k%d.s%d" % (cfg.spec_k, b), target=sv.verify_program(b))
+        for b in cfg.slot_buckets]
+
+    def resolve_draft(point):
+        # (active-set size, window column): the column is data, so every
+        # column 0..spec_k-1 rides the bucket's one program
+        n, col = point
+        if col < 0 or col >= cfg.spec_k:
+            return None
+        return draft_args(cfg.slot_bucket_for(int(n)))
+
+    def resolve_dp(n):
+        lp = cfg.prompt_bucket_for(int(n))
+        return None if lp is None else draft_prefill_args(lp)
+
+    def resolve_verify(n):
+        return verify_args(cfg.slot_bucket_for(int(n)))
+
+    draft_points = [(n, col) for n in range(1, cfg.slots + 1)
+                    for col in range(cfg.spec_k)]
+    return (draft_cases, ContractClosure(draft_points, resolve_draft),
+            dp_cases, ContractClosure(range(1, cfg.prompt_buckets[-1] + 3),
+                                      resolve_dp),
+            verify_cases, ContractClosure(range(1, cfg.slots + 1),
+                                          resolve_verify))
+
+
+def _declare_decode_contracts():
+    from ..programs import contract_device, declare_contract
+
+    def part(built, i):
+        return lambda: built(str(contract_device()))[i]
+
+    # the reference's (params, k, v, tok, len, ...): the port binds the
+    # parameters, so its state dict {k, v, tok, len} is argument 0
+    flat_state = {0: (1, 2, 3, 4)}
+    declare_contract(
+        "serve.decode", part(_decode_contract_built, 0),
+        donate_argnums=(0,), reference_argnums=flat_state,
+        # 220,640 temp bytes at most on an NVIDIA H100 80GB HBM3 at
+        # 700.00 W (the verifier, phase_launch_tier); x 4, a power of 2
+        temp_budget_bytes=1 << 20,
+        closure=part(_decode_contract_built, 1),
+        description="decode-step slot-bucket table: the KV pool and the "
+                    "per-slot token/length arrays written in place (flat "
+                    "device bytes across steps); signatures closed over "
+                    "every active-set size 1..slots")
+    declare_contract(
+        "serve.prefill", part(_decode_contract_built, 2),
+        donate_argnums=(0,), reference_argnums=flat_state,
+        # 23,548 temp bytes at most on an NVIDIA H100 80GB HBM3 at
+        # 700.00 W (the verifier, phase_launch_tier); x 4, a power of 2
+        temp_budget_bytes=1 << 17,
+        closure=part(_decode_contract_built, 3),
+        description="prefill prompt-bucket table: the same KV state "
+                    "written in place; signatures closed over the "
+                    "MX_SERVE_DECODE_PROMPT_BUCKETS admission set "
+                    "(over-bucket prompts refused)")
+    declare_contract(
+        "serve.paged.decode", part(_paged_contract_built, 0),
+        donate_argnums=(0,), reference_argnums=flat_state,
+        # 220,640 temp bytes at most on an NVIDIA H100 80GB HBM3 at
+        # 700.00 W (the verifier, phase_launch_tier); x 4, a power of 2
+        temp_budget_bytes=1 << 20,
+        closure=part(_paged_contract_built, 1),
+        description="paged decode-step slot-bucket table: the shared KV "
+                    "page heap and the token/length arrays written in "
+                    "place; signatures closed over every active-set size "
+                    "1..slots with per-lane block tables")
+    declare_contract(
+        "serve.paged.prefill", part(_paged_contract_built, 2),
+        donate_argnums=(0,), reference_argnums=flat_state,
+        # 78,844 temp bytes at most on an NVIDIA H100 80GB HBM3 at
+        # 700.00 W (the verifier, phase_launch_tier); x 4, a power of 2
+        temp_budget_bytes=1 << 19,
+        closure=part(_paged_contract_built, 3),
+        description="paged prefill-chunk program: one signature (the chunk "
+                    "length) serves every admitted prompt as a chunk "
+                    "train, the copy-on-write fork folded in; the heap "
+                    "written in place")
+    declare_contract(
+        "serve.spec.draft", part(_spec_contract_built, 0),
+        donate_argnums=(0,),
+        # the draft's {k, v, tok, len, props}
+        reference_argnums={0: (1, 2, 3, 4, 5)},
+        # 219,648 temp bytes at most on an NVIDIA H100 80GB HBM3 at
+        # 700.00 W (the verifier, phase_launch_tier); x 4, a power of 2
+        temp_budget_bytes=1 << 20,
+        closure=part(_spec_contract_built, 1),
+        description="speculative draft step table: the draft's KV pool, "
+                    "token/length arrays and the proposals buffer written "
+                    "in place; closed over every (active-set size, window "
+                    "column 0..spec_k-1) pair, one program a slot bucket")
+    declare_contract(
+        "serve.spec.draft.prefill", part(_spec_contract_built, 2),
+        donate_argnums=(0,),
+        # the draft's {k, v, tok, len} (its proposals buffer rides in the
+        # same dict, unwritten: noted); the target's token array, argument
+        # 1, is read only
+        reference_argnums={0: (1, 2, 3, 4)},
+        # 21,504 temp bytes at most on an NVIDIA H100 80GB HBM3 at
+        # 700.00 W (the verifier, phase_launch_tier); x 4, a power of 2
+        temp_budget_bytes=1 << 17,
+        closure=part(_spec_contract_built, 3),
+        description="speculative draft-prefill: the draft's KV state "
+                    "written in place, the target's token array read "
+                    "only; closed over the prompt-bucket admission set")
+    declare_contract(
+        "serve.spec.verify", part(_spec_contract_built, 4),
+        donate_argnums=(0, 1),
+        # the target's {k, v, tok, len}; the draft's tok and len (its k, v
+        # and proposals ride in the same dict, read only: noted)
+        reference_argnums={0: (1, 2, 3, 4), 1: (5, 6)},
+        # 346,464 temp bytes at most on an NVIDIA H100 80GB HBM3 at
+        # 700.00 W (the verifier, phase_launch_tier); x 4, a power of 2
+        temp_budget_bytes=1 << 21,
+        closure=part(_spec_contract_built, 5),
+        description="speculative verify table: one dispatch covers all "
+                    "spec_k+1 window positions; the target's heap and "
+                    "token/length arrays and the draft's token/length "
+                    "arrays written in place, the proposals read only; "
+                    "closed over every active-set size 1..slots")
+
+
+_declare_decode_contracts()

@@ -212,7 +212,15 @@ class Servable:
     def warm(self, example: Sequence) -> "Servable":
         """Build and run every bucket for ``example``'s signature (each
         program's first dispatch, which the registry measures); returns
-        self."""
+        self.
+
+        Every bucket keeps its proving run, with or without
+        ``MX_COMPILE_CACHE``: the reference skips a bucket whose
+        executable deserialized (``ensure_compiled(...) == "hit"``), but
+        a torch program has no executable apart from its first dispatch,
+        so ``Program.ensure_compiled`` never answers "hit" and that
+        dispatch is the warm-up itself (the cache saves the kernels'
+        ``nvcc`` builds inside it)."""
         t0 = time.perf_counter()
         sig = self.signature_of([np.asarray(a) for a in example])
         for bucket in self.buckets:
@@ -480,3 +488,67 @@ class ModelHost:
     def history(self) -> List[Tuple[int, str]]:
         with self._lock:
             return list(self._history)
+
+
+# ---------------------------------------------------------------------------
+# Program contracts: the bucket table's declared closure.  One contract
+# covers every ``serve.demo.b<N>`` bucket program of the demo servable under
+# the configured bucket table (MX_SERVE_BUCKETS): every admissible batch
+# pads to a bucket whose signature is a case's, and a batch past the top
+# bucket is refused at admission.  The cases are built only in the verifier.
+# ---------------------------------------------------------------------------
+
+import functools as _functools
+
+
+@_functools.lru_cache(maxsize=4)
+def _demo_contract_built(device: str, sizes: Tuple[int, ...]):
+    """Keyed by the bucket sizes, so a process that changes
+    MX_SERVE_BUCKETS between verifier runs gets cases and a closure over
+    the new table."""
+    from ..programs import ContractCase, ContractClosure
+    from .demo import DEMO_IN, demo_block
+    table = BucketTable(sizes)
+    sv = Servable(demo_block(device), name="demo", version=1, buckets=table,
+                  device=device)
+    sig = (((DEMO_IN,), "float32"),)
+
+    def args_for(bucket):
+        # the program takes the padded host batch, as dispatch() gives it
+        return ([np.empty((bucket, DEMO_IN), np.float32)],)
+
+    cases = [ContractCase("serve.demo.b%d" % b, args_for(b),
+                          label="b%d" % b, target=sv.program(b, sig))
+             for b in table]
+
+    def resolve(rows):
+        # the batcher pads a batch to bucket_for(rows); a batch past the
+        # top bucket is refused at admission, before any dispatch
+        bucket = table.bucket_for(int(rows))
+        return None if bucket is None else args_for(bucket)
+
+    closure = ContractClosure(range(1, table.max_size + 3), resolve)
+    return cases, closure
+
+
+def _demo_contract(part: int):
+    from ..programs import contract_device
+    return _demo_contract_built(str(contract_device()),
+                                BucketTable.from_env().sizes)[part]
+
+
+def _declare_serve_contracts():
+    from ..programs import declare_contract
+    declare_contract(
+        "serve.demo", lambda: _demo_contract(0),
+        donate_argnums=(),
+        # 4,608 temp bytes at most on an NVIDIA H100 80GB HBM3 at
+        # 700.00 W (the verifier, phase_launch_tier); x 4, a power of 2
+        temp_budget_bytes=1 << 15,
+        closure=lambda: _demo_contract(1),
+        description="demo servable's bucket table: no donations (the "
+                    "parameters are shared across dispatches), signatures "
+                    "closed over the MX_SERVE_BUCKETS admission set")
+
+
+_declare_serve_contracts()

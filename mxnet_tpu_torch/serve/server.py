@@ -66,6 +66,28 @@ from .servable import BudgetExceeded, ModelHost, Servable
 
 __all__ = ["ServeServer", "serve_forever", "WIRE_VERBS"]
 
+#: serve_forever loops answering in this process (a verifier run,
+#: ``programs.isolated``, refuses to start while one does)
+_serving = [0]
+_serving_lock = threading.Lock()
+
+
+def serving() -> int:
+    """How many ``serve_forever`` loops answer in this process."""
+    with _serving_lock:
+        return _serving[0]
+
+
+class _Answering:
+    def __enter__(self):
+        with _serving_lock:
+            _serving[0] += 1
+
+    def __exit__(self, *exc):
+        with _serving_lock:
+            _serving[0] -= 1
+        return False
+
 # The serving wire surface of the port, declared as the reference declares
 # its own.  The router forwards client envelopes verbatim, so these replay
 # semantics hold end to end through it.
@@ -597,7 +619,7 @@ def serve_forever(port: Optional[int] = None,
             except OSError:
                 pass
 
-    with Server((bind, port), Handler) as srv:
+    with Server((bind, port), Handler) as srv, _Answering():
         listener.append(srv.socket)
         if ready_file:
             with open(ready_file, "w") as f:

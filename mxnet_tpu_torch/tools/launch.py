@@ -57,17 +57,38 @@ drained (SIGTERM; ``--drain-timeout`` bounds the wait), removed ranks
 leave the membership, and ranks ``0..N-1`` are started under a new
 generation (``MX_ELASTIC_EPOCH``, the bucket-name salt).
 
+**The serving tier.**  ``--serve-port-base B`` says the command is a
+serving replica bound at ``B + rank`` (its own ``--port-base``): each
+replica is supervised as a ``serve`` process and scraped over METRICS by
+the supervisor's embedded fleet collector (``fleet.FleetCollector``; it
+also reads the workers' heartbeat files and the parameter servers'
+METRICS, and the status table reads its merged snapshot;
+``MX_FLEET_INTERVAL=0`` opts out, and a collector that cannot start
+leaves the heartbeat table, with a logged line).  ``--route PORT`` fronts
+the replicas with the session router (``python -m
+mxnet_tpu_torch.serve.router``, a host process: it is given the CPU)
+reading a replicas file that the supervisor rewrites, and the
+collector's FLEET port for its load signals.  ``--autoscale MIN:MAX``
+arms the SLO-burn autoscaler: when any fleet SLO burn (targets by
+``MX_FLEET_SLO_*``) holds at or above ``MX_AUTOSCALE_UP_BURN`` for
+``MX_AUTOSCALE_HOLD`` scrape rounds a replica is spawned; when every burn
+holds at or below ``MX_AUTOSCALE_DOWN_BURN`` the newest replica is retired
+drain-not-kill: dropped from the replicas file first (the router stops
+admitting to it), then sent the wire DRAIN, and killed only when the
+DRAIN cannot be delivered.  Each action arms a ``fault.RetryPolicy``
+cooldown (``MX_AUTOSCALE_COOLDOWN``).  A replica past its restart budget
+is retired involuntarily while others serve; replicas and the router
+count as workers for the job's end (a STOP through the router ends it).
+``--compile-cache DIR`` gives ``MX_COMPILE_CACHE`` to every worker,
+server and replica (restarts included), so a respawned or autoscaled
+process loads its kernel libraries instead of running ``nvcc``.
+
 ``--launcher ssh -H hostfile`` starts rank r on the hostfile's line r by
 ``ssh`` and only waits: supervision needs the processes' lifetimes,
 which an ssh client does not give, so ``--restart``,
-``--hang-timeout``, ``--elastic`` / ``--resize-file`` and ``-s`` are
-refused there.  ``--launcher manual`` prints each rank's environment and
-command.
-
-Not ported yet, and refused with a message that says so: the serving
-fleet's ``--serve-port-base``, ``--route``, ``--autoscale`` and
-``--compile-cache`` (ROADMAP Queue 1 item 6), with the supervisor's fleet
-collector and serving tier.
+``--hang-timeout``, ``--elastic`` / ``--resize-file``, ``-s`` and the
+serving tier's flags are refused there.  ``--launcher manual`` prints
+each rank's environment and command.
 """
 from __future__ import annotations
 
@@ -86,11 +107,8 @@ import time
 
 from .. import fault as _fault
 from .. import telemetry as _telemetry
+from ..base import get_env
 from ..health import WATCHDOG_EXIT_CODE
-
-#: the reference launcher's flags that wait for the serving fleet (ROADMAP
-#: Queue 1 item 6): refused by name
-ITEM_6 = ("--serve-port-base", "--route", "--autoscale", "--compile-cache")
 
 STOP_TIMEOUT = 10.0     # seconds a server may take to exit after STOP
 SSH_COORDINATOR_PORT = 43117
@@ -168,6 +186,16 @@ def send_stop(addr: str, timeout: float = 5.0) -> None:
     _rpc(addr, ("STOP", None), timeout)
 
 
+def send_drain(addr: str, drain_timeout=None, timeout: float = 5.0) -> None:
+    """The serve wire DRAIN (drain-not-kill retirement): the replica stops
+    admitting, finishes what is in flight against its deadline
+    (``drain_timeout``, else its own ``MX_SERVE_DRAIN_TIMEOUT``) and exits
+    0.  DRAIN is idempotent: a retry keeps the first deadline."""
+    msg = ("DRAIN",) if drain_timeout is None \
+        else ("DRAIN", float(drain_timeout))
+    _rpc(addr, msg, timeout)
+
+
 def send_leave(addr: str, rank: int, timeout: float = 5.0) -> None:
     """The wire LEAVE for worker ``rank`` (elastic membership): sent on
     behalf of a dead or removed worker, so that barriers count the
@@ -188,9 +216,11 @@ class SupervisedProc:
         self.name = name
         self.argv = list(argv)
         self.env = dict(env)          # frozen: a restart reuses it
-        self.role = role              # "worker" | "server"
-        self.addr = addr              # host:port of a server, for STOP
+        self.role = role              # "worker"|"server"|"serve"|"router"
+        self.addr = addr              # host:port (servers, replicas)
+        self.draining = False         # a replica whose retirement is on
         self.heartbeat = heartbeat    # liveness file or None
+        self.fleet_key = None         # this process's fleet member id
         self.proc = None
         self.restarts = 0
         self.restart_at = None        # the respawn's backoff deadline
@@ -207,10 +237,8 @@ class SupervisedProc:
 
 
 class Supervisor:
-    """Restart-and-resume process supervisor (the reference's, less its
-    fleet collector and serving tier, which wait for ROADMAP Queue 1 item
-    6; the status table reads the heartbeat files alone, as the
-    reference's does without a collector).
+    """Restart-and-resume process supervisor, with the embedded fleet
+    collector, the serving tier and its autoscaler (the reference's).
 
     ``restart="on-failure"`` restarts a crashed process with its original
     env after a ``fault.RetryPolicy`` backoff, up to ``max_restarts``
@@ -270,6 +298,21 @@ class Supervisor:
                                              file=sys.stderr, flush=True))
         self.procs = []
         self.job_rc = 0
+        self.fleet = None             # the embedded FleetCollector
+        # the serving tier: --route / --autoscale wiring
+        self.replicas_file = None     # the router's replica list
+        self.fleet_port = None        # FLEET wire port (router signals)
+        self.autoscale = None         # (min, max) replicas, or None
+        self.serve_factory = None     # index -> (name, argv, env, addr,
+                                      #           heartbeat)
+        self._as_next_index = 0       # the next spawned replica's rank
+        self._as_up_hold = 0          # consecutive rounds burn >= up
+        self._as_down_hold = 0        # consecutive rounds burn <= down
+        self._as_last_round = None    # the last scrape round read
+        self._as_last_dir = None      # the last action's direction
+        self._as_streak = 0           # consecutive same-direction acts
+        self._as_cooldown_until = 0.0
+        self._as_policy = None        # the cooldown's RetryPolicy
 
     def add(self, name, argv, env, role="worker", addr=None,
             heartbeat=None):
@@ -357,13 +400,88 @@ class Supervisor:
             return "restarting"
         return "running" if sp.alive() else "spawning"
 
+    # -- the embedded fleet collector ---------------------------------------
+    def _start_collector(self):
+        """Embed a fleet collector: workers through their heartbeat files,
+        parameter servers, replicas and the router over METRICS.  The
+        status table, crash dumps, the router (over FLEET) and the
+        autoscaler read its merged snapshot.  ``MX_FLEET_INTERVAL=0`` opts
+        out; any failure leaves the heartbeat-only table, never a dead
+        supervisor.  Host code: it never touches a device."""
+        if self.fleet is not None:
+            return
+        candidates = [sp for sp in self.procs
+                      if sp.heartbeat or (sp.role in ("server", "serve",
+                                                      "router")
+                                          and sp.addr)]
+        if not candidates:
+            return
+        try:
+            from .. import fleet as _fleet
+            interval = get_env("MX_FLEET_INTERVAL", 2.0, float)
+            if not interval or interval <= 0:
+                return      # MX_FLEET_INTERVAL=0 opts the embed out
+            members = []
+            nsrv = 0
+            for sp in candidates:
+                if sp.role in ("serve", "router") and sp.addr:
+                    rank = sp.env.get("MX_PROCESS_ID",
+                                      "0" if sp.role == "router"
+                                      else len(members))
+                    m = _fleet.FleetMember(sp.role, rank, addr=sp.addr)
+                elif sp.heartbeat:
+                    rank = sp.env.get("MX_PROCESS_ID", len(members))
+                    m = _fleet.FleetMember("worker", rank,
+                                           heartbeat=sp.heartbeat)
+                else:
+                    m = _fleet.FleetMember("server", nsrv, addr=sp.addr)
+                    nsrv += 1
+                sp.fleet_key = m.key
+                members.append(m)
+            self.fleet = _fleet.FleetCollector(members).start(
+                port=self.fleet_port)
+        except Exception as e:
+            self.log("fleet collector unavailable (%s); falling back to "
+                     "heartbeat-only status" % e)
+            self.fleet = None
+
+    def _stop_collector(self):
+        if self.fleet is not None:
+            try:
+                self.fleet.stop()
+            except Exception:
+                pass
+
+    def _retire_member(self, sp):
+        if self.fleet is not None and sp.fleet_key:
+            try:
+                self.fleet.retire(sp.fleet_key)
+            except Exception:
+                pass
+
     def status_table(self):
-        """One row a supervised process, from its heartbeat payload."""
+        """One row a supervised process, from its heartbeat payload; the
+        absent and straggler flags and the latched SLO breaches from the
+        collector's merged snapshot when it runs."""
+        snap = self.fleet.snapshot() if self.fleet is not None else None
+        fleet_members = (snap or {}).get("members") or {}
+        stragglers = {f.get("member"): f
+                      for f in (snap or {}).get("stragglers") or []}
         cols = ("proc", "state", "restarts", "step", "epoch",
                 "steps/s", "img/s", "wire KB", "beat age", "flags")
         rows = [cols]
         for sp in self.procs:
             age, _head, p = self._read_beat(sp)
+            flags = []
+            meta = fleet_members.get(sp.fleet_key)
+            if meta is not None and not meta.get("present") and \
+                    not sp.done:
+                flags.append("ABSENT")
+            f = stragglers.get(sp.fleet_key)
+            if f:
+                flags.append("STRAGGLER(%.3gx %s)"
+                             % (f.get("ratio", 0),
+                                f.get("dominant_phase") or "?"))
             rows.append((
                 sp.name, self._state_of(sp), str(sp.restarts),
                 str(p.get("step", "-")), str(p.get("epoch", "-")),
@@ -372,12 +490,18 @@ class Supervisor:
                 "%.4g" % p["throughput"] if "throughput" in p else "-",
                 "%.1f" % (p["wire_bytes"] / 1024.0)
                 if "wire_bytes" in p else "-",
-                "%.1fs" % age if age is not None else "-", "-"))
+                "%.1fs" % age if age is not None else "-",
+                " ".join(flags) or "-"))
         widths = [max(len(r[i]) for r in rows) for i in range(len(cols))]
         lines = ["  ".join(c.ljust(w) for c, w in zip(r, widths)).rstrip()
                  for r in rows]
         sep = "-" * len(lines[0])
-        return "\n".join(["fleet status:", sep] + lines + [sep])
+        out = ["fleet status:", sep] + lines + [sep]
+        slo = (snap or {}).get("slo") or {}
+        breached = sorted(slo.get("breached") or {})
+        if breached:
+            out.append("SLO BREACH (latched): %s" % ", ".join(breached))
+        return "\n".join(out)
 
     def _maybe_status(self):
         if not self.status_interval:
@@ -406,6 +530,12 @@ class Supervisor:
                     "wall_time": time.time(),
                     "heartbeat_age": age, "heartbeat_head": head,
                     "heartbeat": payload}
+            if self.fleet is not None:
+                # what the rest of the job was doing when this one died
+                try:
+                    blob["fleet"] = self.fleet.snapshot()
+                except Exception:
+                    blob["fleet"] = None
             tmp = "%s.tmp.%d" % (path, os.getpid())
             with open(tmp, "w") as f:
                 json.dump(blob, f, indent=1)
@@ -464,6 +594,22 @@ class Supervisor:
                             len(survivors)))
                 sp.rc = rc      # done, not folded: the survivors' code
                 self._leave(sp)
+                self._retire_member(sp)
+                return True
+            serving = [w for w in self.procs
+                       if w is not sp and w.role == "serve" and not w.done]
+            if sp.role == "serve" and serving:
+                # involuntary retire: the serve tier shrinks and goes on
+                # (the router failed the replica's sessions over at its
+                # first dead forward); it leaves the replicas file and
+                # the collector
+                self.log("%s failed (%s) past its restart budget (%d) - "
+                         "involuntary retire: serving continues on %d "
+                         "replica(s)" % (sp.name, self._describe(rc),
+                                         self.max_restarts, len(serving)))
+                sp.rc = rc      # done, not folded: the survivors' code
+                self._write_replicas_file()
+                self._retire_member(sp)
                 return True
             self.log("%s failed (%s) and exhausted its restart budget "
                      "(%d) - tearing the job down"
@@ -581,6 +727,147 @@ class Supervisor:
                 rank, n_new, self.generation)
             self._spawn(self.add(name, argv, env, role="worker",
                                  heartbeat=heartbeat))
+        if self.fleet is not None:
+            # the collector's members are fixed at its start: rebuild it
+            # over the new world
+            self._stop_collector()
+            self.fleet = None
+            self._start_collector()
+
+    # -- the serving autoscaler ----------------------------------------------
+    def _serve_procs(self, live_only=True):
+        return [sp for sp in self.procs
+                if sp.role == "serve" and not sp.done
+                and not (live_only and sp.draining)]
+
+    def _write_replicas_file(self):
+        """Rewrite the router's replica list atomically: live replicas
+        that are not draining.  Dropping an address here is a
+        retirement's first step: the router stops admitting to it before
+        the replica is asked to DRAIN."""
+        if not self.replicas_file:
+            return
+        addrs = [sp.addr for sp in self._serve_procs() if sp.addr]
+        tmp = "%s.tmp.%d" % (self.replicas_file, os.getpid())
+        with open(tmp, "w") as f:
+            f.write("".join(a + "\n" for a in addrs))
+        os.replace(tmp, self.replicas_file)
+
+    @staticmethod
+    def _as_env(name, default):
+        try:
+            v = get_env(name, default, float)
+            return float(default if v is None else v)
+        except (TypeError, ValueError):
+            return float(default)
+
+    def _check_autoscale(self):
+        """One evaluation a fleet scrape round: the worst SLO burn must
+        hold past the hysteresis band for ``MX_AUTOSCALE_HOLD`` rounds
+        before an action, and each action arms a backed-off cooldown."""
+        if not (self.autoscale and self.serve_factory
+                and self.fleet is not None):
+            return
+        try:
+            snap = self.fleet.snapshot()
+        except Exception:
+            return
+        if not snap:
+            return
+        round_id = snap.get("scrape")
+        if round_id is None or round_id == self._as_last_round:
+            return                      # nothing new to read
+        self._as_last_round = round_id
+        burn = (snap.get("slo") or {}).get("burn") or {}
+        vals = [float(v) for v in burn.values()
+                if isinstance(v, (int, float))]
+        worst = max(vals, default=0.0)
+        up_t = self._as_env("MX_AUTOSCALE_UP_BURN", 1.0)
+        down_t = self._as_env("MX_AUTOSCALE_DOWN_BURN", 0.5)
+        hold = max(1, int(self._as_env("MX_AUTOSCALE_HOLD", 3)))
+        if worst >= up_t:
+            self._as_up_hold += 1
+            self._as_down_hold = 0
+        elif worst <= down_t:
+            self._as_down_hold += 1
+            self._as_up_hold = 0
+        else:
+            # inside the hysteresis band: hold steady both ways
+            self._as_up_hold = self._as_down_hold = 0
+        self.log("autoscale: round %s burn %.4g (up hold %d, down hold "
+                 "%d)" % (round_id, worst, self._as_up_hold,
+                          self._as_down_hold))
+        if self._now() < self._as_cooldown_until:
+            return
+        mn, mx = self.autoscale
+        n_live = len(self._serve_procs())
+        if self._as_up_hold >= hold and n_live < mx:
+            self._scale_up(worst, up_t, n_live)
+        elif self._as_down_hold >= hold and n_live > mn:
+            self._scale_down(worst, down_t, n_live)
+
+    def _as_arm_cooldown(self, direction):
+        if self._as_last_dir == direction:
+            self._as_streak += 1
+        else:
+            self._as_streak = 0
+            self._as_last_dir = direction
+        base = max(0.1, self._as_env("MX_AUTOSCALE_COOLDOWN", 10.0))
+        if self._as_policy is None or self._as_policy.base != base:
+            self._as_policy = _fault.RetryPolicy(
+                deadline=float("inf"), base=base, max_delay=8.0 * base,
+                jitter=0.1)
+        self._as_cooldown_until = self._now() + \
+            self._as_policy.delay(min(self._as_streak, 3))
+        self._as_up_hold = self._as_down_hold = 0
+
+    def _scale_up(self, worst, up_t, n_live):
+        idx = self._as_next_index
+        self._as_next_index += 1
+        name, argv, env, addr, heartbeat = self.serve_factory(idx)
+        sp = self.add(name, argv, env, role="serve", addr=addr,
+                      heartbeat=heartbeat)
+        self._spawn(sp)
+        self._write_replicas_file()
+        self.log("autoscale: burn %.3g >= %.3g held - spawning %s at %s "
+                 "(%d -> %d replicas)"
+                 % (worst, up_t, name, addr, n_live, n_live + 1))
+        if self.fleet is not None:
+            try:
+                from .. import fleet as _fleet
+                m = _fleet.FleetMember("serve", idx, addr=addr)
+                sp.fleet_key = m.key
+                self.fleet.add_member(m)
+            except Exception:
+                pass
+        self._as_arm_cooldown("up")
+
+    def _scale_down(self, worst, down_t, n_live):
+        victims = self._serve_procs()
+        if not victims:
+            return
+        sp = victims[-1]                # the newest replica retires first
+        sp.draining = True
+        self._write_replicas_file()     # the router's admission closes first
+        self.log("autoscale: burn %.3g <= %.3g held - retiring %s "
+                 "drain-not-kill (%d -> %d replicas)"
+                 % (worst, down_t, sp.name, n_live, n_live - 1))
+        try:
+            send_drain(sp.addr)
+        except OSError as e:
+            # dead or wedged: the DRAIN could not be delivered, so the
+            # supervisor kills it (clients fail over and replay)
+            self.log("%s: DRAIN failed (%s); killing it" % (sp.name, e))
+            self._kill(sp)
+        if self.fleet is not None:
+            self._retire_member(sp)
+            try:
+                # the spike this answers is over: un-latch the breaches
+                # so the next one is a fresh signal
+                self.fleet.slo.reset()
+            except Exception:
+                pass
+        self._as_arm_cooldown("down")
 
     # -- run ----------------------------------------------------------------
     def _teardown(self):
@@ -590,14 +877,22 @@ class Supervisor:
                 sp.rc = 0 if sp.proc is None else (sp.proc.poll() or 0)
 
     def run(self):
-        """Spawn everything, supervise until every worker is done, then
-        stop the servers.  Returns the job's exit code."""
+        """Spawn everything, supervise until every worker (replicas and the
+        router included) is done, then stop the servers.  Returns the
+        job's exit code."""
         for sp in self.procs:
             self._spawn(sp)
+        if self.status_interval is not None or self.hang_timeout \
+                or self.replicas_file or self.autoscale:
+            # the fleet plane rides the status table's and hang
+            # detection's provisioning; the router and the autoscaler
+            # need it for their signals
+            self._start_collector()
         try:
             while True:
                 # a resize swaps the worker set: read it fresh each tick
                 self._check_resize()
+                self._check_autoscale()
                 for sp in list(self.procs):
                     if sp.done or sp.proc is None:
                         continue
@@ -618,6 +913,9 @@ class Supervisor:
                     if not self._on_failure(sp, rc):
                         self._teardown()
                         return self.job_rc
+                # replicas and the router count as workers: the job ends
+                # when every process but the servers is done (a STOP
+                # through the router stops the whole tier)
                 if all(w.done for w in self.procs if w.role != "server"):
                     break
                 self._maybe_status()
@@ -627,6 +925,8 @@ class Supervisor:
             # leave processes running unsupervised
             self._teardown()
             raise
+        finally:
+            self._stop_collector()
         self.stop_servers()
         return self.job_rc
 
@@ -693,16 +993,44 @@ def _make_supervisor(args):
 # Launch modes
 # ---------------------------------------------------------------------------
 
+def _parse_autoscale(spec):
+    """(MIN, MAX) of ``--autoscale MIN:MAX``, refused with the reference's
+    texts."""
+    try:
+        mn, mx = (int(x) for x in str(spec).split(":", 1))
+    except ValueError:
+        raise SystemExit("launch: --autoscale wants MIN:MAX (got %r)"
+                         % (spec,))
+    if not (1 <= mn <= mx):
+        raise SystemExit("launch: --autoscale needs 1 <= MIN <= MAX")
+    return mn, mx
+
+
 def launch_local(args, command) -> int:
-    """Run ``command`` as ranks 0..n-1 on this host, beside
-    ``args.num_servers`` parameter servers, under a :class:`Supervisor`;
-    returns the job's exit code."""
+    """Run ``command`` as ranks 0..n-1 on this host (as serving replicas
+    with ``--serve-port-base``, behind the router with ``--route``),
+    beside ``args.num_servers`` parameter servers, under a
+    :class:`Supervisor`; returns the job's exit code."""
+    serve_base = getattr(args, "serve_port_base", None)
+    route_port = getattr(args, "route", None)
+    autoscale = getattr(args, "autoscale", None)
+    if (route_port is not None or autoscale) and serve_base is None:
+        raise SystemExit("launch: --route/--autoscale need "
+                         "--serve-port-base B (the replicas' --port-base, "
+                         "so the supervisor knows their addrs)")
+    bounds = _parse_autoscale(autoscale) if autoscale else None
     coordinator = "127.0.0.1:%d" % _free_port()
     sup = _make_supervisor(args)
     n = args.num_workers
     fault_spec = getattr(args, "fault", None)
     hb_dir = tempfile.mkdtemp(prefix="mx-heartbeat-") \
         if sup.hang_timeout or sup.status_interval else None
+    # one resolved cache directory in every process's env, restarts
+    # included: a respawned process loads its kernel libraries from it
+    cache = getattr(args, "compile_cache", None)
+    if cache:
+        cache = os.path.abspath(cache)
+        os.makedirs(cache, exist_ok=True)
     ps_roots = []
     snap_dir = getattr(args, "ps_snapshot_dir", None)
     if snap_dir:
@@ -716,6 +1044,8 @@ def launch_local(args, command) -> int:
         env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
         if fault_spec:
             env["MX_FAULT_INJECT"] = fault_spec
+        if cache:
+            env["MX_COMPILE_CACHE"] = cache
         if snap_dir:
             # a server restarted with the same path resumes its store
             env["MX_PS_SNAPSHOT"] = os.path.join(
@@ -730,6 +1060,8 @@ def launch_local(args, command) -> int:
         and an elastic resize's at any size."""
         env = dict(os.environ)
         env.update(worker_env(rank, coordinator, world))
+        if cache:
+            env["MX_COMPILE_CACHE"] = cache
         if fault_spec:
             # a restarted rank re-arms the same spec
             env["MX_FAULT_INJECT"] = fault_spec
@@ -744,9 +1076,52 @@ def launch_local(args, command) -> int:
             env["MX_ELASTIC_EPOCH"] = str(int(generation))
         return "rank %d" % rank, list(command), env, heartbeat
 
+    def make_replica(index):
+        """(name, argv, env, addr, heartbeat) of replica ``index``, bound
+        at serve-port-base + index: the first spawn's and every scale-up's
+        (an autoscaled replica's rank runs past -n)."""
+        name, argv, env, heartbeat = make_worker(index, n, 0)
+        return (name, argv, env, "127.0.0.1:%d" % (serve_base + index),
+                heartbeat)
+
     for rank in range(n):
-        name, argv, env, heartbeat = make_worker(rank, n, 0)
-        sup.add(name, argv, env, role="worker", heartbeat=heartbeat)
+        if serve_base is not None:
+            name, argv, env, addr, heartbeat = make_replica(rank)
+            sup.add(name, argv, env, role="serve", addr=addr,
+                    heartbeat=heartbeat)
+        else:
+            name, argv, env, heartbeat = make_worker(rank, n, 0)
+            sup.add(name, argv, env, role="worker", heartbeat=heartbeat)
+    rt_dir = None
+    if route_port is not None:
+        rt_dir = tempfile.mkdtemp(prefix="mx-router-")
+        sup.replicas_file = os.path.join(rt_dir, "replicas.txt")
+        sup.fleet_port = _free_port()
+        sup._write_replicas_file()
+        env = dict(os.environ)
+        # the router is host code: it is given the CPU, and never opens a
+        # CUDA context
+        env.update({"MX_FORCE_CPU": "1", "CUDA_VISIBLE_DEVICES": "",
+                    "PYTHONPATH": ROOT + os.pathsep +
+                    env.get("PYTHONPATH", "")})
+        if fault_spec:
+            # the router's own chaos sites take the same spec
+            env["MX_FAULT_INJECT"] = fault_spec
+        heartbeat = None
+        if hb_dir:
+            heartbeat = os.path.join(hb_dir, "router")
+            env["MX_HEARTBEAT_FILE"] = heartbeat
+        sup.add("router",
+                [sys.executable, "-m", "mxnet_tpu_torch.serve.router",
+                 "--port", str(route_port),
+                 "--replicas-file", sup.replicas_file,
+                 "--fleet", "127.0.0.1:%d" % sup.fleet_port],
+                env, role="router", addr="127.0.0.1:%d" % route_port,
+                heartbeat=heartbeat)
+    if bounds:
+        sup.autoscale = bounds
+        sup.serve_factory = make_replica
+        sup._as_next_index = n
     sup.ps_addrs = list(ps_roots)
     if elastic:
         sup.worker_factory = make_worker
@@ -756,6 +1131,8 @@ def launch_local(args, command) -> int:
     finally:
         if hb_dir:
             shutil.rmtree(hb_dir, ignore_errors=True)
+        if rt_dir:
+            shutil.rmtree(rt_dir, ignore_errors=True)
 
 
 def launch_ssh(args, command) -> int:
@@ -828,14 +1205,19 @@ def launch_manual(args, command) -> int:
     return 0
 
 
-#: supervision flags: (flag, attribute, its value when not given)
+#: supervision and serving-tier flags: (flag, attribute, its value when
+#: not given)
 SUPERVISION = (("--restart", "restart", None),
                ("--max-restarts", "max_restarts", None),
                ("--hang-timeout", "hang_timeout", None),
                ("--status-interval", "status_interval", None),
                ("--elastic", "elastic", False),
                ("--resize-file", "resize_file", None),
-               ("--drain-timeout", "drain_timeout", None))
+               ("--drain-timeout", "drain_timeout", None),
+               ("--serve-port-base", "serve_port_base", None),
+               ("--route", "route", None),
+               ("--autoscale", "autoscale", None),
+               ("--compile-cache", "compile_cache", None))
 
 
 def main(argv=None) -> int:
@@ -889,13 +1271,31 @@ def main(argv=None) -> int:
     p.add_argument("--ps-snapshot-dir", default=None, metavar="DIR",
                    help="keep each parameter server's store under DIR, so "
                         "a restarted server loses nothing")
+    p.add_argument("--serve-port-base", type=int, default=None,
+                   metavar="PORT",
+                   help="the command is a serving replica bound at PORT + "
+                        "rank (its own --port-base): each replica is a "
+                        "'serve' member of the embedded fleet collector, "
+                        "scraped over METRICS")
+    p.add_argument("--route", type=int, default=None, metavar="PORT",
+                   help="front the replicas with the session router "
+                        "(python -m mxnet_tpu_torch.serve.router) on PORT, "
+                        "fed by a replicas file the supervisor rewrites and "
+                        "by the collector's FLEET port; needs "
+                        "--serve-port-base")
+    p.add_argument("--autoscale", default=None, metavar="MIN:MAX",
+                   help="SLO-burn autoscaler: spawn a replica when any "
+                        "fleet SLO burn (MX_FLEET_SLO_* targets) holds >= "
+                        "MX_AUTOSCALE_UP_BURN, retire the newest by DRAIN "
+                        "when every burn holds <= MX_AUTOSCALE_DOWN_BURN; "
+                        "needs --serve-port-base")
+    p.add_argument("--compile-cache", default=None, metavar="DIR",
+                   help="persistent compile cache (MX_COMPILE_CACHE in "
+                        "every worker, server and replica, restarts "
+                        "included): a respawned process loads its kernel "
+                        "libraries from DIR instead of running nvcc")
     p.add_argument("command", nargs=argparse.REMAINDER)
     args, unknown = p.parse_known_args(argv)
-    flags = [u.split("=", 1)[0] for u in unknown if u.startswith("-")]
-    item_6 = [f for f in flags if f in ITEM_6]
-    if item_6:
-        p.error("%s: not ported yet (the serving fleet, ROADMAP Queue 1 "
-                "item 6)" % ", ".join(item_6))
     if unknown:
         p.error("unrecognized arguments: %s" % " ".join(unknown))
     command = args.command

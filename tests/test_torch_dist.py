@@ -323,8 +323,9 @@ def test_compressed_sum_and_residuals_follow_the_reference(tmp_path, mode):
             for i, p in enumerate(trainer._params):
                 out["sum%%d_%%d" %% (s, i)] = p.grad().asnumpy()
             trainer.update(2)
+            # a copy: the quantizer writes the residual in place next step
             for k, res in trainer._kvstore._gc._residuals.items():
-                out["res%%d_%%s" %% (s, k)] = res.numpy()
+                out["res%%d_%%s" %% (s, k)] = res.numpy().copy()
         out.update({"w%%d" %% i: w for i, w in enumerate(weights_of(net))})
         out["names"] = np.array([p.name for p in trainer._params])
         save("compressed", **out)
@@ -574,7 +575,8 @@ def _case(argv, outcome, old_id):
 
 
 @pytest.mark.parametrize("argv, outcome", [
-    # the supervision flags and the ssh mode are ported: each is honoured
+    # the supervision flags, the ssh mode and the serving tier are ported:
+    # each is honoured
     # (its value reaches the local launcher) or, where it cannot act with
     # the other flags given, refused by name
     _case(["--launcher", "ssh"], "--launcher ssh needs -H hostfile",
@@ -597,17 +599,16 @@ def _case(argv, outcome, old_id):
     _case(["--drain-timeout", "9"],
           "--drain-timeout: only a --resize-file resize drains",
           "argv8---drain-timeout: not ported-part (b)"),
-    _case(["--serve-port-base", "9000"],
-          "--serve-port-base: not ported yet (the serving fleet, ROADMAP "
-          "Queue 1 item 6)", "argv9---serve-port-base: not ported-item 6"),
-    _case(["--route", "9100"], "--route: not ported yet (the serving "
-          "fleet, ROADMAP Queue 1 item 6)",
+    # the serving tier's flags are ported too: each reaches the local
+    # launcher (which checks that --route / --autoscale come with
+    # --serve-port-base, as the reference's does)
+    _case(["--serve-port-base", "9000"], ("serve_port_base", 9000),
+          "argv9---serve-port-base: not ported-item 6"),
+    _case(["--route", "9100"], ("route", 9100),
           "argv10---route: not ported-item 6"),
-    _case(["--autoscale", "1:4"], "--autoscale: not ported yet (the "
-          "serving fleet, ROADMAP Queue 1 item 6)",
+    _case(["--autoscale", "1:4"], ("autoscale", "1:4"),
           "argv11---autoscale: not ported-item 6"),
-    _case(["--compile-cache", "d"], "--compile-cache: not ported yet (the "
-          "serving fleet, ROADMAP Queue 1 item 6)",
+    _case(["--compile-cache", "d"], ("compile_cache", "d"),
           "argv12---compile-cache: not ported-item 6"),
     _case(["--bogus"], "unrecognized arguments: --bogus",
           "argv13-unrecognized arguments: --bogus-"),

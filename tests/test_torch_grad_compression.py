@@ -52,7 +52,8 @@ def test_int8_codes_scales_and_residuals_are_bitwise(seed, n):
     jq8, js, jr = jq.quantize_int8_blocks(jnp.asarray(x), jnp.asarray(r),
                                           256, donate=False)
     tq8, ts, tr = tq.quantize_int8_blocks(torch.from_numpy(x),
-                                          torch.from_numpy(r), 256)
+                                          torch.from_numpy(r), 256,
+                                          donate=False)
     _same(jq8, tq8)
     _same(js, ts)
     _same(jr, tr)
@@ -68,7 +69,8 @@ def test_int8_roundtrip_matches(seed, block):
     jd, jr = jq.roundtrip_int8_blocks(jnp.asarray(x), jnp.asarray(r), block,
                                       donate=False)
     td, tr = tq.roundtrip_int8_blocks(torch.from_numpy(x),
-                                      torch.from_numpy(r), block)
+                                      torch.from_numpy(r), block,
+                                      donate=False)
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=DEQ_RTOL,
                                atol=0)
     _same(jr, tr)
@@ -99,7 +101,7 @@ def test_two_bit_levels_residuals_and_words_are_bitwise(seed, threshold):
     jl, jr = jq.quantize_2bit_ef(jnp.asarray(x), jnp.asarray(r), threshold,
                                  donate=False)
     tl, tr = tq.quantize_2bit_ef(torch.from_numpy(x), torch.from_numpy(r),
-                                 threshold)
+                                 threshold, donate=False)
     _same(jl, tl)
     _same(jr, tr)
     jw = jq.pack_2bit_words(jl)
@@ -225,3 +227,22 @@ def test_bad_compression_settings_raise_value_error(kwargs):
         jgc.GradientCompression(**kwargs)
     with pytest.raises(ValueError):
         tgc.GradientCompression(**kwargs)
+
+
+@pytest.mark.parametrize("which", ("q8", "rt8", "q2"))
+def test_a_donated_residual_is_written_in_place(which):
+    """``donate=True`` (the default, the reference's too) writes the new
+    residual into the one given and returns that tensor; the values are
+    those of ``donate=False``, which leaves its input as it was."""
+    x, r = _payload(3, 1003, 0.3)
+    call = {"q8": lambda a, b, d: tq.quantize_int8_blocks(a, b, 256, d),
+            "rt8": lambda a, b, d: tq.roundtrip_int8_blocks(a, b, 256, d),
+            "q2": lambda a, b, d: tq.quantize_2bit_ef(a, b, 0.5, d)}[which]
+    kept = torch.from_numpy(r.copy())
+    fresh = call(torch.from_numpy(x), kept, False)[-1]
+    np.testing.assert_array_equal(kept.numpy(), r)
+    donated = torch.from_numpy(r.copy())
+    version = donated._version
+    out = call(torch.from_numpy(x), donated, True)[-1]
+    assert out is donated and donated._version > version
+    np.testing.assert_array_equal(donated.numpy(), fresh.numpy())

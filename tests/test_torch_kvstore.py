@@ -368,6 +368,61 @@ def test_an_overlap_session_matches_the_reference_s(mode):
             np.testing.assert_array_equal(b[0].asnumpy(), a[0].asnumpy())
 
 
+@pytest.mark.parametrize("mode", ("2bit", "int8"))
+@pytest.mark.parametrize("end", ("relaunch_twice", "relaunch_then_abort"))
+def test_a_relaunched_unit_restores_the_reference_residuals(mode, end):
+    """Error feedback across relaunches: after a priming exchange, every
+    unit of a second session is launched three times and drained (its
+    residuals must be the reference's after one launch), or launched,
+    relaunched and aborted (they must be the reference's from before the
+    session).  The quantizers write a residual in place, so a checkpoint
+    that a later launch wrote into would show here."""
+    rng = np.random.RandomState(8)
+    shapes = [(6, 4), (9,), (3, 3), (5,)]
+    keys = list(range(len(shapes)))
+    rounds = [[rng.randn(*s).astype(np.float32) for s in shapes]
+              for _ in range(2)]
+    jk, tk = jkv.create("ici"), tkv.create("ici")
+    for kv in (jk, tk):
+        kv.set_gradient_compression({"type": mode, "threshold": 0.5})
+    jk.init(keys, [jnd.zeros(s) for s in shapes])
+    tk.init(keys, [tnd.zeros(s) for s in shapes])
+
+    def session(kv, nd, grads):
+        vals = [[nd.array(g)] for g in grads]
+        sess = kv.begin_exchange(
+            keys, vals if kv is jk else [lambda v=v: v for v in vals])
+        for k in reversed(keys):
+            sess.notify_key(k)
+        return sess, vals
+
+    for kv, nd in ((jk, jnd), (tk, tnd)):
+        session(kv, nd, rounds[0])[0].drain()
+    before = {k: np.array(r) for k, r in jk._gc._residuals.items()}
+    assert before and all(np.any(r) for r in before.values())
+    jsess, jvals = session(jk, jnd, rounds[1])
+    jsess.drain()
+    tsess, tvals = session(tk, tnd, rounds[1])
+    units = sorted(tsess._launched)
+    assert units
+    for _ in range(1 if end == "relaunch_then_abort" else 2):
+        for u in units:
+            tsess._launch(u)
+    if end == "relaunch_then_abort":
+        tsess.abort()
+        want = before
+    else:
+        tsess.drain()
+        want = {k: np.array(r) for k, r in jk._gc._residuals.items()}
+        for a, b in zip(jvals, tvals):
+            np.testing.assert_allclose(b[0].asnumpy(), a[0].asnumpy(),
+                                       rtol=1e-6, atol=0)
+    assert sorted(map(str, tk._gc._residuals)) == sorted(map(str, want))
+    for k, r in want.items():
+        np.testing.assert_array_equal(tk._gc._residuals[k].numpy(), r)
+    assert tk._gc._pinned == {}
+
+
 @pytest.mark.parametrize("name,kind", [
     ("local", "local"), ("device", "device"), ("ici", "ici"),
     ("nccl", "ici"), ("dist", "ici"), ("dist_sync", "ici"),

@@ -305,7 +305,9 @@ def test_port_imports_neither_jax_nor_mxnet_tpu():
             "mxnet_tpu_torch.gluon.nn.conv_layers, "
             "mxnet_tpu_torch.kvstore.wire_codec, mxnet_tpu_torch.io.prefetch, "
             "mxnet_tpu_torch.programs, mxnet_tpu_torch.fleet, "
-            "mxnet_tpu_torch.serve.router, mxnet_tpu_torch.serve.__main__; "
+            "mxnet_tpu_torch.serve.router, mxnet_tpu_torch.serve.__main__, "
+            "mxnet_tpu_torch.compile_cache, mxnet_tpu_torch.tools.contracts, "
+            "mxnet_tpu_torch.serve.decode; "
             "import torch.distributed.checkpoint; "
             "import chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or "

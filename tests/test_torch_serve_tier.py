@@ -106,7 +106,10 @@ def _names(text, model):
         if not m:
             continue
         labels = m.group(3) or ""
-        if "program=" in labels and model not in labels:
+        # another model's series: a process's registry also holds what
+        # other tests of the same worker served
+        if ("program=" in labels or "model=" in labels) and \
+                model not in labels:
             continue
         if "phase=" in labels and not re.search(
                 r'phase="(queue_wait|pad|serve_dispatch|scatter|retrace)"',
